@@ -1,0 +1,407 @@
+#!/usr/bin/env python3
+"""Drives the PyTorch/CUDA port (src/repro_torch) on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit) if anything is off:
+
+1. Prints the card's name and power limit (nvidia-smi), checks compute
+   capability 9.0 and builds the CUDA kernels from kernels/csrc/ with nvcc.
+2. Holds every ported kernel against its plain PyTorch version on the card
+   (fp32, atol 1e-4 and rtol 1e-4: the summation order differs over
+   K = 768) at the main path's shapes and at two ragged shapes, and times the
+   kernel, the plain version and one PyTorch library call for the same
+   function (used nowhere in the port).
+3. Runs the paper's SSV case study through ``run_federated`` at the full
+   width of GPT-2 (12 layers, d 768, V 50257; random weights from seed 0),
+   2 FedLLM rounds over 3 clients, four times from the same weights: with
+   kernel policy ``cuda`` (the kernels), and with ``torch`` (plain PyTorch
+   on the card) under the default BLAS library, under the other one, and
+   under TF32.  The kernel and default plain runs must agree: identical
+   ledger bytes and client FLOPs and per-round loss within 1e-3.  Their
+   final LoRA trees may differ by fp32 noise only: the relative L2
+   distance between them must stay within FLOOR_FACTOR times the one
+   between the two fp32 plain runs (the noise floor, measured in this
+   run) plus FLOOR_SLACK, and the TF32 run (a control of lower precision)
+   must fall outside that limit.  Every kernel's launch counter must equal
+   the count the model's shapes predict in the kernel run and be 0 in the
+   plain runs.
+
+It prints one JSON line with every kernel's numbers and, last, the line
+``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+ATOL, RTOL = 1e-4, 1e-4
+# data-sheet peaks: (fp32 FLOP/s without tensor cores, memory bytes/s)
+PEAKS = {"H100 PCIe": (51.2e12, 2.0e12), "H100 NVL": (60.0e12, 3.9e12),
+         "H100": (67.0e12, 3.35e12)}
+BATCH, PAD_LEN, RANK = 16, 80, 8
+# final-LoRA gate: relative L2 <= FLOOR_FACTOR * (plain vs plain) + slack
+FLOOR_FACTOR, FLOOR_SLACK = 3.0, 1e-6
+
+
+def require(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"chip_smoke: {what}")
+
+
+def peaks(name: str):
+    for key, val in PEAKS.items():
+        if key in name:
+            return val
+    raise RuntimeError(f"chip_smoke: no data-sheet peaks for card {name!r}")
+
+
+def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_err(got, want) -> float:
+    import torch
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    err = 0.0
+    for g, w in zip(got, want):
+        require(bool(torch.isfinite(g).all()), "kernel output not finite")
+        require(torch.allclose(g, w, atol=ATOL, rtol=RTOL),
+                f"kernel disagrees with its plain version "
+                f"(max abs err {(g - w).abs().max().item():.3e})")
+        err = max(err, (g - w).abs().max().item())
+    return err
+
+
+# --------------------------------------------------------------------------- #
+# Phase 2: kernels against their plain versions
+# --------------------------------------------------------------------------- #
+def kernel_cases(device, M, K, N, r, BH, BKV, S, Skv, D, causal, window,
+                 q_offset, seed):
+    """{name: (kernel_fn, plain_fn, library_fn or None, bytes, flops)} on
+    fresh seeded inputs of the given shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rn(*shape, std=1.0):
+        return torch.randn(shape, device=device, generator=gen) * std
+
+    # every input is scaled so that each output element is O(1): the
+    # tolerance then bounds the error of fp32 sums of up to M terms taken
+    # in another order, whatever the size of the contraction
+    x, g = rn(M, K), rn(M, N)
+    w, a, b = rn(K, N, std=K ** -0.5), rn(K, r, std=K ** -0.5), \
+        rn(r, N, std=N ** -0.5)
+    xa, gb = (x @ a) * M ** -0.5, (g @ b.t()) * M ** -0.5
+    f4 = 4
+    lora_bytes = f4 * (M * K + K * N + K * r + r * N + M * N + M * r)
+    lora_flops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
+    cases = {
+        "lora_fwd": (lambda: lm.lora_fwd(x, w, a, b),
+                     lambda: ref.lora_fwd(x, w, a, b),
+                     lambda: x @ w + (x @ a) @ b, lora_bytes, lora_flops),
+        "lora_dx": (lambda: lm.lora_dx(g, w, a, b),
+                    lambda: ref.lora_dx(g, w, a, b),
+                    lambda: g @ w.t() + (g @ b.t()) @ a.t(), lora_bytes,
+                    lora_flops),
+        "lora_panel": (lambda: lm.lora_panel(x, gb),
+                       lambda: ref.panel_grad(x, gb),
+                       lambda: x.t() @ gb, f4 * (M * K + M * r + K * r),
+                       2 * M * K * r),
+        "lora_panel_t": (lambda: lm.lora_panel(g, xa, True),
+                         lambda: ref.panel_grad(g, xa, True), None,
+                         f4 * (M * N + M * r + N * r), 2 * M * N * r),
+    }
+    q, k, v, do = rn(BH, S, D), rn(BKV, Skv, D), rn(BKV, Skv, D), rn(BH, S, D)
+    o, lse = ref.attention_fwd(q, k, v, causal, window, q_offset)
+    dd = (do * o).sum(-1)
+    mask = ref._mask(S, Skv, causal, window, q_offset, device)
+    pairs = BH * int(mask.sum())
+    qb, kvb, rowb = f4 * BH * S * D, f4 * BKV * Skv * D, f4 * BH * S
+    cfg = (causal, window, q_offset)
+    # the library yardstick: one scaled_dot_product_attention call on the
+    # same tensors viewed as (1, heads, S, D), where it computes the same
+    # function (no GQA, window or offset)
+    sdpa_ok = q_offset == 0 and window == 0 and S == Skv and BH == BKV
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                              is_causal=causal)
+
+    sdpa_bwd = None
+    if sdpa_ok:
+        leaves = [t.detach()[None].requires_grad_(True) for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        dout = do[None]
+
+        def sdpa_bwd():
+            return torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+    cases.update({
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, *cfg),
+                      lambda: ref.attention_fwd(q, k, v, *cfg),
+                      sdpa if sdpa_ok else None,
+                      2 * qb + 2 * kvb + rowb, pairs * 4 * D),
+        "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, dd, *cfg),
+                     lambda: ref.attention_dq(q, k, v, do, lse, dd, *cfg),
+                     sdpa_bwd, 3 * qb + 2 * kvb + 2 * rowb, pairs * 6 * D),
+        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, dd, *cfg),
+                      lambda: ref.attention_dkv(q, k, v, do, lse, dd, *cfg),
+                      sdpa_bwd, 2 * qb + 4 * kvb + 2 * rowb, pairs * 8 * D),
+    })
+    return cases
+
+
+def check_kernels(device, card: str):
+    """Phase 2.  Returns the per-kernel JSON rows (main-path shapes)."""
+    flops_peak, bytes_peak = peaks(card)
+    cfg = dict(M=BATCH * PAD_LEN, K=768, N=768, r=RANK, BH=BATCH * 12,
+               BKV=BATCH * 12, S=PAD_LEN, Skv=PAD_LEN, D=64, causal=True,
+               window=0, q_offset=0)
+    ragged = [dict(M=1001, K=768, N=768, r=RANK, BH=8, BKV=4, S=24, Skv=32,
+                   D=32, causal=True, window=16, q_offset=8),
+              dict(M=37, K=130, N=70, r=3, BH=6, BKV=3, S=50, Skv=50,
+                   D=100, causal=False, window=0, q_offset=0)]
+    for i, shape in enumerate(ragged):
+        for name, (kern, plain, *_rest) in kernel_cases(
+                device, seed=100 + i, **shape).items():
+            err = max_err(kern(), plain())
+            print(f"  ragged {i} {name}: max abs err {err:.3e} "
+                  f"(atol {ATOL}, rtol {RTOL})")
+    rows = {}
+    for name, (kern, plain, lib, nbytes, nflops) in kernel_cases(
+            device, seed=7, **cfg).items():
+        err = max_err(kern(), plain())
+        row = {"max_abs_err": err, "ms": cuda_ms(kern),
+               "plain_ms": cuda_ms(plain),
+               "library_ms": cuda_ms(lib) if lib is not None else None}
+        t_bytes, t_ops = nbytes / bytes_peak, nflops / flops_peak
+        row.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bytes=nbytes, flops=nflops)
+        rows[name] = row
+        lib_ms = "n/a" if row["library_ms"] is None \
+            else f"{row['library_ms']:.4f}"
+        print(f"  {name}: max abs err {err:.3e} (atol {ATOL}, rtol {RTOL}) "
+              f"kernel_ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+              f"library_ms {lib_ms} bound_ms {row['bound_ms']:.4f} "
+              f"({row['bound_by']})")
+    return rows
+
+
+# --------------------------------------------------------------------------- #
+# Phase 3: the slice
+# --------------------------------------------------------------------------- #
+def lora_gap(got, want):
+    """(share of elements outside atol 5e-5 / rtol 5e-4, relative L2
+    distance, max abs difference) between two LoRA trees."""
+    from repro_torch import tree as tree_lib
+    outside = n = 0
+    num = den = worst = 0.0
+    for x, y in zip(tree_lib.leaves(got), tree_lib.leaves(want)):
+        d = (x - y).abs()
+        outside += int((d > 5e-5 + 5e-4 * y.abs()).sum())
+        n += d.numel()
+        num += float((d * d).sum())
+        den += float((y * y).sum())
+        worst = max(worst, float(d.max()))
+    return outside / n, (num / den) ** 0.5, worst
+
+
+def run_slice(device):
+    """The FedLLM case study through the kernels and through plain PyTorch
+    (under two BLAS libraries, two summation orders of the same fp32
+    products, and under TF32); returns the kernel run's launch counts
+    after checking the runs against each other."""
+    import torch
+
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.configs.gpt2_small import gpt2
+    from repro_torch.core.rounds import run_federated
+    from repro_torch.data import banking77, partition
+    from repro_torch.kernels import ops
+    from repro_torch.models.factory import build_model
+
+    cfg = gpt2()
+    pub, train, test = banking77.paper_splits(cfg.vocab_size,
+                                              pad_len=PAD_LEN, scale=0.03)
+    clients = partition.iid_partition(train, 3)
+    fed = FedConfig(framework="fedllm", rounds=2, lora_rank=RANK,
+                    lora_dropout=0.0)
+    base = build_model(cfg).init(torch.Generator().manual_seed(fed.seed),
+                                 device)
+    blas = torch.backends.cuda.preferred_blas_library()
+    other = "cublas" if "lt" in str(blas).lower() else "cublaslt"
+    results, counts = {}, {}
+    for tag, policy, lib, tf32 in (("cuda", "cuda", blas, False),
+                                   ("torch", "torch", blas, False),
+                                   (f"torch-{other}", "torch", other, False),
+                                   ("torch-tf32", "torch", blas, True)):
+        torch.backends.cuda.preferred_blas_library(lib)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = run_federated(dataclasses.replace(cfg, kernel_policy=policy),
+                            fed, pub, clients, test, batch_size=BATCH,
+                            eval_batch=64, device=device, base=base)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[tag] = ops.launches()
+        torch.backends.cuda.preferred_blas_library(blas)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        results[tag] = res
+        for h in res.history:
+            require(math.isfinite(h.loss) and 0.0 <= h.accuracy <= 1.0,
+                    f"round {h.round} metrics out of range")
+            print(f"  [{tag}] round {h.round}: acc={h.accuracy:.4f} "
+                  f"loss={h.loss:.6f} wall_s={h.seconds:.3f}")
+        print(f"  [{tag}] run wall_s={wall:.3f} launches={counts[tag]}")
+
+    kern, plain = results["cuda"], results["torch"]
+    lora_bytes = cfg.n_layers * 3 * 2 * RANK * cfg.d_model * 4
+    require(kern.ledger.total() == fed.rounds * len(clients) * 2 * lora_bytes,
+            "ledger bytes differ from the LoRA tree's size")
+    require(kern.ledger.by_name() == plain.ledger.by_name(), "ledger by_name")
+    require(kern.ledger.per_client_round() == plain.ledger.per_client_round(),
+            "ledger per_client_round")
+    require(kern.client_flops == plain.client_flops, "client FLOPs")
+    for hk, hp in zip(kern.history, plain.history):
+        require(abs(hk.loss - hp.loss) <= 1e-3,
+                f"round {hk.round} loss {hk.loss} vs {hp.loss}")
+
+    # Adam divides each update by sqrt(v) + 1e-8, so a coordinate whose
+    # gradient sits near the fp32 noise floor moves by a good part of lr in
+    # a direction the summation order picks: any two fp32 runs at full
+    # width differ by more than atol 5e-5 / rtol 5e-4 in a few elements.
+    # The gate is the floor two fp32 plain runs show in this run; the TF32
+    # run shows that the gate rejects a run of lower precision.
+    gaps = {name: lora_gap(results[tag].final_lora, plain.final_lora)
+            for name, tag in (("kernels", "cuda"), ("floor", f"torch-{other}"),
+                              ("control", "torch-tf32"))}
+    limit = FLOOR_FACTOR * gaps["floor"][1] + FLOOR_SLACK
+    for name, (share, rel, worst) in gaps.items():
+        print(f"  final LoRA {name} vs plain: relative L2 {rel:.3e} "
+              f"(limit {limit:.3e}), outside atol 5e-5/rtol 5e-4 "
+              f"{share:.3e} of elements, max abs {worst:.3e}")
+    require(gaps["kernels"][1] <= limit,
+            "final LoRA of the kernel run is off the plain run beyond the "
+            "fp32 noise floor")
+    require(gaps["control"][1] > limit,
+            "the final-LoRA gate does not reject the TF32 control run")
+
+    # launches the model's shapes predict: 3 LoRA projections and one
+    # attention per layer; forward in every train step and eval batch,
+    # backward in every train step (dx, and two panel grads per projection)
+    steps = sum(len(c["tokens"]) // BATCH for c in clients) * fed.rounds
+    evals = (len(test["tokens"]) // 64) * fed.rounds
+    L = cfg.n_layers
+    expect = {"lora_fwd": 3 * L * (steps + evals), "lora_dx": 3 * L * steps,
+              "lora_panel": 6 * L * steps, "flash_fwd": L * (steps + evals),
+              "flash_dq": L * steps, "flash_dkv": L * steps}
+    require(counts["cuda"] == expect,
+            f"launches {counts['cuda']} != expected {expect}")
+    for tag in counts.keys() - {"cuda"}:
+        require(all(n == 0 for n in counts[tag].values()),
+                f"plain run launched kernels: {counts[tag]}")
+    return counts["cuda"]
+
+
+REPLACES = {
+    "lora_fwd": ("src/repro/kernels/lora_matmul.py:74", "lora_matmul.cu"),
+    "lora_dx": ("src/repro/kernels/lora_matmul.py:140", "lora_matmul.cu"),
+    "lora_panel": ("src/repro/kernels/lora_matmul.py:226", "lora_matmul.cu"),
+    "flash_fwd": ("src/repro/kernels/flash_attention.py:116",
+                  "flash_attention.cu"),
+    "flash_dq": ("src/repro/kernels/flash_attention.py:223",
+                 "flash_attention.cu"),
+    "flash_dkv": ("src/repro/kernels/flash_attention.py:248",
+                  "flash_attention.cu"),
+}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    card = torch.cuda.get_device_name(0)
+    require(torch.cuda.get_device_capability(0) == (9, 0),
+            f"compute capability {torch.cuda.get_device_capability(0)}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} card {card}")
+
+    print("phase 1: build")
+    t0 = time.perf_counter()
+    report = build.build_all()
+    for name, info in report.items():
+        print(f"  nvcc {name}.cu: {info['seconds']:.1f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print("    " + line.strip())
+    print(f"  build wall_s={time.perf_counter() - t0:.1f}")
+
+    print("phase 2: kernels against their plain versions")
+    rows = check_kernels(device, card)
+
+    print("phase 3: FedLLM case study, gpt2 full width, 2 rounds, 3 clients")
+    launches = run_slice(device)
+
+    kernels = []
+    for name, (replaces, src) in REPLACES.items():
+        row = rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

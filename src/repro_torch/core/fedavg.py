@@ -1,0 +1,105 @@
+"""FedLLMs — the paper's foundational framework (SSII.A):
+
+    a1 server -> clients: global tunable (LoRA) parameters
+    a2 client: local PEFT fine-tuning on private data
+    a3 clients -> server: fine-tuned tunable parameters
+    a4 server: aggregation (FedAvg) -> next global parameters
+
+Counterpart of ``make_fns`` (train and eval steps), ``fedavg`` and
+``evaluate`` in ``src/repro/core/fedavg.py``.  The base model is a frozen
+constant of the loss: gradients are taken with respect to the LoRA leaves
+only (the PEFT property, paper fn.1).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import tree as tree_lib
+from repro_torch.configs.base import FedConfig
+from repro_torch.core import tasks
+from repro_torch.data.loader import epoch_batches
+from repro_torch.models.factory import Model
+from repro_torch.optim.api import make_optimizer
+from repro_torch.peft import lora as lora_lib
+
+
+def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """A numpy batch as int64 tensors on ``device``."""
+    return {k: torch.as_tensor(v, dtype=torch.int64, device=device)
+            for k, v in batch.items()}
+
+
+def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
+    """Returns a dict with ``train_step``, ``eval_step`` and ``opt_init``."""
+    task_loss = tasks.get_loss_fn(task)
+    opt_init, opt_update = make_optimizer(fed.optimizer)
+
+    def _bind(base, lt, gen: Optional[torch.Generator] = None):
+        rank = lora_lib.tree_rank(lt, fed.lora_rank)
+        return lora_lib.bind(base, lt, fed.lora_alpha, rank,
+                             dropout_gen=gen, dropout=fed.lora_dropout)
+
+    def train_step(base, lt, opt_state, batch, gen=None):
+        """One local step: value and gradient of the task loss w.r.t. the
+        LoRA leaves, then the optimizer.  ``gen`` draws the LoRA dropout
+        masks.  Returns (new_lt, new_opt_state, loss)."""
+        live = tree_lib.map_(lambda t: t.detach().requires_grad_(True), lt)
+        logits, aux = model.forward(_bind(base, live, gen), batch)
+        loss, _ = task_loss(logits, batch)
+        loss = loss + aux
+        grads = torch.autograd.grad(loss, tree_lib.leaves(live))
+        new_lt, new_opt = opt_update(tree_lib.unflatten(lt, grads),
+                                     opt_state, lt, fed.lr)
+        # metric-only guard: a diverged batch must not poison the mean
+        loss = loss.detach()
+        loss = torch.where(torch.isfinite(loss), loss, 0.0)
+        return new_lt, new_opt, loss
+
+    @torch.no_grad()
+    def eval_step(base, lt, batch):
+        logits, _ = model.forward(_bind(base, lt), batch)
+        acc = tasks.classification_accuracy(logits, batch)
+        loss, _ = task_loss(logits, batch)
+        return acc, loss
+
+    return {"train_step": train_step, "eval_step": eval_step,
+            "opt_init": opt_init}
+
+
+# --------------------------------------------------------------------------- #
+# Aggregation (a4)
+# --------------------------------------------------------------------------- #
+@torch.no_grad()
+def fedavg(trees: Sequence, weights: Optional[Sequence[float]] = None):
+    """Weighted FedAvg of identically-structured trees (fp32 sums in
+    client order, as the reference)."""
+    if weights is None:
+        weights = [1.0] * len(trees)
+    total = float(sum(weights))
+    ws = [w / total for w in weights] if total > 0 \
+        else [1.0 / len(trees)] * len(trees)
+
+    def mean(*leaves):
+        out = leaves[0].float() * ws[0]
+        for w, leaf in zip(ws[1:], leaves[1:]):
+            out = out + leaf.float() * w
+        return out.to(leaves[0].dtype)
+
+    return tree_lib.map_(mean, trees[0], *trees[1:])
+
+
+def evaluate(fns, base, lt, data: Dict, batch_size: int, device) -> tuple:
+    """Mean accuracy/loss over a dataset (drop-remainder batches), the
+    batches moved to ``device``, where ``base`` and ``lt`` live."""
+    accs, losses_, n = [], [], 0
+    for batch in epoch_batches(data, batch_size, seed=0):
+        a, l = fns["eval_step"](base, lt, to_device(batch, device))
+        accs.append(float(a) * len(batch["tokens"]))
+        losses_.append(float(l) * len(batch["tokens"]))
+        n += len(batch["tokens"])
+    if n == 0:
+        return 0.0, 0.0
+    return sum(accs) / n, sum(losses_) / n

@@ -1,0 +1,109 @@
+"""Communication and computation accounting — the paper's evaluation axes
+(SSIII, Figs. 3-4, Table I).
+
+Counterpart of ``src/repro/core/metrics.py``: every server<->client
+exchange goes through a ``CommLedger`` with shape-derived byte counts, and
+client FLOPs come from the architecture config (6ND full fine-tuning,
+4ND + 6·n_peft·D for PEFT), so both agree exactly with the reference.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Dict, List, Optional
+
+from repro_torch import tree as tree_lib
+from repro_torch.configs.base import ModelConfig
+
+UP = "up"          # client -> server
+DOWN = "down"      # server -> client
+
+
+@dataclasses.dataclass
+class CommEvent:
+    round: int
+    client: int
+    name: str            # e.g. "lora_params"
+    direction: str
+    bytes: int
+
+
+class CommLedger:
+    def __init__(self):
+        self.events: List[CommEvent] = []
+
+    def record(self, rnd: int, client: int, name: str, direction: str,
+               nbytes: int):
+        self.events.append(CommEvent(rnd, client, name, direction,
+                                     int(nbytes)))
+
+    def total(self, direction: Optional[str] = None) -> int:
+        return sum(e.bytes for e in self.events
+                   if direction is None or e.direction == direction)
+
+    def per_client_round(self) -> Dict[tuple, int]:
+        out = collections.defaultdict(int)
+        for e in self.events:
+            out[(e.round, e.client)] += e.bytes
+        return dict(out)
+
+    def per_round(self) -> Dict[int, int]:
+        out = collections.defaultdict(int)
+        for e in self.events:
+            out[e.round] += e.bytes
+        return dict(out)
+
+    def by_name(self) -> Dict[str, int]:
+        out = collections.defaultdict(int)
+        for e in self.events:
+            out[e.name] += e.bytes
+        return dict(out)
+
+    def mean_client_bytes_per_round(self) -> float:
+        pcr = {k: v for k, v in self.per_client_round().items() if k[1] >= 0}
+        return sum(pcr.values()) / max(len(pcr), 1)
+
+
+def tree_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_lib.leaves(tree))
+
+
+# --------------------------------------------------------------------------- #
+# Analytic FLOPs (client-side computation, Fig. 4 right axis)
+# --------------------------------------------------------------------------- #
+def fwd_flops(cfg: ModelConfig, n_tokens: int,
+              frac_layers: float = 1.0) -> float:
+    """2 * N_active * D; ``frac_layers`` scales for split sub-models."""
+    return 2.0 * cfg.active_param_count() * frac_layers * n_tokens
+
+
+def train_flops(cfg: ModelConfig, n_tokens: int, peft: bool = True,
+                n_peft_params: int = 0, frac_layers: float = 1.0) -> float:
+    """Full FT: 6ND.  PEFT: fwd 2ND + activation-grad chain 2ND + PEFT
+    weight grads (6 * n_peft * D) — frozen base weight-grads skipped."""
+    base = cfg.active_param_count() * frac_layers
+    if not peft:
+        return 6.0 * base * n_tokens
+    return (4.0 * base + 6.0 * n_peft_params) * n_tokens
+
+
+@dataclasses.dataclass
+class ClientCost:
+    """Accumulated per-client computation."""
+    flops: float = 0.0
+
+    def add_train(self, cfg, n_tokens, n_peft, frac_layers=1.0):
+        self.flops += train_flops(cfg, n_tokens, True, n_peft, frac_layers)
+
+
+@dataclasses.dataclass
+class RoundMetrics:
+    round: int
+    accuracy: float
+    loss: float
+    comm_bytes_per_client: float
+    client_flops: float
+    epsilon: float = 0.0     # DP epsilon spent (0.0: DP not enabled)
+    # wall time of the round on the host clock; the evaluation's float()
+    # reads wait for the device, so the round's device work is inside it
+    seconds: float = 0.0

@@ -1,0 +1,78 @@
+"""Federated round engine entry point.  Counterpart of
+``src/repro/core/rounds.py``:
+
+    result = run_federated(cfg, fed, public, clients, test, device="cuda")
+
+``result.history`` is a list of RoundMetrics; ``result.ledger`` holds
+every wire transfer.  This slice runs the paper's SSV case study: FedLLM
+with sequential clients and sync rounds.  Every ``FedConfig`` setting
+outside it raises NotImplementedError rather than being ignored.
+
+``device=None`` means ``"cuda"``, and a run that asks for CUDA where there
+is none raises: it does not carry on on the CPU.  ``base=`` and ``lora=``
+take port parameter trees (for example bridged from the reference with
+repro_torch/bridge.py); without them the port initialises its own from
+``fed.seed`` (base) and ``fed.seed + 1`` (LoRA) with ``torch.Generator``s.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+from repro_torch import tree as tree_lib
+from repro_torch.configs.base import FedConfig, ModelConfig
+from repro_torch.core.round_program import FedResult, run_program
+from repro_torch.models.factory import build_model
+from repro_torch.peft import lora as lora_lib
+from repro_torch.runtime import resolve_device
+
+
+def _unported(fed: FedConfig, task: str) -> List[str]:
+    """The settings of ``fed`` this slice does not run."""
+    checks = [
+        (fed.framework != "fedllm", f"framework={fed.framework!r}"),
+        (fed.backend != "sequential", f"backend={fed.backend!r}"),
+        (fed.aggregation != "sync", f"aggregation={fed.aggregation!r}"),
+        (fed.peft != "lora", f"peft={fed.peft!r}"),
+        (fed.optimizer != "adam", f"optimizer={fed.optimizer!r}"),
+        (fed.client_ranks is not None, "client_ranks"),
+        (fed.privacy.enabled, "privacy (DP-SGD / secure aggregation)"),
+        (fed.faults.enabled, "fault injection"),
+        (fed.robust_agg != "mean", f"robust_agg={fed.robust_agg!r}"),
+        (fed.quorum > 0.0, "quorum"),
+        (fed.screen_factor > 0.0, "screen_factor"),
+        (task != "classification", f"task={task!r}"),
+    ]
+    return [what for bad, what in checks if bad]
+
+
+def run_federated(cfg: ModelConfig, fed: FedConfig, public: Dict,
+                  clients: List[Dict], test: Dict,
+                  task: str = "classification", batch_size: int = 16,
+                  eval_batch: int = 64, verbose: bool = False,
+                  device=None, base=None, lora=None,
+                  checkpoint_every: int = 0, checkpoint_dir: str = None,
+                  resume_from: str = None) -> FedResult:
+    if fed.framework not in ("fedllm", "kd", "split"):
+        raise ValueError(f"unknown framework {fed.framework!r}")
+    if fed.n_virtual_clients and fed.n_virtual_clients != len(clients):
+        raise ValueError(
+            f"FedConfig.n_virtual_clients={fed.n_virtual_clients} does "
+            f"not match the supplied population ({len(clients)} clients)")
+    unported = _unported(fed, task)
+    if checkpoint_every or checkpoint_dir or resume_from:
+        unported.append("checkpointing")
+    if unported:
+        raise NotImplementedError("not ported yet: " + ", ".join(unported))
+    device = resolve_device(device)
+    model = build_model(cfg)
+    if base is None:
+        base = model.init(torch.Generator().manual_seed(fed.seed), device)
+    base = tree_lib.map_(lambda t: t.detach().to(device), base)
+    if lora is not None:
+        lora = tree_lib.map_(lambda t: t.detach().to(device), lora)
+    targets = fed.lora_targets or lora_lib.DEFAULT_TARGETS
+    return run_program(model, base, cfg, fed, targets, public, clients,
+                       test, task, batch_size, eval_batch, verbose, device,
+                       lora=lora)

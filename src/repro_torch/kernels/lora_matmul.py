@@ -1,0 +1,147 @@
+"""Fused LoRA matmul: ``y = x @ W + (x @ A) @ B``, differentiable.
+
+Counterpart of ``src/repro/kernels/lora_matmul.py``.  The TPU kernels
+become the CUDA kernels of ``csrc/lora_matmul.cu``:
+
+    lora_fwd    <- _fwd_call    y and the saved (M, r) panel xa = x@A
+    lora_dx     <- _dx_call     dx = g@Wᵀ + (g@Bᵀ)@Aᵀ and gb = g@Bᵀ
+                                (the forward's template, operands transposed)
+    lora_panel  <- _panel_grad_call   dA = xᵀ·gb, dB = (gᵀ·xa)ᵀ
+
+``LoRAMatmul`` is the ``torch.autograd.Function`` around them.  For CUDA
+tensors it launches the kernels (or raises); for CPU tensors it takes the
+plain versions in kernels/ref.py.  The dense ``dW = xᵀg`` (the reference's
+``_dw_call``) is skipped through ``ctx.needs_input_grad``: in PEFT the
+base is frozen.  It is not ported, so a W that requires a gradient on
+CUDA raises NotImplementedError.
+
+Each kernel wrapper adds one to ``LAUNCHES[name]`` where it launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+LAUNCHES = {"lora_fwd": 0, "lora_dx": 0, "lora_panel": 0}
+R_MAX = 64
+_LIB = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = build.load("lora_matmul")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.lora_fused.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        lib.lora_fused.restype = i32
+        lib.lora_panel_grad.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+        lib.lora_panel_grad.restype = i32
+        _LIB = lib
+    return _LIB
+
+
+def _rank(r: int, kernel: str) -> None:
+    if not 1 <= r <= R_MAX:
+        raise ValueError(f"{kernel}: rank {r} outside [1, {R_MAX}]")
+
+
+# --------------------------------------------------------------------------- #
+# Kernel wrappers (CUDA tensors only)
+# --------------------------------------------------------------------------- #
+def lora_fwd(x, w, a, b):
+    """x (M, K), w (K, N), a (K, r), b (r, N) -> (y (M, N), xa (M, r))."""
+    M, K = x.shape
+    N, r = w.shape[1], a.shape[1]
+    _rank(r, "lora_fwd")
+    build.check_tensors("lora_fwd", x.device, x=(x, (M, K)), w=(w, (K, N)),
+                        a=(a, (K, r)), b=(b, (r, N)))
+    y = torch.empty((M, N), device=x.device, dtype=torch.float32)
+    xa = torch.empty((M, r), device=x.device, dtype=torch.float32)
+    rc = _lib().lora_fused(x.data_ptr(), w.data_ptr(), a.data_ptr(),
+                           b.data_ptr(), y.data_ptr(), xa.data_ptr(),
+                           M, K, N, r, 0, build.stream(x.device))
+    build.check(rc, "lora_fwd")
+    LAUNCHES["lora_fwd"] += 1
+    return y, xa
+
+
+def lora_dx(g, w, a, b):
+    """g (M, N), w (K, N), a (K, r), b (r, N) -> (dx (M, K), gb (M, r))."""
+    M, N = g.shape
+    K, r = w.shape[0], a.shape[1]
+    _rank(r, "lora_dx")
+    build.check_tensors("lora_dx", g.device, g=(g, (M, N)), w=(w, (K, N)),
+                        a=(a, (K, r)), b=(b, (r, N)))
+    dx = torch.empty((M, K), device=g.device, dtype=torch.float32)
+    gb = torch.empty((M, r), device=g.device, dtype=torch.float32)
+    rc = _lib().lora_fused(g.data_ptr(), w.data_ptr(), a.data_ptr(),
+                           b.data_ptr(), dx.data_ptr(), gb.data_ptr(),
+                           M, N, K, r, 1, build.stream(g.device))
+    build.check(rc, "lora_dx")
+    LAUNCHES["lora_dx"] += 1
+    return dx, gb
+
+
+def lora_panel(lhs, panel, transpose_out: bool = False):
+    """lhs (M, L), panel (M, r) -> lhsᵀ·panel (L, r), or (r, L) transposed."""
+    M, L = lhs.shape
+    r = panel.shape[1]
+    _rank(r, "lora_panel")
+    build.check_tensors("lora_panel", lhs.device, lhs=(lhs, (M, L)),
+                        panel=(panel, (M, r)))
+    out = torch.empty((r, L) if transpose_out else (L, r), device=lhs.device,
+                      dtype=torch.float32)
+    rc = _lib().lora_panel_grad(lhs.data_ptr(), panel.data_ptr(),
+                                out.data_ptr(), M, L, r, int(transpose_out),
+                                build.stream(lhs.device))
+    build.check(rc, "lora_panel")
+    LAUNCHES["lora_panel"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# autograd
+# --------------------------------------------------------------------------- #
+class LoRAMatmul(torch.autograd.Function):
+    """x (M, K), w (K, N), a (K, r), b (r, N) -> x@W + (x@A)@B."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b):
+        y, xa = (lora_fwd if x.is_cuda else ref.lora_fwd)(x, w, a, b)
+        ctx.save_for_backward(x, w, a, b, xa)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, a, b, xa = ctx.saved_tensors
+        g = g.contiguous()
+        cuda = g.is_cuda
+        need_dx, need_dw, need_da, need_db = ctx.needs_input_grad
+        dx = dw = da = db = None
+        if need_dw:
+            if cuda:
+                raise NotImplementedError(
+                    "dW = xᵀg on CUDA: the dense dW kernel of the reference "
+                    "(lora_matmul.py _dw_call) is not ported; freeze W")
+            dw = x.t() @ g
+        if need_dx or need_da:
+            dx, gb = (lora_dx if cuda else ref.lora_dx)(g, w, a, b)
+            if need_da:
+                da = (lora_panel if cuda else ref.panel_grad)(x, gb)
+        if need_db:
+            db = (lora_panel if cuda else ref.panel_grad)(g, xa, True)
+        return (dx if need_dx else None), dw, da, db
+
+
+def lora_matmul(x, w, a, b):
+    """Differentiable fused LoRA product on 2-D ``x``; scale (alpha/r) is
+    expected folded into ``b`` (peft/lora.bind)."""
+    return LoRAMatmul.apply(x, w, a, b)

@@ -1,0 +1,52 @@
+"""Multi-head causal self-attention with QKV bias (GPT-2).
+
+Counterpart of ``init_attention`` and ``attention_fwd`` in
+``src/repro/models/attention.py``: projections through models/common.mm
+(LoRA-bound leaves go through the fused LoRA kernel), attention through
+kernels/ops.mha_attention (the flash kernels under the ``cuda`` policy).
+RoPE and qk-norm are not ported yet and raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models import common
+from repro_torch.models.common import mm
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, device):
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": common.dense_init(gen, (d, h * hd), device),
+        "wk": common.dense_init(gen, (d, kv * hd), device),
+        "wv": common.dense_init(gen, (d, kv * hd), device),
+        "wo": common.dense_init(gen, (h * hd, d), device,
+                                scale=(h * hd) ** -0.5),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(h * hd, device=device)
+        p["bk"] = torch.zeros(kv * hd, device=device)
+        p["bv"] = torch.zeros(kv * hd, device=device)
+    return p
+
+
+def attention_fwd(params, cfg: ModelConfig, x, positions=None,
+                  window: int = 0, use_rope=None):
+    """x: (B, S, d) -> (B, S, d).  ``window`` > 0 -> sliding window."""
+    rope = cfg.use_rope if use_rope is None else use_rope
+    if rope or cfg.qk_norm:
+        raise NotImplementedError("RoPE and qk-norm are not ported yet")
+    B, S, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = mm(x, params["wq"])
+    k = mm(x, params["wk"])
+    v = mm(x, params["wv"])
+    if "bq" in params:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q = q.reshape(B, S, h, hd)
+    k = k.reshape(B, S, kv, hd)
+    v = v.reshape(B, S, kv, hd)
+    out = kernel_ops.mha_attention(q, k, v, causal=True, window=window)
+    return mm(out.reshape(B, S, h * hd), params["wo"])

@@ -1,0 +1,40 @@
+"""Model facade.  Counterpart of ``src/repro/models/factory.py``:
+
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(seed))  # on CUDA
+    logits, aux = model.forward(params, batch)
+
+``init``'s ``device=None`` means ``"cuda"`` and raises without it (pass
+``device="cpu"`` for the CPU).  ``batch`` is a dict with ``"tokens"``
+(B, S) on the parameters' device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models import transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def init(self, gen: torch.Generator, device=None):
+        return transformer.init_params(gen, self.cfg, device)
+
+    def forward(self, params, batch: Dict[str, Any]):
+        """(logits (B, S, V), aux) under the config's kernel policy.
+        The backward of a training step runs the autograd Functions the
+        forward chose, so this is the only place the policy is set."""
+        with kernel_ops.policy_scope(self.cfg.kernel_policy):
+            return transformer.forward(params, self.cfg, batch["tokens"])
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    transformer.check_supported(cfg)
+    return Model(cfg)

@@ -1,0 +1,111 @@
+"""LoRA (Low-Rank Adaptation) over parameter trees.
+
+Counterpart of ``src/repro/peft/lora.py``.  A LoRA tree mirrors the base
+tree at the targeted leaves only:
+
+    base:  {"layers": [{"attn": {"wq": (d, f), ...}, ...}, ...]}
+    lora:  {"layers": [{"attn": {"wq": {"a": (d, r), "b": (r, f)}}}, ...]}
+
+``bind`` produces the tree the model consumes, replacing each targeted
+weight W with ``{"w": W, "a": A, "b": B·alpha/r}``; models/common.mm
+computes ``x@W + (x@A)@B`` from it without materialising W + BA.  The base
+tensors never require a gradient: core/fedavg differentiates the loss
+with respect to the LoRA leaves only (the PEFT property).
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch import tree as tree_lib
+
+DEFAULT_TARGETS: Tuple[str, ...] = ("wq", "wk", "wv")
+
+
+def lora_apply(x, w, a, b):
+    """The LoRA projection hot path ``x@W + (x@A)@B`` (scale folded into
+    ``b``): the fused CUDA kernel under the ``cuda`` kernel policy, the
+    plain matmul chain otherwise (kernels/ops.lora_matmul)."""
+    from repro_torch.kernels import ops as kernel_ops
+    return kernel_ops.lora_matmul(x, w, a, b)
+
+
+def _walk(tree, fn: Callable, path: Tuple[str, ...] = ()):
+    """Depth-first walk; fn(path, leaf) -> replacement or None (drop)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            r = _walk(v, fn, path + (str(k),))
+            if r is not None:
+                out[k] = r
+        return out or None
+    if isinstance(tree, (tuple, list)):
+        out = [_walk(v, fn, path + (str(i),)) for i, v in enumerate(tree)]
+        return out if any(r is not None for r in out) else None
+    return fn(path, tree)
+
+
+def init_lora(gen: torch.Generator, base_params, targets: Sequence[str],
+              rank: int, alpha: float = 32.0):
+    """Build a LoRA tree: A ~ N(0, 1/r) (paper: Gaussian init), B = 0, fp32,
+    on the device of each targeted weight."""
+
+    def init_leaf(path, leaf):
+        if path[-1] not in targets or leaf.dim() < 2:
+            return None
+        d_in, d_out = leaf.shape
+        a = torch.randn((d_in, rank), generator=gen) * rank ** -0.5
+        return {"a": a.to(leaf.device),
+                "b": torch.zeros((rank, d_out), device=leaf.device)}
+
+    lora = _walk(base_params, init_leaf)
+    return lora if lora is not None else {}
+
+
+def bind(base_params, lora_tree, alpha: float, rank: int,
+         dropout_gen: Optional[torch.Generator] = None,
+         dropout: float = 0.0):
+    """The model-consumable tree with LoRA leaves bound.
+
+    ``dropout`` drops input features on the LoRA branch only: a per-call
+    feature mask from ``dropout_gen``, folded into A
+    ((x*m)@A == x@(m[:, None]*A))."""
+    scale = alpha / max(rank, 1)
+
+    def combine(b, l):
+        if isinstance(l, dict) and set(l) == {"a", "b"}:
+            a = l["a"]
+            if dropout > 0.0 and dropout_gen is not None:
+                keep = torch.rand(a.shape[-2], generator=dropout_gen) \
+                    >= dropout
+                mask = keep.float().to(a.device) / (1.0 - dropout)
+                a = a * mask[:, None]
+            return {"w": b, "a": a, "b": l["b"] * scale}
+        if isinstance(b, dict):
+            return {k: combine(b[k], l[k]) if (isinstance(l, dict) and k in l)
+                    else b[k] for k in b}
+        if isinstance(b, (tuple, list)):
+            return [combine(bv, l[i]) if (isinstance(l, (tuple, list))
+                                          and l[i] is not None) else bv
+                    for i, bv in enumerate(b)]
+        return b
+
+    return combine(base_params, lora_tree)
+
+
+def tree_rank(lora_tree, default: int) -> int:
+    """A LoRA tree's rank, read off its first ``a`` factor."""
+    for leaf in tree_lib.leaves(lora_tree):
+        if leaf.dim() >= 2:
+            return leaf.shape[-1] if leaf.shape[-1] != 0 else default
+    return default
+
+
+def n_params(lora_tree) -> int:
+    return sum(x.numel() for x in tree_lib.leaves(lora_tree))
+
+
+def n_bytes(lora_tree) -> int:
+    return sum(x.numel() * x.element_size()
+               for x in tree_lib.leaves(lora_tree))

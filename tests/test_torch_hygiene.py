@@ -1,0 +1,145 @@
+"""Boundaries of the port: it imports neither JAX nor the reference
+package, it never carries on on the CPU when CUDA was asked for, its CUDA
+kernel paths refuse CPU tensors instead of falling back, and every
+``FedConfig`` setting outside the first slice raises."""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several pytest workers per host
+torch.set_num_threads(1)
+
+from repro_torch.configs.base import (FaultConfig, FedConfig,  # noqa: E402
+                                      PrivacyConfig)
+from repro_torch.configs.gpt2_small import gpt2_tiny  # noqa: E402
+from repro_torch.core.rounds import run_federated  # noqa: E402
+from repro_torch.data import banking77, partition  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import lora_matmul as lm  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.models.factory import build_model  # noqa: E402
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+WALK = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    out = subprocess.run([sys.executable, "-c", WALK], cwd=SRC,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(SRC)})
+    assert out.returncode == 0, out.stderr
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 25
+
+
+@pytest.fixture(scope="module")
+def tiny_case():
+    cfg = gpt2_tiny()
+    pub, train, test = banking77.paper_splits(cfg.vocab_size, pad_len=24,
+                                              scale=0.02)
+    return cfg, pub, partition.iid_partition(train, 3), test
+
+
+def test_run_federated_without_device_needs_cuda(tiny_case):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg, pub, clients, test = tiny_case
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_federated(cfg, FedConfig(rounds=1, lora_dropout=0.0), pub,
+                      clients, test)
+
+
+def test_model_init_without_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    model = build_model(gpt2_tiny())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init(torch.Generator().manual_seed(0))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    assert params["embed"].device.type == "cpu"
+
+
+def test_cuda_policy_refuses_cpu_tensors():
+    x, w, a, b = (torch.randn(2, 5, 16), torch.randn(16, 8),
+                  torch.randn(16, 2), torch.randn(2, 8))
+    q = torch.randn(1, 6, 2, 8)
+    with ops.policy_scope("cuda"):
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.lora_matmul(x, w, a, b)
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.mha_attention(q, q, q)
+    # the kernel wrappers themselves check before anything is built
+    with pytest.raises(ValueError, match="CUDA"):
+        lm.lora_fwd(x[0], w, a, b)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_fwd(q[0], q[0], q[0])
+
+
+def test_auto_policy_resolves_by_device():
+    assert ops.resolve("auto", "cpu") == "torch"
+    assert ops.resolve("auto", torch.device("cuda", 0)) == "cuda"
+    assert ops.resolve("torch", "cuda") == "torch"
+    with pytest.raises(ValueError):
+        ops.resolve("xla", "cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(framework="kd"), dict(framework="split"), dict(backend="spmd"),
+    dict(backend="cohort"), dict(aggregation="async"),
+    dict(client_ranks=(2, 4, 4)), dict(robust_agg="median"),
+    dict(quorum=0.5), dict(screen_factor=3.0), dict(optimizer="sgd"),
+    dict(peft="adapter"), dict(privacy=PrivacyConfig(dp_clip=1.0)),
+    dict(privacy=PrivacyConfig(secure_agg=True)),
+    dict(faults=FaultConfig(dropout_rate=0.2)),
+])
+def test_unported_settings_raise(tiny_case, change):
+    cfg, pub, clients, test = tiny_case
+    fed = dataclasses.replace(FedConfig(rounds=1, lora_dropout=0.0), **change)
+    with pytest.raises(NotImplementedError):
+        run_federated(cfg, fed, pub, clients, test, device="cpu")
+
+
+def test_checkpointing_and_unported_models_raise(tiny_case):
+    cfg, pub, clients, test = tiny_case
+    fed = FedConfig(rounds=1, lora_dropout=0.0)
+    with pytest.raises(NotImplementedError):
+        run_federated(cfg, fed, pub, clients, test, device="cpu",
+                      checkpoint_every=1, checkpoint_dir="ckpt")
+    with pytest.raises(NotImplementedError):
+        run_federated(dataclasses.replace(cfg, use_rope=True), fed, pub,
+                      clients, test, device="cpu")
+
+
+def test_lora_dropout_runs_on_own_generator(tiny_case):
+    """Dropout > 0 is implemented (masks from torch generators), not
+    ignored: it changes the trained LoRA, deterministically."""
+    cfg, pub, clients, test = tiny_case
+
+    def final_a(dropout):
+        res = run_federated(cfg, FedConfig(rounds=1, lora_rank=2,
+                                           lora_dropout=dropout), pub,
+                            clients, test, device="cpu")
+        return res.final_lora["layers"][0]["attn"]["wq"]["a"].numpy()
+
+    with_dropout = final_a(0.5)
+    np.testing.assert_array_equal(with_dropout, final_a(0.5))
+    assert not np.allclose(with_dropout, final_a(0.0))
