@@ -5,8 +5,9 @@
     a3 clients -> server: fine-tuned tunable parameters
     a4 server: aggregation (FedAvg) -> next global parameters
 
-Counterpart of ``make_fns`` (train and eval steps), ``fedavg`` and
-``evaluate`` in ``src/repro/core/fedavg.py``.  The base model is a frozen
+Counterpart of ``make_fns`` (train, eval, logit and KD steps, shared by
+the frameworks), ``fedavg`` and ``evaluate`` in
+``src/repro/core/fedavg.py``.  The base model is a frozen
 constant of the loss: gradients are taken with respect to the LoRA leaves
 only (the PEFT property, paper fn.1).
 """
@@ -21,6 +22,7 @@ from repro_torch import tree as tree_lib
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import tasks
 from repro_torch.data.loader import epoch_batches
+from repro_torch.models import loss as losses
 from repro_torch.models.factory import Model
 from repro_torch.optim.api import make_optimizer
 from repro_torch.peft import lora as lora_lib
@@ -33,7 +35,8 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 
 def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
-    """Returns a dict with ``train_step``, ``eval_step`` and ``opt_init``."""
+    """Returns a dict with ``train_step``, ``eval_step``, ``logits_fn``,
+    ``kd_step`` and ``opt_init``."""
     task_loss = tasks.get_loss_fn(task)
     opt_init, opt_update = make_optimizer(fed.optimizer)
 
@@ -65,8 +68,28 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
         loss, _ = task_loss(logits, batch)
         return acc, loss
 
+    @torch.no_grad()
+    def logits_fn(base, lt, batch):
+        """Knowledge representation for KD (paper b2/b6): the class
+        logits (B, n_classes)."""
+        logits, _ = model.forward(_bind(base, lt), batch)
+        return tasks.class_logits(logits, batch)
+
+    def kd_step(base, lt, opt_state, batch, teacher_logits, gen=None):
+        """Distill ``teacher_logits`` into the student's LoRA leaves: one
+        optimizer step on KL(teacher || student) at ``fed.kd_temperature``.
+        Returns (new_lt, new_opt_state, loss)."""
+        live = tree_lib.map_(lambda t: t.detach().requires_grad_(True), lt)
+        logits, aux = model.forward(_bind(base, live, gen), batch)
+        student = tasks.class_logits(logits, batch)
+        loss = losses.kd_kl(student, teacher_logits, fed.kd_temperature) + aux
+        grads = torch.autograd.grad(loss, tree_lib.leaves(live))
+        new_lt, new_opt = opt_update(tree_lib.unflatten(lt, grads),
+                                     opt_state, lt, fed.lr)
+        return new_lt, new_opt, loss.detach()
+
     return {"train_step": train_step, "eval_step": eval_step,
-            "opt_init": opt_init}
+            "logits_fn": logits_fn, "kd_step": kd_step, "opt_init": opt_init}
 
 
 # --------------------------------------------------------------------------- #

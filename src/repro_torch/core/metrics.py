@@ -95,6 +95,9 @@ class ClientCost:
     def add_train(self, cfg, n_tokens, n_peft, frac_layers=1.0):
         self.flops += train_flops(cfg, n_tokens, True, n_peft, frac_layers)
 
+    def add_fwd(self, cfg, n_tokens, frac_layers=1.0):
+        self.flops += fwd_flops(cfg, n_tokens, frac_layers)
+
 
 @dataclasses.dataclass
 class RoundMetrics:
@@ -107,3 +110,20 @@ class RoundMetrics:
     # wall time of the round on the host clock; the evaluation's float()
     # reads wait for the device, so the round's device work is inside it
     seconds: float = 0.0
+
+
+def logit_bytes(n_samples: int, logit_dim: int, topk: int = 0,
+                quant_bits: int = 0) -> int:
+    """Communication size of a logit set (paper SSIII.B; SSIV.B.2
+    compression options).  Sub-byte payloads are nibble-packed per row
+    (ceil), matching core/compression's actual wire payloads."""
+    if topk and quant_bits:
+        # fused top-k + int quantization: packed values + indices + scale
+        per = (topk * quant_bits + 7) // 8 + topk * 4 + 4
+    elif topk:
+        per = topk * (4 + 4)                       # value + index
+    elif quant_bits:
+        per = (logit_dim * quant_bits + 7) // 8 + 4    # + per-row scale
+    else:
+        per = logit_dim * 4
+    return n_samples * per

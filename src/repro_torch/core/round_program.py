@@ -1,13 +1,14 @@
-"""The federated round pipeline for the port's first slice:
+"""The federated round pipeline:
 
     broadcast -> local_update -> upload -> aggregate -> evaluate
 
-Counterpart of the parts of ``src/repro/core/round_program.py`` the
-paper's SSV case study runs: ``RoundContext``, the ``SyncSchedule``, the
-``SequentialExecutor`` (a Python loop over clients, one train step per
-batch), the ``FedLLMProgram`` stage-spec and ``run_program`` without the
-privacy and fault middleware.  Ledger bytes are derived from payload
-shapes, so they equal the reference's exactly.
+Counterpart of the parts of ``src/repro/core/round_program.py`` that run
+FedLLM and KD-FedLLM with sequential clients and sync rounds:
+``RoundContext``, the ``SyncSchedule``, the ``SequentialExecutor`` (a
+Python loop over clients, one train step per batch), the
+``FedLLMProgram`` and ``KDProgram`` stage-specs and ``run_program``
+without the privacy and fault middleware.  Ledger bytes are derived from
+payload shapes, so they equal the reference's exactly.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FedConfig, ModelConfig
+from repro_torch.core import kd as kd_mod
 from repro_torch.core import metrics as M
 from repro_torch.core.fedavg import evaluate, fedavg, make_fns, to_device
 from repro_torch.data.loader import epoch_batches
@@ -124,6 +126,30 @@ class SequentialExecutor:
             out.append((lt, n_tok))
         return out
 
+    def kd_train_and_logits(self, program, cis, rnd):
+        """KD b1 + b2: each client fine-tunes its own LoRA, keeping its
+        optimizer state across rounds, then forms its public-set logits.
+        Returns [(logits, n_tok)] in client order."""
+        ctx = self.ctx
+        out = []
+        for ci in cis:
+            lt, opt, n_tok = self._local_finetune(
+                program, ci, program.lts[ci], program.opts[ci], rnd)
+            program.lts[ci], program.opts[ci] = lt, opt
+            out.append((kd_mod.client_logits(ctx.fns, ctx.base, lt,
+                                             ctx.public, ctx.eval_batch,
+                                             ctx.device), n_tok))
+        return out
+
+    def kd_distill(self, program, cis, glob, rnd):
+        """KD b8: each client distills the global knowledge ``glob``."""
+        ctx, fed = self.ctx, self.ctx.fed
+        for ci in cis:
+            program.lts[ci], program.opts[ci], _ = kd_mod.distill(
+                ctx.fns, ctx.base, program.lts[ci], program.opts[ci],
+                ctx.public, glob, fed.kd_epochs, ctx.eval_batch, ctx.device,
+                seed=fed.seed + 31 * rnd + ci)
+
 
 def staleness_weight(staleness: int, decay: float) -> float:
     """Polynomial staleness decay (FedAsync): ``(1 + s)^-decay``."""
@@ -192,15 +218,99 @@ class FedLLMProgram:
         return self.global_lt
 
 
+class KDProgram:
+    """KD-FedLLMs (paper SSII.B): params never cross the wire.  Clients
+    upload public-set logits (b3), the server fuses knowledge (b4),
+    distills (b5), and re-broadcasts global knowledge (b6-b8).  Every
+    client keeps its own LoRA tree and Adam state across rounds."""
+
+    epoch_seed_mult = 991
+
+    def __init__(self, ctx: RoundContext, lora=None):
+        fed = ctx.fed
+        if lora is None:
+            gen = torch.Generator().manual_seed(fed.seed + 2)
+
+            def draw():
+                return lora_lib.init_lora(gen, ctx.base, ctx.targets,
+                                          fed.lora_rank, fed.lora_alpha)
+            lora = {"clients": [draw() for _ in range(ctx.n_clients)],
+                    "server": draw()}
+        if len(lora["clients"]) != ctx.n_clients:
+            raise ValueError(f"lora['clients'] holds {len(lora['clients'])} "
+                             f"trees for {ctx.n_clients} clients")
+        opt_init = ctx.fns["opt_init"]
+        self.lts = list(lora["clients"])
+        self.opts = [opt_init(lt) for lt in self.lts]
+        self.server_lt = lora["server"]
+        self.server_opt = opt_init(self.server_lt)
+        self.n_lora = [lora_lib.n_params(lt) for lt in self.lts]
+        self.glob = None            # latest global knowledge (b6)
+        self.pub_tok = ctx.public["tokens"].size
+
+    def broadcast(self, ctx, cohort, rnd):
+        return list(cohort)         # no param download in KD
+
+    def local_update(self, ctx, ex, jobs, rnd):
+        outs = ex.kd_train_and_logits(self, jobs, rnd)
+        for ci, (_, n_tok) in zip(jobs, outs):
+            ctx.cost[ci].add_train(ctx.cfg, n_tok, self.n_lora[ci])
+            ctx.cost[ci].add_fwd(ctx.cfg, self.pub_tok)
+        return [(ci, logits) for ci, (logits, _) in zip(jobs, outs)]
+
+    def upload(self, ctx, outs, rnd):
+        return [(ci, kd_mod.compress_for_wire(logits, ctx.fed))
+                for ci, logits in outs]
+
+    def record_arrival(self, ctx, job, rnd):
+        ctx.ledger.record(rnd, job.client, "logits", M.UP, job.payload[1])
+
+    def aggregate(self, ctx, ex, kept, arrived, rnd):
+        fed = ctx.fed
+        if kept:
+            ws = [w * staleness_weight(s, fed.staleness_decay)
+                  for _, _, s, w in kept]
+            teacher = kd_mod.aggregate_knowledge(
+                [p[0] for _, p, _, _ in kept], ws)
+            self.server_lt, self.server_opt, _ = kd_mod.distill(
+                ctx.fns, ctx.base, self.server_lt, self.server_opt,
+                ctx.public, teacher, fed.kd_epochs, ctx.eval_batch,
+                ctx.device, seed=fed.seed + rnd)
+            self.glob = kd_mod.client_logits(ctx.fns, ctx.base,
+                                             self.server_lt, ctx.public,
+                                             ctx.eval_batch, ctx.device)
+        # b6-b8: delivering clients re-sync against the latest knowledge
+        if arrived and self.glob is not None:
+            glob_wire = kd_mod.logit_wire_bytes(self.glob.shape, fed)
+            cis = [j.client for j in arrived]
+            for ci in cis:
+                ctx.ledger.record(rnd, ci, "logits", M.DOWN, glob_wire)
+                ctx.cost[ci].add_train(ctx.cfg, self.pub_tok * fed.kd_epochs,
+                                       self.n_lora[ci])
+            ex.kd_distill(self, cis, self.glob, rnd)
+
+    def evaluate(self, ctx):
+        return evaluate(ctx.fns, ctx.base, self.server_lt, ctx.test,
+                        ctx.eval_batch, ctx.device)
+
+    def final_state(self, ctx):
+        return self.server_lt
+
+
+PROGRAMS = {"fedllm": FedLLMProgram, "kd": KDProgram}
+
+
 def run_program(model, base, cfg: ModelConfig, fed: FedConfig, targets,
                 public: Dict, clients_data: List[Dict], test: Dict,
                 task: str, batch_size: int, eval_batch: int, verbose: bool,
                 device, lora=None) -> FedResult:
-    """Run ``fed.rounds`` FedLLM rounds with sequential clients and sync
-    aggregation.  ``lora`` (optional) is the initial global LoRA tree."""
+    """Run ``fed.rounds`` rounds of ``fed.framework`` with sequential
+    clients and sync aggregation.  ``lora`` (optional) is the initial LoRA
+    state: the global tree for FedLLM, ``{"server": tree, "clients":
+    [tree, ...]}`` for KD."""
     ctx = RoundContext(model, base, cfg, fed, targets, public, clients_data,
                        test, task, batch_size, eval_batch, verbose, device)
-    program = FedLLMProgram(ctx, lora)
+    program = PROGRAMS[fed.framework](ctx, lora)
     ex = SequentialExecutor(ctx)
     schedule = SyncSchedule(fed, ctx.n_clients)
     for rnd in range(fed.rounds):

@@ -4,15 +4,21 @@
     result = run_federated(cfg, fed, public, clients, test, device="cuda")
 
 ``result.history`` is a list of RoundMetrics; ``result.ledger`` holds
-every wire transfer.  This slice runs the paper's SSV case study: FedLLM
-with sequential clients and sync rounds.  Every ``FedConfig`` setting
-outside it raises NotImplementedError rather than being ignored.
+every wire transfer.  The port runs FedLLM (the paper's SSV case study)
+and KD-FedLLM, each with sequential clients and sync rounds.  Every
+``FedConfig`` setting outside them raises NotImplementedError rather than
+being ignored.  The run holds ``cfg.kernel_policy`` as the ambient kernel
+policy from start to end, so kernels called outside the model's forward
+(the KD loss, the b3 top-k quantize) follow it too.
 
 ``device=None`` means ``"cuda"``, and a run that asks for CUDA where there
 is none raises: it does not carry on on the CPU.  ``base=`` and ``lora=``
 take port parameter trees (for example bridged from the reference with
-repro_torch/bridge.py); without them the port initialises its own from
-``fed.seed`` (base) and ``fed.seed + 1`` (LoRA) with ``torch.Generator``s.
+repro_torch/bridge.py).  For FedLLM ``lora=`` is the initial global
+tree; for KD it is ``{"server": tree, "clients": [tree, ...]}``, one tree
+per client.  Without them the port initialises its own with
+``torch.Generator``s: the base from ``fed.seed``, the LoRA from
+``fed.seed + 1`` (FedLLM) or ``fed.seed + 2`` (KD).
 """
 from __future__ import annotations
 
@@ -23,15 +29,16 @@ import torch
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import FedConfig, ModelConfig
 from repro_torch.core.round_program import FedResult, run_program
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.factory import build_model
 from repro_torch.peft import lora as lora_lib
 from repro_torch.runtime import resolve_device
 
 
 def _unported(fed: FedConfig, task: str) -> List[str]:
-    """The settings of ``fed`` this slice does not run."""
+    """The settings of ``fed`` the port does not run yet."""
     checks = [
-        (fed.framework != "fedllm", f"framework={fed.framework!r}"),
+        (fed.framework == "split", f"framework={fed.framework!r}"),
         (fed.backend != "sequential", f"backend={fed.backend!r}"),
         (fed.aggregation != "sync", f"aggregation={fed.aggregation!r}"),
         (fed.peft != "lora", f"peft={fed.peft!r}"),
@@ -73,6 +80,7 @@ def run_federated(cfg: ModelConfig, fed: FedConfig, public: Dict,
     if lora is not None:
         lora = tree_lib.map_(lambda t: t.detach().to(device), lora)
     targets = fed.lora_targets or lora_lib.DEFAULT_TARGETS
-    return run_program(model, base, cfg, fed, targets, public, clients,
-                       test, task, batch_size, eval_batch, verbose, device,
-                       lora=lora)
+    with kernel_ops.policy_scope(cfg.kernel_policy):
+        return run_program(model, base, cfg, fed, targets, public, clients,
+                           test, task, batch_size, eval_batch, verbose,
+                           device, lora=lora)

@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("lora_matmul", "flash_attention")
+SOURCES = ("lora_matmul", "flash_attention", "kd_loss", "quantize")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -100,15 +100,16 @@ def check(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: CUDA error {rc} at launch")
 
 
-def check_tensors(kernel: str, device, **tensors):
-    """Raises unless every tensor is a contiguous fp32 CUDA tensor on
-    ``device`` with the expected shape (given as ``name=(tensor, shape)``)."""
+def check_tensors(kernel: str, device, dtype=torch.float32, **tensors):
+    """Raises unless every tensor is a contiguous CUDA tensor of ``dtype``
+    on ``device`` with the expected shape (given as ``name=(tensor,
+    shape)``)."""
     for name, (t, shape) in tensors.items():
         if not t.is_cuda or t.device != device:
             raise ValueError(f"{kernel}: {name} must be a CUDA tensor on "
                              f"{device}, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{kernel}: {name} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")

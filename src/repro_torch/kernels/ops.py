@@ -2,20 +2,24 @@
 
 Counterpart of ``src/repro/kernels/ops.py``.  ``ModelConfig.kernel_policy``
 (``torch | cuda | auto``) becomes the ambient policy scope here, entered
-by models/factory.Model.forward; peft/lora.lora_apply and
-models/attention.attention_fwd call ``lora_matmul`` and ``mha_attention``,
-which follow it:
+by core/rounds.run_federated for a whole run and by
+models/factory.Model.forward for callers that drive the model directly;
+peft/lora.lora_apply, models/attention.attention_fwd, models/loss.kd_kl
+and core/compression.topk_quantize call ``lora_matmul``,
+``mha_attention``, ``kd_loss`` and ``topk_quantize``, which follow it:
 
-    ``cuda``  — the differentiable CUDA kernels (kernels/lora_matmul.py,
-                kernels/flash_attention.py).  The tensors must be on a CUDA
-                device: a CPU tensor raises rather than falling back.
+    ``cuda``  — the CUDA kernels (kernels/lora_matmul.py,
+                kernels/flash_attention.py, kernels/kd_loss.py,
+                kernels/quantize.py), differentiable where the reference's
+                are.  The tensors must be on a CUDA device: a CPU tensor
+                raises rather than falling back.
     ``torch`` — the plain PyTorch versions (kernels/ref.py) on whatever
                 device the tensors live, differentiated by autograd.
     ``auto``  — ``cuda`` for CUDA tensors, ``torch`` for CPU tensors.  It
                 is also the policy outside any scope.
 
 The kernels mask their ragged edges, so unlike the reference there is no
-block fitting and no padding of M here.
+block fitting and no padding of M or R here.
 """
 from __future__ import annotations
 
@@ -25,7 +29,9 @@ import math
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import kd_loss as _kd
 from repro_torch.kernels import lora_matmul as _lm
+from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import ref
 
 POLICIES = ("torch", "cuda", "auto")
@@ -97,11 +103,46 @@ def mha_attention(q, k, v, causal: bool = True, window: int = 0,
     return out.reshape(B, H, Sq, D).transpose(1, 2)
 
 
+def kd_loss(teacher, student, temperature: float = 1.0, mask=None):
+    """teacher/student: (..., V) -> scalar mean KD loss (masked),
+    differentiable w.r.t. both logit sets: the streaming KD kernels under
+    the ``cuda`` policy, the log-softmax form (kernels/ref.py) under
+    ``torch``."""
+    V = teacher.shape[-1]
+    t = teacher.reshape(-1, V).float()
+    s = student.reshape(-1, V).float()
+    if use_cuda(teacher):
+        _require_cuda("kd_loss", teacher, student)
+        rows = _kd.kd_loss_rows(t.contiguous(), s.contiguous(), temperature)
+    else:
+        rows = ref.kd_loss_rows_ref(t, s, temperature)
+    if mask is None:
+        return rows.mean()
+    m = mask.reshape(-1).float()
+    return (rows * m).sum() / torch.clamp_min(m.sum(), 1.0)
+
+
+def topk_quantize(x, k: int, bits: int = 8):
+    """x: (..., V) -> (q int8 (..., k), idx int32 (..., k), scale (..., 1)).
+
+    The fused KD b3 upload: the CUDA kernel under the ``cuda`` policy, the
+    bit-identical plain version (kernels/ref.py) under ``torch``."""
+    *lead, V = x.shape
+    xf = x.reshape(-1, V).float()
+    if use_cuda(x):
+        _require_cuda("topk_quantize", x)
+        q, idx, sc = _q.topk_quantize(xf.contiguous(), k, bits)
+    else:
+        q, idx, sc = ref.topk_quantize_rows_ref(xf, k, bits)
+    return (q.reshape(*lead, k), idx.reshape(*lead, k),
+            sc.reshape(*lead, 1))
+
+
 def launches() -> dict:
     """Launch counts of every ported kernel since the last reset."""
-    return {**_lm.LAUNCHES, **_fa.LAUNCHES}
+    return {**_lm.LAUNCHES, **_fa.LAUNCHES, **_kd.LAUNCHES, **_q.LAUNCHES}
 
 
 def reset_launches() -> None:
-    _lm.reset_launches()
-    _fa.reset_launches()
+    for mod in (_lm, _fa, _kd, _q):
+        mod.reset_launches()

@@ -1,12 +1,13 @@
 """Plain PyTorch versions of the ported kernels.
 
-Counterpart of ``src/repro/kernels/ref.py`` (``lora_matmul_ref`` and
-``attention_ref`` there), plus the plain forward-with-residuals and
-backward functions whose math is that of the TPU backward kernels in
-``src/repro/kernels/lora_matmul.py`` and ``flash_attention.py``.  The
-autograd Functions in kernels/lora_matmul.py and
-kernels/flash_attention.py take these for CPU tensors; chip_smoke.py holds
-each CUDA kernel against them on the card.  All math is fp32.
+Counterpart of ``src/repro/kernels/ref.py`` (``lora_matmul_ref``,
+``attention_ref``, ``kd_loss_rows_ref`` and ``topk_quantize_rows_ref``
+there), plus the plain forward-with-residuals and backward functions whose
+math is that of the TPU kernels in ``src/repro/kernels/lora_matmul.py``,
+``flash_attention.py`` and ``kd_loss.py``.  The autograd Functions in
+kernels/{lora_matmul,flash_attention,kd_loss}.py and the wrapper in
+kernels/quantize.py take these for CPU tensors; chip_smoke.py holds each
+CUDA kernel against them on the card.  All math is fp32.
 """
 from __future__ import annotations
 
@@ -108,3 +109,76 @@ def attention_dkv(q, k, v, do, lse, dd, causal: bool = True, window: int = 0,
     dk = (ds.transpose(1, 2) @ q).view(BKV, G, Skv, D).sum(1) * D ** -0.5
     dv = (p.transpose(1, 2) @ do).view(BKV, G, Skv, D).sum(1)
     return dk, dv
+
+
+# --------------------------------------------------------------------------- #
+# KD loss
+# --------------------------------------------------------------------------- #
+def kd_loss_rows_ref(teacher, student, temperature: float = 1.0):
+    """Per-row KL(softmax(t/T) || softmax(s/T)) · T² -> (R,), through
+    log-softmax (the reference's oracle)."""
+    tp = torch.log_softmax(teacher.float() / temperature, dim=-1)
+    sp = torch.log_softmax(student.float() / temperature, dim=-1)
+    return (tp.exp() * (tp - sp)).sum(-1) * temperature ** 2
+
+
+def kd_loss_fwd(teacher, student, temperature: float = 1.0):
+    """(rows (R,), (m_t, z_t, m_s, z_s, u) each (R,)): the forward kernel's
+    outputs (row 8).  m, z: max and sum of exp(x/T − m) of each logit
+    set; u = Σ exp(t/T − m_t)·((t/T − m_t) − (s/T − m_s)), so that
+    rows = (u/z_t − log z_t + log z_s)·T² never subtracts two numbers of
+    the size of the logits.  (The reference's u is Σ exp(t/T − m_t)·(t/T −
+    s/T) = this u + z_t·(m_t − m_s); its KL = u/z_t − lse_t + lse_s
+    cancels to nothing when a teacher row's maximum is near the top-k
+    fill value −1e9, as after aggregating top-k uploads.)"""
+    t = teacher.float() / temperature
+    s = student.float() / temperature
+    m_t = t.max(-1).values
+    m_s = s.max(-1).values
+    tc, sc = t - m_t[:, None], s - m_s[:, None]
+    e_t = torch.exp(tc)
+    z_t = e_t.sum(-1)
+    z_s = torch.exp(sc).sum(-1)
+    u = (e_t * (tc - sc)).sum(-1)
+    kl = u / z_t - torch.log(z_t) + torch.log(z_s)
+    return kl * temperature ** 2, (m_t, z_t, m_s, z_s, u)
+
+
+def kd_loss_bwd(teacher, student, stats, g, temperature: float = 1.0,
+                need_dt: bool = True):
+    """(dt or None, ds), each (R, V), from the forward's row statistics and
+    the upstream gradient g (R,) of the rows (row 9):
+    dt = g·T·p(log p − log q − KL), ds = g·T·(q − p), with
+    log p = (t/T − m_t) − log z_t and log q = (s/T − m_s) − log z_s."""
+    m_t, z_t, m_s, z_s, u = (x[:, None] for x in stats)
+    logp = (teacher.float() / temperature - m_t) - torch.log(z_t)
+    logq = (student.float() / temperature - m_s) - torch.log(z_s)
+    p, q = torch.exp(logp), torch.exp(logq)
+    gt = g.float()[:, None] * temperature
+    ds = gt * (q - p)
+    if not need_dt:
+        return None, ds
+    kl = u / z_t - torch.log(z_t) + torch.log(z_s)
+    return gt * p * (logp - logq - kl), ds
+
+
+# --------------------------------------------------------------------------- #
+# Top-k + symmetric int quantization
+# --------------------------------------------------------------------------- #
+def topk_quantize_rows_ref(x, k: int, bits: int = 8):
+    """x (R, C) -> (q int8 (R, k), idx int32 (R, k), scale fp32 (R, 1)).
+
+    Top-k by value with ties to the lower index (``lax.top_k``'s order;
+    ``torch.topk`` promises none, so a stable sort selects), then the
+    symmetric per-row level of the k values: scale = max(absmax/qmax,
+    1e-12) by IEEE division, q = clamp(round(v/scale)), rounding half to
+    even."""
+    qmax = float((1 << (bits - 1)) - 1)
+    vals, idx = torch.sort(x.float(), dim=-1, descending=True, stable=True)
+    vals, idx = vals[:, :k], idx[:, :k]
+    absmax = vals.abs().max(-1, keepdim=True).values
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which can differ in the last bit
+    scale = torch.clamp_min(absmax / absmax.new_tensor(qmax), 1e-12)
+    q = torch.clamp(torch.round(vals / scale), -qmax, qmax)
+    return q.to(torch.int8), idx.to(torch.int32), scale

@@ -30,7 +30,10 @@ class Model:
     def forward(self, params, batch: Dict[str, Any]):
         """(logits (B, S, V), aux) under the config's kernel policy.
         The backward of a training step runs the autograd Functions the
-        forward chose, so this is the only place the policy is set."""
+        forward chose.  core/rounds.run_federated holds the same policy
+        for a whole run (the KD loss and the top-k quantize run outside
+        the forward); this scope serves callers that drive the model
+        directly."""
         with kernel_ops.policy_scope(self.cfg.kernel_policy):
             return transformer.forward(params, self.cfg, batch["tokens"])
 

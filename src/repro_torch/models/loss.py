@@ -1,5 +1,6 @@
-"""Cross-entropy and accuracy.  Counterpart of ``cross_entropy`` and
-``accuracy`` in ``src/repro/models/loss.py`` (fp32)."""
+"""Cross-entropy, accuracy and the KD distillation loss.  Counterpart of
+``cross_entropy``, ``accuracy`` and ``kd_kl`` in
+``src/repro/models/loss.py`` (fp32)."""
 from __future__ import annotations
 
 import torch
@@ -15,3 +16,16 @@ def cross_entropy(logits, labels):
 
 def accuracy(logits, labels):
     return (logits.argmax(-1) == labels).float().mean()
+
+
+def kd_kl(student_logits, teacher_logits, temperature: float = 1.0,
+          mask=None):
+    """KL(teacher || student) with temperature, · T², mean over rows.
+
+    Both logits (..., V).  The distillation loss of KD-FedLLMs (paper
+    SSII.B): the streaming KD kernels under the ``cuda`` kernel policy,
+    plain log-softmax under ``torch`` (kernels/ops.kd_loss; note the
+    argument order flips there: teacher first)."""
+    from repro_torch.kernels import ops as kernel_ops
+    return kernel_ops.kd_loss(teacher_logits, student_logits,
+                              float(temperature), mask)

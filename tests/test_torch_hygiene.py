@@ -1,7 +1,7 @@
 """Boundaries of the port: it imports neither JAX nor the reference
 package, it never carries on on the CPU when CUDA was asked for, its CUDA
 kernel paths refuse CPU tensors instead of falling back, and every
-``FedConfig`` setting outside the first slice raises."""
+``FedConfig`` setting outside the ported slices raises."""
 import dataclasses
 import os
 import subprocess
@@ -21,8 +21,10 @@ from repro_torch.configs.gpt2_small import gpt2_tiny  # noqa: E402
 from repro_torch.core.rounds import run_federated  # noqa: E402
 from repro_torch.data import banking77, partition  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import kd_loss as kdl  # noqa: E402
 from repro_torch.kernels import lora_matmul as lm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.models.factory import build_model  # noqa: E402
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -82,16 +84,25 @@ def test_cuda_policy_refuses_cpu_tensors():
     x, w, a, b = (torch.randn(2, 5, 16), torch.randn(16, 8),
                   torch.randn(16, 2), torch.randn(2, 8))
     q = torch.randn(1, 6, 2, 8)
+    logits = torch.randn(4, 77)
     with ops.policy_scope("cuda"):
         with pytest.raises(ValueError, match="CUDA"):
             ops.lora_matmul(x, w, a, b)
         with pytest.raises(ValueError, match="CUDA"):
             ops.mha_attention(q, q, q)
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.kd_loss(logits, logits, 2.0)
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.topk_quantize(logits, 8, 8)
     # the kernel wrappers themselves check before anything is built
     with pytest.raises(ValueError, match="CUDA"):
         lm.lora_fwd(x[0], w, a, b)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_fwd(q[0], q[0], q[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        kdl.kd_fwd(logits, logits, 2.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        qz.topk_quantize(logits, 8, 8)
 
 
 def test_auto_policy_resolves_by_device():
@@ -103,7 +114,7 @@ def test_auto_policy_resolves_by_device():
 
 
 @pytest.mark.parametrize("change", [
-    dict(framework="kd"), dict(framework="split"), dict(backend="spmd"),
+    dict(framework="kd", aggregation="async"), dict(framework="split"), dict(backend="spmd"),
     dict(backend="cohort"), dict(aggregation="async"),
     dict(client_ranks=(2, 4, 4)), dict(robust_agg="median"),
     dict(quorum=0.5), dict(screen_factor=3.0), dict(optimizer="sgd"),

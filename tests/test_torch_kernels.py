@@ -1,11 +1,14 @@
-"""The port's LoRA-matmul and flash-attention ops (their autograd Functions
-on CPU tensors, i.e. the plain versions of kernels/ref.py that the CUDA
-kernels are held against on the card) against the reference's Pallas
-kernels run in interpret mode, forward and gradients.
+"""The port's LoRA-matmul, flash-attention, KD-loss and top-k-quantize
+ops (their autograd Functions on CPU tensors, i.e. the plain versions of
+kernels/ref.py that the CUDA kernels are held against on the card)
+against the reference's Pallas kernels run in interpret mode, forward
+and gradients.
 
 Same inputs from a numpy seed through both.  Tolerances: fp32 on both
 sides with a different summation order, atol 1e-5 / rtol 1e-4 forward and
-atol 1e-4 / rtol 1e-4 on gradients."""
+atol 1e-4 / rtol 1e-4 on gradients; the KD loss and its statistics at the
+reference's own bar for its kernel (rtol 1e-4 / atol 1e-5); top-k
+quantization bit for bit."""
 import numpy as np
 import pytest
 
@@ -15,9 +18,13 @@ torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import kd_loss as jax_kd  # noqa: E402
+from repro.kernels import ops as jax_ops  # noqa: E402
+from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
+from repro.kernels.quantize import topk_quantize_rows as jax_topk  # noqa: E402
 from repro.kernels.lora_matmul import lora_matmul as jax_lora  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import kd_loss, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.lora_matmul import lora_matmul  # noqa: E402
 
@@ -119,3 +126,148 @@ def test_ops_layouts_match_reference_ops():
     np.testing.assert_allclose(
         o, np.asarray(ref_ops.mha_attention(q, k, v, causal=True, window=8)),
         **FWD)
+
+
+# --------------------------------------------------------------------------- #
+# KD loss (rows 8 and 9)
+# --------------------------------------------------------------------------- #
+KD = dict(atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("R,V,br,bv", [(64, 1024, 32, 256),
+                                       (128, 4096, 64, 512),
+                                       (32, 512, 32, 512)])
+@pytest.mark.parametrize("T", [1.0, 2.0, 4.0])
+def test_kd_loss_fwd_matches_pallas(R, V, br, bv, T):
+    """Row 8: the rows and the five statistics (m_t, z_t, m_s, z_s, u) of
+    the plain twin against the Pallas forward; the log-softmax oracle
+    against the Pallas rows.  The port keeps u relative to the two row
+    maxima; the reference's is u + z_t·(m_t − m_s)."""
+    t, s = _inputs(R + V, ((R, V), 3.0), ((R, V), 3.0))
+    want = [np.asarray(x)[:, 0] for x in jax_kd._fwd_call(
+        jnp.asarray(t), jnp.asarray(s), T, br, bv, True)]
+    rows, (m_t, z_t, m_s, z_s, u) = ref.kd_loss_fwd(torch.tensor(t),
+                                                    torch.tensor(s), T)
+    got = [rows, m_t, z_t, m_s, z_s, u + z_t * (m_t - m_s)]
+    names = ["rows", "m_t", "z_t", "m_s", "z_s", "u"]
+    for name, g, w in zip(names, got, want):
+        np.testing.assert_allclose(g.numpy(), w, **KD, err_msg=name)
+    np.testing.assert_allclose(
+        ref.kd_loss_rows_ref(torch.tensor(t), torch.tensor(s), T).numpy(),
+        want[0], **KD)
+
+
+@pytest.mark.parametrize("T", [1.0, 2.0])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("R,V,bv", [(48, 384, 128), (16, 512, 384)])
+def test_kd_loss_grads_match_pallas(R, V, bv, T, masked):
+    """Row 9: dt and ds of the masked row mean through the KDLoss
+    Function (plain backward twin from the saved statistics) against
+    jax.grad through the reference's custom_vjp kernels; V = 512 with
+    bv = 384 streams ragged vocab chunks in the reference."""
+    t, s, u = _inputs(R + V + int(T) + masked, ((R, V), 3.0), ((R, V), 3.0),
+                      ((R,), 1.0))
+    mask = (u > -0.5).astype(np.float32) if masked else None
+
+    def port(tt, ss):
+        rows = kd_loss.kd_loss_rows(tt, ss, T)
+        if mask is None:
+            return rows.mean()
+        m = torch.tensor(mask)
+        return (rows * m).sum() / torch.clamp_min(m.sum(), 1.0)
+
+    def jax_fn(tt, ss):
+        return jax_ops.kd_loss(tt, ss, temperature=T, mask=mask, br=16,
+                               bv=bv)
+
+    ts = [torch.tensor(x, requires_grad=True) for x in (t, s)]
+    out = port(*ts)
+    grads = torch.autograd.grad(out, ts)
+    want = jax_fn(jnp.asarray(t), jnp.asarray(s))
+    want_g = jax.grad(jax_fn, argnums=(0, 1))(jnp.asarray(t), jnp.asarray(s))
+    np.testing.assert_allclose(out.item(), float(want), **KD)
+    for name, g, w in zip(("teacher", "student"), grads, want_g):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **KD,
+                                   err_msg=name)
+
+
+def test_kd_loss_zero_when_identical():
+    (t,) = _inputs(3, ((32, 2048), 5.0))
+    tt = torch.tensor(t)
+    rows, _ = ref.kd_loss_fwd(tt, tt, 2.0)
+    np.testing.assert_allclose(rows.numpy(), 0.0, atol=1e-5)
+    np.testing.assert_allclose(
+        np.asarray(jax_kd.kd_loss_rows(jnp.asarray(t), jnp.asarray(t),
+                                       temperature=2.0, br=32, bv=256)),
+        0.0, atol=1e-5)
+
+
+def test_kd_backward_skips_dt_for_constant_teacher():
+    t, s = (torch.tensor(x) for x in _inputs(5, ((6, 77), 3.0),
+                                             ((6, 77), 3.0)))
+    rows, stats = ref.kd_loss_fwd(t, s, 2.0)
+    g = torch.ones(6)
+    dt, ds = ref.kd_loss_bwd(t, s, stats, g, 2.0, need_dt=False)
+    assert dt is None
+    np.testing.assert_array_equal(ds.numpy(), ref.kd_loss_bwd(
+        t, s, stats, g, 2.0)[1].numpy())
+    leaf = s.clone().requires_grad_(True)
+    kd_loss.kd_loss_rows(t, leaf, 2.0).sum().backward()
+    np.testing.assert_array_equal(leaf.grad.numpy(), ds.numpy())
+
+
+def test_kd_loss_stays_finite_on_topk_filled_teacher():
+    """Teacher rows after top-k hold -1e9 off the support: exp gives 0 and
+    nothing may form inf - inf or 0 * inf.  Rows averaged over uploads
+    whose supports differ peak near -1e9/3: the KL must still agree with
+    log-softmax (a form that subtracts lse_t ≈ -1.7e8 would not)."""
+    t, s = _inputs(11, ((8, 77), 3.0), ((8, 77), 3.0))
+    t[:, 8:] = -1e9
+    t[4:, :8] = (t[4:, :8] - 2e9) / 3.0
+    tt, ss = torch.tensor(t), torch.tensor(s, requires_grad=True)
+    rows = kd_loss.kd_loss_rows(tt, ss, 2.0)
+    (ds,) = torch.autograd.grad(rows.sum(), ss)
+    assert torch.isfinite(rows).all() and torch.isfinite(ds).all()
+    np.testing.assert_allclose(rows.detach().numpy(),
+                               ref.kd_loss_rows_ref(tt, ss, 2.0).detach()
+                               .numpy(), **KD)
+
+
+# --------------------------------------------------------------------------- #
+# Top-k + int quantization (row 12)
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("R,C,k,ties", [(8, 128, 8, False),
+                                        (16, 500, 16, False),
+                                        (4, 64, 1, False),
+                                        (8, 77, 8, True)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_topk_quantize_matches_pallas_bit_for_bit(R, C, k, bits, ties):
+    """q, idx and scale equal the reference's oracle bit for bit, and q and
+    idx equal the Pallas kernel's; the tie case repeats values (whole rows
+    of one value, and equal values at both ends of a row), so the lower
+    index must win as in lax.top_k.  The Pallas kernel's scale may sit
+    one ulp off: XLA turns its ``absmax / qmax`` into ``absmax · (1/qmax)``,
+    so it is held at the reference's own tolerance for that pair
+    (tests/test_kernels.py, rtol 1e-6)."""
+    (x,) = _inputs(R + C + k, ((R, C), 3.0))
+    if ties:
+        x = np.round(x).astype(np.float32)      # many equal values
+        x[0] = 1.5
+        x[1, [3, 70, 5, 60]] = 9.0
+    oracle = jax_ref.topk_quantize_rows_ref(jnp.asarray(x), k, bits)
+    pallas = jax_topk(jnp.asarray(x), k=k, bits=bits, br=min(4, R),
+                      interpret=True)
+    got = ref.topk_quantize_rows_ref(torch.tensor(x), k, bits)
+    for name, g, w, p in zip(("q", "idx", "scale"), got, oracle, pallas):
+        assert g.numpy().dtype == np.asarray(w).dtype, name
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+        if name == "scale":
+            np.testing.assert_allclose(g.numpy(), np.asarray(p), rtol=1e-6)
+        else:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(p),
+                                          err_msg=name)
+    with ops.policy_scope("torch"):
+        via_ops = ops.topk_quantize(torch.tensor(x).reshape(2, R // 2, C),
+                                    k, bits)
+    for g, w in zip(via_ops, got):
+        np.testing.assert_array_equal(g.reshape(w.shape).numpy(), w.numpy())
