@@ -11,10 +11,14 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    at the main path's shapes, at ragged shapes and (KD loss, top-k) at a
    generative vocabulary (1280 x 50257), and times the kernel, the plain
    version and one PyTorch library call for the same function (used
-   nowhere in the port).  Tolerances: LoRA and attention atol 1e-4 / rtol
+   nowhere in the port); the small kernels also inside a CUDA graph, and
+   the clip kernels also with the L2 flushed before each call.  Tolerances: LoRA and attention atol 1e-4 / rtol
    1e-4 (fp32 sums over K = 768 in another order); KD loss atol 1e-5 /
    rtol 1e-4 (the reference's bar for its kernel); top-k quantization bit
-   for bit.
+   for bit; the DP clip kernels atol 1e-6 / rtol 1e-5 (the reference's bar
+   for its clip kernel), at the main path's (16, 442368) and at four
+   other shapes: every row clipped, a ragged width, none clipped, half
+   clipped, and a row of zeros.
 3. Runs the paper's SSV case study through ``run_federated`` at the full
    width of GPT-2 (12 layers, d 768, V 50257; random weights from seed 0),
    2 FedLLM rounds over 3 clients, four times from the same weights: with
@@ -33,6 +37,15 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    150 public rows, top-k 8 with int8 on the wire), 2 rounds: the final
    server LoRA is gated, and the KD-loss and top-k kernels are counted
    beside the LoRA and attention ones.
+5. The same four runs and checks for DP-FedLLM: phase 3's case study with
+   DP-SGD clipping at C, noise 0 and secure aggregation, C being the
+   median per-example gradient norm of the first batch (computed on the
+   card before the runs), so that about half the examples clip.  Every
+   local step runs 16 examples as batches of one through the LoRA and
+   attention kernels, then the two clip kernels; the kernel run's norms
+   must show clipping in some but not all rows, the ledger must hold the
+   LoRA payloads plus the secure-aggregation key exchange and the DP
+   metadata as reckoned by hand, and epsilon must be inf (noise 0).
 
 It prints one JSON line with every kernel's numbers and, last, the line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -50,14 +63,23 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 ATOL, RTOL = 1e-4, 1e-4
 KD_ATOL, KD_RTOL = 1e-5, 1e-4
+DP_ATOL, DP_RTOL = 1e-6, 1e-5
 EXACT = ("topk_quantize",)
-# kernels also timed inside a CUDA graph: at the main path's shapes they
-# move kilobytes, and an eager call's host cost exceeds their device time
-GRAPH_TIMED = ("kd_fwd", "kd_bwd", "kd_bwd_dt", "topk_quantize")
+# kernels also timed inside a CUDA graph: at the main path's shapes an
+# eager call's host cost exceeds their device time
+GRAPH_TIMED = ("kd_fwd", "kd_bwd", "kd_bwd_dt", "topk_quantize",
+               "dp_clip_norms", "dp_clip_acc")
+# kernels also timed with the L2 flushed before each call: their input
+# (28.3 MB at the main path) fits the 50 MB L2, so back-to-back calls read
+# it from there, while in a DP step the passes between calls evict it
+COLD_TIMED = ("dp_clip_norms", "dp_clip_acc")
+L2_FLUSH_BYTES = 100 * 2 ** 20
 # data-sheet peaks: (fp32 FLOP/s without tensor cores, memory bytes/s)
 PEAKS = {"H100 PCIe": (51.2e12, 2.0e12), "H100 NVL": (60.0e12, 3.9e12),
          "H100": (67.0e12, 3.35e12)}
 BATCH, PAD_LEN, RANK = 16, 80, 8
+# LoRA parameters per example at gpt2 width: rank 8 on wq/wk/wv, 12 layers
+DP_WIDTH = 12 * 3 * 2 * RANK * 768
 # final-LoRA gate: relative L2 <= FLOOR_FACTOR * (plain vs plain) + slack
 FLOOR_FACTOR, FLOOR_SLACK = 3.0, 1e-6
 
@@ -113,6 +135,20 @@ def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (calls * replays)
 
 
+def cold_graph_ms(fn) -> float:
+    """Device time of one call of ``fn`` with a cold L2: calls captured
+    after a write of L2_FLUSH_BYTES each, less the time of the writes
+    alone."""
+    import torch
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+
+    def flushed():
+        flush.zero_()
+        fn()
+
+    return graph_ms(flushed) - graph_ms(flush.zero_)
+
+
 def _flat(out):
     """A kernel's outputs as a flat list of tensors (None dropped)."""
     if isinstance(out, (tuple, list)):
@@ -121,7 +157,11 @@ def _flat(out):
 
 
 def tolerance(name: str):
-    return (KD_ATOL, KD_RTOL) if name.startswith("kd_") else (ATOL, RTOL)
+    if name.startswith("kd_"):
+        return KD_ATOL, KD_RTOL
+    if name.startswith("dp_"):
+        return DP_ATOL, DP_RTOL
+    return ATOL, RTOL
 
 
 def max_err(name: str, got, want) -> float:
@@ -311,6 +351,48 @@ def kd_cases(device, R, V, T, topk_teacher, Rq, Cq, k, bits, ties, seed):
     }
 
 
+def dp_cases(device, B, P, clip, zero_row, seed):
+    """The two DP clip kernels on (B, P) per-example gradients whose row
+    norms spread over 0.5-1.5x, with the clip C at ``clip``: "half" (the
+    median row norm: half the rows clip), "all" (half the smallest norm)
+    or "none" (twice the largest); row 3 all zeros when ``zero_row``.
+    Returns (cases as kernel_cases, C, rows clipped)."""
+    import torch
+
+    from repro_torch.kernels import dp_clip
+    from repro_torch.kernels import ref
+    from repro_torch.optim.clip import EPS
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = torch.randn((B, P), device=device, generator=gen)
+    g *= torch.linspace(0.5, 1.5, B, device=device)[:, None]
+    if zero_row:
+        g[3] = 0.0
+    sq = ref.clip_norms_ref(g)
+    norms = sq.sqrt()
+    C = {"half": float(norms.median()), "all": float(norms.min()) / 2,
+         "none": float(norms.max()) * 2}[clip]
+    if zero_row and clip == "all":
+        C = float(norms[norms > 0].min()) / 2
+    clipped = int((norms > C).sum())
+
+    def lib_acc():
+        scale = torch.clamp_max(
+            torch.full_like(sq, C) / torch.clamp_min(sq.sqrt(), EPS), 1.0)
+        return (scale @ g) * (1.0 / B)
+
+    f4 = 4
+    return {
+        "dp_clip_norms": (lambda: dp_clip.dp_clip_norms(g),
+                          lambda: ref.clip_norms_ref(g),
+                          lambda: torch.linalg.vector_norm(g, dim=1),
+                          f4 * (B * P + B), 2 * B * P),
+        "dp_clip_acc": (lambda: dp_clip.dp_clip_acc(g, sq, C),
+                        lambda: ref.clip_acc_ref(g, sq, C), lib_acc,
+                        f4 * (B * P + B + P), 2 * B * P + 3 * B),
+    }, C, clipped
+
+
 def time_case(name, case, peaks_) -> dict:
     """Checks one case and times its kernel, plain and library versions."""
     kern, plain, lib, nbytes, nflops = case
@@ -321,6 +403,8 @@ def time_case(name, case, peaks_) -> dict:
            "library_ms": cuda_ms(lib) if lib is not None else None}
     if name in GRAPH_TIMED:
         row["graph_ms"] = graph_ms(kern)
+    if name in COLD_TIMED:
+        row["cold_ms"] = cold_graph_ms(kern)
     t_bytes, t_ops = nbytes / bytes_peak, nflops / flops_peak
     row.update(bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -330,6 +414,8 @@ def time_case(name, case, peaks_) -> dict:
     atol, rtol = tolerance(name)
     tol = "bit-identical" if name in EXACT else f"atol {atol}, rtol {rtol}"
     graph = f" (graph_ms {row['graph_ms']:.4f})" if "graph_ms" in row else ""
+    if "cold_ms" in row:
+        graph += f" (cold L2 {row['cold_ms']:.4f})"
     print(f"  {name}: max abs err {err:.3e} ({tol}) "
           f"kernel_ms {row['ms']:.4f}{graph} plain_ms {row['plain_ms']:.4f} "
           f"library_ms {lib_ms} bound_ms {row['bound_ms']:.4g} "
@@ -384,6 +470,26 @@ def check_kernels(device, card: str):
                      Cq=50257, k=64, bits=8, ties=False)
     for name, case in kd_cases(device, seed=9, **gen_shape).items():
         rows[f"{name}@generative"] = time_case(name, case, peaks_)
+    # DP: every row clipped (float4 loads), a ragged width (scalar loads),
+    # none clipped over three chunks of a row (scalar), half clipped with a
+    # ragged last chunk and a zero row (float4)
+    dp_checks = [dict(B=8, P=384, clip="all", zero_row=False),
+                 dict(B=4, P=257, clip="half", zero_row=False),
+                 dict(B=5, P=16385, clip="none", zero_row=False),
+                 dict(B=16, P=20004, clip="half", zero_row=True)]
+    for i, shape in enumerate(dp_checks):
+        cases, C, clipped = dp_cases(device, seed=300 + i, **shape)
+        print(f"  dp shape {i} ({shape['B']}x{shape['P']}, C {C:.4g}, "
+              f"{clipped} of {shape['B']} rows clipped"
+              f"{', a zero row' if shape['zero_row'] else ''}):")
+        for name, case in cases.items():
+            time_case(name, case, peaks_)
+    print(f"  DP clip kernels at the main path's shape ({BATCH} x "
+          f"{DP_WIDTH}, half the rows clipped):")
+    cases, C, clipped = dp_cases(device, BATCH, DP_WIDTH, "half", False, 10)
+    require(0 < clipped < BATCH, f"{clipped} of {BATCH} rows clipped")
+    for name, case in cases.items():
+        rows[name] = time_case(name, case, peaks_)
     import torch
     torch.cuda.empty_cache()
     return rows
@@ -408,13 +514,13 @@ def lora_gap(got, want):
     return outside / n, (num / den) ** 0.5, worst
 
 
-def run_case(device, cfg, base, fed, data, ledger_bytes, expect):
+def run_case(device, cfg, base, fed, data, ledger, expect):
     """One framework's case study through the kernels and through plain
     PyTorch (under two BLAS libraries, two summation orders of the same
     fp32 products, and under TF32), from the same weights.  Checks the runs
-    against each other, the kernel run's ledger total against
-    ``ledger_bytes`` and its launch counts against ``expect``; returns the
-    kernel run's launch counts."""
+    against each other, the kernel run's ledger bytes by name against
+    ``ledger`` and its launch counts against ``expect``; returns the
+    kernel run's (launch counts, result)."""
     import torch
 
     from repro_torch.core.rounds import run_federated
@@ -449,8 +555,8 @@ def run_case(device, cfg, base, fed, data, ledger_bytes, expect):
         print(f"  [{tag}] run wall_s={wall:.3f} launches={counts[tag]}")
 
     kern, plain = results["cuda"], results["torch"]
-    require(kern.ledger.total() == ledger_bytes,
-            f"ledger bytes {kern.ledger.total()} != {ledger_bytes} from the "
+    require(kern.ledger.by_name() == ledger,
+            f"ledger bytes {kern.ledger.by_name()} != {ledger} from the "
             f"payload shapes")
     require(kern.ledger.by_name() == plain.ledger.by_name(), "ledger by_name")
     require(kern.ledger.per_client_round() == plain.ledger.per_client_round(),
@@ -489,7 +595,7 @@ def run_case(device, cfg, base, fed, data, ledger_bytes, expect):
     for tag in counts.keys() - {"cuda"}:
         require(all(n == 0 for n in counts[tag].values()),
                 f"plain run launched kernels: {counts[tag]}")
-    return counts["cuda"]
+    return counts["cuda"], kern
 
 
 def model_launches(L, train_steps, fwd_batches):
@@ -503,8 +609,9 @@ def model_launches(L, train_steps, fwd_batches):
 
 
 def run_slices(device):
-    """Phases 3 and 4: the FedLLM and KD case studies at full gpt2 width,
-    from one base model.  Returns {path: kernel-run launch counts}."""
+    """Phases 3, 4 and 5: the FedLLM, KD and DP-FedLLM case studies at
+    full gpt2 width, from one base model.  Returns {path: kernel-run launch
+    counts}."""
     import torch
 
     from repro_torch.configs.base import FedConfig
@@ -527,9 +634,9 @@ def run_slices(device):
     fed = FedConfig(framework="fedllm", rounds=2, lora_rank=RANK,
                     lora_dropout=0.0)
     lora_bytes = L * 3 * 2 * RANK * cfg.d_model * 4
-    fedllm = run_case(
+    fedllm, _ = run_case(
         device, cfg, base, fed, data,
-        ledger_bytes=fed.rounds * C * 2 * lora_bytes,
+        ledger={"lora_params": fed.rounds * C * 2 * lora_bytes},
         expect=model_launches(L, steps * fed.rounds,
                               evals * fed.rounds))
 
@@ -550,9 +657,138 @@ def run_slices(device):
                   topk_quantize=C * fed.rounds)
     wire = metrics.logit_bytes(n_pub, 77, fed.logit_topk,
                                fed.logit_quant_bits)
-    kd = run_case(device, cfg, base, fed, data,
-                  ledger_bytes=fed.rounds * C * 2 * wire, expect=expect)
-    return {"fedllm": fedllm, "kd": kd}
+    kd, _ = run_case(device, cfg, base, fed, data,
+                     ledger={"logits": fed.rounds * C * 2 * wire},
+                     expect=expect)
+
+    dp = run_dp(device, cfg, base, data, steps, evals, lora_bytes)
+    return {"fedllm": fedllm, "kd": kd, "dp": dp}
+
+
+def first_batch_clip(device, cfg, base, fed, clients):
+    """The median per-example gradient norm of client 0's first batch of
+    round 0 at the run's initial LoRA (plain PyTorch on the card)."""
+    import torch
+
+    from repro_torch.core.fedavg import make_fns, to_device
+    from repro_torch.data.loader import epoch_batches
+    from repro_torch.models.factory import build_model
+    from repro_torch.peft import lora as lora_lib
+
+    plain = dataclasses.replace(cfg, kernel_policy="torch")
+    lt = lora_lib.init_lora(torch.Generator().manual_seed(fed.seed + 1),
+                            base, fed.lora_targets or lora_lib.DEFAULT_TARGETS,
+                            fed.lora_rank, fed.lora_alpha)
+    batch = next(iter(epoch_batches(clients[0], BATCH, seed=fed.seed * 997)))
+    fns = make_fns(build_model(plain), fed)
+    _, rows = fns["per_example_grads"](base, lt, to_device(batch, device))
+    norms = torch.linalg.vector_norm(rows, dim=1)
+    print("  per-example gradient norms of the first batch: "
+          + " ".join(f"{n:.4g}" for n in sorted(norms.tolist())))
+    return float(norms.median())
+
+
+def time_dp_round(device, cfg, base, fed, clients, lora):
+    """Host-clock times of the parts of a DP round, each after a warm-up:
+    one DP step's per-example passes (16 forward and backward passes at
+    batch 1) through the kernels and plain, and one round of secure
+    aggregation over three LoRA uploads (fixed-point copy to the host,
+    pairwise masks, the exact-cancellation check)."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import metrics
+    from repro_torch.core.fedavg import make_fns, to_device
+    from repro_torch.data.loader import epoch_batches
+    from repro_torch.models.factory import build_model
+    from repro_torch.privacy.secure_agg import SecureAggSession
+
+    batch = to_device(next(iter(epoch_batches(clients[0], BATCH, seed=1))),
+                      device)
+    for policy in ("cuda", "torch"):
+        fns = make_fns(build_model(dataclasses.replace(
+            cfg, kernel_policy=policy)), fed)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns["per_example_grads"](base, lora, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        print(f"  [{policy}] one DP step's {BATCH} per-example passes: "
+              f"{times[1:]} s (first call {times[0]:.4f} s)")
+    times = []
+    for rnd in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session, ledger = SecureAggSession(fed), metrics.CommLedger()
+        cohort = list(range(len(clients)))
+        session.begin_cohort(ledger, rnd, cohort)
+        for ci in cohort:
+            session.collect(rnd, ci, lora)
+        session.deliver(ledger, rnd, [(rnd, ci) for ci in cohort])
+        times.append(time.perf_counter() - t0)
+    n = sum(t.numel() for t in tree_lib.leaves(lora))
+    print(f"  secure aggregation of {len(clients)} uploads of {n} values: "
+          f"{times[1:]} s (first {times[0]:.4f} s)")
+
+
+def run_dp(device, cfg, base, data, steps, evals, lora_bytes):
+    """Phase 5: DP-FedLLM (clip C, noise 0, secure aggregation)."""
+    import torch
+
+    from repro_torch.configs.base import FedConfig, PrivacyConfig
+    from repro_torch.kernels import dp_clip
+    from repro_torch.optim.clip import _clip_scale
+    from repro_torch.privacy.secure_agg import key_exchange_bytes
+
+    pub, clients, test = data
+    L, C = cfg.n_layers, len(clients)
+    print("phase 5: DP-FedLLM case study, gpt2 full width, 2 rounds, "
+          "3 clients, DP-SGD clip at the median norm, noise 0, secure "
+          "aggregation")
+    fed = FedConfig(framework="fedllm", rounds=2, lora_rank=RANK,
+                    lora_dropout=0.0,
+                    privacy=PrivacyConfig(dp_clip=1.0, secure_agg=True))
+    clip = first_batch_clip(device, cfg, base, fed, clients)
+    print(f"  C = {clip:.6g}")
+    fed = dataclasses.replace(fed, privacy=dataclasses.replace(
+        fed.privacy, dp_clip=clip))
+
+    # the kernel run's norms: count the rows the clip scales (on the card;
+    # read after the runs)
+    real_norms, seen = dp_clip.dp_clip_norms, []
+
+    def recording_norms(g):
+        sq = real_norms(g)
+        seen.append(((_clip_scale(sq.sqrt(), clip) < 1).sum(), sq.numel()))
+        return sq
+
+    dp_clip.dp_clip_norms = recording_norms
+    try:
+        dp_steps = steps * fed.rounds
+        # every example of a DP step is one forward and backward pass
+        expect = model_launches(L, dp_steps * BATCH, evals * fed.rounds)
+        expect.update(dp_clip_norms=dp_steps, dp_clip_acc=dp_steps)
+        keys_up, keys_down = key_exchange_bytes(C)
+        counts, kern = run_case(
+            device, cfg, base, fed, data,
+            ledger={"lora_params": fed.rounds * C * 2 * lora_bytes,
+                    "secagg_keys": fed.rounds * C * (keys_up + keys_down),
+                    "dp_meta": fed.rounds * C * 12},
+            expect=expect)
+    finally:
+        dp_clip.dp_clip_norms = real_norms
+    clipped = sum(int(n) for n, _ in seen)
+    rows = sum(total for _, total in seen)
+    print(f"  kernel run: {clipped} of {rows} per-example rows clipped over "
+          f"{len(seen)} DP steps")
+    time_dp_round(device, cfg, base, fed, clients, kern.final_lora)
+    require(rows == dp_steps * BATCH and 0 < clipped < rows,
+            f"clipping in {clipped} of {rows} rows")
+    require(all(h.epsilon == math.inf for h in kern.history),
+            f"epsilon {[h.epsilon for h in kern.history]} at noise 0")
+    return counts
 
 
 REPLACES = {
@@ -568,6 +804,8 @@ REPLACES = {
     "kd_fwd": ("src/repro/kernels/kd_loss.py:92", "kd_loss.cu"),
     "kd_bwd": ("src/repro/kernels/kd_loss.py:128", "kd_loss.cu"),
     "topk_quantize": ("src/repro/kernels/quantize.py:135", "quantize.cu"),
+    "dp_clip_norms": ("src/repro/kernels/dp_clip.py:65", "dp_clip.cu"),
+    "dp_clip_acc": ("src/repro/kernels/dp_clip.py:73", "dp_clip.cu"),
 }
 
 
@@ -611,8 +849,8 @@ def main() -> int:
 
     by_path = run_slices(device)
 
-    # ``launches`` sums the kernel runs of both paths; ``launches_by_path``
-    # keeps them apart.  Rows are at the main path's shapes; the KD
+    # ``launches`` sums the kernel runs of the three paths;
+    # ``launches_by_path`` keeps them apart.  Rows are at the main path's shapes; the KD
     # kernels' generative-vocabulary timings are printed above.
     kernels = []
     for name, (replaces, src) in REPLACES.items():
@@ -626,7 +864,8 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            **({"graph_ms": row["graph_ms"]} if "graph_ms" in row else {})})
+            **{key: row[key] for key in ("graph_ms", "cold_ms")
+               if key in row}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -156,10 +156,27 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PrivacyConfig:
-    """DP-SGD and simulated secure aggregation knobs (reference:
-    ``repro.configs.base.PrivacyConfig``).  The port's first slice runs
-    none of them: core/rounds.run_federated raises NotImplementedError
-    when any is enabled."""
+    """Privacy mechanisms for the federated wire (reference:
+    ``repro.configs.base.PrivacyConfig``; the port's privacy/ package).
+
+    DP-SGD (``dp_clip`` / ``dp_noise_multiplier``): per-example gradient
+    clipping inside every local fine-tune step (FedLLM a2, KD b1), through
+    the clip-scale-accumulate kernels, plus seeded Gaussian noise on the
+    uploaded payload: the LoRA params for FedLLM, the public-set logits for
+    KD (clipped per row, before the top-k/int-quant compression).  The
+    noise comes from a per-(round, client) stream of its own
+    (privacy/dp.noise_generator).  An RDP accountant
+    (privacy/accountant.py) reports (ε, δ) per round in RoundMetrics.
+
+    Simulated secure aggregation (``secure_agg``): seeded pairwise
+    additive masks over fixed-point payloads that cancel exactly in the
+    server sum (privacy/secure_agg.py checks it in uint64 at every
+    aggregation event); key-exchange bytes (and recovery bytes for absent
+    members) go into the CommLedger.
+
+    The port runs them for FedLLM and KD-FedLLM; for Split (and with any
+    setting the port does not run) core/rounds.run_federated raises
+    NotImplementedError."""
 
     dp_clip: float = 0.0             # C: per-example L2 clip (0 = DP off)
     dp_noise_multiplier: float = 0.0  # sigma: noise stddev / dp_clip
@@ -171,6 +188,11 @@ class PrivacyConfig:
     @property
     def dp_enabled(self) -> bool:
         return self.dp_clip > 0.0
+
+    @property
+    def noise_std(self) -> float:
+        """Gaussian stddev of the payload noise (sigma * C)."""
+        return self.dp_noise_multiplier * self.dp_clip
 
     @property
     def enabled(self) -> bool:

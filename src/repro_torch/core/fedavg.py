@@ -26,6 +26,7 @@ from repro_torch.models import loss as losses
 from repro_torch.models.factory import Model
 from repro_torch.optim.api import make_optimizer
 from repro_torch.peft import lora as lora_lib
+from repro_torch.privacy import dp as dp_mod
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -35,25 +36,64 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 
 def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
-    """Returns a dict with ``train_step``, ``eval_step``, ``logits_fn``,
-    ``kd_step`` and ``opt_init``."""
+    """Returns a dict with ``train_step``, ``per_example_grads``,
+    ``eval_step``, ``logits_fn``, ``kd_step`` and ``opt_init``."""
     task_loss = tasks.get_loss_fn(task)
     opt_init, opt_update = make_optimizer(fed.optimizer)
+    dp_clip = fed.privacy.dp_clip
 
     def _bind(base, lt, gen: Optional[torch.Generator] = None):
         rank = lora_lib.tree_rank(lt, fed.lora_rank)
         return lora_lib.bind(base, lt, fed.lora_alpha, rank,
                              dropout_gen=gen, dropout=fed.lora_dropout)
 
+    def per_example_grads(base, lt, batch, gen=None):
+        """(losses (B,), grads (B, P) fp32): each example's task loss and
+        its gradient w.r.t. the LoRA leaves, row b holding example b's
+        gradients in ``tree.leaves`` order.  Each example runs as a batch
+        of one through the same kernels as a batch (the reference's
+        ``example_loss`` under ``vmap``); the LoRA tree is bound once, so
+        every example sees the step's one dropout mask, as the
+        reference's shared rng gives."""
+        live = [t.detach().requires_grad_(True) for t in tree_lib.leaves(lt)]
+        bound = _bind(base, tree_lib.unflatten(lt, live), gen)
+        B = batch["tokens"].shape[0]
+        P = sum(t.numel() for t in live)
+        grads = torch.empty((B, P), dtype=torch.float32,
+                            device=live[0].device)
+        losses_ = torch.empty(B, dtype=torch.float32, device=live[0].device)
+        for b in range(B):
+            one = {k: v[b:b + 1] for k, v in batch.items()}
+            logits, aux = model.forward(bound, one)
+            loss, _ = task_loss(logits, one)
+            loss = loss + aux
+            # the bound tree's graph serves every example
+            g = torch.autograd.grad(loss, live, retain_graph=True)
+            torch.cat([x.reshape(-1).float() for x in g], out=grads[b])
+            losses_[b] = loss.detach()
+        return losses_, grads
+
     def train_step(base, lt, opt_state, batch, gen=None):
         """One local step: value and gradient of the task loss w.r.t. the
         LoRA leaves, then the optimizer.  ``gen`` draws the LoRA dropout
-        masks.  Returns (new_lt, new_opt_state, loss)."""
-        live = tree_lib.map_(lambda t: t.detach().requires_grad_(True), lt)
-        logits, aux = model.forward(_bind(base, live, gen), batch)
-        loss, _ = task_loss(logits, batch)
-        loss = loss + aux
-        grads = torch.autograd.grad(loss, tree_lib.leaves(live))
+        masks.  Under DP the gradient is the mean of the per-example
+        gradients clipped to ``dp_clip`` and the loss the mean of the
+        per-example losses.  Returns (new_lt, new_opt_state, loss)."""
+        if dp_clip > 0.0:
+            losses_, rows = per_example_grads(base, lt, batch, gen)
+            mean = dp_mod.clipped_grad_mean(rows, dp_clip)      # (P,)
+            grads, off = [], 0
+            for t in tree_lib.leaves(lt):
+                grads.append(mean[off:off + t.numel()].view_as(t))
+                off += t.numel()
+            loss = losses_.mean()
+        else:
+            live = tree_lib.map_(lambda t: t.detach().requires_grad_(True),
+                                 lt)
+            logits, aux = model.forward(_bind(base, live, gen), batch)
+            loss, _ = task_loss(logits, batch)
+            loss = loss + aux
+            grads = torch.autograd.grad(loss, tree_lib.leaves(live))
         new_lt, new_opt = opt_update(tree_lib.unflatten(lt, grads),
                                      opt_state, lt, fed.lr)
         # metric-only guard: a diverged batch must not poison the mean
@@ -88,8 +128,9 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
                                      opt_state, lt, fed.lr)
         return new_lt, new_opt, loss.detach()
 
-    return {"train_step": train_step, "eval_step": eval_step,
-            "logits_fn": logits_fn, "kd_step": kd_step, "opt_init": opt_init}
+    return {"train_step": train_step, "per_example_grads": per_example_grads,
+            "eval_step": eval_step, "logits_fn": logits_fn,
+            "kd_step": kd_step, "opt_init": opt_init}
 
 
 # --------------------------------------------------------------------------- #

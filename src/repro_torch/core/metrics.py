@@ -17,6 +17,10 @@ from repro_torch.configs.base import ModelConfig
 
 UP = "up"          # client -> server
 DOWN = "down"      # server -> client
+# Privacy-machinery event names: overhead, not model payload
+# (privacy/secure_agg.py, core/round_program's record_arrival)
+PRIVACY_NAMES = ("secagg_keys", "secagg_recovery", "dp_meta")
+DP_META_BYTES = 12   # fp32 clip + fp32 sigma + int32 stream id
 
 
 @dataclasses.dataclass
@@ -62,6 +66,15 @@ class CommLedger:
     def mean_client_bytes_per_round(self) -> float:
         pcr = {k: v for k, v in self.per_client_round().items() if k[1] >= 0}
         return sum(pcr.values()) / max(len(pcr), 1)
+
+    def privacy_overhead_bytes(self) -> int:
+        """Total wire bytes spent on the privacy machinery itself."""
+        return sum(e.bytes for e in self.events if e.name in PRIVACY_NAMES)
+
+    def payload_events(self) -> List[CommEvent]:
+        """Events net of privacy overhead: what the non-private engines
+        would have recorded."""
+        return [e for e in self.events if e.name not in PRIVACY_NAMES]
 
 
 def tree_bytes(tree) -> int:

@@ -6,9 +6,11 @@ Counterpart of the parts of ``src/repro/core/round_program.py`` that run
 FedLLM and KD-FedLLM with sequential clients and sync rounds:
 ``RoundContext``, the ``SyncSchedule``, the ``SequentialExecutor`` (a
 Python loop over clients, one train step per batch), the
-``FedLLMProgram`` and ``KDProgram`` stage-specs and ``run_program``
-without the privacy and fault middleware.  Ledger bytes are derived from
-payload shapes, so they equal the reference's exactly.
+``FedLLMProgram`` and ``KDProgram`` stage-specs and ``run_program`` with
+the privacy middleware (upload noise, secure-aggregation masking around
+aggregation, the RDP accountant) and without the fault middleware.
+Ledger bytes are derived from payload shapes, so they equal the
+reference's exactly.
 """
 from __future__ import annotations
 
@@ -25,6 +27,9 @@ from repro_torch.core import metrics as M
 from repro_torch.core.fedavg import evaluate, fedavg, make_fns, to_device
 from repro_torch.data.loader import epoch_batches
 from repro_torch.peft import lora as lora_lib
+from repro_torch.privacy import dp as dp_mod
+from repro_torch.privacy.accountant import GaussianAccountant
+from repro_torch.privacy.secure_agg import SecureAggSession
 
 
 @dataclasses.dataclass
@@ -39,9 +44,40 @@ class FedResult:
         return self.history[-1].accuracy if self.history else 0.0
 
 
+# --------------------------------------------------------------------------- #
+# Privacy accounting (RDP accountant wiring)
+# --------------------------------------------------------------------------- #
+def make_accountant(fed: FedConfig, sample_rate: float = 1.0):
+    """RDP accountant for the run, or None when DP is off.  ``sample_rate``
+    is the per-step subsampling rate q (``sample_rate`` below); a
+    clipping-only run (dp_clip > 0, noise 0) gets an accountant whose
+    epsilon is ``inf``: the mechanism runs but gives no (eps, delta)
+    guarantee, and 0.0 would claim the strongest one."""
+    if not fed.privacy.dp_enabled:
+        return None
+    return GaussianAccountant(fed.privacy.dp_noise_multiplier,
+                              fed.privacy.dp_delta, sample_rate=sample_rate)
+
+
+def round_epsilon(acct, releases: int) -> float:
+    """eps at the configured dp_delta after ``releases`` noisy uploads per
+    client; 0.0 when DP is off (no claim), inf when clipping runs without
+    noise."""
+    return acct.epsilon(releases) if acct is not None else 0.0
+
+
+def sample_rate(clients_data: List[Dict], batch_size: int) -> float:
+    """Worst-case (largest) per-step subsampling rate over clients:
+    q_i = batch_size / |client i's data|, clamped to 1."""
+    return max(min(1.0, batch_size / max(len(d["tokens"]), 1))
+               for d in clients_data)
+
+
 class RoundContext:
     """Run-wide state shared by the stages: config, data, the train and
-    eval steps, the ledger and the per-client cost model."""
+    eval steps, the ledger, the per-client cost model and the privacy
+    middleware (accountant, secure-agg session, per-client release
+    counts)."""
 
     def __init__(self, model, base, cfg: ModelConfig, fed: FedConfig,
                  targets, public, clients_data: List[Dict], test, task,
@@ -58,6 +94,16 @@ class RoundContext:
         self.cost = [M.ClientCost() for _ in range(self.n_clients)]
         self.data_w = [len(d["tokens"]) for d in self.clients_data]
         self.total_w = float(sum(self.data_w))
+        self.acct = make_accountant(fed, sample_rate(self.clients_data,
+                                                     batch_size))
+        self.secagg = SecureAggSession(fed)
+        self.releases = [0] * self.n_clients   # noisy uploads per client
+
+    def secagg_start(self, rnd: int, ci: int) -> int:
+        """The secure-agg cohort key of client ``ci``'s job started in
+        ``rnd``: the start round (per-chunk ids come with the
+        cohort-streaming executor)."""
+        return rnd
 
 
 @dataclasses.dataclass
@@ -199,11 +245,22 @@ class FedLLMProgram:
         return [(ci, new_lt) for (ci, _), (new_lt, _) in zip(jobs, outs)]
 
     def upload(self, ctx, outs, rnd):
-        return outs
+        payloads = []
+        for ci, lt in outs:
+            lt = dp_mod.privatize_tree(lt, dp_mod.noise_generator(ctx.fed,
+                                                                  rnd, ci),
+                                       ctx.fed.privacy.noise_std)
+            ctx.secagg.collect(ctx.secagg_start(rnd, ci), ci, lt)
+            ctx.releases[ci] += 1
+            payloads.append((ci, lt))
+        return payloads
 
     def record_arrival(self, ctx, job, rnd):
         ctx.ledger.record(rnd, job.client, "lora_params", M.UP,
                           M.tree_bytes(job.payload))
+        if ctx.fed.privacy.dp_enabled:
+            ctx.ledger.record(rnd, job.client, "dp_meta", M.UP,
+                              M.DP_META_BYTES)
 
     def aggregate(self, ctx, ex, kept, arrived, rnd):
         if kept:
@@ -259,11 +316,21 @@ class KDProgram:
         return [(ci, logits) for ci, (logits, _) in zip(jobs, outs)]
 
     def upload(self, ctx, outs, rnd):
-        return [(ci, kd_mod.compress_for_wire(logits, ctx.fed))
-                for ci, logits in outs]
+        payloads = []
+        for ci, logits in outs:
+            logits = dp_mod.privatize_logits(
+                logits, dp_mod.noise_generator(ctx.fed, rnd, ci), ctx.fed)
+            lg, wire = kd_mod.compress_for_wire(logits, ctx.fed)
+            ctx.secagg.collect(ctx.secagg_start(rnd, ci), ci, lg)
+            ctx.releases[ci] += 1
+            payloads.append((ci, (lg, wire)))
+        return payloads
 
     def record_arrival(self, ctx, job, rnd):
         ctx.ledger.record(rnd, job.client, "logits", M.UP, job.payload[1])
+        if ctx.fed.privacy.dp_enabled:
+            ctx.ledger.record(rnd, job.client, "dp_meta", M.UP,
+                              M.DP_META_BYTES)
 
     def aggregate(self, ctx, ex, kept, arrived, rnd):
         fed = ctx.fed
@@ -315,23 +382,30 @@ def run_program(model, base, cfg: ModelConfig, fed: FedConfig, targets,
     schedule = SyncSchedule(fed, ctx.n_clients)
     for rnd in range(fed.rounds):
         t0 = time.perf_counter()
+        # the clients starting this round form its secure-agg cohort
         starters = schedule.starters(rnd)
+        ctx.secagg.begin_cohort(ctx.ledger, rnd, starters)
         jobs = program.broadcast(ctx, starters, rnd)
         outs = program.local_update(ctx, ex, jobs, rnd)
         for ci, payload in program.upload(ctx, outs, rnd):
             schedule.submit(rnd, ci, payload)
-        kept, arrived = [], []
+        kept, delivered, arrived = [], [], []
         for j in schedule.pop_arrivals(rnd):
             arrived.append(j)
             program.record_arrival(ctx, j, rnd)
             s = rnd - j.start
             if s <= fed.max_staleness:
                 kept.append((j.client, j.payload, s, ctx.data_w[j.client]))
+                delivered.append((j.start, j.client))
+            else:
+                ctx.secagg.discard(j.start, j.client)
+        ctx.secagg.deliver(ctx.ledger, rnd, delivered)
         program.aggregate(ctx, ex, kept, arrived, rnd)
         acc, loss = program.evaluate(ctx)
         ctx.history.append(M.RoundMetrics(
             rnd, acc, loss, ctx.ledger.mean_client_bytes_per_round(),
             float(np.mean([c.flops for c in ctx.cost])) if ctx.cost else 0.0,
+            epsilon=round_epsilon(ctx.acct, max(ctx.releases, default=0)),
             seconds=time.perf_counter() - t0))
         if verbose:
             print(f"[{fed.framework}/sequential] round {rnd}: "

@@ -5,11 +5,13 @@
 
 ``result.history`` is a list of RoundMetrics; ``result.ledger`` holds
 every wire transfer.  The port runs FedLLM (the paper's SSV case study)
-and KD-FedLLM, each with sequential clients and sync rounds.  Every
-``FedConfig`` setting outside them raises NotImplementedError rather than
-being ignored.  The run holds ``cfg.kernel_policy`` as the ambient kernel
-policy from start to end, so kernels called outside the model's forward
-(the KD loss, the b3 top-k quantize) follow it too.
+and KD-FedLLM, each with sequential clients and sync rounds, with or
+without the privacy knobs (``FedConfig.privacy``: DP-SGD clipping,
+upload noise, secure aggregation).  Every ``FedConfig`` setting outside
+them raises NotImplementedError rather than being ignored.  The run
+holds ``cfg.kernel_policy`` as the ambient kernel policy from start to
+end, so kernels called outside the model's forward (the KD loss, the b3
+top-k quantize, the DP clip) follow it too.
 
 ``device=None`` means ``"cuda"``, and a run that asks for CUDA where there
 is none raises: it does not carry on on the CPU.  ``base=`` and ``lora=``
@@ -44,7 +46,8 @@ def _unported(fed: FedConfig, task: str) -> List[str]:
         (fed.peft != "lora", f"peft={fed.peft!r}"),
         (fed.optimizer != "adam", f"optimizer={fed.optimizer!r}"),
         (fed.client_ranks is not None, "client_ranks"),
-        (fed.privacy.enabled, "privacy (DP-SGD / secure aggregation)"),
+        (fed.privacy.enabled and fed.framework == "split",
+         "privacy (DP-SGD / secure aggregation) on split"),
         (fed.faults.enabled, "fault injection"),
         (fed.robust_agg != "mean", f"robust_agg={fed.robust_agg!r}"),
         (fed.quorum > 0.0, "quorum"),
@@ -63,6 +66,11 @@ def run_federated(cfg: ModelConfig, fed: FedConfig, public: Dict,
                   resume_from: str = None) -> FedResult:
     if fed.framework not in ("fedllm", "kd", "split"):
         raise ValueError(f"unknown framework {fed.framework!r}")
+    if fed.privacy.dp_noise_multiplier > 0.0 and fed.privacy.dp_clip <= 0.0:
+        raise ValueError(
+            "privacy.dp_noise_multiplier > 0 requires privacy.dp_clip > 0 "
+            "(the noise stddev is sigma * clip; an unclipped release has "
+            "unbounded sensitivity and no (eps, delta) guarantee)")
     if fed.n_virtual_clients and fed.n_virtual_clients != len(clients):
         raise ValueError(
             f"FedConfig.n_virtual_clients={fed.n_virtual_clients} does "

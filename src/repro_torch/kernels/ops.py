@@ -4,14 +4,15 @@ Counterpart of ``src/repro/kernels/ops.py``.  ``ModelConfig.kernel_policy``
 (``torch | cuda | auto``) becomes the ambient policy scope here, entered
 by core/rounds.run_federated for a whole run and by
 models/factory.Model.forward for callers that drive the model directly;
-peft/lora.lora_apply, models/attention.attention_fwd, models/loss.kd_kl
-and core/compression.topk_quantize call ``lora_matmul``,
-``mha_attention``, ``kd_loss`` and ``topk_quantize``, which follow it:
+peft/lora.lora_apply, models/attention.attention_fwd, models/loss.kd_kl,
+core/compression.topk_quantize and privacy/dp.clipped_grad_mean call
+``lora_matmul``, ``mha_attention``, ``kd_loss``, ``topk_quantize`` and
+``clip_mean_rows``, which follow it:
 
     ``cuda``  — the CUDA kernels (kernels/lora_matmul.py,
                 kernels/flash_attention.py, kernels/kd_loss.py,
-                kernels/quantize.py), differentiable where the reference's
-                are.  The tensors must be on a CUDA device: a CPU tensor
+                kernels/quantize.py, kernels/dp_clip.py), differentiable
+                where the reference's are.  The tensors must be on a CUDA device: a CPU tensor
                 raises rather than falling back.
     ``torch`` — the plain PyTorch versions (kernels/ref.py) on whatever
                 device the tensors live, differentiated by autograd.
@@ -28,6 +29,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import dp_clip as _dp
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kd_loss as _kd
 from repro_torch.kernels import lora_matmul as _lm
@@ -138,11 +140,24 @@ def topk_quantize(x, k: int, bits: int = 8):
             sc.reshape(*lead, 1))
 
 
+def clip_mean_rows(g, clip: float):
+    """g: (B, P) stacked per-example grads -> (P,) fp32 mean of the
+    per-example L2-clipped rows: the DP-SGD clip-scale-accumulate step
+    (privacy/dp.py).  The two CUDA kernels of kernels/dp_clip.py under the
+    ``cuda`` policy, the plain version (kernels/ref.py) under ``torch``.
+    Forward only: it runs on gradients."""
+    if not use_cuda(g):
+        return ref.clip_mean_rows_ref(g, clip)
+    _require_cuda("clip_mean_rows", g)
+    return _dp.clip_mean_rows(g.float().contiguous(), clip)
+
+
 def launches() -> dict:
     """Launch counts of every ported kernel since the last reset."""
-    return {**_lm.LAUNCHES, **_fa.LAUNCHES, **_kd.LAUNCHES, **_q.LAUNCHES}
+    return {**_lm.LAUNCHES, **_fa.LAUNCHES, **_kd.LAUNCHES, **_q.LAUNCHES,
+            **_dp.LAUNCHES}
 
 
 def reset_launches() -> None:
-    for mod in (_lm, _fa, _kd, _q):
+    for mod in (_lm, _fa, _kd, _q, _dp):
         mod.reset_launches()

@@ -1,17 +1,21 @@
 """Plain PyTorch versions of the ported kernels.
 
 Counterpart of ``src/repro/kernels/ref.py`` (``lora_matmul_ref``,
-``attention_ref``, ``kd_loss_rows_ref`` and ``topk_quantize_rows_ref``
-there), plus the plain forward-with-residuals and backward functions whose
-math is that of the TPU kernels in ``src/repro/kernels/lora_matmul.py``,
-``flash_attention.py`` and ``kd_loss.py``.  The autograd Functions in
-kernels/{lora_matmul,flash_attention,kd_loss}.py and the wrapper in
-kernels/quantize.py take these for CPU tensors; chip_smoke.py holds each
-CUDA kernel against them on the card.  All math is fp32.
+``attention_ref``, ``kd_loss_rows_ref``, ``clip_mean_rows_ref`` and
+``topk_quantize_rows_ref`` there), plus the plain forward-with-residuals
+and backward functions whose math is that of the TPU kernels in
+``src/repro/kernels/lora_matmul.py``, ``flash_attention.py`` and
+``kd_loss.py``.  The autograd Functions in
+kernels/{lora_matmul,flash_attention,kd_loss}.py and kernels/ops (for
+kernels/quantize.py and kernels/dp_clip.py) take these for CPU tensors;
+chip_smoke.py holds each CUDA kernel against them on the card.  All math
+is fp32.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.optim.clip import _clip_scale
 
 NEG_INF = -1e30
 
@@ -182,3 +186,26 @@ def topk_quantize_rows_ref(x, k: int, bits: int = 8):
     scale = torch.clamp_min(absmax / absmax.new_tensor(qmax), 1e-12)
     q = torch.clamp(torch.round(vals / scale), -qmax, qmax)
     return q.to(torch.int8), idx.to(torch.int32), scale
+
+
+# --------------------------------------------------------------------------- #
+# DP-SGD clip-scale-accumulate
+# --------------------------------------------------------------------------- #
+def clip_norms_ref(g):
+    """Squared L2 norms of the rows of g (B, P) -> (B,) fp32 (row 13)."""
+    g32 = g.float()
+    return (g32 * g32).sum(dim=1)
+
+
+def clip_acc_ref(g, sq, clip: float):
+    """Mean of the rows of g (B, P), row b scaled by
+    ``min(1, C / max(sqrt(sq[b]), EPS))`` -> (P,) fp32 (row 14)."""
+    scale = _clip_scale(torch.sqrt(sq.float()), clip)
+    return (g.float() * scale[:, None]).mean(dim=0)
+
+
+def clip_mean_rows_ref(g, clip: float):
+    """Mean of the per-row L2-clipped (B, P) grads -> (P,) fp32: the
+    DP-SGD clip-scale-accumulate oracle, through optim/clip's fp32
+    eps-guarded scale."""
+    return clip_acc_ref(g, clip_norms_ref(g), clip)

@@ -20,6 +20,7 @@ from repro_torch.configs.base import (FaultConfig, FedConfig,  # noqa: E402
 from repro_torch.configs.gpt2_small import gpt2_tiny  # noqa: E402
 from repro_torch.core.rounds import run_federated  # noqa: E402
 from repro_torch.data import banking77, partition  # noqa: E402
+from repro_torch.kernels import dp_clip  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import kd_loss as kdl  # noqa: E402
 from repro_torch.kernels import lora_matmul as lm  # noqa: E402
@@ -41,6 +42,9 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 print(len(names), bad)
 assert not bad, bad
+assert {"repro_torch.privacy.dp", "repro_torch.privacy.accountant",
+        "repro_torch.privacy.secure_agg", "repro_torch.optim.clip",
+        "repro_torch.kernels.dp_clip"} <= set(names), names
 """
 
 
@@ -85,6 +89,7 @@ def test_cuda_policy_refuses_cpu_tensors():
                   torch.randn(16, 2), torch.randn(2, 8))
     q = torch.randn(1, 6, 2, 8)
     logits = torch.randn(4, 77)
+    g = torch.randn(4, 96)
     with ops.policy_scope("cuda"):
         with pytest.raises(ValueError, match="CUDA"):
             ops.lora_matmul(x, w, a, b)
@@ -94,6 +99,8 @@ def test_cuda_policy_refuses_cpu_tensors():
             ops.kd_loss(logits, logits, 2.0)
         with pytest.raises(ValueError, match="CUDA"):
             ops.topk_quantize(logits, 8, 8)
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.clip_mean_rows(g, 1.0)
     # the kernel wrappers themselves check before anything is built
     with pytest.raises(ValueError, match="CUDA"):
         lm.lora_fwd(x[0], w, a, b)
@@ -103,6 +110,10 @@ def test_cuda_policy_refuses_cpu_tensors():
         kdl.kd_fwd(logits, logits, 2.0)
     with pytest.raises(ValueError, match="CUDA"):
         qz.topk_quantize(logits, 8, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        dp_clip.dp_clip_norms(g)
+    with pytest.raises(ValueError, match="CUDA"):
+        dp_clip.dp_clip_acc(g, torch.ones(4), 1.0)
 
 
 def test_auto_policy_resolves_by_device():
@@ -118,14 +129,25 @@ def test_auto_policy_resolves_by_device():
     dict(backend="cohort"), dict(aggregation="async"),
     dict(client_ranks=(2, 4, 4)), dict(robust_agg="median"),
     dict(quorum=0.5), dict(screen_factor=3.0), dict(optimizer="sgd"),
-    dict(peft="adapter"), dict(privacy=PrivacyConfig(dp_clip=1.0)),
-    dict(privacy=PrivacyConfig(secure_agg=True)),
+    dict(peft="adapter"),
+    dict(framework="split", privacy=PrivacyConfig(dp_clip=1.0)),
+    dict(aggregation="async", privacy=PrivacyConfig(secure_agg=True)),
     dict(faults=FaultConfig(dropout_rate=0.2)),
 ])
 def test_unported_settings_raise(tiny_case, change):
     cfg, pub, clients, test = tiny_case
     fed = dataclasses.replace(FedConfig(rounds=1, lora_dropout=0.0), **change)
     with pytest.raises(NotImplementedError):
+        run_federated(cfg, fed, pub, clients, test, device="cpu")
+
+
+def test_noise_without_clip_raises(tiny_case):
+    """The reference's refusal: noise scaled by a clip of 0 bounds
+    nothing."""
+    cfg, pub, clients, test = tiny_case
+    fed = FedConfig(rounds=1, lora_dropout=0.0,
+                    privacy=PrivacyConfig(dp_noise_multiplier=1.0))
+    with pytest.raises(ValueError, match="dp_clip"):
         run_federated(cfg, fed, pub, clients, test, device="cpu")
 
 

@@ -1,5 +1,5 @@
-"""The port's LoRA-matmul, flash-attention, KD-loss and top-k-quantize
-ops (their autograd Functions on CPU tensors, i.e. the plain versions of
+"""The port's LoRA-matmul, flash-attention, KD-loss, top-k-quantize and
+DP clip-scale-accumulate ops (their autograd Functions on CPU tensors, i.e. the plain versions of
 kernels/ref.py that the CUDA kernels are held against on the card)
 against the reference's Pallas kernels run in interpret mode, forward
 and gradients.
@@ -8,7 +8,8 @@ Same inputs from a numpy seed through both.  Tolerances: fp32 on both
 sides with a different summation order, atol 1e-5 / rtol 1e-4 forward and
 atol 1e-4 / rtol 1e-4 on gradients; the KD loss and its statistics at the
 reference's own bar for its kernel (rtol 1e-4 / atol 1e-5); top-k
-quantization bit for bit."""
+quantization bit for bit; the clipped mean at atol 1e-6, the reference's
+bar for its clip kernel (tests/test_privacy.py)."""
 import numpy as np
 import pytest
 
@@ -19,6 +20,8 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import kd_loss as jax_kd  # noqa: E402
+from repro.kernels.dp_clip import dp_clip_mean_rows as jax_clip  # noqa: E402
+from repro.optim import clip as jax_clip_lib  # noqa: E402
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
@@ -27,6 +30,7 @@ from repro.kernels.lora_matmul import lora_matmul as jax_lora  # noqa: E402
 from repro_torch.kernels import kd_loss, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.lora_matmul import lora_matmul  # noqa: E402
+from repro_torch.optim import clip as clip_lib  # noqa: E402
 
 FWD = dict(atol=1e-5, rtol=1e-4)
 GRAD = dict(atol=1e-4, rtol=1e-4)
@@ -271,3 +275,50 @@ def test_topk_quantize_matches_pallas_bit_for_bit(R, C, k, bits, ties):
                                     k, bits)
     for g, w in zip(via_ops, got):
         np.testing.assert_array_equal(g.reshape(w.shape).numpy(), w.numpy())
+
+
+# --------------------------------------------------------------------------- #
+# DP-SGD clip-scale-accumulate (rows 13, 14)
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("B,P,bp,clip,zero_row", [(8, 384, 128, 1.0, False),
+                                                  (4, 257, 257, 0.5, False),
+                                                  (16, 1000, 200, 20.0, True)])
+def test_clip_mean_rows_matches_pallas(B, P, bp, clip, zero_row):
+    """The plain version the CUDA kernels are held to, directly and through
+    ops.clip_mean_rows, against dp_clip_mean_rows in interpret mode: a
+    whole-width block at a ragged width, and a zero row (the EPS guard);
+    at (16, 1000) the rows' norms straddle the clip, so some rows are
+    scaled and some are not."""
+    (g,) = _inputs(B * P, ((B, P), 3.0))
+    g *= np.linspace(0.2, 2.0, B, dtype=np.float32)[:, None]
+    if zero_row:
+        g[3] = 0.0
+    norms = np.linalg.norm(g, axis=1)
+    if zero_row:
+        assert (norms > clip).any() and (norms[norms > 0] < clip).any()
+    want = np.asarray(jax_clip(jnp.asarray(g), clip=clip, bp=bp,
+                               interpret=True))[0]
+    np.testing.assert_allclose(
+        ref.clip_mean_rows_ref(torch.tensor(g), clip).numpy(), want,
+        atol=1e-6, rtol=0)
+    with ops.policy_scope("auto"):
+        got = ops.clip_mean_rows(torch.tensor(g), clip)
+    assert got.dtype == torch.float32 and got.shape == (P,)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(ref.clip_norms_ref(torch.tensor(g)).numpy(),
+                               (g.astype(np.float64) ** 2).sum(1),
+                               rtol=1e-5)
+
+
+def test_clip_scale_and_eps_match_reference():
+    """One EPS for host, twin and kernel, equal to the reference's, and the
+    same fp32 scale bit for bit: zero, below-EPS, at-the-clip, and large
+    norms."""
+    assert clip_lib.EPS == jax_clip_lib.EPS
+    norms = np.array([0.0, 1e-12, 1e-9, 0.3, 0.7, 0.7000001, 5.0, 1e30],
+                     np.float32)
+    for c in (0.7, 1.0, 41.0):
+        got = clip_lib._clip_scale(torch.tensor(norms), c)
+        want = jax_clip_lib._clip_scale(jnp.asarray(norms), c)
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
