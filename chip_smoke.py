@@ -18,7 +18,11 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    for bit; the DP clip kernels atol 1e-6 / rtol 1e-5 (the reference's bar
    for its clip kernel), at the main path's (16, 442368) and at four
    other shapes: every row clipped, a ragged width, none clipped, half
-   clipped, and a row of zeros.
+   clipped, and a row of zeros; the per-row quantizers (int8 and int4
+   levels, and the int4 pack) bit for bit at the Split boundary's
+   (1280, 768) and at ragged widths (warp and block variants, float4 and
+   scalar loads, a misaligned row start), each with a row of zeros and
+   rows of exact half levels.
 3. Runs the paper's SSV case study through ``run_federated`` at the full
    width of GPT-2 (12 layers, d 768, V 50257; random weights from seed 0),
    2 FedLLM rounds over 3 clients, four times from the same weights: with
@@ -46,6 +50,26 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    must show clipping in some but not all rows, the ledger must hold the
    LoRA payloads plus the secure-aggregation key exchange and the DP
    metadata as reckoned by hand, and epsilon must be inf (noise 0).
+6. Split-FedLLM (client layers 0-1, server layers 2-11 with the head),
+   2 rounds, as two sets of the same four runs; every step runs the LoRA
+   and attention kernels of all 12 layers.  With an fp32 boundary (bits
+   0) the path is continuous and phase 3's checks hold unchanged, the
+   TF32 control included: this set gates the kernels' precision over the
+   whole Split path (both halves forward and backward, evaluation).  With
+   an int8 boundary every step adds two per-row quantize launches (c2
+   activations up, c4 gradients down) and the ledger must equal the hand
+   reckoning (6,518,976 bytes per client per round).  This boundary is
+   discontinuous: where two fp32 runs differ in the last bits, a value
+   near a half level rounds to the neighbouring level (a level flip), and
+   after one flip the runs' losses and final LoRA drift apart.  So the
+   round loss may differ from the plain run's by 1e-3 plus FLOOR_FACTOR
+   times the two fp32 plain runs' difference, and the TF32 control must
+   exceed that limit in at least one round; the final joined LoRA is held
+   to phase 3's floor gate (measured at the same bits), which the TF32
+   control need not fail; and the share of boundary levels at round 0,
+   step 0 that differ from the plain run's (c2 and c4) must be within
+   FLOOR_FACTOR times the fp32 floor's plus FLOOR_SLACK for the kernel
+   run and outside it for the TF32 run.
 
 It prints one JSON line with every kernel's numbers and, last, the line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -64,11 +88,13 @@ ROOT = Path(__file__).resolve().parent
 ATOL, RTOL = 1e-4, 1e-4
 KD_ATOL, KD_RTOL = 1e-5, 1e-4
 DP_ATOL, DP_RTOL = 1e-6, 1e-5
-EXACT = ("topk_quantize",)
+EXACT = ("topk_quantize", "quantize_rows", "quantize_rows_int4",
+         "quantize_pack4")
 # kernels also timed inside a CUDA graph: at the main path's shapes an
 # eager call's host cost exceeds their device time
 GRAPH_TIMED = ("kd_fwd", "kd_bwd", "kd_bwd_dt", "topk_quantize",
-               "dp_clip_norms", "dp_clip_acc")
+               "dp_clip_norms", "dp_clip_acc", "quantize_rows",
+               "quantize_rows_int4", "quantize_pack4")
 # kernels also timed with the L2 flushed before each call: their input
 # (28.3 MB at the main path) fits the 50 MB L2, so back-to-back calls read
 # it from there, while in a DP step the passes between calls evict it
@@ -78,6 +104,7 @@ L2_FLUSH_BYTES = 100 * 2 ** 20
 PEAKS = {"H100 PCIe": (51.2e12, 2.0e12), "H100 NVL": (60.0e12, 3.9e12),
          "H100": (67.0e12, 3.35e12)}
 BATCH, PAD_LEN, RANK = 16, 80, 8
+SPLIT_LAYER, SPLIT_BITS = 2, 8
 # LoRA parameters per example at gpt2 width: rank 8 on wq/wk/wv, 12 layers
 DP_WIDTH = 12 * 3 * 2 * RANK * 768
 # final-LoRA gate: relative L2 <= FLOOR_FACTOR * (plain vs plain) + slack
@@ -393,6 +420,58 @@ def dp_cases(device, B, P, clip, zero_row, seed):
     }, C, clipped
 
 
+def quant_cases(device, R, C, special, offset, seed):
+    """The per-row quantizers on seeded (R, C) rows, as kernel_cases: int8
+    and int4 levels, and (C even) the int4 pack.  With ``special``, row 1
+    is all zeros and rows 2 and 3 hold exact half levels (absmax 127 and
+    7, so the scale is exactly 1 at bits 8 and 4; +-0.5, 1.5, 2.5 round
+    half to even to 0, +-2, +-2).  ``offset`` floats before the first row
+    make its start misaligned for 16-byte loads."""
+    import torch
+
+    from repro_torch.core import compression
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flat = torch.randn(offset + R * C, device=device, generator=gen) * 3.0
+    x = flat[offset:].view(R, C)
+    if special:
+        halves = torch.tensor([0.5, -0.5, 1.5, -1.5, 2.5, -2.5],
+                              device=device)
+        x[1:4] = 0.0
+        x[2, 0], x[3, 0] = 127.0, 7.0
+        x[2, 1:7] = x[3, 1:7] = halves
+
+    def lib(bits):
+        qmax = float((1 << (bits - 1)) - 1)
+        sc = torch.clamp_min(x.abs().amax(-1, keepdim=True) / qmax, 1e-12)
+        return torch.clamp(torch.round(x / sc), -qmax, qmax).to(
+            torch.int8), sc
+
+    def lib_pack4():
+        q, sc = lib(4)
+        return compression.pack_int4(q), sc
+
+    f4 = 4
+    cases = {
+        "quantize_rows": (lambda: qz.quantize_rows(x, 8),
+                          lambda: ref.quantize_rows_ref(x, 8),
+                          lambda: lib(8), f4 * R * C + R * C + f4 * R,
+                          2 * R * C),
+        "quantize_rows_int4": (lambda: qz.quantize_rows(x, 4),
+                               lambda: ref.quantize_rows_ref(x, 4),
+                               lambda: lib(4), f4 * R * C + R * C + f4 * R,
+                               2 * R * C),
+    }
+    if C % 2 == 0:
+        cases["quantize_pack4"] = (
+            lambda: qz.quantize_pack4(x),
+            lambda: ref.quantize_pack4_rows_ref(x), lib_pack4,
+            f4 * R * C + R * C // 2 + f4 * R, 2 * R * C)
+    return cases
+
+
 def time_case(name, case, peaks_) -> dict:
     """Checks one case and times its kernel, plain and library versions."""
     kern, plain, lib, nbytes, nflops = case
@@ -484,6 +563,25 @@ def check_kernels(device, card: str):
               f"{', a zero row' if shape['zero_row'] else ''}):")
         for name, case in cases.items():
             time_case(name, case, peaks_)
+    # per-row quantizers: a warp per row with scalar loads at ragged widths
+    # (odd C; C = 2 mod 4 for the pack), a block per row above 2048 with
+    # float4 and scalar loads, and float4 rows whose start is misaligned
+    quant_checks = [dict(R=37, C=129, special=True, offset=0),
+                    dict(R=37, C=130, special=True, offset=0),
+                    dict(R=5, C=4100, special=True, offset=0),
+                    dict(R=4, C=2050, special=True, offset=0),
+                    dict(R=16, C=768, special=True, offset=1)]
+    for i, shape in enumerate(quant_checks):
+        for name, (kern, plain, *_rest) in quant_cases(
+                device, seed=400 + i, **shape).items():
+            max_err(name, kern(), plain())
+            print(f"  quantize shape {i} {name} ({shape['R']}x{shape['C']}"
+                  f", offset {shape['offset']}): bit-identical")
+    print(f"  per-row quantizers at the Split boundary's shape "
+          f"({BATCH * PAD_LEN} x 768), a row of zeros and half levels:")
+    for name, case in quant_cases(device, BATCH * PAD_LEN, 768, True, 0,
+                                  11).items():
+        rows[name] = time_case(name, case, peaks_)
     print(f"  DP clip kernels at the main path's shape ({BATCH} x "
           f"{DP_WIDTH}, half the rows clipped):")
     cases, C, clipped = dp_cases(device, BATCH, DP_WIDTH, "half", False, 10)
@@ -514,13 +612,22 @@ def lora_gap(got, want):
     return outside / n, (num / den) ** 0.5, worst
 
 
-def run_case(device, cfg, base, fed, data, ledger, expect):
+def run_case(device, cfg, base, fed, data, ledger, expect,
+             quantized=False):
     """One framework's case study through the kernels and through plain
     PyTorch (under two BLAS libraries, two summation orders of the same
     fp32 products, and under TF32), from the same weights.  Checks the runs
     against each other, the kernel run's ledger bytes by name against
     ``ledger`` and its launch counts against ``expect``; returns the
-    kernel run's (launch counts, result)."""
+    kernel run's (launch counts, result).  Each round's loss must be
+    within 1e-3 of the plain run's, and the TF32 control's final LoRA
+    outside the floor gate.  ``quantized`` marks a run with a quantized
+    boundary, where level flips move the loss and the final LoRA of
+    every run: there the loss limit adds FLOOR_FACTOR times the two fp32
+    plain runs' difference in that round, and the TF32 control must
+    exceed that limit in at least one round instead (the final-LoRA
+    distance saturates at the first flip, so it no longer separates the
+    control)."""
     import torch
 
     from repro_torch.core.rounds import run_federated
@@ -562,9 +669,16 @@ def run_case(device, cfg, base, fed, data, ledger, expect):
     require(kern.ledger.per_client_round() == plain.ledger.per_client_round(),
             "ledger per_client_round")
     require(kern.client_flops == plain.client_flops, "client FLOPs")
-    for hk, hp in zip(kern.history, plain.history):
-        require(abs(hk.loss - hp.loss) <= 1e-3,
-                f"round {hk.round} loss {hk.loss} vs {hp.loss}")
+    loss_ok, control_out = [], []
+    for hk, hp, hf, hc in zip(kern.history, plain.history,
+                              results[f"torch-{other}"].history,
+                              results["torch-tf32"].history):
+        dk, df, dc = (abs(h.loss - hp.loss) for h in (hk, hf, hc))
+        lim = 1e-3 + (FLOOR_FACTOR * df if quantized else 0.0)
+        print(f"  round {hk.round} loss vs plain: kernels {dk:.3e}, floor "
+              f"{df:.3e}, control {dc:.3e} (limit {lim:.3e})")
+        loss_ok.append(dk <= lim)
+        control_out.append(dc > lim)
 
     # Adam divides each update by sqrt(v) + 1e-8, so a coordinate whose
     # gradient sits near the fp32 noise floor moves by a good part of lr in
@@ -580,11 +694,17 @@ def run_case(device, cfg, base, fed, data, ledger, expect):
         print(f"  final LoRA {name} vs plain: relative L2 {rel:.3e} "
               f"(limit {limit:.3e}), outside atol 5e-5/rtol 5e-4 "
               f"{share:.3e} of elements, max abs {worst:.3e}")
+    require(all(loss_ok), "round loss of the kernel run is off the plain "
+            "run's beyond its limit")
     require(gaps["kernels"][1] <= limit,
             "final LoRA of the kernel run is off the plain run beyond the "
             "fp32 noise floor")
-    require(gaps["control"][1] > limit,
-            "the final-LoRA gate does not reject the TF32 control run")
+    if quantized:
+        require(any(control_out), "the round-loss gate does not reject "
+                "the TF32 control run in any round")
+    else:
+        require(gaps["control"][1] > limit,
+                "the final-LoRA gate does not reject the TF32 control run")
 
     got = {name: n for name, n in counts["cuda"].items() if name in expect}
     require(got == expect and all(n > 0 for n in expect.values()),
@@ -609,9 +729,9 @@ def model_launches(L, train_steps, fwd_batches):
 
 
 def run_slices(device):
-    """Phases 3, 4 and 5: the FedLLM, KD and DP-FedLLM case studies at
-    full gpt2 width, from one base model.  Returns {path: kernel-run launch
-    counts}."""
+    """Phases 3-6: the FedLLM, KD, DP-FedLLM and Split-FedLLM case
+    studies at full gpt2 width, from one base model.  Returns {path:
+    kernel-run launch counts}."""
     import torch
 
     from repro_torch.configs.base import FedConfig
@@ -629,40 +749,172 @@ def run_slices(device):
     L, C = cfg.n_layers, len(clients)
     steps = sum(len(c["tokens"]) // BATCH for c in clients)  # per round
     evals = len(test["tokens"]) // 64
+    lora_bytes = L * 3 * 2 * RANK * cfg.d_model * 4
+    by_path = {}
 
-    print("phase 3: FedLLM case study, gpt2 full width, 2 rounds, 3 clients")
+    t0 = time.perf_counter()
+    print("phase 3: FedLLM case study, gpt2 full width, 2 rounds, "
+          "3 clients")
     fed = FedConfig(framework="fedllm", rounds=2, lora_rank=RANK,
                     lora_dropout=0.0)
-    lora_bytes = L * 3 * 2 * RANK * cfg.d_model * 4
-    fedllm, _ = run_case(
+    by_path["fedllm"], _ = run_case(
         device, cfg, base, fed, data,
         ledger={"lora_params": fed.rounds * C * 2 * lora_bytes},
         expect=model_launches(L, steps * fed.rounds,
                               evals * fed.rounds))
+    print(f"  phase 3 wall_s={time.perf_counter() - t0:.1f}")
 
-    print("phase 4: KD case study, gpt2 full width, 2 rounds, 3 clients, "
-          "top-k 8 int8 logits")
+    t0 = time.perf_counter()
+    print("phase 4: KD case study, gpt2 full width, 2 rounds, 3 "
+          "clients, top-k 8 int8 logits")
     fed = FedConfig(framework="kd", rounds=2, lora_rank=RANK,
                     lora_dropout=0.0, logit_topk=8, logit_quant_bits=8)
     n_pub = len(pub["tokens"])
-    pub_batches = -(-n_pub // 64)           # public batches, ragged last
+    pub_batches = -(-n_pub // 64)       # public batches, ragged last
     # per round: b1 train steps; b2 client logits and b6 server logits
     # (forward only); b5 server and b8 client distillation (kd_epochs
-    # passes of kd_step over the public set: one KD forward and backward
-    # each); evaluation
+    # passes of kd_step over the public set: one KD forward and
+    # backward each); evaluation
     kd_steps = (1 + C) * fed.kd_epochs * pub_batches
     expect = model_launches(L, (steps + kd_steps) * fed.rounds,
                             ((C + 1) * pub_batches + evals) * fed.rounds)
-    expect.update(kd_fwd=kd_steps * fed.rounds, kd_bwd=kd_steps * fed.rounds,
+    expect.update(kd_fwd=kd_steps * fed.rounds,
+                  kd_bwd=kd_steps * fed.rounds,
                   topk_quantize=C * fed.rounds)
     wire = metrics.logit_bytes(n_pub, 77, fed.logit_topk,
                                fed.logit_quant_bits)
-    kd, _ = run_case(device, cfg, base, fed, data,
-                     ledger={"logits": fed.rounds * C * 2 * wire},
-                     expect=expect)
+    by_path["kd"], _ = run_case(
+        device, cfg, base, fed, data,
+        ledger={"logits": fed.rounds * C * 2 * wire}, expect=expect)
+    print(f"  phase 4 wall_s={time.perf_counter() - t0:.1f}")
 
-    dp = run_dp(device, cfg, base, data, steps, evals, lora_bytes)
-    return {"fedllm": fedllm, "kd": kd, "dp": dp}
+    t0 = time.perf_counter()
+    by_path["dp"] = run_dp(device, cfg, base, data, steps, evals,
+                           lora_bytes)
+    print(f"  phase 5 wall_s={time.perf_counter() - t0:.1f}")
+
+    t0 = time.perf_counter()
+    by_path.update(run_split(device, cfg, base, data, steps, evals))
+    print(f"  phase 6 wall_s={time.perf_counter() - t0:.1f}")
+    return by_path
+
+
+def split_level_flips(device, cfg, base, fed, clients):
+    """Boundary levels of round 0, step 0 (client 0's first batch, the
+    run's initial LoRA) that differ between the plain run and the kernel
+    run, the other fp32 plain run (the floor) and the TF32 run (the
+    control), at c2 (activations) and c4 (gradients): each run's step is
+    recomputed under its policy and BLAS setting, and its raw boundary
+    tensors quantized by the plain version.  Prints the counts; returns
+    {"kernels" | "floor" | "control": share of the levels that differ}."""
+    import torch
+
+    from repro_torch.core import split
+    from repro_torch.core.fedavg import to_device
+    from repro_torch.data.loader import epoch_batches
+    from repro_torch.kernels import ref
+    from repro_torch.models.factory import build_model
+    from repro_torch.peft import lora as lora_lib
+
+    lt = lora_lib.init_lora(torch.Generator().manual_seed(fed.seed + 3),
+                            base, lora_lib.DEFAULT_TARGETS, fed.lora_rank,
+                            fed.lora_alpha)
+    batch = to_device(next(iter(epoch_batches(
+        clients[0], BATCH, seed=fed.seed * 983))), device)
+    blas = torch.backends.cuda.preferred_blas_library()
+    other = "cublas" if "lt" in str(blas).lower() else "cublaslt"
+    levels = {}
+    for tag, policy, lib, tf32 in (("cuda", "cuda", blas, False),
+                                   ("torch", "torch", blas, False),
+                                   (f"torch-{other}", "torch", other, False),
+                                   ("torch-tf32", "torch", blas, True)):
+        torch.backends.cuda.preferred_blas_library(lib)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        sfns = split.make_split_fns(build_model(dataclasses.replace(
+            cfg, kernel_policy=policy)), fed)
+        L = sfns["n_client_groups"]
+        c_lt, s_lt = split.split_lora(lt, L)
+        base_c, base_s = split.split_base(base, L)
+        _, _, _, h, h_grad = sfns["split_grads"](base_c, base_s, c_lt, s_lt,
+                                                 batch)
+        levels[tag] = [ref.quantize_rows_ref(t.reshape(-1, t.shape[-1]),
+                                             SPLIT_BITS)[0] for t in (h, h_grad)]
+        torch.backends.cuda.preferred_blas_library(blas)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    share = {}
+    for name, tag in (("kernels", "cuda"), ("floor", f"torch-{other}"),
+                      ("control", "torch-tf32")):
+        flips = [int((a != b).sum()) for a, b in zip(levels[tag],
+                                                     levels["torch"])]
+        jumps = [int((a.int() - b.int()).abs().max()) for a, b in
+                 zip(levels[tag], levels["torch"])]
+        n = sum(t.numel() for t in levels[tag])
+        share[name] = sum(flips) / n
+        print(f"  round 0 step 0 boundary levels, {tag} vs plain: c2 "
+              f"{flips[0]}, c4 {flips[1]} of {n // 2} each differ (largest "
+              f"difference {max(jumps)} levels)")
+    return share
+
+
+def run_split(device, cfg, base, data, steps, evals):
+    """Phase 6: Split-FedLLM, client layers [0, SPLIT_LAYER), with an
+    fp32 boundary and with an int(SPLIT_BITS) one.  Returns {"split_fp32"
+    | "split": kernel-run launch counts}."""
+    from repro_torch.configs.base import FedConfig
+
+    pub, clients, test = data
+    L, C, d = cfg.n_layers, len(clients), cfg.d_model
+    rows = BATCH * PAD_LEN
+    half = SPLIT_LAYER * 3 * 2 * RANK * d * 4
+    by_path = {}
+    for path, bits in (("split_fp32", 0), ("split", SPLIT_BITS)):
+        print(f"phase 6: Split-FedLLM case study, gpt2 full width, 2 "
+              f"rounds, 3 clients, split_layer {SPLIT_LAYER}, "
+              f"{f'int{bits}' if bits else 'fp32'} boundary")
+        fed = FedConfig(framework="split", rounds=2, lora_rank=RANK,
+                        lora_dropout=0.0, split_layer=SPLIT_LAYER,
+                        activation_quant_bits=bits)
+        # by hand: a c2 transfer is 1280 rows of 768 levels (int8: and a
+        # 4-byte scale a row; fp32: 4 bytes a value), plus 16 int32
+        # labels; c4 the same without labels; the client half (2 layers x
+        # 3 targets x (A + B) fp32) goes down and up each round
+        payload = rows * d * bits // 8 + rows * 4 if bits else rows * d * 4
+        c2, c4 = payload + BATCH * 4, payload
+        expect = model_launches(L, steps * fed.rounds, evals * fed.rounds)
+        if bits:
+            # the precision gate of a quantized boundary: a level flips
+            # where one run's fp32 value crosses a half level that the
+            # other's does not, so the share of flipped levels at round 0,
+            # step 0 measures how far the path up to the boundary (c2) and
+            # back from the loss (c4) is off the plain run, before
+            # training amplifies it; the TF32 control must fail
+            flips = split_level_flips(device, cfg, base, fed, clients)
+            limit = FLOOR_FACTOR * flips["floor"] + FLOOR_SLACK
+            print(f"  flipped share: kernels {flips['kernels']:.3e}, floor "
+                  f"{flips['floor']:.3e}, control {flips['control']:.3e} "
+                  f"(limit {limit:.3e})")
+            require(flips["kernels"] <= limit, "boundary levels of the "
+                    "kernel run differ from the plain run's beyond the "
+                    "fp32 floor")
+            require(flips["control"] > limit, "the boundary-level gate "
+                    "does not reject the TF32 control run")
+            expect["quantize_rows"] = 2 * steps * fed.rounds
+        counts, kern = run_case(
+            device, cfg, base, fed, data,
+            ledger={"lora_params": fed.rounds * C * 2 * half,
+                    "activations": fed.rounds * steps * c2,
+                    "act_grads": fed.rounds * steps * c4},
+            expect=expect, quantized=bool(bits))
+        per_client = kern.ledger.per_client_round()
+        require(all(v == len(clients[ci]["tokens"]) // BATCH * (c2 + c4)
+                    + 2 * half for (_, ci), v in per_client.items()),
+                f"bytes per client per round {per_client}")
+        print(f"  ledger: c2 {c2}, c4 {c4} bytes a step, client half "
+              f"{half} each way; per client per round "
+              f"{sorted(set(per_client.values()))} bytes (FedLLM: "
+              f"{2 * L * 3 * 2 * RANK * d * 4})")
+        by_path[path] = counts
+    return by_path
 
 
 def first_batch_clip(device, cfg, base, fed, clients):
@@ -806,6 +1058,8 @@ REPLACES = {
     "topk_quantize": ("src/repro/kernels/quantize.py:135", "quantize.cu"),
     "dp_clip_norms": ("src/repro/kernels/dp_clip.py:65", "dp_clip.cu"),
     "dp_clip_acc": ("src/repro/kernels/dp_clip.py:73", "dp_clip.cu"),
+    "quantize_rows": ("src/repro/kernels/quantize.py:42", "quantize.cu"),
+    "quantize_pack4": ("src/repro/kernels/quantize.py:79", "quantize.cu"),
 }
 
 
@@ -844,13 +1098,15 @@ def main() -> int:
                 print("    " + line.strip())
     print(f"  build wall_s={time.perf_counter() - t0:.1f}")
 
+    t0 = time.perf_counter()
     print("phase 2: kernels against their plain versions")
     rows = check_kernels(device, card)
+    print(f"  phase 2 wall_s={time.perf_counter() - t0:.1f}")
 
     by_path = run_slices(device)
 
-    # ``launches`` sums the kernel runs of the three paths;
-    # ``launches_by_path`` keeps them apart.  Rows are at the main path's shapes; the KD
+    # ``launches`` sums the kernel runs of the paths; ``launches_by_path``
+    # keeps them apart.  Rows are at the main path's shapes; the KD
     # kernels' generative-vocabulary timings are printed above.
     kernels = []
     for name, (replaces, src) in REPLACES.items():

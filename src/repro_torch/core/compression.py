@@ -1,25 +1,29 @@
-"""Logit compression for the KD b3 upload (paper SSIV.B.2).
+"""Knowledge and activation compression (paper SSIV.B.2 / SSIV.C.2).
 
-Counterpart of the KD part of ``src/repro/core/compression.py``:
+Counterpart of ``src/repro/core/compression.py``:
 
 - top-k logit sparsification (``topk_compress``/``topk_decompress``);
 - fused top-k + int8/int4 quantization (``topk_quantize``/
   ``topk_dequantize``; the CUDA kernel of kernels/quantize.py under the
   ``cuda`` kernel policy), int4 nibble-packed;
-- int8/int4 symmetric per-row round trip (``quant_roundtrip``) with its
+- int8/int4 symmetric per-row quantization (``quantize``/``dequantize``,
+  int4 nibble-packed) and its straight-through round trip
+  (``quant_roundtrip``, the Split boundary), both through the per-row
+  CUDA kernels of kernels/quantize.py under the ``cuda`` policy, with the
   exact wire size;
 - softened labels (temperature + float16).
 
 Each compressor returns its payload with the exact wire size; each
 decompressor rebuilds the dense tensor the receiver trains on.  Everything
-stays on the tensors' device.  ``quantize``/``dequantize`` (the Split
-slice's packed activations) are not ported yet.
+stays on the tensors' device.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.kernels import ops as kernel_ops
 
 NEG_FILL = -1e9
 
@@ -63,7 +67,6 @@ def topk_quantize(logits, k: int, bits: int = 8):
     for int4) + k int32 indices + one fp32 scale per row."""
     if bits not in (4, 8):
         raise ValueError(f"topk_quantize: bits={bits} (expected 4 or 8)")
-    from repro_torch.kernels import ops as kernel_ops
     q, idx, scale = kernel_ops.topk_quantize(logits, k, bits=bits)
     if bits == 4:
         q = pack_int4(q)
@@ -115,20 +118,39 @@ def quant_wire_bytes(shape, bits: int) -> int:
     return rows * ((shape[-1] * bits + 7) // 8) + rows * 4
 
 
-def _quantize_rows(x, bits: int):
-    qmax = float((1 << (bits - 1)) - 1)
-    xf = x.float()
-    absmax = xf.abs().max(-1, keepdim=True).values
-    # IEEE division on every device (kernels/ref.topk_quantize_rows_ref)
-    scale = torch.clamp_min(absmax / absmax.new_tensor(qmax), 1e-12)
-    q = torch.clamp(torch.round(xf / scale), -qmax, qmax)
-    return q.to(torch.int8), scale
+def quantize(x, bits: int = 8):
+    """(..., d) -> ({"q" | "q4", "scale"[, "dim"]}, wire_bytes): per-row
+    absmax levels; int4 is nibble-packed, so ``wire`` is the payload's
+    size exactly (two levels a byte, ceil per row, plus 4-byte row
+    scales)."""
+    if bits not in (4, 8):
+        raise ValueError(f"quantize: bits={bits} (expected 4 or 8)")
+    if bits == 4:
+        if x.shape[-1] % 2 == 0:
+            # quantize and pack in one pass
+            packed, scale = kernel_ops.quantize_pack4(x)
+        else:
+            q, scale = kernel_ops.quantize(x, bits)
+            packed = pack_int4(q)
+        return {"q4": packed, "scale": scale,
+                "dim": x.shape[-1]}, quant_wire_bytes(x.shape, bits)
+    q, scale = kernel_ops.quantize(x, bits)
+    return {"q": q, "scale": scale}, quant_wire_bytes(x.shape, bits)
+
+
+def dequantize(comp):
+    if "q4" in comp:
+        q = unpack_int4(comp["q4"], comp["dim"])
+        return q.float() * comp["scale"]
+    return comp["q"].float() * comp["scale"]
 
 
 def quant_roundtrip(x, bits: int = 8):
     """Quantize -> dequantize with the wire size ``quantize`` would report
-    for the same tensor (the packed payload is never built)."""
-    q, scale = _quantize_rows(x, bits)
+    for the same tensor (the packed payload is never built).  The levels
+    come from kernels/ops.quantize (the CUDA kernel under the ``cuda``
+    policy); the dequantization stays plain."""
+    q, scale = kernel_ops.quantize(x, bits)
     return (q.float() * scale).to(x.dtype), quant_wire_bytes(x.shape, bits)
 
 

@@ -3,10 +3,11 @@
     broadcast -> local_update -> upload -> aggregate -> evaluate
 
 Counterpart of the parts of ``src/repro/core/round_program.py`` that run
-FedLLM and KD-FedLLM with sequential clients and sync rounds:
-``RoundContext``, the ``SyncSchedule``, the ``SequentialExecutor`` (a
-Python loop over clients, one train step per batch), the
-``FedLLMProgram`` and ``KDProgram`` stage-specs and ``run_program`` with
+FedLLM, KD-FedLLM and Split-FedLLM with sequential clients and sync
+rounds: ``RoundContext``, the ``SyncSchedule``, the
+``SequentialExecutor`` (a Python loop over clients, one train step per
+batch), the ``FedLLMProgram``, ``KDProgram`` and ``SplitProgram``
+stage-specs and ``run_program`` with
 the privacy middleware (upload noise, secure-aggregation masking around
 aggregation, the RDP accountant) and without the fault middleware.
 Ledger bytes are derived from payload shapes, so they equal the
@@ -24,6 +25,7 @@ import torch
 from repro_torch.configs.base import FedConfig, ModelConfig
 from repro_torch.core import kd as kd_mod
 from repro_torch.core import metrics as M
+from repro_torch.core import split as split_mod
 from repro_torch.core.fedavg import evaluate, fedavg, make_fns, to_device
 from repro_torch.data.loader import epoch_batches
 from repro_torch.peft import lora as lora_lib
@@ -196,6 +198,36 @@ class SequentialExecutor:
                 ctx.public, glob, fed.kd_epochs, ctx.eval_batch, ctx.device,
                 seed=fed.seed + 31 * rnd + ci)
 
+    def split_train(self, program, jobs, rnd):
+        """Split c1-c5: jobs [(ci, c_init)] -> [(c_lt, n_tok, n_steps,
+        batch shape)].  Each client's half starts from fresh Adam state
+        every round and makes one pass over its data; the server half and
+        its Adam state thread through the clients in visit order across
+        the whole run.  One LoRA-dropout generator per job serves both
+        halves of every step."""
+        ctx, fed = self.ctx, self.ctx.fed
+        sfns = program.sfns
+        out = []
+        for ci, c_init in jobs:
+            c_lt, c_opt = c_init, sfns["opt_init"](c_init)
+            gen = local_generator(fed, rnd, ci)
+            n_tok, n_steps, shape = 0, 0, None
+            for batch in epoch_batches(
+                    ctx.clients_data[ci], ctx.batch_size,
+                    seed=fed.seed * program.epoch_seed_mult + rnd):
+                noise = dp_mod.noise_generator(fed, rnd, ci, n_steps) \
+                    if fed.privacy.dp_enabled else None
+                c_lt, program.s_lt, c_opt, program.s_opt, _ = \
+                    sfns["split_step"](
+                        program.base_c, program.base_s, c_lt, program.s_lt,
+                        c_opt, program.s_opt, to_device(batch, ctx.device),
+                        gen, noise)
+                n_tok += batch["tokens"].size
+                n_steps += 1
+                shape = batch["tokens"].shape
+            out.append((c_lt, n_tok, n_steps, shape))
+        return out
+
 
 def staleness_weight(staleness: int, decay: float) -> float:
     """Polynomial staleness decay (FedAsync): ``(1 + s)^-decay``."""
@@ -364,7 +396,84 @@ class KDProgram:
         return self.server_lt
 
 
-PROGRAMS = {"fedllm": FedLLMProgram, "kd": KDProgram}
+class SplitProgram:
+    """Split-FedLLMs (paper SSII.C): c1-c5 split training (activations
+    up, gradients down, the server half in the loop) plus the cc1-cc4
+    FedAvg of the *client-side* adapters.  ``lora`` is a full-model tree,
+    split at L here."""
+
+    epoch_seed_mult = 983
+
+    def __init__(self, ctx: RoundContext, lora=None):
+        fed = ctx.fed
+        self.sfns = split_mod.make_split_fns(ctx.model, fed, ctx.task)
+        L = self.sfns["n_client_groups"]
+        if lora is None:
+            gen = torch.Generator().manual_seed(fed.seed + 3)
+            lora = lora_lib.init_lora(gen, ctx.base, ctx.targets,
+                                      fed.lora_rank, fed.lora_alpha)
+        self.c_global, self.s_lt = split_mod.split_lora(lora, L)
+        self.base_c, self.base_s = split_mod.split_base(ctx.base, L)
+        self.s_opt = self.sfns["opt_init"](self.s_lt)
+        self.frac_client = L / max(self.sfns["n_groups"], 1)
+        self.label_bytes = ctx.batch_size * 4 \
+            if "labels" in ctx.clients_data[0] else 0
+        self.joined = lora
+
+    def broadcast(self, ctx, cohort, rnd):
+        for ci in cohort:
+            ctx.ledger.record(rnd, ci, "lora_params", M.DOWN,
+                              M.tree_bytes(self.c_global))             # cc3
+        return [(ci, self.c_global) for ci in cohort]
+
+    def local_update(self, ctx, ex, jobs, rnd):
+        outs = ex.split_train(self, jobs, rnd)
+        dp = ctx.fed.privacy.dp_enabled
+        res = []
+        for (ci, _), (c_lt, n_tok, n_steps, shape) in zip(jobs, outs):
+            if n_steps:          # a sub-batch-size client trains 0 steps
+                up, down = self.sfns["wire_bytes_per_batch"](shape)
+                for _ in range(n_steps):
+                    ctx.ledger.record(rnd, ci, "activations", M.UP,
+                                      up + self.label_bytes)           # c2
+                    ctx.ledger.record(rnd, ci, "act_grads", M.DOWN,
+                                      down)                            # c4
+                    if dp:
+                        ctx.ledger.record(rnd, ci, "dp_meta", M.UP,
+                                          M.DP_META_BYTES)
+            ctx.releases[ci] += n_steps     # per-client c2 noise events
+            ctx.cost[ci].add_train(ctx.cfg, n_tok, lora_lib.n_params(c_lt),
+                                   frac_layers=self.frac_client)
+            res.append((ci, c_lt))
+        return res
+
+    def upload(self, ctx, outs, rnd):
+        # the c2 activation noise is Split's DP mechanism (inside the
+        # step); the cc1 adapter upload is masked but not noised
+        for ci, c_lt in outs:
+            ctx.secagg.collect(ctx.secagg_start(rnd, ci), ci, c_lt)
+        return outs
+
+    def record_arrival(self, ctx, job, rnd):
+        ctx.ledger.record(rnd, job.client, "lora_params", M.UP,
+                          M.tree_bytes(job.payload))                   # cc1
+
+    def aggregate(self, ctx, ex, kept, arrived, rnd):
+        if kept:                                                       # cc2
+            self.c_global = stale_weighted_avg(self.c_global, kept,
+                                               ctx.total_w, ctx.fed)
+        self.joined = split_mod.join_lora(self.c_global, self.s_lt)
+
+    def evaluate(self, ctx):
+        return evaluate(ctx.fns, ctx.base, self.joined, ctx.test,
+                        ctx.eval_batch, ctx.device)
+
+    def final_state(self, ctx):
+        return self.joined
+
+
+PROGRAMS = {"fedllm": FedLLMProgram, "kd": KDProgram,
+            "split": SplitProgram}
 
 
 def run_program(model, base, cfg: ModelConfig, fed: FedConfig, targets,
@@ -374,7 +483,7 @@ def run_program(model, base, cfg: ModelConfig, fed: FedConfig, targets,
     """Run ``fed.rounds`` rounds of ``fed.framework`` with sequential
     clients and sync aggregation.  ``lora`` (optional) is the initial LoRA
     state: the global tree for FedLLM, ``{"server": tree, "clients":
-    [tree, ...]}`` for KD."""
+    [tree, ...]}`` for KD, the full-model tree (split at L) for Split."""
     ctx = RoundContext(model, base, cfg, fed, targets, public, clients_data,
                        test, task, batch_size, eval_batch, verbose, device)
     program = PROGRAMS[fed.framework](ctx, lora)

@@ -4,23 +4,26 @@
     result = run_federated(cfg, fed, public, clients, test, device="cuda")
 
 ``result.history`` is a list of RoundMetrics; ``result.ledger`` holds
-every wire transfer.  The port runs FedLLM (the paper's SSV case study)
-and KD-FedLLM, each with sequential clients and sync rounds, with or
-without the privacy knobs (``FedConfig.privacy``: DP-SGD clipping,
-upload noise, secure aggregation).  Every ``FedConfig`` setting outside
-them raises NotImplementedError rather than being ignored.  The run
-holds ``cfg.kernel_policy`` as the ambient kernel policy from start to
-end, so kernels called outside the model's forward (the KD loss, the b3
-top-k quantize, the DP clip) follow it too.
+every wire transfer.  The port runs FedLLM (the paper's SSV case study),
+KD-FedLLM and Split-FedLLM, each with sequential clients and sync rounds,
+with or without the privacy knobs (``FedConfig.privacy``: DP-SGD
+clipping, upload noise, secure aggregation; on Split the c2 boundary
+clip and noise).  Every ``FedConfig`` setting outside them raises
+NotImplementedError rather than being ignored.  The run holds
+``cfg.kernel_policy`` as the ambient kernel policy from start to end, so
+kernels called outside the model's forward (the KD loss, the b3 top-k
+quantize, the DP clip, the Split boundary quantizer) follow it too.
 
 ``device=None`` means ``"cuda"``, and a run that asks for CUDA where there
 is none raises: it does not carry on on the CPU.  ``base=`` and ``lora=``
 take port parameter trees (for example bridged from the reference with
 repro_torch/bridge.py).  For FedLLM ``lora=`` is the initial global
 tree; for KD it is ``{"server": tree, "clients": [tree, ...]}``, one tree
-per client.  Without them the port initialises its own with
-``torch.Generator``s: the base from ``fed.seed``, the LoRA from
-``fed.seed + 1`` (FedLLM) or ``fed.seed + 2`` (KD).
+per client; for Split it is the full-model tree, which the run splits at
+the client/server boundary.  Without them the port initialises its own
+with ``torch.Generator``s: the base from ``fed.seed``, the LoRA from
+``fed.seed + 1`` (FedLLM), ``fed.seed + 2`` (KD) or ``fed.seed + 3``
+(Split).
 """
 from __future__ import annotations
 
@@ -40,14 +43,11 @@ from repro_torch.runtime import resolve_device
 def _unported(fed: FedConfig, task: str) -> List[str]:
     """The settings of ``fed`` the port does not run yet."""
     checks = [
-        (fed.framework == "split", f"framework={fed.framework!r}"),
         (fed.backend != "sequential", f"backend={fed.backend!r}"),
         (fed.aggregation != "sync", f"aggregation={fed.aggregation!r}"),
         (fed.peft != "lora", f"peft={fed.peft!r}"),
         (fed.optimizer != "adam", f"optimizer={fed.optimizer!r}"),
         (fed.client_ranks is not None, "client_ranks"),
-        (fed.privacy.enabled and fed.framework == "split",
-         "privacy (DP-SGD / secure aggregation) on split"),
         (fed.faults.enabled, "fault injection"),
         (fed.robust_agg != "mean", f"robust_agg={fed.robust_agg!r}"),
         (fed.quorum > 0.0, "quorum"),

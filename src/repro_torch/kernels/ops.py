@@ -5,8 +5,9 @@ Counterpart of ``src/repro/kernels/ops.py``.  ``ModelConfig.kernel_policy``
 by core/rounds.run_federated for a whole run and by
 models/factory.Model.forward for callers that drive the model directly;
 peft/lora.lora_apply, models/attention.attention_fwd, models/loss.kd_kl,
-core/compression.topk_quantize and privacy/dp.clipped_grad_mean call
-``lora_matmul``, ``mha_attention``, ``kd_loss``, ``topk_quantize`` and
+core/compression (``topk_quantize``, ``quantize``, ``quant_roundtrip``)
+and privacy/dp.clipped_grad_mean call ``lora_matmul``, ``mha_attention``,
+``kd_loss``, ``topk_quantize``, ``quantize``, ``quantize_pack4`` and
 ``clip_mean_rows``, which follow it:
 
     ``cuda``  — the CUDA kernels (kernels/lora_matmul.py,
@@ -138,6 +139,37 @@ def topk_quantize(x, k: int, bits: int = 8):
         q, idx, sc = ref.topk_quantize_rows_ref(xf, k, bits)
     return (q.reshape(*lead, k), idx.reshape(*lead, k),
             sc.reshape(*lead, 1))
+
+
+def quantize(x, bits: int = 8):
+    """x: (..., C) -> (q int8 (..., C), scale fp32 (..., 1)): symmetric
+    per-row levels, the Split boundary's wire format.  The CUDA kernel
+    under the ``cuda`` policy, the bit-identical plain version
+    (kernels/ref.py) under ``torch``."""
+    *lead, C = x.shape
+    xf = x.reshape(-1, C).float()
+    if use_cuda(x):
+        _require_cuda("quantize", x)
+        q, sc = _q.quantize_rows(xf.contiguous(), bits)
+    else:
+        q, sc = ref.quantize_rows_ref(xf, bits)
+    return q.reshape(*lead, C), sc.reshape(*lead, 1)
+
+
+def quantize_pack4(x):
+    """x: (..., C) -> (packed uint8 (..., ceil(C/2)), scale (..., 1)): int4
+    levels two a byte.  Odd C is zero-padded by one column first, as the
+    reference does (a zero changes no row's absmax)."""
+    *lead, C = x.shape
+    xf = x.reshape(-1, C).float()
+    if C % 2:
+        xf = torch.nn.functional.pad(xf, (0, 1))
+    if use_cuda(x):
+        _require_cuda("quantize_pack4", x)
+        q, sc = _q.quantize_pack4(xf.contiguous())
+    else:
+        q, sc = ref.quantize_pack4_rows_ref(xf)
+    return q.reshape(*lead, (C + 1) // 2), sc.reshape(*lead, 1)
 
 
 def clip_mean_rows(g, clip: float):

@@ -1,18 +1,22 @@
-"""Fused top-k + symmetric int quantization of rows: the KD b3 logit upload.
+"""Symmetric per-row int quantization: the Split-FedLLM boundary wire
+format and the KD b3 logit upload.
 
-Counterpart of ``topk_quantize_rows`` in ``src/repro/kernels/quantize.py``.
-The TPU kernel becomes the CUDA kernel of ``csrc/quantize.cu``:
+Counterpart of ``src/repro/kernels/quantize.py``.  Its TPU kernels become
+the CUDA kernels of ``csrc/quantize.cu``:
 
+    quantize_rows  <- quantize_rows        per-row absmax -> int8/intN
+                                           levels and an fp32 scale
+    quantize_pack4 <- quantize_pack4_rows  the same at int4, two levels a
+                                           byte (even column low nibble)
     topk_quantize  <- topk_quantize_rows   k largest values per row (ties
                                            to the lower index), then an
                                            int8/int4 level and fp32 scale
 
-For CUDA tensors ``topk_quantize`` launches the kernel (or raises); its
-plain version is kernels/ref.topk_quantize_rows_ref, bit-identical.  The
-per-row quantizers of the Split slice (``quantize_rows``,
-``quantize_pack4_rows``) are not ported yet.
+For CUDA tensors each wrapper launches its kernel (or raises); the plain
+versions are kernels/ref.{quantize_rows_ref, quantize_pack4_rows_ref,
+topk_quantize_rows_ref}, bit-identical.
 
-The wrapper adds one to ``LAUNCHES["topk_quantize"]`` where it launches.
+Each wrapper adds one to ``LAUNCHES[<its name>]`` where it launches.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import torch
 
 from repro_torch.kernels import build
 
-LAUNCHES = {"topk_quantize": 0}
+LAUNCHES = {"quantize_rows": 0, "quantize_pack4": 0, "topk_quantize": 0}
 K_MAX = 512
 _LIB = None
 
@@ -39,8 +43,43 @@ def _lib():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.topk_quantize.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
         lib.topk_quantize.restype = i32
+        lib.quantize_rows.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+        lib.quantize_rows.restype = i32
+        lib.quantize_pack4.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
+        lib.quantize_pack4.restype = i32
         _LIB = lib
     return _LIB
+
+
+def quantize_rows(x, bits: int = 8):
+    """x fp32 (R, C) on CUDA -> (q int8 (R, C), scale fp32 (R, 1))."""
+    R, C = x.shape
+    if bits not in (4, 8):
+        raise ValueError(f"quantize_rows: bits={bits} (expected 4 or 8)")
+    build.check_tensors("quantize_rows", x.device, x=(x, (R, C)))
+    q = torch.empty((R, C), device=x.device, dtype=torch.int8)
+    scale = torch.empty((R, 1), device=x.device, dtype=torch.float32)
+    rc = _lib().quantize_rows(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                              R, C, bits, build.stream(x.device))
+    build.check(rc, "quantize_rows")
+    LAUNCHES["quantize_rows"] += 1
+    return q, scale
+
+
+def quantize_pack4(x):
+    """x fp32 (R, C even) on CUDA -> (packed uint8 (R, C/2), scale fp32
+    (R, 1))."""
+    R, C = x.shape
+    if C % 2:
+        raise ValueError(f"quantize_pack4: C={C} is odd (pad it first)")
+    build.check_tensors("quantize_pack4", x.device, x=(x, (R, C)))
+    q = torch.empty((R, C // 2), device=x.device, dtype=torch.uint8)
+    scale = torch.empty((R, 1), device=x.device, dtype=torch.float32)
+    rc = _lib().quantize_pack4(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                               R, C, build.stream(x.device))
+    build.check(rc, "quantize_pack4")
+    LAUNCHES["quantize_pack4"] += 1
+    return q, scale
 
 
 def topk_quantize(x, k: int, bits: int = 8):

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the ported kernels.
 
 Counterpart of ``src/repro/kernels/ref.py`` (``lora_matmul_ref``,
-``attention_ref``, ``kd_loss_rows_ref``, ``clip_mean_rows_ref`` and
-``topk_quantize_rows_ref`` there), plus the plain forward-with-residuals
+``attention_ref``, ``kd_loss_rows_ref``, ``clip_mean_rows_ref``,
+``quantize_rows_ref`` and ``topk_quantize_rows_ref`` there, and the twin
+of ``quantize_pack4_rows``), plus the plain forward-with-residuals
 and backward functions whose math is that of the TPU kernels in
 ``src/repro/kernels/lora_matmul.py``, ``flash_attention.py`` and
 ``kd_loss.py``.  The autograd Functions in
@@ -167,8 +168,34 @@ def kd_loss_bwd(teacher, student, stats, g, temperature: float = 1.0,
 
 
 # --------------------------------------------------------------------------- #
-# Top-k + symmetric int quantization
+# Symmetric per-row int quantization (and top-k)
 # --------------------------------------------------------------------------- #
+def quantize_rows_ref(x, bits: int = 8):
+    """x (R, C) -> (q int8 (R, C), scale fp32 (R, 1)) (row 10):
+    scale = max(absmax/qmax, 1e-12) by IEEE division, q = clamp(round(x /
+    scale), -qmax, qmax), rounding half to even, qmax = 2^(bits-1) - 1."""
+    qmax = float((1 << (bits - 1)) - 1)
+    xf = x.float()
+    absmax = xf.abs().amax(-1, keepdim=True)
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which can differ in the last bit
+    scale = torch.clamp_min(absmax / absmax.new_tensor(qmax), 1e-12)
+    q = torch.clamp(torch.round(xf / scale), -qmax, qmax)
+    return q.to(torch.int8), scale
+
+
+def quantize_pack4_rows_ref(x):
+    """x (R, C even) -> (packed uint8 (R, C/2), scale fp32 (R, 1)) (row
+    11): int4 levels of ``quantize_rows_ref``, the even column in the low
+    nibble and the odd column in the high one, in two's complement."""
+    R, C = x.shape
+    if C % 2:
+        raise ValueError(f"quantize_pack4_rows_ref: C={C} is odd")
+    q, scale = quantize_rows_ref(x, 4)
+    pair = (q.to(torch.int32) & 0xF).reshape(R, C // 2, 2)
+    return (pair[..., 0] | (pair[..., 1] << 4)).to(torch.uint8), scale
+
+
 def topk_quantize_rows_ref(x, k: int, bits: int = 8):
     """x (R, C) -> (q int8 (R, k), idx int32 (R, k), scale fp32 (R, 1)).
 

@@ -1,11 +1,14 @@
 """Decoder-only GPT-2 transformer: learned positions, pre-LayerNorm blocks,
 tied embeddings.
 
-Counterpart of ``init_params``, ``embed_tokens``, ``forward`` and
-``lm_logits`` in ``src/repro/models/transformer.py`` for the dense
-attention family.  The reference stacks the layers and scans them; here
-``params["layers"]`` is a list of per-layer dicts and the forward is a
-Python loop (models/../bridge.py converts between the two layouts).
+Counterpart of ``init_params``, ``embed_tokens``, ``forward``,
+``lm_logits`` and the layer-range functions of Split-FedLLM
+(``n_groups_of``, ``forward_groups``) in
+``src/repro/models/transformer.py`` for the dense attention family, where
+a pattern group is one layer.  The reference stacks the layers and scans
+them; here ``params["layers"]`` is a list of per-layer dicts and the
+forward is a Python loop (models/../bridge.py converts between the two
+layouts).
 
     {"embed": (V, d), "pos_embed": (P, d), ["lm_head": (d, V)],
      "final_norm": {"scale", "bias"},
@@ -90,7 +93,29 @@ def lm_logits(params, cfg: ModelConfig, h):
 def forward(params, cfg: ModelConfig, tokens):
     """Returns (logits (B, S, V), aux_loss) — aux is 0 for dense models."""
     h, positions = embed_tokens(params, cfg, tokens)
-    for p in params["layers"]:
-        h = block_fwd(p, cfg, h, positions)
+    h, aux = forward_groups(params, cfg, h, positions, 0,
+                            len(params["layers"]))
     h = common.layernorm(params["final_norm"], h)
-    return lm_logits(params, cfg, h), torch.zeros((), device=h.device)
+    return lm_logits(params, cfg, h), aux
+
+
+# --------------------------------------------------------------------------- #
+# Layer-range application (Split-FedLLM)
+# --------------------------------------------------------------------------- #
+def n_groups_of(cfg: ModelConfig) -> int:
+    """Pattern groups of the trunk: one per layer in the dense family."""
+    check_supported(cfg)
+    return cfg.n_layers
+
+
+def forward_groups(params, cfg: ModelConfig, h, positions, start: int,
+                   end: int, include_tail: bool = False):
+    """Apply groups [start, end) of ``params["layers"]`` to the embedded
+    hidden ``h``; returns (h, aux), aux 0 for dense models.  The dense
+    family has no tail layers, so ``include_tail`` adds none."""
+    for p in params["layers"][start:end]:
+        h = block_fwd(p, cfg, h, positions)
+    if include_tail:
+        for p in params.get("tail", ()):
+            h = block_fwd(p, cfg, h, positions)
+    return h, torch.zeros((), device=h.device)

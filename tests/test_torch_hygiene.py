@@ -44,7 +44,7 @@ print(len(names), bad)
 assert not bad, bad
 assert {"repro_torch.privacy.dp", "repro_torch.privacy.accountant",
         "repro_torch.privacy.secure_agg", "repro_torch.optim.clip",
-        "repro_torch.kernels.dp_clip"} <= set(names), names
+        "repro_torch.kernels.dp_clip", "repro_torch.core.split"} <= set(names), names
 """
 
 
@@ -74,6 +74,16 @@ def test_run_federated_without_device_needs_cuda(tiny_case):
                       clients, test)
 
 
+def test_split_without_device_needs_cuda(tiny_case):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg, pub, clients, test = tiny_case
+    fed = FedConfig(framework="split", split_layer=2, rounds=1,
+                    lora_dropout=0.0, activation_quant_bits=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_federated(cfg, fed, pub, clients, test)
+
+
 def test_model_init_without_device_needs_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -101,6 +111,10 @@ def test_cuda_policy_refuses_cpu_tensors():
             ops.topk_quantize(logits, 8, 8)
         with pytest.raises(ValueError, match="CUDA"):
             ops.clip_mean_rows(g, 1.0)
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.quantize(g, 8)
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.quantize_pack4(g)
     # the kernel wrappers themselves check before anything is built
     with pytest.raises(ValueError, match="CUDA"):
         lm.lora_fwd(x[0], w, a, b)
@@ -110,6 +124,10 @@ def test_cuda_policy_refuses_cpu_tensors():
         kdl.kd_fwd(logits, logits, 2.0)
     with pytest.raises(ValueError, match="CUDA"):
         qz.topk_quantize(logits, 8, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        qz.quantize_rows(g, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        qz.quantize_pack4(g)
     with pytest.raises(ValueError, match="CUDA"):
         dp_clip.dp_clip_norms(g)
     with pytest.raises(ValueError, match="CUDA"):
@@ -125,12 +143,13 @@ def test_auto_policy_resolves_by_device():
 
 
 @pytest.mark.parametrize("change", [
-    dict(framework="kd", aggregation="async"), dict(framework="split"), dict(backend="spmd"),
+    dict(framework="kd", aggregation="async"),
+    dict(framework="split", aggregation="async"), dict(backend="spmd"),
     dict(backend="cohort"), dict(aggregation="async"),
     dict(client_ranks=(2, 4, 4)), dict(robust_agg="median"),
     dict(quorum=0.5), dict(screen_factor=3.0), dict(optimizer="sgd"),
     dict(peft="adapter"),
-    dict(framework="split", privacy=PrivacyConfig(dp_clip=1.0)),
+    dict(framework="split", client_ranks=(2, 4, 4)),
     dict(aggregation="async", privacy=PrivacyConfig(secure_agg=True)),
     dict(faults=FaultConfig(dropout_rate=0.2)),
 ])

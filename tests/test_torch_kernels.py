@@ -1,5 +1,5 @@
-"""The port's LoRA-matmul, flash-attention, KD-loss, top-k-quantize and
-DP clip-scale-accumulate ops (their autograd Functions on CPU tensors, i.e. the plain versions of
+"""The port's LoRA-matmul, flash-attention, KD-loss, per-row quantize,
+top-k-quantize and DP clip-scale-accumulate ops (their autograd Functions on CPU tensors, i.e. the plain versions of
 kernels/ref.py that the CUDA kernels are held against on the card)
 against the reference's Pallas kernels run in interpret mode, forward
 and gradients.
@@ -7,8 +7,8 @@ and gradients.
 Same inputs from a numpy seed through both.  Tolerances: fp32 on both
 sides with a different summation order, atol 1e-5 / rtol 1e-4 forward and
 atol 1e-4 / rtol 1e-4 on gradients; the KD loss and its statistics at the
-reference's own bar for its kernel (rtol 1e-4 / atol 1e-5); top-k
-quantization bit for bit; the clipped mean at atol 1e-6, the reference's
+reference's own bar for its kernel (rtol 1e-4 / atol 1e-5); per-row and
+top-k quantization bit for bit; the clipped mean at atol 1e-6, the reference's
 bar for its clip kernel (tests/test_privacy.py)."""
 import numpy as np
 import pytest
@@ -25,6 +25,8 @@ from repro.optim import clip as jax_clip_lib  # noqa: E402
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
+from repro.kernels.quantize import quantize_pack4_rows as jax_pack4  # noqa: E402
+from repro.kernels.quantize import quantize_rows as jax_quantize  # noqa: E402
 from repro.kernels.quantize import topk_quantize_rows as jax_topk  # noqa: E402
 from repro.kernels.lora_matmul import lora_matmul as jax_lora  # noqa: E402
 from repro_torch.kernels import kd_loss, ops, ref  # noqa: E402
@@ -235,6 +237,100 @@ def test_kd_loss_stays_finite_on_topk_filled_teacher():
     np.testing.assert_allclose(rows.detach().numpy(),
                                ref.kd_loss_rows_ref(tt, ss, 2.0).detach()
                                .numpy(), **KD)
+
+
+# --------------------------------------------------------------------------- #
+# Per-row int quantization (rows 10, 11)
+# --------------------------------------------------------------------------- #
+def _quant_input(R, C, special):
+    """Seeded (R, C) rows; with ``special``, row 1 all zeros (the 1e-12
+    scale floor) and rows 2, 3 exact half levels: absmax 127 (bits 8) or 7
+    (bits 4) makes the scale exactly 1, and +-0.5, 1.5, 2.5 round half to
+    even to 0, +-2, +-2."""
+    (x,) = _inputs(R * C, ((R, C), 3.0))
+    if special:
+        halves = [0.5, -0.5, 1.5, -1.5, 2.5, -2.5]
+        x[1] = 0.0
+        x[2, :] = 0.0
+        x[2, 0], x[2, 1:7] = 127.0, halves
+        x[3, :] = 0.0
+        x[3, 0], x[3, 1:7] = 7.0, halves
+    return x
+
+
+QUANT_SHAPES = [(8, 128, False), (16, 384, False), (32, 1000, False),
+                (8, 130, True)]
+
+
+@pytest.mark.parametrize("R,C,special", QUANT_SHAPES)
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_rows_matches_pallas_bit_for_bit(R, C, special, bits):
+    """q and scale equal the reference's oracle bit for bit, and q equals
+    quantize_rows in interpret mode (its scale is held at the reference's
+    own tolerance, rtol 1e-6: XLA turns the kernel's ``absmax / qmax`` into
+    a reciprocal product, one ulp off at times); directly and through
+    ops.quantize on a 3-D input."""
+    x = _quant_input(R, C, special)
+    oracle = jax_ref.quantize_rows_ref(jnp.asarray(x), bits)
+    pallas = jax_quantize(jnp.asarray(x), bits=bits, br=8, interpret=True)
+    got = ref.quantize_rows_ref(torch.tensor(x), bits)
+    for name, g, w in zip(("q", "scale"), got, oracle):
+        assert g.numpy().dtype == np.asarray(w).dtype, name
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(pallas[0]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(pallas[1]),
+                               rtol=1e-6)
+    if special:
+        qmax = 127 if bits == 8 else 7
+        row = 2 if bits == 8 else 3
+        assert not got[0][1].any()
+        assert float(got[1][1, 0]) == float(np.float32(1e-12))
+        np.testing.assert_array_equal(got[0][row, :7].numpy(),
+                                      [qmax, 0, 0, 2, -2, 2, -2])
+    with ops.policy_scope("torch"):
+        q, sc = ops.quantize(torch.tensor(x).reshape(2, R // 2, C), bits)
+    assert q.shape == (2, R // 2, C) and sc.shape == (2, R // 2, 1)
+    np.testing.assert_array_equal(q.reshape(R, C).numpy(), got[0].numpy())
+    np.testing.assert_array_equal(sc.reshape(R, 1).numpy(), got[1].numpy())
+
+
+@pytest.mark.parametrize("R,C,special", [(8, 128, False), (16, 384, False),
+                                         (4, 1000, False), (8, 130, True)])
+def test_quantize_pack4_matches_pallas_bit_for_bit(R, C, special):
+    """The packed bytes equal quantize_pack4_rows in interpret mode and the
+    reference's pack of its oracle levels bit for bit; they unpack to the
+    oracle's int4 levels; the scale equals the oracle's."""
+    from repro.core import compression as jax_compression
+    from repro_torch.core import compression
+
+    x = _quant_input(R, C, special)
+    packed, sc = ref.quantize_pack4_rows_ref(torch.tensor(x))
+    assert packed.dtype == torch.uint8 and packed.shape == (R, C // 2)
+    q_want, sc_want = jax_ref.quantize_rows_ref(jnp.asarray(x), 4)
+    pallas = jax_pack4(jnp.asarray(x), br=4, interpret=True)
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(pallas[0]))
+    np.testing.assert_array_equal(
+        packed.numpy(), np.asarray(jax_compression.pack_int4(q_want)))
+    np.testing.assert_array_equal(sc.numpy(), np.asarray(sc_want))
+    np.testing.assert_allclose(sc.numpy(), np.asarray(pallas[1]), rtol=1e-6)
+    np.testing.assert_array_equal(
+        compression.unpack_int4(packed, C).numpy(), np.asarray(q_want))
+
+
+@pytest.mark.parametrize("R,C", [(5, 9), (6, 131), (8, 128)])
+def test_ops_quantize_pack4_odd_width_matches_reference(R, C):
+    """ops.quantize_pack4 pads an odd width by one zero column, as the
+    reference's ops.quantize_pack4 does: the same bytes, and the same
+    scales at the reference's tolerance for its Pallas kernel (rtol
+    1e-6)."""
+    x = _quant_input(R, C, False)
+    want = jax_ops.quantize_pack4(jnp.asarray(x).reshape(1, R, C))
+    with ops.policy_scope("torch"):
+        got = ops.quantize_pack4(torch.tensor(x).reshape(1, R, C))
+    assert got[0].shape == (1, R, (C + 1) // 2)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                               rtol=1e-6)
 
 
 # --------------------------------------------------------------------------- #
