@@ -22,7 +22,14 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    levels, and the int4 pack) bit for bit at the Split boundary's
    (1280, 768) and at ragged widths (warp and block variants, float4 and
    scalar loads, a misaligned row start), each with a row of zeros and
-   rows of exact half levels.
+   rows of exact half levels; the RG-LRU scan kernels bit for bit (their
+   twins round the same multiply and add) at the train step's (16, 80,
+   2560), timed eager, in a graph and with a cold L2, and at the eval
+   batch's (64, 80, 2560), a ragged width (2561, scalar loads), one step,
+   with an initial state and a gradient of the final state, and with
+   misaligned rows; and the LoRA and flash kernels at RecurrentGemma-2B's
+   shapes (K = N = 2560; 10 query heads of 256 over one kv head, window
+   2048, timed; a window shorter than S and a head dim of 200 checked).
 3. Runs the paper's SSV case study through ``run_federated`` at the full
    width of GPT-2 (12 layers, d 768, V 50257; random weights from seed 0),
    2 FedLLM rounds over 3 clients, four times from the same weights: with
@@ -70,6 +77,13 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    step 0 that differ from the plain run's (c2 and c4) must be within
    FLOOR_FACTOR times the fp32 floor's plus FLOOR_SLACK for the kernel
    run and outside it for the TF32 run.
+7. FedLLM on RecurrentGemma-2B at full width and depth (26 layers in the
+   pattern (rglru, rglru, local_attn), d 2560, V 256000, 2.66e9
+   parameters; random weights from seed 0), phase 3's data, rounds, rank
+   and checks, four runs.  LoRA sits on wq/wk/wv of the 8 local-attention
+   layers; every batch runs the RG-LRU scan kernel in the 18 recurrent
+   layers, every train step its backward in the 16 that follow the first
+   LoRA layer (autograd does not reach layers 0-1).
 
 It prints one JSON line with every kernel's numbers and, last, the line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -89,16 +103,18 @@ ATOL, RTOL = 1e-4, 1e-4
 KD_ATOL, KD_RTOL = 1e-5, 1e-4
 DP_ATOL, DP_RTOL = 1e-6, 1e-5
 EXACT = ("topk_quantize", "quantize_rows", "quantize_rows_int4",
-         "quantize_pack4")
+         "quantize_pack4", "rglru_fwd", "rglru_bwd")
 # kernels also timed inside a CUDA graph: at the main path's shapes an
 # eager call's host cost exceeds their device time
 GRAPH_TIMED = ("kd_fwd", "kd_bwd", "kd_bwd_dt", "topk_quantize",
                "dp_clip_norms", "dp_clip_acc", "quantize_rows",
-               "quantize_rows_int4", "quantize_pack4")
+               "quantize_rows_int4", "quantize_pack4", "rglru_fwd",
+               "rglru_bwd")
 # kernels also timed with the L2 flushed before each call: their input
-# (28.3 MB at the main path) fits the 50 MB L2, so back-to-back calls read
-# it from there, while in a DP step the passes between calls evict it
-COLD_TIMED = ("dp_clip_norms", "dp_clip_acc")
+# (28.3 MB at the DP path, 26-39 MB at the RG-LRU's) fits the 50 MB L2, so
+# back-to-back calls read it from there, while in a step the passes
+# between calls evict it
+COLD_TIMED = ("dp_clip_norms", "dp_clip_acc", "rglru_fwd", "rglru_bwd")
 L2_FLUSH_BYTES = 100 * 2 ** 20
 # data-sheet peaks: (fp32 FLOP/s without tensor cores, memory bytes/s)
 PEAKS = {"H100 PCIe": (51.2e12, 2.0e12), "H100 NVL": (60.0e12, 3.9e12),
@@ -109,6 +125,11 @@ SPLIT_LAYER, SPLIT_BITS = 2, 8
 DP_WIDTH = 12 * 3 * 2 * RANK * 768
 # final-LoRA gate: relative L2 <= FLOOR_FACTOR * (plain vs plain) + slack
 FLOOR_FACTOR, FLOOR_SLACK = 3.0, 1e-6
+# the LoRA (wq of a local-attention layer) and flash shapes of a
+# RecurrentGemma-2B train step
+RG_SHAPES = dict(M=BATCH * PAD_LEN, K=2560, N=2560, r=RANK, BH=BATCH * 10,
+                 BKV=BATCH, S=PAD_LEN, Skv=PAD_LEN, D=256, causal=True,
+                 window=2048, q_offset=0)
 
 
 def require(ok: bool, what: str) -> None:
@@ -275,16 +296,19 @@ def kernel_cases(device, M, K, N, r, BH, BKV, S, Skv, D, causal, window,
     cfg = (causal, window, q_offset)
     # the library yardstick: one scaled_dot_product_attention call on the
     # same tensors viewed as (1, heads, S, D), where it computes the same
-    # function (no GQA, window or offset)
-    sdpa_ok = q_offset == 0 and window == 0 and S == Skv and BH == BKV
+    # function (no offset, no window shorter than S); with GQA on k and v
+    # expanded to the query heads beforehand
+    sdpa_ok = q_offset == 0 and (window == 0 or window >= S) and S == Skv
+    G = BH // BKV
+    ke, ve = (t.repeat_interleave(G, dim=0) for t in (k, v))
 
     def sdpa():
-        return F.scaled_dot_product_attention(q[None], k[None], v[None],
+        return F.scaled_dot_product_attention(q[None], ke[None], ve[None],
                                               is_causal=causal)
 
     sdpa_bwd = None
     if sdpa_ok:
-        leaves = [t.detach()[None].requires_grad_(True) for t in (q, k, v)]
+        leaves = [t.detach()[None].requires_grad_(True) for t in (q, ke, ve)]
         out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
         dout = do[None]
 
@@ -304,6 +328,48 @@ def kernel_cases(device, M, K, N, r, BH, BKV, S, Skv, D, causal, window,
                       sdpa_bwd, 2 * qb + 4 * kvb + 2 * rowb, pairs * 8 * D),
     })
     return cases
+
+
+def rglru_cases(device, B, S, W, h0, dh_final, offset, seed):
+    """The RG-LRU scan kernels on seeded (B, S, W) inputs, as kernel_cases
+    (no PyTorch call computes a linear recurrence, so no library
+    yardstick): decays a in (0, 1) as the RG-LRU's gates give them, with
+    an initial state ``h0``, and a gradient of h_final (``dh_final``)
+    when set (the backward then forms dh0 too).  ``offset`` floats before
+    every tensor's start make its rows misaligned for 16-byte loads."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def place(t):
+        flat = torch.empty(offset + t.numel(), device=device)
+        out = flat[offset:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    def rn(*shape):
+        return torch.randn(shape, device=device, generator=gen)
+
+    a = place(torch.sigmoid(rn(B, S, W) + 2.0))
+    b, dh = place(rn(B, S, W) * 0.1), place(rn(B, S, W))
+    s0 = place(rn(B, W)) if h0 else None
+    dhf = place(rn(B, W)) if dh_final else None
+    h = place(ref.rglru_scan(a, b, s0)[0])
+    f4, n, state = 4, B * S * W, B * W
+    # the backward reads h0 and dh_final where given and writes dh0
+    # when there is an h0
+    opt = f4 * state * (2 * int(h0) + int(dh_final))
+    return {
+        "rglru_fwd": (lambda: rg.rglru_fwd(a, b, s0),
+                      lambda: ref.rglru_scan(a, b, s0), None,
+                      f4 * (3 * n + state) + f4 * state * int(h0), 2 * n),
+        "rglru_bwd": (lambda: rg.rglru_bwd(a, h, s0, dh, dhf, h0),
+                      lambda: ref.rglru_scan_bwd(a, h, s0, dh, dhf, h0),
+                      None, f4 * 5 * n + opt, 3 * n),
+    }
 
 
 def kd_cases(device, R, V, T, topk_teacher, Rq, Cq, k, bits, ties, seed):
@@ -511,7 +577,26 @@ def check_kernels(device, card: str):
     ragged = [dict(M=1001, K=768, N=768, r=RANK, BH=8, BKV=4, S=24, Skv=32,
                    D=32, causal=True, window=16, q_offset=8),
               dict(M=37, K=130, N=70, r=3, BH=6, BKV=3, S=50, Skv=50,
-                   D=100, causal=False, window=0, q_offset=0)]
+                   D=100, causal=False, window=0, q_offset=0),
+              # RecurrentGemma's attention: 10 heads of 256 on one kv head,
+              # a window shorter than S; a head dim the 256 tile masks
+              dict(M=333, K=2560, N=256, r=RANK, BH=20, BKV=2, S=80, Skv=80,
+                   D=256, causal=True, window=32, q_offset=0),
+              dict(M=50, K=2560, N=2560, r=RANK, BH=10, BKV=1, S=50, Skv=70,
+                   D=200, causal=True, window=0, q_offset=20)]
+    # RG-LRU scan: the eval batch's shape, a ragged width (scalar loads)
+    # with a step count that is no multiple of the kernels' 8-step load
+    # batches, one step, an initial state and dh_final, misaligned rows
+    rglru_checks = [dict(B=64, S=PAD_LEN, W=2560, h0=False, dh_final=False,
+                         offset=0),
+                    dict(B=3, S=37, W=2561, h0=True, dh_final=True,
+                         offset=0),
+                    dict(B=5, S=1, W=2560, h0=True, dh_final=False,
+                         offset=0),
+                    dict(B=16, S=PAD_LEN, W=2560, h0=True, dh_final=True,
+                         offset=0),
+                    dict(B=4, S=19, W=2560, h0=True, dh_final=True,
+                         offset=1)]
     # KD: the main path's server batches (64 and 22 public rows of 77
     # class logits) and its b3 upload (150 x 77, top-k 8); ragged shapes
     # for both kernel variants (a warp per row below V = 2049, a block
@@ -536,8 +621,26 @@ def check_kernels(device, card: str):
             print(f"  kd shape {i} {name} ({shape['R']}x{shape['V']}; top-k "
                   f"{shape['Rq']}x{shape['Cq']} k={shape['k']} "
                   f"bits={shape['bits']}): max abs err {err:.3e}")
+    for i, shape in enumerate(rglru_checks):
+        for name, (kern, plain, *_rest) in rglru_cases(
+                device, seed=500 + i, **shape).items():
+            max_err(name, kern(), plain())
+            print(f"  rglru shape {i} {name} ({shape['B']}, {shape['S']}, "
+                  f"{shape['W']}), h0 {shape['h0']}, dh_final "
+                  f"{shape['dh_final']}, offset {shape['offset']}: "
+                  f"bit-identical")
     rows = {}
     for name, case in kernel_cases(device, seed=7, **cfg).items():
+        rows[name] = time_case(name, case, peaks_)
+    print(f"  LoRA and flash kernels at RecurrentGemma-2B's shapes (M "
+          f"{BATCH * PAD_LEN}, K = N = 2560; BH {BATCH * 10}, one kv head a "
+          f"batch row, D 256, window 2048):")
+    for name, case in kernel_cases(device, seed=12, **RG_SHAPES).items():
+        rows[f"{name}@rg"] = time_case(name, case, peaks_)
+    print(f"  RG-LRU scan kernels at the train step's shape ({BATCH}, "
+          f"{PAD_LEN}, 2560), no h0, no dh_final:")
+    for name, case in rglru_cases(device, BATCH, PAD_LEN, 2560, False, False,
+                                  0, 13).items():
         rows[name] = time_case(name, case, peaks_)
     print("  KD kernels at the main path's shapes (64 x 77; top-k 150 x 77, "
           "k 8, int8):")
@@ -1043,6 +1146,60 @@ def run_dp(device, cfg, base, data, steps, evals, lora_bytes):
     return counts
 
 
+def run_recurrent(device):
+    """Phase 7: FedLLM on RecurrentGemma-2B at full width and depth (26
+    layers: 18 RG-LRU, 8 local attention; random weights from seed 0),
+    phase 3's data and checks.  Returns the kernel run's launch counts."""
+    import torch
+
+    from repro_torch.configs.base import LOCAL_ATTN, RGLRU, FedConfig
+    from repro_torch.configs.recurrentgemma_2b import recurrentgemma_2b
+    from repro_torch.data import banking77, partition
+    from repro_torch.models.factory import build_model
+
+    cfg = recurrentgemma_2b()
+    print(f"phase 7: FedLLM case study, {cfg.name} full width and depth "
+          f"({cfg.param_count() / 1e9:.3f}e9 parameters), 2 rounds, "
+          f"3 clients")
+    pub, train, test = banking77.paper_splits(cfg.vocab_size,
+                                              pad_len=PAD_LEN, scale=0.03)
+    clients = partition.iid_partition(train, 3)
+    t0 = time.perf_counter()
+    base = build_model(cfg).init(torch.Generator().manual_seed(0), device)
+    torch.cuda.synchronize()
+    print(f"  init wall_s={time.perf_counter() - t0:.1f}")
+    kinds, C = cfg.layer_kinds, len(clients)
+    n_attn, n_rglru = kinds.count(LOCAL_ATTN), kinds.count(RGLRU)
+    # autograd reaches an RG-LRU layer only after the first LoRA-bound
+    # (local-attention) layer: before it nothing requires a gradient
+    first = kinds.index(LOCAL_ATTN)
+    n_rglru_bwd = kinds[first:].count(RGLRU)
+    steps = sum(len(c["tokens"]) // BATCH for c in clients)
+    evals = len(test["tokens"]) // 64
+    fed = FedConfig(framework="fedllm", rounds=2, lora_rank=RANK,
+                    lora_dropout=0.0)
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    d = cfg.d_model
+    # A (d, r) and B (r, out) of wq, wk and wv in each attention layer
+    lora_bytes = n_attn * RANK * ((d + q) + 2 * (d + kv)) * 4
+    train_steps, fwd_batches = steps * fed.rounds, evals * fed.rounds
+    expect = model_launches(n_attn, train_steps, fwd_batches)
+    expect.update(rglru_fwd=n_rglru * (train_steps + fwd_batches),
+                  rglru_bwd=n_rglru_bwd * train_steps)
+    print(f"  {n_rglru} RG-LRU layers ({n_rglru_bwd} after layer {first}, "
+          f"the first with LoRA), {n_attn} local-attention layers; "
+          f"{train_steps} train steps, {fwd_batches} eval batches")
+    t0 = time.perf_counter()
+    counts, _ = run_case(device, cfg, base, fed, (pub, clients, test),
+                         ledger={"lora_params": fed.rounds * C * 2
+                                 * lora_bytes},
+                         expect=expect)
+    print(f"  phase 7 wall_s={time.perf_counter() - t0:.1f}")
+    del base
+    torch.cuda.empty_cache()
+    return counts
+
+
 REPLACES = {
     "lora_fwd": ("src/repro/kernels/lora_matmul.py:74", "lora_matmul.cu"),
     "lora_dx": ("src/repro/kernels/lora_matmul.py:140", "lora_matmul.cu"),
@@ -1060,6 +1217,10 @@ REPLACES = {
     "dp_clip_acc": ("src/repro/kernels/dp_clip.py:73", "dp_clip.cu"),
     "quantize_rows": ("src/repro/kernels/quantize.py:42", "quantize.cu"),
     "quantize_pack4": ("src/repro/kernels/quantize.py:79", "quantize.cu"),
+    "rglru_fwd": ("src/repro/kernels/rglru_scan.py:56", "rglru_scan.cu"),
+    # the gradient of row 15 (the reference differentiates the scan
+    # through XLA)
+    "rglru_bwd": ("src/repro/kernels/rglru_scan.py:56", "rglru_scan.cu"),
 }
 
 
@@ -1104,10 +1265,14 @@ def main() -> int:
     print(f"  phase 2 wall_s={time.perf_counter() - t0:.1f}")
 
     by_path = run_slices(device)
+    by_path["recurrentgemma"] = run_recurrent(device)
 
     # ``launches`` sums the kernel runs of the paths; ``launches_by_path``
-    # keeps them apart.  Rows are at the main path's shapes; the KD
-    # kernels' generative-vocabulary timings are printed above.
+    # keeps them apart.  Rows are at the main path's shapes (GPT-2's;
+    # the RG-LRU scan's at RecurrentGemma-2B's train step), the LoRA and
+    # flash rows with their RecurrentGemma-2B shapes under
+    # ``at_recurrentgemma``; the KD kernels' generative-vocabulary
+    # timings are printed above.
     kernels = []
     for name, (replaces, src) in REPLACES.items():
         row = rows[name]
@@ -1122,6 +1287,12 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **{key: row[key] for key in ("graph_ms", "cold_ms")
                if key in row}})
+        if f"{name}@rg" in rows:
+            rg = rows[f"{name}@rg"]
+            kernels[-1]["at_recurrentgemma"] = {
+                key: rg[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")}
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""Which kernels move the final LoRA of chip_smoke.py's phase 7 (FedLLM on
+RecurrentGemma-2B at full width and depth, seed 0, phase 3's data) away
+from the plain-PyTorch run, on one CUDA card:
+
+    python3 scripts/chip_attribution.py
+
+Runs the plain run (kernel policy ``torch``), then kernel runs (policy
+``cuda``) with one op family at a time sent back to plain PyTorch (the
+LoRA projection, the attention, the RG-LRU scan), and with only the
+RG-LRU scan on its kernels; prints each run's relative L2 distance from
+the plain run's final LoRA, its per-round loss differences and its
+kernel launches.  Then the fp32 error of the LoRA forward kernel, of
+cuBLAS and of cuBLASLt against an fp64 product at GPT-2's and
+RecurrentGemma-2B's projection shapes.  Needs a CUDA card; imports
+nothing of JAX.
+"""
+from __future__ import annotations
+
+import dataclasses
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_attribution: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    import chip_smoke
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.configs.recurrentgemma_2b import recurrentgemma_2b
+    from repro_torch.core.rounds import run_federated
+    from repro_torch.data import banking77, partition
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels import ops
+    from repro_torch.models.factory import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    print(torch.cuda.get_device_name(0), torch.__version__)
+    cfg = recurrentgemma_2b()
+    pub, train, test = banking77.paper_splits(
+        cfg.vocab_size, pad_len=chip_smoke.PAD_LEN, scale=0.03)
+    clients = partition.iid_partition(train, 3)
+    base = build_model(cfg).init(torch.Generator().manual_seed(0), dev)
+    fed = FedConfig(framework="fedllm", rounds=2, lora_rank=chip_smoke.RANK,
+                    lora_dropout=0.0)
+
+    def run(policy):
+        return run_federated(dataclasses.replace(cfg, kernel_policy=policy),
+                             fed, pub, clients, test,
+                             batch_size=chip_smoke.BATCH, eval_batch=64,
+                             device=dev, base=base)
+
+    def plain_version(op):
+        def call(*args, **kwargs):
+            with ops.policy_scope("torch"):
+                return op(*args, **kwargs)
+        return call
+
+    plain = run("torch")
+    for tag, names in (("all kernels", ()),
+                       ("plain LoRA projection", ("lora_matmul",)),
+                       ("plain attention", ("mha_attention",)),
+                       ("plain RG-LRU scan", ("rglru",)),
+                       ("only the RG-LRU scan kernels",
+                        ("lora_matmul", "mha_attention"))):
+        saved = {name: getattr(ops, name) for name in names}
+        for name, op in saved.items():
+            setattr(ops, name, plain_version(op))
+        ops.reset_launches()
+        try:
+            res = run("cuda")
+        finally:
+            for name, op in saved.items():
+                setattr(ops, name, op)
+        _, rel, worst = chip_smoke.lora_gap(res.final_lora, plain.final_lora)
+        losses = [f"{h.loss - p.loss:.3e}"
+                  for h, p in zip(res.history, plain.history)]
+        print(f"{tag}: final LoRA relative L2 {rel:.4e}, max abs "
+              f"{worst:.3e}; round loss - plain {losses}; launches "
+              f"{ {k: n for k, n in ops.launches().items() if n} }",
+              flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    blas = torch.backends.cuda.preferred_blas_library()
+    for K, N in ((768, 768), (2560, 2560), (2560, 256)):
+        M, r = chip_smoke.BATCH * chip_smoke.PAD_LEN, chip_smoke.RANK
+        x = torch.randn(M, K, device=dev, generator=gen)
+        w = torch.randn(K, N, device=dev, generator=gen) * K ** -0.5
+        a = torch.randn(K, r, device=dev, generator=gen) * K ** -0.5
+        b = torch.randn(r, N, device=dev, generator=gen) * N ** -0.5
+        exact = (x.double() @ w.double()
+                 + (x.double() @ a.double()) @ b.double())
+        errs = {"kernel": lm.lora_fwd(x, w, a, b)[0]}
+        for lib in ("cublas", "cublaslt"):
+            torch.backends.cuda.preferred_blas_library(lib)
+            errs[lib] = x @ w + (x @ a) @ b
+        torch.backends.cuda.preferred_blas_library(blas)
+        rms = {k: float(((y.double() - exact) ** 2).mean().sqrt())
+               for k, y in errs.items()}
+        print(f"LoRA forward M {M} K {K} N {N}: rms error against fp64 "
+              + ", ".join(f"{k} {e:.3e}" for k, e in rms.items()),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -115,6 +115,9 @@ class ModelConfig:
         return self.n_experts > 0
 
     # -- parameter counting (analytic; used by the fed metrics) ----------
+    def param_count(self) -> int:
+        return sum(x for x, _ in self._param_terms())
+
     def active_param_count(self) -> int:
         """Params touched per token (MoE: only top_k experts active)."""
         return sum(a for _, a in self._param_terms())
@@ -152,6 +155,37 @@ class ModelConfig:
                 4 * d * d + 2 * d * ff)
             xattn = self.n_layers * 4 * d * d
             yield enc + xattn, enc + xattn
+
+    def reduced(self, n_layers: int = 2, d_model: int = 256,
+                n_experts: int = 4) -> "ModelConfig":
+        """A smoke-test-sized variant of the same family (the reference's
+        ``ModelConfig.reduced``: <=4 heads, d_ff 3d, V 512, window 64;
+        at least one full layer pattern)."""
+        n_heads = min(self.n_heads, 4) if self.n_heads else 0
+        n_kv = min(self.n_kv_heads, n_heads) if n_heads else 0
+        if self.layer_pattern is not None:
+            n_layers = max(n_layers, len(self.layer_pattern))
+        return dataclasses.replace(
+            self,
+            name=self.name + "-smoke",
+            n_layers=n_layers,
+            d_model=d_model,
+            n_heads=n_heads,
+            n_kv_heads=max(1, n_kv),
+            head_dim=d_model // n_heads if n_heads else 0,
+            d_ff=d_model * 3,
+            vocab_size=512,
+            n_experts=min(self.n_experts, n_experts) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            lru_width=d_model,
+            local_window=64,
+            sliding_window=64 if self.sliding_window else 0,
+            n_encoder_layers=2 if self.n_encoder_layers else 0,
+            encoder_seq_len=16 if self.n_encoder_layers else 1500,
+            n_image_tokens=8 if self.n_image_tokens else 0,
+            image_embed_dim=64 if self.image_embed_dim else 0,
+            max_position_embeddings=4096,
+        )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,10 +5,11 @@
 
 ``result.history`` is a list of RoundMetrics; ``result.ledger`` holds
 every wire transfer.  The port runs FedLLM (the paper's SSV case study),
-KD-FedLLM and Split-FedLLM, each with sequential clients and sync rounds,
-with or without the privacy knobs (``FedConfig.privacy``: DP-SGD
-clipping, upload noise, secure aggregation; on Split the c2 boundary
-clip and noise).  Every ``FedConfig`` setting outside them raises
+KD-FedLLM and Split-FedLLM on the dense family (GPT-2), and FedLLM on the
+Griffin hybrid (RecurrentGemma; Split refuses it), each with sequential
+clients and sync rounds, with or without the privacy knobs
+(``FedConfig.privacy``: DP-SGD clipping, upload noise, secure
+aggregation; on Split the c2 boundary clip and noise).  Every ``FedConfig`` setting outside them raises
 NotImplementedError rather than being ignored.  The run holds
 ``cfg.kernel_policy`` as the ambient kernel policy from start to end, so
 kernels called outside the model's forward (the KD loss, the b3 top-k

@@ -26,7 +26,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
-D_MAX = 128
+D_MAX = 256
 _LIB = None
 
 

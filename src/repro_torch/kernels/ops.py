@@ -5,14 +5,16 @@ Counterpart of ``src/repro/kernels/ops.py``.  ``ModelConfig.kernel_policy``
 by core/rounds.run_federated for a whole run and by
 models/factory.Model.forward for callers that drive the model directly;
 peft/lora.lora_apply, models/attention.attention_fwd, models/loss.kd_kl,
-core/compression (``topk_quantize``, ``quantize``, ``quant_roundtrip``)
-and privacy/dp.clipped_grad_mean call ``lora_matmul``, ``mha_attention``,
-``kd_loss``, ``topk_quantize``, ``quantize``, ``quantize_pack4`` and
-``clip_mean_rows``, which follow it:
+core/compression (``topk_quantize``, ``quantize``, ``quant_roundtrip``),
+privacy/dp.clipped_grad_mean and models/rglru.rglru_fwd call
+``lora_matmul``, ``mha_attention``, ``kd_loss``, ``topk_quantize``,
+``quantize``, ``quantize_pack4``, ``clip_mean_rows`` and ``rglru``, which
+follow it:
 
     ``cuda``  — the CUDA kernels (kernels/lora_matmul.py,
                 kernels/flash_attention.py, kernels/kd_loss.py,
-                kernels/quantize.py, kernels/dp_clip.py), differentiable
+                kernels/quantize.py, kernels/dp_clip.py,
+                kernels/rglru_scan.py), differentiable
                 where the reference's are.  The tensors must be on a CUDA device: a CPU tensor
                 raises rather than falling back.
     ``torch`` — the plain PyTorch versions (kernels/ref.py) on whatever
@@ -36,6 +38,7 @@ from repro_torch.kernels import kd_loss as _kd
 from repro_torch.kernels import lora_matmul as _lm
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as _rg
 
 POLICIES = ("torch", "cuda", "auto")
 _ACTIVE = "auto"
@@ -184,12 +187,25 @@ def clip_mean_rows(g, clip: float):
     return _dp.clip_mean_rows(g.float().contiguous(), clip)
 
 
+def rglru(a, b, h0=None):
+    """a, b: (B, S, W) fp32; h0: (B, W) or None (zeros) -> (h (B, S, W),
+    h_final (B, W)): the RG-LRU recurrence h_t = a_t·h_{t-1} + b_t,
+    differentiable.  The CUDA kernels of kernels/rglru_scan.py under the
+    ``cuda`` policy, the step-by-step plain version (kernels/ref.py, the
+    same bits) under ``torch``."""
+    if not use_cuda(a):
+        return ref.rglru_scan(a, b, h0)
+    _require_cuda("rglru", a, b, *(() if h0 is None else (h0,)))
+    return _rg.rglru_scan(a.contiguous(), b.contiguous(),
+                          None if h0 is None else h0.contiguous())
+
+
 def launches() -> dict:
     """Launch counts of every ported kernel since the last reset."""
     return {**_lm.LAUNCHES, **_fa.LAUNCHES, **_kd.LAUNCHES, **_q.LAUNCHES,
-            **_dp.LAUNCHES}
+            **_dp.LAUNCHES, **_rg.LAUNCHES}
 
 
 def reset_launches() -> None:
-    for mod in (_lm, _fa, _kd, _q, _dp):
+    for mod in (_lm, _fa, _kd, _q, _dp, _rg):
         mod.reset_launches()

@@ -2,13 +2,15 @@
 
 Counterpart of ``src/repro/kernels/ref.py`` (``lora_matmul_ref``,
 ``attention_ref``, ``kd_loss_rows_ref``, ``clip_mean_rows_ref``,
-``quantize_rows_ref`` and ``topk_quantize_rows_ref`` there, and the twin
-of ``quantize_pack4_rows``), plus the plain forward-with-residuals
-and backward functions whose math is that of the TPU kernels in
-``src/repro/kernels/lora_matmul.py``, ``flash_attention.py`` and
-``kd_loss.py``.  The autograd Functions in
-kernels/{lora_matmul,flash_attention,kd_loss}.py and kernels/ops (for
-kernels/quantize.py and kernels/dp_clip.py) take these for CPU tensors;
+``quantize_rows_ref``, ``topk_quantize_rows_ref`` and ``rglru_scan_ref``
+there, and the twin of ``quantize_pack4_rows``), plus the plain
+forward-with-residuals and backward functions whose math is that of the
+TPU kernels in ``src/repro/kernels/lora_matmul.py``,
+``flash_attention.py`` and ``kd_loss.py``, and the RG-LRU scan's
+gradient.  The autograd Functions in
+kernels/{lora_matmul,flash_attention,kd_loss,rglru_scan}.py and
+kernels/ops (for kernels/quantize.py and kernels/dp_clip.py) take these
+for CPU tensors;
 chip_smoke.py holds each CUDA kernel against them on the card.  All math
 is fp32.
 """
@@ -236,3 +238,35 @@ def clip_mean_rows_ref(g, clip: float):
     DP-SGD clip-scale-accumulate oracle, through optim/clip's fp32
     eps-guarded scale."""
     return clip_acc_ref(g, clip_norms_ref(g), clip)
+
+
+# --------------------------------------------------------------------------- #
+# RG-LRU linear recurrence
+# --------------------------------------------------------------------------- #
+def rglru_scan(a, b, h0=None):
+    """h_t = a_t·h_{t-1} + b_t from h_{-1} = h0 (zeros if None), one step
+    at a time: a, b (B, S, W) -> (h (B, S, W), h_final (B, W)) (row 15).
+    One multiply, then one add, each rounded: the CUDA kernel's bits."""
+    h = torch.zeros_like(a[:, 0]) if h0 is None else h0
+    steps = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        steps.append(h)
+    return torch.stack(steps, 1), h
+
+
+def rglru_scan_bwd(a, h, h0, dh, dh_final=None, need_dh0: bool = False):
+    """The recurrence's gradient, backward in time from c = dh_final (or
+    0): g_t = dh_t + c, c = a_t·g_t, db_t = g_t, da_t = g_t·h_{t-1}
+    (h_{-1} = h0, or 0).  Returns (da, db, dh0 = c after step 0 if
+    ``need_dh0`` else None)."""
+    S = a.shape[1]
+    c = torch.zeros_like(a[:, 0]) if dh_final is None else dh_final
+    h_prev = torch.zeros_like(a[:, 0]) if h0 is None else h0
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    for t in range(S - 1, -1, -1):
+        g = dh[:, t] + c
+        c = a[:, t] * g
+        db[:, t] = g
+        da[:, t] = g * (h[:, t - 1] if t > 0 else h_prev)
+    return da, db, (c if need_dh0 else None)

@@ -1,10 +1,13 @@
-"""Multi-head causal self-attention with QKV bias (GPT-2).
+"""Causal self-attention: multi-head with QKV bias and learned positions
+(GPT-2), or grouped-query with RoPE and a sliding window
+(RecurrentGemma's local attention).
 
 Counterpart of ``init_attention`` and ``attention_fwd`` in
 ``src/repro/models/attention.py``: projections through models/common.mm
 (LoRA-bound leaves go through the fused LoRA kernel), attention through
-kernels/ops.mha_attention (the flash kernels under the ``cuda`` policy).
-RoPE and qk-norm are not ported yet and raise NotImplementedError.
+kernels/ops.mha_attention (the flash kernels under the ``cuda`` policy,
+which group the KV heads and mask the window themselves).  qk-norm is
+not ported yet and raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -34,10 +37,11 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, device):
 
 def attention_fwd(params, cfg: ModelConfig, x, positions=None,
                   window: int = 0, use_rope=None):
-    """x: (B, S, d) -> (B, S, d).  ``window`` > 0 -> sliding window."""
+    """x: (B, S, d) -> (B, S, d).  ``window`` > 0 -> sliding window;
+    ``positions`` (B, S) or (S,) feed RoPE (default 0 .. S-1)."""
+    if cfg.qk_norm:
+        raise NotImplementedError("qk-norm is not ported yet")
     rope = cfg.use_rope if use_rope is None else use_rope
-    if rope or cfg.qk_norm:
-        raise NotImplementedError("RoPE and qk-norm are not ported yet")
     B, S, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = mm(x, params["wq"])
@@ -48,5 +52,10 @@ def attention_fwd(params, cfg: ModelConfig, x, positions=None,
     q = q.reshape(B, S, h, hd)
     k = k.reshape(B, S, kv, hd)
     v = v.reshape(B, S, kv, hd)
+    if rope:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, positions, cfg.rope_theta)
     out = kernel_ops.mha_attention(q, k, v, causal=True, window=window)
     return mm(out.reshape(B, S, h * hd), params["wo"])

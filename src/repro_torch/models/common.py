@@ -1,10 +1,12 @@
-"""Shared model building blocks: initializers, LayerNorm, GELU, the
-LoRA-aware projection and the causal mask.
+"""Shared model building blocks: initializers, LayerNorm and RMSNorm,
+GELU and SiLU, rotary position embeddings, the LoRA-aware projection and
+the causal mask.
 
-Counterpart of ``src/repro/models/common.py`` for what the GPT-2 path
-uses.  Parameters are nested dicts of tensors; initializers draw on the
-CPU from an explicit ``torch.Generator`` (so a seed gives the same weights
-on every device) and move the result to ``device``.  All math is fp32.
+Counterpart of ``src/repro/models/common.py`` for what the GPT-2 and
+RecurrentGemma paths use.  Parameters are nested dicts of tensors;
+initializers draw on the CPU from an explicit ``torch.Generator`` (so a
+seed gives the same weights on every device) and move the result to
+``device``.  All math is fp32.
 """
 from __future__ import annotations
 
@@ -49,9 +51,53 @@ def layernorm(params, x, eps: float = 1e-5):
     return (x - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
 
 
+def init_rmsnorm(d: int, device):
+    return {"scale": torch.ones(d, device=device)}
+
+
+def rmsnorm(params, x, eps: float = 1e-6):
+    """fp32 RMSNorm: x / sqrt(mean(x²) + eps) · scale."""
+    var = (x * x).mean(-1, keepdim=True)
+    return x * torch.rsqrt(var + eps) * params["scale"]
+
+
+def init_norm(kind: str, d: int, device):
+    return init_rmsnorm(d, device) if kind == "rmsnorm" \
+        else init_layernorm(d, device)
+
+
+def apply_norm(kind: str, params, x):
+    return rmsnorm(params, x) if kind == "rmsnorm" else layernorm(params, x)
+
+
 def gelu(x):
     """tanh-approximate GELU (``jax.nn.gelu(approximate=True)``)."""
     return F.gelu(x, approximate="tanh")
+
+
+def silu(x):
+    return F.silu(x)
+
+
+# --------------------------------------------------------------------------- #
+# Rotary position embeddings
+# --------------------------------------------------------------------------- #
+def rope_freqs(head_dim: int, theta: float, device=None):
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)                       # (head_dim/2,)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, D); positions broadcastable to (..., S).  The
+    split-half convention of the reference: the first and second halves
+    of D form the rotated pairs (not interleaved neighbours)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)        # (D/2,)
+    angles = positions[..., None].float() * freqs           # (..., S, D/2)
+    angles = angles[..., None, :]                           # (..., S, 1, D/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
 # --------------------------------------------------------------------------- #

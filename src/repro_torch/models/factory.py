@@ -5,8 +5,11 @@
     logits, aux = model.forward(params, batch)
 
 ``init``'s ``device=None`` means ``"cuda"`` and raises without it (pass
-``device="cpu"`` for the CPU).  ``batch`` is a dict with ``"tokens"``
-(B, S) on the parameters' device.
+``device="cpu"`` for the CPU); the weights are drawn on the CPU from the
+generator, so a seed gives the same weights on every device.  The dense
+family (GPT-2) and the Griffin hybrid (RecurrentGemma) are ported
+(models/transformer.check_supported).  ``batch`` is a dict with
+``"tokens"`` (B, S) on the parameters' device.
 """
 from __future__ import annotations
 

@@ -1,0 +1,83 @@
+"""RecurrentGemma / Griffin recurrent block (RG-LRU) [arXiv:2402.19427].
+
+Counterpart of ``init_rglru`` and ``rglru_fwd`` in
+``src/repro/models/rglru.py`` (the decode path waits for the serving
+slice).  Block:
+
+    x -> { linear -> temporal conv1d -> RG-LRU } * { linear -> GeLU }
+      -> linear out
+
+RG-LRU recurrence (per channel):
+
+    r_t = sigmoid(W_a x_t + b_a)                recurrence gate
+    i_t = sigmoid(W_x x_t + b_x)                input gate
+    a_t = exp(c · r_t · log(sigmoid(Lambda)))   c = 8
+    h_t = a_t · h_{t-1} + sqrt(1 - a_t²) · (i_t · x_t)
+
+The reference runs the recurrence as ``lax.associative_scan``; here it
+goes through kernels/ops.rglru: the hand-written CUDA scan (row 15) on the
+card, its step-by-step plain version under the ``torch`` policy.  The
+gates are fp32 matmuls through models/common.mm.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models import common
+from repro_torch.models.common import mm
+
+RGLRU_C = 8.0
+
+
+def init_rglru(gen: torch.Generator, cfg: ModelConfig, device):
+    d, w, K = cfg.d_model, cfg.lru_width, cfg.conv1d_width
+    # Lambda so that a = sigmoid(Lambda) starts in [0.9, 0.999]
+    u = torch.rand(w, generator=gen) * (0.999 - 0.9) + 0.9
+    return {
+        "w_rec_in": common.dense_init(gen, (d, w), device),
+        "w_gate_in": common.dense_init(gen, (d, w), device),
+        "conv_w": common.dense_init(gen, (K, w), device, scale=K ** -0.5),
+        "conv_b": torch.zeros(w, device=device),
+        "w_a": common.dense_init(gen, (w, w), device),
+        "b_a": torch.zeros(w, device=device),
+        "w_x": common.dense_init(gen, (w, w), device),
+        "b_x": torch.zeros(w, device=device),
+        "lambda": torch.log(u / (1 - u)).to(device),
+        "w_out": common.dense_init(gen, (w, d), device, scale=w ** -0.5),
+    }
+
+
+def _gates(params, u):
+    """u: (..., w) post-conv activations -> (a, gated input), fp32."""
+    r = torch.sigmoid(mm(u, params["w_a"]) + params["b_a"])
+    i = torch.sigmoid(mm(u, params["w_x"]) + params["b_x"])
+    a = torch.exp(RGLRU_C * r * F.logsigmoid(params["lambda"]))
+    beta = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12))
+    return a, beta * (i * u)
+
+
+def _conv1d(params, x):
+    """Depthwise causal temporal conv over (B, S, w), the K taps summed in
+    the reference's order (tap 0 first)."""
+    K = params["conv_w"].shape[0]
+    S = x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))                       # (B, S+K-1, w)
+    out = xp[:, :S] * params["conv_w"][0]
+    for i in range(1, K):
+        out = out + xp[:, i:i + S] * params["conv_w"][i]
+    return out + params["conv_b"]
+
+
+def rglru_fwd(params, cfg: ModelConfig, x, h0=None):
+    """Full-sequence forward.  x: (B, S, d) -> ((B, S, d), h_final (B, w)).
+    ``h0`` (B, w) is the initial state; the scan starts from it, so its
+    first step computes a_0·h0 + b_0, the value the reference folds into
+    its first input."""
+    u = _conv1d(params, mm(x, params["w_rec_in"]))
+    a, bx = _gates(params, u)
+    h, h_final = kernel_ops.rglru(a, bx, h0)
+    gate = common.gelu(mm(x, params["w_gate_in"]))
+    return mm(h * gate, params["w_out"]), h_final

@@ -1,78 +1,107 @@
-"""Decoder-only GPT-2 transformer: learned positions, pre-LayerNorm blocks,
-tied embeddings.
+"""Decoder-only LM: GPT-2 (learned positions, pre-LayerNorm blocks of
+GELU MLP and multi-head attention) and the Griffin hybrid of
+RecurrentGemma (RG-LRU and local-attention layers in a repeating
+pattern, RMSNorm, SwiGLU, RoPE, the embedding scaled by sqrt(d)), both
+with tied embeddings.
 
-Counterpart of ``init_params``, ``embed_tokens``, ``forward``,
-``lm_logits`` and the layer-range functions of Split-FedLLM
-(``n_groups_of``, ``forward_groups``) in
-``src/repro/models/transformer.py`` for the dense attention family, where
-a pattern group is one layer.  The reference stacks the layers and scans
-them; here ``params["layers"]`` is a list of per-layer dicts and the
-forward is a Python loop (models/../bridge.py converts between the two
-layouts).
+Counterpart of ``init_params``, ``init_block``, ``block_fwd``,
+``embed_tokens``, ``forward``, ``lm_logits`` and the layer-range
+functions of Split-FedLLM (``n_groups_of``, ``forward_groups``) in
+``src/repro/models/transformer.py``.  The reference stacks the layers of
+each pattern position over the G full pattern groups and scans them, and
+keeps the remainder in ``tail``; here ``params["layers"]`` is a list of
+per-layer dicts in forward order (layer g·P + pi of group g at pattern
+position pi, then the tail) and the forward is a Python loop
+(repro_torch/bridge.py converts between the two layouts).  Layer i has
+kind ``cfg.layer_kinds[i]``; an RG-LRU layer keeps its recurrent block
+under "attn", as the reference does.
 
-    {"embed": (V, d), "pos_embed": (P, d), ["lm_head": (d, V)],
-     "final_norm": {"scale", "bias"},
-     "layers": [{"norm1", "attn": {wq, wk, wv, wo, bq, bk, bv},
-                 "norm2", "mlp": {w_in, w_out}}, ...]}
+    {"embed": (V, d), ["pos_embed": (P, d)], ["lm_head": (d, V)],
+     "final_norm": {...},
+     "layers": [{"norm1", "attn": {wq, wk, wv, wo, [bq, bk, bv]}
+                                  | {w_rec_in, ..., lambda, w_out},
+                 "norm2", "mlp": {[w_gate], w_in, w_out}}, ...]}
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, common, mlp
+from repro_torch.configs.base import ATTN, LOCAL_ATTN, RGLRU, ModelConfig
+from repro_torch.models import attention, common, mlp, rglru
 from repro_torch.runtime import resolve_device
+
+KINDS = (ATTN, LOCAL_ATTN, RGLRU)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raises NotImplementedError for what the port does not run yet."""
     missing = []
-    if cfg.family != "dense" or cfg.layer_pattern is not None:
-        missing.append(f"family {cfg.family!r} / layer pattern")
+    if cfg.family not in ("dense", "hybrid"):
+        missing.append(f"family {cfg.family!r}")
+    unported = sorted(set(cfg.layer_kinds) - set(KINDS))
+    if unported:
+        missing.append(f"layer kinds {unported}")
     if cfg.is_moe or cfg.is_encoder_decoder or cfg.n_image_tokens:
         missing.append("MoE, encoder-decoder and VLM models")
-    if cfg.use_rope or cfg.qk_norm:
-        missing.append("RoPE and qk-norm")
-    if cfg.norm != "layernorm" or cfg.activation != "gelu":
+    if cfg.qk_norm:
+        missing.append("qk-norm")
+    if cfg.norm not in ("layernorm", "rmsnorm") or \
+            cfg.activation not in ("gelu", "swiglu"):
         missing.append(f"norm {cfg.norm!r} / activation {cfg.activation!r}")
-    if cfg.embed_scale:
-        missing.append("embedding scale")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: " + "; ".join(missing))
 
 
-def init_block(gen: torch.Generator, cfg: ModelConfig, device):
+def _group_split(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int, int]:
+    """(pattern, n_full_groups, n_tail_layers)."""
+    pat = cfg.layer_pattern or (ATTN,)
+    n_groups = cfg.n_layers // len(pat)
+    return pat, n_groups, cfg.n_layers - n_groups * len(pat)
+
+
+def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, device):
     d = cfg.d_model
-    return {"norm1": common.init_layernorm(d, device),
-            "attn": attention.init_attention(gen, cfg, device),
-            "norm2": common.init_layernorm(d, device),
+    mixer = rglru.init_rglru(gen, cfg, device) if kind == RGLRU \
+        else attention.init_attention(gen, cfg, device)
+    return {"norm1": common.init_norm(cfg.norm, d, device),
+            "attn": mixer,
+            "norm2": common.init_norm(cfg.norm, d, device),
             "mlp": mlp.init_mlp(gen, cfg, device)}
 
 
-def block_fwd(p, cfg: ModelConfig, x, positions):
-    h = common.layernorm(p["norm1"], x)
-    x = x + attention.attention_fwd(p["attn"], cfg, h, positions,
-                                    window=cfg.sliding_window)
-    h = common.layernorm(p["norm2"], x)
+def block_fwd(p, cfg: ModelConfig, kind: str, x, positions):
+    h = common.apply_norm(cfg.norm, p["norm1"], x)
+    if kind == RGLRU:
+        out, _ = rglru.rglru_fwd(p["attn"], cfg, h)
+    else:
+        window = cfg.local_window if kind == LOCAL_ATTN else cfg.sliding_window
+        out = attention.attention_fwd(p["attn"], cfg, h, positions,
+                                      window=window)
+    x = x + out
+    h = common.apply_norm(cfg.norm, p["norm2"], x)
     return x + mlp.mlp_fwd(p["mlp"], cfg, h)
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, device=None):
-    """Random GPT-2 parameters on ``device`` (None: CUDA, or raise)."""
+    """Random parameters on ``device`` (None: CUDA, or raise), drawn on
+    the CPU from ``gen`` layer by layer in forward order."""
     check_supported(cfg)
     device = resolve_device(device)
     V, d = cfg.vocab_size, cfg.d_model
     params = {
         "embed": common.embed_init(gen, (V, d), device),
-        "final_norm": common.init_layernorm(d, device),
-        "pos_embed": common.embed_init(
-            gen, (cfg.max_position_embeddings, d), device),
+        "final_norm": common.init_norm(cfg.norm, d, device),
     }
+    if not cfg.use_rope:
+        params["pos_embed"] = common.embed_init(
+            gen, (cfg.max_position_embeddings, d), device)
     if not cfg.tie_embeddings:
         params["lm_head"] = common.dense_init(gen, (d, V), device)
-    params["layers"] = [init_block(gen, cfg, device)
-                        for _ in range(cfg.n_layers)]
+    params["layers"] = [init_block(gen, cfg, kind, device)
+                        for kind in cfg.layer_kinds]
     return params
 
 
@@ -80,8 +109,11 @@ def embed_tokens(params, cfg: ModelConfig, tokens, pos_offset: int = 0):
     """tokens: (B, S) int -> (h (B, S, d), positions (B, S))."""
     B, S = tokens.shape
     h = params["embed"][tokens]
+    if cfg.embed_scale:
+        h = h * cfg.d_model ** 0.5
     positions = torch.arange(S, device=tokens.device) + pos_offset
-    h = h + params["pos_embed"][positions][None]
+    if not cfg.use_rope:
+        h = h + params["pos_embed"][positions][None]
     return h, positions[None].expand(B, S)
 
 
@@ -91,11 +123,11 @@ def lm_logits(params, cfg: ModelConfig, h):
 
 
 def forward(params, cfg: ModelConfig, tokens):
-    """Returns (logits (B, S, V), aux_loss) — aux is 0 for dense models."""
+    """Returns (logits (B, S, V), aux_loss) — aux is 0 for these models."""
     h, positions = embed_tokens(params, cfg, tokens)
     h, aux = forward_groups(params, cfg, h, positions, 0,
-                            len(params["layers"]))
-    h = common.layernorm(params["final_norm"], h)
+                            _group_split(cfg)[1], include_tail=True)
+    h = common.apply_norm(cfg.norm, params["final_norm"], h)
     return lm_logits(params, cfg, h), aux
 
 
@@ -103,19 +135,27 @@ def forward(params, cfg: ModelConfig, tokens):
 # Layer-range application (Split-FedLLM)
 # --------------------------------------------------------------------------- #
 def n_groups_of(cfg: ModelConfig) -> int:
-    """Pattern groups of the trunk: one per layer in the dense family."""
+    """Pattern groups of the trunk: one per layer in the dense family.
+    Split-FedLLM runs the dense family only: other patterns raise."""
     check_supported(cfg)
+    if cfg.family != "dense" or cfg.layer_pattern is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: Split-FedLLM is ported for the dense family only")
     return cfg.n_layers
 
 
 def forward_groups(params, cfg: ModelConfig, h, positions, start: int,
                    end: int, include_tail: bool = False):
-    """Apply groups [start, end) of ``params["layers"]`` to the embedded
-    hidden ``h``; returns (h, aux), aux 0 for dense models.  The dense
-    family has no tail layers, so ``include_tail`` adds none."""
-    for p in params["layers"][start:end]:
-        h = block_fwd(p, cfg, h, positions)
+    """Apply pattern groups [start, end) of ``params["layers"]`` (layers
+    [start·P, end·P)) to the embedded hidden ``h``, then, with
+    ``include_tail``, the tail layers that follow the last full group;
+    returns (h, aux), aux 0 for these models.  ``params`` may hold a
+    Split half: its layers are counted from the start of that half."""
+    pat, _, n_tail = _group_split(cfg)
+    P, layers = len(pat), params["layers"]
+    idx = list(range(start * P, end * P))
     if include_tail:
-        for p in params.get("tail", ()):
-            h = block_fwd(p, cfg, h, positions)
+        idx += range(len(layers) - n_tail, len(layers))
+    for i in idx:
+        h = block_fwd(layers[i], cfg, pat[i % P], h, positions)
     return h, torch.zeros((), device=h.device)

@@ -6,6 +6,10 @@ tree at the targeted leaves only:
     base:  {"layers": [{"attn": {"wq": (d, f), ...}, ...}, ...]}
     lora:  {"layers": [{"attn": {"wq": {"a": (d, r), "b": (r, f)}}}, ...]}
 
+A layer with no targeted weight (an RG-LRU layer of the Griffin hybrid)
+is ``None`` in the LoRA list; ``bind`` leaves it as it is, and the tree
+functions of repro_torch/tree.py skip it.
+
 ``bind`` produces the tree the model consumes, replacing each targeted
 weight W with ``{"w": W, "a": A, "b": B·alpha/r}``; models/common.mm
 computes ``x@W + (x@A)@B`` from it without materialising W + BA.  The base

@@ -44,7 +44,9 @@ print(len(names), bad)
 assert not bad, bad
 assert {"repro_torch.privacy.dp", "repro_torch.privacy.accountant",
         "repro_torch.privacy.secure_agg", "repro_torch.optim.clip",
-        "repro_torch.kernels.dp_clip", "repro_torch.core.split"} <= set(names), names
+        "repro_torch.kernels.dp_clip", "repro_torch.core.split",
+        "repro_torch.kernels.rglru_scan", "repro_torch.models.rglru",
+        "repro_torch.configs.recurrentgemma_2b"} <= set(names), names
 """
 
 
@@ -176,9 +178,9 @@ def test_checkpointing_and_unported_models_raise(tiny_case):
     with pytest.raises(NotImplementedError):
         run_federated(cfg, fed, pub, clients, test, device="cpu",
                       checkpoint_every=1, checkpoint_dir="ckpt")
-    with pytest.raises(NotImplementedError):
-        run_federated(dataclasses.replace(cfg, use_rope=True), fed, pub,
-                      clients, test, device="cpu")
+    rwkv = dataclasses.replace(cfg, family="ssm", layer_pattern=("rwkv6",))
+    with pytest.raises(NotImplementedError, match="rwkv6"):
+        run_federated(rwkv, fed, pub, clients, test, device="cpu")
 
 
 def test_lora_dropout_runs_on_own_generator(tiny_case):
