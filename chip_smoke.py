@@ -29,7 +29,15 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    with an initial state and a gradient of the final state, and with
    misaligned rows; and the LoRA and flash kernels at RecurrentGemma-2B's
    shapes (K = N = 2560; 10 query heads of 256 over one kv head, window
-   2048, timed; a window shorter than S and a head dim of 200 checked).
+   2048, timed; a window shorter than S and a head dim of 200 checked);
+   the LoRA kernels at RWKV-6 1.6B's K = N = 2048; and the RWKV-6 WKV
+   kernels at the train step's (512, 80, 64) with checkpoints (timed
+   eager, in a graph and with a cold L2), at the eval batch's (2048, 80,
+   64) without, at a ragged S, one step, head dims 16 and 32, log-decays
+   near 0 and down to -e³, with dS_final and du: y and the gradients
+   within atol 1e-5 / rtol 1e-4, S_final and every checkpoint bit for
+   bit, and at the train shape each output's error against an fp64 run
+   of the plain version within twice the fp32 plain version's.
 3. Runs the paper's SSV case study through ``run_federated`` at the full
    width of GPT-2 (12 layers, d 768, V 50257; random weights from seed 0),
    2 FedLLM rounds over 3 clients, four times from the same weights: with
@@ -85,6 +93,24 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    layers, every train step its backward in the 16 that follow the first
    LoRA layer (autograd does not reach layers 0-1).
 
+8. FedLLM on RWKV-6 Finch 1.6B at full width and depth (24 rwkv6 layers,
+   d 2048, 32 heads of 64, d_ff 7168, V 65536, 1.58e9 parameters; random
+   weights from seed 0), LoRA on w_r/w_k/w_v/w_g, phase 3's data, rounds
+   and rank, four runs; every batch runs the WKV forward kernel in
+   all 24 layers, every train step its backward in all 24 (layer 0's
+   r, k and v carry LoRA).  Each run prints its peak device memory.
+   This path is chaotic at full width: Adam's first update moves every
+   LoRA B coordinate by lr times its gradient's sign, so coordinates whose
+   gradient sits at the fp32 noise floor step apart, the runs' losses on
+   the same batch differ by ~1e-2 a step later, and two fp32 plain runs
+   end a round ~1e-2 apart.  So the kernels' precision is gated on the first step: the
+   LoRA gradient of client 0's first batch must be within FLOOR_FACTOR
+   times the two fp32 plain runs' distance plus FLOOR_SLACK of the plain
+   one, and the TF32 control's outside; the runs are then held to phase
+   6's gates for a quantized boundary (ledger, FLOPs and launches exact,
+   the loss limit widened by the floor, the TF32 control past it in some
+   round, the final LoRA within the floor gate).
+
 It prints one JSON line with every kernel's numbers and, last, the line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -104,17 +130,22 @@ KD_ATOL, KD_RTOL = 1e-5, 1e-4
 DP_ATOL, DP_RTOL = 1e-6, 1e-5
 EXACT = ("topk_quantize", "quantize_rows", "quantize_rows_int4",
          "quantize_pack4", "rglru_fwd", "rglru_bwd")
+# outputs compared bit for bit in kernels otherwise held to a tolerance:
+# the WKV forward's S_final (its state update rounds as the plain one)
+EXACT_OUTPUTS = {"rwkv6_fwd": (1,)}
+WKV_ATOL, WKV_RTOL = 1e-5, 1e-4
 # kernels also timed inside a CUDA graph: at the main path's shapes an
 # eager call's host cost exceeds their device time
 GRAPH_TIMED = ("kd_fwd", "kd_bwd", "kd_bwd_dt", "topk_quantize",
                "dp_clip_norms", "dp_clip_acc", "quantize_rows",
                "quantize_rows_int4", "quantize_pack4", "rglru_fwd",
-               "rglru_bwd")
+               "rglru_bwd", "rwkv6_fwd", "rwkv6_bwd")
 # kernels also timed with the L2 flushed before each call: their input
 # (28.3 MB at the DP path, 26-39 MB at the RG-LRU's) fits the 50 MB L2, so
 # back-to-back calls read it from there, while in a step the passes
 # between calls evict it
-COLD_TIMED = ("dp_clip_norms", "dp_clip_acc", "rglru_fwd", "rglru_bwd")
+COLD_TIMED = ("dp_clip_norms", "dp_clip_acc", "rglru_fwd", "rglru_bwd",
+              "rwkv6_fwd", "rwkv6_bwd")
 L2_FLUSH_BYTES = 100 * 2 ** 20
 # data-sheet peaks: (fp32 FLOP/s without tensor cores, memory bytes/s)
 PEAKS = {"H100 PCIe": (51.2e12, 2.0e12), "H100 NVL": (60.0e12, 3.9e12),
@@ -130,6 +161,12 @@ FLOOR_FACTOR, FLOOR_SLACK = 3.0, 1e-6
 RG_SHAPES = dict(M=BATCH * PAD_LEN, K=2560, N=2560, r=RANK, BH=BATCH * 10,
                  BKV=BATCH, S=PAD_LEN, Skv=PAD_LEN, D=256, causal=True,
                  window=2048, q_offset=0)
+# RWKV-6 Finch 1.6B: 32 heads of 64; the LoRA shape of its time-mix
+# projections (the attention shapes, unused there, are GPT-2's)
+RWKV_HEADS = 32
+RWKV_SHAPES = dict(M=BATCH * PAD_LEN, K=2048, N=2048, r=RANK, BH=BATCH * 12,
+                   BKV=BATCH * 12, S=PAD_LEN, Skv=PAD_LEN, D=64, causal=True,
+                   window=0, q_offset=0)
 
 
 def require(ok: bool, what: str) -> None:
@@ -209,24 +246,27 @@ def tolerance(name: str):
         return KD_ATOL, KD_RTOL
     if name.startswith("dp_"):
         return DP_ATOL, DP_RTOL
+    if name.startswith("rwkv6_"):
+        return WKV_ATOL, WKV_RTOL
     return ATOL, RTOL
 
 
 def max_err(name: str, got, want) -> float:
     """Largest absolute difference between a kernel's outputs and its plain
     version's; fails unless they agree (bit for bit for the names in
-    EXACT, else within the name's tolerance)."""
+    EXACT and the outputs in EXACT_OUTPUTS, else within the name's
+    tolerance)."""
     import torch
     got, want = _flat(got), _flat(want)
     require(len(got) == len(want), f"{name}: {len(got)} outputs, plain "
             f"version {len(want)}")
     atol, rtol = tolerance(name)
     err = 0.0
-    for g, w in zip(got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
         require(g.shape == w.shape and g.dtype == w.dtype,
                 f"{name}: output {tuple(g.shape)} {g.dtype} vs plain "
                 f"{tuple(w.shape)} {w.dtype}")
-        if name in EXACT:
+        if name in EXACT or i in EXACT_OUTPUTS.get(name, ()):
             diff = g != w
             require(not bool(diff.any()),
                     f"{name} is not bit-identical to its plain version: "
@@ -370,6 +410,123 @@ def rglru_cases(device, B, S, W, h0, dh_final, offset, seed):
                       lambda: ref.rglru_scan_bwd(a, h, s0, dh, dhf, h0),
                       None, f4 * 5 * n + opt, 3 * n),
     }
+
+
+def rwkv_inputs(device, BH, S, D, U, logw, dsf, seed, unit=False):
+    """Seeded WKV inputs: r, k, v ~ N(0, 1) (the size the model's
+    projections give them), logw "model" (-exp(-4 + 0.5·N(0, 1)), about
+    the decay the init gives, -0.018), "zero" (about -1e-4) or "floor"
+    (down to the model's -e³, w about 2e-9), u ~ N(0, 0.01) of U rows, dy
+    ~ N(0, 1) and, when ``dsf``, dS_final ~ N(0, 1).  With ``unit``, r
+    and dy are scaled by D^-0.5 and k, v by S^-0.25, so that every
+    output is O(1) whatever S and D: a tolerance then bounds the error
+    of fp32 sums over D taken in another order (at the model's sizes y
+    is O(50), and two fp32 summation orders differ by up to ~1e-4)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, device=device, generator=gen)
+
+    r, k, v, dy = rn(BH, S, D), rn(BH, S, D), rn(BH, S, D), rn(BH, S, D)
+    if unit:
+        r, dy = r * D ** -0.5, dy * D ** -0.5
+        k, v = k * S ** -0.25, v * S ** -0.25
+    z = rn(BH, S, D)
+    lw = {"model": -torch.exp(-4.0 + 0.5 * z),
+          "zero": -1e-4 * torch.sigmoid(z),
+          "floor": -math.exp(3.0) * torch.sigmoid(z + 3.0)}[logw]
+    u = rn(U, D) * 0.1
+    ds = rn(BH, D, D) if dsf else None
+    return r, k, v, lw, u, dy, ds
+
+
+def rwkv_cases(device, BH, S, D, U, logw, dsf, du, seed, checkpoints=True):
+    """The WKV kernels on seeded (BH, S, D) inputs (rwkv_inputs, O(1)
+    outputs), as
+    kernel_cases (no PyTorch call computes the recurrence, so no library
+    yardstick).  The forward writes checkpoints, as in a train step; its
+    outputs are compared as (y, S_final), S_final bit for bit (without
+    ``checkpoints`` it writes none, as in an eval batch).  The backward
+    takes the forward's checkpoints and dS_final when ``dsf``, forms
+    dlogw, and du when ``du``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    r, k, v, lw, u, dy, ds = rwkv_inputs(device, BH, S, D, U, logw, dsf,
+                                         seed, unit=True)
+    ckpt = rw.rwkv6_fwd(r, k, v, lw, u, checkpoints=True)[2]
+    f4, n, state = 4, BH * S * D, BH * D * D
+    n_ck = BH * -(-S // rw.BT) * D * D
+    return {
+        "rwkv6_fwd": (lambda: rw.rwkv6_fwd(r, k, v, lw, u,
+                                           checkpoints)[:2],
+                      lambda: ref.rwkv6_scan(r, k, v, lw, u), None,
+                      f4 * (5 * n + U * D + state + int(checkpoints) * n_ck),
+                      BH * S * (5 * D * D + 5 * D)),
+        "rwkv6_bwd": (lambda: rw.rwkv6_bwd(r, k, v, lw, u, ckpt, dy, ds,
+                                           True, du),
+                      lambda: ref.rwkv6_scan_bwd(r, k, v, lw, u, dy, ds,
+                                                 True, du), None,
+                      f4 * (9 * n + U * D + n_ck + int(dsf) * state
+                            + int(du) * U * D),
+                      BH * S * (14 * D * D + 8 * D)),
+    }
+
+
+def rwkv_checkpoints_exact(device, BH, S, D, seed) -> None:
+    """Each checkpoint the forward writes is the plain version's state
+    before that step, bit for bit."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    r, k, v, lw, u, _, _ = rwkv_inputs(device, BH, S, D, 1, "model", False,
+                                       seed)
+    ckpt = rw.rwkv6_fwd(r, k, v, lw, u, checkpoints=True)[2]
+    for c in range(ckpt.shape[1]):
+        t = c * rw.BT
+        want = torch.zeros_like(ckpt[:, 0]) if t == 0 else ref.rwkv6_scan(
+            r[:, :t], k[:, :t], v[:, :t], lw[:, :t], u)[1]
+        require(torch.equal(ckpt[:, c], want),
+                f"rwkv6_fwd checkpoint {c} is not the plain state before "
+                f"step {t}")
+
+
+def rwkv_fp64_errors(device, BH, S, D, U, seed) -> dict:
+    """Max abs error against an fp64 run of the plain version, for the
+    kernels and for the fp32 plain version, at one shape and the model's
+    sizes of r, k, v and dy; fails unless each kernel output is within
+    twice the fp32 plain version's error."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    r, k, v, lw, u, dy, _ = rwkv_inputs(device, BH, S, D, U, "model", False,
+                                        seed)
+    x64 = [t.double() for t in (r, k, v, lw, u, dy)]
+    y, sf, ckpt = rw.rwkv6_fwd(r, k, v, lw, u, checkpoints=True)
+    outs = {"kernel": (y, sf) + rw.rwkv6_bwd(r, k, v, lw, u, ckpt, dy)[:4],
+            "plain fp32": ref.rwkv6_scan(r, k, v, lw, u)
+            + ref.rwkv6_scan_bwd(r, k, v, lw, u, dy)[:4]}
+    exact = ref.rwkv6_scan(*x64[:5]) + ref.rwkv6_scan_bwd(*x64)[:4]
+    names = ("y", "S_final", "dr", "dk", "dv", "dlogw")
+    errs = {tag: [float((a.double() - b).abs().max())
+                  for a, b in zip(got, exact)] for tag, got in outs.items()}
+    for i, name in enumerate(names):
+        print(f"  rwkv6 vs fp64 at ({BH}, {S}, {D}): {name} kernel "
+              f"{errs['kernel'][i]:.3e}, plain fp32 "
+              f"{errs['plain fp32'][i]:.3e}")
+        require(errs["kernel"][i] <= 2.0 * errs["plain fp32"][i],
+                f"rwkv6 {name}: kernel error against fp64 "
+                f"{errs['kernel'][i]:.3e} exceeds twice the plain fp32 "
+                f"version's {errs['plain fp32'][i]:.3e}")
+    del outs, exact, x64
+    torch.cuda.empty_cache()
+    return errs
 
 
 def kd_cases(device, R, V, T, topk_teacher, Rq, Cq, k, bits, ties, seed):
@@ -558,6 +715,8 @@ def time_case(name, case, peaks_) -> dict:
         else f"{row['library_ms']:.4f}"
     atol, rtol = tolerance(name)
     tol = "bit-identical" if name in EXACT else f"atol {atol}, rtol {rtol}"
+    if name in EXACT_OUTPUTS:
+        tol += f"; outputs {EXACT_OUTPUTS[name]} bit-identical"
     graph = f" (graph_ms {row['graph_ms']:.4f})" if "graph_ms" in row else ""
     if "cold_ms" in row:
         graph += f" (cold L2 {row['cold_ms']:.4f})"
@@ -566,6 +725,55 @@ def time_case(name, case, peaks_) -> dict:
           f"library_ms {lib_ms} bound_ms {row['bound_ms']:.4g} "
           f"({row['bound_by']})")
     return row
+
+
+def check_rwkv_kernels(device, peaks_) -> dict:
+    """Phase 2's RWKV-6 part: the LoRA kernels at its projection shape
+    (rows "<name>@rwkv") and the WKV kernels (rows "rwkv6_fwd" and
+    "rwkv6_bwd" at the train step's shape)."""
+    rows = {}
+    print(f"  LoRA kernels at RWKV-6 1.6B's time-mix shape (M "
+          f"{BATCH * PAD_LEN}, K = N = 2048):")
+    for name, case in kernel_cases(device, seed=16, **RWKV_SHAPES).items():
+        if name.startswith("lora_"):
+            rows[f"{name}@rwkv"] = time_case(name, case, peaks_)
+    # RWKV-6 WKV: the eval batch's shape (no checkpoints: forward only),
+    # a ragged S, one step, head dims 16 and 32, log-decays near 0 and
+    # down to the floor -e³, a nonzero dS_final, du asked for
+    H = RWKV_HEADS
+    rwkv_checks = [dict(BH=64 * H, S=PAD_LEN, D=64, U=H, logw="model",
+                        dsf=False, du=False, checkpoints=False),
+                   dict(BH=24, S=37, D=64, U=8, logw="zero", dsf=True,
+                        du=True),
+                   dict(BH=10, S=1, D=64, U=5, logw="floor", dsf=True,
+                        du=True),
+                   dict(BH=12, S=37, D=16, U=4, logw="floor", dsf=True,
+                        du=True),
+                   dict(BH=12, S=45, D=32, U=3, logw="model", dsf=False,
+                        du=True),
+                   dict(BH=BATCH * H, S=PAD_LEN, D=64, U=H, logw="floor",
+                        dsf=True, du=True)]
+    for i, shape in enumerate(rwkv_checks):
+        cases = rwkv_cases(device, seed=600 + i, **shape)
+        if not shape.get("checkpoints", True):
+            del cases["rwkv6_bwd"]
+        for name, (kern, plain, *_rest) in cases.items():
+            err = max_err(name, kern(), plain())
+            exact = ", S_final bit-identical" if name == "rwkv6_fwd" else ""
+            print(f"  rwkv6 shape {i} {name} ({shape['BH']}, {shape['S']}, "
+                  f"{shape['D']}), U {shape['U']}, logw {shape['logw']}, "
+                  f"dS_final {shape['dsf']}, du {shape['du']}: max abs err "
+                  f"{err:.3e}{exact}")
+    rwkv_checkpoints_exact(device, 8, 37, 64, 610)
+    print("  rwkv6_fwd checkpoints bit-identical to the plain states")
+    print(f"  RWKV-6 WKV kernels at the train step's shape ({BATCH * H}, "
+          f"{PAD_LEN}, 64), u (32, 64), checkpoints, dlogw, no dS_final, "
+          f"no du:")
+    for name, case in rwkv_cases(device, BATCH * H, PAD_LEN, 64, H, "model",
+                                 False, False, 14).items():
+        rows[name] = time_case(name, case, peaks_)
+    rwkv_fp64_errors(device, BATCH * H, PAD_LEN, 64, H, 15)
+    return rows
 
 
 def check_kernels(device, card: str):
@@ -642,6 +850,7 @@ def check_kernels(device, card: str):
     for name, case in rglru_cases(device, BATCH, PAD_LEN, 2560, False, False,
                                   0, 13).items():
         rows[name] = time_case(name, case, peaks_)
+    rows.update(check_rwkv_kernels(device, peaks_))
     print("  KD kernels at the main path's shapes (64 x 77; top-k 150 x 77, "
           "k 8, int8):")
     for name, case in kd_cases(device, seed=8, **kd_main).items():
@@ -715,8 +924,31 @@ def lora_gap(got, want):
     return outside / n, (num / den) ** 0.5, worst
 
 
-def run_case(device, cfg, base, fed, data, ledger, expect,
-             quantized=False):
+def each_run():
+    """Yields (role, tag, kernel policy) for the four runs every case
+    study makes, with the BLAS library and TF32 set for each and restored
+    after it: the kernels ("kernels", tagged "cuda"), plain PyTorch under
+    the default BLAS library ("plain", "torch"), under the other one
+    ("floor": the same fp32 products summed in another order) and under
+    TF32 ("control": a run of lower precision)."""
+    import torch
+    blas = torch.backends.cuda.preferred_blas_library()
+    other = "cublas" if "lt" in str(blas).lower() else "cublaslt"
+    for role, tag, policy, lib, tf32 in (
+            ("kernels", "cuda", "cuda", blas, False),
+            ("plain", "torch", "torch", blas, False),
+            ("floor", f"torch-{other}", "torch", other, False),
+            ("control", "torch-tf32", "torch", blas, True)):
+        torch.backends.cuda.preferred_blas_library(lib)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            yield role, tag, policy
+        finally:
+            torch.backends.cuda.preferred_blas_library(blas)
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def run_case(device, cfg, base, fed, data, ledger, expect, chaotic=False):
     """One framework's case study through the kernels and through plain
     PyTorch (under two BLAS libraries, two summation orders of the same
     fp32 products, and under TF32), from the same weights.  Checks the runs
@@ -724,47 +956,43 @@ def run_case(device, cfg, base, fed, data, ledger, expect,
     ``ledger`` and its launch counts against ``expect``; returns the
     kernel run's (launch counts, result).  Each round's loss must be
     within 1e-3 of the plain run's, and the TF32 control's final LoRA
-    outside the floor gate.  ``quantized`` marks a run with a quantized
-    boundary, where level flips move the loss and the final LoRA of
-    every run: there the loss limit adds FLOOR_FACTOR times the two fp32
-    plain runs' difference in that round, and the TF32 control must
-    exceed that limit in at least one round instead (the final-LoRA
-    distance saturates at the first flip, so it no longer separates the
-    control)."""
+    outside the floor gate.  ``chaotic`` marks a run whose trajectory
+    turns fp32 noise into discrete changes that move the loss and the
+    final LoRA of every run (a quantized boundary's level flips; Adam's
+    first sign step on RWKV-6 at full width): there the loss limit adds
+    FLOOR_FACTOR times the two fp32 plain runs' difference in that round,
+    and the TF32 control must exceed that limit in at least one round
+    instead (the final-LoRA distance saturates after the first such
+    change, so it no longer separates the control); such a phase gates
+    the kernels' precision on its first step, before the runs part."""
     import torch
 
     from repro_torch.core.rounds import run_federated
     from repro_torch.kernels import ops
 
     pub, clients, test = data
-    blas = torch.backends.cuda.preferred_blas_library()
-    other = "cublas" if "lt" in str(blas).lower() else "cublaslt"
     results, counts = {}, {}
-    for tag, policy, lib, tf32 in (("cuda", "cuda", blas, False),
-                                   ("torch", "torch", blas, False),
-                                   (f"torch-{other}", "torch", other, False),
-                                   ("torch-tf32", "torch", blas, True)):
-        torch.backends.cuda.preferred_blas_library(lib)
-        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for role, tag, policy in each_run():
         ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = run_federated(dataclasses.replace(cfg, kernel_policy=policy),
                             fed, pub, clients, test, batch_size=BATCH,
                             eval_batch=64, device=device, base=base)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts[tag] = ops.launches()
-        torch.backends.cuda.preferred_blas_library(blas)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        results[tag] = res
+        counts[role] = ops.launches()
+        results[role] = res
         for h in res.history:
             require(math.isfinite(h.loss) and 0.0 <= h.accuracy <= 1.0,
                     f"round {h.round} metrics out of range")
             print(f"  [{tag}] round {h.round}: acc={h.accuracy:.4f} "
                   f"loss={h.loss:.6f} wall_s={h.seconds:.3f}")
-        print(f"  [{tag}] run wall_s={wall:.3f} launches={counts[tag]}")
+        print(f"  [{tag}] run wall_s={wall:.3f} peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+              f"launches={counts[role]}")
 
-    kern, plain = results["cuda"], results["torch"]
+    kern, plain = results["kernels"], results["plain"]
     require(kern.ledger.by_name() == ledger,
             f"ledger bytes {kern.ledger.by_name()} != {ledger} from the "
             f"payload shapes")
@@ -774,10 +1002,10 @@ def run_case(device, cfg, base, fed, data, ledger, expect,
     require(kern.client_flops == plain.client_flops, "client FLOPs")
     loss_ok, control_out = [], []
     for hk, hp, hf, hc in zip(kern.history, plain.history,
-                              results[f"torch-{other}"].history,
-                              results["torch-tf32"].history):
+                              results["floor"].history,
+                              results["control"].history):
         dk, df, dc = (abs(h.loss - hp.loss) for h in (hk, hf, hc))
-        lim = 1e-3 + (FLOOR_FACTOR * df if quantized else 0.0)
+        lim = 1e-3 + (FLOOR_FACTOR * df if chaotic else 0.0)
         print(f"  round {hk.round} loss vs plain: kernels {dk:.3e}, floor "
               f"{df:.3e}, control {dc:.3e} (limit {lim:.3e})")
         loss_ok.append(dk <= lim)
@@ -789,9 +1017,8 @@ def run_case(device, cfg, base, fed, data, ledger, expect,
     # width differ by more than atol 5e-5 / rtol 5e-4 in a few elements.
     # The gate is the floor two fp32 plain runs show in this run; the TF32
     # run shows that the gate rejects a run of lower precision.
-    gaps = {name: lora_gap(results[tag].final_lora, plain.final_lora)
-            for name, tag in (("kernels", "cuda"), ("floor", f"torch-{other}"),
-                              ("control", "torch-tf32"))}
+    gaps = {role: lora_gap(results[role].final_lora, plain.final_lora)
+            for role in ("kernels", "floor", "control")}
     limit = FLOOR_FACTOR * gaps["floor"][1] + FLOOR_SLACK
     for name, (share, rel, worst) in gaps.items():
         print(f"  final LoRA {name} vs plain: relative L2 {rel:.3e} "
@@ -802,23 +1029,23 @@ def run_case(device, cfg, base, fed, data, ledger, expect,
     require(gaps["kernels"][1] <= limit,
             "final LoRA of the kernel run is off the plain run beyond the "
             "fp32 noise floor")
-    if quantized:
+    if chaotic:
         require(any(control_out), "the round-loss gate does not reject "
                 "the TF32 control run in any round")
     else:
         require(gaps["control"][1] > limit,
                 "the final-LoRA gate does not reject the TF32 control run")
 
-    got = {name: n for name, n in counts["cuda"].items() if name in expect}
+    got = {name: n for name, n in counts["kernels"].items() if name in expect}
     require(got == expect and all(n > 0 for n in expect.values()),
-            f"launches {counts['cuda']} != expected {expect}")
-    require(all(n == 0 for name, n in counts["cuda"].items()
+            f"launches {counts['kernels']} != expected {expect}")
+    require(all(n == 0 for name, n in counts["kernels"].items()
                 if name not in expect),
-            f"kernels off this path launched: {counts['cuda']}")
-    for tag in counts.keys() - {"cuda"}:
-        require(all(n == 0 for n in counts[tag].values()),
-                f"plain run launched kernels: {counts[tag]}")
-    return counts["cuda"], kern
+            f"kernels off this path launched: {counts['kernels']}")
+    for role in counts.keys() - {"kernels"}:
+        require(all(n == 0 for n in counts[role].values()),
+                f"plain run launched kernels: {counts[role]}")
+    return counts["kernels"], kern
 
 
 def model_launches(L, train_steps, fwd_batches):
@@ -924,15 +1151,9 @@ def split_level_flips(device, cfg, base, fed, clients):
                             fed.lora_alpha)
     batch = to_device(next(iter(epoch_batches(
         clients[0], BATCH, seed=fed.seed * 983))), device)
-    blas = torch.backends.cuda.preferred_blas_library()
-    other = "cublas" if "lt" in str(blas).lower() else "cublaslt"
-    levels = {}
-    for tag, policy, lib, tf32 in (("cuda", "cuda", blas, False),
-                                   ("torch", "torch", blas, False),
-                                   (f"torch-{other}", "torch", other, False),
-                                   ("torch-tf32", "torch", blas, True)):
-        torch.backends.cuda.preferred_blas_library(lib)
-        torch.backends.cuda.matmul.allow_tf32 = tf32
+    levels, tags = {}, {}
+    for role, tag, policy in each_run():
+        tags[role] = tag
         sfns = split.make_split_fns(build_model(dataclasses.replace(
             cfg, kernel_policy=policy)), fed)
         L = sfns["n_client_groups"]
@@ -940,20 +1161,18 @@ def split_level_flips(device, cfg, base, fed, clients):
         base_c, base_s = split.split_base(base, L)
         _, _, _, h, h_grad = sfns["split_grads"](base_c, base_s, c_lt, s_lt,
                                                  batch)
-        levels[tag] = [ref.quantize_rows_ref(t.reshape(-1, t.shape[-1]),
-                                             SPLIT_BITS)[0] for t in (h, h_grad)]
-        torch.backends.cuda.preferred_blas_library(blas)
-        torch.backends.cuda.matmul.allow_tf32 = False
+        levels[role] = [ref.quantize_rows_ref(t.reshape(-1, t.shape[-1]),
+                                              SPLIT_BITS)[0]
+                        for t in (h, h_grad)]
     share = {}
-    for name, tag in (("kernels", "cuda"), ("floor", f"torch-{other}"),
-                      ("control", "torch-tf32")):
-        flips = [int((a != b).sum()) for a, b in zip(levels[tag],
-                                                     levels["torch"])]
+    for role in ("kernels", "floor", "control"):
+        flips = [int((a != b).sum()) for a, b in zip(levels[role],
+                                                     levels["plain"])]
         jumps = [int((a.int() - b.int()).abs().max()) for a, b in
-                 zip(levels[tag], levels["torch"])]
-        n = sum(t.numel() for t in levels[tag])
-        share[name] = sum(flips) / n
-        print(f"  round 0 step 0 boundary levels, {tag} vs plain: c2 "
+                 zip(levels[role], levels["plain"])]
+        n = sum(t.numel() for t in levels[role])
+        share[role] = sum(flips) / n
+        print(f"  round 0 step 0 boundary levels, {tags[role]} vs plain: c2 "
               f"{flips[0]}, c4 {flips[1]} of {n // 2} each differ (largest "
               f"difference {max(jumps)} levels)")
     return share
@@ -1007,7 +1226,7 @@ def run_split(device, cfg, base, data, steps, evals):
             ledger={"lora_params": fed.rounds * C * 2 * half,
                     "activations": fed.rounds * steps * c2,
                     "act_grads": fed.rounds * steps * c4},
-            expect=expect, quantized=bool(bits))
+            expect=expect, chaotic=bool(bits))
         per_client = kern.ledger.per_client_round()
         require(all(v == len(clients[ci]["tokens"]) // BATCH * (c2 + c4)
                     + 2 * half for (_, ci), v in per_client.items()),
@@ -1200,6 +1419,118 @@ def run_recurrent(device):
     return counts
 
 
+def first_step_gaps(device, cfg, base, fed, clients):
+    """The LoRA gradient of FedLLM's first train step (client 0's first
+    batch, the run's initial LoRA) under the kernels, the plain run's
+    BLAS library, the other one (the floor) and TF32 (the control), each
+    recomputed under its policy and setting.  Prints each one's relative
+    L2 distance from the plain gradient; returns {"kernels" | "floor" |
+    "control": distance}."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import tasks
+    from repro_torch.core.fedavg import to_device
+    from repro_torch.data.loader import epoch_batches
+    from repro_torch.models.factory import build_model
+    from repro_torch.peft import lora as lora_lib
+
+    lt = lora_lib.init_lora(torch.Generator().manual_seed(fed.seed + 1),
+                            base, fed.lora_targets, fed.lora_rank,
+                            fed.lora_alpha)
+    batch = to_device(next(iter(epoch_batches(
+        clients[0], BATCH, seed=fed.seed * 997))), device)
+    loss_fn = tasks.get_loss_fn("classification")
+    grads, tags = {}, {}
+    for role, tag, policy in each_run():
+        tags[role] = tag
+        model = build_model(dataclasses.replace(cfg, kernel_policy=policy))
+        live = tree_lib.map_(lambda t: t.detach().requires_grad_(True), lt)
+        logits, _ = model.forward(lora_lib.bind(base, live, fed.lora_alpha,
+                                                fed.lora_rank), batch)
+        loss, _ = loss_fn(logits, batch)
+        grads[role] = torch.autograd.grad(loss, tree_lib.leaves(live))
+    gaps = {}
+    for role in ("kernels", "floor", "control"):
+        num = sum(float(((a - b) ** 2).sum())
+                  for a, b in zip(grads[role], grads["plain"]))
+        den = sum(float((b ** 2).sum()) for b in grads["plain"])
+        gaps[role] = (num / den) ** 0.5
+        print(f"  round 0 step 0 LoRA gradient, {tags[role]} vs plain: "
+              f"relative L2 {gaps[role]:.3e}")
+    return gaps
+
+
+def run_rwkv(device):
+    """Phase 8: FedLLM on RWKV-6 Finch 1.6B at full width and depth (24
+    rwkv6 layers, d 2048, 32 heads of 64, V 65536; random weights from
+    seed 0), LoRA on w_r/w_k/w_v/w_g, phase 3's data; the first step's
+    gradient gate, then phase 6's gates for a chaotic run.  Returns the
+    kernel run's launch counts."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.configs.rwkv6_1_6b import rwkv6_1_6b
+    from repro_torch.data import banking77, partition
+    from repro_torch.models.factory import build_model
+    from repro_torch.peft import lora
+
+    cfg = rwkv6_1_6b()
+    pub, train, test = banking77.paper_splits(cfg.vocab_size,
+                                              pad_len=PAD_LEN, scale=0.03)
+    clients = partition.iid_partition(train, 3)
+    t0 = time.perf_counter()
+    base = build_model(cfg).init(torch.Generator().manual_seed(0), device)
+    torch.cuda.synchronize()
+    n_tree = sum(t.numel() for t in tree_lib.leaves(base))
+    print(f"phase 8: FedLLM case study, {cfg.name} full width and depth "
+          f"({n_tree} parameters in the tree, {n_tree * 4 / 1e9:.2f} GB fp32;"
+          f" cfg.param_count() {cfg.param_count()}), 2 rounds, 3 clients, "
+          f"LoRA on {', '.join(lora.RWKV_TARGETS)}")
+    print(f"  init wall_s={time.perf_counter() - t0:.1f}")
+    L, C, d = cfg.n_layers, len(clients), cfg.d_model
+    steps = sum(len(c["tokens"]) // BATCH for c in clients)
+    evals = len(test["tokens"]) // 64
+    fed = FedConfig(framework="fedllm", rounds=2, lora_rank=RANK,
+                    lora_dropout=0.0, lora_targets=lora.RWKV_TARGETS)
+    n_t = len(lora.RWKV_TARGETS)
+    train_steps, fwd_batches = steps * fed.rounds, evals * fed.rounds
+    fwd = train_steps + fwd_batches
+    # per layer and batch: n_t LoRA projections and one WKV forward; per
+    # train step their backward (dx and two panel grads a projection) and
+    # one WKV backward: layer 0's r, k and v carry LoRA, so autograd
+    # reaches every layer's WKV
+    expect = {"lora_fwd": n_t * L * fwd, "lora_dx": n_t * L * train_steps,
+              "lora_panel": 2 * n_t * L * train_steps,
+              "rwkv6_fwd": L * fwd, "rwkv6_bwd": L * train_steps}
+    print(f"  {L} rwkv6 layers; {train_steps} train steps, {fwd_batches} "
+          f"eval batches; expected launches {expect}")
+    t0 = time.perf_counter()
+    # The precision gate: the first step's LoRA gradient, before Adam's
+    # first update (lr times the gradient's sign) turns the coordinates
+    # whose gradient sits at the fp32 noise floor into different steps
+    # and the runs part (a round's loss then differs by ~1e-2 between
+    # two fp32 plain runs, beyond phase 3's 1e-3)
+    gaps = first_step_gaps(device, cfg, base, fed, clients)
+    limit = FLOOR_FACTOR * gaps["floor"] + FLOOR_SLACK
+    print(f"  first-step gradient limit {limit:.3e}: kernels at "
+          f"{gaps['kernels'] / limit:.3f} of it, TF32 control "
+          f"{gaps['control'] / limit:.1f}x")
+    require(gaps["kernels"] <= limit, "first-step LoRA gradient of the "
+            "kernels is off the plain one beyond the fp32 noise floor")
+    require(gaps["control"] > limit, "the first-step gradient gate does "
+            "not reject the TF32 control")
+    counts, _ = run_case(device, cfg, base, fed, (pub, clients, test),
+                         ledger={"lora_params": fed.rounds * C * 2 * L * n_t
+                                 * RANK * (d + d) * 4},
+                         expect=expect, chaotic=True)
+    print(f"  phase 8 wall_s={time.perf_counter() - t0:.1f}")
+    del base
+    torch.cuda.empty_cache()
+    return counts
+
+
 REPLACES = {
     "lora_fwd": ("src/repro/kernels/lora_matmul.py:74", "lora_matmul.cu"),
     "lora_dx": ("src/repro/kernels/lora_matmul.py:140", "lora_matmul.cu"),
@@ -1221,6 +1552,10 @@ REPLACES = {
     # the gradient of row 15 (the reference differentiates the scan
     # through XLA)
     "rglru_bwd": ("src/repro/kernels/rglru_scan.py:56", "rglru_scan.cu"),
+    "rwkv6_fwd": ("src/repro/kernels/rwkv6_scan.py:58", "rwkv6_scan.cu"),
+    # the gradient of row 16 (the reference differentiates its WKV
+    # through XLA)
+    "rwkv6_bwd": ("src/repro/kernels/rwkv6_scan.py:58", "rwkv6_scan.cu"),
 }
 
 
@@ -1266,6 +1601,7 @@ def main() -> int:
 
     by_path = run_slices(device)
     by_path["recurrentgemma"] = run_recurrent(device)
+    by_path["rwkv6"] = run_rwkv(device)
 
     # ``launches`` sums the kernel runs of the paths; ``launches_by_path``
     # keeps them apart.  Rows are at the main path's shapes (GPT-2's;
@@ -1287,12 +1623,12 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **{key: row[key] for key in ("graph_ms", "cold_ms")
                if key in row}})
-        if f"{name}@rg" in rows:
-            rg = rows[f"{name}@rg"]
-            kernels[-1]["at_recurrentgemma"] = {
-                key: rg[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by",
-                                         "library_ms")}
+        for tag, key in (("rg", "at_recurrentgemma"), ("rwkv", "at_rwkv6")):
+            if f"{name}@{tag}" in rows:
+                kernels[-1][key] = {
+                    field: rows[f"{name}@{tag}"][field] for field in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms")}
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

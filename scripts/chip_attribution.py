@@ -5,6 +5,14 @@ from the plain-PyTorch run, on one CUDA card:
 
     python3 scripts/chip_attribution.py
 
+or, with ``rwkv``, where phase 8's runs (FedLLM on RWKV-6 Finch 1.6B)
+part: six train steps from the run's initial LoRA under each of
+chip_smoke.py's four settings (kernels, plain, the other BLAS library,
+TF32), printing each step's loss and the LoRA's relative L2 distance
+from the plain run's (all factors, and the B factors alone):
+
+    python3 scripts/chip_attribution.py rwkv
+
 Runs the plain run (kernel policy ``torch``), then kernel runs (policy
 ``cuda``) with one op family at a time sent back to plain PyTorch (the
 LoRA projection, the attention, the RG-LRU scan), and with only the
@@ -18,10 +26,64 @@ nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+def rwkv_trajectory(dev) -> None:
+    """Six train steps of RWKV-6 Finch 1.6B (the first-epoch batches of
+    clients 0 and 1, seed 0) from FedLLM's initial LoRA under each of
+    chip_smoke's four settings; prints the distances from the plain run
+    after every step."""
+    import torch
+
+    import chip_smoke
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.configs.rwkv6_1_6b import rwkv6_1_6b
+    from repro_torch.core.fedavg import make_fns, to_device
+    from repro_torch.data import banking77, partition
+    from repro_torch.data.loader import epoch_batches
+    from repro_torch.models.factory import build_model
+    from repro_torch.peft import lora
+
+    cfg = rwkv6_1_6b()
+    pub, train, test = banking77.paper_splits(
+        cfg.vocab_size, pad_len=chip_smoke.PAD_LEN, scale=0.03)
+    clients = partition.iid_partition(train, 3)
+    base = build_model(cfg).init(torch.Generator().manual_seed(0), dev)
+    fed = FedConfig(framework="fedllm", rounds=2, lora_rank=chip_smoke.RANK,
+                    lora_dropout=0.0, lora_targets=lora.RWKV_TARGETS)
+    lt0 = lora.init_lora(torch.Generator().manual_seed(fed.seed + 1), base,
+                         fed.lora_targets, fed.lora_rank, fed.lora_alpha)
+    batches = [to_device(b, dev) for c in clients
+               for b in epoch_batches(c, chip_smoke.BATCH, seed=0)][:6]
+    steps, tags = {}, {}
+    for role, tag, policy in chip_smoke.each_run():
+        tags[role] = tag
+        fns = make_fns(build_model(dataclasses.replace(
+            cfg, kernel_policy=policy)), fed)
+        lt, opt = lt0, fns["opt_init"](lt0)
+        steps[role] = []
+        for batch in batches:
+            lt, opt, loss = fns["train_step"](base, lt, opt, batch)
+            steps[role].append((float(loss), lt))
+
+    def rel(pairs):
+        pairs = list(pairs)
+        num = sum(float(((a - b) ** 2).sum()) for a, b in pairs)
+        return (num / sum(float((b ** 2).sum()) for _, b in pairs)) ** 0.5
+
+    for role in ("kernels", "floor", "control"):
+        for i, ((loss, lt), (plain_loss, plain_lt)) in enumerate(
+                zip(steps[role], steps["plain"])):
+            pairs = list(zip(tree_lib.leaves(lt), tree_lib.leaves(plain_lt)))
+            print(f"{tags[role]} step {i}: loss {loss:.7f} vs plain "
+                  f"{plain_loss:.7f}; LoRA relative L2 {rel(pairs):.3e}, "
+                  f"B factors {rel(pairs[1::2]):.3e}", flush=True)
 
 
 def main() -> int:
@@ -30,6 +92,14 @@ def main() -> int:
         print("chip_attribution: no CUDA device", file=sys.stderr)
         return 1
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    if sys.argv[1:] == ["rwkv"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip(), torch.__version__)
+        rwkv_trajectory(torch.device("cuda", 0))
+        return 0
     import chip_smoke
     from repro_torch.configs.base import FedConfig
     from repro_torch.configs.recurrentgemma_2b import recurrentgemma_2b

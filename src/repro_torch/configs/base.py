@@ -114,6 +114,10 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
+    @property
+    def attention_free(self) -> bool:
+        return all(k in (RGLRU, RWKV6) for k in self.layer_kinds)
+
     # -- parameter counting (analytic; used by the fed metrics) ----------
     def param_count(self) -> int:
         return sum(x for x, _ in self._param_terms())

@@ -35,6 +35,13 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
+def _grad(loss, live):
+    """d loss / d each leaf of the LoRA tree ``live``; none for an empty
+    tree (targets the model does not have), which then stays as it is."""
+    leaves = tree_lib.leaves(live)
+    return list(torch.autograd.grad(loss, leaves)) if leaves else []
+
+
 def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
     """Returns a dict with ``train_step``, ``per_example_grads``,
     ``eval_step``, ``logits_fn``, ``kd_step`` and ``opt_init``."""
@@ -93,7 +100,7 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
             logits, aux = model.forward(_bind(base, live, gen), batch)
             loss, _ = task_loss(logits, batch)
             loss = loss + aux
-            grads = torch.autograd.grad(loss, tree_lib.leaves(live))
+            grads = _grad(loss, live)
         new_lt, new_opt = opt_update(tree_lib.unflatten(lt, grads),
                                      opt_state, lt, fed.lr)
         # metric-only guard: a diverged batch must not poison the mean
@@ -123,7 +130,7 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
         logits, aux = model.forward(_bind(base, live, gen), batch)
         student = tasks.class_logits(logits, batch)
         loss = losses.kd_kl(student, teacher_logits, fed.kd_temperature) + aux
-        grads = torch.autograd.grad(loss, tree_lib.leaves(live))
+        grads = _grad(loss, live)
         new_lt, new_opt = opt_update(tree_lib.unflatten(lt, grads),
                                      opt_state, lt, fed.lr)
         return new_lt, new_opt, loss.detach()

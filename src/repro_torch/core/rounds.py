@@ -5,14 +5,25 @@
 
 ``result.history`` is a list of RoundMetrics; ``result.ledger`` holds
 every wire transfer.  The port runs FedLLM (the paper's SSV case study),
-KD-FedLLM and Split-FedLLM on the dense family (GPT-2), and FedLLM on the
-Griffin hybrid (RecurrentGemma; Split refuses it), each with sequential
-clients and sync rounds, with or without the privacy knobs
-(``FedConfig.privacy``: DP-SGD clipping, upload noise, secure
-aggregation; on Split the c2 boundary clip and noise).  Every ``FedConfig`` setting outside them raises
-NotImplementedError rather than being ignored.  The run holds
-``cfg.kernel_policy`` as the ambient kernel policy from start to end, so
-kernels called outside the model's forward (the KD loss, the b3 top-k
+KD-FedLLM and Split-FedLLM on the dense family (GPT-2); FedLLM and
+KD-FedLLM on the Griffin hybrid (RecurrentGemma; Split refuses it); and
+FedLLM on RWKV-6 (Finch; Split refuses it too).  Each runs with
+sequential clients and sync rounds, with or without the privacy knobs (``FedConfig.privacy``: DP-SGD clipping, upload noise,
+secure aggregation; on Split the c2 boundary clip and noise).  An invalid
+setting raises ValueError, as in the reference; a valid ``FedConfig``
+setting outside the ported slices raises NotImplementedError rather than
+being ignored.
+
+LoRA targets are ``fed.lora_targets``, or ``peft/lora.default_targets``
+when that is empty, as in the reference.  ``FedConfig``'s default targets
+are ("wq", "wk", "wv"), which an RWKV-6 model does not have: with them
+the reference, and so the port, trains no LoRA weight (a ledger of
+``{"lora_params": 0}`` and a constant loss).  RWKV-6 needs
+``lora_targets=lora.RWKV_TARGETS`` (or ``()``), as the reference's own
+launcher passes them.
+
+The run holds ``cfg.kernel_policy`` as the ambient kernel policy from
+start to end, so kernels called outside the model's forward (the KD loss, the b3 top-k
 quantize, the DP clip, the Split boundary quantizer) follow it too.
 
 ``device=None`` means ``"cuda"``, and a run that asks for CUDA where there
@@ -58,6 +69,53 @@ def _unported(fed: FedConfig, task: str) -> List[str]:
     return [what for bad, what in checks if bad]
 
 
+def _check_values(fed: FedConfig, n_clients: int,
+                  checkpoint_every: int, checkpoint_dir) -> None:
+    """The reference's value checks (``src/repro/core/rounds.py``), in its
+    order: each invalid setting raises ValueError, ported or not."""
+    if fed.framework not in ("fedllm", "kd", "split"):
+        raise ValueError(f"unknown framework {fed.framework!r}")
+    if fed.backend not in ("sequential", "spmd", "cohort"):
+        raise ValueError(f"unknown backend {fed.backend!r} "
+                         "(expected 'sequential', 'spmd' or 'cohort')")
+    if fed.aggregation not in ("sync", "async"):
+        raise ValueError(f"unknown aggregation {fed.aggregation!r} "
+                         "(expected 'sync' or 'async')")
+    if fed.n_virtual_clients and fed.n_virtual_clients != n_clients:
+        raise ValueError(
+            f"FedConfig.n_virtual_clients={fed.n_virtual_clients} does "
+            f"not match the supplied population ({n_clients} clients)")
+    if fed.privacy.dp_noise_multiplier > 0.0 and fed.privacy.dp_clip <= 0.0:
+        raise ValueError(
+            "privacy.dp_noise_multiplier > 0 requires privacy.dp_clip > 0 "
+            "(the noise stddev is sigma * clip; an unclipped release has "
+            "unbounded sensitivity and no (eps, delta) guarantee)")
+    if fed.robust_agg not in ("mean", "median", "trimmed_mean",
+                              "norm_clip"):
+        raise ValueError(f"unknown robust_agg {fed.robust_agg!r}")
+    if not 0.0 <= fed.trim_frac < 0.5:
+        raise ValueError("trim_frac must be in [0, 0.5): trimming half "
+                         "the cohort from each side leaves nothing")
+    if not 0.0 <= fed.quorum <= 1.0:
+        raise ValueError("quorum is a fraction of the round's starters "
+                         "and must be in [0, 1]")
+    for rate in (fed.faults.dropout_rate, fed.faults.straggler_rate):
+        if not 0.0 <= rate <= 1.0:
+            raise ValueError("fault rates are probabilities in [0, 1]")
+    if checkpoint_every > 0 and not checkpoint_dir:
+        raise ValueError("checkpoint_every > 0 requires checkpoint_dir")
+    ranks = fed.client_ranks
+    if ranks:            # the reference's heterogeneous.normalize_ranks
+        if len(ranks) != n_clients:
+            raise ValueError(f"client_ranks has {len(ranks)} entries for "
+                             f"{n_clients} clients")
+        if any(r < 1 or r > fed.lora_rank for r in ranks):
+            raise ValueError(
+                f"client_ranks must lie in [1, lora_rank={fed.lora_rank}] "
+                f"(got {tuple(ranks)}); weak clients truncate the global "
+                "rank, they never exceed it")
+
+
 def run_federated(cfg: ModelConfig, fed: FedConfig, public: Dict,
                   clients: List[Dict], test: Dict,
                   task: str = "classification", batch_size: int = 16,
@@ -65,17 +123,7 @@ def run_federated(cfg: ModelConfig, fed: FedConfig, public: Dict,
                   device=None, base=None, lora=None,
                   checkpoint_every: int = 0, checkpoint_dir: str = None,
                   resume_from: str = None) -> FedResult:
-    if fed.framework not in ("fedllm", "kd", "split"):
-        raise ValueError(f"unknown framework {fed.framework!r}")
-    if fed.privacy.dp_noise_multiplier > 0.0 and fed.privacy.dp_clip <= 0.0:
-        raise ValueError(
-            "privacy.dp_noise_multiplier > 0 requires privacy.dp_clip > 0 "
-            "(the noise stddev is sigma * clip; an unclipped release has "
-            "unbounded sensitivity and no (eps, delta) guarantee)")
-    if fed.n_virtual_clients and fed.n_virtual_clients != len(clients):
-        raise ValueError(
-            f"FedConfig.n_virtual_clients={fed.n_virtual_clients} does "
-            f"not match the supplied population ({len(clients)} clients)")
+    _check_values(fed, len(clients), checkpoint_every, checkpoint_dir)
     unported = _unported(fed, task)
     if checkpoint_every or checkpoint_dir or resume_from:
         unported.append("checkpointing")
@@ -88,7 +136,7 @@ def run_federated(cfg: ModelConfig, fed: FedConfig, public: Dict,
     base = tree_lib.map_(lambda t: t.detach().to(device), base)
     if lora is not None:
         lora = tree_lib.map_(lambda t: t.detach().to(device), lora)
-    targets = fed.lora_targets or lora_lib.DEFAULT_TARGETS
+    targets = fed.lora_targets or lora_lib.default_targets(cfg)
     with kernel_ops.policy_scope(cfg.kernel_policy):
         return run_program(model, base, cfg, fed, targets, public, clients,
                            test, task, batch_size, eval_batch, verbose,

@@ -6,17 +6,19 @@ by core/rounds.run_federated for a whole run and by
 models/factory.Model.forward for callers that drive the model directly;
 peft/lora.lora_apply, models/attention.attention_fwd, models/loss.kd_kl,
 core/compression (``topk_quantize``, ``quantize``, ``quant_roundtrip``),
-privacy/dp.clipped_grad_mean and models/rglru.rglru_fwd call
-``lora_matmul``, ``mha_attention``, ``kd_loss``, ``topk_quantize``,
-``quantize``, ``quantize_pack4``, ``clip_mean_rows`` and ``rglru``, which
-follow it:
+privacy/dp.clipped_grad_mean, models/rglru.rglru_fwd and
+models/rwkv6.timemix_fwd call ``lora_matmul``, ``mha_attention``,
+``kd_loss``, ``topk_quantize``, ``quantize``, ``quantize_pack4``,
+``clip_mean_rows``, ``rglru`` and ``rwkv6``, which follow it:
 
     ``cuda``  — the CUDA kernels (kernels/lora_matmul.py,
                 kernels/flash_attention.py, kernels/kd_loss.py,
                 kernels/quantize.py, kernels/dp_clip.py,
-                kernels/rglru_scan.py), differentiable
-                where the reference's are.  The tensors must be on a CUDA device: a CPU tensor
-                raises rather than falling back.
+                kernels/rglru_scan.py, kernels/rwkv6_scan.py),
+                differentiable where the reference's are and, for the
+                two scans, with backward kernels where the reference
+                lets XLA differentiate.  The tensors must be on a CUDA
+                device: a CPU tensor raises rather than falling back.
     ``torch`` — the plain PyTorch versions (kernels/ref.py) on whatever
                 device the tensors live, differentiated by autograd.
     ``auto``  — ``cuda`` for CUDA tensors, ``torch`` for CPU tensors.  It
@@ -39,6 +41,7 @@ from repro_torch.kernels import lora_matmul as _lm
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as _rg
+from repro_torch.kernels import rwkv6_scan as _rw
 
 POLICIES = ("torch", "cuda", "auto")
 _ACTIVE = "auto"
@@ -200,12 +203,34 @@ def rglru(a, b, h0=None):
                           None if h0 is None else h0.contiguous())
 
 
+def rwkv6(r, k, v, logw, u):
+    """r, k, v, logw: (B, S, H, D) fp32; u: (H, D) -> (y (B, S, H, D),
+    S_final (B, H, D, D)): the RWKV-6 WKV recurrence from a zero state,
+    differentiable.  Same transposes as the reference: heads move next to
+    the batch into the kernel layout (B·H, S, D), where row b·H + h takes
+    u[h].  The CUDA kernels of kernels/rwkv6_scan.py under the ``cuda``
+    policy, the step-by-step plain version (kernels/ref.py) under
+    ``torch``."""
+    B, S, H, D = r.shape
+
+    def flat(x):
+        return x.transpose(1, 2).reshape(B * H, S, D)
+
+    if use_cuda(r):
+        _require_cuda("rwkv6", r, k, v, logw, u)
+        y, sf = _rw.rwkv6_scan(*(flat(x).contiguous()
+                                 for x in (r, k, v, logw)), u.contiguous())
+    else:
+        y, sf = ref.rwkv6_scan(*(flat(x) for x in (r, k, v, logw)), u)
+    return y.reshape(B, H, S, D).transpose(1, 2), sf.reshape(B, H, D, D)
+
+
 def launches() -> dict:
     """Launch counts of every ported kernel since the last reset."""
     return {**_lm.LAUNCHES, **_fa.LAUNCHES, **_kd.LAUNCHES, **_q.LAUNCHES,
-            **_dp.LAUNCHES, **_rg.LAUNCHES}
+            **_dp.LAUNCHES, **_rg.LAUNCHES, **_rw.LAUNCHES}
 
 
 def reset_launches() -> None:
-    for mod in (_lm, _fa, _kd, _q, _dp, _rg):
+    for mod in (_lm, _fa, _kd, _q, _dp, _rg, _rw):
         mod.reset_launches()

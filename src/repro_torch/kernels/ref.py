@@ -2,13 +2,13 @@
 
 Counterpart of ``src/repro/kernels/ref.py`` (``lora_matmul_ref``,
 ``attention_ref``, ``kd_loss_rows_ref``, ``clip_mean_rows_ref``,
-``quantize_rows_ref``, ``topk_quantize_rows_ref`` and ``rglru_scan_ref``
-there, and the twin of ``quantize_pack4_rows``), plus the plain
-forward-with-residuals and backward functions whose math is that of the
-TPU kernels in ``src/repro/kernels/lora_matmul.py``,
-``flash_attention.py`` and ``kd_loss.py``, and the RG-LRU scan's
-gradient.  The autograd Functions in
-kernels/{lora_matmul,flash_attention,kd_loss,rglru_scan}.py and
+``quantize_rows_ref``, ``topk_quantize_rows_ref``, ``rglru_scan_ref`` and
+``rwkv6_scan_ref`` there, and the twin of ``quantize_pack4_rows``), plus
+the plain forward-with-residuals and backward functions whose math is
+that of the TPU kernels in ``src/repro/kernels/lora_matmul.py``,
+``flash_attention.py`` and ``kd_loss.py``, and the gradients of the
+RG-LRU scan and the RWKV-6 WKV recurrence.  The autograd Functions in
+kernels/{lora_matmul,flash_attention,kd_loss,rglru_scan,rwkv6_scan}.py and
 kernels/ops (for kernels/quantize.py and kernels/dp_clip.py) take these
 for CPU tensors;
 chip_smoke.py holds each CUDA kernel against them on the card.  All math
@@ -270,3 +270,78 @@ def rglru_scan_bwd(a, h, h0, dh, dh_final=None, need_dh0: bool = False):
         db[:, t] = g
         da[:, t] = g * (h[:, t - 1] if t > 0 else h_prev)
     return da, db, (c if need_dh0 else None)
+
+
+# --------------------------------------------------------------------------- #
+# RWKV-6 WKV recurrence
+# --------------------------------------------------------------------------- #
+def _bonus(u, BH: int):
+    """u (U, D), U dividing BH -> (BH, D): row bh is u[bh mod U] (the
+    (H, D) bonus tiled over the batch of a (B·H, S, D) layout)."""
+    return u.repeat(BH // u.shape[0], 1)
+
+
+def rwkv6_scan(r, k, v, logw, u):
+    """The WKV recurrence one step at a time (row 16): r, k, v, logw (BH,
+    S, D), u (U, D) with U dividing BH -> (y (BH, S, D), S_final (BH, D,
+    D)).  From S = 0, with w_t = exp(logw_t):
+
+        y_t = r_t·S_{t-1} + (Σ_d r_t[d]·u[d]·k_t[d])·v_t
+        S_t = w_t ⊙_rows S_{t-1} + k_t v_tᵀ
+
+    (the reference's ``r_t·(S_{t-1} + diag(u)·k_t v_tᵀ)``, split).  The
+    state update rounds each multiply and the add: the CUDA kernel's bits.
+    Autograd keeps one (BH, D, D) state a step."""
+    BH, S, D = r.shape
+    ub = _bonus(u, BH)
+    w = torch.exp(logw)
+    state = r.new_zeros(BH, D, D)
+    ys = []
+    for t in range(S):
+        rt, kt, vt = r[:, t], k[:, t], v[:, t]
+        c = (rt * ub * kt).sum(-1, keepdim=True)
+        ys.append((rt[:, None, :] @ state)[:, 0] + c * vt)
+        state = w[:, t, :, None] * state + kt[:, :, None] * vt[:, None, :]
+    return torch.stack(ys, 1), state
+
+
+def rwkv6_scan_bwd(r, k, v, logw, u, dy, dS_final=None,
+                   need_dlogw: bool = True, need_du: bool = False):
+    """The recurrence's gradient, backward in time carrying G = dL/dS_t
+    (dS_final, or 0, after the last step), with c_t = v_t·dy_t:
+
+        dr_t    = S_{t-1}·dy_t + u ⊙ k_t·c_t
+        dk_t    = G·v_t + r_t ⊙ u·c_t
+        dv_t    = Gᵀ·k_t + (Σ_d r_t[d]·u[d]·k_t[d])·dy_t
+        dlogw_t = w_t ⊙ rowsum(G ⊙ S_{t-1})
+        du     += r_t ⊙ k_t·c_t
+        G       = w_t ⊙_rows G + r_t dy_tᵀ
+
+    S_{t-1} is recomputed forward (never S_t divided by w, which may be
+    ~2e-9).  Returns (dr, dk, dv, dlogw or None, du (U, D) or None)."""
+    BH, S, D = r.shape
+    ub = _bonus(u, BH)
+    w = torch.exp(logw)
+    prev, state = [], r.new_zeros(BH, D, D)
+    for t in range(S):
+        prev.append(state)
+        state = w[:, t, :, None] * state + k[:, t, :, None] * v[:, t, None, :]
+    G = torch.zeros_like(state) if dS_final is None else dS_final
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dlogw = torch.empty_like(r) if need_dlogw else None
+    du = torch.zeros_like(ub) if need_du else None
+    for t in range(S - 1, -1, -1):
+        rt, kt, vt, dyt, wt = r[:, t], k[:, t], v[:, t], dy[:, t], w[:, t]
+        c = (vt * dyt).sum(-1, keepdim=True)
+        dr[:, t] = (prev[t] @ dyt[..., None])[..., 0] + ub * kt * c
+        dk[:, t] = (G @ vt[..., None])[..., 0] + rt * ub * c
+        dv[:, t] = (G.transpose(1, 2) @ kt[..., None])[..., 0] \
+            + (rt * ub * kt).sum(-1, keepdim=True) * dyt
+        if need_dlogw:
+            dlogw[:, t] = wt * (G * prev[t]).sum(-1)
+        if need_du:
+            du = du + rt * kt * c
+        G = wt[..., None] * G + rt[..., None] * dyt[:, None, :]
+    if need_du:
+        du = du.view(BH // u.shape[0], *u.shape).sum(0)
+    return dr, dk, dv, dlogw, du

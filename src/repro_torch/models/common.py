@@ -1,9 +1,9 @@
 """Shared model building blocks: initializers, LayerNorm and RMSNorm,
-GELU and SiLU, rotary position embeddings, the LoRA-aware projection and
+GELU, SiLU and squared ReLU, rotary position embeddings, the LoRA-aware projection and
 the causal mask.
 
-Counterpart of ``src/repro/models/common.py`` for what the GPT-2 and
-RecurrentGemma paths use.  Parameters are nested dicts of tensors;
+Counterpart of ``src/repro/models/common.py`` for what the GPT-2,
+RecurrentGemma and RWKV-6 paths use.  Parameters are nested dicts of tensors;
 initializers draw on the CPU from an explicit ``torch.Generator`` (so a
 seed gives the same weights on every device) and move the result to
 ``device``.  All math is fp32.
@@ -77,6 +77,12 @@ def gelu(x):
 
 def silu(x):
     return F.silu(x)
+
+
+def relu2(x):
+    """Squared ReLU (RWKV-6's channel-mix; Nemotron-4)."""
+    r = torch.relu(x)
+    return r * r
 
 
 # --------------------------------------------------------------------------- #

@@ -2,7 +2,8 @@
 GELU MLP and multi-head attention) and the Griffin hybrid of
 RecurrentGemma (RG-LRU and local-attention layers in a repeating
 pattern, RMSNorm, SwiGLU, RoPE, the embedding scaled by sqrt(d)), both
-with tied embeddings.
+with tied embeddings; and RWKV-6 (``rwkv6`` blocks of time-mix and
+squared-ReLU channel-mix, LayerNorm, an untied head).
 
 Counterpart of ``init_params``, ``init_block``, ``block_fwd``,
 ``embed_tokens``, ``forward``, ``lm_logits`` and the layer-range
@@ -14,13 +15,15 @@ per-layer dicts in forward order (layer g·P + pi of group g at pattern
 position pi, then the tail) and the forward is a Python loop
 (repro_torch/bridge.py converts between the two layouts).  Layer i has
 kind ``cfg.layer_kinds[i]``; an RG-LRU layer keeps its recurrent block
-under "attn", as the reference does.
+under "attn", and an RWKV-6 layer its time-mix and channel-mix weights
+together under "attn" with no "mlp", as the reference does.
 
     {"embed": (V, d), ["pos_embed": (P, d)], ["lm_head": (d, V)],
      "final_norm": {...},
      "layers": [{"norm1", "attn": {wq, wk, wv, wo, [bq, bk, bv]}
-                                  | {w_rec_in, ..., lambda, w_out},
-                 "norm2", "mlp": {[w_gate], w_in, w_out}}, ...]}
+                                  | {w_rec_in, ..., lambda, w_out}
+                                  | {mu_r, ..., w_r, ..., cm_w_r},
+                 "norm2", ["mlp": {[w_gate], w_in, w_out}]}, ...]}
 """
 from __future__ import annotations
 
@@ -28,17 +31,18 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, LOCAL_ATTN, RGLRU, ModelConfig
-from repro_torch.models import attention, common, mlp, rglru
+from repro_torch.configs.base import (ATTN, LOCAL_ATTN, RGLRU, RWKV6,
+                                     ModelConfig)
+from repro_torch.models import attention, common, mlp, rglru, rwkv6
 from repro_torch.runtime import resolve_device
 
-KINDS = (ATTN, LOCAL_ATTN, RGLRU)
+KINDS = (ATTN, LOCAL_ATTN, RGLRU, RWKV6)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raises NotImplementedError for what the port does not run yet."""
     missing = []
-    if cfg.family not in ("dense", "hybrid"):
+    if cfg.family not in ("dense", "hybrid", "ssm"):
         missing.append(f"family {cfg.family!r}")
     unported = sorted(set(cfg.layer_kinds) - set(KINDS))
     if unported:
@@ -47,8 +51,11 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append("MoE, encoder-decoder and VLM models")
     if cfg.qk_norm:
         missing.append("qk-norm")
+    # relu2 runs in RWKV-6's channel-mix; the dense relu2 MLP does not
+    all_rwkv = set(cfg.layer_kinds) == {RWKV6}
+    activations = ("gelu", "swiglu") + (("relu2",) if all_rwkv else ())
     if cfg.norm not in ("layernorm", "rmsnorm") or \
-            cfg.activation not in ("gelu", "swiglu"):
+            cfg.activation not in activations:
         missing.append(f"norm {cfg.norm!r} / activation {cfg.activation!r}")
     if missing:
         raise NotImplementedError(
@@ -64,6 +71,10 @@ def _group_split(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int, int]:
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, device):
     d = cfg.d_model
+    if kind == RWKV6:                     # the block embeds its channel-mix
+        return {"norm1": common.init_norm(cfg.norm, d, device),
+                "attn": rwkv6.init_rwkv6(gen, cfg, device),
+                "norm2": common.init_norm(cfg.norm, d, device)}
     mixer = rglru.init_rglru(gen, cfg, device) if kind == RGLRU \
         else attention.init_attention(gen, cfg, device)
     return {"norm1": common.init_norm(cfg.norm, d, device),
@@ -74,6 +85,11 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, device):
 
 def block_fwd(p, cfg: ModelConfig, kind: str, x, positions):
     h = common.apply_norm(cfg.norm, p["norm1"], x)
+    if kind == RWKV6:
+        out, _ = rwkv6.timemix_fwd(p["attn"], cfg, h)
+        x = x + out
+        h = common.apply_norm(cfg.norm, p["norm2"], x)
+        return x + rwkv6.channelmix_fwd(p["attn"], cfg, h)
     if kind == RGLRU:
         out, _ = rglru.rglru_fwd(p["attn"], cfg, h)
     else:

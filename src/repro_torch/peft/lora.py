@@ -25,6 +25,13 @@ import torch
 from repro_torch import tree as tree_lib
 
 DEFAULT_TARGETS: Tuple[str, ...] = ("wq", "wk", "wv")
+RWKV_TARGETS: Tuple[str, ...] = ("w_r", "w_k", "w_v", "w_g")
+
+
+def default_targets(cfg) -> Tuple[str, ...]:
+    """The reference's targets by family: the time-mix projections for an
+    attention-free model (every layer RG-LRU or RWKV-6), QKV otherwise."""
+    return RWKV_TARGETS if cfg.attention_free else DEFAULT_TARGETS
 
 
 def lora_apply(x, w, a, b):

@@ -18,6 +18,9 @@ torch.set_num_threads(1)
 from repro_torch.configs.base import (FaultConfig, FedConfig,  # noqa: E402
                                       PrivacyConfig)
 from repro_torch.configs.gpt2_small import gpt2_tiny  # noqa: E402
+from repro_torch.configs.recurrentgemma_2b import recurrentgemma_2b  # noqa: E402
+from repro_torch.configs.rwkv6_1_6b import rwkv6_1_6b  # noqa: E402
+from repro_torch.core import rounds  # noqa: E402
 from repro_torch.core.rounds import run_federated  # noqa: E402
 from repro_torch.data import banking77, partition  # noqa: E402
 from repro_torch.kernels import dp_clip  # noqa: E402
@@ -27,6 +30,7 @@ from repro_torch.kernels import lora_matmul as lm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.models.factory import build_model  # noqa: E402
+from repro_torch.peft import lora as lora_lib  # noqa: E402
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -46,7 +50,9 @@ assert {"repro_torch.privacy.dp", "repro_torch.privacy.accountant",
         "repro_torch.privacy.secure_agg", "repro_torch.optim.clip",
         "repro_torch.kernels.dp_clip", "repro_torch.core.split",
         "repro_torch.kernels.rglru_scan", "repro_torch.models.rglru",
-        "repro_torch.configs.recurrentgemma_2b"} <= set(names), names
+        "repro_torch.configs.recurrentgemma_2b",
+        "repro_torch.kernels.rwkv6_scan", "repro_torch.models.rwkv6",
+        "repro_torch.configs.rwkv6_1_6b"} <= set(names), names
 """
 
 
@@ -162,6 +168,63 @@ def test_unported_settings_raise(tiny_case, change):
         run_federated(cfg, fed, pub, clients, test, device="cpu")
 
 
+@pytest.mark.parametrize("change,kwargs", [
+    (dict(aggregation="bogus"), {}), (dict(backend="bogus"), {}),
+    (dict(robust_agg="bogus"), {}), (dict(quorum=1.5), {}),
+    (dict(client_ranks=(2, 4)), {}), (dict(trim_frac=0.7), {}),
+    ({}, dict(checkpoint_every=1)),
+])
+def test_invalid_settings_raise_value_error(tiny_case, change, kwargs):
+    """The reference's value checks come first: an invalid setting raises
+    ValueError (not NotImplementedError), and trim_frac=0.7 does not run."""
+    cfg, pub, clients, test = tiny_case
+    fed = dataclasses.replace(FedConfig(rounds=1, lora_dropout=0.0), **change)
+    with pytest.raises(ValueError):
+        run_federated(cfg, fed, pub, clients, test, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: gpt2_tiny(),
+    lambda: recurrentgemma_2b().reduced(n_layers=3, d_model=64),
+    lambda: rwkv6_1_6b().reduced(n_layers=2, d_model=64)])
+def test_empty_targets_resolve_to_default_targets(tiny_case, make,
+                                                  monkeypatch):
+    """``lora_targets=()`` takes ``default_targets(cfg)``, the reference's
+    choice for the same config: QKV with attention, the time-mix
+    projections when every layer is RG-LRU or RWKV-6."""
+    jax_lora = pytest.importorskip("repro.peft.lora")
+    ref_configs = pytest.importorskip("repro.configs.base")
+    cfg = make()
+    _, pub, clients, test = tiny_case
+    seen = []
+    monkeypatch.setattr(rounds, "run_program",
+                        lambda *args, **kwargs: seen.append(args[4]))
+    run_federated(cfg, FedConfig(rounds=1, lora_dropout=0.0,
+                                 lora_targets=()), pub, clients, test,
+                  device="cpu")
+    ref_cfg = ref_configs.ModelConfig(**{
+        f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+        if f.name != "kernel_policy"})
+    assert seen == [lora_lib.default_targets(cfg)] == \
+        [jax_lora.default_targets(ref_cfg)]
+    assert seen[0] == (lora_lib.RWKV_TARGETS if cfg.attention_free
+                       else lora_lib.DEFAULT_TARGETS)
+
+
+def test_default_targets_on_rwkv_train_nothing(tiny_case):
+    """``FedConfig``'s default targets (wq, wk, wv) name no RWKV-6 weight:
+    as in the reference, the run trains nothing (an empty LoRA tree, no
+    LoRA bytes on the wire, the same loss every round) and does not
+    crash."""
+    _, pub, clients, test = tiny_case
+    cfg = rwkv6_1_6b().reduced(n_layers=2, d_model=64)
+    res = run_federated(cfg, FedConfig(rounds=2, lora_dropout=0.0), pub,
+                        clients, test, device="cpu")
+    assert res.ledger.by_name() == {"lora_params": 0}
+    assert res.final_lora == {}
+    assert res.history[0].loss == res.history[1].loss
+
+
 def test_noise_without_clip_raises(tiny_case):
     """The reference's refusal: noise scaled by a clip of 0 bounds
     nothing."""
@@ -178,9 +241,9 @@ def test_checkpointing_and_unported_models_raise(tiny_case):
     with pytest.raises(NotImplementedError):
         run_federated(cfg, fed, pub, clients, test, device="cpu",
                       checkpoint_every=1, checkpoint_dir="ckpt")
-    rwkv = dataclasses.replace(cfg, family="ssm", layer_pattern=("rwkv6",))
-    with pytest.raises(NotImplementedError, match="rwkv6"):
-        run_federated(rwkv, fed, pub, clients, test, device="cpu")
+    qwen3 = dataclasses.replace(cfg, qk_norm=True)
+    with pytest.raises(NotImplementedError, match="qk-norm"):
+        run_federated(qwen3, fed, pub, clients, test, device="cpu")
 
 
 def test_lora_dropout_runs_on_own_generator(tiny_case):

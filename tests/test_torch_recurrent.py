@@ -3,7 +3,8 @@ the CPU: the RG-LRU scan's plain twins (the versions the CUDA kernels are
 held to on the card) against the Pallas ``rglru_scan`` in interpret mode
 and against ``jax.vjp`` of the reference's scan oracle; the RG-LRU layer,
 RMSNorm, RoPE, SwiGLU and windowed GQA attention; the bridge and the
-whole hybrid forward; and FedLLM end to end at
+whole hybrid forward; and FedLLM, KD-FedLLM (top-8 int8 logits) and
+DP-FedLLM (clip 0.5, noise 0, secure aggregation) end to end at
 ``recurrentgemma-2b.reduced(n_layers=5, d_model=128)`` (one pattern group
 of (rglru, rglru, local_attn) and a two-layer RG-LRU tail).
 
@@ -28,6 +29,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.base import FedConfig as RefFedConfig  # noqa: E402
+from repro.configs.base import PrivacyConfig as RefPrivacy  # noqa: E402
 from repro.configs.recurrentgemma_2b import config as ref_rg2b  # noqa: E402
 from repro.core.rounds import run_federated as ref_run  # noqa: E402
 from repro.kernels import ops as jax_ops  # noqa: E402
@@ -39,7 +41,7 @@ from repro.models import rglru as ref_rglru  # noqa: E402
 from repro.models.factory import build_model as ref_build  # noqa: E402
 from repro.peft import lora as ref_lora  # noqa: E402
 from repro_torch import bridge  # noqa: E402
-from repro_torch.configs.base import FedConfig  # noqa: E402
+from repro_torch.configs.base import FedConfig, PrivacyConfig  # noqa: E402
 from repro_torch.configs.recurrentgemma_2b import recurrentgemma_2b  # noqa: E402
 from repro_torch.core.rounds import run_federated  # noqa: E402
 from repro_torch.data import banking77, partition  # noqa: E402
@@ -358,6 +360,82 @@ def test_fedllm_rounds_and_final_lora_close(fed_runs):
         assert abs(hp.accuracy - hr.accuracy) <= 1e-3
     cfg = _cfgs()[1]
     got = bridge.lora_to_reference(port.final_lora, cfg)
+    want = jax.tree.map(np.asarray, ref.final_lora)
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_allclose(g, w, atol=5e-5, rtol=5e-4)
+
+
+# --------------------------------------------------------------------------- #
+# KD-FedLLM and DP-FedLLM end to end
+# --------------------------------------------------------------------------- #
+OTHER = {"kd": (dict(framework="kd", logit_topk=8, logit_quant_bits=8), {},
+                {"logits": 105600}),
+         "dp": (dict(framework="fedllm"), dict(dp_clip=0.5, secure_agg=True),
+                {"lora_params": 110592, "secagg_keys": 1344, "dp_meta": 72})}
+
+
+@pytest.fixture(scope="module")
+def other_runs(hybrid):
+    """{case: (reference result, port result)}: KD with top-8 int8 logits
+    and DP (clip 0.5, noise 0, secure aggregation) on the reduced hybrid,
+    fed_runs' data, rounds, rank and dropout, from the reference's
+    initial weights bridged (KD: one LoRA tree per client and one for the
+    server, from the reference's keys)."""
+    ref_cfg, cfg = _cfgs()
+    pub, train, test = banking77.paper_splits(cfg.vocab_size, pad_len=24,
+                                              scale=0.04)
+    clients = partition.iid_partition(train, 3)
+
+    def draw(key):
+        lt = ref_lora.init_lora(key, hybrid["params"], ("wq", "wk", "wv"),
+                                RANK, ALPHA)
+        return bridge.lora_from_reference(jax.tree.map(np.asarray, lt),
+                                          "cpu", cfg)
+
+    kd_key = jax.random.PRNGKey(FED["seed"] + 2)
+    loras = {"kd": {"clients": [draw(jax.random.fold_in(kd_key, ci))
+                                for ci in range(len(clients))],
+                    "server": draw(jax.random.fold_in(kd_key, 999))},
+             "dp": draw(jax.random.PRNGKey(FED["seed"] + 1))}
+    out = {}
+    for name, (fed_kw, priv, _) in OTHER.items():
+        common_kw = {**FED, **fed_kw}
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            ref = ref_run(dataclasses.replace(ref_cfg, kernel_policy="auto"),
+                          RefFedConfig(**common_kw,
+                                       privacy=RefPrivacy(**priv)),
+                          pub, clients, test, batch_size=16, eval_batch=64)
+        port = run_federated(cfg, FedConfig(**common_kw,
+                                             privacy=PrivacyConfig(**priv)),
+                             pub, clients, test, batch_size=16,
+                             eval_batch=64, device="cpu",
+                             base=hybrid["base"], lora=loras[name])
+        out[name] = (ref, port)
+    return out
+
+
+@pytest.mark.parametrize("case", list(OTHER))
+def test_kd_and_dp_ledger_and_flops_equal(other_runs, case):
+    ref, port = other_runs[case]
+    assert port.ledger.by_name() == ref.ledger.by_name() == OTHER[case][2]
+    assert port.ledger.per_client_round() == ref.ledger.per_client_round()
+    assert port.client_flops == [float(f) for f in ref.client_flops]
+    for hp, hr in zip(port.history, ref.history):
+        assert hp.client_flops == hr.client_flops
+        assert hp.comm_bytes_per_client == hr.comm_bytes_per_client
+        assert hp.epsilon == hr.epsilon
+
+
+@pytest.mark.parametrize("case", list(OTHER))
+def test_kd_and_dp_rounds_and_final_lora_close(other_runs, case):
+    ref, port = other_runs[case]
+    assert len(port.history) == len(ref.history) == 2
+    for hp, hr in zip(port.history, ref.history):
+        assert abs(hp.loss - hr.loss) <= 1e-3
+        assert abs(hp.accuracy - hr.accuracy) <= 1e-3
+    got = bridge.lora_to_reference(port.final_lora, _cfgs()[1])
     want = jax.tree.map(np.asarray, ref.final_lora)
     assert jax.tree.structure(got) == jax.tree.structure(want)
     for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
