@@ -18,10 +18,13 @@ Runs the plain run (kernel policy ``torch``), then kernel runs (policy
 LoRA projection, the attention, the RG-LRU scan), and with only the
 RG-LRU scan on its kernels; prints each run's relative L2 distance from
 the plain run's final LoRA, its per-round loss differences and its
-kernel launches.  Then the fp32 error of the LoRA forward kernel, of
-cuBLAS and of cuBLASLt against an fp64 product at GPT-2's and
-RecurrentGemma-2B's projection shapes.  Needs a CUDA card; imports
-nothing of JAX.
+kernel launches.  Then the fp32 error of the LoRA forward, dx and dW
+kernels, of cuBLAS and of cuBLASLt against fp64 products at GPT-2's and
+RecurrentGemma-2B's projection shapes; that part alone:
+
+    python3 scripts/chip_attribution.py fp64
+
+Needs a CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -92,6 +95,11 @@ def main() -> int:
         print("chip_attribution: no CUDA device", file=sys.stderr)
         return 1
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    if sys.argv[1:] == ["fp64"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(torch.cuda.get_device_name(0), torch.__version__, flush=True)
+        fp64_errors(torch.device("cuda", 0))
+        return 0
     if sys.argv[1:] == ["rwkv"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(subprocess.run(
@@ -105,7 +113,6 @@ def main() -> int:
     from repro_torch.configs.recurrentgemma_2b import recurrentgemma_2b
     from repro_torch.core.rounds import run_federated
     from repro_torch.data import banking77, partition
-    from repro_torch.kernels import lora_matmul as lm
     from repro_torch.kernels import ops
     from repro_torch.models.factory import build_model
 
@@ -156,27 +163,18 @@ def main() -> int:
               f"{ {k: n for k, n in ops.launches().items() if n} }",
               flush=True)
 
-    gen = torch.Generator(device=dev).manual_seed(3)
-    blas = torch.backends.cuda.preferred_blas_library()
-    for K, N in ((768, 768), (2560, 2560), (2560, 256)):
-        M, r = chip_smoke.BATCH * chip_smoke.PAD_LEN, chip_smoke.RANK
-        x = torch.randn(M, K, device=dev, generator=gen)
-        w = torch.randn(K, N, device=dev, generator=gen) * K ** -0.5
-        a = torch.randn(K, r, device=dev, generator=gen) * K ** -0.5
-        b = torch.randn(r, N, device=dev, generator=gen) * N ** -0.5
-        exact = (x.double() @ w.double()
-                 + (x.double() @ a.double()) @ b.double())
-        errs = {"kernel": lm.lora_fwd(x, w, a, b)[0]}
-        for lib in ("cublas", "cublaslt"):
-            torch.backends.cuda.preferred_blas_library(lib)
-            errs[lib] = x @ w + (x @ a) @ b
-        torch.backends.cuda.preferred_blas_library(blas)
-        rms = {k: float(((y.double() - exact) ** 2).mean().sqrt())
-               for k, y in errs.items()}
-        print(f"LoRA forward M {M} K {K} N {N}: rms error against fp64 "
-              + ", ".join(f"{k} {e:.3e}" for k, e in rms.items()),
-              flush=True)
+    fp64_errors(dev)
     return 0
+
+
+def fp64_errors(dev) -> None:
+    """The LoRA forward, dx and dW kernels' rms error against fp64, beside
+    cuBLAS's and cuBLASLt's, at GPT-2's and RecurrentGemma-2B's
+    projection shapes (chip_smoke.lora_fp64_errors)."""
+    import chip_smoke
+    M = chip_smoke.BATCH * chip_smoke.PAD_LEN
+    for K, N in ((768, 768), (2560, 2560), (2560, 256)):
+        chip_smoke.lora_fp64_errors(dev, M, K, N, 17)
 
 
 if __name__ == "__main__":

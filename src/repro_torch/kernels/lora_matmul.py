@@ -6,14 +6,15 @@ become the CUDA kernels of ``csrc/lora_matmul.cu``:
     lora_fwd    <- _fwd_call    y and the saved (M, r) panel xa = x@A
     lora_dx     <- _dx_call     dx = g@Wᵀ + (g@Bᵀ)@Aᵀ and gb = g@Bᵀ
                                 (the forward's template, operands transposed)
+    lora_dw     <- _dw_call     the dense dW = xᵀg, summed over M
     lora_panel  <- _panel_grad_call   dA = xᵀ·gb, dB = (gᵀ·xa)ᵀ
 
 ``LoRAMatmul`` is the ``torch.autograd.Function`` around them.  For CUDA
 tensors it launches the kernels (or raises); for CPU tensors it takes the
-plain versions in kernels/ref.py.  The dense ``dW = xᵀg`` (the reference's
-``_dw_call``) is skipped through ``ctx.needs_input_grad``: in PEFT the
-base is frozen.  It is not ported, so a W that requires a gradient on
-CUDA raises NotImplementedError.
+plain versions in kernels/ref.py.  dW runs only where W itself requires a
+gradient (``ctx.needs_input_grad``): in PEFT the base is frozen, so every
+training path skips it; the gradient with respect to the bound base
+weights reaches it.
 
 Each kernel wrapper adds one to ``LAUNCHES[name]`` where it launches.
 """
@@ -25,7 +26,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-LAUNCHES = {"lora_fwd": 0, "lora_dx": 0, "lora_panel": 0}
+LAUNCHES = {"lora_fwd": 0, "lora_dx": 0, "lora_dw": 0, "lora_panel": 0}
 R_MAX = 64
 _LIB = None
 
@@ -44,6 +45,10 @@ def _lib():
         lib.lora_fused.restype = i32
         lib.lora_panel_grad.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
         lib.lora_panel_grad.restype = i32
+        lib.lora_dw_splits.argtypes = [i32] * 3
+        lib.lora_dw_splits.restype = i32
+        lib.lora_dw.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+        lib.lora_dw.restype = i32
         _LIB = lib
     return _LIB
 
@@ -90,6 +95,26 @@ def lora_dx(g, w, a, b):
     return dx, gb
 
 
+def lora_dw(x, g):
+    """x (M, K), g (M, N) -> dW = xᵀg (K, N).  Where the card would not be
+    filled by the (K, N) tiles alone, the kernel splits M into slices and
+    sums them in a fixed order through a workspace allocated here."""
+    M, K = x.shape
+    N = g.shape[1]
+    build.check_tensors("lora_dw", x.device, x=(x, (M, K)), g=(g, (M, N)))
+    lib = _lib()
+    splits = lib.lora_dw_splits(M, K, N)
+    dw = torch.empty((K, N), device=x.device, dtype=torch.float32)
+    ws = torch.empty((splits, K, N), device=x.device, dtype=torch.float32) \
+        if splits > 1 else None
+    rc = lib.lora_dw(x.data_ptr(), g.data_ptr(), dw.data_ptr(),
+                     None if ws is None else ws.data_ptr(), M, K, N,
+                     build.stream(x.device))
+    build.check(rc, "lora_dw")
+    LAUNCHES["lora_dw"] += 1
+    return dw
+
+
 def lora_panel(lhs, panel, transpose_out: bool = False):
     """lhs (M, L), panel (M, r) -> lhsᵀ·panel (L, r), or (r, L) transposed."""
     M, L = lhs.shape
@@ -127,11 +152,7 @@ class LoRAMatmul(torch.autograd.Function):
         need_dx, need_dw, need_da, need_db = ctx.needs_input_grad
         dx = dw = da = db = None
         if need_dw:
-            if cuda:
-                raise NotImplementedError(
-                    "dW = xᵀg on CUDA: the dense dW kernel of the reference "
-                    "(lora_matmul.py _dw_call) is not ported; freeze W")
-            dw = x.t() @ g
+            dw = (lora_dw if cuda else ref.lora_dw)(x, g)
         if need_dx or need_da:
             dx, gb = (lora_dx if cuda else ref.lora_dx)(g, w, a, b)
             if need_da:

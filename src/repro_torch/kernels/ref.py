@@ -43,6 +43,11 @@ def lora_dx(g, w, a, b):
     return g @ w.t() + gb @ a.t(), gb
 
 
+def lora_dw(x, g):
+    """dW = xᵀg: (M, K), (M, N) -> (K, N) (row 3)."""
+    return x.t() @ g
+
+
 def panel_grad(lhs, panel, transpose_out: bool = False):
     """lhsᵀ·panel: (M, L), (M, r) -> (L, r), or (r, L) transposed (row 4).
     dA = panel_grad(x, gb); dB = panel_grad(g, xa, transpose_out=True)."""

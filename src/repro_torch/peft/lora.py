@@ -12,9 +12,11 @@ functions of repro_torch/tree.py skip it.
 
 ``bind`` produces the tree the model consumes, replacing each targeted
 weight W with ``{"w": W, "a": A, "b": B·alpha/r}``; models/common.mm
-computes ``x@W + (x@A)@B`` from it without materialising W + BA.  The base
-tensors never require a gradient: core/fedavg differentiates the loss
-with respect to the LoRA leaves only (the PEFT property).
+computes ``x@W + (x@A)@B`` from it without materialising W + BA.
+core/fedavg differentiates the loss with respect to the LoRA leaves only
+(the PEFT property), so no training path forms a gradient of W; a caller
+that binds a W requiring a gradient gets dW = xᵀg (the dense dW kernel
+under the ``cuda`` policy).
 """
 from __future__ import annotations
 

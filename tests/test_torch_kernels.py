@@ -1,4 +1,4 @@
-"""The port's LoRA-matmul, flash-attention, KD-loss, per-row quantize,
+"""The port's LoRA-matmul (dW included), flash-attention, KD-loss, per-row quantize,
 top-k-quantize and DP clip-scale-accumulate ops (their autograd Functions on CPU tensors, i.e. the plain versions of
 kernels/ref.py that the CUDA kernels are held against on the card)
 against the reference's Pallas kernels run in interpret mode, forward
@@ -77,6 +77,48 @@ def test_lora_matmul_matches_pallas(M, K, N, r):
     ref = _jax_value_and_grads(
         lambda *t: jax_lora(*t, interpret=True), (x, w, a, b), probe)
     _assert_match(port, ref, "x w a b".split())
+
+
+@pytest.mark.parametrize("M,K,N,bm,bk,bn", [(128, 256, 128, 128, 256, 128),
+                                            (256, 512, 384, 128, 256, 128),
+                                            (128, 1024, 256, 128, 256, 128)])
+def test_lora_dw_matches_pallas_dw_call(M, K, N, bm, bk, bn):
+    """Row 3: the dW twin against the reference's ``_dw_call`` in
+    interpret mode at tests/test_kernels.py's shapes, blocks dividing
+    them; g scaled by M^-0.5 so that dW is O(1)."""
+    from repro.kernels.lora_matmul import _dw_call
+    x, g = _inputs(M + K + N, ((M, K), 1.0), ((M, N), M ** -0.5))
+    want = _dw_call(jnp.asarray(x), jnp.asarray(g), bm, bk, bn, True,
+                    jnp.float32)
+    got = ref.lora_dw(torch.tensor(x), torch.tensor(g))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD)
+
+
+@pytest.mark.parametrize("M,K,N", [(77, 160, 48), (130, 96, 200)])
+def test_lora_dw_ragged_matches_reference_ops(M, K, N):
+    """Row 3 at a ragged M, K and N through the reference's
+    ``kernels/ops.lora_matmul`` (which pads M to its tile): the port's
+    LoRAMatmul dW against ``jax.grad`` with respect to W."""
+    x, w, a, b, probe = _inputs(M * 7 + N, ((M, K), 1.0), ((K, N), 0.05),
+                                ((K, 4), 0.05), ((4, N), 0.05),
+                                ((M, N), M ** -0.5))
+    want = jax.grad(lambda w_: jnp.sum(jax_ops.lora_matmul(
+        jnp.asarray(x), w_, jnp.asarray(a), jnp.asarray(b)) * probe))(
+        jnp.asarray(w))
+    wt = torch.tensor(w, requires_grad=True)
+    (lora_matmul(torch.tensor(x), wt, torch.tensor(a), torch.tensor(b))
+     * torch.tensor(probe)).sum().backward()
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(want), **GRAD)
+
+
+def test_lora_matmul_cpu_dw_is_the_twin_bit_for_bit():
+    x, w, a, b, g = (torch.tensor(t) for t in _inputs(
+        5, ((45, 70), 1.0), ((70, 33), 0.1), ((70, 4), 0.1), ((4, 33), 0.1),
+        ((45, 33), 1.0)))
+    w.requires_grad_(True)
+    lora_matmul(x, w, a, b).backward(g)
+    assert a.grad is None and b.grad is None
+    assert torch.equal(w.grad, ref.lora_dw(x, g))
 
 
 def test_lora_matmul_skips_dw_for_frozen_base():

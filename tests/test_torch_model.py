@@ -1,7 +1,9 @@
 """The port's GPT-2 substrate against the reference's, at ``gpt2_tiny``:
 a bridged parameter tree gives the same logits as
 ``repro.models.factory.Model.forward`` (kernel policy ``xla``), with and
-without a bound LoRA tree, and the building blocks match one by one.
+without a bound LoRA tree, the same gradient with respect to the bound
+base weights and the LoRA factors as ``jax.grad`` under kernel policy
+``pallas``, and the building blocks match one by one.
 
 Inputs come from the reference's own init (bridged, numpy in between) or
 a numpy seed.  Tolerance atol 1e-4 / rtol 1e-4 on logits and layer
@@ -73,6 +75,124 @@ def test_logits_match_reference(bridged, with_lora):
             port_params, {"tokens": torch.as_tensor(b["tokens"]).long()})
     assert got.shape == want.shape and float(aux) == 0.0
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _live_targets(tree, targets, wrap):
+    """``tree`` with each targeted 2-D weight passed through ``wrap``."""
+    if isinstance(tree, dict):
+        return {k: (wrap(v) if k in targets and getattr(v, "ndim", 0) == 2
+                    else _live_targets(v, targets, wrap))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_live_targets(v, targets, wrap) for v in tree)
+    return tree
+
+
+def _rel_l2(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+# each gradient leaf within this many times the largest relative L2
+# distance between the reference's own "xla" and "pallas" gradients
+GRAD_FACTOR = 3.0
+
+
+@pytest.fixture(scope="module")
+def base_grads(bridged):
+    """A labelled batch, the reference's gradient of the classification
+    loss with respect to the bound wq/wk/wv and the LoRA factors under
+    kernel policy ``pallas`` (its custom_vjp returns dW through
+    ``_dw_call``, in interpret mode here) as port-ordered leaves, and the
+    bound GRAD_FACTOR sets from the ``xla`` policy's distance to it."""
+    from repro.core import tasks as ref_tasks
+
+    b = bridged
+    rng = np.random.default_rng(5)
+    batch = {"tokens": b["tokens"],
+             "lengths": rng.integers(8, 25, 2).astype(np.int32),
+             "labels": rng.integers(0, 77, 2).astype(np.int32)}
+
+    def grads(policy):
+        model = ref_build(dataclasses.replace(ref_tiny(),
+                                              kernel_policy=policy))
+
+        def loss(params, lt):
+            logits, _ = model.forward(ref_lora.bind(params, lt, ALPHA, RANK),
+                                      jax.tree.map(jnp.asarray, batch))
+            return ref_tasks.classification_loss_fn(logits, batch)[0]
+
+        gp, gl = jax.grad(loss, argnums=(0, 1))(b["params"], b["lora"])
+        leaves = []
+        _live_targets(bridge.params_from_reference(_np(gp), "cpu"),
+                      ("wq", "wk", "wv"), leaves.append)
+        return leaves + tree_lib.leaves(
+            bridge.lora_from_reference(_np(gl), "cpu"))
+
+    want = grads("pallas")
+    bound = GRAD_FACTOR * max(_rel_l2(x, w)
+                              for x, w in zip(grads("xla"), want))
+    return batch, want, bound
+
+
+@pytest.mark.parametrize("route", ["plain", "function"])
+def test_base_weight_grads_match_reference(bridged, base_grads, route,
+                                           monkeypatch):
+    """The gradient of the classification loss with respect to the bound
+    base weights wq/wk/wv of every layer and to the LoRA factors, against
+    the reference's ``jax.grad`` under kernel policy ``pallas``.
+    ``plain`` is the port's CPU path (autograd through the plain chain);
+    ``function`` sends every LoRA projection through LoRAMatmul (its dW
+    twin included) and every attention through FlashAttention, as the
+    ``cuda`` policy does on the card.  Each leaf within GRAD_FACTOR times
+    the reference's own "xla"-to-"pallas" distance in relative L2
+    (elementwise atol 1e-4 / rtol 1e-4 is out of reach: on the B
+    factors' gradients, up to 7 here, the reference's two policies part
+    by more)."""
+    from repro_torch.core import tasks
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels import ops
+
+    b, targets = bridged, ("wq", "wk", "wv")
+    batch, want, bound = base_grads
+
+    calls = []
+    if route == "function":
+        def lora_function(x, w, a, b_):
+            calls.append(("lora", w.requires_grad))
+            *lead, K = x.shape
+            return lm.lora_matmul(x.reshape(-1, K), w, a, b_).reshape(
+                *lead, w.shape[1])
+
+        def flash_function(q, k, v, causal, window, q_offset):
+            calls.append(("flash", q.requires_grad))
+            return fa.flash_attention(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), causal, window,
+                                      q_offset)
+        monkeypatch.setattr(ops, "lora_matmul", lora_function)
+        monkeypatch.setattr(ops.ref, "attention_ref", flash_function)
+    ws = []
+
+    def live(t):
+        t = t.detach().clone().requires_grad_(True)
+        ws.append(t)
+        return t
+
+    base = _live_targets(b["base"], targets, live)
+    lt = tree_lib.map_(lambda t: t.detach().clone().requires_grad_(True),
+                       b["port_lora"])
+    tb = {k: torch.as_tensor(v).long() for k, v in batch.items()}
+    logits, _ = b["model"].forward(lora_lib.bind(base, lt, ALPHA, RANK), tb)
+    loss, _ = tasks.get_loss_fn("classification")(logits, tb)
+    got = torch.autograd.grad(loss, ws + tree_lib.leaves(lt))
+    assert calls == ((([("lora", True)] * 3 + [("flash", True)]) * 4)
+                     if route == "function" else [])
+    assert len(got) == len(want) == 3 * 4 + 2 * 3 * 4
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        rel = _rel_l2(g.numpy(), w.numpy())
+        assert rel <= bound, f"leaf {i}: relative L2 {rel:.3e} > {bound:.3e}"
 
 
 def test_attention_fwd_matches_reference(bridged):
