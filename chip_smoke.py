@@ -35,28 +35,41 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    ragged (1279, 770, 97) and at RecurrentGemma-2B's (1280, 2560, 256);
    the LoRA forward, dx and dW kernels' rms error against fp64 products
    at K = N = 768 and 2560 within FP64_FACTOR times the default BLAS
-   library's for the same products; and the RWKV-6 WKV
+   library's for the same products; the flash forward and dk/dv kernels'
+   rms error against an fp64 run of their twins (o, lse, dk, dv at
+   GPT-2's and RecurrentGemma-2B's shapes) within FP64_FACTOR times the
+   larger of the fp32 twins' and SDPA's; flash_dkv's head chunks at G 3
+   and 5 (chunks of unequal size); and the RWKV-6 WKV
    kernels at the train step's (512, 80, 64) with checkpoints (timed
    eager, in a graph and with a cold L2), at the eval batch's (2048, 80,
    64) without, at a ragged S, one step, head dims 16 and 32, log-decays
    near 0 and down to -e³, with dS_final and du: y and the gradients
    within atol 1e-5 / rtol 1e-4, S_final and every checkpoint bit for
    bit, and at the train shape each output's error against an fp64 run
-   of the plain version within twice the fp32 plain version's.
+   of the plain version within twice the fp32 plain version's.  The
+   3xTF32 flash kernels' operation bound is taken at a third of the
+   card's TF32 rate, and their fp32-rate bound printed beside it.
+
+The full-width phases judge the kernels by their error, measured from an
+fp64 run of the plain path (each_run's "exact": policy ``torch``, the
+weights and the initial LoRA cast to float64).  A gate "from fp64" holds
+the kernel run's relative L2 distance from the fp64 run's result within
+FLOOR_FACTOR times the larger of the two fp32 plain runs' distances
+(default BLAS library and the other one) plus FLOOR_SLACK, and requires
+the TF32 control (a run of lower precision) outside that limit.
+
 3. Runs the paper's SSV case study through ``run_federated`` at the full
    width of GPT-2 (12 layers, d 768, V 50257; random weights from seed 0),
-   2 FedLLM rounds over 3 clients, four times from the same weights: with
+   2 FedLLM rounds over 3 clients, five times from the same weights: with
    kernel policy ``cuda`` (the kernels), and with ``torch`` (plain PyTorch
-   on the card) under the default BLAS library, under the other one, and
-   under TF32.  The kernel and default plain runs must agree: identical
-   ledger bytes and client FLOPs and per-round loss within 1e-3.  Their
-   final LoRA trees may differ by fp32 noise only: the relative L2
-   distance between them must stay within FLOOR_FACTOR times the one
-   between the two fp32 plain runs (the noise floor, measured in this
-   run) plus FLOOR_SLACK, and the TF32 run (a control of lower precision)
-   must fall outside that limit.  Every kernel's launch counter must equal
-   the count the model's shapes predict in the kernel run and be 0 in the
-   plain runs.
+   on the card) under the default BLAS library, under the other one,
+   under TF32 and from the fp64 weights.  First the LoRA gradient of the
+   first train step (client 0's first batch) is gated from fp64.  The
+   kernel and default plain runs must agree: identical ledger bytes and
+   client FLOPs and per-round loss within 1e-3.  The final LoRA trees are
+   gated from fp64.  Every kernel's launch counter must equal the count
+   the model's shapes predict in the kernel run and be 0 in the plain
+   runs.
 4. KD-FedLLM (logit distillation over 150 public rows, top-k 8 with int8
    on the wire), 2 rounds, four runs; the KD-loss and top-k kernels are
    counted beside the LoRA and attention ones.  The int8 upload is
@@ -64,48 +77,53 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    the last bits, an uploaded level can move by one, and after that the
    runs part.  So the kernels' precision is gated on client 0's first
    upload, recomputed under each setting from the run's initial LoRA:
-   its public-set logits before quantization must be within FLOOR_FACTOR
-   times the two fp32 plain runs' relative L2 distance plus FLOOR_SLACK
-   of the plain run's, and the TF32 control's outside; the share of
-   uploaded (index, level) pairs that differ from the plain run's is
-   printed beside the floor's.  The runs are then held to phase 6's gates
-   for a chaotic path (ledger, FLOPs and launches exact, the round loss
-   within 1e-3 plus FLOOR_FACTOR times the two plain runs' difference,
-   the TF32 control past that limit in some round, the final server LoRA
-   within the floor gate).
-5. The same four runs and checks for DP-FedLLM: phase 3's case study with
+   its public-set logits before quantization are gated from fp64; the
+   share of uploaded (index, level) pairs that differ from the plain
+   run's is printed beside the floor's.  The runs are then held to phase
+   6's gates for a chaotic path (ledger, FLOPs and launches exact, the
+   round loss within 1e-3 plus FLOOR_FACTOR times the two plain runs'
+   difference, the TF32 control past that limit in some round, the final
+   server LoRA within FLOOR_FACTOR times the floor run's distance from
+   the plain run plus FLOOR_SLACK).
+5. The same five runs and checks for DP-FedLLM: phase 3's case study with
    DP-SGD clipping at C, noise 0 and secure aggregation, C being the
    median per-example gradient norm of the first batch (computed on the
    card before the runs), so that about half the examples clip.  Every
    local step runs 16 examples as batches of one through the LoRA and
-   attention kernels, then the two clip kernels; the kernel run's norms
-   must show clipping in some but not all rows, the ledger must hold the
-   LoRA payloads plus the secure-aggregation key exchange and the DP
-   metadata as reckoned by hand, and epsilon must be inf (noise 0).
+   attention kernels, then the two clip kernels; its first-step gate is
+   on the clipped mean of the first batch's per-example gradients.  The
+   kernel run's norms must show clipping in some but not all rows, the
+   ledger must hold the LoRA payloads plus the secure-aggregation key
+   exchange and the DP metadata as reckoned by hand, and epsilon must be
+   inf (noise 0).
 6. Split-FedLLM (client layers 0-1, server layers 2-11 with the head),
-   2 rounds, as two sets of the same four runs; every step runs the LoRA
-   and attention kernels of all 12 layers.  With an fp32 boundary (bits
-   0) the path is continuous and phase 3's checks hold unchanged, the
-   TF32 control included: this set gates the kernels' precision over the
-   whole Split path (both halves forward and backward, evaluation).  With
-   an int8 boundary every step adds two per-row quantize launches (c2
-   activations up, c4 gradients down) and the ledger must equal the hand
-   reckoning (6,518,976 bytes per client per round).  This boundary is
-   discontinuous: where two fp32 runs differ in the last bits, a value
-   near a half level rounds to the neighbouring level (a level flip), and
-   after one flip the runs' losses and final LoRA drift apart.  So the
-   round loss may differ from the plain run's by 1e-3 plus FLOOR_FACTOR
-   times the two fp32 plain runs' difference, and the TF32 control must
-   exceed that limit in at least one round; the final joined LoRA is held
-   to phase 3's floor gate (measured at the same bits), which the TF32
-   control need not fail; and the share of boundary levels at round 0,
-   step 0 that differ from the plain run's (c2 and c4) must be within
-   FLOOR_FACTOR times the fp32 floor's plus FLOOR_SLACK for the kernel
-   run and outside it for the TF32 run.
+   2 rounds, as two sets of runs; every step runs the LoRA and attention
+   kernels of all 12 layers.  With an fp32 boundary (bits 0) the path is
+   continuous and phase 3's checks hold unchanged, the first step's LoRA
+   gradient of both halves through the split program and the final
+   joined LoRA gated from fp64: this set gates the kernels' precision
+   over the whole Split path (both halves forward and backward,
+   evaluation).  With an int8 boundary (four runs) every step adds two
+   per-row quantize launches (c2 activations up, c4 gradients down) and
+   the ledger must equal the hand reckoning (6,518,976 bytes per client
+   per round).  This boundary is discontinuous: where two fp32 runs
+   differ in the last bits, a value near a half level rounds to the
+   neighbouring level (a level flip), and after one flip the runs' losses
+   and final LoRA drift apart.  So the round loss may differ from the
+   plain run's by 1e-3 plus FLOOR_FACTOR times the two fp32 plain runs'
+   difference, and the TF32 control must exceed that limit in at least
+   one round; the final joined LoRA is held to FLOOR_FACTOR times the
+   floor run's distance from the plain run, which the TF32 control need
+   not fail; and the share of boundary levels at round 0, step 0 that
+   differ from the plain run's (c2 and c4) must be within FLOOR_FACTOR
+   times the fp32 floor's plus FLOOR_SLACK for the kernel run and
+   outside it for the TF32 run.
 7. FedLLM on RecurrentGemma-2B at full width and depth (26 layers in the
    pattern (rglru, rglru, local_attn), d 2560, V 256000, 2.66e9
    parameters; random weights from seed 0), phase 3's data, rounds, rank
-   and checks, four runs.  LoRA sits on wq/wk/wv of the 8 local-attention
+   and checks, five runs (the fp64 copy of the weights, 21.3 GB beside
+   the fp32 10.6 GB, lives for its run only; each run prints its peak
+   device memory).  LoRA sits on wq/wk/wv of the 8 local-attention
    layers; every batch runs the RG-LRU scan kernel in the 18 recurrent
    layers, every train step its backward in the 16 that follow the first
    LoRA layer (autograd does not reach layers 0-1).
@@ -113,7 +131,7 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
 8. FedLLM on RWKV-6 Finch 1.6B at full width and depth (24 rwkv6 layers,
    d 2048, 32 heads of 64, d_ff 7168, V 65536, 1.58e9 parameters; random
    weights from seed 0), LoRA on w_r/w_k/w_v/w_g, phase 3's data, rounds
-   and rank, four runs; every batch runs the WKV forward kernel in
+   and rank; every batch runs the WKV forward kernel in
    all 24 layers, every train step its backward in all 24 (layer 0's
    r, k and v carry LoRA).  Each run prints its peak device memory.
    This path is chaotic at full width: Adam's first update moves every
@@ -121,12 +139,10 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    gradient sits at the fp32 noise floor step apart and the runs part; a
    round's loss then differs between fp32 plain runs by 1e-2 to 1.4e-1,
    as far as the TF32 control's.  So the kernels' precision is gated on
-   the first step: the LoRA gradient of client 0's first batch must be
-   within FLOOR_FACTOR times the two fp32 plain runs' distance plus
-   FLOOR_SLACK of the plain one, and the TF32 control's outside.  The
-   runs are then held to run_case's gates for a chaotic path with
-   RWKV_SEEDS more fp32 plain runs from nudged weights (each weight one
-   ulp up or down) beside the floor run: ledger, FLOPs and launches
+   the first step: the LoRA gradient of client 0's first batch, gated
+   from fp64.  The runs (four, and RWKV_SEEDS more fp32 plain runs from
+   nudged weights, each weight one ulp up or down) are then held to
+   run_case's gates for a chaotic path: ledger, FLOPs and launches
    exact; each round's loss within 1e-3 plus FLOOR_FACTOR times the
    largest fp32 run's difference; the final LoRA, which sums every step's
    flips, within SPREAD_FACTOR times the largest fp32 run's distance plus
@@ -136,11 +152,10 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    base weights: GPT-2 at full width (seed-0 weights), client 0's first
    batch of phase 3 and the run's initial LoRA (rank 8 on wq/wk/wv), with
    every targeted base W and the LoRA factors requiring a gradient, one
-   forward and backward under each of the four settings.  The dW tree and
-   the LoRA gradient must each be within FLOOR_FACTOR times the floor
-   plus FLOOR_SLACK of the plain run's, the TF32 control's outside; the
-   kernel run launches the dense dW kernel exactly 36 times (12 layers x
-   3 projections) beside one train step's LoRA and flash launches, the
+   forward and backward under each of the five settings.  The dW tree
+   and the LoRA gradient are each gated from fp64; the kernel run
+   launches the dense dW kernel exactly 36 times (12 layers x 3
+   projections) beside one train step's LoRA and flash launches, the
    plain runs nothing.  The dense dW kernel launches on no other path.
 
 It prints one JSON line with every kernel's numbers and, last, the line
@@ -179,14 +194,21 @@ GRAPH_TIMED = ("kd_fwd", "kd_bwd", "kd_bwd_dt", "topk_quantize",
 COLD_TIMED = ("dp_clip_norms", "dp_clip_acc", "rglru_fwd", "rglru_bwd",
               "rwkv6_fwd", "rwkv6_bwd")
 L2_FLUSH_BYTES = 100 * 2 ** 20
-# data-sheet peaks: (fp32 FLOP/s without tensor cores, memory bytes/s)
-PEAKS = {"H100 PCIe": (51.2e12, 2.0e12), "H100 NVL": (60.0e12, 3.9e12),
-         "H100": (67.0e12, 3.35e12)}
+# data-sheet peaks: (fp32 FLOP/s without tensor cores, memory bytes/s,
+# dense TF32 tensor-core FLOP/s)
+PEAKS = {"H100 PCIe": (51.2e12, 2.0e12, 378e12),
+         "H100 NVL": (60.0e12, 3.9e12, 417.5e12),
+         "H100": (67.0e12, 3.35e12, 494.7e12)}
+# kernels whose products run on the tensor cores in 3xTF32 (three TF32
+# products each): their operation bound is at a third of the TF32 peak
+TF32X3 = ("flash_fwd", "flash_dkv")
 BATCH, PAD_LEN, RANK = 16, 80, 8
 SPLIT_LAYER, SPLIT_BITS = 2, 8
 # LoRA parameters per example at gpt2 width: rank 8 on wq/wk/wv, 12 layers
 DP_WIDTH = 12 * 3 * 2 * RANK * 768
-# final-LoRA gate: relative L2 <= FLOOR_FACTOR * (plain vs plain) + slack
+# gates from fp64: a distance from the fp64 run <= FLOOR_FACTOR times the
+# larger of the two fp32 plain runs' + FLOOR_SLACK (chaotic paths: the
+# floor run's distance from the plain run)
 FLOOR_FACTOR, FLOOR_SLACK = 3.0, 1e-6
 # the final-LoRA gate of a chaotic path with nudged fp32 runs: relative L2
 # <= SPREAD_FACTOR * the largest fp32 run's + slack.  On RWKV-6 four fp32
@@ -473,6 +495,64 @@ def lora_fp64_errors(device, M, K, N, seed) -> dict:
     del got, exact
     torch.cuda.empty_cache()
     return rms, default
+
+
+def flash_fp64_errors(device, BH, BKV, S, D, causal, window, seed) -> dict:
+    """rms error against an fp64 run of the plain twins of o, lse, dk and
+    dv through the flash kernels (forward, then dk/dv from its own lse and
+    D = rowsum(do∘o)), through the fp32 twins and through SDPA (o, and dk
+    and dv from its backward, summed over each GQA group; SDPA gives no
+    lse), on kernel_cases' N(0, 1) inputs.  Fails unless each kernel error
+    is within FP64_FACTOR times the larger of the fp32 twins' and SDPA's;
+    returns {"kernel" | "plain fp32" | "sdpa": {output: rms}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, device=device, generator=gen)
+                   for shape in ((BH, S, D), (BKV, S, D), (BKV, S, D),
+                                 (BH, S, D)))
+    cfg = (causal, window, 0)
+    G = BH // BKV
+
+    def pipeline(fwd, dkv, *xs):
+        o, lse = fwd(*xs[:3], *cfg)
+        dk, dv = dkv(*xs, lse, (xs[3] * o).sum(-1), *cfg)
+        return {"o": o, "lse": lse, "dk": dk, "dv": dv}
+
+    exact = pipeline(ref.attention_fwd, ref.attention_dkv,
+                     *(t.double() for t in (q, k, v, do)))
+    got = {"kernel": pipeline(fa.flash_fwd, fa.flash_dkv, q, k, v, do),
+           "plain fp32": pipeline(ref.attention_fwd, ref.attention_dkv,
+                                  q, k, v, do)}
+    leaves = [q.detach()[None].requires_grad_(True)] + [
+        t.repeat_interleave(G, dim=0)[None].requires_grad_(True)
+        for t in (k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    _, dke, dve = torch.autograd.grad(out, leaves, do[None])
+    got["sdpa"] = {"o": out[0].detach(),
+                   "dk": dke[0].view(BKV, G, S, D).sum(1),
+                   "dv": dve[0].view(BKV, G, S, D).sum(1)}
+    rms = {who: {name: float(((y.double() - exact[name]) ** 2).mean().sqrt())
+                 for name, y in outs.items()} for who, outs in got.items()}
+    for name in exact:
+        yard = max(rms[who][name] for who in ("plain fp32", "sdpa")
+                   if name in rms[who])
+        print(f"  flash {name} at BH {BH} over {BKV}, S {S}, D {D}: rms "
+              f"error against fp64 " + ", ".join(
+                  f"{who} {rms[who][name]:.3e}" for who in rms
+                  if name in rms[who])
+              + f" (kernel / yardstick {rms['kernel'][name] / yard:.2f})")
+        require(rms["kernel"][name] <= FP64_FACTOR * yard,
+                f"flash {name}: kernel rms error against fp64 "
+                f"{rms['kernel'][name]:.3e} exceeds {FP64_FACTOR} times "
+                f"{yard:.3e}")
+    del got, exact, leaves, out
+    torch.cuda.empty_cache()
+    return rms
 
 
 def rglru_cases(device, B, S, W, h0, dh_final, offset, seed):
@@ -803,7 +883,8 @@ def quant_cases(device, R, C, special, offset, seed):
 def time_case(name, case, peaks_) -> dict:
     """Checks one case and times its kernel, plain and library versions."""
     kern, plain, lib, nbytes, nflops = case
-    flops_peak, bytes_peak = peaks_
+    fp32_peak, bytes_peak, tf32_peak = peaks_
+    flops_peak = tf32_peak / 3 if name in TF32X3 else fp32_peak
     err = max_err(name, kern(), plain())
     row = {"max_abs_err": err, "ms": cuda_ms(kern),
            "plain_ms": cuda_ms(plain),
@@ -816,6 +897,8 @@ def time_case(name, case, peaks_) -> dict:
     row.update(bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                bytes=nbytes, flops=nflops)
+    if name in TF32X3:
+        row["bound_fp32_ms"] = max(t_bytes, nflops / fp32_peak) * 1e3
     lib_ms = "n/a" if row["library_ms"] is None \
         else f"{row['library_ms']:.4f}"
     atol, rtol = tolerance(name)
@@ -823,6 +906,9 @@ def time_case(name, case, peaks_) -> dict:
     if name in EXACT_OUTPUTS:
         tol += f"; outputs {EXACT_OUTPUTS[name]} bit-identical"
     graph = f" (graph_ms {row['graph_ms']:.4f})" if "graph_ms" in row else ""
+    if "bound_fp32_ms" in row:
+        graph += (f" (3xTF32 on the tensor cores; bound at the fp32 rate "
+                  f"{row['bound_fp32_ms']:.4g})")
     if "cold_ms" in row:
         graph += f" (cold L2 {row['cold_ms']:.4f})"
     print(f"  {name}: max abs err {err:.3e} ({tol}) "
@@ -897,7 +983,13 @@ def check_kernels(device, card: str):
               dict(M=333, K=2560, N=256, r=RANK, BH=20, BKV=2, S=80, Skv=80,
                    D=256, causal=True, window=32, q_offset=0),
               dict(M=50, K=2560, N=2560, r=RANK, BH=10, BKV=1, S=50, Skv=70,
-                   D=200, causal=True, window=0, q_offset=20)]
+                   D=200, causal=True, window=0, q_offset=20),
+              # flash_dkv's head chunks of unequal size: G 3 on 32 kv
+              # heads (2 chunks of 1 and 2 heads), G 5 on 16 (4 chunks)
+              dict(M=64, K=64, N=64, r=RANK, BH=96, BKV=32, S=80, Skv=80,
+                   D=64, causal=True, window=0, q_offset=0),
+              dict(M=64, K=64, N=64, r=RANK, BH=80, BKV=16, S=80, Skv=80,
+                   D=128, causal=True, window=48, q_offset=0)]
     # RG-LRU scan: the eval batch's shape, a ragged width (scalar loads)
     # with a step count that is no multiple of the kernels' 8-step load
     # batches, one step, an initial state and dh_final, misaligned rows
@@ -962,6 +1054,9 @@ def check_kernels(device, card: str):
                     f"LoRA {op} kernel at K = N = {K}: rms error against "
                     f"fp64 {err:.3e} exceeds {FP64_FACTOR} times {lib}'s "
                     f"{rms[lib][op]:.3e}")
+    for shape in (cfg, RG_SHAPES):
+        flash_fp64_errors(device, shape["BH"], shape["BKV"], shape["S"],
+                          shape["D"], shape["causal"], shape["window"], 18)
     print(f"  LoRA and flash kernels at RecurrentGemma-2B's shapes (M "
           f"{BATCH * PAD_LEN}, K = N = 2560; BH {BATCH * 10}, one kv head a "
           f"batch row, D 256, window 2048):")
@@ -1053,35 +1148,62 @@ def rel_l2(got, want) -> float:
 
 
 def floor_gate(what: str, gaps: dict) -> float:
-    """Fails unless ``gaps["kernels"]`` is within FLOOR_FACTOR times
-    ``gaps["floor"]`` plus FLOOR_SLACK and ``gaps["control"]`` (TF32)
-    outside it; prints where each falls and returns the limit."""
-    limit = FLOOR_FACTOR * gaps["floor"] + FLOOR_SLACK
-    print(f"  {what}: limit {limit:.3e}; kernels at "
+    """Each run's distance from the fp64 run (``gaps[role]``, role
+    "kernels", "plain", "floor", "control"): fails unless the kernels' is
+    within FLOOR_FACTOR times the larger of the two fp32 plain runs' plus
+    FLOOR_SLACK and the TF32 control's outside it; prints where each
+    falls and returns the limit."""
+    limit = FLOOR_FACTOR * max(gaps["plain"], gaps["floor"]) + FLOOR_SLACK
+    print(f"  {what}, distance from fp64: kernels {gaps['kernels']:.3e}, "
+          f"plain {gaps['plain']:.3e}, floor {gaps['floor']:.3e}, control "
+          f"{gaps['control']:.3e}; limit {limit:.3e}; kernels at "
           f"{gaps['kernels'] / limit:.3f} of it, TF32 control "
           f"{gaps['control'] / limit:.1f}x")
-    require(gaps["kernels"] <= limit, f"{what}: the kernel run is off the "
-            f"plain run beyond the fp32 noise floor")
+    require(gaps["kernels"] <= limit, f"{what}: the kernel run is further "
+            f"from the fp64 run than the fp32 plain runs allow")
     require(gaps["control"] > limit, f"{what}: the gate does not reject the "
             f"TF32 control")
     return limit
 
 
-def each_run():
+def fp64(tree):
+    """A copy of ``tree`` with every floating-point leaf in float64."""
+    from repro_torch import tree as tree_lib
+    return tree_lib.map_(
+        lambda t: t.double() if t.is_floating_point() else t, tree)
+
+
+def from_exact(values: dict, what: str) -> dict:
+    """Relative L2 distance of each run's tensors (``values[role]``, a
+    list) from the fp64 run's, printed; {role: distance} for the kernels,
+    the two fp32 plain runs and the TF32 control."""
+    gaps = {role: rel_l2(values[role], values["exact"])
+            for role in ("kernels", "plain", "floor", "control")}
+    print(f"  {what}, relative L2 from the fp64 run: " + ", ".join(
+        f"{role} {gap:.3e}" for role, gap in gaps.items()))
+    return gaps
+
+
+def each_run(exact: bool = False):
     """Yields (role, tag, kernel policy) for the four runs every case
     study makes, with the BLAS library and TF32 set for each and restored
     after it: the kernels ("kernels", tagged "cuda"), plain PyTorch under
     the default BLAS library ("plain", "torch"), under the other one
     ("floor": the same fp32 products summed in another order) and under
-    TF32 ("control": a run of lower precision)."""
+    TF32 ("control": a run of lower precision); with ``exact``, then
+    plain PyTorch from the weights and LoRA cast to float64 ("exact",
+    "torch-fp64": the yardstick the fp64-judged gates measure from; the
+    caller casts them)."""
     import torch
     blas = torch.backends.cuda.preferred_blas_library()
     other = "cublas" if "lt" in str(blas).lower() else "cublaslt"
-    for role, tag, policy, lib, tf32 in (
-            ("kernels", "cuda", "cuda", blas, False),
+    runs = [("kernels", "cuda", "cuda", blas, False),
             ("plain", "torch", "torch", blas, False),
             ("floor", f"torch-{other}", "torch", other, False),
-            ("control", "torch-tf32", "torch", blas, True)):
+            ("control", "torch-tf32", "torch", blas, True)]
+    if exact:
+        runs.append(("exact", "torch-fp64", "torch", blas, False))
+    for role, tag, policy, lib, tf32 in runs:
         torch.backends.cuda.preferred_blas_library(lib)
         torch.backends.cuda.matmul.allow_tf32 = tf32
         try:
@@ -1120,8 +1242,12 @@ def run_case(device, cfg, base, fed, data, ledger, expect, chaotic=False,
     against each other, the kernel run's ledger bytes by name against
     ``ledger`` and its launch counts against ``expect``; returns the
     kernel run's (launch counts, result).  Each round's loss must be
-    within 1e-3 of the plain run's, and the TF32 control's final LoRA
-    outside the floor gate.  ``chaotic`` marks a run whose trajectory
+    within 1e-3 of the plain run's.  On a continuous path a fifth run,
+    plain PyTorch from the weights cast to float64 (each_run's "exact"),
+    is the yardstick of the final LoRA: the kernel run's must be within
+    FLOOR_FACTOR times the larger distance of the two fp32 plain runs'
+    plus FLOOR_SLACK from it, and the TF32 control's outside.  The fp64
+    copy of the weights lives for that run only.  ``chaotic`` marks a run whose trajectory
     turns fp32 noise into discrete changes that move the loss and the
     final LoRA of every run (a quantized boundary's level flips; Adam's
     first sign step on RWKV-6 at full width): there the loss limit adds
@@ -1129,8 +1255,9 @@ def run_case(device, cfg, base, fed, data, ledger, expect, chaotic=False,
     another fp32 run in that round, and the TF32 control must exceed that
     limit in at least one round instead (once the runs part, the floor
     gate on the final LoRA no longer separates the control); such a phase
-    gates the kernels' precision on its first step, before the runs part.
-    ``seeds`` adds that many fp32 plain runs from ``nudged`` weights beside
+    gates the kernels' precision on its first step, before the runs part;
+    its final LoRA is held to the floor run's distance from the plain run
+    (an fp64 run parts from the others like any other run).  ``seeds`` adds that many fp32 plain runs from ``nudged`` weights beside
     the floor run, for a chaotic path whose round losses one pair of runs
     samples too thinly (RWKV-6's: there the fp32 runs' losses spread as
     far as the TF32 control's, while their final-LoRA distances cluster):
@@ -1145,7 +1272,7 @@ def run_case(device, cfg, base, fed, data, ledger, expect, chaotic=False,
     pub, clients, test = data
 
     def settings():
-        for role, tag, policy in each_run():
+        for role, tag, policy in each_run(exact=not chaotic):
             yield role, tag, policy, None
         for seed in range(seeds):
             yield f"seed {seed}", f"torch-seed{seed}", "torch", seed
@@ -1155,12 +1282,14 @@ def run_case(device, cfg, base, fed, data, ledger, expect, chaotic=False,
         ops.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        start = base if seed is None else nudged(base, seed, device)
+        start = fp64(base) if role == "exact" else \
+            base if seed is None else nudged(base, seed, device)
         res = run_federated(dataclasses.replace(cfg, kernel_policy=policy),
                             fed, pub, clients, test, batch_size=BATCH,
                             eval_batch=64, device=device, base=start)
         del start
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         wall = time.perf_counter() - t0
         counts[role] = ops.launches()
         results[role] = res
@@ -1189,8 +1318,10 @@ def run_case(device, cfg, base, fed, data, ledger, expect, chaotic=False,
         do = [abs(results[o].history[i].loss - hp.loss) for o in others]
         lim = 1e-3 + (FLOOR_FACTOR * max(do) if chaotic else 0.0)
         fp32 = ", ".join(f"{o} {d:.3e}" for o, d in zip(others, do))
+        fp64_ = "" if chaotic else \
+            f", fp64 {abs(results['exact'].history[i].loss - hp.loss):.3e}"
         print(f"  round {hk.round} loss vs plain: kernels {dk:.3e}, {fp32}, "
-              f"control {dc:.3e} (limit {lim:.3e})")
+              f"control {dc:.3e}{fp64_} (limit {lim:.3e})")
         loss_ok.append(dk <= lim)
         control_out.append(dc > lim)
 
@@ -1200,23 +1331,33 @@ def run_case(device, cfg, base, fed, data, ledger, expect, chaotic=False,
     # width differ by more than atol 5e-5 / rtol 5e-4 in a few elements.
     # The gate is the floor two fp32 plain runs show in this run; the TF32
     # run shows that the gate rejects a run of lower precision.
-    gaps = {role: lora_gap(results[role].final_lora, plain.final_lora)
-            for role in ["kernels", "control"] + others}
+    if chaotic:
+        yard = "plain"
+        gaps = {role: lora_gap(results[role].final_lora, plain.final_lora)
+                for role in ["kernels", "control"] + others}
+    else:
+        yard = "fp64"
+        gaps = {role: lora_gap(results[role].final_lora,
+                               results["exact"].final_lora)
+                for role in ("kernels", "plain", "floor", "control")}
     if seeds:
         # a chaotic path's final LoRA sums every step's flips: the fp32
         # runs' distances cluster, and a run of lower precision flips more
         limit = SPREAD_FACTOR * max(gaps[o][1] for o in others) + FLOOR_SLACK
-    else:
+    elif chaotic:
         limit = FLOOR_FACTOR * gaps["floor"][1] + FLOOR_SLACK
+    else:
+        limit = FLOOR_FACTOR * max(gaps["plain"][1], gaps["floor"][1]) \
+            + FLOOR_SLACK
     for name, (share, rel, worst) in gaps.items():
-        print(f"  final LoRA {name} vs plain: relative L2 {rel:.3e} "
+        print(f"  final LoRA {name} vs {yard}: relative L2 {rel:.3e} "
               f"(limit {limit:.3e}), outside atol 5e-5/rtol 5e-4 "
               f"{share:.3e} of elements, max abs {worst:.3e}")
     require(all(loss_ok), "round loss of the kernel run is off the plain "
             "run's beyond its limit")
     require(gaps["kernels"][1] <= limit,
-            "final LoRA of the kernel run is off the plain run beyond the "
-            "fp32 noise floor")
+            f"final LoRA of the kernel run is off the {yard} run beyond the "
+            f"fp32 runs' limit")
     if chaotic and not seeds:
         require(any(control_out), "the round-loss gate does not reject the "
                 "TF32 control run in any round")
@@ -1275,6 +1416,8 @@ def run_slices(device):
           "3 clients")
     fed = FedConfig(framework="fedllm", rounds=2, lora_rank=RANK,
                     lora_dropout=0.0)
+    floor_gate("first-step LoRA gradient",
+               first_step_gaps(device, cfg, base, fed, clients))
     by_path["fedllm"], _ = run_case(
         device, cfg, base, fed, data,
         ledger={"lora_params": fed.rounds * C * 2 * lora_bytes},
@@ -1325,13 +1468,12 @@ def run_slices(device):
 
 def kd_upload_gaps(device, cfg, base, fed, pub):
     """Client 0's first KD upload (round 0, b2-b3), recomputed under each
-    of each_run()'s settings from the run's initial LoRA: its public-set
-    logits through core/kd.client_logits, then the top-k / int-bits
-    payload that core/kd.compress_for_wire uploads
-    (compression.topk_quantize).  Prints, against the plain run, each
-    run's relative L2 distance of the logits and the share of uploaded
-    (index, level) pairs and of row scales that differ; returns
-    {"kernels" | "floor" | "control": logits distance}."""
+    of each_run(exact=True)'s settings from the run's initial LoRA: its
+    public-set logits through core/kd.client_logits, then (fp32 runs) the
+    top-k / int-bits payload that core/kd.compress_for_wire uploads
+    (compression.topk_quantize).  Prints, against the plain run, the
+    share of uploaded (index, level) pairs and of row scales that differ;
+    returns each run's logits distance from the fp64 run's (from_exact)."""
     import torch
 
     from repro_torch.core import compression, kd
@@ -1344,69 +1486,48 @@ def kd_upload_gaps(device, cfg, base, fed, pub):
     lt = lora_lib.init_lora(torch.Generator().manual_seed(fed.seed + 2),
                             base, fed.lora_targets or lora_lib.DEFAULT_TARGETS,
                             fed.lora_rank, fed.lora_alpha)
-    logits, payload, tags = {}, {}, {}
-    for role, tag, policy in each_run():
-        tags[role] = tag
+    logits, payload = {}, {}
+    for role, tag, policy in each_run(exact=True):
         fns = make_fns(build_model(dataclasses.replace(
             cfg, kernel_policy=policy)), fed)
         with ops.policy_scope(policy):
-            logits[role] = kd.client_logits(fns, base, lt, pub, 64, device)
+            if role == "exact":
+                logits[role] = [kd.client_logits(fns, fp64(base), fp64(lt),
+                                                 pub, 64, device)]
+                continue
+            logits[role] = [kd.client_logits(fns, base, lt, pub, 64, device)]
             payload[role] = compression.topk_quantize(
-                logits[role], fed.logit_topk, fed.logit_quant_bits)[0]
-    gaps, shares = {}, {}
+                logits[role][0], fed.logit_topk, fed.logit_quant_bits)[0]
+    torch.cuda.empty_cache()
+    shares = {}
     want = payload["plain"]
     for role in ("kernels", "floor", "control"):
         got = payload[role]
         pairs = (got["indices"] != want["indices"]) | \
             (got["values_q"] != want["values_q"])
         scales = int((got["scale"] != want["scale"]).sum())
-        gaps[role] = rel_l2([logits[role]], [logits["plain"]])
         shares[role] = float(pairs.float().mean())
-        print(f"  round 0 upload of client 0, {tags[role]} vs plain: logits "
-              f"relative L2 {gaps[role]:.3e}; uploaded (index, level) pairs "
-              f"that differ {int(pairs.sum())} of {pairs.numel()} "
-              f"({shares[role]:.3e}), row scales {scales} of "
-              f"{want['scale'].numel()}")
-    print(f"  uploaded pairs that differ: kernels {shares['kernels']:.3e}, "
-          f"floor {shares['floor']:.3e}, control {shares['control']:.3e}")
-    return gaps
+        print(f"  round 0 upload of client 0, {role} vs plain: uploaded "
+              f"(index, level) pairs that differ {int(pairs.sum())} of "
+              f"{pairs.numel()} ({shares[role]:.3e}), row scales {scales} "
+              f"of {want['scale'].numel()}")
+    return from_exact(logits, "round 0 upload logits of client 0")
 
 
 def split_level_flips(device, cfg, base, fed, clients):
-    """Boundary levels of round 0, step 0 (client 0's first batch, the
-    run's initial LoRA) that differ between the plain run and the kernel
-    run, the other fp32 plain run (the floor) and the TF32 run (the
-    control), at c2 (activations) and c4 (gradients): each run's step is
-    recomputed under its policy and BLAS setting, and its raw boundary
-    tensors quantized by the plain version.  Prints the counts; returns
-    {"kernels" | "floor" | "control": share of the levels that differ}."""
-    import torch
-
-    from repro_torch.core import split
-    from repro_torch.core.fedavg import to_device
-    from repro_torch.data.loader import epoch_batches
+    """Boundary levels of round 0, step 0 (split_first_step) that differ
+    between the plain run and the kernel run, the other fp32 plain run
+    (the floor) and the TF32 run (the control), at c2 (activations) and
+    c4 (gradients): each run's raw boundary tensors quantized by the plain
+    version.  Prints the counts; returns {"kernels" | "floor" | "control":
+    share of the levels that differ}."""
     from repro_torch.kernels import ref
-    from repro_torch.models.factory import build_model
-    from repro_torch.peft import lora as lora_lib
 
-    lt = lora_lib.init_lora(torch.Generator().manual_seed(fed.seed + 3),
-                            base, lora_lib.DEFAULT_TARGETS, fed.lora_rank,
-                            fed.lora_alpha)
-    batch = to_device(next(iter(epoch_batches(
-        clients[0], BATCH, seed=fed.seed * 983))), device)
-    levels, tags = {}, {}
-    for role, tag, policy in each_run():
-        tags[role] = tag
-        sfns = split.make_split_fns(build_model(dataclasses.replace(
-            cfg, kernel_policy=policy)), fed)
-        L = sfns["n_client_groups"]
-        c_lt, s_lt = split.split_lora(lt, L)
-        base_c, base_s = split.split_base(base, L)
-        _, _, _, h, h_grad = sfns["split_grads"](base_c, base_s, c_lt, s_lt,
-                                                 batch)
-        levels[role] = [ref.quantize_rows_ref(t.reshape(-1, t.shape[-1]),
-                                              SPLIT_BITS)[0]
-                        for t in (h, h_grad)]
+    steps = split_first_step(device, cfg, base, fed, clients, exact=False)
+    levels = {role: [ref.quantize_rows_ref(t.reshape(-1, t.shape[-1]),
+                                           SPLIT_BITS)[0]
+                     for t in (h, h_grad)]
+              for role, (_, h, h_grad) in steps.items()}
     share = {}
     for role in ("kernels", "floor", "control"):
         flips = [int((a != b).sum()) for a, b in zip(levels[role],
@@ -1415,7 +1536,7 @@ def split_level_flips(device, cfg, base, fed, clients):
                  zip(levels[role], levels["plain"])]
         n = sum(t.numel() for t in levels[role])
         share[role] = sum(flips) / n
-        print(f"  round 0 step 0 boundary levels, {tags[role]} vs plain: c2 "
+        print(f"  round 0 step 0 boundary levels, {role} vs plain: c2 "
               f"{flips[0]}, c4 {flips[1]} of {n // 2} each differ (largest "
               f"difference {max(jumps)} levels)")
     return share
@@ -1446,6 +1567,13 @@ def run_split(device, cfg, base, data, steps, evals):
         payload = rows * d * bits // 8 + rows * 4 if bits else rows * d * 4
         c2, c4 = payload + BATCH * 4, payload
         expect = model_launches(L, steps * fed.rounds, evals * fed.rounds)
+        if not bits:
+            # the precision gate of the continuous set: round 0, step 0's
+            # LoRA gradient of both halves through the split program
+            floor_gate("first-step LoRA gradient (split program)", from_exact(
+                {role: grads for role, (grads, _, _) in split_first_step(
+                    device, cfg, base, fed, clients, exact=True).items()},
+                "round 0 step 0 LoRA gradient of both halves"))
         if bits:
             # the precision gate of a quantized boundary: a level flips
             # where one run's fp32 value crosses a half level that the
@@ -1552,8 +1680,6 @@ def time_dp_round(device, cfg, base, fed, clients, lora):
 
 def run_dp(device, cfg, base, data, steps, evals, lora_bytes):
     """Phase 5: DP-FedLLM (clip C, noise 0, secure aggregation)."""
-    import torch
-
     from repro_torch.configs.base import FedConfig, PrivacyConfig
     from repro_torch.kernels import dp_clip
     from repro_torch.optim.clip import _clip_scale
@@ -1571,6 +1697,8 @@ def run_dp(device, cfg, base, data, steps, evals, lora_bytes):
     print(f"  C = {clip:.6g}")
     fed = dataclasses.replace(fed, privacy=dataclasses.replace(
         fed.privacy, dp_clip=clip))
+    floor_gate("first-step clipped mean gradient",
+               first_step_gaps(device, cfg, base, fed, clients))
 
     # the kernel run's norms: count the rows the clip scales (on the card;
     # read after the runs)
@@ -1652,6 +1780,8 @@ def run_recurrent(device):
           f"the first with LoRA), {n_attn} local-attention layers; "
           f"{train_steps} train steps, {fwd_batches} eval batches")
     t0 = time.perf_counter()
+    floor_gate("first-step LoRA gradient",
+               first_step_gaps(device, cfg, base, fed, clients))
     counts, _ = run_case(device, cfg, base, fed, (pub, clients, test),
                          ledger={"lora_params": fed.rounds * C * 2
                                  * lora_bytes},
@@ -1664,41 +1794,83 @@ def run_recurrent(device):
 
 def first_step_gaps(device, cfg, base, fed, clients):
     """The LoRA gradient of FedLLM's first train step (client 0's first
-    batch, the run's initial LoRA) under the kernels, the plain run's
-    BLAS library, the other one (the floor) and TF32 (the control), each
-    recomputed under its policy and setting.  Prints each one's relative
-    L2 distance from the plain gradient; returns {"kernels" | "floor" |
-    "control": distance}."""
+    batch, the run's initial LoRA) under each of each_run(exact=True)'s
+    settings, recomputed under its policy and setting; under DP
+    (``fed.privacy.dp_clip``) the step's mean of the clipped per-example
+    gradients.  Returns each run's relative L2 distance from the fp64
+    gradient (from_exact)."""
     import torch
 
     from repro_torch import tree as tree_lib
     from repro_torch.core import tasks
+    from repro_torch.core.fedavg import make_fns, to_device
+    from repro_torch.data.loader import epoch_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models.factory import build_model
+    from repro_torch.peft import lora as lora_lib
+    from repro_torch.privacy import dp as dp_mod
+
+    lt = lora_lib.init_lora(torch.Generator().manual_seed(fed.seed + 1),
+                            base, fed.lora_targets or lora_lib.DEFAULT_TARGETS,
+                            fed.lora_rank, fed.lora_alpha)
+    batch = to_device(next(iter(epoch_batches(
+        clients[0], BATCH, seed=fed.seed * 997))), device)
+    loss_fn = tasks.get_loss_fn("classification")
+    clip = fed.privacy.dp_clip
+    grads = {}
+    for role, tag, policy in each_run(exact=True):
+        model = build_model(dataclasses.replace(cfg, kernel_policy=policy))
+        b, l = (fp64(base), fp64(lt)) if role == "exact" else (base, lt)
+        with ops.policy_scope(policy):
+            if clip > 0.0:
+                _, rows = make_fns(model, fed)["per_example_grads"](b, l,
+                                                                     batch)
+                grads[role] = [dp_mod.clipped_grad_mean(rows, clip)]
+            else:
+                live = tree_lib.map_(
+                    lambda t: t.detach().requires_grad_(True), l)
+                logits, _ = model.forward(lora_lib.bind(
+                    b, live, fed.lora_alpha, fed.lora_rank), batch)
+                loss, _ = loss_fn(logits, batch)
+                grads[role] = torch.autograd.grad(loss,
+                                                  tree_lib.leaves(live))
+        del b, l
+    torch.cuda.empty_cache()
+    return from_exact(grads, "round 0 step 0 LoRA gradient")
+
+
+def split_first_step(device, cfg, base, fed, clients, exact: bool) -> dict:
+    """Round 0, step 0 of Split-FedLLM (client 0's first batch, the run's
+    initial LoRA) through the split program under each of
+    each_run(exact)'s settings: {role: (the LoRA gradient of both halves,
+    the raw boundary activations h, the server's raw gradient of them)}."""
+    import torch
+
+    from repro_torch.core import split
     from repro_torch.core.fedavg import to_device
     from repro_torch.data.loader import epoch_batches
     from repro_torch.models.factory import build_model
     from repro_torch.peft import lora as lora_lib
 
-    lt = lora_lib.init_lora(torch.Generator().manual_seed(fed.seed + 1),
-                            base, fed.lora_targets, fed.lora_rank,
+    lt = lora_lib.init_lora(torch.Generator().manual_seed(fed.seed + 3),
+                            base, lora_lib.DEFAULT_TARGETS, fed.lora_rank,
                             fed.lora_alpha)
     batch = to_device(next(iter(epoch_batches(
-        clients[0], BATCH, seed=fed.seed * 997))), device)
-    loss_fn = tasks.get_loss_fn("classification")
-    grads, tags = {}, {}
-    for role, tag, policy in each_run():
-        tags[role] = tag
-        model = build_model(dataclasses.replace(cfg, kernel_policy=policy))
-        live = tree_lib.map_(lambda t: t.detach().requires_grad_(True), lt)
-        logits, _ = model.forward(lora_lib.bind(base, live, fed.lora_alpha,
-                                                fed.lora_rank), batch)
-        loss, _ = loss_fn(logits, batch)
-        grads[role] = torch.autograd.grad(loss, tree_lib.leaves(live))
-    gaps = {}
-    for role in ("kernels", "floor", "control"):
-        gaps[role] = rel_l2(grads[role], grads["plain"])
-        print(f"  round 0 step 0 LoRA gradient, {tags[role]} vs plain: "
-              f"relative L2 {gaps[role]:.3e}")
-    return gaps
+        clients[0], BATCH, seed=fed.seed * 983))), device)
+    out = {}
+    for role, tag, policy in each_run(exact):
+        sfns = split.make_split_fns(build_model(dataclasses.replace(
+            cfg, kernel_policy=policy)), fed)
+        L = sfns["n_client_groups"]
+        b, l = (fp64(base), fp64(lt)) if role == "exact" else (base, lt)
+        c_lt, s_lt = split.split_lora(l, L)
+        base_c, base_s = split.split_base(b, L)
+        _, c_grads, s_grads, h, h_grad = sfns["split_grads"](
+            base_c, base_s, c_lt, s_lt, batch)
+        out[role] = (c_grads + s_grads, h, h_grad)
+        del b, l, base_c, base_s
+    torch.cuda.empty_cache()
+    return out
 
 
 def run_rwkv(device):
@@ -1788,7 +1960,7 @@ def run_base_grad(device):
     the bound base weights (wq, wk, wv of all 12 layers) and the LoRA
     factors, at the full width of GPT-2 (seed-0 weights), on client 0's
     first batch of phase 3 with the run's initial LoRA, under each of
-    each_run()'s settings.  Both trees are gated as first_step_gaps'
+    each_run(exact=True)'s settings.  Both trees are gated as first_step_gaps'
     gradient is; launch counts exact.  Returns the kernel run's counts."""
     import torch
 
@@ -1820,10 +1992,11 @@ def run_base_grad(device):
         clients[0], BATCH, seed=fed.seed * 997))), device)
     loss_fn = tasks.get_loss_fn("classification")
     grads, counts = {}, {}
-    for role, tag, policy in each_run():
+    for role, tag, policy in each_run(exact=True):
         model = build_model(dataclasses.replace(cfg, kernel_policy=policy))
-        live_base, ws = live_targets(base, targets)
-        live = tree_lib.map_(lambda t: t.detach().requires_grad_(True), lt)
+        b, l = (fp64(base), fp64(lt)) if role == "exact" else (base, lt)
+        live_base, ws = live_targets(b, targets)
+        live = tree_lib.map_(lambda t: t.detach().requires_grad_(True), l)
         torch.cuda.synchronize()
         ops.reset_launches()
         t0 = time.perf_counter()
@@ -1844,12 +2017,8 @@ def run_base_grad(device):
               f"{ {k: n for k, n in counts[role].items() if n} }")
     for i, what in enumerate(("dW of the bound base weights",
                               "LoRA gradient")):
-        gaps = {role: rel_l2(grads[role][i], grads["plain"][i])
-                for role in ("kernels", "floor", "control")}
-        print(f"  {what} vs plain: relative L2 kernels "
-              f"{gaps['kernels']:.3e}, floor {gaps['floor']:.3e}, control "
-              f"{gaps['control']:.3e}")
-        floor_gate(what, gaps)
+        floor_gate(what, from_exact(
+            {role: g[i] for role, g in grads.items()}, what))
     expect = model_launches(L, 1, 0)
     expect["lora_dw"] = 3 * L
     got = {name: n for name, n in counts["kernels"].items() if n}
@@ -1917,7 +2086,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} card {card}")
 
     print("phase 1: build")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     report = build.build_all()
     for name, info in report.items():
         print(f"  nvcc {name}.cu: {info['seconds']:.1f} s")
@@ -1938,6 +2107,7 @@ def main() -> int:
     t0 = time.perf_counter()
     by_path["base_grad"] = run_base_grad(device)
     print(f"  phase 9 wall_s={time.perf_counter() - t0:.1f}")
+    print(f"  phases 1-9 wall_s={time.perf_counter() - t_start:.1f}")
 
     # ``launches`` sums the kernel runs of the paths; ``launches_by_path``
     # keeps them apart.  Rows are at the main path's shapes (GPT-2's;
@@ -1957,14 +2127,16 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            **{key: row[key] for key in ("graph_ms", "cold_ms")
-               if key in row}})
+            **{key: row[key] for key in ("graph_ms", "cold_ms",
+                                         "bound_fp32_ms") if key in row}})
         for tag, key in (("rg", "at_recurrentgemma"), ("rwkv", "at_rwkv6")):
             if f"{name}@{tag}" in rows:
+                at = rows[f"{name}@{tag}"]
                 kernels[-1][key] = {
-                    field: rows[f"{name}@{tag}"][field] for field in (
+                    field: at[field] for field in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "library_ms")}
+                        "bound_by", "library_ms", "bound_fp32_ms")
+                    if field in at}
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,16 +24,97 @@ RecurrentGemma-2B's projection shapes; that part alone:
 
     python3 scripts/chip_attribution.py fp64
 
+With ``kblock KB``, chip_smoke.py's precision gates with the fused LoRA
+kernel summing K in blocks of KB instead of the source's: a copy of
+src/repro_torch and chip_smoke.py under build/kblock-KB/ with that one
+constant changed runs the LoRA kernels' fp64 errors, phases 3-7 and 9
+and phase 8's first-step gate, and prints every gate, none stopping the
+run (the K block of the source was chosen this way):
+
+    python3 scripts/chip_attribution.py kblock 128
+
 Needs a CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
 
 import dataclasses
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+def rwkv_setup(dev):
+    """(cfg, clients, base, fed) of chip_smoke.py's phase 8: RWKV-6 Finch
+    1.6B at full width (seed-0 weights), phase 3's data, LoRA on
+    w_r/w_k/w_v/w_g."""
+    import torch
+
+    import chip_smoke
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.configs.rwkv6_1_6b import rwkv6_1_6b
+    from repro_torch.data import banking77, partition
+    from repro_torch.models.factory import build_model
+    from repro_torch.peft import lora
+
+    cfg = rwkv6_1_6b()
+    _, train, _ = banking77.paper_splits(
+        cfg.vocab_size, pad_len=chip_smoke.PAD_LEN, scale=0.03)
+    clients = partition.iid_partition(train, 3)
+    base = build_model(cfg).init(torch.Generator().manual_seed(0), dev)
+    fed = FedConfig(framework="fedllm", rounds=2, lora_rank=chip_smoke.RANK,
+                    lora_dropout=0.0, lora_targets=lora.RWKV_TARGETS)
+    return cfg, clients, base, fed
+
+
+def kblock(kb: int) -> int:
+    """chip_smoke's precision gates with the fused LoRA kernel's K block
+    set to ``kb``, from a copy of the port under build/kblock-<kb>/."""
+    import torch
+
+    dst = ROOT / "build" / f"kblock-{kb}"
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(ROOT / "src" / "repro_torch", dst / "src" / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "chip_smoke.py", dst)
+    cu = dst / "src" / "repro_torch" / "kernels" / "csrc" / "lora_matmul.cu"
+    text, n = re.subn(r"constexpr int KB = \d+;", f"constexpr int KB = {kb};",
+                      cu.read_text())
+    if n != 1:
+        raise RuntimeError("chip_attribution: no K block in lora_matmul.cu")
+    cu.write_text(text)
+    sys.path[:0] = [str(dst / "src"), str(dst)]
+    import chip_smoke
+    from repro_torch.kernels import build
+
+    def report(ok: bool, what: str) -> None:
+        if not ok:
+            print(f"  gate missed: {what}", flush=True)
+
+    chip_smoke.require = report
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), torch.__version__, f"K block {kb}",
+        flush=True)
+    build.build_all()
+    M = chip_smoke.BATCH * chip_smoke.PAD_LEN
+    for K in (768, 2560):
+        chip_smoke.lora_fp64_errors(dev, M, K, K, 17)
+    chip_smoke.run_slices(dev)
+    chip_smoke.run_recurrent(dev)
+    chip_smoke.run_base_grad(dev)
+    print("phase 8: first step", flush=True)
+    cfg, clients, base, fed = rwkv_setup(dev)
+    chip_smoke.floor_gate("first-step LoRA gradient",
+                          chip_smoke.first_step_gaps(dev, cfg, base, fed,
+                                                     clients))
+    return 0
 
 
 def rwkv_trajectory(dev) -> None:
@@ -45,21 +126,12 @@ def rwkv_trajectory(dev) -> None:
 
     import chip_smoke
     from repro_torch import tree as tree_lib
-    from repro_torch.configs.base import FedConfig
-    from repro_torch.configs.rwkv6_1_6b import rwkv6_1_6b
     from repro_torch.core.fedavg import make_fns, to_device
-    from repro_torch.data import banking77, partition
     from repro_torch.data.loader import epoch_batches
     from repro_torch.models.factory import build_model
     from repro_torch.peft import lora
 
-    cfg = rwkv6_1_6b()
-    pub, train, test = banking77.paper_splits(
-        cfg.vocab_size, pad_len=chip_smoke.PAD_LEN, scale=0.03)
-    clients = partition.iid_partition(train, 3)
-    base = build_model(cfg).init(torch.Generator().manual_seed(0), dev)
-    fed = FedConfig(framework="fedllm", rounds=2, lora_rank=chip_smoke.RANK,
-                    lora_dropout=0.0, lora_targets=lora.RWKV_TARGETS)
+    cfg, clients, base, fed = rwkv_setup(dev)
     lt0 = lora.init_lora(torch.Generator().manual_seed(fed.seed + 1), base,
                          fed.lora_targets, fed.lora_rank, fed.lora_alpha)
     batches = [to_device(b, dev) for c in clients
@@ -94,6 +166,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_attribution: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["kblock"] and len(sys.argv) == 3:
+        return kblock(int(sys.argv[2]))
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     if sys.argv[1:] == ["fp64"]:
         torch.backends.cuda.matmul.allow_tf32 = False

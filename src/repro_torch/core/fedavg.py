@@ -27,6 +27,7 @@ from repro_torch.models.factory import Model
 from repro_torch.optim.api import make_optimizer
 from repro_torch.peft import lora as lora_lib
 from repro_torch.privacy import dp as dp_mod
+from repro_torch.runtime import compute_dtype
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -55,7 +56,8 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
                              dropout_gen=gen, dropout=fed.lora_dropout)
 
     def per_example_grads(base, lt, batch, gen=None):
-        """(losses (B,), grads (B, P) fp32): each example's task loss and
+        """(losses (B,), grads (B, P) fp32, fp64 for fp64 LoRA leaves):
+        each example's task loss and
         its gradient w.r.t. the LoRA leaves, row b holding example b's
         gradients in ``tree.leaves`` order.  Each example runs as a batch
         of one through the same kernels as a batch (the reference's
@@ -66,9 +68,9 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
         bound = _bind(base, tree_lib.unflatten(lt, live), gen)
         B = batch["tokens"].shape[0]
         P = sum(t.numel() for t in live)
-        grads = torch.empty((B, P), dtype=torch.float32,
-                            device=live[0].device)
-        losses_ = torch.empty(B, dtype=torch.float32, device=live[0].device)
+        dt = compute_dtype(live[0].dtype)
+        grads = torch.empty((B, P), dtype=dt, device=live[0].device)
+        losses_ = torch.empty(B, dtype=dt, device=live[0].device)
         for b in range(B):
             one = {k: v[b:b + 1] for k, v in batch.items()}
             logits, aux = model.forward(bound, one)
@@ -76,7 +78,7 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
             loss = loss + aux
             # the bound tree's graph serves every example
             g = torch.autograd.grad(loss, live, retain_graph=True)
-            torch.cat([x.reshape(-1).float() for x in g], out=grads[b])
+            torch.cat([x.reshape(-1).to(dt) for x in g], out=grads[b])
             losses_[b] = loss.detach()
         return losses_, grads
 
@@ -146,7 +148,7 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
 @torch.no_grad()
 def fedavg(trees: Sequence, weights: Optional[Sequence[float]] = None):
     """Weighted FedAvg of identically-structured trees (fp32 sums in
-    client order, as the reference)."""
+    client order, as the reference; fp64 for fp64 leaves)."""
     if weights is None:
         weights = [1.0] * len(trees)
     total = float(sum(weights))
@@ -154,9 +156,10 @@ def fedavg(trees: Sequence, weights: Optional[Sequence[float]] = None):
         else [1.0 / len(trees)] * len(trees)
 
     def mean(*leaves):
-        out = leaves[0].float() * ws[0]
+        dt = compute_dtype(leaves[0].dtype)
+        out = leaves[0].to(dt) * ws[0]
         for w, leaf in zip(ws[1:], leaves[1:]):
-            out = out + leaf.float() * w
+            out = out + leaf.to(dt) * w
         return out.to(leaves[0].dtype)
 
     return tree_lib.map_(mean, trees[0], *trees[1:])

@@ -6,7 +6,8 @@ become the CUDA kernels of ``csrc/flash_attention.cu``:
 
     flash_fwd  <- _fwd_call     o and the per-row logsumexp lse
     flash_dq   <- _bwd_call's _dq_kernel
-    flash_dkv  <- _bwd_call's _dkv_kernel (GQA group summed in registers)
+    flash_dkv  <- _bwd_call's _dkv_kernel (GQA group summed over head
+                  chunks in a fixed order)
 
 Layout: q (BH, Sq, D), k/v (BKV, Skv, D), BH = B·H, BKV = B·KV; GQA maps
 query head bh to kv head bh // (BH // BKV).  ``FlashAttention`` is the
@@ -43,8 +44,10 @@ def _lib():
         tail = [i32] * 5 + [f32] + [i32] * 3 + [ptr]
         lib.flash_fwd.argtypes = [ptr] * 5 + tail
         lib.flash_dq.argtypes = [ptr] * 7 + tail
-        lib.flash_dkv.argtypes = [ptr] * 8 + tail
-        for fn in (lib.flash_fwd, lib.flash_dq, lib.flash_dkv):
+        lib.flash_dkv.argtypes = [ptr] * 9 + tail
+        lib.flash_dkv_chunks.argtypes = [i32] * 3
+        for fn in (lib.flash_fwd, lib.flash_dq, lib.flash_dkv,
+                   lib.flash_dkv_chunks):
             fn.restype = i32
         _LIB = lib
     return _LIB
@@ -111,14 +114,22 @@ def flash_dq(q, k, v, do, lse, dd, causal: bool = True, window: int = 0,
 
 def flash_dkv(q, k, v, do, lse, dd, causal: bool = True, window: int = 0,
               q_offset: int = 0):
-    """(dk, dv), each (BKV, Skv, D), summed over the GQA group."""
+    """(dk, dv), each (BKV, Skv, D), summed over the GQA group.  Where the
+    kernel splits each group into head chunks to fill the card, the
+    chunks' partial sums go into a workspace allocated here and are added
+    in a fixed order."""
     BH, BKV, Sq, Skv, D = _bwd_check("flash_dkv", q, k, v, do, lse, dd)
+    lib = _lib()
+    chunks = lib.flash_dkv_chunks(BH, BKV, Skv)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    rc = _lib().flash_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
-                          dk.data_ptr(), dv.data_ptr(), BH, BKV, Sq, Skv, D,
-                          D ** -0.5, *_cfg(causal, window, q_offset),
-                          build.stream(q.device))
+    ws = torch.empty((2, chunks, BKV, Skv, D), device=q.device,
+                     dtype=torch.float32) if chunks > 1 else None
+    rc = lib.flash_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
+                       dk.data_ptr(), dv.data_ptr(),
+                       None if ws is None else ws.data_ptr(), BH, BKV, Sq,
+                       Skv, D, D ** -0.5, *_cfg(causal, window, q_offset),
+                       build.stream(q.device))
     build.check(rc, "flash_dkv")
     LAUNCHES["flash_dkv"] += 1
     return dk, dv

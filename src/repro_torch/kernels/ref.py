@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.optim.clip import _clip_scale
+from repro_torch.runtime import compute_dtype
 
 NEG_INF = -1e30
 
@@ -226,16 +227,17 @@ def topk_quantize_rows_ref(x, k: int, bits: int = 8):
 # DP-SGD clip-scale-accumulate
 # --------------------------------------------------------------------------- #
 def clip_norms_ref(g):
-    """Squared L2 norms of the rows of g (B, P) -> (B,) fp32 (row 13)."""
-    g32 = g.float()
+    """Squared L2 norms of the rows of g (B, P) -> (B,) fp32 (row 13;
+    fp64 for fp64 rows)."""
+    g32 = g.to(compute_dtype(g.dtype))
     return (g32 * g32).sum(dim=1)
 
 
 def clip_acc_ref(g, sq, clip: float):
     """Mean of the rows of g (B, P), row b scaled by
     ``min(1, C / max(sqrt(sq[b]), EPS))`` -> (P,) fp32 (row 14)."""
-    scale = _clip_scale(torch.sqrt(sq.float()), clip)
-    return (g.float() * scale[:, None]).mean(dim=0)
+    scale = _clip_scale(torch.sqrt(sq.to(compute_dtype(sq.dtype))), clip)
+    return (g.to(compute_dtype(g.dtype)) * scale[:, None]).mean(dim=0)
 
 
 def clip_mean_rows_ref(g, clip: float):

@@ -16,6 +16,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.runtime import compute_dtype
+
 
 # --------------------------------------------------------------------------- #
 # Initializers
@@ -101,8 +103,9 @@ def apply_rope(x, positions, theta: float):
     freqs = rope_freqs(x.shape[-1], theta, x.device)        # (D/2,)
     angles = positions[..., None].float() * freqs           # (..., S, D/2)
     angles = angles[..., None, :]                           # (..., S, 1, D/2)
-    cos, sin = torch.cos(angles), torch.sin(angles)
-    x1, x2 = x.float().chunk(2, dim=-1)
+    dt = compute_dtype(x.dtype)
+    cos, sin = torch.cos(angles).to(dt), torch.sin(angles).to(dt)
+    x1, x2 = x.to(dt).chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 

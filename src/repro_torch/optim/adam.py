@@ -1,8 +1,9 @@
 """Adam / AdamW over parameter trees.
 
 Counterpart of ``src/repro/optim/adam.py`` with the same formulas: fp32
-moments whatever the parameter dtype, and the bias corrections
-``1 - b**t`` computed in fp32.  The update is functional: it returns new
+moments whatever the parameter dtype (fp64 for fp64 parameters:
+``runtime.compute_dtype``), and the bias corrections ``1 - b**t``
+computed in fp32.  The update is functional: it returns new
 tensors and leaves its inputs untouched.  (``torch.optim.Adam`` folds the
 corrections differently, so it is not used.)
 """
@@ -11,11 +12,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.runtime import compute_dtype
 
 
 def init(params):
     zeros = tree_lib.map_(
-        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+        lambda p: torch.zeros(p.shape, dtype=compute_dtype(p.dtype),
+                              device=p.device),
         params)
     return {"m": zeros, "v": tree_lib.map_(torch.zeros_like, zeros),
             "step": 0}
@@ -36,13 +39,14 @@ def update(grads, state, params, lr, b1: float = 0.9, b2: float = 0.999,
     bc2 = _bias_correction(b2, t)
 
     def upd(g, m, v, p):
-        g = g.float()
+        dt = compute_dtype(p.dtype)
+        g = g.to(dt)
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * g * g
         u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
         if weight_decay:
-            u = u + weight_decay * p.float()
-        return m, v, (p.float() - lr * u).to(p.dtype)
+            u = u + weight_decay * p.to(dt)
+        return m, v, (p.to(dt) - lr * u).to(p.dtype)
 
     flat = [upd(g, m, v, p) for g, m, v, p in zip(
         tree_lib.leaves(grads), tree_lib.leaves(state["m"]),

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.runtime import compute_dtype
 
 EPS = 1e-9
 
@@ -30,8 +31,9 @@ def global_norm(tree) -> torch.Tensor:
 def _clip_scale(norm, max_norm: float) -> torch.Tensor:
     """fp32 scale ``min(1, C / max(norm, EPS))`` by IEEE division (a
     tensor divisor: PyTorch turns ``scalar / tensor`` into a reciprocal
-    product)."""
-    norm32 = torch.as_tensor(norm, dtype=torch.float32)
+    product); fp64 for an fp64 norm."""
+    norm = torch.as_tensor(norm)
+    norm32 = norm.to(compute_dtype(norm.dtype))
     c = torch.full_like(norm32, float(max_norm))
     return torch.clamp_max(c / torch.clamp_min(norm32, EPS), 1.0)
 

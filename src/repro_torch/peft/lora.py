@@ -25,6 +25,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.runtime import compute_dtype
 
 DEFAULT_TARGETS: Tuple[str, ...] = ("wq", "wk", "wv")
 RWKV_TARGETS: Tuple[str, ...] = ("w_r", "w_k", "w_v", "w_g")
@@ -61,16 +62,19 @@ def _walk(tree, fn: Callable, path: Tuple[str, ...] = ()):
 
 def init_lora(gen: torch.Generator, base_params, targets: Sequence[str],
               rank: int, alpha: float = 32.0):
-    """Build a LoRA tree: A ~ N(0, 1/r) (paper: Gaussian init), B = 0, fp32,
-    on the device of each targeted weight."""
+    """Build a LoRA tree: A ~ N(0, 1/r) (paper: Gaussian init), B = 0, fp32
+    (fp64 beside fp64 weights: the same draws), on the device of each
+    targeted weight."""
 
     def init_leaf(path, leaf):
         if path[-1] not in targets or leaf.dim() < 2:
             return None
         d_in, d_out = leaf.shape
         a = torch.randn((d_in, rank), generator=gen) * rank ** -0.5
-        return {"a": a.to(leaf.device),
-                "b": torch.zeros((rank, d_out), device=leaf.device)}
+        dt = compute_dtype(leaf.dtype)
+        return {"a": a.to(leaf.device, dt),
+                "b": torch.zeros((rank, d_out), device=leaf.device,
+                                 dtype=dt)}
 
     lora = _walk(base_params, init_leaf)
     return lora if lora is not None else {}

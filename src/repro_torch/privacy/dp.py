@@ -33,6 +33,7 @@ import torch
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import FedConfig
 from repro_torch.optim.clip import _clip_scale
+from repro_torch.runtime import compute_dtype
 
 _STREAM = 0x5EC7  # domain separator: privacy noise vs fed/dropout seeds
 # every noise seed has this bit set; LoRA-dropout seeds
@@ -81,9 +82,9 @@ def clipped_grad_mean(per_example_grads, clip: float):
 
     leaves = tree_lib.leaves(per_example_grads)
     B = leaves[0].shape[0]
-    rows = [x.reshape(B, -1).float() for x in leaves]
+    rows = [x.reshape(B, -1).to(compute_dtype(x.dtype)) for x in leaves]
     flat = rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
-    mean = kernel_ops.clip_mean_rows(flat, clip)            # (P,) fp32
+    mean = kernel_ops.clip_mean_rows(flat, clip)            # (P,)
     out, off = [], 0
     for x in leaves:
         n = x[0].numel()

@@ -1,6 +1,9 @@
 """The device rule of the port's entry points (``run_federated``,
 ``Model.init``): ``device=None`` means ``"cuda"``, and asking for CUDA
-where there is none raises instead of carrying on on the CPU."""
+where there is none raises instead of carrying on on the CPU.  And the
+dtype rule of the arithmetic that the reference pins to fp32 (Adam's
+moments, FedAvg's sums, RoPE, the DP clip): fp32, or fp64 for fp64
+tensors, so that a plain run from fp64 weights stays fp64 end to end."""
 from __future__ import annotations
 
 import torch
@@ -12,3 +15,8 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("CUDA was asked for but is not available "
                            "(pass device='cpu' to run on the CPU)")
     return device
+
+
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """float32 for float32 and narrower floats, float64 for float64."""
+    return torch.promote_types(dtype, torch.float32)

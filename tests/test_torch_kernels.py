@@ -137,6 +137,8 @@ ATTN_CASES = [
     (2, 2, 40, 40, 64, False, 0, 0),
     (6, 2, 32, 32, 64, True, 8, 0),
     (2, 1, 16, 48, 32, True, 0, 32),
+    # RecurrentGemma's geometry: 10 query heads of 256 on one kv head
+    (10, 1, 40, 40, 256, True, 2048, 0),
 ]
 
 

@@ -254,3 +254,60 @@ def test_adam_matches_reference():
     assert ts["step"] == int(rs["step"]) == 3
     for got, want in zip(tree_lib.leaves(tp), jax.tree.leaves(rp)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+@pytest.mark.parametrize("dp_clip", [0.0, 0.5])
+def test_plain_path_runs_in_float64(dp_clip):
+    """The yardstick of the full-width gates on the card: from weights cast
+    to float64 the plain path stays float64 end to end.  The initial LoRA
+    (B = 0) is the fp32 one's draws in float64; one train step (Adam;
+    under DP the clipped mean of per-example gradients) keeps every LoRA
+    leaf and Adam moment in float64; and the step's gradient is within
+    1e-5 relative L2 of the fp32 one."""
+    from repro_torch.configs.base import FedConfig, PrivacyConfig
+    from repro_torch.core import tasks
+    from repro_torch.core.fedavg import make_fns, to_device
+    from repro_torch.data import banking77
+    from repro_torch.data.loader import epoch_batches
+    from repro_torch.privacy import dp as dp_mod
+
+    def f64(tree):
+        return tree_lib.map_(
+            lambda t: t.double() if t.is_floating_point() else t, tree)
+
+    cfg = dataclasses.replace(gpt2_tiny(), kernel_policy="torch")
+    fed = FedConfig(framework="fedllm", rounds=1, lora_rank=RANK,
+                    lora_alpha=ALPHA, lora_dropout=0.0,
+                    privacy=PrivacyConfig(dp_clip=dp_clip))
+    _, train, _ = banking77.paper_splits(cfg.vocab_size, pad_len=24,
+                                         scale=0.04)
+    batch = to_device(next(iter(epoch_batches(train, 8, seed=0))), "cpu")
+    model = build_model(cfg)
+    fns, loss_fn = make_fns(model, fed), tasks.get_loss_fn("classification")
+    base = model.init(torch.Generator().manual_seed(0), "cpu")
+    lt, lt64 = (lora_lib.init_lora(torch.Generator().manual_seed(1), b,
+                                   ("wq", "wk", "wv"), RANK, ALPHA)
+                for b in (base, f64(base)))
+    for a, b in zip(tree_lib.leaves(lt), tree_lib.leaves(lt64)):
+        assert b.dtype == torch.float64 and torch.equal(a.double(), b)
+
+    def step_grad(b, l):
+        if dp_clip:
+            _, rows = fns["per_example_grads"](b, l, batch)
+            return [dp_mod.clipped_grad_mean(rows, dp_clip)]
+        live = tree_lib.map_(lambda t: t.detach().requires_grad_(True), l)
+        logits, _ = model.forward(lora_lib.bind(b, live, ALPHA, RANK), batch)
+        loss, _ = loss_fn(logits, batch)
+        return torch.autograd.grad(loss, tree_lib.leaves(live))
+
+    g32, g64 = step_grad(base, lt), step_grad(f64(base), lt64)
+    assert all(g.dtype == torch.float64 for g in g64)
+    num = sum(float(((a.double() - b) ** 2).sum()) for a, b in zip(g32, g64))
+    den = sum(float((b ** 2).sum()) for b in g64)
+    assert den > 0 and (num / den) ** 0.5 <= 1e-5
+    new, state, loss = fns["train_step"](f64(base), lt64,
+                                         fns["opt_init"](lt64), batch)
+    leaves = (tree_lib.leaves(new) + tree_lib.leaves(state["m"])
+              + tree_lib.leaves(state["v"]))
+    assert leaves and all(t.dtype == torch.float64 for t in leaves)
+    assert loss.dtype == torch.float64
