@@ -24,6 +24,20 @@ RecurrentGemma-2B's projection shapes; that part alone:
 
     python3 scripts/chip_attribution.py fp64
 
+With ``split``, why phase 6's fp32 Split runs (GPT-2 at full width, split
+after layer 2, fp32 boundary) part from fp64: for the kernel and plain
+runs, from the seed-0 weights and from nudged copy 2, each of round 0's
+nine steps replayed beside an fp64 replay of the same weights, printing
+the LoRA's relative L2 from it, the coordinates more than lr/2 away and,
+where they first appear, the gradient there against the fp64 one; then
+the final LoRA of full runs from the seed-0 weights and from nudged
+copies 0-7, kernels and plain each measured from an fp64 run of the same
+weights; then the int8 set's spread: plain runs from nudged copies 0-11,
+kernel runs from 0-5 and TF32 runs from 0-2, measured from the plain run
+(about two minutes):
+
+    python3 scripts/chip_attribution.py split
+
 With ``kblock KB``, chip_smoke.py's precision gates with the fused LoRA
 kernel summing K in blocks of KB instead of the source's: a copy of
 src/repro_torch and chip_smoke.py under build/kblock-KB/ with that one
@@ -161,6 +175,118 @@ def rwkv_trajectory(dev) -> None:
                   f"B factors {rel(pairs[1::2]):.3e}", flush=True)
 
 
+def split_spread(dev) -> None:
+    """``split``: see the module's docstring."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.configs.gpt2_small import gpt2
+    from repro_torch.core import split
+    from repro_torch.core.fedavg import to_device
+    from repro_torch.core.rounds import run_federated
+    from repro_torch.data import banking77, partition
+    from repro_torch.data.loader import epoch_batches
+    from repro_torch.models.factory import build_model
+    from repro_torch.peft import lora as lora_lib
+
+    cfg = gpt2()
+    pub, train, test = banking77.paper_splits(
+        cfg.vocab_size, pad_len=cs.PAD_LEN, scale=0.03)
+    clients = partition.iid_partition(train, 3)
+    base = build_model(cfg).init(torch.Generator().manual_seed(0), dev)
+
+    def name(seed):
+        return "the seed-0 weights" if seed is None else \
+            f"nudged copy {seed}"
+
+    def fed(bits):
+        return FedConfig(framework="split", rounds=2, lora_rank=cs.RANK,
+                         lora_dropout=0.0, split_layer=cs.SPLIT_LAYER,
+                         activation_quant_bits=bits)
+
+    def weights(mode, seed):
+        w = base if seed is None else cs.nudged(base, seed, dev)
+        return cs.fp64(w) if mode == "fp64" else w
+
+    def replay(mode, seed):
+        """Round 0 of the Split program: [(LoRA, gradient) a step]."""
+        f = fed(0)
+        sfns = split.make_split_fns(build_model(dataclasses.replace(
+            cfg, kernel_policy="cuda" if mode == "kernels" else "torch")), f)
+        lt = lora_lib.init_lora(torch.Generator().manual_seed(f.seed + 3),
+                                base, lora_lib.DEFAULT_TARGETS, f.lora_rank,
+                                f.lora_alpha)
+        lt = cs.fp64(lt) if mode == "fp64" else lt
+        L = sfns["n_client_groups"]
+        c_glob, s_lt = split.split_lora(lt, L)
+        base_c, base_s = split.split_base(weights(mode, seed), L)
+        s_opt, steps = sfns["opt_init"](s_lt), []
+        for data in clients:
+            c_lt, c_opt = c_glob, sfns["opt_init"](c_glob)
+            for batch in epoch_batches(data, cs.BATCH, seed=f.seed * 983):
+                b = to_device(batch, dev)
+                _, cg, sg, _, _ = sfns["split_grads"](base_c, base_s, c_lt,
+                                                      s_lt, b)
+                c_lt, s_lt, c_opt, s_opt, _ = sfns["split_step"](
+                    base_c, base_s, c_lt, s_lt, c_opt, s_opt, b)
+                steps.append(([t.double() for t in tree_lib.leaves(c_lt)
+                               + tree_lib.leaves(s_lt)],
+                              [g.double() for g in cg + sg]))
+        return steps
+
+    lr = fed(0).lr
+    for seed in (None, 2):
+        exact = replay("fp64", seed)
+        for mode in ("kernels", "plain"):
+            first = None
+            for i, ((lt, g), (xlt, xg)) in enumerate(zip(replay(mode, seed),
+                                                         exact)):
+                far = [(a - b).abs() > lr / 2 for a, b in zip(lt, xlt)]
+                n = sum(int(f.sum()) for f in far)
+                line = (f"split fp32 {mode} from {name(seed)}, step {i}: "
+                        f"LoRA relative L2 from fp64 "
+                        f"{cs.rel_l2(lt, xlt):.3e}, {n} coordinates > lr/2")
+                if n and first is None:
+                    k = next(j for j, f in enumerate(far) if f.any())
+                    at = tuple(far[k].nonzero()[0].tolist())
+                    first = i
+                    line += (f"; first in leaf {k} at {at}: gradient "
+                             f"{float(g[k][at]):.3e}, fp64 "
+                             f"{float(xg[k][at]):.3e} (median |fp64| "
+                             f"{float(xg[k].abs().median()):.3e})")
+                print(line, flush=True)
+
+    def run(mode, seed, bits):
+        torch.backends.cuda.matmul.allow_tf32 = mode == "tf32"
+        res = run_federated(
+            dataclasses.replace(cfg, kernel_policy="cuda" if mode ==
+                                "kernels" else "torch"),
+            fed(bits), pub, clients, test, batch_size=cs.BATCH,
+            eval_batch=64, device=dev, base=weights(mode, seed))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.empty_cache()
+        return [t.double() for t in tree_lib.leaves(res.final_lora)]
+
+    exact0 = run("fp64", None, 0)
+    for seed in [None] + list(range(8)):
+        exact = exact0 if seed is None else run("fp64", seed, 0)
+        print(f"split fp32 from {name(seed)}: final LoRA relative L2 from "
+              f"the fp64 run of the same weights: plain "
+              f"{cs.rel_l2(run('plain', seed, 0), exact):.3e}, kernels "
+              f"{cs.rel_l2(run('kernels', seed, 0), exact):.3e}; that fp64 "
+              f"run from the seed-0 weights' {cs.rel_l2(exact, exact0):.3e}",
+              flush=True)
+    plain = run("plain", None, cs.SPLIT_BITS)
+    for mode, seeds in (("plain", range(12)), ("kernels", range(6)),
+                        ("tf32", range(3))):
+        gaps = [cs.rel_l2(run(mode, s, cs.SPLIT_BITS), plain) for s in seeds]
+        print(f"split int8 {mode}, nudged copies 0-{len(gaps) - 1}: final "
+              f"LoRA relative L2 from the plain run "
+              + ", ".join(f"{v:.3e}" for v in gaps), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -173,6 +299,14 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(torch.cuda.get_device_name(0), torch.__version__, flush=True)
         fp64_errors(torch.device("cuda", 0))
+        return 0
+    if sys.argv[1:] == ["split"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip(), torch.__version__)
+        split_spread(torch.device("cuda", 0))
         return 0
     if sys.argv[1:] == ["rwkv"]:
         torch.backends.cuda.matmul.allow_tf32 = False

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds).  The libraries go into
 ``build/repro_torch_kernels/`` at the root of the checkout, named by a hash
-of their source and flags, so an unchanged source is built once.  Every
-missing library is compiled at the same time, one ``nvcc`` per source.
+of their source, the headers they include and the flags, so an unchanged
+source is built once.  Every missing library is compiled at the same
+time, one ``nvcc`` per source.
 Nothing here runs at import time: the CPU tests import every module.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -47,9 +49,16 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu``'s library goes: named by a hash of the
+    source, of the headers of ``csrc/`` it includes (``#include "..."``)
+    and of the flags, so an edited header rebuilds every source that
+    includes it."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256(src)
+    for header in re.findall(rb'^\s*#include\s+"([^"]+)"', src, re.M):
+        digest.update((CSRC / header.decode()).read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, dict]:

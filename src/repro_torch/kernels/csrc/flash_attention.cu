@@ -26,7 +26,8 @@
 // x is cut into big = tf32(x) and small = tf32(x − big) (round to nearest),
 // and a·b ≈ small_a·big_b + big_a·small_b + big_a·big_b: the two small
 // terms first, then big·big, into a fresh fragment per step of 8 that is
-// added to the running sum in fp32 (mma3).  The dropped small·small term
+// added to the running sum in fp32 (mma3, in mma_tf32.cuh with the
+// cp.async helpers, shared with lora_matmul.cu).  The dropped small·small term
 // and the two roundings of the small parts are near 2^-22 of a product,
 // below fp32's own summation error; one TF32 pass (2^-11) misses the
 // port's fp32 gates by 100x.  mma.sync is used and not wgmma: tf32 wgmma
@@ -88,6 +89,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
@@ -117,49 +120,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // --------------------------------------------------------------------------
-// 3xTF32 tensor-core products
+// 3xTF32 fragments (split, mma3 and cp.async: mma_tf32.cuh)
 // --------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = big + small, each a TF32 value (the error is ~2^-22 |x|)
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
-// A fragment of m16n8k8 (16 x 8, row): a0 (g, t), a1 (g+8, t), a2 (g, t+4),
-// a3 (g+8, t+4); B fragment (8 x 8, col): b0 (k t, n g), b1 (k t+4, n g);
-// C fragment: c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1); with
-// g = lane / 4 and t = lane % 4.
-struct FragA { uint4 big, small; };
-struct FragB { uint32_t big[2], small[2]; };
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint4& a,
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b[0]), "r"(b[1]));
-}
-
-// acc += a·b at fp32 accuracy: the small terms first, then big·big, into a
-// fresh fragment that is added to acc in fp32 (round to nearest)
-__device__ __forceinline__ void mma3(float (&acc)[4], const FragA& a,
-                                     const FragB& b) {
-  float t[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(t, a.small, b.big);
-  mma_tf32(t, a.big, b.small);
-  mma_tf32(t, a.big, b.big);
-  #pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i] += t[i];
-}
-
 // B fragment whose n index runs over the rows of a row-major tile X
 // (stride LD): b0 = X[n0 + g][k0 + t], b1 = X[n0 + g][k0 + t + 4], times mul
 template <int LD>
@@ -211,29 +173,6 @@ __device__ __forceinline__ void put_a(uint4* big, uint4* small, int r, int c,
 // --------------------------------------------------------------------------
 // cp.async staging
 // --------------------------------------------------------------------------
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(s), "l"(src), "r"(ok ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
-               :: "r"(s), "l"(src), "r"(ok ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
-}
-
 // rows [r0, r0 + nrows) of a (S, D) slab into a (nrows, DT + 4) tile, as
 // 16-byte copies where `vec` (D % 4 == 0, 16-byte aligned slab), else 4-byte
 // ones; zero-filled past S and past D

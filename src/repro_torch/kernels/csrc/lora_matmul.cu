@@ -1,4 +1,4 @@
-// Fused LoRA matmul kernels for Hopper (sm_90a), fp32.
+// Fused LoRA matmul kernels for Hopper (sm_90a), fp32 in and out.
 //
 // Replaces the TPU kernels of src/repro/kernels/lora_matmul.py:
 //   * lora_fused_kernel<false, .> <- _fwd_call / _fwd_kernel:
@@ -12,53 +12,204 @@
 //   * panel_grad_kernel         <- _panel_grad_call / _panel_grad_kernel:
 //       (L, r) = lhsᵀ·panel, i.e. dA = xᵀ·gb and dB = (gᵀ·xa)ᵀ.
 //
-// What bounds it on this card: at the main path's shapes (M=1280, K=N=768,
-// r=8) the fused product is ~1.6 GFLOP over ~10 MB, so in fp32 on the FMA
-// units (no tensor cores, no TF32) it is bound by operations, and so is
-// dW (2·M·K·N, 1.5 GFLOP over ~10 MB); the panel reduction (~16 MFLOP
-// over ~4 MB) is bound by bytes.
+// The fused kernel runs its three products (x@W, the rank-r panel x@A and
+// the epilogue (x@A)@B) on the tensor cores at fp32 accuracy: mma.sync
+// m16n8k8 in TF32 with the 3xTF32 split of mma_tf32.cuh (small terms
+// first, then big·big, into a fresh fragment per k step of 8 that is
+// added to an fp32 partial).  What bounds it there is operations: at
+// RecurrentGemma-2B's wq (M 1280, K = N = 2560, r 8) 16.8 GFLOP take
+// 0.102 ms at a third of the card's TF32 rate (165 TFLOP/s), its 52.7 MB
+// 0.0157 ms.  In practice it is bound by issue: each mma.sync needs its
+// operands split by the warp that reads them and its fresh fragment
+// added in fp32, about four other instructions an mma.  The design:
+//   * one block of 4 warps per (TM x TN) = (64 x 64) output tile, each
+//     warp 32 x 32 (2 m16 x 4 n8 fragments); the contraction is staged TK
+//     = 32 at a time through a STAGES = 2 ring of cp.async copies (16-byte
+//     copies where the base and the row stride are 16-byte aligned, else
+//     4-byte ones, zero-filled past the edges), each thread copying at
+//     fixed offsets from the tile's corner;
+//   * both directions read their operands in their native layouts: the
+//     forward's W (K, N) tile is kept as (contraction, column) rows, dx's
+//     W (read as Wᵀ) as (column, contraction) rows; no transposed copy of
+//     W is made.  Within each step of 8 the contraction is taken in the
+//     order (0, 4, 1, 5, 2, 6, 3, 7) in both operands, so a fragment's k
+//     pair is one 8-byte load, and the row strides make every fragment
+//     load hit 32 different banks;
+//   * operands are split at each fragment load by split_fast (an integer
+//     round, no conversion instruction): splitting on staging would
+//     double the bytes a stage and add a pass for elements that only two
+//     warps read;
+//   * the panel x@A is ceil(r/8) more n8 fragments on the same A
+//     fragments, zero past r (rank 8: one); each warp computes it for
+//     its own m16 fragments (FM / WARPS_N of them), so the warps share
+//     its work evenly; its totals go through shared memory to every warp
+//     for the epilogue, whose (x@A)@B takes ceil(r/8) k steps; only the
+//     blocks of column tile 0 write the panel out.  Every block sums the
+//     panel in the same order, so each writes the same bits;
+//   * the contraction is summed in blocks of KB: a fresh partial a block,
+//     added to the running total, for the main tile and for the panel.
+//     The totals of a contraction longer than KB wait in shared memory
+//     (18 KB a block at rank 8), not in registers: held in registers
+//     they spill.  KB is 768: a product of K <= 768 (all of GPT-2's)
+//     keeps one partial.
+// 101-152 registers, no spills.  Blocks at M 1280 / 5120 / 80 (waves at
+// 3 blocks an SM, 396 slots, where K > 768; 4, 528 slots, at 768): K = N
+// = 768: 240 / 960 / 24 (0.45 / 1.82 / 0.05); K = N = 2560: 800 / 3200 /
+// 80 (2.02 / 8.08 / 0.20); K = N = 2048: 640 / 2560 / 64 (1.62 / 6.46 /
+// 0.16); (K, N) = (2560, 256): forward 80 / 320 / 8 (0.20 / 0.81 /
+// 0.02), dx (output 2560 wide, contraction 256) 800 / 3200 / 80 (1.52 /
+// 6.06 / 0.15).  No atomics: every output element is summed by one
+// thread in a fixed order.
 //
-// The simple design: one 256-thread block per (64 x 64) output tile, the
-// contraction streamed through shared memory 16 at a time, each thread
-// owning a 4 x 4 register tile.  Each tile sums the contraction in blocks
-// (KB of K, DW_PART of M): a block's products go into a fresh partial
-// that is then added to the running total, so no FMA chain is longer
-// than one block.  One chain over all of K = 2560 had 2.2 times cuBLAS's
-// rms error against fp64; a chain of 768 has cuBLAS's.  KB is 768, not
-// less: a product of K <= 768 (all of GPT-2's) then keeps its one chain,
-// whose runs sit at the floor of the cuBLAS runs that the full-width
-// gates measure from; with blocks of 128, more accurate than cuBLAS, the
-// Split path's fp32 runs moved past that floor's limit.
+// What a later PR should change: wgmma reaches the card's full TF32 rate
+// and takes its B operand from shared memory (no per-warp split of it),
+// but takes TF32 operands only K-major, and the forward's W (K, N) is
+// N-major: its tiles would have to be transposed on staging (or by TMA
+// into a K-major layout).  Grids that cannot fill the card (the (2560,
+// 256) forward at M 1280: 80 blocks) want a split of the contraction
+// with a fixed-order second pass, which needs a workspace argument.
 //
-// The fused block also accumulates the (64, r) x@A panel in registers
-// next to its main tile (r <= 64), blocked the same way, so the rank-r
-// path re-reads nothing from device memory; the epilogue stages that
-// panel and the (r, 64) slice of B in shared memory and adds (x@A)@B to
-// the tile.  Only the blocks of column tile 0 write the panel out.  dW
-// tiles its (K, N) output the same way and streams M through shared
-// memory, both operands read along their fast axis (coalesced); where
-// the tiles alone would not fill the card (768² is 144 tiles on 132 SMs)
-// M is split over gridDim.z into a workspace, and a second pass sums the
-// slices in a fixed order: no atomics, so dW is deterministic.  The
-// panel reduction gives each block 32 columns of lhs and 8 ranks; its 8
-// warps stride over M and are summed in shared memory in a fixed order.
-// Ragged edges are masked in the loads.
-//
-// What a later PR should change: the products belong on the tensor
-// cores (wgmma fed by TMA, bf16 or TF32 where the reference allows it),
-// with a persistent grid; the panel reduction should split M across more
-// blocks (a second deterministic pass) to use all 132 SMs.
+// dW tiles its (K, N) output in 64 x 64 blocks of 256 threads (a 4 x 4
+// fp32 register tile a thread) and streams M through shared memory, both
+// operands read along their fast axis (coalesced), summed in partials of
+// DW_PART rows of M; where the tiles alone would not fill the card (768²
+// is 144 tiles on 132 SMs) M is split over gridDim.z into a workspace,
+// and a second pass sums the slices in a fixed order: no atomics, so dW
+// is deterministic.  The panel reduction gives each block 32 columns of
+// lhs and 8 ranks; its 8 warps stride over M and are summed in shared
+// memory in a fixed order.  Ragged edges are masked in the loads.
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <atomic>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int BM = 64;       // rows of x per block
-constexpr int BN = 64;       // output columns per block
-constexpr int BK = 16;       // contraction step
+constexpr int BM = 64;       // rows of dW (K) per block
+constexpr int BN = 64;       // columns of dW (N) per block
 constexpr int KB = 768;      // contraction summed into one partial
-constexpr int NT = 256;      // threads per block
+constexpr int NT = 256;      // threads per dW block
 constexpr int R_MAX = 64;    // largest LoRA rank
 constexpr int PAD = 4;
+
+// The fused kernel's tiles: WARPS_M x WARPS_N warps of FM m16 by FN n8
+// fragments; TK of the contraction a stage.
+constexpr int WARPS_M = 2;
+constexpr int WARPS_N = 2;
+constexpr int FM = 2;
+constexpr int FN = 4;
+constexpr int TK = 32;
+constexpr int STAGES = 2;
+constexpr int TM = 16 * FM * WARPS_M;
+constexpr int TN = 8 * FN * WARPS_N;
+constexpr int FT = 32 * WARPS_M * WARPS_N;   // threads per fused block
+// Each step of 8 of the contraction is stored in the order (0, 4, 1, 5,
+// 2, 6, 3, 7): a fragment's k pair (t, t + 4) sits at columns (2t, 2t +
+// 1), one 8-byte read, in both operands alike (the order within a step is
+// the mma's own).  Row strides (floats): a tile whose rows run along the
+// contraction is read in k pairs (stride = 8 mod 32), a tile whose rows
+// are the contraction in rows 2t and 2t + 1 (stride = 4 mod 32); either
+// way the 32 lanes of a fragment load hit different banks.
+constexpr int pad_to(int n, int mod) { return n + ((mod - n) % 32 + 32) % 32; }
+constexpr int LDC = pad_to(TK, 8);
+constexpr int LDN = pad_to(TN, 4);
+static_assert(KB % TK == 0, "a K block is whole stages");
+static_assert(FM % WARPS_N == 0, "the panel's m16 fragments share out");
+
+template <bool TRANS, int NR>
+struct Fused {
+  static constexpr int RP = 8 * NR;                   // rank, padded
+  static constexpr int LDA = pad_to(RP, 4);           // A's rows: k
+  static constexpr int LDR = pad_to(RP, 8);           // rows along j
+  // the panel's m16 fragments a warp computes (all NR n8 fragments)
+  static constexpr int PM = FM / WARPS_N;
+  // one stage: the x tile (TM, TK), the W tile and the A tile
+  static constexpr int XS = TM * LDC;
+  static constexpr int WS = TRANS ? TN * LDC : TK * LDN;
+  static constexpr int AS = TRANS ? RP * LDC : TK * LDA;
+  static constexpr int STAGE = XS + WS + AS;
+  // the epilogue's panel (TM, RP) and B operand, in the ring's place
+  static constexpr int XAS = TM * LDR;
+  static constexpr int BS = TRANS ? TN * LDR : RP * LDN;
+  static constexpr int RING =
+      STAGES * STAGE > XAS + BS ? STAGES * STAGE : XAS + BS;
+  // each thread's running totals of a contraction over several K blocks
+  // (main tile and panel), after the ring: slot q of thread i at q·FT + i
+  static constexpr int TOTALS = (FM * FN + PM * NR) * 4;
+  static constexpr size_t smem(bool blocks) {
+    return sizeof(float) * (RING + (blocks ? TOTALS * FT : 0));
+  }
+};
+
+// rows [r0, r0 + ROWS) and columns [c0, c0 + COLS) of a row-major (rows,
+// cols) matrix with row stride ld into a (ROWS, LD) tile, by the block's
+// FT threads, each at fixed offsets: 16-byte copies where `vec` (src
+// 16-byte aligned, ld and cols multiples of 4), else 4-byte ones;
+// zero-filled past the edges
+template <int ROWS, int COLS, int LD, int V>
+__device__ __forceinline__ void tile_rows(float* dst, const float* src, int ld,
+                                          int r0, int c0, int rows, int cols) {
+  constexpr int PER_ROW = COLS / V, STEP = FT / PER_ROW;   // V floats a copy
+  static_assert(FT % PER_ROW == 0 && ROWS % STEP == 0, "whole passes");
+  const int rr = threadIdx.x / PER_ROW, cc = (threadIdx.x % PER_ROW) * V;
+  const bool col_ok = c0 + cc < cols;
+  const float* s = src + (size_t)(r0 + rr) * ld + c0 + cc;
+  float* d = dst + rr * LD + cc;
+  #pragma unroll
+  for (int i = 0; i < ROWS / STEP; ++i) {
+    const bool ok = col_ok && r0 + rr + i * STEP < rows;
+    const float* from = ok ? s + (size_t)i * STEP * ld : src;
+    if (V == 4) cp_async16(d + i * STEP * LD, from, ok);
+    else cp_async4(d + i * STEP * LD, from, ok);
+  }
+}
+
+template <int ROWS, int COLS, int LD>
+__device__ __forceinline__ void tile_async(float* dst, const float* src,
+                                           int ld, int r0, int c0, int rows,
+                                           int cols, bool vec) {
+  if (vec) tile_rows<ROWS, COLS, LD, 4>(dst, src, ld, r0, c0, rows, cols);
+  else tile_rows<ROWS, COLS, LD, 1>(dst, src, ld, r0, c0, rows, cols);
+}
+
+// The A fragment of rows [r0, r0 + 16) and the step of 8 at k0 of a
+// row-major tile with row stride LD (the k pair (t, t + 4) at columns 2t,
+// 2t + 1), split
+template <int LD>
+__device__ __forceinline__ FragA frag_a(const float* T, int r0, int k0,
+                                        int g, int t) {
+  FragA f;
+  const float* p = T + (r0 + g) * LD + k0 + 2 * t;
+  const float2 lo = *reinterpret_cast<const float2*>(p);
+  const float2 hi = *reinterpret_cast<const float2*>(p + 8 * LD);
+  split_fast(lo.x, f.big.x, f.small.x);
+  split_fast(hi.x, f.big.y, f.small.y);
+  split_fast(lo.y, f.big.z, f.small.z);
+  split_fast(hi.y, f.big.w, f.small.w);
+  return f;
+}
+
+// The B fragment (the step of 8 at k0, n [n0, n0 + 8)) of a tile stored
+// with rows along n (KMAJOR: T[n][k], the k pair at columns 2t, 2t + 1)
+// or along k (T[k][n], the k pair in rows 2t, 2t + 1), row stride LD,
+// split
+template <bool KMAJOR, int LD>
+__device__ __forceinline__ FragB frag_b(const float* T, int k0, int n0,
+                                        int g, int t) {
+  FragB f;
+  float2 v;
+  if (KMAJOR) {
+    v = *reinterpret_cast<const float2*>(T + (n0 + g) * LD + k0 + 2 * t);
+  } else {
+    const float* p = T + (k0 + 2 * t) * LD + n0 + g;
+    v = make_float2(p[0], p[LD]);
+  }
+  split_fast(v.x, f.big[0], f.small[0]);
+  split_fast(v.y, f.big[1], f.small[1]);
+  return f;
+}
 
 // out[m, n] = sum_c X[m, c] Wop[c, n] + sum_j XA[m, j] Bop[j, n],
 // XA[m, j] = sum_c X[m, c] Aop[c, j];  X is (M, C) row-major.
@@ -68,137 +219,226 @@ constexpr int PAD = 4;
 //                           Wop[c, n] = W[n, c], Aop[c, j] = B[j, c],
 //                           Bop[j, n] = A[n, j]; the launcher passes B as
 //                           Aop and A as Bop.
-// XS: slots of the (BM, r) panel each thread holds, XS * NT >= BM * r; the
-// launcher takes the smallest of 2, 4, 8, 16 that covers r, so a rank-8
-// run keeps 2 panel registers (and 2 partials), not R_MAX's 16.
-template <bool TRANS, int XS>
-__global__ void __launch_bounds__(NT)
+// NR: the panel's n8 fragments, ceil(r / 8) rounded up to 1, 2, 4 or 8.
+// vec_x, vec_w: 16-byte copies of X and of W (see tile_async).
+template <bool TRANS, int NR>
+__global__ void __launch_bounds__(FT)
 lora_fused_kernel(const float* __restrict__ X, const float* __restrict__ W,
                   const float* __restrict__ Aop, const float* __restrict__ Bop,
                   float* __restrict__ out, float* __restrict__ xa_out,
-                  int M, int C, int Nout, int r) {
-  __shared__ float Xs[BK][BM + PAD];       // x tile, transposed
-  __shared__ float Ws[BK][BN + PAD];
-  __shared__ float As[BK][R_MAX];
-  __shared__ float XAs[BM][R_MAX + 1];
-  __shared__ float Bs[R_MAX][BN + PAD];
+                  int M, int C, int Nout, int r, int vec_x, int vec_w) {
+  using F = Fused<TRANS, NR>;
+  constexpr int PM = F::PM, RP = F::RP, KT = KB / TK;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (warp / WARPS_N) * 16 * FM;   // the warp's first row
+  const int wc = (warp % WARPS_N) * 8 * FN;    // and column in the tile
+  const int wn = warp % WARPS_N;
+  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
+  const int nk = (C + TK - 1) / TK;
+  float* totals = smem + F::RING + threadIdx.x;   // used when nk > KT
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  // running totals, and the partials of the current K block
-  float acc[4][4], part[4][4];
-  for (int i = 0; i < 4; ++i)
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float xa[XS], xap[XS];
-  for (int t = 0; t < XS; ++t) xa[t] = 0.f;
-
-  for (int kb = 0; kb < C; kb += KB) {
-    #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      #pragma unroll
-      for (int j = 0; j < 4; ++j) part[i][j] = 0.f;
-    #pragma unroll
-    for (int t = 0; t < XS; ++t) xap[t] = 0.f;
-    const int kend = min(C, kb + KB);
-    for (int c0 = kb; c0 < kend; c0 += BK) {
-      // x tile (BM x BK), coalesced along c
-      for (int e = tid; e < BM * BK; e += NT) {
-        const int m = e / BK, c = e % BK;
-        const int gm = m0 + m, gc = c0 + c;
-        Xs[c][m] = (gm < M && gc < C) ? X[(size_t)gm * C + gc] : 0.f;
-      }
-      // W tile (BK x BN)
-      for (int e = tid; e < BK * BN; e += NT) {
-        int c, n;
-        if (TRANS) { n = e / BK; c = e % BK; } else { c = e / BN; n = e % BN; }
-        const int gc = c0 + c, gn = n0 + n;
-        float val = 0.f;
-        if (gc < C && gn < Nout)
-          val = TRANS ? W[(size_t)gn * C + gc] : W[(size_t)gc * Nout + gn];
-        Ws[c][n] = val;
-      }
-      // A tile (BK x r)
-      for (int e = tid; e < BK * r; e += NT) {
-        int c, j;
-        if (TRANS) { j = e / BK; c = e % BK; } else { c = e / r; j = e % r; }
-        const int gc = c0 + c;
-        float val = 0.f;
-        if (gc < C)
-          val = TRANS ? Aop[(size_t)j * C + gc] : Aop[(size_t)gc * r + j];
-        As[c][j] = val;
-      }
-      __syncthreads();
-
-      #pragma unroll
-      for (int c = 0; c < BK; ++c) {
-        float xr[4], wr[4];
-        #pragma unroll
-        for (int i = 0; i < 4; ++i) xr[i] = Xs[c][ty + 16 * i];
-        #pragma unroll
-        for (int j = 0; j < 4; ++j) wr[j] = Ws[c][tx + 16 * j];
-        #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          #pragma unroll
-          for (int j = 0; j < 4; ++j) part[i][j] += xr[i] * wr[j];
-      }
-      #pragma unroll
-      for (int t = 0; t < XS; ++t) {
-        const int idx = tid + NT * t;
-        if (idx < BM * r) {
-          const int m = idx / r, j = idx % r;
-          float s = xap[t];
-          #pragma unroll
-          for (int c = 0; c < BK; ++c) s += Xs[c][m] * As[c][j];
-          xap[t] = s;
-        }
-      }
-      __syncthreads();
+  auto fetch = [&](int kt, int st) {
+    float* xs = smem + st * F::STAGE;
+    float* ws = xs + F::XS;
+    float* as = ws + F::WS;
+    const int c0 = kt * TK;
+    tile_async<TM, TK, LDC>(xs, X, C, m0, c0, M, C, vec_x);
+    if constexpr (TRANS) {
+      // W's rows n0.. (the output columns), contraction along them
+      tile_async<TN, TK, LDC>(ws, W, C, n0, c0, Nout, C, vec_w);
+      // Aop = B (r, N): rows j, contraction along them
+      tile_rows<RP, TK, LDC, 1>(as, Aop, C, 0, c0, r, C);
+    } else {
+      tile_async<TK, TN, LDN>(ws, W, Nout, c0, n0, C, Nout, vec_w);
+      tile_rows<TK, RP, F::LDA, 1>(as, Aop, r, c0, 0, C, r);
     }
-    #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
-    #pragma unroll
-    for (int t = 0; t < XS; ++t) xa[t] += xap[t];
-  }
+    cp_commit();
+  };
 
-  // stage the x@A panel; column tile 0 writes it out
+  // the partials of the current K block (main tile; the panel's rows of
+  // the m16 fragments i = wn mod WARPS_N); the running totals of earlier
+  // K blocks wait in shared memory
+  float part[FM][FN][4], ppart[PM][NR][4];
+
   #pragma unroll
-  for (int t = 0; t < XS; ++t) {
-    const int idx = tid + NT * t;
-    if (idx < BM * r) {
-      const int m = idx / r, j = idx % r;
-      XAs[m][j] = xa[t];
-      if (blockIdx.x == 0 && m0 + m < M) xa_out[(size_t)(m0 + m) * r + j] = xa[t];
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) fetch(s, s);
+    else cp_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt % KT == 0) {
+      #pragma unroll
+      for (int i = 0; i < FM; ++i) {
+        #pragma unroll
+        for (int j = 0; j < FN; ++j)
+          #pragma unroll
+          for (int q = 0; q < 4; ++q) part[i][j][q] = 0.f;
+      }
+      #pragma unroll
+      for (int i = 0; i < PM; ++i)
+        #pragma unroll
+        for (int j = 0; j < NR; ++j)
+          #pragma unroll
+          for (int q = 0; q < 4; ++q) ppart[i][j][q] = 0.f;
+    }
+    cp_wait<STAGES - 2>();
+    __syncthreads();
+    // the stage read in the step before is free again
+    const int next = kt + STAGES - 1;
+    if (next < nk) fetch(next, next % STAGES);
+    else cp_commit();
+    const float* xs = smem + (kt % STAGES) * F::STAGE;
+    const float* ws = xs + F::XS;
+    const float* as = ws + F::WS;
+    #pragma unroll
+    for (int kk = 0; kk < TK; kk += 8) {
+      FragA a[FM];
+      #pragma unroll
+      for (int i = 0; i < FM; ++i)
+        a[i] = frag_a<LDC>(xs, wr + 16 * i, kk, g, t);
+      #pragma unroll
+      for (int j = 0; j < FN; ++j) {
+        const FragB b = TRANS ? frag_b<true, LDC>(ws, kk, wc + 8 * j, g, t)
+                              : frag_b<false, LDN>(ws, kk, wc + 8 * j, g, t);
+        #pragma unroll
+        for (int i = 0; i < FM; ++i) mma3(part[i][j], a[i], b);
+      }
+      #pragma unroll
+      for (int j = 0; j < NR; ++j) {
+        const FragB b = TRANS ? frag_b<true, LDC>(as, kk, 8 * j, g, t)
+                              : frag_b<false, F::LDA>(as, kk, 8 * j, g, t);
+        #pragma unroll
+        for (int i = 0; i < FM; ++i)
+          if (i % WARPS_N == wn) mma3(ppart[i / WARPS_N][j], a[i], b);
+      }
+    }
+    // the end of a K block of a contraction that has several: the first
+    // block's partial is the total, later ones are added to it in order
+    if (nk > KT && ((kt + 1) % KT == 0 || kt == nk - 1)) {
+      const bool first = kt < KT;
+      #pragma unroll
+      for (int i = 0; i < FM; ++i) {
+        #pragma unroll
+        for (int j = 0; j < FN; ++j)
+          #pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            float* slot = totals + (((i * FN + j) * 4) + q) * FT;
+            *slot = first ? part[i][j][q] : *slot + part[i][j][q];
+          }
+      }
+      #pragma unroll
+      for (int i = 0; i < PM; ++i)
+        #pragma unroll
+        for (int j = 0; j < NR; ++j)
+          #pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            float* slot = totals + ((FM * FN + i * NR + j) * 4 + q) * FT;
+            *slot = first ? ppart[i][j][q] : *slot + ppart[i][j][q];
+          }
     }
   }
-  // B slice (r x BN)
-  for (int e = tid; e < r * BN; e += NT) {
-    int j, n;
-    if (TRANS) { n = e / r; j = e % r; } else { j = e / BN; n = e % BN; }
-    const int gn = n0 + n;
-    float val = 0.f;
-    if (gn < Nout)
-      val = TRANS ? Bop[(size_t)gn * r + j] : Bop[(size_t)j * Nout + gn];
-    Bs[j][n] = val;
+  if (nk > KT) {
+    // the totals back into the partials' registers
+    #pragma unroll
+    for (int i = 0; i < FM; ++i) {
+      #pragma unroll
+      for (int j = 0; j < FN; ++j)
+        #pragma unroll
+        for (int q = 0; q < 4; ++q)
+          part[i][j][q] = totals[(((i * FN + j) * 4) + q) * FT];
+    }
+    #pragma unroll
+    for (int i = 0; i < PM; ++i)
+      #pragma unroll
+      for (int j = 0; j < NR; ++j)
+        #pragma unroll
+        for (int q = 0; q < 4; ++q)
+          ppart[i][j][q] = totals[((FM * FN + i * NR + j) * 4 + q) * FT];
   }
+  cp_wait<0>();
   __syncthreads();
 
+  // the panel's totals, (TM, RP), and the epilogue's B operand take the
+  // ring's place: Bop[j][n] as B's rows (forward) or A's rows (dx), zero
+  // past r and past the output's width
+  float* xas = smem;
+  float* bs = smem + F::XAS;
   #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = ty + 16 * i;
-    const int gm = m0 + m;
+  for (int i = 0; i < PM; ++i)
     #pragma unroll
-    for (int jn = 0; jn < 4; ++jn) {
-      const int n = tx + 16 * jn;
-      const int gn = n0 + n;
-      float low = 0.f;
-      for (int j = 0; j < r; ++j) low += XAs[m][j] * Bs[j][n];
-      if (gm < M && gn < Nout) out[(size_t)gm * Nout + gn] = acc[i][jn] + low;
+    for (int j = 0; j < NR; ++j) {
+      float* q = xas + (wr + 16 * (i * WARPS_N + wn) + g) * F::LDR + 8 * j
+                 + 2 * t;
+      q[0] = ppart[i][j][0];
+      q[1] = ppart[i][j][1];
+      q[8 * F::LDR] = ppart[i][j][2];
+      q[8 * F::LDR + 1] = ppart[i][j][3];
+    }
+  if constexpr (TRANS) {
+    for (int e = threadIdx.x; e < TN * RP; e += FT) {
+      const int n = e / RP, j = e % RP;
+      bs[n * F::LDR + j] = (n0 + n < Nout && j < r)
+                               ? Bop[(size_t)(n0 + n) * r + j] : 0.f;
+    }
+  } else {
+    for (int e = threadIdx.x; e < RP * TN; e += FT) {
+      const int j = e / TN, n = e % TN;
+      bs[j * LDN + n] = (j < r && n0 + n < Nout)
+                            ? Bop[(size_t)j * Nout + n0 + n] : 0.f;
     }
   }
+  __syncthreads();
+  if (blockIdx.x == 0)
+    for (int e = threadIdx.x; e < TM * r; e += FT) {
+      const int m = e / r, j = e % r;
+      if (m0 + m < M) xa_out[(size_t)(m0 + m) * r + j] = xas[m * F::LDR + j];
+    }
+
+  // low = (x@A)@B over the panel's RP columns, then out = total + low
+  float low[FM][FN][4];
+  #pragma unroll
+  for (int i = 0; i < FM; ++i)
+    #pragma unroll
+    for (int j = 0; j < FN; ++j)
+      #pragma unroll
+      for (int q = 0; q < 4; ++q) low[i][j][q] = 0.f;
+  #pragma unroll
+  for (int kk = 0; kk < RP; kk += 8) {
+    FragA a[FM];
+    #pragma unroll
+    for (int i = 0; i < FM; ++i)
+      a[i] = frag_a<F::LDR>(xas, wr + 16 * i, kk, g, t);
+    #pragma unroll
+    for (int j = 0; j < FN; ++j) {
+      const FragB b = TRANS ? frag_b<true, F::LDR>(bs, kk, wc + 8 * j, g, t)
+                            : frag_b<false, LDN>(bs, kk, wc + 8 * j, g, t);
+      #pragma unroll
+      for (int i = 0; i < FM; ++i) mma3(low[i][j], a[i], b);
+    }
+  }
+  const bool pairs = Nout % 2 == 0;   // (row, 2t) is 8-byte aligned
+  #pragma unroll
+  for (int i = 0; i < FM; ++i)
+    #pragma unroll
+    for (int j = 0; j < FN; ++j) {
+      const int col = n0 + wc + 8 * j + 2 * t;
+      #pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + wr + 16 * i + g + 8 * h;
+        if (row >= M) continue;
+        const float v0 = part[i][j][2 * h] + low[i][j][2 * h];
+        const float v1 = part[i][j][2 * h + 1] + low[i][j][2 * h + 1];
+        float* o = out + (size_t)row * Nout + col;
+        if (pairs && col + 1 < Nout) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          if (col < Nout) o[0] = v0;
+          if (col + 1 < Nout) o[1] = v1;
+        }
+      }
+    }
 }
 
 constexpr int PL = 32;   // lhs columns per block (one per lane)
@@ -336,16 +576,54 @@ __global__ void dw_sum_kernel(const float* __restrict__ ws,
   }
 }
 
-template <int XS>
-void launch_fused(int trans, dim3 grid, cudaStream_t s, const float* X,
-                  const float* W, const float* A, const float* B, float* out,
-                  float* xa, int M, int C, int Nout, int r) {
-  if (trans)
-    lora_fused_kernel<true, XS><<<grid, NT, 0, s>>>(X, W, B, A, out, xa, M,
-                                                     C, Nout, r);
-  else
-    lora_fused_kernel<false, XS><<<grid, NT, 0, s>>>(X, W, A, B, out, xa, M,
-                                                      C, Nout, r);
+// Launches one instance; its dynamic shared memory above 48 KB (the most
+// it can take) is allowed at its first launch on each device (the
+// attribute belongs to the device), one bit a device.  Two threads may
+// both set it; setting it twice is harmless.
+template <bool TRANS, int NR>
+int launch_fused(dim3 grid, cudaStream_t s, const float* X, const float* W,
+                 const float* Aop, const float* Bop, float* out, float* xa,
+                 int M, int C, int Nout, int r, int vec_x, int vec_w) {
+  using F = Fused<TRANS, NR>;
+  static std::atomic<uint64_t> ready{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(ready.load() & bit)) {
+    err = cudaFuncSetAttribute(
+        lora_fused_kernel<TRANS, NR>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F::smem(true));
+    if (err != cudaSuccess) return (int)err;
+    ready.fetch_or(bit);
+  }
+  // the running totals need shared memory only beyond one K block
+  lora_fused_kernel<TRANS, NR><<<grid, FT, F::smem(C > KB), s>>>(
+      X, W, Aop, Bop, out, xa, M, C, Nout, r, vec_x, vec_w);
+  return (int)cudaGetLastError();
+}
+
+template <bool TRANS>
+int launch_fused_rank(dim3 grid, cudaStream_t s, const float* X,
+                      const float* W, const float* Aop, const float* Bop,
+                      float* out, float* xa, int M, int C, int Nout, int r,
+                      int vec_x, int vec_w) {
+  const int nr = (r + 7) / 8;
+  if (nr <= 1)
+    return launch_fused<TRANS, 1>(grid, s, X, W, Aop, Bop, out, xa, M, C,
+                                  Nout, r, vec_x, vec_w);
+  if (nr <= 2)
+    return launch_fused<TRANS, 2>(grid, s, X, W, Aop, Bop, out, xa, M, C,
+                                  Nout, r, vec_x, vec_w);
+  if (nr <= 4)
+    return launch_fused<TRANS, 4>(grid, s, X, W, Aop, Bop, out, xa, M, C,
+                                  Nout, r, vec_x, vec_w);
+  return launch_fused<TRANS, 8>(grid, s, X, W, Aop, Bop, out, xa, M, C, Nout,
+                                r, vec_x, vec_w);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 // the blocks that fill the current device: DW_PER_SM on each SM
@@ -380,18 +658,17 @@ int lora_fused(const float* X, const float* W, const float* A, const float* B,
                void* stream) {
   if (M <= 0 || C <= 0 || Nout <= 0 || r < 1 || r > R_MAX)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((Nout + BN - 1) / BN, (M + BM - 1) / BM);
+  const dim3 grid((Nout + TN - 1) / TN, (M + TM - 1) / TM);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int slots = (BM * r + NT - 1) / NT;
-  if (slots <= 2)
-    launch_fused<2>(trans, grid, s, X, W, A, B, out, xa, M, C, Nout, r);
-  else if (slots <= 4)
-    launch_fused<4>(trans, grid, s, X, W, A, B, out, xa, M, C, Nout, r);
-  else if (slots <= 8)
-    launch_fused<8>(trans, grid, s, X, W, A, B, out, xa, M, C, Nout, r);
-  else
-    launch_fused<16>(trans, grid, s, X, W, A, B, out, xa, M, C, Nout, r);
-  return (int)cudaGetLastError();
+  // W (K, N) has a row stride of N in both directions
+  const int n = trans ? C : Nout;
+  const int vec_x = aligned16(X) && C % 4 == 0;
+  const int vec_w = aligned16(W) && n % 4 == 0;
+  if (trans)
+    return launch_fused_rank<true>(grid, s, X, W, B, A, out, xa, M, C, Nout,
+                                   r, vec_x, vec_w);
+  return launch_fused_rank<false>(grid, s, X, W, A, B, out, xa, M, C, Nout, r,
+                                  vec_x, vec_w);
 }
 
 // (L, r) = lhsᵀ·panel from lhs (M, L) and panel (M, r); (r, L) if transpose_out.

@@ -1,0 +1,127 @@
+"""The arithmetic of chip_smoke.py's gates that hold a case study's runs to
+its fp32 plain runs (``fp32_gates``): with the floor run alone it gives
+the limits the script had before nudged runs joined, with nudged runs
+each limit is set by the largest fp32 run, and a TF32 control inside a
+limit fails.  Pure arithmetic on measured distances: no card, no model."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+
+F, SLACK, SPREAD = cs.FLOOR_FACTOR, cs.FLOOR_SLACK, cs.SPREAD_FACTOR
+
+# two rounds of |loss - plain loss| and the final LoRA's distances, as a
+# phase measures them with the floor run alone
+LOSS = [{"kernels": 2e-4, "floor": 3e-4, "control": 5e-2},
+        {"kernels": 1e-3, "floor": 5e-4, "control": 6e-3}]
+FROM_FP64 = {"kernels": 2e-5, "plain": 1e-5, "floor": 7e-6, "control": 5e-4}
+FROM_PLAIN = {"kernels": 6e-4, "floor": 5e-4, "control": 4e-3}
+FLIPS = {"kernels": 4.7e-4, "floor": 5.8e-4, "control": 4.8e-2}
+
+
+def test_importing_chip_smoke_loads_no_torch():
+    code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
+            "assert 'torch' not in sys.modules" % str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=60, env=dict(os.environ))
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("kind", ["continuous", "spread"])
+def test_floor_run_alone_gives_the_earlier_limits(kind):
+    lora = FROM_FP64 if kind == "continuous" else FROM_PLAIN
+    limits, failed = cs.fp32_gates(kind, LOSS, lora)
+    if kind == "continuous":
+        assert limits["loss"] == [1e-3, 1e-3]
+        assert limits["lora"] == F * max(lora["plain"], lora["floor"]) + SLACK
+    else:
+        assert limits["loss"] == [1e-3 + F * d["floor"] for d in LOSS]
+        assert limits["lora"] == SPREAD * lora["floor"] + SLACK
+    assert limits["flips"] is None
+    assert failed == []
+
+
+def test_flip_floor_alone_gives_the_earlier_limit():
+    limits, failed = cs.fp32_gates(flips=FLIPS)
+    assert limits == {"loss": [], "lora": None,
+                      "flips": F * FLIPS["floor"] + SLACK}
+    assert failed == []
+
+
+@pytest.mark.parametrize("kind", ["continuous", "spread"])
+def test_nudged_runs_widen_each_limit_to_the_largest_fp32_run(kind):
+    base = FROM_FP64 if kind == "continuous" else FROM_PLAIN
+    lora = {**base, "seed 0": base["floor"] / 2, "seed 1": base["floor"] * 4,
+            "seed 2": base["floor"]}
+    loss = [{**d, "seed 0": d["floor"] * 2, "seed 1": 0.0, "seed 2": 1e-7}
+            for d in LOSS]
+    limits, failed = cs.fp32_gates(kind, loss, lora)
+    fp32 = max(v for r, v in lora.items() if r not in ("kernels", "control"))
+    assert fp32 == lora["seed 1"]
+    factor = SPREAD if kind == "spread" else F
+    assert limits["lora"] == factor * fp32 + SLACK
+    if kind == "continuous":
+        assert limits["loss"] == [1e-3, 1e-3]
+    else:
+        assert limits["loss"] == [1e-3 + F * 2 * d["floor"] for d in LOSS]
+    assert failed == []
+    # the kernel run beyond the floor-only limit passes only by the
+    # nudged runs it is measured with
+    wide = {**lora, "kernels": factor * lora["floor"] * 3}
+    assert cs.fp32_gates(kind, loss, wide)[1] == []
+    assert cs.fp32_gates(kind, LOSS, {r: v for r, v in wide.items()
+                                      if not r.startswith("seed")})[1]
+
+
+def test_nudged_flip_shares_widen_the_flip_floor():
+    flips = {**FLIPS, "seed 0": 9e-4, "seed 1": 2e-4}
+    limits, failed = cs.fp32_gates(flips=flips)
+    assert limits["flips"] == F * 9e-4 + SLACK
+    assert failed == []
+
+
+@pytest.mark.parametrize("kind", ["continuous", "spread"])
+def test_tf32_inside_the_final_lora_limit_fails(kind):
+    lora = dict(FROM_FP64 if kind == "continuous" else FROM_PLAIN)
+    lora["control"] = lora["floor"]
+    failed = cs.fp32_gates(kind, LOSS, lora)[1]
+    assert any("TF32" in what for what in failed)
+
+
+def test_tf32_inside_the_flip_floor_fails():
+    failed = cs.fp32_gates(flips={**FLIPS, "control": 1e-3})[1]
+    assert any("boundary-level gate" in what for what in failed)
+
+
+@pytest.mark.parametrize("case", [
+    ("continuous", "loss"), ("continuous", "lora"), ("spread", "loss"),
+    ("spread", "lora"), (None, "flips")])
+def test_kernel_run_beyond_a_limit_fails(case):
+    kind, gate = case
+    if gate == "flips":
+        failed = cs.fp32_gates(flips={**FLIPS, "kernels": 1.0})[1]
+        assert any("boundary levels" in what for what in failed)
+        return
+    lora = FROM_FP64 if kind == "continuous" else FROM_PLAIN
+    loss = [{**d, "kernels": 1.0} for d in LOSS] if gate == "loss" else LOSS
+    if gate == "lora":
+        lora = {**lora, "kernels": 1.0}
+    failed = cs.fp32_gates(kind, loss, lora)[1]
+    assert failed and all(("round loss" if gate == "loss" else "final LoRA")
+                          in what for what in failed)
+
+
+@pytest.mark.parametrize("role, kind, want", [
+    ("kernels", "continuous", "exact"), ("plain", "continuous", "exact"),
+    ("seed 2", "continuous", "exact 2"), ("kernels", "spread", "plain"),
+    ("seed 2", "spread", "plain")])
+def test_each_run_is_measured_from_the_fp64_run_of_its_own_weights(
+        role, kind, want):
+    assert cs.yardstick(role, kind) == want

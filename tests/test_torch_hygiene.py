@@ -260,3 +260,22 @@ def test_lora_dropout_runs_on_own_generator(tiny_case):
     with_dropout = final_a(0.5)
     np.testing.assert_array_equal(with_dropout, final_a(0.5))
     assert not np.allclose(with_dropout, final_a(0.0))
+
+
+def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
+    """A library is named by its source and by the csrc headers it
+    includes: an edited header gives every including source a new path
+    (a stale library is never loaded), an unrelated file none."""
+    from repro_torch.kernels import build
+    (tmp_path / "k.cu").write_text('#include <stdint.h>\n'
+                                   '#include "shared.cuh"\nint f();\n')
+    (tmp_path / "shared.cuh").write_text("// v1\n")
+    (tmp_path / "other.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    (tmp_path / "other.cuh").write_text("// v2\n")
+    assert build.library_path("k") == first
+    (tmp_path / "shared.cuh").write_text("// v2\n")
+    assert build.library_path("k") != first
+    assert build.library_path("k").name.startswith("libk-")

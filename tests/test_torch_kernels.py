@@ -67,10 +67,14 @@ def _assert_match(port, ref, names):
 
 # --------------------------------------------------------------------------- #
 @pytest.mark.parametrize("M,K,N,r", [(37, 96, 64, 2), (50, 128, 96, 4),
-                                     (77, 64, 128, 8), (100, 160, 48, 16)])
+                                     (77, 64, 128, 8), (100, 160, 48, 16),
+                                     (80, 96, 64, 1), (80, 136, 72, 64)])
 def test_lora_matmul_matches_pallas(M, K, N, r):
     """Rows 1, 2 and 4 of the kernel table (y, dx, dA, dB) and the plain
-    dW of row 3, with a ragged M (no tile divides it on the card)."""
+    dW of row 3, with a ragged M (no tile divides it on the card); ranks 1
+    (one panel fragment, seven columns of it zero) and 64 (eight) and the
+    M of a DP batch-1 pass (80), the twins the card holds the fused kernel
+    to at those ranks."""
     x, w, a, b, probe = _inputs(M + r, ((M, K), 1.0), ((K, N), 0.05),
                                 ((K, r), 0.05), ((r, N), 0.05), ((M, N), 1.0))
     port = _torch_value_and_grads(lora_matmul, (x, w, a, b), probe)
