@@ -8,14 +8,17 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
 1. Prints the card's name and power limit (nvidia-smi), checks compute
    capability 9.0 and builds the CUDA kernels from kernels/csrc/ with nvcc,
    printing each kernel's registers and spills (ptxas -v); the 8
-   instances of the fused LoRA kernel must not spill.
+   instances of the fused LoRA kernel and the 4 of flash_dq must not
+   spill.
 2. Holds every ported kernel against its plain PyTorch version on the card
    at the main path's shapes, at ragged shapes and (KD loss, top-k) at a
    generative vocabulary (1280 x 50257), and times the kernel, the plain
    version and one PyTorch library call for the same function (used
-   nowhere in the port); the small kernels also inside a CUDA graph, and
-   the clip kernels also with the L2 flushed before each call.  Tolerances: LoRA and attention atol 1e-4 / rtol
-   1e-4 (fp32 sums over K = 768 in another order); KD loss atol 1e-5 /
+   nowhere in the port); the small kernels (and the LoRA panel gradient)
+   and their library calls also inside a CUDA graph, and the clip
+   kernels also with the L2 flushed before each call.  Tolerances: LoRA
+   and attention atol 1e-4 / rtol 1e-4 (fp32 sums over K = 768 in
+   another order); KD loss atol 1e-5 /
    rtol 1e-4 (the reference's bar for its kernel); top-k quantization bit
    for bit; the DP clip kernels atol 1e-6 / rtol 1e-5 (the reference's bar
    for its clip kernel), at the main path's (16, 442368) and at four
@@ -35,16 +38,20 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    the LoRA kernels at RWKV-6 1.6B's K = N = 2048 and the fused forward
    and dx at their edges (x and g misaligned for 16-byte copies, a DP
    batch-1 pass's M 80, ranks 64, 1 and 13, K and N that no tile or 8
-   divides); the dense dW kernel
+   divides) and the panel gradient at its edges (M 80 and 1, ranks 1, 13
+   and 64, L 770, lhs misaligned, RecurrentGemma-2B's (1280, 2560) and
+   (1280, 256)), both layouts out; the dense dW kernel
    (x (M, K), g (M, N) scaled by M^-0.5) at each of those shapes, at a
    ragged (1279, 770, 97) and at RecurrentGemma-2B's (1280, 2560, 256);
-   the LoRA forward, dx and dW kernels' rms error against fp64 products
-   at K = N = 768 and 2560 within FP64_FACTOR times the default BLAS
-   library's for the same products; the flash forward and dk/dv kernels'
-   rms error against an fp64 run of their twins (o, lse, dk, dv at
-   GPT-2's and RecurrentGemma-2B's shapes) within FP64_FACTOR times the
-   larger of the fp32 twins' and SDPA's; flash_dkv's head chunks at G 3
-   and 5 (chunks of unequal size); and the RWKV-6 WKV
+   the LoRA forward, dx and dW kernels' and the panel gradient's (dA =
+   xᵀ·gb, dB = xaᵀ·g) rms error against fp64 products at K = N = 768
+   and 2560 within FP64_FACTOR times the default BLAS library's for the
+   same products; the flash kernels' rms error against an fp64 run of
+   their twins (o, lse, dq, dk, dv at GPT-2's and RecurrentGemma-2B's
+   shapes) within FP64_FACTOR times the larger of the fp32 twins' and
+   SDPA's; flash_dkv's head chunks at G 3 and 5 (chunks of unequal
+   size); the flash kernels at G 10, D 256 with a window shorter than S,
+   ragged S and a q_offset; and the RWKV-6 WKV
    kernels at the train step's (512, 80, 64) with checkpoints (timed
    eager, in a graph and with a cold L2), at the eval batch's (2048, 80,
    64) without, at a ragged S, one step, head dims 16 and 32, log-decays
@@ -52,7 +59,7 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    within atol 1e-5 / rtol 1e-4, S_final and every checkpoint bit for
    bit, and at the train shape each output's error against an fp64 run
    of the plain version within twice the fp32 plain version's.  The
-   3xTF32 kernels' (LoRA forward and dx, flash forward and dk/dv)
+   3xTF32 kernels' (LoRA forward and dx, the three flash kernels)
    operation bound is taken at a third of the card's TF32 rate, and
    their fp32-rate bound printed beside it.
 
@@ -198,12 +205,14 @@ EXACT = ("topk_quantize", "quantize_rows", "quantize_rows_int4",
 # the WKV forward's S_final (its state update rounds as the plain one)
 EXACT_OUTPUTS = {"rwkv6_fwd": (1,)}
 WKV_ATOL, WKV_RTOL = 1e-5, 1e-4
-# kernels also timed inside a CUDA graph: at the main path's shapes an
-# eager call's host cost exceeds their device time
+# kernels also timed inside a CUDA graph, and their library call beside
+# them: at the main path's shapes an eager call's host cost exceeds their
+# device time
 GRAPH_TIMED = ("kd_fwd", "kd_bwd", "kd_bwd_dt", "topk_quantize",
                "dp_clip_norms", "dp_clip_acc", "quantize_rows",
                "quantize_rows_int4", "quantize_pack4", "rglru_fwd",
-               "rglru_bwd", "rwkv6_fwd", "rwkv6_bwd")
+               "rglru_bwd", "rwkv6_fwd", "rwkv6_bwd", "lora_panel",
+               "lora_panel_t")
 # kernels also timed with the L2 flushed before each call: their input
 # (28.3 MB at the DP path, 26-39 MB at the RG-LRU's) fits the 50 MB L2, so
 # back-to-back calls read it from there, while in a step the passes
@@ -218,7 +227,7 @@ PEAKS = {"H100 PCIe": (51.2e12, 2.0e12, 378e12),
          "H100": (67.0e12, 3.35e12, 494.7e12)}
 # kernels whose products run on the tensor cores in 3xTF32 (three TF32
 # products each): their operation bound is at a third of the TF32 peak
-TF32X3 = ("lora_fwd", "lora_dx", "flash_fwd", "flash_dkv")
+TF32X3 = ("lora_fwd", "lora_dx", "flash_fwd", "flash_dq", "flash_dkv")
 BATCH, PAD_LEN, RANK = 16, 80, 8
 SPLIT_LAYER, SPLIT_BITS = 2, 8
 # LoRA parameters per example at gpt2 width: rank 8 on wq/wk/wv, 12 layers
@@ -287,12 +296,14 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
     """Device time of one call of ``fn``: ``calls`` calls captured in a
     CUDA graph, replayed ``replays`` times, so the host's cost of a call
-    (Python, ctypes, allocation) is not in it."""
+    (Python, ctypes, allocation) is not in it.  A call whose work autograd
+    recorded on another stream (``fn.capture_stream``) is captured on that
+    stream, where its backward runs."""
     import torch
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=getattr(fn, "capture_stream", None)):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -413,7 +424,8 @@ def kernel_cases(device, M, K, N, r, BH, BKV, S, Skv, D, causal, window,
                        lambda: x.t() @ gb, f4 * (M * K + M * r + K * r),
                        2 * M * K * r),
         "lora_panel_t": (lambda: lm.lora_panel(g, xa, True),
-                         lambda: ref.panel_grad(g, xa, True), None,
+                         lambda: ref.panel_grad(g, xa, True),
+                         lambda: xa.t() @ g,
                          f4 * (M * N + M * r + N * r), 2 * M * N * r),
     }
     q, k, v, do = rn(BH, S, D), rn(BKV, Skv, D), rn(BKV, Skv, D), rn(BH, S, D)
@@ -496,13 +508,37 @@ def lora_edge_cases(device, M, K, N, r, offset, seed):
                         lambda: ref.lora_dx(g, w, a, b))}
 
 
+def panel_edge_cases(device, M, L, r, offset, seed):
+    """The panel gradient kernel (row 4) on lhs (M, L), placed ``offset``
+    floats into its storage (misaligned for 16-byte loads at 1), and an
+    (M, r) panel scaled by M^-0.5 (O(1) outputs), untransposed and
+    transposed, as kernel_cases entries."""
+    import torch
+
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flat = torch.randn(offset + M * L, device=device, generator=gen)
+    lhs = flat[offset:].view(M, L)
+    panel = torch.randn((M, r), device=device, generator=gen) * M ** -0.5
+    nbytes, nflops = 4 * (M * L + M * r + L * r), 2 * M * L * r
+    return {"lora_panel": (lambda: lm.lora_panel(lhs, panel),
+                           lambda: ref.panel_grad(lhs, panel),
+                           lambda: lhs.t() @ panel, nbytes, nflops),
+            "lora_panel_t": (lambda: lm.lora_panel(lhs, panel, True),
+                             lambda: ref.panel_grad(lhs, panel, True),
+                             lambda: panel.t() @ lhs, nbytes, nflops)}
+
+
 def lora_fp64_errors(device, M, K, N, seed) -> dict:
     """rms error against an fp64 product of the LoRA forward, dx and dW
-    kernels and of the same products through cuBLAS and cuBLASLt, on
-    inputs scaled to O(1) outputs (kernel_cases' scaling).  Prints them
-    and each kernel's ratio to the default library's; returns {"kernel" |
-    "cublas" | "cublaslt": {"fwd" | "dx" | "dw": rms}} and the default
-    library's name."""
+    kernels, of the panel kernel's dA = xᵀ·gb and dB = xaᵀ·g (transposed
+    out), and of the same products through cuBLAS and cuBLASLt, on inputs
+    scaled to O(1) outputs (kernel_cases' scaling).  Prints them and each
+    kernel's ratio to the default library's; returns {"kernel" | "cublas"
+    | "cublaslt": {"fwd" | "dx" | "dw" | "da" | "db": rms}} and the
+    default library's name."""
     import torch
 
     from repro_torch.kernels import lora_matmul as lm
@@ -517,19 +553,24 @@ def lora_fp64_errors(device, M, K, N, seed) -> dict:
     w, a, b = rn(K, N, std=K ** -0.5), rn(K, r, std=K ** -0.5), \
         rn(r, N, std=N ** -0.5)
     gs = g * M ** -0.5
-    x64, g64, w64, a64, b64, gs64 = (t.double() for t in (x, g, w, a, b, gs))
+    xa, gb = (x @ a) * M ** -0.5, (g @ b.t()) * M ** -0.5
+    x64, g64, w64, a64, b64, gs64, xa64, gb64 = (
+        t.double() for t in (x, g, w, a, b, gs, xa, gb))
     exact = {"fwd": x64 @ w64 + (x64 @ a64) @ b64,
              "dx": g64 @ w64.t() + (g64 @ b64.t()) @ a64.t(),
-             "dw": x64.t() @ gs64}
+             "dw": x64.t() @ gs64, "da": x64.t() @ gb64,
+             "db": xa64.t() @ g64}
     got = {"kernel": {"fwd": lm.lora_fwd(x, w, a, b)[0],
                       "dx": lm.lora_dx(g, w, a, b)[0],
-                      "dw": lm.lora_dw(x, gs)}}
+                      "dw": lm.lora_dw(x, gs), "da": lm.lora_panel(x, gb),
+                      "db": lm.lora_panel(g, xa, True)}}
     blas = torch.backends.cuda.preferred_blas_library()
     default = "cublaslt" if "lt" in str(blas).lower() else "cublas"
     for lib in ("cublas", "cublaslt"):
         torch.backends.cuda.preferred_blas_library(lib)
         got[lib] = {"fwd": x @ w + (x @ a) @ b,
-                    "dx": g @ w.t() + (g @ b.t()) @ a.t(), "dw": x.t() @ gs}
+                    "dx": g @ w.t() + (g @ b.t()) @ a.t(), "dw": x.t() @ gs,
+                    "da": x.t() @ gb, "db": xa.t() @ g}
     torch.backends.cuda.preferred_blas_library(blas)
     rms = {who: {op: float(((y.double() - exact[op]) ** 2).mean().sqrt())
                  for op, y in ops_.items()} for who, ops_ in got.items()}
@@ -544,13 +585,14 @@ def lora_fp64_errors(device, M, K, N, seed) -> dict:
 
 
 def flash_fp64_errors(device, BH, BKV, S, D, causal, window, seed) -> dict:
-    """rms error against an fp64 run of the plain twins of o, lse, dk and
-    dv through the flash kernels (forward, then dk/dv from its own lse and
-    D = rowsum(do∘o)), through the fp32 twins and through SDPA (o, and dk
-    and dv from its backward, summed over each GQA group; SDPA gives no
-    lse), on kernel_cases' N(0, 1) inputs.  Fails unless each kernel error
-    is within FP64_FACTOR times the larger of the fp32 twins' and SDPA's;
-    returns {"kernel" | "plain fp32" | "sdpa": {output: rms}}."""
+    """rms error against an fp64 run of the plain twins of o, lse, dq, dk
+    and dv through the flash kernels (forward, then dq and dk/dv from its
+    own lse and D = rowsum(do∘o)), through the fp32 twins and through SDPA
+    (o, and dq, dk and dv from its backward, dk and dv summed over each
+    GQA group; SDPA gives no lse), on kernel_cases' N(0, 1) inputs.
+    Fails unless each kernel error is within FP64_FACTOR times the larger
+    of the fp32 twins' and SDPA's; returns {"kernel" | "plain fp32" |
+    "sdpa": {output: rms}}."""
     import torch
     import torch.nn.functional as F
 
@@ -564,22 +606,24 @@ def flash_fp64_errors(device, BH, BKV, S, D, causal, window, seed) -> dict:
     cfg = (causal, window, 0)
     G = BH // BKV
 
-    def pipeline(fwd, dkv, *xs):
+    def pipeline(fwd, dq, dkv, *xs):
         o, lse = fwd(*xs[:3], *cfg)
-        dk, dv = dkv(*xs, lse, (xs[3] * o).sum(-1), *cfg)
-        return {"o": o, "lse": lse, "dk": dk, "dv": dv}
+        dd = (xs[3] * o).sum(-1)
+        dk, dv = dkv(*xs, lse, dd, *cfg)
+        return {"o": o, "lse": lse, "dq": dq(*xs, lse, dd, *cfg), "dk": dk,
+                "dv": dv}
 
-    exact = pipeline(ref.attention_fwd, ref.attention_dkv,
-                     *(t.double() for t in (q, k, v, do)))
-    got = {"kernel": pipeline(fa.flash_fwd, fa.flash_dkv, q, k, v, do),
-           "plain fp32": pipeline(ref.attention_fwd, ref.attention_dkv,
-                                  q, k, v, do)}
+    plain = (ref.attention_fwd, ref.attention_dq, ref.attention_dkv)
+    exact = pipeline(*plain, *(t.double() for t in (q, k, v, do)))
+    got = {"kernel": pipeline(fa.flash_fwd, fa.flash_dq, fa.flash_dkv, q, k,
+                              v, do),
+           "plain fp32": pipeline(*plain, q, k, v, do)}
     leaves = [q.detach()[None].requires_grad_(True)] + [
         t.repeat_interleave(G, dim=0)[None].requires_grad_(True)
         for t in (k, v)]
     out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
-    _, dke, dve = torch.autograd.grad(out, leaves, do[None])
-    got["sdpa"] = {"o": out[0].detach(),
+    dqe, dke, dve = torch.autograd.grad(out, leaves, do[None])
+    got["sdpa"] = {"o": out[0].detach(), "dq": dqe[0],
                    "dk": dke[0].view(BKV, G, S, D).sum(1),
                    "dv": dve[0].view(BKV, G, S, D).sum(1)}
     rms = {who: {name: float(((y.double() - exact[name]) ** 2).mean().sqrt())
@@ -796,8 +840,24 @@ def kd_cases(device, R, V, T, topk_teacher, Rq, Cq, k, bits, ties, seed):
         return F.kl_div(F.log_softmax(ss / T, -1), F.log_softmax(tt / T, -1),
                         log_target=True, reduction="none").sum(-1) * T * T
 
-    lib_out = lib_rows(lib_t, lib_s)
-    lib_out_s = lib_rows(t, lib_s)
+    # the library's forward is recorded on a stream of its own, where
+    # autograd then runs its backward: a CUDA graph can capture that
+    # backward on the same stream (graph_ms)
+    lib_stream = torch.cuda.Stream(device)
+    lib_stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(lib_stream):
+        lib_out = lib_rows(lib_t, lib_s)
+        lib_out_s = lib_rows(t, lib_s)
+    torch.cuda.current_stream(device).wait_stream(lib_stream)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out_s, lib_s, g, retain_graph=True)
+
+    def lib_bwd_dt():
+        return torch.autograd.grad(lib_out, (lib_t, lib_s), g,
+                                   retain_graph=True)
+
+    lib_bwd.capture_stream = lib_bwd_dt.capture_stream = lib_stream
 
     x = rn(Rq, Cq)
     if ties:
@@ -817,14 +877,10 @@ def kd_cases(device, R, V, T, topk_teacher, Rq, Cq, k, bits, ties, seed):
                    2 * f4 * RV + 6 * f4 * R, 12 * RV),
         "kd_bwd": (lambda: kdl.kd_bwd(t, s, stats, g, T, need_dt=False),
                    lambda: ref.kd_loss_bwd(t, s, stats, g, T, need_dt=False),
-                   lambda: torch.autograd.grad(lib_out_s, lib_s, g,
-                                               retain_graph=True),
-                   3 * f4 * RV + 6 * f4 * R, 10 * RV),
+                   lib_bwd, 3 * f4 * RV + 6 * f4 * R, 10 * RV),
         "kd_bwd_dt": (lambda: kdl.kd_bwd(t, s, stats, g, T),
                       lambda: ref.kd_loss_bwd(t, s, stats, g, T),
-                      lambda: torch.autograd.grad(lib_out, (lib_t, lib_s), g,
-                                                  retain_graph=True),
-                      4 * f4 * RV + 6 * f4 * R, 16 * RV),
+                      lib_bwd_dt, 4 * f4 * RV + 6 * f4 * R, 16 * RV),
         "topk_quantize": (lambda: qz.topk_quantize(x, k, bits),
                           lambda: ref.topk_quantize_rows_ref(x, k, bits),
                           lib_topk, f4 * Rq * Cq + 5 * Rq * k + f4 * Rq,
@@ -937,6 +993,7 @@ def time_case(name, case, peaks_) -> dict:
            "library_ms": cuda_ms(lib) if lib is not None else None}
     if name in GRAPH_TIMED:
         row["graph_ms"] = graph_ms(kern)
+        row["library_graph_ms"] = graph_ms(lib) if lib is not None else None
     if name in COLD_TIMED:
         row["cold_ms"] = cold_graph_ms(kern)
     t_bytes, t_ops = nbytes / bytes_peak, nflops / flops_peak
@@ -951,7 +1008,11 @@ def time_case(name, case, peaks_) -> dict:
     tol = "bit-identical" if name in EXACT else f"atol {atol}, rtol {rtol}"
     if name in EXACT_OUTPUTS:
         tol += f"; outputs {EXACT_OUTPUTS[name]} bit-identical"
-    graph = f" (graph_ms {row['graph_ms']:.4f})" if "graph_ms" in row else ""
+    graph = ""
+    if "graph_ms" in row:
+        lib_graph = row["library_graph_ms"]
+        graph = (f" (graph_ms {row['graph_ms']:.4f}, library "
+                 + ("n/a" if lib_graph is None else f"{lib_graph:.4f}") + ")")
     if "bound_fp32_ms" in row:
         graph += (f" (3xTF32 on the tensor cores; bound at the fp32 rate "
                   f"{row['bound_fp32_ms']:.4g})")
@@ -1066,6 +1127,16 @@ def check_kernels(device, card: str):
                 device, seed=100 + i, **shape).items():
             err = max_err(name, kern(), plain())
             print(f"  ragged {i} {name}: max abs err {err:.3e}")
+    # the flash kernels (flash_dq's four warps a q tile) at G 10, D 256:
+    # a window shorter than S, ragged S and Skv, a q_offset
+    flash_edge = dict(M=64, K=64, N=64, r=RANK, BH=10, BKV=1, S=37, Skv=53,
+                      D=256, causal=True, window=24, q_offset=16)
+    for name, (kern, plain, *_rest) in kernel_cases(
+            device, seed=120, **flash_edge).items():
+        if name.startswith("flash_"):
+            err = max_err(name, kern(), plain())
+            print(f"  flash edge (G 10, D 256, S 37 over 53, window 24, "
+                  f"q_offset 16) {name}: max abs err {err:.3e}")
     # dW: a ragged M, K and N; RecurrentGemma-2B's wk and wv (2560, 256)
     for i, (M, K, N) in enumerate(((1279, 770, 97),
                                    (BATCH * PAD_LEN, 2560, 256))):
@@ -1091,6 +1162,26 @@ def check_kernels(device, card: str):
             print(f"  lora edge {i} {name} (M {shape['M']}, K {shape['K']}, "
                   f"N {shape['N']}, r {shape['r']}, offset "
                   f"{shape['offset']}): max abs err {err:.3e}")
+    # the panel gradient's edges: a DP batch-1 pass (M 80: three M
+    # slices) and M 1, ranks 1, 13 and 64 (rank groups of 8), a width of 770
+    # (4-byte loads), lhs one float off 16-byte alignment, and
+    # RecurrentGemma-2B's (1280, 2560) and (1280, 256)
+    panel_edges = [dict(M=PAD_LEN, L=768, r=RANK, offset=0),
+                   dict(M=1, L=768, r=RANK, offset=0),
+                   dict(M=333, L=768, r=1, offset=0),
+                   dict(M=333, L=768, r=13, offset=0),
+                   dict(M=1280, L=768, r=64, offset=0),
+                   dict(M=1001, L=770, r=RANK, offset=0),
+                   dict(M=1280, L=768, r=RANK, offset=1),
+                   dict(M=BATCH * PAD_LEN, L=2560, r=RANK, offset=0),
+                   dict(M=BATCH * PAD_LEN, L=256, r=RANK, offset=0)]
+    for i, shape in enumerate(panel_edges):
+        for name, (kern, plain, *_rest) in panel_edge_cases(
+                device, seed=170 + i, **shape).items():
+            err = max_err(name, kern(), plain())
+            print(f"  panel edge {i} {name} (M {shape['M']}, L {shape['L']}, "
+                  f"r {shape['r']}, offset {shape['offset']}): max abs err "
+                  f"{err:.3e}")
     for i, shape in enumerate(kd_checks):
         for name, (kern, plain, *_rest) in kd_cases(
                 device, seed=200 + i, **shape).items():
@@ -1109,6 +1200,11 @@ def check_kernels(device, card: str):
     rows = {}
     for name, case in kernel_cases(device, seed=7, **cfg).items():
         rows[name] = time_case(name, case, peaks_)
+    print(f"  the panel gradient at a DP batch-1 pass's shape (M {PAD_LEN}, "
+          f"L 768, r {RANK}):")
+    for name, case in panel_edge_cases(device, PAD_LEN, 768, RANK, 0,
+                                       19).items():
+        rows[f"{name}@dp"] = time_case(name, case, peaks_)
     for K in (768, 2560):
         rms, lib = lora_fp64_errors(device, BATCH * PAD_LEN, K, K, 17)
         for op, err in rms["kernel"].items():
@@ -2170,14 +2266,19 @@ def run_base_grad(device):
     return counts["kernels"]
 
 
-def fused_spills(log: str) -> dict:
-    """{lora_fused_kernel instance: bytes of spill stores plus loads} from
-    a ptxas -v report (each "Function properties for" line is followed by
+# the kernels that must not spill: {source: (kernel, instances)}
+NO_SPILLS = {"lora_matmul": ("lora_fused_kernel", 8),
+             "flash_attention": ("flash_dq_kernel", 4)}
+
+
+def kernel_spills(log: str, kernel: str) -> dict:
+    """{instance of ``kernel``: bytes of spill stores plus loads} from a
+    ptxas -v report (each "Function properties for" line is followed by
     its stack and spill line)."""
     import re
     lines, out = log.splitlines(), {}
     for i, line in enumerate(lines):
-        if "properties for" in line and "lora_fused_kernel" in line:
+        if "properties for" in line and kernel in line:
             nums = re.findall(r"(\d+) bytes spill", lines[i + 1])
             out[line.split("properties for")[-1].strip()] = sum(
                 int(n) for n in nums)
@@ -2247,13 +2348,15 @@ def main() -> int:
             if any(word in line for word in ("properties for", "registers",
                                              "spill", "error")):
                 print("    " + line.strip())
-    if "lora_matmul" in report:
-        spills = fused_spills(report["lora_matmul"]["log"])
-        require(len(spills) == 8, f"{len(spills)} lora_fused_kernel "
-                f"instances in the ptxas report, expected 8")
-        require(not any(spills.values()), f"lora_fused_kernel spills: "
+    for source, (kernel, instances) in NO_SPILLS.items():
+        if source not in report:
+            continue
+        spills = kernel_spills(report[source]["log"], kernel)
+        require(len(spills) == instances, f"{len(spills)} {kernel} "
+                f"instances in the ptxas report, expected {instances}")
+        require(not any(spills.values()), f"{kernel} spills: "
                 f"{ {k: v for k, v in spills.items() if v} }")
-        print(f"  lora_fused_kernel: {len(spills)} instances, no spills")
+        print(f"  {kernel}: {len(spills)} instances, no spills")
     print(f"  build wall_s={time.perf_counter() - t0:.1f}")
 
     t0 = time.perf_counter()
@@ -2273,8 +2376,9 @@ def main() -> int:
     # keeps them apart.  Rows are at the main path's shapes (GPT-2's;
     # the RG-LRU scan's at RecurrentGemma-2B's train step), the LoRA and
     # flash rows with their RecurrentGemma-2B shapes under
-    # ``at_recurrentgemma``; the KD kernels' generative-vocabulary
-    # timings are printed above.
+    # ``at_recurrentgemma`` (RWKV-6's under ``at_rwkv6``, the panel's at
+    # a DP batch-1 pass under ``at_dp_batch1``); the KD kernels'
+    # generative-vocabulary timings are printed above.
     kernels = []
     for name, (replaces, src) in REPLACES.items():
         row = rows[name]
@@ -2287,15 +2391,18 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            **{key: row[key] for key in ("graph_ms", "cold_ms",
-                                         "bound_fp32_ms") if key in row}})
-        for tag, key in (("rg", "at_recurrentgemma"), ("rwkv", "at_rwkv6")):
+            **{key: row[key] for key in ("graph_ms", "library_graph_ms",
+                                         "cold_ms", "bound_fp32_ms")
+               if key in row}})
+        for tag, key in (("rg", "at_recurrentgemma"), ("rwkv", "at_rwkv6"),
+                         ("dp", "at_dp_batch1")):
             if f"{name}@{tag}" in rows:
                 at = rows[f"{name}@{tag}"]
                 kernels[-1][key] = {
                     field: at[field] for field in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "library_ms", "bound_fp32_ms")
+                        "bound_by", "library_ms", "bound_fp32_ms",
+                        "graph_ms", "library_graph_ms")
                     if field in at}
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -18,8 +18,8 @@ Runs the plain run (kernel policy ``torch``), then kernel runs (policy
 LoRA projection, the attention, the RG-LRU scan), and with only the
 RG-LRU scan on its kernels; prints each run's relative L2 distance from
 the plain run's final LoRA, its per-round loss differences and its
-kernel launches.  Then the fp32 error of the LoRA forward, dx and dW
-kernels, of cuBLAS and of cuBLASLt against fp64 products at GPT-2's and
+kernel launches.  Then the fp32 error of the LoRA forward, dx, dW and
+panel-gradient kernels, of cuBLAS and of cuBLASLt against fp64 products at GPT-2's and
 RecurrentGemma-2B's projection shapes; that part alone:
 
     python3 scripts/chip_attribution.py fp64

@@ -21,10 +21,10 @@
 // all three are bound by bytes; the work per block is small and launch
 // latency matters as much as either.
 //
-// flash_fwd and flash_dkv run their products on the tensor cores at fp32
-// accuracy: mma.sync m16n8k8 in TF32 with the 3xTF32 split.  Each operand
-// x is cut into big = tf32(x) and small = tf32(x − big) (round to nearest),
-// and a·b ≈ small_a·big_b + big_a·small_b + big_a·big_b: the two small
+// All three run their products on the tensor cores at fp32 accuracy:
+// mma.sync m16n8k8 in TF32 with the 3xTF32 split.  Each operand x is cut
+// into big = tf32(x) and small = tf32(x − big) (round to nearest), and
+// a·b ≈ small_a·big_b + big_a·small_b + big_a·big_b: the two small
 // terms first, then big·big, into a fresh fragment per step of 8 that is
 // added to the running sum in fp32 (mma3, in mma_tf32.cuh with the
 // cp.async helpers, shared with lora_matmul.cu).  The dropped small·small term
@@ -77,14 +77,27 @@
 // for 32, 64, 128 and 256 and masked past D; rows past the ragged edges
 // are zero-filled and masked.
 //
-// flash_dq keeps the simple FFMA design of the first port: 256 threads,
-// four a q row, one block per (bh, 64-row q tile), 32-row kv tiles staged
-// in shared memory with an odd row stride; each thread owns a quarter of
-// the row's D outputs.
+// flash_dq takes flash_fwd's layout: the 16-row q tiles of a kv head's
+// GQA group packed in a block (q tile first), K and V tiles of 16 rows
+// through a 2-stage cp.async ring, kv tiles that no query of the block
+// reaches skipped.  Each warp owns 64 columns of D at D 256 and 32 below
+// (DqCfg): KS = D / columns warps share a q tile (4 at D 256, 2 at D 64).
+// It keeps its A fragments of scale·Q and dO for those columns in
+// registers, unsplit, and splits them at each use with split_fast; so no
+// Q or dO tile takes shared memory, which holds the K/V ring and, where
+// several warps share a q tile, their partial S and dP (83 KB a block at
+// D 256).  Per kv
+// tile: S = (scale·Q)Kᵀ and dP = dO·Vᵀ over the warp's columns, the
+// partials added through shared memory in the order of the parts (the
+// same bits in every warp of the tile); P = exp(S − lse), 0 where
+// masked; dS = P∘(dP − D) in the C fragments; then dQ += dS·K over the
+// warp's columns (dS read as the A fragment, K's rows in the same order,
+// as flash_fwd's P·V); dq = scale·dQ at the end.  Registers (ptxas):
+// 255 at D 256 (one block of 8 warps an SM), 190 at D 128, 128 at D 64
+// (two blocks of 8 warps an SM), 203 at D 32; no spills.
 //
-// What a later PR should change: flash_dq onto the tensor cores the same
-// way, with D = rowsum(do∘o) fused into it; wgmma + TMA for sequences
-// long enough to fill 64-row tiles.
+// What a later PR should change: D = rowsum(do∘o) fused into flash_dq;
+// wgmma + TMA for sequences long enough to fill 64-row tiles.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -450,109 +463,238 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // --------------------------------------------------------------------------
-// flash_dq: the FFMA design of the first port
+// flash_dq: 3xTF32 tensor cores, flash_fwd's layout
 // --------------------------------------------------------------------------
-constexpr int NT = 256;
-constexpr int BQ = 64;     // q rows per block
-constexpr int BKV = 32;    // kv rows per step
-
-// rows [r0, r0 + nrows) of a (S, D) slab into a (nrows, LD) smem tile,
-// zero-filled past S and past D
-template <int DT>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int r0, int nrows, int S, int D,
-                                          float mul) {
-  constexpr int LD = DT + 1;
-  for (int e = threadIdx.x; e < nrows * DT; e += NT) {
-    const int rr = e / DT, d = e % DT;
-    const int gr = r0 + rr;
-    dst[rr * LD + d] = (gr < S && d < D) ? src[(size_t)gr * D + d] * mul : 0.f;
-  }
+// x split into an A fragment's element, behind an empty asm the compiler
+// must assume changes it: the split of a register that no kv tile changes
+// stays inside the kv loop (hoisted out of it, the split fragments of Q
+// and dO would hold twice the registers of the unsplit ones)
+__device__ __forceinline__ void split_here(float x, uint32_t& big,
+                                          uint32_t& small) {
+  asm volatile("" : "+f"(x));
+  split_fast(x, big, small);
 }
 
+template <int DT> struct DqCfg {
+  // each warp owns DW columns of D: its k steps of S and dP, its columns
+  // of dQ; KS warps a q tile, S and dP partials summed through shared
+  // memory.  Chosen on the H100 from ptxas -v and CUDA-event times: at
+  // D 256, 64 columns (255 registers, one block of 8 warps an SM) ran
+  // faster than 32 at two blocks an SM (128 registers); below 256, 64
+  // columns spill and 32 do not; at D 64, two blocks an SM cost nothing
+  static constexpr int DW = DT >= 256 ? 64 : 32;
+  static constexpr int MINB = DT == 64 ? 2 : 1;    // blocks an SM
+  static constexpr int KS = DT / DW;
+  static constexpr int TILES = KS <= 2 ? 4 : 8 / KS;  // 16-row q tiles a block
+  static constexpr int NT = 32 * TILES * KS;
+  static constexpr int BKV = 16;                   // kv rows per stage
+  static constexpr int LD = DT + 4;
+  static constexpr int NKW = DW / 8;   // k steps of S, dP; dQ column tiles
+  static constexpr int NJ = BKV / 8;   // S column tiles, k steps of dQ
+  static constexpr size_t smem() {
+    return sizeof(float4) * (KS > 1 ? TILES * KS * NJ * 2 * 32 : 0) +
+           sizeof(float) * 2 * 2 * BKV * LD;
+  }
+};
+
 template <int DT>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(DqCfg<DT>::NT, DqCfg<DT>::MINB)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ dd,
                 float* __restrict__ dq, int G, int Sq, int Skv, int D,
-                float scale, int causal, int window, int q_offset) {
-  constexpr int LD = DT + 1;
-  constexpr int DPT = DT / 4;
-  constexpr int JPT = BKV / 4;
-  extern __shared__ float smem[];
-  float* Qs = smem;                  // BQ x LD (scaled)
-  float* dOs = Qs + BQ * LD;         // BQ x LD
-  float* Ks = dOs + BQ * LD;         // BKV x LD
-  float* Vs = Ks + BKV * LD;         // BKV x LD
-  float* Ps = Vs + BKV * LD;         // BQ x (BKV + 1): ds
+                float scale, int causal, int window, int q_offset, int vec) {
+  using C = DqCfg<DT>;
+  constexpr int KS = C::KS, TILES = C::TILES, NT = C::NT, BKV = C::BKV,
+                LD = C::LD, NKW = C::NKW, NJ = C::NJ, DW = C::DW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // partial S and dP: [q tile][part][NJ][S, dP][32] where KS > 1
+  float4* X = reinterpret_cast<float4*>(smem_raw);
+  float* KV = reinterpret_cast<float*>(
+      X + (KS > 1 ? TILES * KS * NJ * 2 * 32 : 0));
+  // stage st: K at KV + st * 2 * BKV * LD, V right after it
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int row = threadIdx.x >> 2, sub = threadIdx.x & 3;
-  const size_t qoff = (size_t)bh * Sq * D;
-  const float* kb = k + (size_t)(bh / G) * Skv * D;
-  const float* vb = v + (size_t)(bh / G) * Skv * D;
-  const int q_start = q0 + q_offset;
-  const int qpos = q_start + row;
-  const int gq = q0 + row;
-  const float lse_r = gq < Sq ? lse[(size_t)bh * Sq + gq] : 0.f;
-  const float dd_r = gq < Sq ? dd[(size_t)bh * Sq + gq] : 0.f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int slot = warp % TILES, h = warp / TILES;  // q tile, part of D
+  const int d0 = h * DW;                            // this warp's columns
+  const int b = blockIdx.y;                         // kv head
+  const int nqt = (Sq + 15) / 16, tiles = G * nqt;  // (q tile, head) pairs
+  const int w0 = blockIdx.x * TILES;
+  const int w_last = min(tiles, w0 + TILES) - 1;
+  const int wt = w0 + slot;
+  const bool active = wt < tiles;
+  const int qt = active ? wt / G : 0, bh = b * G + (active ? wt % G : 0);
+  const int q0 = qt * 16;                           // this warp's first row
+  const int wq_start = q0 + q_offset;
+  const int bq_start = (w0 / G) * 16 + q_offset;
+  const int bq_len = (w_last / G) * 16 + 16 + q_offset - bq_start;
+  const float* kb = k + (size_t)b * Skv * D;
+  const float* vb = v + (size_t)b * Skv * D;
 
-  load_tile<DT>(Qs, q + qoff, q0, BQ, Sq, D, scale);
-  load_tile<DT>(dOs, dout + qoff, q0, BQ, Sq, D, 1.f);
+  const int ntiles = (Skv + BKV - 1) / BKV;
+  int ka = ntiles, kz = 0;
+  for (int i = 0; i < ntiles; ++i)
+    if (reachable(bq_start, i * BKV, bq_len, BKV, causal, window)) {
+      ka = min(ka, i);
+      kz = i + 1;
+    }
 
-  float acc[DPT];
-  #pragma unroll
-  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
+  auto fetch = [&](int tile, int st) {
+    float* Ks = KV + st * 2 * BKV * LD;
+    async_tile<DT, NT>(Ks, kb, tile * BKV, BKV, Skv, D, vec);
+    async_tile<DT, NT>(Ks + BKV * LD, vb, tile * BKV, BKV, Skv, D, vec);
+    cp_commit();
+  };
+  if (ka < kz) fetch(ka, 0);
 
-  for (int kv0 = 0; kv0 < Skv; kv0 += BKV) {
-    if (!reachable(q_start, kv0, BQ, BKV, causal, window)) continue;
-    __syncthreads();
-    load_tile<DT>(Ks, kb, kv0, BKV, Skv, D, 1.f);
-    load_tile<DT>(Vs, vb, kv0, BKV, Skv, D, 1.f);
-    __syncthreads();
-
+  // this warp's A fragments of scale·Q and dO over its columns, unsplit
+  // (rows g, g+8; columns t, t+4 of each step of 8), and rows g, g+8's
+  // lse and D
+  float4 qf[NKW], df[NKW];
+  float lse_r[2] = {0.f, 0.f}, dd_r[2] = {0.f, 0.f};
+  {
+    const size_t base = (size_t)bh * Sq * D;
     #pragma unroll
-    for (int jj = 0; jj < JPT; ++jj) {
-      const int j = sub + 4 * jj;
-      const int kvpos = kv0 + j;
-      float ds = 0.f;
-      if (kvpos < Skv && !masked(qpos, kvpos, causal, window)) {
-        float sdot = 0.f, dp = 0.f;
-        #pragma unroll 8
-        for (int d = 0; d < DT; ++d) {
-          sdot += Qs[row * LD + d] * Ks[j * LD + d];
-          dp += dOs[row * LD + d] * Vs[j * LD + d];
+    for (int kk = 0; kk < NKW; ++kk) {
+      float a[2][4];
+      #pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        const float* src = w ? dout : q;
+        #pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = q0 + g + 8 * (i & 1);
+          const int col = d0 + 8 * kk + t + 4 * (i >> 1);
+          a[w][i] = (active && row < Sq && col < D)
+                        ? __ldg(src + base + (size_t)row * D + col) : 0.f;
         }
-        const float p = expf(sdot - lse_r);
-        ds = p * (dp - dd_r);
       }
-      Ps[row * (BKV + 1) + j] = ds;
+      qf[kk] = make_float4(a[0][0] * scale, a[0][1] * scale, a[0][2] * scale,
+                           a[0][3] * scale);
+      df[kk] = make_float4(a[1][0], a[1][1], a[1][2], a[1][3]);
     }
-    __syncwarp();
     #pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      const int d = sub + 4 * i;
-      float a = 0.f;
-      #pragma unroll 8
-      for (int j = 0; j < BKV; ++j) a += Ps[row * (BKV + 1) + j] * Ks[j * LD + d];
-      acc[i] += a;
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + g + 8 * r;
+      if (active && row < Sq) {
+        lse_r[r] = lse[(size_t)bh * Sq + row];
+        dd_r[r] = dd[(size_t)bh * Sq + row];
+      }
     }
   }
 
-  if (gq < Sq) {
-    float* out = dq + qoff + (size_t)gq * D;
+  float acc[NKW][4];
+  #pragma unroll
+  for (int n = 0; n < NKW; ++n)
     #pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      const int d = sub + 4 * i;
-      if (d < D) out[d] = acc[i] * scale;
-    }
-  }
-}
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
 
-template <int DT> constexpr size_t dq_smem() {
-  return sizeof(float) * ((2 * BQ + 2 * BKV) * (DT + 1) + BQ * (BKV + 1));
+  for (int it = ka; it < kz; ++it) {
+    const int st = (it - ka) & 1;
+    if (it + 1 < kz) {
+      fetch(it + 1, st ^ 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const int kv0 = it * BKV;
+    const bool work = active &&
+                      reachable(wq_start, kv0, 16, BKV, causal, window);
+    const float* Ks = KV + st * 2 * BKV * LD;
+    const float* Vs = Ks + BKV * LD;
+    // S = (scale·Q) Kᵀ and dP = dO Vᵀ over this warp's columns of D
+    float s[NJ][4], dp[NJ][4];
+    #pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      #pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+    if (work) {
+      #pragma unroll
+      for (int kk = 0; kk < NKW; ++kk) {
+        FragA aq, ad;
+        split_here(qf[kk].x, aq.big.x, aq.small.x);
+        split_here(qf[kk].y, aq.big.y, aq.small.y);
+        split_here(qf[kk].z, aq.big.z, aq.small.z);
+        split_here(qf[kk].w, aq.big.w, aq.small.w);
+        split_here(df[kk].x, ad.big.x, ad.small.x);
+        split_here(df[kk].y, ad.big.y, ad.small.y);
+        split_here(df[kk].z, ad.big.z, ad.small.z);
+        split_here(df[kk].w, ad.big.w, ad.small.w);
+        #pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          mma3(s[j], aq, frag_b_rows<LD>(Ks, 8 * j, d0 + 8 * kk, g, t, 1.f));
+          mma3(dp[j], ad, frag_b_rows<LD>(Vs, 8 * j, d0 + 8 * kk, g, t, 1.f));
+        }
+      }
+    }
+    if constexpr (KS > 1) {
+      // S and dP = part 0 + part 1 + ..., in that order in every warp of
+      // the q tile (the same bits in all)
+      float4* xs = X + slot * KS * NJ * 2 * 32;
+      if (work) {
+        #pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          xs[((h * NJ + j) * 2) * 32 + lane] =
+              make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+          xs[((h * NJ + j) * 2 + 1) * 32 + lane] =
+              make_float4(dp[j][0], dp[j][1], dp[j][2], dp[j][3]);
+        }
+      }
+      __syncthreads();
+      if (work) {
+        #pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          float4 a = xs[(j * 2) * 32 + lane], c = xs[(j * 2 + 1) * 32 + lane];
+          #pragma unroll
+          for (int part = 1; part < KS; ++part) {
+            const float4 a2 = xs[((part * NJ + j) * 2) * 32 + lane];
+            const float4 c2 = xs[((part * NJ + j) * 2 + 1) * 32 + lane];
+            a.x += a2.x; a.y += a2.y; a.z += a2.z; a.w += a2.w;
+            c.x += c2.x; c.y += c2.y; c.z += c2.z; c.w += c2.w;
+          }
+          s[j][0] = a.x; s[j][1] = a.y; s[j][2] = a.z; s[j][3] = a.w;
+          dp[j][0] = c.x; dp[j][1] = c.y; dp[j][2] = c.z; dp[j][3] = c.w;
+        }
+      }
+    }
+    if (work) {
+      // dS = P∘(dP − D), P = exp(S − lse) and 0 where masked; then dQ +=
+      // dS·K over this warp's columns (dS's C fragment read as the A
+      // fragment, K's rows in the same order)
+      #pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        #pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kvpos = kv0 + 8 * j + 2 * t + (i & 1);
+          const int qpos = wq_start + g + 8 * (i >> 1);
+          const bool ok = kvpos < Skv && !masked(qpos, kvpos, causal, window);
+          const float p = ok ? expf(s[j][i] - lse_r[i >> 1]) : 0.f;
+          s[j][i] = p * (dp[j][i] - dd_r[i >> 1]);
+        }
+        const FragA a = frag_a_from_c(s[j]);
+        #pragma unroll
+        for (int n = 0; n < NKW; ++n)
+          mma3(acc[n], a, frag_b_pairs<LD>(Ks, 8 * j, d0 + 8 * n, g, t));
+      }
+    }
+    __syncthreads();                 // this stage is refilled next
+  }
+
+  if (!active) return;
+  #pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int gq = q0 + g + 8 * r;
+    if (gq >= Sq) continue;
+    float* out = dq + ((size_t)bh * Sq + gq) * D;
+    #pragma unroll
+    for (int n = 0; n < NKW; ++n)
+      #pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int d = d0 + 8 * n + 2 * t + c;
+        if (d < D) out[d] = acc[n][2 * r + c] * scale;
+      }
+  }
 }
 
 // --------------------------------------------------------------------------
@@ -804,15 +946,17 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o,
 template <int DT>
 int launch_dq(const float* q, const float* k, const float* v,
               const float* dout, const float* lse, const float* dd, float* dq,
-              int BH, int G, int Sq, int Skv, int D, float scale, int causal,
+              int BKVH, int G, int Sq, int Skv, int D, float scale, int causal,
               int window, int q_offset, cudaStream_t s) {
-  const size_t smem = dq_smem<DT>();
+  using C = DqCfg<DT>;
+  const size_t smem = C::smem();
   cudaError_t err = allow_smem(flash_dq_kernel<DT>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + BQ - 1) / BQ, BH);
-  flash_dq_kernel<DT><<<grid, NT, smem, s>>>(q, k, v, dout, lse, dd, dq, G, Sq,
-                                             Skv, D, scale, causal, window,
-                                             q_offset);
+  const int tiles = G * ((Sq + 15) / 16);
+  const dim3 grid((tiles + C::TILES - 1) / C::TILES, BKVH);
+  flash_dq_kernel<DT><<<grid, C::NT, smem, s>>>(
+      q, k, v, dout, lse, dd, dq, G, Sq, Skv, D, scale, causal, window,
+      q_offset, (int)vec_ok(D, k, v, k));
   return (int)cudaGetLastError();
 }
 
@@ -874,12 +1018,12 @@ int flash_dq(const float* q, const float* k, const float* v,
   const int G = BH / BKVH;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D <= 32)
-    return launch_dq<32>(q, k, v, dout, lse, dd, dq, BH, G, Sq, Skv, D, scale, causal, window, q_offset, s);
+    return launch_dq<32>(q, k, v, dout, lse, dd, dq, BKVH, G, Sq, Skv, D, scale, causal, window, q_offset, s);
   if (D <= 64)
-    return launch_dq<64>(q, k, v, dout, lse, dd, dq, BH, G, Sq, Skv, D, scale, causal, window, q_offset, s);
+    return launch_dq<64>(q, k, v, dout, lse, dd, dq, BKVH, G, Sq, Skv, D, scale, causal, window, q_offset, s);
   if (D <= 128)
-    return launch_dq<128>(q, k, v, dout, lse, dd, dq, BH, G, Sq, Skv, D, scale, causal, window, q_offset, s);
-  return launch_dq<256>(q, k, v, dout, lse, dd, dq, BH, G, Sq, Skv, D, scale, causal, window, q_offset, s);
+    return launch_dq<128>(q, k, v, dout, lse, dd, dq, BKVH, G, Sq, Skv, D, scale, causal, window, q_offset, s);
+  return launch_dq<256>(q, k, v, dout, lse, dd, dq, BKVH, G, Sq, Skv, D, scale, causal, window, q_offset, s);
 }
 
 // The number of head chunks flash_dkv splits each GQA group into: with

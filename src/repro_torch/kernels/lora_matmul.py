@@ -43,7 +43,9 @@ def _lib():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.lora_fused.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         lib.lora_fused.restype = i32
-        lib.lora_panel_grad.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+        lib.lora_panel_splits.argtypes = [i32] * 3
+        lib.lora_panel_splits.restype = i32
+        lib.lora_panel_grad.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
         lib.lora_panel_grad.restype = i32
         lib.lora_dw_splits.argtypes = [i32] * 3
         lib.lora_dw_splits.restype = i32
@@ -116,17 +118,24 @@ def lora_dw(x, g):
 
 
 def lora_panel(lhs, panel, transpose_out: bool = False):
-    """lhs (M, L), panel (M, r) -> lhsᵀ·panel (L, r), or (r, L) transposed."""
+    """lhs (M, L), panel (M, r) -> lhsᵀ·panel (L, r), or (r, L) transposed.
+    The kernel splits M into slices to fill the card and sums them in a
+    fixed order through a workspace allocated here."""
     M, L = lhs.shape
     r = panel.shape[1]
     _rank(r, "lora_panel")
     build.check_tensors("lora_panel", lhs.device, lhs=(lhs, (M, L)),
                         panel=(panel, (M, r)))
+    lib = _lib()
+    splits = lib.lora_panel_splits(M, L, r)
     out = torch.empty((r, L) if transpose_out else (L, r), device=lhs.device,
                       dtype=torch.float32)
-    rc = _lib().lora_panel_grad(lhs.data_ptr(), panel.data_ptr(),
-                                out.data_ptr(), M, L, r, int(transpose_out),
-                                build.stream(lhs.device))
+    ws = torch.empty((splits, L * r), device=lhs.device,
+                     dtype=torch.float32) if splits > 1 else None
+    rc = lib.lora_panel_grad(lhs.data_ptr(), panel.data_ptr(),
+                             out.data_ptr(),
+                             None if ws is None else ws.data_ptr(), M, L, r,
+                             int(transpose_out), build.stream(lhs.device))
     build.check(rc, "lora_panel")
     LAUNCHES["lora_panel"] += 1
     return out

@@ -125,3 +125,32 @@ def test_kernel_run_beyond_a_limit_fails(case):
 def test_each_run_is_measured_from_the_fp64_run_of_its_own_weights(
         role, kind, want):
     assert cs.yardstick(role, kind) == want
+
+
+PTXAS = """ptxas info    : Compiling entry function '_Z15flash_dq_kernelILi64EEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z15flash_dq_kernelILi64EEvPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 17408 bytes smem
+ptxas info    : Function properties for _Z15flash_dq_kernelILi256EEvPKf
+    16 bytes stack frame, 12 bytes spill stores, 20 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 82944 bytes smem
+ptxas info    : Function properties for _Z17flash_fwd_kernelILi64EEvPKf
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers
+"""
+
+
+@pytest.mark.parametrize("kernel,want", [
+    ("flash_dq_kernel", {"_Z15flash_dq_kernelILi64EEvPKf": 0,
+                         "_Z15flash_dq_kernelILi256EEvPKf": 32}),
+    ("flash_fwd_kernel", {"_Z17flash_fwd_kernelILi64EEvPKf": 16}),
+    ("lora_fused_kernel", {})])
+def test_kernel_spills_reads_each_instance_of_the_named_kernel(kernel, want):
+    """Phase 1's spill check: the spill stores plus loads of every
+    instance of one kernel in a ptxas -v report, and no other kernel's."""
+    assert cs.kernel_spills(PTXAS, kernel) == want
+
+
+def test_no_spill_check_covers_flash_dq_and_the_fused_lora_kernel():
+    assert cs.NO_SPILLS == {"lora_matmul": ("lora_fused_kernel", 8),
+                            "flash_attention": ("flash_dq_kernel", 4)}

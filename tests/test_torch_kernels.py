@@ -98,6 +98,28 @@ def test_lora_dw_matches_pallas_dw_call(M, K, N, bm, bk, bn):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD)
 
 
+@pytest.mark.parametrize("transpose_out", [False, True])
+@pytest.mark.parametrize("M,L,r,bm,bl", [(128, 256, 8, 128, 128),
+                                         (256, 384, 4, 128, 128),
+                                         (80, 512, 16, 16, 256),
+                                         (384, 128, 64, 128, 128)])
+def test_panel_grad_matches_pallas_panel_grad_call(M, L, r, bm, bl,
+                                                   transpose_out):
+    """Row 4: the panel-gradient twin (dA = xᵀ·gb, and dB = (gᵀ·xa)ᵀ
+    transposed out) against the reference's ``_panel_grad_call`` in
+    interpret mode, blocks dividing the shapes (M 80: a DP batch-1 pass;
+    ranks 4 to 64); the panel scaled by M^-0.5 so that the output is
+    O(1)."""
+    from repro.kernels.lora_matmul import _panel_grad_call
+    lhs, panel = _inputs(M + L + r, ((M, L), 1.0), ((M, r), M ** -0.5))
+    want = np.asarray(_panel_grad_call(jnp.asarray(lhs), jnp.asarray(panel),
+                                       bm, bl, True, jnp.float32))
+    got = ref.panel_grad(torch.tensor(lhs), torch.tensor(panel),
+                         transpose_out)
+    np.testing.assert_allclose(got.numpy(), want.T if transpose_out else want,
+                               **GRAD)
+
+
 @pytest.mark.parametrize("M,K,N", [(77, 160, 48), (130, 96, 200)])
 def test_lora_dw_ragged_matches_reference_ops(M, K, N):
     """Row 3 at a ragged M, K and N through the reference's
