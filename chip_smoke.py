@@ -8,8 +8,8 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
 1. Prints the card's name and power limit (nvidia-smi), checks compute
    capability 9.0 and builds the CUDA kernels from kernels/csrc/ with nvcc,
    printing each kernel's registers and spills (ptxas -v); the 8
-   instances of the fused LoRA kernel and the 4 of flash_dq must not
-   spill.
+   instances of the fused LoRA kernel, the dense dW kernel and the 4 of
+   flash_dq must not spill.
 2. Holds every ported kernel against its plain PyTorch version on the card
    at the main path's shapes, at ragged shapes and (KD loss, top-k) at a
    generative vocabulary (1280 x 50257), and times the kernel, the plain
@@ -21,9 +21,15 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    another order); KD loss atol 1e-5 /
    rtol 1e-4 (the reference's bar for its kernel); top-k quantization bit
    for bit; the DP clip kernels atol 1e-6 / rtol 1e-5 (the reference's bar
-   for its clip kernel), at the main path's (16, 442368) and at four
+   for its clip kernel), at the main path's (16, 442368) and at eight
    other shapes: every row clipped, a ragged width, none clipped, half
-   clipped, and a row of zeros; the per-row quantizers (int8 and int4
+   clipped, and a row of zeros; one row at the main width, P 3 (fewer
+   elements than a cluster's threads), a ragged width over many loads a
+   thread, and the main shape with a zero row from a misaligned base;
+   the norm kernel's error against an fp64 sqrt(sum(g·g)) within
+   FP64_FACTOR times the larger of its fp32 twin's and vector_norm's, and
+   its bits the same on two eager calls and two replays of one CUDA
+   graph; the per-row quantizers (int8 and int4
    levels, and the int4 pack) bit for bit at the Split boundary's
    (1280, 768) and at ragged widths (warp and block variants, float4 and
    scalar loads, a misaligned row start), each with a row of zeros and
@@ -59,9 +65,9 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    within atol 1e-5 / rtol 1e-4, S_final and every checkpoint bit for
    bit, and at the train shape each output's error against an fp64 run
    of the plain version within twice the fp32 plain version's.  The
-   3xTF32 kernels' (LoRA forward and dx, the three flash kernels)
+   3xTF32 kernels' (LoRA forward, dx and dW, the three flash kernels)
    operation bound is taken at a third of the card's TF32 rate, and
-   their fp32-rate bound printed beside it.
+   their fp32-rate bound printed beside it (kernel_bound).
 
 The full-width phases judge the kernels by their error, measured from an
 fp64 run of the plain path (each_run's "exact": policy ``torch``, the
@@ -227,7 +233,8 @@ PEAKS = {"H100 PCIe": (51.2e12, 2.0e12, 378e12),
          "H100": (67.0e12, 3.35e12, 494.7e12)}
 # kernels whose products run on the tensor cores in 3xTF32 (three TF32
 # products each): their operation bound is at a third of the TF32 peak
-TF32X3 = ("lora_fwd", "lora_dx", "flash_fwd", "flash_dq", "flash_dkv")
+TF32X3 = ("lora_fwd", "lora_dx", "lora_dw", "flash_fwd", "flash_dq",
+          "flash_dkv")
 BATCH, PAD_LEN, RANK = 16, 80, 8
 SPLIT_LAYER, SPLIT_BITS = 2, 8
 # LoRA parameters per example at gpt2 width: rank 8 on wq/wk/wv, 12 layers
@@ -888,23 +895,33 @@ def kd_cases(device, R, V, T, topk_teacher, Rq, Cq, k, bits, ties, seed):
     }
 
 
-def dp_cases(device, B, P, clip, zero_row, seed):
-    """The two DP clip kernels on (B, P) per-example gradients whose row
-    norms spread over 0.5-1.5x, with the clip C at ``clip``: "half" (the
-    median row norm: half the rows clip), "all" (half the smallest norm)
-    or "none" (twice the largest); row 3 all zeros when ``zero_row``.
-    Returns (cases as kernel_cases, C, rows clipped)."""
+def dp_rows(device, B, P, zero_row, offset, seed):
+    """(B, P) per-example gradients whose row norms spread over 0.5-1.5x,
+    row 3 all zeros when ``zero_row``, placed ``offset`` floats into their
+    storage (misaligned for 16-byte loads at 1)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flat = torch.randn(offset + B * P, device=device, generator=gen)
+    g = flat[offset:].view(B, P)
+    g *= torch.linspace(0.5, 1.5, B, device=device)[:, None]
+    if zero_row:
+        g[3] = 0.0
+    return g
+
+
+def dp_cases(device, B, P, clip, zero_row, seed, offset=0):
+    """The two DP clip kernels on dp_rows' (B, P) gradients, with the clip
+    C at ``clip``: "half" (the median row norm: half the rows clip), "all"
+    (half the smallest norm) or "none" (twice the largest).  Returns
+    (cases as kernel_cases, C, rows clipped)."""
     import torch
 
     from repro_torch.kernels import dp_clip
     from repro_torch.kernels import ref
     from repro_torch.optim.clip import EPS
 
-    gen = torch.Generator(device=device).manual_seed(seed)
-    g = torch.randn((B, P), device=device, generator=gen)
-    g *= torch.linspace(0.5, 1.5, B, device=device)[:, None]
-    if zero_row:
-        g[3] = 0.0
+    g = dp_rows(device, B, P, zero_row, offset, seed)
     sq = ref.clip_norms_ref(g)
     norms = sq.sqrt()
     C = {"half": float(norms.median()), "all": float(norms.min()) / 2,
@@ -928,6 +945,60 @@ def dp_cases(device, B, P, clip, zero_row, seed):
                         lambda: ref.clip_acc_ref(g, sq, C), lib_acc,
                         f4 * (B * P + B + P), 2 * B * P + 3 * B),
     }, C, clipped
+
+
+def dp_norm_fp64_errors(device, seed) -> dict:
+    """rms error of the row norms at the main path's (BATCH, DP_WIDTH)
+    against an fp64 sqrt(sum(g·g)), through the norm kernel, its fp32 twin
+    (both as sqrt of the squared norm, taken in fp64) and ``vector_norm``;
+    compared as norms so that no side pays for a squaring.  Fails unless
+    the kernel's is within FP64_FACTOR times the larger of the twin's and
+    vector_norm's."""
+    import torch
+
+    from repro_torch.kernels import dp_clip
+    from repro_torch.kernels import ref
+
+    g = dp_rows(device, BATCH, DP_WIDTH, False, 0, seed)
+    exact = (g.double() ** 2).sum(1).sqrt()
+    got = {"kernel": dp_clip.dp_clip_norms(g).double().sqrt(),
+           "plain fp32": ref.clip_norms_ref(g).double().sqrt(),
+           "vector_norm": torch.linalg.vector_norm(g, dim=1).double()}
+    rms = {who: float(((v - exact) ** 2).mean().sqrt())
+           for who, v in got.items()}
+    yard = max(rms["plain fp32"], rms["vector_norm"])
+    print(f"  dp_clip_norms at ({BATCH}, {DP_WIDTH}): rms error of the norms "
+          f"against fp64 " + ", ".join(f"{k} {v:.3e}" for k, v in rms.items())
+          + f" (kernel / the larger of the others {rms['kernel'] / yard:.2f})")
+    require(rms["kernel"] <= FP64_FACTOR * yard,
+            f"dp_clip_norms: rms error against fp64 {rms['kernel']:.3e} "
+            f"exceeds {FP64_FACTOR} times {yard:.3e}")
+    return rms
+
+
+def dp_norms_repeat(device, seed) -> None:
+    """The norm kernel gives the same bits on two eager calls and on two
+    replays of one CUDA graph that captured it, at the main path's
+    shape."""
+    import torch
+
+    from repro_torch.kernels import dp_clip
+
+    g = dp_rows(device, BATCH, DP_WIDTH, False, 0, seed)
+    first, second = dp_clip.dp_clip_norms(g), dp_clip.dp_clip_norms(g)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dp_clip.dp_clip_norms(g)
+    graph.replay()
+    one = out.clone()
+    graph.replay()
+    two = out.clone()
+    for what, t in (("a second eager call", second), ("graph replay 1", one),
+                    ("graph replay 2", two)):
+        require(torch.equal(first, t), f"dp_clip_norms: {what} differs from "
+                f"the first call in {int((first != t).sum())} of {BATCH} rows")
+    print(f"  dp_clip_norms at ({BATCH}, {DP_WIDTH}): two eager calls and two "
+          f"CUDA-graph replays bit-identical")
 
 
 def quant_cases(device, R, C, special, offset, seed):
@@ -982,11 +1053,24 @@ def quant_cases(device, R, C, special, offset, seed):
     return cases
 
 
+def kernel_bound(name, nbytes, nflops, peaks_) -> dict:
+    """The least time the card could take for a kernel's work: the larger
+    of its bytes over the memory rate and its operations over the fp32
+    rate, or a third of the TF32 tensor-core rate for the 3xTF32 kernels
+    (TF32X3; their fp32-rate bound beside it as ``bound_fp32_ms``)."""
+    fp32_peak, bytes_peak, tf32_peak = peaks_
+    flops_peak = tf32_peak / 3 if name in TF32X3 else fp32_peak
+    t_bytes, t_ops = nbytes / bytes_peak, nflops / flops_peak
+    out = {"bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if name in TF32X3:
+        out["bound_fp32_ms"] = max(t_bytes, nflops / fp32_peak) * 1e3
+    return out
+
+
 def time_case(name, case, peaks_) -> dict:
     """Checks one case and times its kernel, plain and library versions."""
     kern, plain, lib, nbytes, nflops = case
-    fp32_peak, bytes_peak, tf32_peak = peaks_
-    flops_peak = tf32_peak / 3 if name in TF32X3 else fp32_peak
     err = max_err(name, kern(), plain())
     row = {"max_abs_err": err, "ms": cuda_ms(kern),
            "plain_ms": cuda_ms(plain),
@@ -996,12 +1080,8 @@ def time_case(name, case, peaks_) -> dict:
         row["library_graph_ms"] = graph_ms(lib) if lib is not None else None
     if name in COLD_TIMED:
         row["cold_ms"] = cold_graph_ms(kern)
-    t_bytes, t_ops = nbytes / bytes_peak, nflops / flops_peak
-    row.update(bound_ms=max(t_bytes, t_ops) * 1e3,
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               bytes=nbytes, flops=nflops)
-    if name in TF32X3:
-        row["bound_fp32_ms"] = max(t_bytes, nflops / fp32_peak) * 1e3
+    row.update(kernel_bound(name, nbytes, nflops, peaks_), bytes=nbytes,
+               flops=nflops)
     lib_ms = "n/a" if row["library_ms"] is None \
         else f"{row['library_ms']:.4f}"
     atol, rtol = tolerance(name)
@@ -1237,17 +1317,26 @@ def check_kernels(device, card: str):
     for name, case in kd_cases(device, seed=9, **gen_shape).items():
         rows[f"{name}@generative"] = time_case(name, case, peaks_)
     # DP: every row clipped (float4 loads), a ragged width (scalar loads),
-    # none clipped over three chunks of a row (scalar), half clipped with a
-    # ragged last chunk and a zero row (float4)
+    # none clipped (scalar), half clipped with a ragged last share and a
+    # zero row (float4); one row at the main width; P 3 (fewer elements
+    # than a cluster's threads) with a zero row; a ragged width over many
+    # loads a thread; the main shape with a zero row and its base one
+    # float off 16-byte alignment (scalar)
     dp_checks = [dict(B=8, P=384, clip="all", zero_row=False),
                  dict(B=4, P=257, clip="half", zero_row=False),
                  dict(B=5, P=16385, clip="none", zero_row=False),
-                 dict(B=16, P=20004, clip="half", zero_row=True)]
+                 dict(B=16, P=20004, clip="half", zero_row=True),
+                 dict(B=1, P=DP_WIDTH, clip="none", zero_row=False),
+                 dict(B=4, P=3, clip="half", zero_row=True),
+                 dict(B=5, P=100003, clip="half", zero_row=False),
+                 dict(B=BATCH, P=DP_WIDTH, clip="half", zero_row=True,
+                      offset=1)]
     for i, shape in enumerate(dp_checks):
         cases, C, clipped = dp_cases(device, seed=300 + i, **shape)
         print(f"  dp shape {i} ({shape['B']}x{shape['P']}, C {C:.4g}, "
               f"{clipped} of {shape['B']} rows clipped"
-              f"{', a zero row' if shape['zero_row'] else ''}):")
+              f"{', a zero row' if shape['zero_row'] else ''}"
+              f"{', offset 1' if shape.get('offset') else ''}):")
         for name, case in cases.items():
             time_case(name, case, peaks_)
     # per-row quantizers: a warp per row with scalar loads at ragged widths
@@ -1275,6 +1364,8 @@ def check_kernels(device, card: str):
     require(0 < clipped < BATCH, f"{clipped} of {BATCH} rows clipped")
     for name, case in cases.items():
         rows[name] = time_case(name, case, peaks_)
+    dp_norm_fp64_errors(device, 22)
+    dp_norms_repeat(device, 23)
     torch.cuda.empty_cache()
     return rows
 
@@ -2266,9 +2357,10 @@ def run_base_grad(device):
     return counts["kernels"]
 
 
-# the kernels that must not spill: {source: (kernel, instances)}
-NO_SPILLS = {"lora_matmul": ("lora_fused_kernel", 8),
-             "flash_attention": ("flash_dq_kernel", 4)}
+# the kernels that must not spill: {kernel: (source, instances)}
+NO_SPILLS = {"lora_fused_kernel": ("lora_matmul", 8),
+             "lora_dw_kernel": ("lora_matmul", 1),
+             "flash_dq_kernel": ("flash_attention", 4)}
 
 
 def kernel_spills(log: str, kernel: str) -> dict:
@@ -2348,7 +2440,7 @@ def main() -> int:
             if any(word in line for word in ("properties for", "registers",
                                              "spill", "error")):
                 print("    " + line.strip())
-    for source, (kernel, instances) in NO_SPILLS.items():
+    for kernel, (source, instances) in NO_SPILLS.items():
         if source not in report:
             continue
         spills = kernel_spills(report[source]["log"], kernel)

@@ -32,11 +32,14 @@ the LoRA's relative L2 from it, the coordinates more than lr/2 away and,
 where they first appear, the gradient there against the fp64 one; then
 the final LoRA of full runs from the seed-0 weights and from nudged
 copies 0-7, kernels and plain each measured from an fp64 run of the same
-weights; then the int8 set's spread: plain runs from nudged copies 0-11,
-kernel runs from 0-5 and TF32 runs from 0-2, measured from the plain run
-(about two minutes):
+weights, with how many of those weight sets part (above PARTS_AT from
+their own fp64 run) for each and the Fisher exact p of the difference;
+then the int8 set's spread: plain runs from nudged copies 0-11, kernel
+runs from 0-5 and TF32 runs from 0-2, measured from the plain run (about
+two minutes).  A count after ``split`` takes that many nudged copies
+instead of 8 (each adds three Split runs, about 8 seconds):
 
-    python3 scripts/chip_attribution.py split
+    python3 scripts/chip_attribution.py split [COPIES]
 
 With ``kblock KB``, chip_smoke.py's precision gates with the fused LoRA
 kernel summing K in blocks of KB instead of the source's: a copy of
@@ -46,6 +49,17 @@ and phase 8's first-step gate, and prints every gate, none stopping the
 run (the K block of the source was chosen this way):
 
     python3 scripts/chip_attribution.py kblock 128
+
+With ``dw``, where the dense dW kernel (``lora_dw_kernel``, wgmma in
+3xTF32) spends its time: copies of csrc/lora_matmul.cu under
+build/dw-ablation/ with one part of its stage loop taken out (DW_ABLATIONS:
+the loads after the first two stages, the products, or two of each step's
+three products), each built with the port's flags and timed beside the
+kernel and ``x.t() @ g`` at GPT-2's, RecurrentGemma-2B's and RWKV-6's
+(1280, K, N), in turns; the ablated copies compute wrong values by design
+(under a minute):
+
+    python3 scripts/chip_attribution.py dw
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -59,6 +73,23 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+# a Split fp32 run "parts" from fp64 where its final LoRA lies this far
+# (relative L2) from the fp64 run of the same weights: the runs that stay
+# lie within ~1.3e-5, those that part at 7e-5 to 1.2e-4
+PARTS_AT = 5e-5
+
+
+def fisher_exact(a: int, n_a: int, b: int, n_b: int):
+    """(two-sided p, one-sided p that the first group parts more often)
+    of a parts in n_a against b parts in n_b: the hypergeometric law of
+    the first group's count with the margins fixed."""
+    from math import comb
+    parts, n = a + b, n_a + n_b
+    lo, hi = max(0, parts - n_b), min(parts, n_a)
+    prob = {k: comb(n_a, k) * comb(n_b, parts - k) / comb(n, parts)
+            for k in range(lo, hi + 1)}
+    two = sum(q for q in prob.values() if q <= prob[a] * (1 + 1e-9))
+    return min(1.0, two), sum(q for k, q in prob.items() if k >= a)
 
 
 def rwkv_setup(dev):
@@ -82,6 +113,90 @@ def rwkv_setup(dev):
     fed = FedConfig(framework="fedllm", rounds=2, lora_rank=chip_smoke.RANK,
                     lora_dropout=0.0, lora_targets=lora.RWKV_TARGETS)
     return cfg, clients, base, fed
+
+
+# (name, what it shows, the text of lora_dw_kernel's stage loop it
+# replaces, what it puts there)
+DW_ABLATIONS = (
+    ("noload", "the products and stores alone: no loads after the first "
+     "two stages", """      if (s + 2 < stages) {
+        const int m0 = mbeg + (s + 2) * DW_BK;
+        dw_load(xv, X, K, m0, mend, k0, K);
+        dw_load(gv, G, N, m0, mend, n0, N);
+      }""", ""),
+    ("nomma", "the staging alone: loads, splits and stores, no wgmma",
+     """      wgmma_tf32(acc, wgmma_desc(xs + 8 * kk), wgmma_desc(gb + 8 * kk),
+                 fresh && kk == 0 ? 0 : 1);
+      wgmma_tf32(acc, wgmma_desc(xb + 8 * kk), wgmma_desc(gs + 8 * kk), 1);
+      wgmma_tf32(acc, wgmma_desc(xb + 8 * kk), wgmma_desc(gb + 8 * kk), 1);""",
+     "      acc[kk] += xs[threadIdx.x % DW_T] * gb[kk];"),
+    ("one", "one product a step (big·big) instead of three",
+     """      wgmma_tf32(acc, wgmma_desc(xs + 8 * kk), wgmma_desc(gb + 8 * kk),
+                 fresh && kk == 0 ? 0 : 1);
+      wgmma_tf32(acc, wgmma_desc(xb + 8 * kk), wgmma_desc(gs + 8 * kk), 1);
+      wgmma_tf32(acc, wgmma_desc(xb + 8 * kk), wgmma_desc(gb + 8 * kk), 1);""",
+     """      wgmma_tf32(acc, wgmma_desc(xb + 8 * kk), wgmma_desc(gb + 8 * kk),
+                 fresh && kk == 0 ? 0 : 1);"""),
+)
+
+
+def dw_ablation(dev) -> None:
+    """``dw``: see the module's docstring."""
+    import ctypes
+
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build, lora_matmul as lm
+
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    source = (csrc / "lora_matmul.cu").read_text()
+    libs = {"kernel": lm._lib()}
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name, what, old, new in DW_ABLATIONS:
+        if source.count(old) != 1:
+            raise RuntimeError(f"chip_attribution: {name}: the text it "
+                               "replaces is not in lora_matmul.cu once")
+        dst = ROOT / "build" / "dw-ablation" / name
+        shutil.rmtree(dst, ignore_errors=True)
+        dst.mkdir(parents=True)
+        for header in csrc.glob("*.cuh"):
+            shutil.copy(header, dst)
+        (dst / "lora_matmul.cu").write_text(source.replace(old, new))
+        out = dst / "liblora_matmul.so"
+        subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+                        str(dst / "lora_matmul.cu")], check=True,
+                       capture_output=True)
+        lib = ctypes.CDLL(str(out))
+        lib.lora_dw_splits.argtypes, lib.lora_dw_splits.restype = [i32] * 3, i32
+        lib.lora_dw.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+        lib.lora_dw.restype = i32
+        libs[name] = lib
+        print(f"{name}: {what}", flush=True)
+
+    def run(lib, x, g):
+        (M, K), N = x.shape, g.shape[1]
+        splits = lib.lora_dw_splits(M, K, N)
+        dw = torch.empty((K, N), device=dev)
+        ws = torch.empty((splits, K, N), device=dev) if splits > 1 else None
+        build.check(lib.lora_dw(x.data_ptr(), g.data_ptr(), dw.data_ptr(),
+                                None if ws is None else ws.data_ptr(), M, K,
+                                N, build.stream(dev)), "lora_dw")
+        return dw
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    M = cs.BATCH * cs.PAD_LEN
+    for K in (768, 2560, 2048):
+        x = torch.randn((M, K), device=dev, generator=gen)
+        g = torch.randn((M, K), device=dev, generator=gen) * M ** -0.5
+        times = {name: [] for name in ["library", *libs]}
+        for _ in range(2):
+            times["library"].append(cs.cuda_ms(lambda: x.t() @ g))
+            for name, lib in libs.items():
+                times[name].append(cs.cuda_ms(lambda: run(lib, x, g)))
+        print(f"dW at ({M}, {K}, {K}), ms (the faster of two turns): "
+              + ", ".join(f"{k} {min(v):.4f}" for k, v in times.items()),
+              flush=True)
 
 
 def kblock(kb: int) -> int:
@@ -175,8 +290,8 @@ def rwkv_trajectory(dev) -> None:
                   f"B factors {rel(pairs[1::2]):.3e}", flush=True)
 
 
-def split_spread(dev) -> None:
-    """``split``: see the module's docstring."""
+def split_spread(dev, copies: int = 8) -> None:
+    """``split [COPIES]``: see the module's docstring."""
     import torch
 
     import chip_smoke as cs
@@ -270,14 +385,23 @@ def split_spread(dev) -> None:
         return [t.double() for t in tree_lib.leaves(res.final_lora)]
 
     exact0 = run("fp64", None, 0)
-    for seed in [None] + list(range(8)):
+    parted = {"plain": 0, "kernels": 0}
+    for seed in [None] + list(range(copies)):
         exact = exact0 if seed is None else run("fp64", seed, 0)
+        gap = {mode: cs.rel_l2(run(mode, seed, 0), exact) for mode in parted}
+        for mode in parted:
+            parted[mode] += gap[mode] > PARTS_AT
         print(f"split fp32 from {name(seed)}: final LoRA relative L2 from "
               f"the fp64 run of the same weights: plain "
-              f"{cs.rel_l2(run('plain', seed, 0), exact):.3e}, kernels "
-              f"{cs.rel_l2(run('kernels', seed, 0), exact):.3e}; that fp64 "
+              f"{gap['plain']:.3e}, kernels {gap['kernels']:.3e}; that fp64 "
               f"run from the seed-0 weights' {cs.rel_l2(exact, exact0):.3e}",
               flush=True)
+    sets = copies + 1
+    two, one = fisher_exact(parted["kernels"], sets, parted["plain"], sets)
+    print(f"split fp32: parted from fp64 (above {PARTS_AT:g}): kernels "
+          f"{parted['kernels']} of {sets} weight sets, plain "
+          f"{parted['plain']} of {sets}; Fisher exact p {two:.3g} "
+          f"(two-sided), {one:.3g} (kernels more often)", flush=True)
     plain = run("plain", None, cs.SPLIT_BITS)
     for mode, seeds in (("plain", range(12)), ("kernels", range(6)),
                         ("tf32", range(3))):
@@ -295,18 +419,27 @@ def main() -> int:
     if sys.argv[1:2] == ["kblock"] and len(sys.argv) == 3:
         return kblock(int(sys.argv[2]))
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    if sys.argv[1:] == ["dw"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip(), torch.__version__, flush=True)
+        dw_ablation(torch.device("cuda", 0))
+        return 0
     if sys.argv[1:] == ["fp64"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(torch.cuda.get_device_name(0), torch.__version__, flush=True)
         fp64_errors(torch.device("cuda", 0))
         return 0
-    if sys.argv[1:] == ["split"]:
+    if sys.argv[1:2] == ["split"] and len(sys.argv) <= 3:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip(), torch.__version__)
-        split_spread(torch.device("cuda", 0))
+        split_spread(torch.device("cuda", 0),
+                     int(sys.argv[2]) if len(sys.argv) == 3 else 8)
         return 0
     if sys.argv[1:] == ["rwkv"]:
         torch.backends.cuda.matmul.allow_tf32 = False

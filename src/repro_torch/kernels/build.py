@@ -128,5 +128,11 @@ def check_tensors(kernel: str, device, dtype=torch.float32, **tensors):
 
 
 def stream(device) -> int:
-    """The handle of PyTorch's current stream on ``device``."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of PyTorch's current stream on ``device`` (the capture
+    stream while a CUDA graph records), read raw as PyTorch's own
+    generated kernels read it: ``torch.cuda.current_stream(device)``
+    builds a Stream object on every call, and on the card's host that
+    took longer than the small kernels take on the card."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

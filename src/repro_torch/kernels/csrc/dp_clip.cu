@@ -19,11 +19,20 @@
 // The design, for a card whose blocks run in parallel and in no order (the
 // TPU's kernels carry the norms across a sequential grid instead):
 //
-//   * norms: a grid of (chunks, B) blocks, each covering `chunk` contiguous
-//     elements of one row with float4 loads where the row allows them (P a
-//     multiple of 4 and a 16-byte aligned base), writing one partial sum of
-//     squares; then one warp per row sums that row's partials in a fixed
-//     order.  No atomics, so the result is the same on every run.
+//   * norms: one launch, one thread-block cluster of NORM_CLUSTER blocks a
+//     row (grid (NORM_CLUSTER, B)), no scratch.  Block c sums the c-th
+//     contiguous share of its row (a multiple of 4 floats) with float4
+//     loads where the row allows them (P a multiple of 4 and a 16-byte
+//     aligned base), NORM_UNROLL loads in flight a thread, each thread in
+//     its own fixed order, then the block's warps butterfly and add in
+//     warp order; after a cluster barrier block 0 reads the cluster's
+//     partial sums from the other blocks' shared memory in rank order and
+//     writes sq[row]; a second barrier keeps every block's shared memory
+//     alive until then.  No atomics and no counter: the same bits on every
+//     run and every CUDA-graph replay.  At the main path's B = 16 the grid
+//     is 128 blocks of 512 threads, 32 KB of loads in flight on each SM;
+//     one launch and one allocation a call keep an eager call's host time
+//     near the device time.
 //   * clip-accumulate: a 1-D grid over columns (4 per thread with float4);
 //     every block first computes the B scales into dynamic shared memory
 //     with IEEE division and sqrtf (no fast math), then each thread
@@ -32,13 +41,19 @@
 // Ragged widths are masked (the scalar path handles any P).  eps is the
 // caller's (repro_torch/optim/clip.EPS), so host, plain twin and kernel use
 // one value.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int NT = 256;            // threads per block
 constexpr int MAX_B = 12288;       // B scales in at most 48 KB of shared memory
+
+constexpr int NORM_CLUSTER = 8;    // blocks a row: one cluster (portable)
+constexpr int NORM_THREADS = 512;  // threads a norm block
+constexpr int NORM_UNROLL = 4;     // loads in flight a thread
 
 __device__ __forceinline__ float warp_sum(float v) {
   #pragma unroll
@@ -48,60 +63,81 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // the block's sum, in a fixed order (warp butterflies, then warps in order)
+template <int THREADS>
 __device__ __forceinline__ float block_sum(float v) {
-  __shared__ float red[NT / 32];
+  __shared__ float red[THREADS / 32];
   v = warp_sum(v);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   if (lane == 0) red[warp] = v;
   __syncthreads();
   float s = 0.f;
   if (threadIdx.x == 0)
-    for (int w = 0; w < NT / 32; ++w) s += red[w];
+    for (int w = 0; w < THREADS / 32; ++w) s += red[w];
   return s;                         // valid in thread 0 only
 }
 
+__device__ __forceinline__ float sq4(float acc, float4 v) {
+  acc = fmaf(v.x, v.x, acc);
+  acc = fmaf(v.y, v.y, acc);
+  acc = fmaf(v.z, v.z, acc);
+  return fmaf(v.w, v.w, acc);
+}
+
+// sq[row] for row = blockIdx.y; block c = blockIdx.x (its rank in the
+// cluster) sums elements [c·share, (c+1)·share) ∩ [0, P) of the row;
+// share is a multiple of 4
 template <bool VEC>
-__global__ void __launch_bounds__(NT)
-norm_partials_kernel(const float* __restrict__ G, float* __restrict__ part,
-                     int P, int chunk, int n_chunks) {
-  const int row = blockIdx.y, c = blockIdx.x;
-  const float* g = G + (size_t)row * P;
-  const int start = c * chunk;
-  const int end = min(start + chunk, P);
+__global__ void __cluster_dims__(NORM_CLUSTER, 1, 1)
+__launch_bounds__(NORM_THREADS)
+norm_kernel(const float* __restrict__ G, float* __restrict__ sq, int P,
+            int share) {
+  namespace cg = cooperative_groups;
+  __shared__ float part;
+  const float* g = G + (size_t)blockIdx.y * P;
+  const int start = min(P, (int)blockIdx.x * share);
+  const int end = min(P, start + share);
+  constexpr int STEP = NORM_UNROLL * NORM_THREADS;
   float acc = 0.f;
   if constexpr (VEC) {
-    // P, chunk and start are multiples of 4: whole float4s only
+    // P, share and start are multiples of 4: whole float4s only
     const float4* g4 = reinterpret_cast<const float4*>(g);
-    for (int i = start / 4 + threadIdx.x; i < end / 4; i += NT) {
-      const float4 v = g4[i];
-      acc = fmaf(v.x, v.x, acc);
-      acc = fmaf(v.y, v.y, acc);
-      acc = fmaf(v.z, v.z, acc);
-      acc = fmaf(v.w, v.w, acc);
+    const int e4 = end / 4;
+    int i = start / 4 + threadIdx.x;
+    for (; i + (NORM_UNROLL - 1) * NORM_THREADS < e4; i += STEP) {
+      float4 v[NORM_UNROLL];
+      #pragma unroll
+      for (int u = 0; u < NORM_UNROLL; ++u)
+        v[u] = __ldg(g4 + i + u * NORM_THREADS);
+      #pragma unroll
+      for (int u = 0; u < NORM_UNROLL; ++u) acc = sq4(acc, v[u]);
     }
+    for (; i < e4; i += NORM_THREADS) acc = sq4(acc, __ldg(g4 + i));
   } else {
-    for (int j = start + threadIdx.x; j < end; j += NT) {
-      const float v = g[j];
+    int j = start + threadIdx.x;
+    for (; j + (NORM_UNROLL - 1) * NORM_THREADS < end; j += STEP) {
+      float v[NORM_UNROLL];
+      #pragma unroll
+      for (int u = 0; u < NORM_UNROLL; ++u)
+        v[u] = __ldg(g + j + u * NORM_THREADS);
+      #pragma unroll
+      for (int u = 0; u < NORM_UNROLL; ++u) acc = fmaf(v[u], v[u], acc);
+    }
+    for (; j < end; j += NORM_THREADS) {
+      const float v = __ldg(g + j);
       acc = fmaf(v, v, acc);
     }
   }
-  const float s = block_sum(acc);
-  if (threadIdx.x == 0) part[(size_t)row * n_chunks + c] = s;
-}
-
-// one warp per row: lane l sums partials l, l+32, ... in order, then a xor
-// butterfly; the order depends only on n_chunks
-__global__ void __launch_bounds__(NT)
-norm_finish_kernel(const float* __restrict__ part, float* __restrict__ sq,
-                   int B, int n_chunks) {
-  const int row = blockIdx.x * (NT / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= B) return;
-  float acc = 0.f;
-  for (int c = lane; c < n_chunks; c += 32)
-    acc += part[(size_t)row * n_chunks + c];
-  acc = warp_sum(acc);
-  if (lane == 0) sq[row] = acc;
+  const float s = block_sum<NORM_THREADS>(acc);
+  if (threadIdx.x == 0) part = s;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (cluster.block_rank() == 0 && threadIdx.x == 0) {
+    float t = 0.f;
+    for (int r = 0; r < NORM_CLUSTER; ++r)
+      t += *cluster.map_shared_rank(&part, r);
+    sq[blockIdx.y] = t;
+  }
+  cluster.sync();
 }
 
 template <bool VEC>
@@ -144,26 +180,18 @@ clip_acc_kernel(const float* __restrict__ G, const float* __restrict__ sq,
 
 extern "C" {
 
-// sq fp32 (B,) from g fp32 (B, P); part is scratch of B * ceil(P / chunk)
-// floats.  vec: P % 4 == 0, chunk % 4 == 0 and g 16-byte aligned.
-int dp_clip_norms(const float* g, float* part, float* sq, int B, int P,
-                  int chunk, int vec, void* stream) {
-  if (B <= 0 || P <= 0 || chunk <= 0 || (vec && (P % 4 || chunk % 4)))
-    return (int)cudaErrorInvalidValue;
+// sq fp32 (B,) from g fp32 (B, P): one launch, no scratch.  Rows are read
+// as float4 where P % 4 == 0 and g is 16-byte aligned.
+int dp_clip_norms(const float* g, float* sq, int B, int P, void* stream) {
+  if (B <= 0 || B > 65535 || P <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_chunks = (P + chunk - 1) / chunk;
-  const dim3 grid(n_chunks, B);
-  if (vec)
-    norm_partials_kernel<true><<<grid, NT, 0, s>>>(g, part, P, chunk,
-                                                   n_chunks);
+  const int per = (P + NORM_CLUSTER - 1) / NORM_CLUSTER;
+  const int share = (per + 3) / 4 * 4;
+  const dim3 grid(NORM_CLUSTER, B);
+  if (P % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0)
+    norm_kernel<true><<<grid, NORM_THREADS, 0, s>>>(g, sq, P, share);
   else
-    norm_partials_kernel<false><<<grid, NT, 0, s>>>(g, part, P, chunk,
-                                                    n_chunks);
-  const int err = (int)cudaGetLastError();
-  if (err) return err;
-  const int rows_per_block = NT / 32;
-  norm_finish_kernel<<<(B + rows_per_block - 1) / rows_per_block, NT, 0,
-                       s>>>(part, sq, B, n_chunks);
+    norm_kernel<false><<<grid, NORM_THREADS, 0, s>>>(g, sq, P, share);
   return (int)cudaGetLastError();
 }
 

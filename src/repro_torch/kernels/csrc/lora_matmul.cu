@@ -7,8 +7,9 @@
 //       dx = g@Wᵀ + (g@Bᵀ)@Aᵀ, reading W, A and B in their native layouts
 //       (the contraction runs over N), and writes gb = g@Bᵀ once.
 //   * lora_dw_kernel (+ dw_sum_kernel) <- _dw_call / _dw_kernel:
-//       the dense dW = xᵀg, summed over M; it runs only where the base
-//       weight itself requires a gradient.
+//       the dense dW = xᵀg, summed over M, on the tensor cores (wgmma,
+//       3xTF32); it runs only where the base weight itself requires a
+//       gradient.
 //   * panel_grad_kernel (+ dw_sum_kernel) <- _panel_grad_call /
 //       _panel_grad_kernel: (L, r) = lhsᵀ·panel, i.e. dA = xᵀ·gb and dB =
 //       (gᵀ·xa)ᵀ, M split over blocks and summed in a fixed order.
@@ -62,21 +63,49 @@
 // 6.06 / 0.15).  No atomics: every output element is summed by one
 // thread in a fixed order.
 //
-// What a later PR should change: wgmma reaches the card's full TF32 rate
-// and takes its B operand from shared memory (no per-warp split of it),
-// but takes TF32 operands only K-major, and the forward's W (K, N) is
-// N-major: its tiles would have to be transposed on staging (or by TMA
-// into a K-major layout).  Grids that cannot fill the card (the (2560,
-// 256) forward at M 1280: 80 blocks) want a split of the contraction
-// with a fixed-order second pass, which needs a workspace argument.
+// What a later PR should change: the dW kernel below (wgmma, operands
+// split once on staging and read by a whole warpgroup from shared memory)
+// is the template: the forward's W (K, N) is N-major and would be
+// transposed on staging as dW's operands are.  Grids that cannot fill
+// the card (the (2560, 256) forward at M 1280: 80 blocks) want a split of
+// the contraction with a fixed-order second pass, which needs a workspace
+// argument.
 //
-// dW tiles its (K, N) output in 64 x 64 blocks of 256 threads (a 4 x 4
-// fp32 register tile a thread) and streams M through shared memory, both
-// operands read along their fast axis (coalesced), summed in partials of
-// DW_PART rows of M; where the tiles alone would not fill the card (768²
-// is 144 tiles on 132 SMs) M is split over gridDim.z into a workspace,
-// and a second pass sums the slices in a fixed order: no atomics, so dW
-// is deterministic.
+// dW = xᵀg contracts over M, along which both x (M, K) and g (M, N) are
+// laid out row by row: on the tensor cores each is an operand whose
+// contraction is its slow axis.  What bounds it is operations: at
+// RecurrentGemma-2B's (1280, 2560, 2560) 16.8 GFLOP take 0.102 ms at a
+// third of the TF32 rate (3xTF32), its 52.4 MB 0.016 ms.  The design:
+//   * a block of two warpgroups per 128 x 128 tile of dW, each warpgroup
+//     64 rows, issuing wgmma m64n128k8 (TF32 in, fp32 sums) with both
+//     operands in shared memory;
+//   * tf32 wgmma takes K-major operands only, and TMA cannot transpose
+//     4-byte elements, so each stage of DW_BK = 32 rows of M is loaded
+//     through registers (4-byte loads, a warp's lanes along a row of x or
+//     g: 128 contiguous bytes) and stored transposed, one 128-byte row of
+//     the contraction per row of the tile, in the 128-byte swizzle (the
+//     8 rows of a 16-byte store phase hit 8 different chunks: no bank
+//     conflict).  Every element is split into big and small once, on
+//     staging (split_fast), into two tiles per operand: no warp splits an
+//     operand at each product, which holds the fused kernels' mma.sync
+//     back;
+//   * 3xTF32 as mma_tf32.cuh defines it: small·big, big·small, then
+//     big·big per step of 8, all three into one accumulator;
+//   * two stages of shared memory (64 KB each): while the wgmmas of one
+//     stage are in flight, the next stage's values (loaded into registers
+//     a stage earlier) are split and stored into the other, and the loads
+//     of the stage after it are issued, so a load has a whole stage to
+//     land;
+//   * the contraction is summed in blocks of DW_BLOCK = 32 rows, each into
+//     a fresh accumulator that is then added to the running fp32 total
+//     (tests/test_torch_tf32_model.py ranks 8, 32 and 128 rows: 32 has
+//     the smallest error in its model);
+//   * where the tiles alone cannot fill the SMs (768² is 36 tiles on 132
+//     SMs) M is split over gridDim.z into slices of whole blocks, one wave
+//     of blocks, and dw_sum_kernel adds the slices in a fixed order: no
+//     atomics, the same bits every run.
+// Ragged K, N and M are zero-filled on staging and masked on the store;
+// the 4-byte loads take any alignment.
 //
 // The panel gradient (L, r) = lhsᵀ·panel moves lhs once (10.5 MB at
 // RWKV-6's (1280, 2048), 3.1 µs at the card's 3.35 TB/s) for 2·M·L·r
@@ -103,12 +132,8 @@
 
 namespace {
 
-constexpr int BM = 64;       // rows of dW (K) per block
-constexpr int BN = 64;       // columns of dW (N) per block
 constexpr int KB = 768;      // contraction summed into one partial
-constexpr int NT = 256;      // threads per dW block
 constexpr int R_MAX = 64;    // largest LoRA rank
-constexpr int PAD = 4;
 
 // The fused kernel's tiles: WARPS_M x WARPS_N warps of FM m16 by FN n8
 // fragments; TK of the contraction a stage.
@@ -561,72 +586,147 @@ panel_grad_kernel(const float* __restrict__ lhs,
 
 static_assert(PC == 32 * PWARPS, "one output column a thread");
 
-constexpr int DW_BM = 16;      // rows of M staged per step
-constexpr int DW_PART = 128;   // rows of M summed into one partial
-constexpr int DW_PER_SM = 4;   // blocks an SM the M split aims for
+constexpr int DW_T = 128;       // rows (K) and columns (N) of dW a block
+constexpr int DW_BK = 32;       // rows of M a stage: one swizzled fp32 row
+constexpr int DW_BLOCK = 32;    // rows of M summed into a fresh accumulator
+constexpr int DW_THREADS = 256; // two warpgroups, 64 rows of the tile each
+constexpr int DW_TILE = DW_T * DW_BK;   // floats of one operand part a stage
+// a stage: x big, x small, g big, g small; two stages, and the slack that
+// puts the first on a 1024-byte boundary
+constexpr int DW_STAGE = 4 * DW_TILE;
+constexpr size_t DW_SMEM = 2 * DW_STAGE * sizeof(float) + 1024;
+constexpr int DW_PER_SM = 4;    // blocks an SM the fixed-order sum aims for
+static_assert(DW_BLOCK % DW_BK == 0, "a block of M is whole stages");
+static_assert(DW_BK == 32, "a stage is one 128-byte swizzle row");
+
+// Thread t stages column c0 + t % 128 of rows [m0, m0 + 32) of a row-major
+// (·, ld) matrix: the 4 rows of chunks t / 128 + 2j (j < 4), one 4-byte
+// load each (a warp's 32 lanes read 128 contiguous bytes), zero past `cols`
+// and `mend`.
+__device__ __forceinline__ void dw_load(float (&v)[4][4], const float* src,
+                                        int ld, int m0, int mend, int c0,
+                                        int cols) {
+  const int col = c0 + threadIdx.x % DW_T;
+  const int cq = threadIdx.x / DW_T;
+  #pragma unroll
+  for (int j = 0; j < 4; ++j)
+    #pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int m = m0 + 4 * (cq + 2 * j) + q;
+      v[j][q] = col < cols && m < mend ? __ldg(src + (size_t)m * ld + col)
+                                       : 0.f;
+    }
+}
+
+// ... and stores them transposed, split once, into the K-major big and
+// small tiles: row t % 128, chunk t / 128 + 2j, one 16-byte store each (the
+// 8 rows of a store phase fall in 8 different chunks of the swizzle: no
+// bank conflict)
+__device__ __forceinline__ void dw_store(const float (&v)[4][4], float* big,
+                                         float* small) {
+  const int row = threadIdx.x % DW_T;
+  const int cq = threadIdx.x / DW_T;
+  #pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint4 b, s;
+    split_fast(v[j][0], b.x, s.x);
+    split_fast(v[j][1], b.y, s.y);
+    split_fast(v[j][2], b.z, s.z);
+    split_fast(v[j][3], b.w, s.w);
+    const int at = swizzle128(row, cq + 2 * j);
+    *reinterpret_cast<uint4*>(big + at) = b;
+    *reinterpret_cast<uint4*>(small + at) = s;
+  }
+}
 
 // out[z][k, n] = sum over slice z of M of X[m, k] G[m, n]; X (M, K) and
-// G (M, N) row-major, slice z = rows [z·rows, (z+1)·rows) ∩ [0, M).
-__global__ void __launch_bounds__(NT)
+// G (M, N) row-major, slice z = rows [z·rows, (z+1)·rows) ∩ [0, M), rows a
+// multiple of DW_BLOCK.  Warpgroup h of the block owns rows [64h, 64h +
+// 64) of its 128 x 128 tile.
+__global__ void __launch_bounds__(DW_THREADS, 1)
 lora_dw_kernel(const float* __restrict__ X, const float* __restrict__ G,
                float* __restrict__ out, int M, int K, int N, int rows) {
-  __shared__ float Xs[DW_BM][BM + PAD];
-  __shared__ float Gs[DW_BM][BN + PAD];
+  extern __shared__ unsigned char dw_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(dw_raw);
+  float* sm = reinterpret_cast<float*>(dw_raw + ((1024 - raw % 1024) % 1024));
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int k0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int k0 = blockIdx.y * DW_T, n0 = blockIdx.x * DW_T;
   const int mbeg = blockIdx.z * rows;
   const int mend = min(M, mbeg + rows);
+  const int stages = (mend - mbeg + DW_BK - 1) / DW_BK;
+  const int wg = threadIdx.x / 128;
 
-  float tot[4][4], part[4][4];
-  for (int i = 0; i < 4; ++i)
-    for (int j = 0; j < 4; ++j) tot[i][j] = 0.f;
+  float acc[64], tot[64];
+  #pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = tot[i] = 0.f;
+  float xv[4][4], gv[4][4];
 
-  for (int p0 = mbeg; p0 < mend; p0 += DW_PART) {
-    const int pend = min(mend, p0 + DW_PART);
+  // stage 0 into shared memory, stage 1 into registers
+  dw_load(xv, X, K, mbeg, mend, k0, K);
+  dw_load(gv, G, N, mbeg, mend, n0, N);
+  dw_store(xv, sm, sm + DW_TILE);
+  dw_store(gv, sm + 2 * DW_TILE, sm + 3 * DW_TILE);
+  fence_async_shared();
+  dw_load(xv, X, K, mbeg + DW_BK, mend, k0, K);
+  dw_load(gv, G, N, mbeg + DW_BK, mend, n0, N);
+  __syncthreads();
+
+  for (int s = 0; s < stages; ++s) {
+    const float* st = sm + (s & 1) * DW_STAGE;
+    const float* xb = st + wg * 64 * DW_BK;
+    const float* xs = xb + DW_TILE;
+    const float* gb = st + 2 * DW_TILE;
+    const float* gs = st + 3 * DW_TILE;
+    // a block of M starts with a fresh accumulator and ends added to tot
+    const bool fresh = (s * DW_BK) % DW_BLOCK == 0;
+    const bool last = ((s + 1) * DW_BK) % DW_BLOCK == 0 || s + 1 == stages;
+    wgmma_hold(acc);
+    wgmma_fence();
     #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      #pragma unroll
-      for (int j = 0; j < 4; ++j) part[i][j] = 0.f;
-    for (int m0 = p0; m0 < pend; m0 += DW_BM) {
-      // (DW_BM x 64) of x and of g, coalesced along k and n
-      for (int e = tid; e < DW_BM * BM; e += NT) {
-        const int m = e / BM, c = e % BM;
-        const int gm = m0 + m;
-        const bool row = gm < pend;
-        Xs[m][c] = (row && k0 + c < K) ? X[(size_t)gm * K + k0 + c] : 0.f;
-        Gs[m][c] = (row && n0 + c < N) ? G[(size_t)gm * N + n0 + c] : 0.f;
-      }
-      __syncthreads();
-      #pragma unroll
-      for (int m = 0; m < DW_BM; ++m) {
-        float xr[4], gr[4];
-        #pragma unroll
-        for (int i = 0; i < 4; ++i) xr[i] = Xs[m][ty + 16 * i];
-        #pragma unroll
-        for (int j = 0; j < 4; ++j) gr[j] = Gs[m][tx + 16 * j];
-        #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          #pragma unroll
-          for (int j = 0; j < 4; ++j) part[i][j] += xr[i] * gr[j];
-      }
-      __syncthreads();
+    for (int kk = 0; kk < DW_BK / 8; ++kk) {
+      // the small terms first, then big·big (mma_tf32.cuh's mma3 order)
+      wgmma_tf32(acc, wgmma_desc(xs + 8 * kk), wgmma_desc(gb + 8 * kk),
+                 fresh && kk == 0 ? 0 : 1);
+      wgmma_tf32(acc, wgmma_desc(xb + 8 * kk), wgmma_desc(gs + 8 * kk), 1);
+      wgmma_tf32(acc, wgmma_desc(xb + 8 * kk), wgmma_desc(gb + 8 * kk), 1);
     }
-    #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    wgmma_commit();
+    // under this stage's products: the next stage, loaded into registers
+    // one stage ago, goes to the other buffer (whose products finished
+    // before the last barrier), and the loads of the stage after it start,
+    // a whole stage ahead of their use
+    if (s + 1 < stages) {
+      float* nx = sm + ((s + 1) & 1) * DW_STAGE;
+      dw_store(xv, nx, nx + DW_TILE);
+      dw_store(gv, nx + 2 * DW_TILE, nx + 3 * DW_TILE);
+      fence_async_shared();
+      if (s + 2 < stages) {
+        const int m0 = mbeg + (s + 2) * DW_BK;
+        dw_load(xv, X, K, m0, mend, k0, K);
+        dw_load(gv, G, N, m0, mend, n0, N);
+      }
+    }
+    wgmma_wait<0>();
+    wgmma_hold(acc);
+    if (last) {
       #pragma unroll
-      for (int j = 0; j < 4; ++j) tot[i][j] += part[i][j];
+      for (int i = 0; i < 64; ++i) tot[i] += acc[i];
+    }
+    __syncthreads();
   }
 
   float* dst = out + (size_t)blockIdx.z * K * N;
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+  const int r0 = k0 + wg * 64 + warp * 16 + lane / 4;
   #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gk = k0 + ty + 16 * i;
+  for (int j = 0; j < 16; ++j) {
+    const int c = n0 + 8 * j + 2 * (lane % 4);
     #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gk < K && gn < N) dst[(size_t)gk * N + gn] = tot[i][j];
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r >= K) continue;
+      if (c < N) dst[(size_t)r * N + c] = tot[4 * j + 2 * h];
+      if (c + 1 < N) dst[(size_t)r * N + c + 1] = tot[4 * j + 2 * h + 1];
     }
   }
 }
@@ -642,27 +742,36 @@ __global__ void dw_sum_kernel(const float* __restrict__ ws,
   }
 }
 
-// Launches one instance; its dynamic shared memory above 48 KB (the most
-// it can take) is allowed at its first launch on each device (the
-// attribute belongs to the device), one bit a device.  Two threads may
-// both set it; setting it twice is harmless.
+// Allows `kernel` `bytes` of dynamic shared memory (above 48 KB) at its
+// first launch on each device (the attribute belongs to the device), one
+// bit of `ready` a device.  Two threads may both set it; setting it twice
+// is harmless.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes,
+                       std::atomic<uint64_t>& ready) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(ready.load() & bit)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    ready.fetch_or(bit);
+  }
+  return cudaSuccess;
+}
+
+// Launches one instance, its dynamic shared memory the most it can take.
 template <bool TRANS, int NR>
 int launch_fused(dim3 grid, cudaStream_t s, const float* X, const float* W,
                  const float* Aop, const float* Bop, float* out, float* xa,
                  int M, int C, int Nout, int r, int vec_x, int vec_w) {
   using F = Fused<TRANS, NR>;
   static std::atomic<uint64_t> ready{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err =
+      allow_smem(lora_fused_kernel<TRANS, NR>, F::smem(true), ready);
   if (err != cudaSuccess) return (int)err;
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (!(ready.load() & bit)) {
-    err = cudaFuncSetAttribute(
-        lora_fused_kernel<TRANS, NR>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F::smem(true));
-    if (err != cudaSuccess) return (int)err;
-    ready.fetch_or(bit);
-  }
   // the running totals need shared memory only beyond one K block
   lora_fused_kernel<TRANS, NR><<<grid, FT, F::smem(C > KB), s>>>(
       X, W, Aop, Bop, out, xa, M, C, Nout, r, vec_x, vec_w);
@@ -724,14 +833,17 @@ void panel_split(int M, int L, int* rows, int* splits) {
   *splits = (M + *rows - 1) / *rows;
 }
 
-// rows of M per slice (a multiple of DW_PART) and the number of slices
+// rows of M per slice (a multiple of DW_BLOCK) and the number of slices:
+// one slice where the 128 x 128 tiles fill the SMs, else as many as keep
+// every block in one wave (one block an SM)
 void dw_split(int M, int K, int N, int* rows, int* splits) {
-  const long tiles = (long)((K + BM - 1) / BM) * ((N + BN - 1) / BN);
-  const int parts = (M + DW_PART - 1) / DW_PART;
-  int want = (int)((dw_blocks() + tiles - 1) / tiles);
-  want = want < 1 ? 1 : (want > parts ? parts : want);
+  const long tiles = (long)((K + DW_T - 1) / DW_T) * ((N + DW_T - 1) / DW_T);
+  const int parts = (M + DW_BLOCK - 1) / DW_BLOCK;
+  const long sms = sm_count();
+  int want = tiles >= sms ? 1 : (int)(sms / tiles);
+  want = want > parts ? parts : want;
   const int per = (parts + want - 1) / want;
-  *rows = per * DW_PART;
+  *rows = per * DW_BLOCK;
   *splits = (M + *rows - 1) / *rows;
 }
 
@@ -807,10 +919,13 @@ int lora_dw(const float* X, const float* G, float* dw, float* ws, int M,
   dw_split(M, K, N, &rows, &splits);
   if (splits > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + BN - 1) / BN, (K + BM - 1) / BM, splits);
-  lora_dw_kernel<<<grid, NT, 0, s>>>(X, G, splits > 1 ? ws : dw, M, K, N,
-                                     rows);
-  cudaError_t err = cudaGetLastError();
+  static std::atomic<uint64_t> ready{0};
+  cudaError_t err = allow_smem(lora_dw_kernel, DW_SMEM, ready);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + DW_T - 1) / DW_T, (K + DW_T - 1) / DW_T, splits);
+  lora_dw_kernel<<<grid, DW_THREADS, DW_SMEM, s>>>(
+      X, G, splits > 1 ? ws : dw, M, K, N, rows);
+  err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   sum_slices(ws, dw, (size_t)K * N, splits, s);
   return (int)cudaGetLastError();

@@ -6,7 +6,8 @@ gradients, each row clipped to L2 norm C,
 Counterpart of ``dp_clip_mean_rows`` in ``src/repro/kernels/dp_clip.py``.
 Its two TPU kernels become the CUDA kernels of ``csrc/dp_clip.cu``:
 
-    dp_clip_norms  <- _norm_kernel      squared row norms (B,), fp32
+    dp_clip_norms  <- _norm_kernel      squared row norms (B,), fp32, one
+                                        launch of a cluster a row
     dp_clip_acc    <- _clip_acc_kernel  scale each row, mean over rows
 
 Forward only, as the reference: the function runs on gradients, after the
@@ -27,8 +28,8 @@ from repro_torch.kernels import build
 from repro_torch.optim.clip import EPS
 
 LAUNCHES = {"dp_clip_norms": 0, "dp_clip_acc": 0}
-CHUNK = 8192            # elements of a row per block of the norm pass
 MAX_B = 12288           # rows whose scales fit the kernel's shared memory
+MAX_NORM_ROWS = 65535   # rows of the norm kernel's grid
 _LIB = None
 
 
@@ -42,7 +43,7 @@ def _lib():
     if _LIB is None:
         lib = build.load("dp_clip")
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.dp_clip_norms.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+        lib.dp_clip_norms.argtypes = [ptr, ptr, i32, i32, ptr]
         lib.dp_clip_norms.restype = i32
         lib.dp_clip_acc.argtypes = [ptr] * 3 + [i32, i32, f32, f32, i32, ptr]
         lib.dp_clip_acc.restype = i32
@@ -57,14 +58,14 @@ def _vec(P: int, *tensors) -> int:
 
 
 def dp_clip_norms(g):
-    """g fp32 (B, P) on CUDA -> squared row norms fp32 (B,)."""
+    """g fp32 (B, P) on CUDA -> squared row norms fp32 (B,): one launch,
+    no scratch (the kernel picks float4 or scalar loads itself)."""
     B, P = g.shape
+    if not 0 < B <= MAX_NORM_ROWS:
+        raise ValueError(f"dp_clip_norms: B={B} outside [1, {MAX_NORM_ROWS}]")
     build.check_tensors("dp_clip_norms", g.device, g=(g, (B, P)))
-    n_chunks = -(-P // CHUNK)
-    part = torch.empty(B * n_chunks, device=g.device, dtype=torch.float32)
     sq = torch.empty(B, device=g.device, dtype=torch.float32)
-    rc = _lib().dp_clip_norms(g.data_ptr(), part.data_ptr(), sq.data_ptr(),
-                              B, P, CHUNK, _vec(P, g),
+    rc = _lib().dp_clip_norms(g.data_ptr(), sq.data_ptr(), B, P,
                               build.stream(g.device))
     build.check(rc, "dp_clip_norms")
     LAUNCHES["dp_clip_norms"] += 1

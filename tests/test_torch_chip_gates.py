@@ -152,5 +152,29 @@ def test_kernel_spills_reads_each_instance_of_the_named_kernel(kernel, want):
 
 
 def test_no_spill_check_covers_flash_dq_and_the_fused_lora_kernel():
-    assert cs.NO_SPILLS == {"lora_matmul": ("lora_fused_kernel", 8),
-                            "flash_attention": ("flash_dq_kernel", 4)}
+    assert cs.NO_SPILLS == {"lora_fused_kernel": ("lora_matmul", 8),
+                            "lora_dw_kernel": ("lora_matmul", 1),
+                            "flash_dq_kernel": ("flash_attention", 4)}
+
+
+H100 = cs.PEAKS["H100"]
+
+
+@pytest.mark.parametrize("name", ["lora_fwd", "lora_dx", "lora_dw"])
+def test_3xtf32_lora_kernels_take_their_bound_at_a_third_of_tf32(name):
+    """The dense dW kernel (row 3) runs on the tensor cores in 3xTF32, as
+    the fused forward and dx do: its operation bound is at a third of the
+    card's TF32 rate, its fp32-rate bound printed beside it."""
+    M, K, N = 1280, 2560, 2560
+    nbytes, nflops = 4 * (M * K + M * N + K * N), 2 * M * K * N
+    got = cs.kernel_bound(name, nbytes, nflops, H100)
+    assert got["bound_by"] == "operations"
+    assert got["bound_ms"] == pytest.approx(nflops / (H100[2] / 3) * 1e3)
+    assert got["bound_fp32_ms"] == pytest.approx(nflops / H100[0] * 1e3)
+
+
+def test_byte_bound_kernels_keep_the_fp32_rate():
+    nbytes, nflops = 4 * (16 * 442368 + 16), 2 * 16 * 442368
+    got = cs.kernel_bound("dp_clip_norms", nbytes, nflops, H100)
+    assert got == {"bound_ms": pytest.approx(nbytes / H100[1] * 1e3),
+                   "bound_by": "bytes"}
