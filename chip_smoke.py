@@ -8,8 +8,9 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
 1. Prints the card's name and power limit (nvidia-smi), checks compute
    capability 9.0 and builds the CUDA kernels from kernels/csrc/ with nvcc,
    printing each kernel's registers and spills (ptxas -v); the 8
-   instances of the fused LoRA kernel, the dense dW kernel and the 4 of
-   flash_dq must not spill.
+   instances of the fused LoRA kernel, the dense dW kernel, the 4 of
+   flash_dq, the 6 of the WKV backward and the 2 of the radix top-k
+   must not spill.
 2. Holds every ported kernel against its plain PyTorch version on the card
    at the main path's shapes, at ragged shapes and (KD loss, top-k) at a
    generative vocabulary (1280 x 50257), and times the kernel, the plain
@@ -20,7 +21,10 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    and attention atol 1e-4 / rtol 1e-4 (fp32 sums over K = 768 in
    another order); KD loss atol 1e-5 /
    rtol 1e-4 (the reference's bar for its kernel); top-k quantization bit
-   for bit; the DP clip kernels atol 1e-6 / rtol 1e-5 (the reference's bar
+   for bit, its long-row (radix) path also at the generative shape with
+   integer values (ties at the threshold) and +0.0 / -0.0 entries, at a
+   row too long to stage in shared memory and at k 512 with -inf and
+   -1e30 entries; the DP clip kernels atol 1e-6 / rtol 1e-5 (the reference's bar
    for its clip kernel), at the main path's (16, 442368) and at eight
    other shapes: every row clipped, a ragged width, none clipped, half
    clipped, and a row of zeros; one row at the main width, P 3 (fewer
@@ -64,7 +68,9 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    near 0 and down to -e³, with dS_final and du: y and the gradients
    within atol 1e-5 / rtol 1e-4, S_final and every checkpoint bit for
    bit, and at the train shape each output's error against an fp64 run
-   of the plain version within twice the fp32 plain version's.  The
+   of the plain version within twice the fp32 plain version's and the
+   backward's bits the same on two eager calls and two replays of one
+   CUDA graph.  The
    3xTF32 kernels' (LoRA forward, dx and dW, the three flash kernels)
    operation bound is taken at a third of the card's TF32 rate, and
    their fp32-rate bound printed beside it (kernel_bound).
@@ -188,8 +194,11 @@ outside that limit.  fp32_gates holds that arithmetic.
    projections) beside one train step's LoRA and flash launches, the
    plain runs nothing.  The dense dW kernel launches on no other path.
 
-It prints one JSON line with every kernel's numbers and, last, the line
-``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
+After phase 9 it prints the final-LoRA margins of phase 7, Split int8
+and RWKV-6 (each kernel run's share of its limit, beside the last
+recorded run's), then one JSON line with every kernel's numbers and,
+last, the line ``{"ok": true, "device": {...}}``.  It imports nothing of
+JAX.
 """
 from __future__ import annotations
 
@@ -895,6 +904,34 @@ def kd_cases(device, R, V, T, topk_teacher, Rq, Cq, k, bits, ties, seed):
     }
 
 
+def topk_wide_cases(device, seed) -> None:
+    """The top-k kernel's long-row path (radix selection) bit for bit
+    against its plain version: the generative shape with integer values
+    (ties at the threshold) and +0.0 / -0.0 entries, a row too long to
+    stage in shared memory, and the shortest long row at the largest k,
+    with -inf and -1e30 entries."""
+    import torch
+
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for R, C, k, bits in ((1280, 50257, 64, 8), (3, 100003, 64, 8),
+                          (6, 2049, 512, 4)):
+        x = torch.round(torch.randn((R, C), device=device, generator=gen)
+                        * 3.0)
+        x[:, ::7] = 0.0
+        x[:, 3::7] = -0.0
+        if C == 2049:
+            x[:, 5::11] = -math.inf
+            x[:, 6::11] = -1e30
+        err = max_err("topk_quantize", qz.topk_quantize(x, k, bits),
+                      ref.topk_quantize_rows_ref(x, k, bits))
+        print(f"  topk_quantize ({R}, {C}), k {k}, int{bits}, integer "
+              f"values (ties at the threshold), +0.0 / -0.0 entries: max "
+              f"abs err {err:.3e}, bit-identical")
+
+
 def dp_rows(device, B, P, zero_row, offset, seed):
     """(B, P) per-example gradients whose row norms spread over 0.5-1.5x,
     row 3 all zeros when ``zero_row``, placed ``offset`` floats into their
@@ -976,27 +1013,35 @@ def dp_norm_fp64_errors(device, seed) -> dict:
     return rms
 
 
-def dp_norms_repeat(device, seed) -> None:
-    """The norm kernel gives the same bits on two eager calls and on two
-    replays of one CUDA graph that captured it, at the main path's
-    shape."""
+def same_bits_repeated(name: str, call) -> None:
+    """``call()``'s outputs (a tensor or a list of them) are the same bits
+    on a second eager call and on two replays of one CUDA graph that
+    captured it."""
     import torch
 
+    first, second = _flat(call()), _flat(call())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _flat(call())
+    graph.replay()
+    one = [t.clone() for t in out]
+    graph.replay()
+    two = [t.clone() for t in out]
+    for what, got in (("a second eager call", second), ("graph replay 1", one),
+                      ("graph replay 2", two)):
+        for i, (a, b) in enumerate(zip(first, got)):
+            require(torch.equal(a, b), f"{name}: output {i} of {what} "
+                    f"differs from the first call in {int((a != b).sum())} "
+                    f"of {a.numel()} elements")
+
+
+def dp_norms_repeat(device, seed) -> None:
+    """The norm kernel's bits hold over calls and graph replays at the main
+    path's shape."""
     from repro_torch.kernels import dp_clip
 
     g = dp_rows(device, BATCH, DP_WIDTH, False, 0, seed)
-    first, second = dp_clip.dp_clip_norms(g), dp_clip.dp_clip_norms(g)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = dp_clip.dp_clip_norms(g)
-    graph.replay()
-    one = out.clone()
-    graph.replay()
-    two = out.clone()
-    for what, t in (("a second eager call", second), ("graph replay 1", one),
-                    ("graph replay 2", two)):
-        require(torch.equal(first, t), f"dp_clip_norms: {what} differs from "
-                f"the first call in {int((first != t).sum())} of {BATCH} rows")
+    same_bits_repeated("dp_clip_norms", lambda: dp_clip.dp_clip_norms(g))
     print(f"  dp_clip_norms at ({BATCH}, {DP_WIDTH}): two eager calls and two "
           f"CUDA-graph replays bit-identical")
 
@@ -1151,6 +1196,7 @@ def check_rwkv_kernels(device, peaks_) -> dict:
                                  False, False, 14).items():
         rows[name] = time_case(name, case, peaks_)
     rwkv_fp64_errors(device, BATCH * H, PAD_LEN, 64, H, 15)
+    rwkv_bwd_repeat(device, 17)
     return rows
 
 
@@ -1316,6 +1362,7 @@ def check_kernels(device, card: str):
                      Cq=50257, k=64, bits=8, ties=False)
     for name, case in kd_cases(device, seed=9, **gen_shape).items():
         rows[f"{name}@generative"] = time_case(name, case, peaks_)
+    topk_wide_cases(device, 19)
     # DP: every row clipped (float4 loads), a ragged width (scalar loads),
     # none clipped (scalar), half clipped with a ragged last share and a
     # zero row (float4); one row at the main width; P 3 (fewer elements
@@ -1551,8 +1598,30 @@ def nudged(base, seed: int, device):
     return tree_lib.map_(move, base)
 
 
+# the final LoRA's share of its limit on the paths whose margins are
+# watched (ROADMAP fault 9), keyed by path, and the share the last run
+# recorded in PERF.md printed
+MARGINS = {}
+MARGINS_BEFORE = {"phase 7": 0.402, "Split int8": 0.862, "RWKV-6": 0.865}
+
+
+def rwkv_bwd_repeat(device, seed) -> None:
+    """The WKV backward's bits hold over calls and graph replays at the
+    train step's shape (dlogw, no dS_final, no du)."""
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    BH = BATCH * RWKV_HEADS
+    r, k, v, lw, u, dy, _ = rwkv_inputs(device, BH, PAD_LEN, 64, RWKV_HEADS,
+                                        "model", False, seed)
+    ckpt = rw.rwkv6_fwd(r, k, v, lw, u, checkpoints=True)[2]
+    same_bits_repeated("rwkv6_bwd", lambda: rw.rwkv6_bwd(r, k, v, lw, u, ckpt,
+                                                         dy)[:4])
+    print(f"  rwkv6_bwd at ({BH}, {PAD_LEN}, 64): two eager calls and two "
+          f"CUDA-graph replays bit-identical")
+
+
 def run_case(device, cfg, base, fed, data, ledger, expect,
-             kind="continuous", seeds=0):
+             kind="continuous", seeds=0, margin=None):
     """One framework's case study through the kernels and through plain
     PyTorch (under two BLAS libraries, two summation orders of the same
     fp32 products, and under TF32), from the same weights, and ``seeds``
@@ -1575,7 +1644,8 @@ def run_case(device, cfg, base, fed, data, ledger, expect,
     plain run, each round's loss limit adds FLOOR_FACTOR times the largest
     difference between the plain run and another fp32 run, and such a
     phase gates the kernels' precision on its first step, before the runs
-    part."""
+    part.  ``margin`` names the path in MARGINS, where the kernel run's
+    final-LoRA share of its limit is then kept."""
     import torch
 
     from repro_torch.core.rounds import run_federated
@@ -1667,6 +1737,8 @@ def run_case(device, cfg, base, fed, data, ledger, expect,
               f"(limit {limits['lora']:.3e}, {rel / limits['lora']:.3f} of "
               f"it), outside atol 5e-5/rtol 5e-4 {share:.3e} of elements, "
               f"max abs {worst:.3e}")
+    if margin is not None:
+        MARGINS[margin] = gaps["kernels"][1] / limits["lora"]
     require(not failed, "; ".join(failed))
 
     got = {name: n for name, n in counts["kernels"].items() if name in expect}
@@ -1913,7 +1985,7 @@ def run_split(device, cfg, base, data, steps, evals):
                     "activations": fed.rounds * steps * c2,
                     "act_grads": fed.rounds * steps * c4},
             expect=expect, kind="spread" if bits else "continuous",
-            seeds=NUDGED_SEEDS)
+            seeds=NUDGED_SEEDS, margin="Split int8" if bits else None)
         per_client = kern.ledger.per_client_round()
         require(all(v == len(clients[ci]["tokens"]) // BATCH * (c2 + c4)
                     + 2 * half for (_, ci), v in per_client.items()),
@@ -2101,7 +2173,7 @@ def run_recurrent(device):
     counts, _ = run_case(device, cfg, base, fed, (pub, clients, test),
                          ledger={"lora_params": fed.rounds * C * 2
                                  * lora_bytes},
-                         expect=expect, seeds=NUDGED_SEEDS)
+                         expect=expect, seeds=NUDGED_SEEDS, margin="phase 7")
     print(f"  phase 7 wall_s={time.perf_counter() - t0:.1f}")
     del base
     torch.cuda.empty_cache()
@@ -2256,7 +2328,8 @@ def run_rwkv(device):
     counts, _ = run_case(device, cfg, base, fed, (pub, clients, test),
                          ledger={"lora_params": fed.rounds * C * 2 * L * n_t
                                  * RANK * (d + d) * 4},
-                         expect=expect, kind="spread", seeds=NUDGED_SEEDS)
+                         expect=expect, kind="spread", seeds=NUDGED_SEEDS,
+                         margin="RWKV-6")
     print(f"  phase 8 wall_s={time.perf_counter() - t0:.1f}")
     del base
     torch.cuda.empty_cache()
@@ -2360,7 +2433,9 @@ def run_base_grad(device):
 # the kernels that must not spill: {kernel: (source, instances)}
 NO_SPILLS = {"lora_fused_kernel": ("lora_matmul", 8),
              "lora_dw_kernel": ("lora_matmul", 1),
-             "flash_dq_kernel": ("flash_attention", 4)}
+             "flash_dq_kernel": ("flash_attention", 4),
+             "rwkv6_bwd_kernel": ("rwkv6_scan", 6),
+             "topk_radix_kernel": ("quantize", 2)}
 
 
 def kernel_spills(log: str, kernel: str) -> dict:
@@ -2463,6 +2538,10 @@ def main() -> int:
     by_path["base_grad"] = run_base_grad(device)
     print(f"  phase 9 wall_s={time.perf_counter() - t0:.1f}")
     print(f"  phases 1-9 wall_s={time.perf_counter() - t_start:.1f}")
+    print("final-LoRA margins (share of the limit; the last recorded "
+          "run's in parentheses): " + ", ".join(
+              f"{path} {MARGINS[path]:.3f} ({before:.3f})"
+              for path, before in MARGINS_BEFORE.items()))
 
     # ``launches`` sums the kernel runs of the paths; ``launches_by_path``
     # keeps them apart.  Rows are at the main path's shapes (GPT-2's;

@@ -25,21 +25,35 @@ RecurrentGemma-2B's projection shapes; that part alone:
     python3 scripts/chip_attribution.py fp64
 
 With ``split``, why phase 6's fp32 Split runs (GPT-2 at full width, split
-after layer 2, fp32 boundary) part from fp64: for the kernel and plain
-runs, from the seed-0 weights and from nudged copy 2, each of round 0's
-nine steps replayed beside an fp64 replay of the same weights, printing
-the LoRA's relative L2 from it, the coordinates more than lr/2 away and,
-where they first appear, the gradient there against the fp64 one; then
-the final LoRA of full runs from the seed-0 weights and from nudged
-copies 0-7, kernels and plain each measured from an fp64 run of the same
-weights, with how many of those weight sets part (above PARTS_AT from
-their own fp64 run) for each and the Fisher exact p of the difference;
-then the int8 set's spread: plain runs from nudged copies 0-11, kernel
-runs from 0-5 and TF32 runs from 0-2, measured from the plain run (about
-two minutes).  A count after ``split`` takes that many nudged copies
-instead of 8 (each adds three Split runs, about 8 seconds):
+after layer 2, fp32 boundary) part from fp64 more often through the
+kernels than through plain PyTorch: for the kernel and plain runs, from
+the seed-0 weights and from nudged copy 2, each of round 0's nine steps
+replayed beside an fp64 replay of the same weights, printing the LoRA's
+relative L2 from it, the coordinates more than lr/2 away and, where they
+first appear, the gradient there against the fp64 one.  Then, for the
+plain run and every kernel run of split_configs (all kernels; one family
+sent back to plain PyTorch, as the default mode does it: the LoRA
+projection, rows 1, 2, 4, or the attention, rows 5-7; one kernel at a
+time, its wrapper replaced by its twin: rows 1, 2, 5, 6, 7; row 1 with
+only its y or only its saved x@A panel from plain PyTorch; and the
+arithmetic variants of SPLIT_VARIANTS, each a library built from a
+patched copy of csrc/), from the seed-0 weights and nudged copies 0-7:
+round 0's first LoRA gradient against the fp64 one of the same weights
+(relative L2, leaf by leaf, at the coordinates whose fp64 value is below
+1e-3 of its leaf's rms, and the coordinates of Adam's first update that
+move by over lr/2, and where they move from the seed-0 weights), then
+the final LoRA of full runs, each measured from one fp64 run of the
+same weights that all share, with how many of the weight sets part (above PARTS_AT from their fp64 run) and the one-sided
+Fisher exact p that a kernel run parts more often than plain; then the
+int8 set's spread: plain runs from nudged copies 0-11, kernel runs from
+0-5 and TF32 runs from 0-2, measured from the plain run.  A count after
+``split`` takes that many nudged copies instead of 8 (each about 1.5 s
+a run); keys after it (``lora``, ``attention``, ``row1``, ``row2``,
+``row5``, ``row6``, ``row7``, ``row1-xa``, ``row1-y`` or a SPLIT_VARIANTS
+key) run only those kernel runs beside the kernels and plain (all of
+them take about twenty minutes at 30 copies):
 
-    python3 scripts/chip_attribution.py split [COPIES]
+    python3 scripts/chip_attribution.py split [COPIES] [KEY ...]
 
 With ``kblock KB``, chip_smoke.py's precision gates with the fused LoRA
 kernel summing K in blocks of KB instead of the source's: a copy of
@@ -61,10 +75,20 @@ kernel and ``x.t() @ g`` at GPT-2's, RecurrentGemma-2B's and RWKV-6's
 
     python3 scripts/chip_attribution.py dw
 
+With ``wkv``, where the WKV backward (``rwkv6_bwd_kernel``, each chunk in
+closed form) spends its time: copies of csrc/rwkv6_scan.cu under
+build/wkv-ablation/ with one phase taken out (WKV_ABLATIONS), each timed
+in a CUDA graph beside the kernel at the train step's (512, 80, 64), in
+turns; the ablated copies compute wrong values by design (under a
+minute):
+
+    python3 scripts/chip_attribution.py wkv
+
 Needs a CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import re
 import shutil
@@ -199,6 +223,82 @@ def dw_ablation(dev) -> None:
               flush=True)
 
 
+# (name, what it shows, then pairs of the text of rwkv6_bwd_kernel it
+# replaces and what it puts there)
+WKV_ABLATIONS = (
+    ("noproducts", "no Y1, Y2, Y3 (phase 3's tensor-core products)",
+     "      for (int tile = tid >> 5; tile < 3 * MT; tile += BNT / 32) {",
+     "      for (int tile = tid >> 5; tile < 0; tile += BNT / 32) {"),
+    ("nooutputs", "no dr, dk, dlogw (phase 4's first loop)",
+     "    for (int item = tid; item < n * D; item += BNT) {\n"
+     "      const int j = item / D, d = item % D;",
+     "    for (int item = tid; item < 0; item += BNT) {\n"
+     "      const int j = item / D, d = item % D;"),
+    ("noupdate", "no update of H between chunks",
+     "      for (int d = tid / D; d < D; d += BNT / D) {",
+     "      for (int d = D; d < D; d += BNT / D) {"),
+    ("nostage", "no staging after the first chunk",
+     "    if (ci > 0)\n      stage_inputs",
+     "    if (false)\n      stage_inputs",
+     "    if (ci > 0) stage_ckpt", "    if (false) stage_ckpt"),
+)
+
+
+def wkv_ablation(dev) -> None:
+    """``wkv``: see the module's docstring."""
+    import ctypes
+
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build, rwkv6_scan as rw
+
+    source = (build.CSRC / "rwkv6_scan.cu").read_text()
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    libs = {"kernel": rw._lib()}
+    for name, what, *edits in WKV_ABLATIONS:
+        text = source
+        for old, new in zip(edits[::2], edits[1::2]):
+            if text.count(old) != 1:
+                raise RuntimeError(f"chip_attribution: {name}: the text it "
+                                   "replaces is not in rwkv6_scan.cu once")
+            text = text.replace(old, new)
+        dst = ROOT / "build" / "wkv-ablation" / name
+        shutil.rmtree(dst, ignore_errors=True)
+        shutil.copytree(build.CSRC, dst)
+        (dst / "rwkv6_scan.cu").write_text(text)
+        subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o",
+                        str(dst / "librwkv6_scan.so"),
+                        str(dst / "rwkv6_scan.cu")], check=True,
+                       capture_output=True)
+        lib = ctypes.CDLL(str(dst / "librwkv6_scan.so"))
+        lib.rwkv6_bwd.argtypes = [ptr] * 13 + [i32] * 4 + [ptr]
+        lib.rwkv6_bwd.restype = i32
+        libs[name] = lib
+        print(f"{name}: {what}", flush=True)
+    BH, S, D, U = cs.BATCH * cs.RWKV_HEADS, cs.PAD_LEN, 64, cs.RWKV_HEADS
+    r, k, v, lw, u, dy, _ = cs.rwkv_inputs(dev, BH, S, D, U, "model", False,
+                                           14)
+    ckpt = rw.rwkv6_fwd(r, k, v, lw, u, checkpoints=True)[2]
+    outs = [torch.empty_like(r) for _ in range(4)]
+
+    def run(lib):
+        build.check(lib.rwkv6_bwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+            u.data_ptr(), ckpt.data_ptr(), dy.data_ptr(), None,
+            *(t.data_ptr() for t in outs), None, BH, S, D, U,
+            build.stream(dev)), "rwkv6_bwd")
+
+    times = {name: [] for name in libs}
+    for _ in range(2):
+        for name, lib in libs.items():
+            times[name].append(cs.graph_ms(lambda: run(lib)))
+    print(f"rwkv6_bwd at ({BH}, {S}, {D}), ms in a CUDA graph (the faster "
+          f"of two turns): " + ", ".join(f"{k} {min(v):.4f}"
+                                         for k, v in times.items()),
+          flush=True)
+
+
 def kblock(kb: int) -> int:
     """chip_smoke's precision gates with the fused LoRA kernel's K block
     set to ``kb``, from a copy of the port under build/kblock-<kb>/."""
@@ -290,7 +390,400 @@ def rwkv_trajectory(dev) -> None:
                   f"B factors {rel(pairs[1::2]):.3e}", flush=True)
 
 
-def split_spread(dev, copies: int = 8) -> None:
+def plain_version(op):
+    """``op`` called under the plain-PyTorch kernel policy."""
+    from repro_torch.kernels import ops
+
+    def call(*args, **kwargs):
+        with ops.policy_scope("torch"):
+            return op(*args, **kwargs)
+    return call
+
+
+@contextlib.contextmanager
+def patched(patches):
+    """Sets each (module, attribute, value) of ``patches`` for the body."""
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    for mod, attr, value in patches:
+        setattr(mod, attr, value)
+    try:
+        yield
+    finally:
+        for mod, attr, value in saved:
+            setattr(mod, attr, value)
+
+
+# Arithmetic variants of the tensor-core kernels that ``split`` can run:
+# {key: (what it changes, [(file in csrc/, the text it replaces, what it
+# puts there)])}, each built from a copy of csrc/ under
+# build/split-variant/<key>/ (both the fused LoRA and the flash
+# libraries).  Of them all (PERF.md §6) only "ffma", the fused forward's
+# main product y summed in fp32 FMA off the tensor cores, brings the
+# kernels' partings down to plain's.
+KERNEL_HEAD = ("template <bool TRANS, int NR>\n__global__ void "
+               "__launch_bounds__(FT)\nlora_fused_kernel(")
+MAIN_MMA = "mma3(part[i][j], a[i], b)"
+PARTIALS = "  float part[FM][FN][4], ppart[PM][NR][4];"
+K_BLOCK_END = ("    // the end of a K block of a contraction that has "
+               "several:")
+MMA3_BODY = """  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, a.small, b.big);
+  mma_tf32(t, a.big, b.small);
+  mma_tf32(t, a.big, b.big);
+  #pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] += t[i];"""
+PANEL_MMA = """      #pragma unroll
+      for (int j = 0; j < NR; ++j) {
+        const FragB b = TRANS ? frag_b<true, LDC>(as, kk, 8 * j, g, t)
+                              : frag_b<false, F::LDA>(as, kk, 8 * j, g, t);
+        #pragma unroll
+        for (int i = 0; i < FM; ++i)
+          if (i % WARPS_N == wn) mma3(ppart[i / WARPS_N][j], a[i], b);
+      }
+    }
+"""
+PANEL_FFMA = """    }
+    // the panel in fp32 FMA, each element's contraction in order
+    #pragma unroll
+    for (int i = 0; i < PM; ++i)
+      #pragma unroll
+      for (int j = 0; j < NR; ++j)
+        #pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int row = wr + 16 * (i * WARPS_N + wn) + g + 8 * (q >> 1);
+          const int col = 8 * j + 2 * t + (q & 1);
+          float s = ppart[i][j][q];
+          #pragma unroll 8
+          for (int c = 0; c < TK; ++c)
+            s = fmaf(xs[row * LDC + c],
+                     TRANS ? as[col * LDC + c] : as[c * F::LDA + col], s);
+          ppart[i][j][q] = s;
+        }
+"""
+MMA3_K4 = """__device__ __forceinline__ void mma_k4(float (&d)[4], uint32_t a0,
+                                       uint32_t a1, uint32_t b0) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// acc += a·b as two m16n8k4 halves, each into a fresh fragment
+__device__ __forceinline__ void mma3_k4(float (&acc)[4], const FragA& a,
+                                        const FragB& b) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_k4(t, a.small.x, a.small.y, b.big[0]);
+  mma_k4(t, a.big.x, a.big.y, b.small[0]);
+  mma_k4(t, a.big.x, a.big.y, b.big[0]);
+  #pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] += t[i];
+  float u[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_k4(u, a.small.z, a.small.w, b.big[1]);
+  mma_k4(u, a.big.z, a.big.w, b.small[1]);
+  mma_k4(u, a.big.z, a.big.w, b.big[1]);
+  #pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] += u[i];
+}
+
+"""
+# the main tile's fresh fragments added with a compensation term: Neumaier's
+# sum ("kahan"), or half an ulp of each fragment's sum, the mean of the
+# tensor core's truncation toward zero ("unbias"), folded into the total
+# at the end of each K block
+COMP_MMA = """template <bool KAHAN>
+__device__ __forceinline__ void mma3_comp(float (&acc)[4], float (&comp)[4],
+                                          const FragA& a, const FragB& b) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, a.small, b.big);
+  mma_tf32(t, a.big, b.small);
+  mma_tf32(t, a.big, b.big);
+  #pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (KAHAN) {
+      const float s = acc[i] + t[i];
+      comp[i] += fabsf(acc[i]) >= fabsf(t[i]) ? (acc[i] - s) + t[i]
+                                              : (t[i] - s) + acc[i];
+      acc[i] = s;
+    } else {
+      comp[i] += __uint_as_float(__float_as_uint(t[i]) & 0xff800000u)
+                 * 0x1p-24f;
+      acc[i] += t[i];
+    }
+  }
+}
+
+"""
+COMP_EDITS = [
+    ("lora_matmul.cu", PARTIALS,
+     "  float part[FM][FN][4], ppart[PM][NR][4], comp[FM][FN][4];"),
+    ("lora_matmul.cu",
+     "          for (int q = 0; q < 4; ++q) part[i][j][q] = 0.f;",
+     "          for (int q = 0; q < 4; ++q) part[i][j][q] = comp[i][j][q] = "
+     "0.f;"),
+    ("lora_matmul.cu", K_BLOCK_END, """    if ((kt + 1) % KT == 0 || kt == nk - 1) {
+      #pragma unroll
+      for (int i = 0; i < FM; ++i)
+        #pragma unroll
+        for (int j = 0; j < FN; ++j)
+          #pragma unroll
+          for (int q = 0; q < 4; ++q) part[i][j][q] += comp[i][j][q];
+    }
+""" + K_BLOCK_END),
+]
+# x = big + small (split_fast: small exact in fp32), small = mid + lo with
+# mid = tf32(small) and lo = small - mid (exact in TF32): TERMS products,
+# the smallest first, into a fresh fragment, lo·big / big·lo where A_LO /
+# B_LO
+SPLIT3_MMA = """__device__ __forceinline__ uint32_t mid_of(uint32_t small) {
+  return to_tf32(__uint_as_float(small));
+}
+
+__device__ __forceinline__ uint32_t lo_of(uint32_t small, uint32_t mid) {
+  return __float_as_uint(__uint_as_float(small) - __uint_as_float(mid));
+}
+
+template <bool A_LO, bool B_LO>
+__device__ __forceinline__ void mma_split3(float (&acc)[4], const FragA& a,
+                                           const FragB& b) {
+  uint4 am, al;
+  am.x = mid_of(a.small.x); am.y = mid_of(a.small.y);
+  am.z = mid_of(a.small.z); am.w = mid_of(a.small.w);
+  al.x = lo_of(a.small.x, am.x); al.y = lo_of(a.small.y, am.y);
+  al.z = lo_of(a.small.z, am.z); al.w = lo_of(a.small.w, am.w);
+  uint32_t bm[2], bl[2];
+  #pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    bm[i] = mid_of(b.small[i]);
+    bl[i] = lo_of(b.small[i], bm[i]);
+  }
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  if (A_LO) mma_tf32(t, al, b.big);
+  if (B_LO) mma_tf32(t, a.big, bl);
+  mma_tf32(t, am, bm);
+  mma_tf32(t, am, b.big);
+  mma_tf32(t, a.big, bm);
+  mma_tf32(t, a.big, b.big);
+  #pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] += t[i];
+}
+
+"""
+F64_MMA = """__device__ __forceinline__ double whole(uint32_t big, uint32_t small) {
+  return (double)__uint_as_float(big) + (double)__uint_as_float(small);
+}
+
+__device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
+  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1}, {%2}, {%3}, {%0, %1};"
+      : "+d"(d[0]), "+d"(d[1])
+      : "d"(a), "d"(b));
+}
+
+// acc += a·b over a step of 8 in fp64, each operand whole (big + small):
+// two m8n8k4 products for each 8-row half
+__device__ __forceinline__ void mma_f64(double (&acc)[4], const FragA& a,
+                                        const FragB& b) {
+  double top[2] = {acc[0], acc[1]}, bot[2] = {acc[2], acc[3]};
+  const double b0 = whole(b.big[0], b.small[0]);
+  const double b1 = whole(b.big[1], b.small[1]);
+  dmma(top, whole(a.big.x, a.small.x), b0);
+  dmma(top, whole(a.big.z, a.small.z), b1);
+  dmma(bot, whole(a.big.y, a.small.y), b0);
+  dmma(bot, whole(a.big.w, a.small.w), b1);
+  acc[0] = top[0];
+  acc[1] = top[1];
+  acc[2] = bot[0];
+  acc[3] = bot[1];
+}
+
+"""
+MAIN_FFMA = """    #pragma unroll
+    for (int i = 0; i < FM; ++i)
+      #pragma unroll
+      for (int j = 0; j < FN; ++j)
+        #pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int row = wr + 16 * i + g + 8 * (q >> 1);
+          const int col = wc + 8 * j + 2 * t + (q & 1);
+          float s = part[i][j][q];
+          #pragma unroll 8
+          for (int c = 0; c < TK; ++c)
+            s = fmaf(xs[row * LDC + c],
+                     TRANS ? ws[col * LDC + c] : ws[c * LDN + col], s);
+          part[i][j][q] = s;
+        }
+"""
+
+
+def _split3(what, a_lo, b_lo):
+    call = (f"mma_split3<{str(a_lo).lower()}, {str(b_lo).lower()}>"
+            f"(part[i][j], a[i], b)")
+    return (what, [("lora_matmul.cu", KERNEL_HEAD, SPLIT3_MMA + KERNEL_HEAD),
+                   ("lora_matmul.cu", MAIN_MMA, call)])
+
+
+SPLIT_VARIANTS = {
+    "rna-small": (
+        "split_fast rounds the small part to TF32 (cvt.rna) instead of "
+        "handing the tensor core its fp32 bits, which it truncates",
+        [("mma_tf32.cuh",
+          "  small = __float_as_uint(x - __uint_as_float(big));",
+          "  small = to_tf32(x - __uint_as_float(big));")]),
+    "one-accumulator": (
+        "mma3 adds its three products into the running sum inside the "
+        "tensor core, with no fresh fragment a step of 8",
+        [("mma_tf32.cuh", MMA3_BODY, """  mma_tf32(acc, a.small, b.big);
+  mma_tf32(acc, a.big, b.small);
+  mma_tf32(acc, a.big, b.big);""")]),
+    "divide": (
+        "flash_fwd divides its output row by the softmax sum instead of "
+        "multiplying by its reciprocal",
+        [("flash_attention.cu", "ob[d] = acc[n][2 * r + c] * inv_l;",
+          "ob[d] = acc[n][2 * r + c] / fmaxf(l_i[r], 1e-30f);")]),
+    "panel-ffma": (
+        "the fused kernel's rank-r panel (x@A, g@Bᵀ) in fp32 FMA, each "
+        "element's contraction in order",
+        [("lora_matmul.cu", PANEL_MMA, PANEL_FFMA)]),
+    "k4": (
+        "the fused kernel's products in m16n8k4 halves, four products a "
+        "fresh fragment instead of eight",
+        [("lora_matmul.cu", KERNEL_HEAD, MMA3_K4 + KERNEL_HEAD),
+         ("lora_matmul.cu", MAIN_MMA, "mma3_k4(part[i][j], a[i], b)"),
+         ("lora_matmul.cu", "mma3(ppart[i / WARPS_N][j], a[i], b)",
+          "mma3_k4(ppart[i / WARPS_N][j], a[i], b)"),
+         ("lora_matmul.cu", "mma3(low[i][j], a[i], b)",
+          "mma3_k4(low[i][j], a[i], b)")]),
+    "kahan": (
+        "the fused kernel's main tile adds its fresh fragments by "
+        "Neumaier's compensated sum",
+        [("lora_matmul.cu", KERNEL_HEAD, COMP_MMA + KERNEL_HEAD),
+         ("lora_matmul.cu", MAIN_MMA,
+          "mma3_comp<true>(part[i][j], comp[i][j], a[i], b)"),
+         *COMP_EDITS]),
+    "unbias": (
+        "the fused kernel's main tile adds half an ulp of each fresh "
+        "fragment's sum, the mean of the truncation, in a second "
+        "accumulator",
+        [("lora_matmul.cu", KERNEL_HEAD, COMP_MMA + KERNEL_HEAD),
+         ("lora_matmul.cu", MAIN_MMA,
+          "mma3_comp<false>(part[i][j], comp[i][j], a[i], b)"),
+         *COMP_EDITS]),
+    "rna4": _split3("the fused kernel's main tile from big + mid, four "
+                    "products", False, False),
+    "exact6": _split3("the fused kernel's main tile from big + mid + lo, "
+                      "each operand exact, six products", True, True),
+    "exacta": _split3("as rna4, with the A operand (x, g) exact: five "
+                      "products", True, False),
+    "exactb": _split3("as rna4, with the B operand (W) exact: five "
+                      "products", False, True),
+    "fp64": (
+        "the fused kernel's main tile on the fp64 tensor cores, fp64 "
+        "partials", [("lora_matmul.cu", KERNEL_HEAD, F64_MMA + KERNEL_HEAD),
+                     ("lora_matmul.cu", PARTIALS,
+                      "  double part[FM][FN][4];\n"
+                      "  float ppart[PM][NR][4];"),
+                     ("lora_matmul.cu", MAIN_MMA,
+                      "mma_f64(part[i][j], a[i], b)")]),
+    "ffma": (
+        "the fused kernel's main tile in fp32 FMA, each element's "
+        "contraction in order, off the tensor cores",
+        [("lora_matmul.cu", MAIN_MMA, "(void)0"),
+         ("lora_matmul.cu", K_BLOCK_END, MAIN_FFMA + K_BLOCK_END)]),
+}
+
+
+def variant_patches(name, edits):
+    """[(module, "_LIB", library)] of the fused LoRA and flash kernels
+    built from csrc/ with ``edits`` applied."""
+    import ctypes
+
+    from repro_torch.kernels import build, flash_attention as fa, \
+        lora_matmul as lm
+
+    dst = ROOT / "build" / "split-variant" / name
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(build.CSRC, dst)
+    for file, old, new in edits:
+        text = (dst / file).read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"chip_attribution: {name}: the text it "
+                               f"replaces is not in {file} once")
+        (dst / file).write_text(text.replace(old, new))
+    procs = [subprocess.Popen([build.nvcc(), *build.NVCC_FLAGS, "-o",
+                               str(dst / f"lib{src}.so"),
+                               str(dst / f"{src}.cu")],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT)
+             for src in ("lora_matmul", "flash_attention")]
+    for proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"chip_attribution: {name}: nvcc failed\n"
+                               + log.decode())
+        lines = log.decode().splitlines()
+        for i, line in enumerate(lines[:-2]):
+            if "properties for" in line and "lora_fused_kernel" in line:
+                print(f"  {name}: " + lines[i + 2].split(":", 1)[-1].strip()
+                      + "; " + lines[i + 1].strip(), flush=True)
+    patches = []
+    for mod in (lm, fa):
+        with patched([(mod, "_LIB", None), (build, "load", lambda src:
+                      ctypes.CDLL(str(dst / f"lib{src}.so")))]):
+            patches.append((mod, "_LIB", mod._lib()))
+    return patches
+
+
+def split_configs(keys=()):
+    """The kernel runs of ``split``, as [(tag, [(module, attribute,
+    value)])]: all kernels, then each of SPLIT_CONFIGS' keys (all of them
+    unless ``keys`` names some): one family sent back to plain PyTorch
+    through its ``ops`` entry, as the default mode does ("lora": rows 1,
+    2, 4; "attention": rows 5-7), one kernel at a time (its wrapper
+    replaced by its twin in kernels/ref.py: "row1", "row2", "row5",
+    "row6", "row7"), one output of row 1 from plain PyTorch ("row1-xa":
+    the saved panel x@A; "row1-y": y), and SPLIT_VARIANTS' libraries."""
+    from repro_torch.kernels import flash_attention as fa, \
+        lora_matmul as lm, ops, ref
+
+    kernel_fwd = lm.lora_fwd
+
+    def plain_xa(x, w, a, b):
+        return kernel_fwd(x, w, a, b)[0], x @ a
+
+    def plain_y(x, w, a, b):
+        xa = kernel_fwd(x, w, a, b)[1]
+        return x @ w + xa @ b, xa
+
+    table = {
+        "lora": ("LoRA plain (rows 1, 2, 4)",
+                 [(ops, "lora_matmul", plain_version(ops.lora_matmul))]),
+        "attention": ("attention plain (rows 5, 6, 7)",
+                      [(ops, "mha_attention",
+                        plain_version(ops.mha_attention))]),
+        "row1": ("row 1 plain", [(lm, "lora_fwd", ref.lora_fwd)]),
+        "row2": ("row 2 plain", [(lm, "lora_dx", ref.lora_dx)]),
+        "row5": ("row 5 plain", [(fa, "flash_fwd", ref.attention_fwd)]),
+        "row6": ("row 6 plain", [(fa, "flash_dq", ref.attention_dq)]),
+        "row7": ("row 7 plain", [(fa, "flash_dkv", ref.attention_dkv)]),
+        "row1-xa": ("row 1 with a plain x@A panel",
+                    [(lm, "lora_fwd", plain_xa)]),
+        "row1-y": ("row 1 with a plain y", [(lm, "lora_fwd", plain_y)]),
+    }
+    unknown = set(keys) - set(table) - set(SPLIT_VARIANTS)
+    if unknown:
+        raise SystemExit(f"chip_attribution: unknown split runs {unknown}")
+    configs = [("kernels", [])]
+    for key in keys or [*table, *SPLIT_VARIANTS]:
+        if key in table:
+            configs.append(table[key])
+        else:
+            what, edits = SPLIT_VARIANTS[key]
+            print(f"variant {key}: {what}", flush=True)
+            configs.append((f"variant {key}", variant_patches(key, edits)))
+    return configs
+
+
+def split_spread(dev, copies: int = 8, keys=()) -> None:
     """``split [COPIES]``: see the module's docstring."""
     import torch
 
@@ -384,24 +877,96 @@ def split_spread(dev, copies: int = 8) -> None:
         torch.cuda.empty_cache()
         return [t.double() for t in tree_lib.leaves(res.final_lora)]
 
+    def first_step(mode, seed):
+        """Round 0 step 0's LoRA gradient of both halves (client 0's
+        first batch), as float64."""
+        f = fed(0)
+        sfns = split.make_split_fns(build_model(dataclasses.replace(
+            cfg, kernel_policy="cuda" if mode == "kernels" else "torch")), f)
+        lt = lora_lib.init_lora(torch.Generator().manual_seed(f.seed + 3),
+                                base, lora_lib.DEFAULT_TARGETS, f.lora_rank,
+                                f.lora_alpha)
+        lt = cs.fp64(lt) if mode == "fp64" else lt
+        L = sfns["n_client_groups"]
+        c_lt, s_lt = split.split_lora(lt, L)
+        base_c, base_s = split.split_base(weights(mode, seed), L)
+        batch = to_device(next(iter(epoch_batches(
+            clients[0], cs.BATCH, seed=f.seed * 983))), dev)
+        _, cg, sg, _, _ = sfns["split_grads"](base_c, base_s, c_lt, s_lt,
+                                              batch)
+        return [g.double() for g in cg + sg]
+
+    configs = split_configs(keys)
+    seeds = [None] + list(range(copies))
+    # the first step from each weight set: how far each configuration's
+    # LoRA gradient lies from fp64 (whole, and each leaf's relative L2
+    # weighted by its size), the rms error at the coordinates whose fp64
+    # gradient is below 1e-3 of its leaf's rms (in units of that rms: the
+    # coordinates a first Adam update can flip), and how many coordinates
+    # of that update (lr·g / (|g| + eps)) move by over lr/2
+    eps = 1e-8
+    step0 = {tag: [0.0, 0.0, 0.0, 0, 0]
+             for tag in ["plain"] + [t for t, _ in configs]}
+    for seed in seeds:
+        exact = first_step("fp64", seed)
+        for tag, patches in [("plain", ())] + list(configs):
+            with patched(patches):
+                got = first_step("plain" if tag == "plain" else "kernels",
+                                 seed)
+            live = [(a, b) for a, b in zip(got, exact) if float(b.abs().max())]
+            n = sum(b.numel() for _, b in live)
+            acc = step0[tag]
+            acc[0] += cs.rel_l2(got, exact) / len(seeds)
+            acc[1] += sum(b.numel() * cs.rel_l2([a], [b])
+                          for a, b in live) / n / len(seeds)
+            for leaf, (a, b) in enumerate(zip(got, exact)):
+                if not float(b.abs().max()):
+                    continue
+                rms = float(b.pow(2).mean().sqrt())
+                near = b.abs() < 1e-3 * rms
+                acc[2] += float(((a - b)[near] / rms).pow(2).sum())
+                acc[3] += int(near.sum())
+                flip = (a / (a.abs() + eps) - b / (b.abs() + eps)).abs() > 0.5
+                acc[4] += int(flip.sum())
+                # where the first update moves, from the seed-0 weights
+                for at in flip.nonzero().tolist()[:4] if seed is None else ():
+                    at = tuple(at)
+                    print(f"split fp32 first step, {tag}, the seed-0 "
+                          f"weights: leaf {leaf} {tuple(b.shape)} at {at}: "
+                          f"gradient {float(a[at]):.4e}, fp64 "
+                          f"{float(b[at]):.4e}, leaf rms {rms:.3e}",
+                          flush=True)
+        torch.cuda.empty_cache()
+    for tag, (whole, leafwise, near_sq, near_n, flips) in step0.items():
+        print(f"split fp32 first step, {tag}: LoRA gradient relative L2 "
+              f"from fp64 {whole:.4e} (mean of {len(seeds)} weight sets), "
+              f"leaf by leaf {leafwise:.4e}, at its {near_n} near-zero "
+              f"coordinates {(near_sq / max(near_n, 1)) ** 0.5:.4e} of the "
+              f"leaf's rms; {flips} first-update coordinates moved over "
+              f"lr/2 in all", flush=True)
+
     exact0 = run("fp64", None, 0)
-    parted = {"plain": 0, "kernels": 0}
-    for seed in [None] + list(range(copies)):
+    parted = {"plain": 0, **{tag: 0 for tag, _ in configs}}
+    for seed in seeds:
         exact = exact0 if seed is None else run("fp64", seed, 0)
-        gap = {mode: cs.rel_l2(run(mode, seed, 0), exact) for mode in parted}
-        for mode in parted:
-            parted[mode] += gap[mode] > PARTS_AT
+        gap = {"plain": cs.rel_l2(run("plain", seed, 0), exact)}
+        for tag, patches in configs:
+            with patched(patches):
+                gap[tag] = cs.rel_l2(run("kernels", seed, 0), exact)
+        for tag in parted:
+            parted[tag] += gap[tag] > PARTS_AT
         print(f"split fp32 from {name(seed)}: final LoRA relative L2 from "
-              f"the fp64 run of the same weights: plain "
-              f"{gap['plain']:.3e}, kernels {gap['kernels']:.3e}; that fp64 "
-              f"run from the seed-0 weights' {cs.rel_l2(exact, exact0):.3e}",
-              flush=True)
-    sets = copies + 1
-    two, one = fisher_exact(parted["kernels"], sets, parted["plain"], sets)
-    print(f"split fp32: parted from fp64 (above {PARTS_AT:g}): kernels "
-          f"{parted['kernels']} of {sets} weight sets, plain "
-          f"{parted['plain']} of {sets}; Fisher exact p {two:.3g} "
-          f"(two-sided), {one:.3g} (kernels more often)", flush=True)
+              f"the fp64 run of the same weights: " + ", ".join(
+                  f"{tag} {v:.3e}" for tag, v in gap.items())
+              + f"; that fp64 run from the seed-0 weights' "
+              f"{cs.rel_l2(exact, exact0):.3e}", flush=True)
+    sets = len(seeds)
+    for tag, _ in configs:
+        two, one = fisher_exact(parted[tag], sets, parted["plain"], sets)
+        print(f"split fp32: parted from fp64 (above {PARTS_AT:g}): {tag} "
+              f"{parted[tag]} of {sets} weight sets, plain "
+              f"{parted['plain']} of {sets}; Fisher exact p {two:.3g} "
+              f"(two-sided), {one:.3g} (more often than plain)", flush=True)
     plain = run("plain", None, cs.SPLIT_BITS)
     for mode, seeds in (("plain", range(12)), ("kernels", range(6)),
                         ("tf32", range(3))):
@@ -427,19 +992,27 @@ def main() -> int:
             check=True).stdout.strip(), torch.__version__, flush=True)
         dw_ablation(torch.device("cuda", 0))
         return 0
+    if sys.argv[1:] == ["wkv"]:
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip(), torch.__version__, flush=True)
+        wkv_ablation(torch.device("cuda", 0))
+        return 0
     if sys.argv[1:] == ["fp64"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(torch.cuda.get_device_name(0), torch.__version__, flush=True)
         fp64_errors(torch.device("cuda", 0))
         return 0
-    if sys.argv[1:2] == ["split"] and len(sys.argv) <= 3:
+    if sys.argv[1:2] == ["split"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip(), torch.__version__)
-        split_spread(torch.device("cuda", 0),
-                     int(sys.argv[2]) if len(sys.argv) == 3 else 8)
+        args = sys.argv[2:]
+        copies = int(args.pop(0)) if args and args[0].isdigit() else 8
+        split_spread(torch.device("cuda", 0), copies, args)
         return 0
     if sys.argv[1:] == ["rwkv"]:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -473,12 +1046,6 @@ def main() -> int:
                              fed, pub, clients, test,
                              batch_size=chip_smoke.BATCH, eval_batch=64,
                              device=dev, base=base)
-
-    def plain_version(op):
-        def call(*args, **kwargs):
-            with ops.policy_scope("torch"):
-                return op(*args, **kwargs)
-        return call
 
     plain = run("torch")
     for tag, names in (("all kernels", ()),

@@ -9,9 +9,10 @@
 //   * quantize_rows_kernel<.., true> <- quantize_pack4_rows (row 11): the
 //       same at qmax 7, two levels a byte, the even column in the low
 //       nibble (two's complement): q uint8 (R, C/2), C even.
-//   * topk_quantize_kernel <- topk_quantize_rows / _topk_kernel (row 12):
-//       per row, the k largest values (ties to the lower index, the order
-//       of lax.top_k), then the same quantization over those k.  Outputs
+//   * topk_quantize_kernel (C <= 2048) and topk_radix_kernel (longer
+//       rows) <- topk_quantize_rows / _topk_kernel (row 12): per row, the
+//       k largest values (ties to the lower index, the order of
+//       lax.top_k), then the same quantization over those k.  Outputs
 //       q int8 (R, k), idx int32 (R, k), scale fp32 (R, 1): the KD b3
 //       logit upload.
 //
@@ -27,17 +28,26 @@
 //
 // Top-k: the data is read once in principle (R*C*4 bytes in, R*k*5 +
 // R*4 out): 39 KB at the KD path's (150, 77), 257 MB (0.077 ms) at
-// (1280, 50257).  The selection does k passes over each row, k*C
-// compares, served from L1/L2 after the first pass; at k = 64 over
-// C = 50257 that re-reading, not device memory, is what this simple
-// kernel spends its time on.  One row per warp (C <= 2048) or per
-// 256-thread block.  Round t takes the maximum, in the order (value
-// descending, index ascending), among the elements that come strictly
-// after pick t-1 in that order, so the row needs no writable copy: it
-// equals the reference's "first argmax, then overwrite it with -1e30"
-// for every row with no entry <= -1e30.  A later PR should stage a row in
-// shared memory (201 KB at C = 50257 fits in 227 KB) or select with a
-// radix pass.
+// (1280, 50257).  Rows of C <= 2048 (the KD path's) take one warp a row,
+// which makes k passes over its row, k*C compares from L1: round t takes
+// the maximum, in the order (value descending, index ascending), among
+// the elements that come strictly after pick t-1 in that order, so the
+// row needs no writable copy.  Longer rows (a generative vocabulary)
+// take topk_radix_kernel, one block of 1024 threads a row, which reads
+// the row once: each value becomes an order-preserving 32-bit key (-0.0
+// and +0.0 one key, as they are equal in the order), staged in shared
+// memory where the row fits (C <= ~52900: 201 KB at C = 50257, one block
+// an SM; a longer row is read again from device memory each pass); a
+// histogram of the top 12 bits is counted while the row is staged, then
+// two of 10 bits among the keys of the chosen prefix, so three passes
+// give the k-th key T; every key above T is picked, then the first
+// (k - above) keys equal to T in index order (each thread scans a
+// contiguous share of the row, shares ordered by a block-wide prefix
+// sum); a bitonic sort puts the k picks in the order (value descending,
+// index ascending).  The order of the picks is that of a stable
+// descending sort for every row, -inf and -1e30 included: the reference's
+// "first argmax, then overwrite it with -1e30" agrees for every row with
+// no entry <= -1e30.
 //
 // Every quantization uses IEEE division and rintf (no fast math, no
 // reciprocal), so q, idx and scale are bit-identical to the plain
@@ -46,6 +56,8 @@
 #include <stdint.h>
 #include <limits.h>
 #include <math.h>
+
+#include <atomic>
 
 namespace {
 
@@ -79,18 +91,15 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <int TPR>
+// one row a warp (C <= 2048)
 __global__ void __launch_bounds__(NT)
 topk_quantize_kernel(const float* __restrict__ X, int8_t* __restrict__ Q,
                      int* __restrict__ IDX, float* __restrict__ SCALE, int R,
                      int C, int k, float qmax) {
-  constexpr int RPB = NT / TPR;          // rows per block
-  constexpr int WPR = TPR / 32;          // warps per row
+  constexpr int RPB = NT / 32;           // rows per block
   __shared__ float pv[RPB][K_MAX];
   __shared__ int pj[RPB][K_MAX];
-  __shared__ Pick red[RPB][WPR];
-  __shared__ float redm[RPB][WPR];
-  const int rb = threadIdx.x / TPR, tr = threadIdx.x % TPR;
+  const int rb = threadIdx.x / 32, tr = threadIdx.x % 32;
   const int row = blockIdx.x * RPB + rb;
   const bool live = row < R;
   const float* x = X + (size_t)(live ? row : 0) * C;
@@ -102,22 +111,13 @@ topk_quantize_kernel(const float* __restrict__ X, int8_t* __restrict__ Q,
   for (int t = 0; t < k; ++t) {
     Pick best{-INFINITY, INT_MAX};
     if (live) {
-      for (int j = tr; j < C; j += TPR) {
+      for (int j = tr; j < C; j += 32) {
         const float v = x[j];
         if (before(prev_v, prev_j, v, j) && before(v, j, best.v, best.j))
           best = Pick{v, j};
       }
     }
     best = warp_best(best);
-    if constexpr (WPR > 1) {
-      if (tr % 32 == 0) red[rb][tr / 32] = best;
-      __syncthreads();
-      best = red[rb][0];
-      for (int w = 1; w < WPR; ++w)
-        if (before(red[rb][w].v, red[rb][w].j, best.v, best.j))
-          best = red[rb][w];
-      __syncthreads();                   // red is rewritten next round
-    }
     if (tr == 0) {
       pv[rb][t] = best.v;
       pj[rb][t] = best.j;
@@ -125,25 +125,224 @@ topk_quantize_kernel(const float* __restrict__ X, int8_t* __restrict__ Q,
     prev_v = best.v;
     prev_j = best.j;
   }
-  __syncthreads();
+  __syncwarp();
 
   float am = 0.f;
-  for (int t = tr; t < k; t += TPR) am = fmaxf(am, fabsf(pv[rb][t]));
+  for (int t = tr; t < k; t += 32) am = fmaxf(am, fabsf(pv[rb][t]));
   am = warp_max(am);
-  if constexpr (WPR > 1) {
-    if (tr % 32 == 0) redm[rb][tr / 32] = am;
-    __syncthreads();
-    am = redm[rb][0];
-    for (int w = 1; w < WPR; ++w) am = fmaxf(am, redm[rb][w]);
-  }
   if (!live) return;
   const float scale = fmaxf(am / qmax, 1e-12f);
-  for (int t = tr; t < k; t += TPR) {
+  for (int t = tr; t < k; t += 32) {
     const float q = fminf(fmaxf(rintf(pv[rb][t] / scale), -qmax), qmax);
     Q[(size_t)row * k + t] = (int8_t)q;
     IDX[(size_t)row * k + t] = pj[rb][t];
   }
   if (tr == 0) SCALE[row] = scale;
+}
+
+// ---- top-k of long rows (C > 2048) by radix selection, one block a row ----
+constexpr int RNT = 1024;            // threads a block
+constexpr int HIST = 4096;           // bins of the first digit (12 bits)
+// dynamic shared memory beside the staged row: at most 227 KB a block
+constexpr int SMEM_MAX = 232448;
+
+// an order-preserving key: a > b as floats iff key(a) > key(b) as
+// unsigned, with -0.0 taken as +0.0 (the two are equal in the order)
+__device__ __forceinline__ uint32_t fkey(float x) {
+  const uint32_t u = __float_as_uint(x == 0.f ? 0.f : x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float fval(uint32_t key) {
+  return __uint_as_float((key & 0x80000000u) ? (key ^ 0x80000000u) : ~key);
+}
+
+// inclusive prefix sum of v over the block in thread order; *total gets
+// the block's sum; ws holds RNT / 32 ints.  Ends with a barrier.
+__device__ __forceinline__ int block_scan(int v, int* ws, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  #pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += o;
+  }
+  if (lane == 31) ws[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    int w = ws[lane];
+    #pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, w, off);
+      if (lane >= off) w += o;
+    }
+    ws[lane] = w;
+  }
+  __syncthreads();
+  if (warp > 0) v += ws[warp - 1];
+  *total = ws[RNT / 32 - 1];
+  __syncthreads();
+  return v;
+}
+
+// the bin b of hist[0, nbins) (bins in key order) holding the need-th
+// largest counted key: above = the count in bins above b, above < need <=
+// above + hist[b].  Every thread gets both.
+__device__ __forceinline__ void find_bin(const int* hist, int nbins,
+                                         int need, int* ws, int* res,
+                                         int* bin, int* above) {
+  const int per = nbins / RNT, b0 = threadIdx.x * per;
+  int s = 0;
+  for (int i = 0; i < per; ++i) s += hist[b0 + i];
+  int total;
+  const int incl = block_scan(s, ws, &total);
+  int a = total - incl;                  // counted in the bins above b0's
+  if (a < need && need <= a + s) {
+    for (int i = per - 1; i >= 0; --i) {
+      const int c = hist[b0 + i];
+      if (a + c >= need) {
+        res[0] = b0 + i;
+        res[1] = a;
+        break;
+      }
+      a += c;
+    }
+  }
+  __syncthreads();
+  *bin = res[0];
+  *above = res[1];
+  __syncthreads();                       // hist and res are reused next
+}
+
+// STAGED: the row's keys are kept in dynamic shared memory (C * 4 bytes
+// beside the static arrays); else each pass reads the row again from
+// device memory (rows too long to stage)
+template <bool STAGED>
+__global__ void __launch_bounds__(RNT, 1)
+topk_radix_kernel(const float* __restrict__ X, int8_t* __restrict__ Q,
+                  int* __restrict__ IDX, float* __restrict__ SCALE, int C,
+                  int k, float qmax) {
+  extern __shared__ uint32_t keys[];
+  __shared__ int hist[HIST];
+  __shared__ uint32_t skey[K_MAX];
+  __shared__ int sidx[K_MAX];
+  __shared__ int ws[RNT / 32], res[2];
+  __shared__ float redm[RNT / 32];
+  const int tid = threadIdx.x, row = blockIdx.x;
+  const float* x = X + (size_t)row * C;
+  auto key_at = [&](int j) { return STAGED ? keys[j] : fkey(__ldg(x + j)); };
+
+  // digit 1 (key bits 31..20), counted while the row is staged
+  for (int i = tid; i < HIST; i += RNT) hist[i] = 0;
+  __syncthreads();
+  {
+    constexpr int U = 8;                 // loads in flight a thread
+    int j = tid;
+    for (; j + (U - 1) * RNT < C; j += U * RNT) {
+      float v[U];
+      #pragma unroll
+      for (int u = 0; u < U; ++u) v[u] = __ldg(x + j + u * RNT);
+      #pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const uint32_t key = fkey(v[u]);
+        if (STAGED) keys[j + u * RNT] = key;
+        atomicAdd(&hist[key >> 20], 1);
+      }
+    }
+    for (; j < C; j += RNT) {
+      const uint32_t key = fkey(__ldg(x + j));
+      if (STAGED) keys[j] = key;
+      atomicAdd(&hist[key >> 20], 1);
+    }
+  }
+  __syncthreads();
+  int bin, a, above;
+  find_bin(hist, HIST, k, ws, res, &bin, &above);
+  uint32_t prefix = (uint32_t)bin;
+  int need = k - above;
+  // digits 2 and 3 (bits 19..10, 9..0) among the keys of the prefix
+  #pragma unroll 1
+  for (int shift = 10; shift >= 0; shift -= 10) {
+    for (int i = tid; i < 1024; i += RNT) hist[i] = 0;
+    __syncthreads();
+    for (int j = tid; j < C; j += RNT) {
+      const uint32_t key = key_at(j);
+      if ((key >> (shift + 10)) == prefix)
+        atomicAdd(&hist[(key >> shift) & 1023u], 1);
+    }
+    __syncthreads();
+    find_bin(hist, 1024, need, ws, res, &bin, &a);
+    prefix = (prefix << 10) | (uint32_t)bin;
+    need -= a;
+    above += a;
+  }
+  // the threshold key T = prefix: every key above it is picked (above of
+  // them), then the first `need` keys equal to it in index order; each
+  // thread takes a contiguous share of the row, so shares scan in index
+  // order
+  const uint32_t T = prefix;
+  const int share = (C + RNT - 1) / RNT;
+  const int j0 = min(C, tid * share), j1 = min(C, j0 + share);
+  int gt = 0, eq = 0;
+  for (int j = j0; j < j1; ++j) {
+    const uint32_t key = key_at(j);
+    gt += key > T;
+    eq += key == T;
+  }
+  int total;
+  int pg = block_scan(gt, ws, &total) - gt;
+  int pe = block_scan(eq, ws, &total) - eq;
+  for (int j = j0; j < j1 && (gt > 0 || pe < need); ++j) {
+    const uint32_t key = key_at(j);
+    if (key > T) {
+      skey[pg] = key;
+      sidx[pg++] = j;
+      --gt;
+    } else if (key == T) {
+      if (pe < need) {
+        skey[above + pe] = key;
+        sidx[above + pe] = j;
+      }
+      ++pe;
+    }
+  }
+  // sort the k picks by (value descending, index ascending): bitonic over
+  // the next power of two, padded with picks that sort last
+  int P = 1;
+  while (P < k) P <<= 1;
+  for (int i = k + tid; i < P; i += RNT) {
+    skey[i] = 0u;
+    sidx[i] = INT_MAX;
+  }
+  for (int size = 2; size <= P; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      __syncthreads();
+      for (int t = tid; t < P / 2; t += RNT) {
+        const int i = 2 * t - (t & (stride - 1)), j = i + stride;
+        const uint32_t ki = skey[i], kj = skey[j];
+        const int ii = sidx[i], ij = sidx[j];
+        const bool j_first = kj > ki || (kj == ki && ij < ii);
+        if (j_first == ((i & size) == 0)) {
+          skey[i] = kj; skey[j] = ki;
+          sidx[i] = ij; sidx[j] = ii;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  float am = 0.f;
+  for (int t = tid; t < k; t += RNT) am = fmaxf(am, fabsf(fval(skey[t])));
+  am = warp_max(am);
+  if ((tid & 31) == 0) redm[tid >> 5] = am;
+  __syncthreads();
+  am = redm[0];
+  for (int w = 1; w < RNT / 32; ++w) am = fmaxf(am, redm[w]);
+  const float scale = fmaxf(am / qmax, 1e-12f);
+  for (int t = tid; t < k; t += RNT) {
+    const float q = fminf(fmaxf(rintf(fval(skey[t]) / scale), -qmax), qmax);
+    Q[(size_t)row * k + t] = (int8_t)q;
+    IDX[(size_t)row * k + t] = sidx[t];
+  }
+  if (tid == 0) SCALE[row] = scale;
 }
 
 // the level of v at a row's scale: IEEE division, round half to even
@@ -276,11 +475,42 @@ int topk_quantize(const float* x, int8_t* q, int* idx, float* scale, int R,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C <= 2048) {
     const int rpb = NT / 32;
-    topk_quantize_kernel<32><<<(R + rpb - 1) / rpb, NT, 0, s>>>(
+    topk_quantize_kernel<<<(R + rpb - 1) / rpb, NT, 0, s>>>(
         x, q, idx, scale, R, C, k, qmax);
+    return (int)cudaGetLastError();
+  }
+  // the row staged where it fits beside the kernel's static arrays; the
+  // dynamic shared memory that takes (above 48 KB) is allowed once a
+  // device (the attribute belongs to the device), one bit of `ready` a
+  // device
+  static std::atomic<int> fixed{-1};
+  static std::atomic<uint64_t> ready{0};
+  cudaError_t err;
+  if (fixed.load() < 0) {
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, topk_radix_kernel<true>);
+    if (err != cudaSuccess) return (int)err;
+    fixed.store((int)attr.sharedSizeBytes);
+  }
+  const size_t limit = (size_t)(SMEM_MAX - fixed.load());
+  const size_t staged = (size_t)C * sizeof(uint32_t);
+  if (staged <= limit) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+    if (!(ready.load() & bit)) {
+      err = cudaFuncSetAttribute(topk_radix_kernel<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)limit);
+      if (err != cudaSuccess) return (int)err;
+      ready.fetch_or(bit);
+    }
+    topk_radix_kernel<true><<<R, RNT, staged, s>>>(x, q, idx, scale, C, k,
+                                                   qmax);
   } else {
-    topk_quantize_kernel<NT><<<R, NT, 0, s>>>(x, q, idx, scale, R, C, k,
-                                              qmax);
+    topk_radix_kernel<false><<<R, RNT, 0, s>>>(x, q, idx, scale, C, k,
+                                               qmax);
   }
   return (int)cudaGetLastError();
 }

@@ -50,6 +50,11 @@ def _lib():
     return _LIB
 
 
+def checkpoint_shape(BH: int, S: int, D: int):
+    """The checkpoints' shape: the state before every BT-th step."""
+    return (BH, -(-S // BT), D, D)
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -84,7 +89,7 @@ def rwkv6_fwd(r, k, v, logw, u, checkpoints: bool = False):
     BH, S, D, U = _check("rwkv6_fwd", r, k, v, logw, u)
     y = torch.empty_like(r)
     sf = torch.empty((BH, D, D), device=r.device, dtype=torch.float32)
-    ckpt = torch.empty((BH, -(-S // BT), D, D), device=r.device,
+    ckpt = torch.empty(checkpoint_shape(BH, S, D), device=r.device,
                        dtype=torch.float32) if checkpoints else None
     rc = _lib().rwkv6_fwd(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                           logw.data_ptr(), u.data_ptr(), y.data_ptr(),
@@ -105,7 +110,7 @@ def rwkv6_bwd(r, k, v, logw, u, ckpt, dy, dS_final=None,
         raise ValueError("rwkv6_bwd: no checkpoints (the forward ran "
                          "without checkpoints=True)")
     _, _, _, U = _check("rwkv6_bwd", r, k, v, logw, u,
-                        ckpt=(ckpt, (BH, -(-S // BT), D, D)),
+                        ckpt=(ckpt, checkpoint_shape(BH, S, D)),
                         dy=(dy, (BH, S, D)), dS_final=(dS_final, (BH, D, D)))
     dr, dk, dv = (torch.empty_like(r) for _ in range(3))
     dlogw = torch.empty_like(r) if need_dlogw else None

@@ -154,7 +154,9 @@ def test_kernel_spills_reads_each_instance_of_the_named_kernel(kernel, want):
 def test_no_spill_check_covers_flash_dq_and_the_fused_lora_kernel():
     assert cs.NO_SPILLS == {"lora_fused_kernel": ("lora_matmul", 8),
                             "lora_dw_kernel": ("lora_matmul", 1),
-                            "flash_dq_kernel": ("flash_attention", 4)}
+                            "flash_dq_kernel": ("flash_attention", 4),
+                            "rwkv6_bwd_kernel": ("rwkv6_scan", 6),
+                            "topk_radix_kernel": ("quantize", 2)}
 
 
 H100 = cs.PEAKS["H100"]

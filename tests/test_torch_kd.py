@@ -20,12 +20,15 @@ torch = pytest.importorskip("torch")
 # one intra-op thread: the suite runs several pytest workers per host
 torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.base import FedConfig as RefFedConfig  # noqa: E402
 from repro.configs.gpt2_small import gpt2_tiny as ref_tiny  # noqa: E402
 from repro.core import compression as ref_compression  # noqa: E402
 from repro.core import kd as ref_kd  # noqa: E402
 from repro.core.rounds import run_federated as ref_run  # noqa: E402
+from repro.kernels import ref as jax_ref  # noqa: E402
+from repro.kernels.quantize import topk_quantize_rows as jax_topk  # noqa: E402
 from repro.models.factory import build_model as ref_build  # noqa: E402
 from repro.peft import lora as ref_lora  # noqa: E402
 from repro_torch import bridge  # noqa: E402
@@ -34,7 +37,7 @@ from repro_torch.configs.gpt2_small import gpt2_tiny  # noqa: E402
 from repro_torch.core import compression, kd  # noqa: E402
 from repro_torch.core.rounds import run_federated  # noqa: E402
 from repro_torch.data import banking77, partition  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 
 SEED = 0
 FED = dict(framework="kd", rounds=2, lora_rank=4, lora_dropout=0.0,
@@ -183,6 +186,45 @@ def test_compression_helpers_match_reference(C):
     want = ref_kd.align_public_dataset(pub, hists, 40, seed=C)
     for key in want:
         np.testing.assert_array_equal(got[key], want[key])
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_topk_twin_matches_pallas_on_wide_rows(ties):
+    """The top-k twin against the reference's Pallas kernel (interpret
+    mode) on rows longer than the CUDA kernel's warp path (C 5003 > 2048,
+    where it selects by radix), k 64: +0.0 and -0.0 entries, which the
+    kernel's "first index of the row maximum" takes as equal (so the lower
+    index wins, as in the twin's stable sort; ``lax.top_k``, the
+    reference's oracle, orders -0.0 below +0.0, so the row of zeros is held
+    to the kernel alone), and with ``ties`` integer values, so the 64th
+    pick ties with later entries and the lower indices must win.  q and
+    idx bit for bit; the Pallas kernel's scale within rtol 1e-6 (XLA turns
+    its ``absmax / qmax`` into a product, tests/test_torch_kernels.py)."""
+    k, bits = 64, 8
+    rng = np.random.default_rng(5003)
+    x = (rng.standard_normal((4, 5003)) * 3.0).astype(np.float32)
+    if ties:
+        x = np.round(x).astype(np.float32)
+    x[:, ::7] = 0.0
+    x[:, 3::7] = -0.0
+    x[3] = np.where(x[3] > 0, 0.0, x[3])      # the picks in a row of zeros
+    if ties:
+        ordered = -np.sort(-x, axis=1)
+        assert (ordered[:, k - 1] == ordered[:, k]).all()
+    got = ref.topk_quantize_rows_ref(torch.tensor(x), k, bits)
+    pallas = jax_topk(jnp.asarray(x), k=k, bits=bits, br=2, interpret=True)
+    oracle = jax_ref.topk_quantize_rows_ref(jnp.asarray(x[:3]), k, bits)
+    for name, g, p, w in zip(("q", "idx", "scale"), got, pallas, oracle):
+        np.testing.assert_array_equal(g.numpy()[:3], np.asarray(w),
+                                      err_msg=name)
+        if name == "scale":
+            np.testing.assert_allclose(g.numpy(), np.asarray(p), rtol=1e-6)
+        else:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(p),
+                                          err_msg=name)
+    picks = got[1][3].numpy()                 # +0.0 and -0.0 by index
+    assert (x[3, picks] == 0).all() and (np.diff(picks) > 0).all()
+    assert np.signbit(x[3, picks]).any() and not np.signbit(x[3, picks]).all()
 
 
 def test_run_holds_the_kernel_policy_for_kd_loss_and_topk(monkeypatch):

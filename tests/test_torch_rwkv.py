@@ -19,7 +19,9 @@ recurrence); elementwise pieces atol 1e-6; FedLLM at the North-star bar
 (ledger bytes and FLOPs exact, round loss and accuracy within 1e-3,
 final LoRA atol 5e-5 / rtol 5e-4)."""
 import dataclasses
+import re
 import warnings
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -207,6 +209,100 @@ def test_rwkv6_cuda_policy_refuses_cpu_tensors():
     with ops.policy_scope("torch"):                # the plain path runs
         y, _ = ops.rwkv6(*(x.reshape(shp) for x in (r, k, v, logw)), u)
     assert y.shape == shp
+
+
+def _bwd_closed_form(r, k, v, logw, u, dy, dsf, bt):
+    """The WKV backward as rwkv6_bwd_kernel forms it (csrc/rwkv6_scan.cu's
+    head): each chunk of bt steps in closed form from its checkpoint P0
+    and H (dL/dS after its last step), with T(a, b) = prod_{a<l<b} w_l."""
+    BH, S, D = r.shape
+    ub = u.repeat(BH // u.shape[0], 1)
+    w = torch.exp(logw)
+    st, ck = torch.zeros(BH, D, D, dtype=r.dtype), []
+    for t in range(S):
+        if t % bt == 0:
+            ck.append(st)
+        st = w[:, t, :, None] * st + k[:, t, :, None] * v[:, t, None, :]
+    H = torch.zeros_like(st) if dsf is None else dsf
+    dr, dk, dv, dlw = (torch.zeros_like(r) for _ in range(4))
+    for ci in range(len(ck) - 1, -1, -1):
+        t0, P0 = ci * bt, ck[ci]
+        R, K, V, W, DY = (x[:, t0:t0 + bt] for x in (r, k, v, w, dy))
+        n = R.shape[1]
+
+        def T(a, b):
+            out = torch.ones(BH, D, dtype=r.dtype)
+            for i in range(a + 1, b):
+                out = out * W[:, i]
+            return out
+
+        y1 = torch.einsum("xde,xje->xdj", P0, DY)
+        y2 = torch.einsum("xde,xje->xdj", H, V)
+        z = (H * P0).sum(-1)
+        gv = torch.einsum("xae,xbe->xab", V, DY)        # v_a · dy_b
+        for j in range(n):
+            A, C = T(-1, j), T(j, n)
+            a1, a2, a3 = A * y1[..., j], C * y2[..., j], C * A * z
+            for i in range(j):
+                a1 = a1 + T(i, j) * K[:, i] * gv[:, i, j, None]
+                a3 = a3 + C * T(i, j) * K[:, i] * y2[..., i]
+            for i in range(j + 1, n):
+                a2 = a2 + T(j, i) * R[:, i] * gv[:, j, i, None]
+                a3 = a3 + A * T(j, i) * R[:, i] * y1[..., i]
+                for i2 in range(j):
+                    a3 = a3 + (T(j, i) * T(i2, j) * R[:, i] * K[:, i2]
+                               * gv[:, i2, i, None])
+            c = gv[:, j, j, None]
+            dr[:, t0 + j] = a1 + ub * K[:, j] * c
+            dk[:, t0 + j] = a2 + R[:, j] * ub * c
+            dlw[:, t0 + j] = W[:, j] * a3
+            y3 = torch.einsum("xd,xde->xe", C * K[:, j], H)
+            for i in range(j + 1, n):
+                krk = (T(j, i) * R[:, i] * K[:, j]).sum(-1, keepdim=True)
+                y3 = y3 + krk * DY[:, i]
+            ruk = (R[:, j] * ub * K[:, j]).sum(-1, keepdim=True)
+            dv[:, t0 + j] = y3 + ruk * DY[:, j]
+        H = T(-1, n)[..., None] * H + sum(
+            (T(-1, i) * R[:, i])[..., None] * DY[:, i, None, :]
+            for i in range(n))
+    return dr, dk, dv, dlw
+
+
+@pytest.mark.parametrize("BH,S,D,dsf", [(6, 21, 16, True), (4, 8, 32, False),
+                                        (3, 1, 16, True)])
+def test_wkv_backward_closed_form_is_the_step_recurrence(BH, S, D, dsf):
+    """The chunked closed form the CUDA backward computes (its math, in
+    fp64 on the CPU) equals the step-by-step twin's gradient to fp64
+    rounding, with and without dS_final, at a ragged last chunk and at
+    one step, log-decays from -0.05 down to -e."""
+    rng = np.random.default_rng(BH * 100 + S)
+    f64 = torch.float64
+    r, k, v, dy = (torch.tensor(rng.standard_normal((BH, S, D)), dtype=f64)
+                   for _ in range(4))
+    logw = -torch.exp(torch.tensor(rng.uniform(-3.0, 1.0, (BH, S, D)),
+                                   dtype=f64))
+    u = torch.tensor(rng.standard_normal((2 if BH % 2 == 0 else 1, D)) * 0.1,
+                     dtype=f64)
+    ds = torch.tensor(rng.standard_normal((BH, D, D)), dtype=f64) \
+        if dsf else None
+    want = ref.rwkv6_scan_bwd(r, k, v, logw, u, dy, ds, True, False)[:4]
+    got = _bwd_closed_form(r, k, v, logw, u, dy, ds, rw.BT)
+    for name, g, w_ in zip(("dr", "dk", "dv", "dlogw"), got, want):
+        torch.testing.assert_close(g, w_, rtol=1e-10, atol=1e-10,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("BH,S,D", [(512, 80, 64), (12, 37, 16), (3, 1, 32)])
+def test_checkpoint_interval_is_the_cuda_sources(BH, S, D):
+    """The wrapper's checkpoint interval is the BT that csrc/rwkv6_scan.cu
+    compiles with (the forward writes a state every BT steps, the backward
+    walks chunks of BT), and the checkpoints the wrapper allocates and
+    checks hold the state before every BT-th step."""
+    src = (Path(rw.__file__).parent / "csrc" / "rwkv6_scan.cu").read_text()
+    found = re.findall(r"^constexpr int BT = (\d+);", src, re.M)
+    assert found == [str(rw.BT)]
+    assert rw.checkpoint_shape(BH, S, D) == (BH, len(range(0, S, rw.BT)),
+                                             D, D)
 
 
 # --------------------------------------------------------------------------- #
