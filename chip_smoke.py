@@ -50,7 +50,14 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    batch-1 pass's M 80, ranks 64, 1 and 13, K and N that no tile or 8
    divides) and the panel gradient at its edges (M 80 and 1, ranks 1, 13
    and 64, L 770, lhs misaligned, RecurrentGemma-2B's (1280, 2560) and
-   (1280, 256)), both layouts out; the dense dW kernel
+   (1280, 256)), both layouts out, and with an example axis (the DP
+   step's per-example dA and dB: GPT-2's (16, 80, 768), RecurrentGemma-2B's
+   (16, 80, 2560) and (16, 80, 256), RWKV-6's (16, 80, 2048), a ragged
+   (3, 37, 770) at rank 13, S 1 at rank 64 and a misaligned lhs; its
+   bits the same on two eager calls and two graph replays, its rms error
+   against fp64 within FP64_FACTOR times torch.bmm's, timed beside
+   torch.bmm and the old way, B launches of the panel kernel at M 80);
+   the dense dW kernel
    (x (M, K), g (M, N) scaled by M^-0.5) at each of those shapes, at a
    ragged (1279, 770, 97) and at RecurrentGemma-2B's (1280, 2560, 256);
    the LoRA forward, dx and dW kernels' and the panel gradient's (dA =
@@ -118,13 +125,18 @@ outside that limit.  fp32_gates holds that arithmetic.
    DP-SGD clipping at C, noise 0 and secure aggregation, C being the
    median per-example gradient norm of the first batch (computed on the
    card before the runs), so that about half the examples clip.  Every
-   local step runs 16 examples as batches of one through the LoRA and
-   attention kernels, then the two clip kernels; its first-step gate is
-   on the clipped mean of the first batch's per-example gradients.  The
-   kernel run's norms must show clipping in some but not all rows, the
-   ledger must hold the LoRA payloads plus the secure-aggregation key
-   exchange and the DP metadata as reckoned by hand, and epsilon must be
-   inf (noise 0).
+   local step runs one forward and one backward of its 16 examples
+   through the LoRA and attention kernels, whose backward gives each
+   example's LoRA gradients through the per-example panel kernel
+   (lora_panel_examples, 6 launches a layer, the summed panel kernel
+   none), then the two clip kernels; its first-step gates are on the
+   first batch's (16, P) per-example gradient rows and on their clipped
+   mean.  The kernel run's norms must show clipping in some but not all
+   rows, the ledger must hold the LoRA payloads plus the
+   secure-aggregation key exchange and the DP metadata as reckoned by
+   hand, and epsilon must be inf (noise 0).  It then times one DP
+   step's per-example gradients both ways, one batched pass and 16
+   batch-1 passes, through the kernels and plain.
 6. Split-FedLLM (client layers 0-1, server layers 2-11 with the head),
    2 rounds, as two sets of runs; every step runs the LoRA and attention
    kernels of all 12 layers.  With an fp32 boundary (bits 0) the path is
@@ -195,9 +207,9 @@ outside that limit.  fp32_gates holds that arithmetic.
    plain runs nothing.  The dense dW kernel launches on no other path.
 
 After phase 9 it prints the final-LoRA margins of phase 7, Split int8
-and RWKV-6 (each kernel run's share of its limit, beside the last
-recorded run's), then one JSON line with every kernel's numbers and,
-last, the line ``{"ok": true, "device": {...}}``.  It imports nothing of
+and RWKV-6 and phase 5's first-step and final-LoRA margins (each kernel
+run's share of its limit, beside the last recorded run's), then one JSON
+line with every kernel's numbers and, last, the line ``{"ok": true, "device": {...}}``.  It imports nothing of
 JAX.
 """
 from __future__ import annotations
@@ -227,7 +239,7 @@ GRAPH_TIMED = ("kd_fwd", "kd_bwd", "kd_bwd_dt", "topk_quantize",
                "dp_clip_norms", "dp_clip_acc", "quantize_rows",
                "quantize_rows_int4", "quantize_pack4", "rglru_fwd",
                "rglru_bwd", "rwkv6_fwd", "rwkv6_bwd", "lora_panel",
-               "lora_panel_t")
+               "lora_panel_t", "lora_panel_examples", "lora_panel_examples_t")
 # kernels also timed with the L2 flushed before each call: their input
 # (28.3 MB at the DP path, 26-39 MB at the RG-LRU's) fits the 50 MB L2, so
 # back-to-back calls read it from there, while in a step the passes
@@ -545,6 +557,106 @@ def panel_edge_cases(device, M, L, r, offset, seed):
             "lora_panel_t": (lambda: lm.lora_panel(lhs, panel, True),
                              lambda: ref.panel_grad(lhs, panel, True),
                              lambda: panel.t() @ lhs, nbytes, nflops)}
+
+
+def panel_examples_inputs(device, B, S, L, r, offset, seed):
+    """lhs (B, S, L) placed ``offset`` floats into its storage (misaligned
+    for 16-byte loads at 1) and a (B, S, r) panel scaled by S^-0.5 (O(1)
+    outputs)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flat = torch.randn(offset + B * S * L, device=device, generator=gen)
+    lhs = flat[offset:].view(B, S, L)
+    panel = torch.randn((B, S, r), device=device, generator=gen) * S ** -0.5
+    return lhs, panel
+
+
+def panel_examples_cases(device, B, S, L, r, offset, seed):
+    """Row 4 with an example axis (each example's lhs_bᵀ·panel_b, the DP
+    step's dA and dB) on panel_examples_inputs, untransposed and
+    transposed, as kernel_cases entries; the library yardstick is one
+    ``torch.bmm``."""
+    import torch
+
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels import ref
+
+    lhs, panel = panel_examples_inputs(device, B, S, L, r, offset, seed)
+    lhs_t, panel_t = lhs.transpose(1, 2), panel.transpose(1, 2)
+    nbytes, nflops = 4 * (B * S * L + B * S * r + B * L * r), 2 * B * S * L * r
+    return {"lora_panel_examples": (
+                lambda: lm.lora_panel_examples(lhs, panel),
+                lambda: ref.panel_grad_examples(lhs, panel),
+                lambda: torch.bmm(lhs_t, panel), nbytes, nflops),
+            "lora_panel_examples_t": (
+                lambda: lm.lora_panel_examples(lhs, panel, True),
+                lambda: ref.panel_grad_examples(lhs, panel, True),
+                lambda: torch.bmm(panel_t, lhs), nbytes, nflops)}
+
+
+def panel_examples_checks(device, peaks_) -> dict:
+    """Phase 2's part for row 4 with an example axis: the kernel against its
+    twin (both layouts) at the DP batch's GPT-2, RecurrentGemma-2B (wq and
+    wk/wv) and RWKV-6 widths, a ragged (3, 37, 770) at rank 13, S 1 at
+    rank 64 and a misaligned lhs; its bits over two eager calls and two
+    graph replays; at the four DP shapes its rms error against fp64
+    within FP64_FACTOR times torch.bmm's, and times (kernel, twin,
+    torch.bmm, and the old way: B launches of lora_panel on one example's
+    (S, L) each).  Returns the timed rows ("<name>", "<name>@rg",
+    "<name>@rg256", "<name>@rwkv")."""
+    import torch
+
+    from repro_torch.kernels import lora_matmul as lm
+
+    shapes = [(BATCH, PAD_LEN, 768, RANK, 0, ""),
+              (BATCH, PAD_LEN, 2560, RANK, 0, "@rg"),
+              (BATCH, PAD_LEN, 256, RANK, 0, "@rg256"),
+              (BATCH, PAD_LEN, 2048, RANK, 0, "@rwkv"),
+              (3, 37, 770, 13, 0, None),
+              (5, 1, 768, 64, 0, None),
+              (BATCH, PAD_LEN, 768, RANK, 1, None)]
+    rows = {}
+    for i, (B, S, L, r, offset, tag) in enumerate(shapes):
+        where = f"(B {B}, S {S}, L {L}, r {r}, offset {offset})"
+        cases = panel_examples_cases(device, B, S, L, r, offset, 180 + i)
+        for name, case in cases.items():
+            same_bits_repeated(name, case[0])
+            if tag is None:
+                err = max_err(name, case[0](), case[1]())
+                print(f"  {name} {where}: max abs err {err:.3e}; two eager "
+                      f"calls and two graph replays bit-identical")
+                continue
+            print(f"  {name} {where}, two eager calls and two graph "
+                  f"replays bit-identical:")
+            rows[name + tag] = time_case(name, case, peaks_)
+        if tag is None:
+            continue
+        lhs, panel = panel_examples_inputs(device, B, S, L, r, offset,
+                                           180 + i)
+        exact = lhs.double().transpose(1, 2) @ panel.double()
+        rms = {who: float(((y.double() - exact) ** 2).mean().sqrt())
+               for who, y in (("kernel", lm.lora_panel_examples(lhs, panel)),
+                              ("bmm", torch.bmm(lhs.transpose(1, 2), panel)))}
+        print(f"  lora_panel_examples {where}: rms error against fp64 kernel "
+              f"{rms['kernel']:.3e}, torch.bmm {rms['bmm']:.3e} (kernel / "
+              f"torch.bmm {rms['kernel'] / rms['bmm']:.2f})")
+        require(rms["kernel"] <= FP64_FACTOR * rms["bmm"],
+                f"lora_panel_examples {where}: rms error against fp64 "
+                f"{rms['kernel']:.3e} exceeds {FP64_FACTOR} times "
+                f"torch.bmm's {rms['bmm']:.3e}")
+        rows["lora_panel_examples" + tag]["fp64_rms_ratio"] = \
+            rms["kernel"] / rms["bmm"]
+
+        def old_way():
+            return [lm.lora_panel(lhs[b], panel[b]) for b in range(B)]
+
+        eager, graph = cuda_ms(old_way), graph_ms(old_way, calls=4)
+        rows["lora_panel_examples" + tag].update(old_way_ms=eager,
+                                                 old_way_graph_ms=graph)
+        print(f"  the old way {where}: {B} launches of lora_panel at M {S}, "
+              f"eager {eager:.4f} ms, in a graph {graph:.4f} ms")
+    return rows
 
 
 def lora_fp64_errors(device, M, K, N, seed) -> dict:
@@ -1308,6 +1420,7 @@ def check_kernels(device, card: str):
             print(f"  panel edge {i} {name} (M {shape['M']}, L {shape['L']}, "
                   f"r {shape['r']}, offset {shape['offset']}): max abs err "
                   f"{err:.3e}")
+    rows = panel_examples_checks(device, peaks_)
     for i, shape in enumerate(kd_checks):
         for name, (kern, plain, *_rest) in kd_cases(
                 device, seed=200 + i, **shape).items():
@@ -1323,7 +1436,6 @@ def check_kernels(device, card: str):
                   f"{shape['W']}), h0 {shape['h0']}, dh_final "
                   f"{shape['dh_final']}, offset {shape['offset']}: "
                   f"bit-identical")
-    rows = {}
     for name, case in kernel_cases(device, seed=7, **cfg).items():
         rows[name] = time_case(name, case, peaks_)
     print(f"  the panel gradient at a DP batch-1 pass's shape (M {PAD_LEN}, "
@@ -1598,11 +1710,14 @@ def nudged(base, seed: int, device):
     return tree_lib.map_(move, base)
 
 
-# the final LoRA's share of its limit on the paths whose margins are
-# watched (ROADMAP fault 9), keyed by path, and the share the last run
-# recorded in PERF.md printed
+# the kernel run's share of its gate's limit on the paths whose margins
+# are watched (ROADMAP §3's margins: the final LoRA, and phase 5's first
+# step), keyed by path, and the share the last run recorded in PERF.md
+# printed beside it (None: no run recorded it yet)
 MARGINS = {}
-MARGINS_BEFORE = {"phase 7": 0.402, "Split int8": 0.862, "RWKV-6": 0.865}
+MARGINS_BEFORE = {"phase 7": 0.402, "Split int8": 0.862, "RWKV-6": 0.867,
+                  "DP first step": 0.176, "DP final LoRA": 0.311,
+                  "DP first-step rows": None}
 
 
 def rwkv_bwd_repeat(device, seed) -> None:
@@ -2003,18 +2118,13 @@ def first_batch_clip(device, cfg, base, fed, clients):
     round 0 at the run's initial LoRA (plain PyTorch on the card)."""
     import torch
 
-    from repro_torch.core.fedavg import make_fns, to_device
-    from repro_torch.data.loader import epoch_batches
+    from repro_torch.core.fedavg import make_fns
     from repro_torch.models.factory import build_model
-    from repro_torch.peft import lora as lora_lib
 
     plain = dataclasses.replace(cfg, kernel_policy="torch")
-    lt = lora_lib.init_lora(torch.Generator().manual_seed(fed.seed + 1),
-                            base, fed.lora_targets or lora_lib.DEFAULT_TARGETS,
-                            fed.lora_rank, fed.lora_alpha)
-    batch = next(iter(epoch_batches(clients[0], BATCH, seed=fed.seed * 997)))
+    lt, batch = first_step_inputs(device, base, fed, clients)
     fns = make_fns(build_model(plain), fed)
-    _, rows = fns["per_example_grads"](base, lt, to_device(batch, device))
+    _, rows = fns["per_example_grads"](base, lt, batch)
     norms = torch.linalg.vector_norm(rows, dim=1)
     print("  per-example gradient norms of the first batch: "
           + " ".join(f"{n:.4g}" for n in sorted(norms.tolist())))
@@ -2023,8 +2133,10 @@ def first_batch_clip(device, cfg, base, fed, clients):
 
 def time_dp_round(device, cfg, base, fed, clients, lora):
     """Host-clock times of the parts of a DP round, each after a warm-up:
-    one DP step's per-example passes (16 forward and backward passes at
-    batch 1) through the kernels and plain, and one round of secure
+    one DP step's per-example gradients through the kernels and plain, as
+    the step runs them (one batched forward and backward) and as the
+    port ran them before (each of the 16 examples a batch of one: the
+    same function on one-example slices), and one round of secure
     aggregation over three LoRA uploads (fixed-point copy to the host,
     pairwise masks, the exact-cancellation check)."""
     import torch
@@ -2038,18 +2150,22 @@ def time_dp_round(device, cfg, base, fed, clients, lora):
 
     batch = to_device(next(iter(epoch_batches(clients[0], BATCH, seed=1))),
                       device)
+    ones = [{k: v[i:i + 1] for k, v in batch.items()} for i in range(BATCH)]
     for policy in ("cuda", "torch"):
-        fns = make_fns(build_model(dataclasses.replace(
-            cfg, kernel_policy=policy)), fed)
-        times = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fns["per_example_grads"](base, lora, batch)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        print(f"  [{policy}] one DP step's {BATCH} per-example passes: "
-              f"{times[1:]} s (first call {times[0]:.4f} s)")
+        step = make_fns(build_model(dataclasses.replace(
+            cfg, kernel_policy=policy)), fed)["per_example_grads"]
+        for what, passes in (("one batched pass", [batch]),
+                             (f"{BATCH} batch-1 passes", ones)):
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for one in passes:
+                    step(base, lora, one)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            print(f"  [{policy}] one DP step's per-example gradients, "
+                  f"{what}: {times[1:]} s (first call {times[0]:.4f} s)")
     times = []
     for rnd in range(3):
         torch.cuda.synchronize()
@@ -2085,8 +2201,12 @@ def run_dp(device, cfg, base, data, steps, evals, lora_bytes):
     print(f"  C = {clip:.6g}")
     fed = dataclasses.replace(fed, privacy=dataclasses.replace(
         fed.privacy, dp_clip=clip))
-    floor_gate("first-step clipped mean gradient",
-               first_step_gaps(device, cfg, base, fed, clients))
+    rows_gaps, mean_gaps = dp_first_step_gaps(device, cfg, base, fed,
+                                              clients)
+    MARGINS["DP first-step rows"] = rows_gaps["kernels"] / floor_gate(
+        "first-step per-example gradient rows", rows_gaps)
+    MARGINS["DP first step"] = mean_gaps["kernels"] / floor_gate(
+        "first-step clipped mean gradient", mean_gaps)
 
     # the kernel run's norms: count the rows the clip scales (on the card;
     # read after the runs)
@@ -2100,8 +2220,11 @@ def run_dp(device, cfg, base, data, steps, evals, lora_bytes):
     dp_clip.dp_clip_norms = recording_norms
     try:
         dp_steps = steps * fed.rounds
-        # every example of a DP step is one forward and backward pass
-        expect = model_launches(L, dp_steps * BATCH, evals * fed.rounds)
+        # one forward and one backward of the batch a DP step, whose
+        # backward gives each example's panel gradients (row 4 with an
+        # example axis) in place of the summed ones
+        expect = model_launches(L, dp_steps, evals * fed.rounds)
+        expect["lora_panel_examples"] = expect.pop("lora_panel")
         expect.update(dp_clip_norms=dp_steps, dp_clip_acc=dp_steps)
         keys_up, keys_down = key_exchange_bytes(C)
         counts, kern = run_case(
@@ -2109,7 +2232,7 @@ def run_dp(device, cfg, base, data, steps, evals, lora_bytes):
             ledger={"lora_params": fed.rounds * C * 2 * lora_bytes,
                     "secagg_keys": fed.rounds * C * (keys_up + keys_down),
                     "dp_meta": fed.rounds * C * 12},
-            expect=expect)
+            expect=expect, margin="DP final LoRA")
     finally:
         dp_clip.dp_clip_norms = real_norms
     clipped = sum(int(n) for n, _ in seen)
@@ -2180,51 +2303,80 @@ def run_recurrent(device):
     return counts
 
 
-def first_step_gaps(device, cfg, base, fed, clients):
-    """The LoRA gradient of FedLLM's first train step (client 0's first
-    batch, the run's initial LoRA) under each of each_run(exact=True)'s
-    settings, recomputed under its policy and setting; under DP
-    (``fed.privacy.dp_clip``) the step's mean of the clipped per-example
-    gradients.  Returns each run's relative L2 distance from the fp64
-    gradient (from_exact)."""
+def first_step_inputs(device, base, fed, clients):
+    """The first train step's inputs: the run's initial LoRA and client
+    0's first batch of round 0, on the card."""
     import torch
 
-    from repro_torch import tree as tree_lib
-    from repro_torch.core import tasks
-    from repro_torch.core.fedavg import make_fns, to_device
+    from repro_torch.core.fedavg import to_device
     from repro_torch.data.loader import epoch_batches
-    from repro_torch.kernels import ops
-    from repro_torch.models.factory import build_model
     from repro_torch.peft import lora as lora_lib
-    from repro_torch.privacy import dp as dp_mod
 
     lt = lora_lib.init_lora(torch.Generator().manual_seed(fed.seed + 1),
                             base, fed.lora_targets or lora_lib.DEFAULT_TARGETS,
                             fed.lora_rank, fed.lora_alpha)
     batch = to_device(next(iter(epoch_batches(
         clients[0], BATCH, seed=fed.seed * 997))), device)
+    return lt, batch
+
+
+def first_step_gaps(device, cfg, base, fed, clients):
+    """The LoRA gradient of FedLLM's first train step (client 0's first
+    batch, the run's initial LoRA) under each of each_run(exact=True)'s
+    settings, recomputed under its policy and setting.  Returns each run's
+    relative L2 distance from the fp64 gradient (from_exact)."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import tasks
+    from repro_torch.kernels import ops
+    from repro_torch.models.factory import build_model
+    from repro_torch.peft import lora as lora_lib
+
+    lt, batch = first_step_inputs(device, base, fed, clients)
     loss_fn = tasks.get_loss_fn("classification")
-    clip = fed.privacy.dp_clip
     grads = {}
     for role, tag, policy in each_run(exact=True):
         model = build_model(dataclasses.replace(cfg, kernel_policy=policy))
         b, l = (fp64(base), fp64(lt)) if role == "exact" else (base, lt)
         with ops.policy_scope(policy):
-            if clip > 0.0:
-                _, rows = make_fns(model, fed)["per_example_grads"](b, l,
-                                                                     batch)
-                grads[role] = [dp_mod.clipped_grad_mean(rows, clip)]
-            else:
-                live = tree_lib.map_(
-                    lambda t: t.detach().requires_grad_(True), l)
-                logits, _ = model.forward(lora_lib.bind(
-                    b, live, fed.lora_alpha, fed.lora_rank), batch)
-                loss, _ = loss_fn(logits, batch)
-                grads[role] = torch.autograd.grad(loss,
-                                                  tree_lib.leaves(live))
+            live = tree_lib.map_(lambda t: t.detach().requires_grad_(True), l)
+            logits, _ = model.forward(lora_lib.bind(
+                b, live, fed.lora_alpha, fed.lora_rank), batch)
+            loss, _ = loss_fn(logits, batch)
+            grads[role] = torch.autograd.grad(loss, tree_lib.leaves(live))
         del b, l
     torch.cuda.empty_cache()
     return from_exact(grads, "round 0 step 0 LoRA gradient")
+
+
+def dp_first_step_gaps(device, cfg, base, fed, clients):
+    """DP-FedLLM's first train step (client 0's first batch, the run's
+    initial LoRA) under each of each_run(exact=True)'s settings: the (B,
+    P) per-example gradient rows of the batched pass and their clipped
+    mean.  Returns each run's relative L2 distance from the fp64 run's,
+    (rows, clipped mean) (from_exact)."""
+    import torch
+
+    from repro_torch.core.fedavg import make_fns
+    from repro_torch.kernels import ops
+    from repro_torch.models.factory import build_model
+    from repro_torch.privacy import dp as dp_mod
+
+    lt, batch = first_step_inputs(device, base, fed, clients)
+    rows, means = {}, {}
+    for role, tag, policy in each_run(exact=True):
+        model = build_model(dataclasses.replace(cfg, kernel_policy=policy))
+        b, l = (fp64(base), fp64(lt)) if role == "exact" else (base, lt)
+        with ops.policy_scope(policy):
+            _, got = make_fns(model, fed)["per_example_grads"](b, l, batch)
+            rows[role] = [got]
+            means[role] = [dp_mod.clipped_grad_mean(got, fed.privacy.dp_clip)]
+        del b, l
+    torch.cuda.empty_cache()
+    return (from_exact(rows, "round 0 step 0 per-example LoRA gradient "
+                       "rows"),
+            from_exact(means, "round 0 step 0 clipped mean LoRA gradient"))
 
 
 def split_first_step(device, cfg, base, fed, clients, exact: bool,
@@ -2457,6 +2609,10 @@ REPLACES = {
     "lora_dx": ("src/repro/kernels/lora_matmul.py:140", "lora_matmul.cu"),
     "lora_dw": ("src/repro/kernels/lora_matmul.py:186", "lora_matmul.cu"),
     "lora_panel": ("src/repro/kernels/lora_matmul.py:226", "lora_matmul.cu"),
+    # row 4 under the vmap of the DP-SGD step's per-example loss
+    # (VMAPPED), which gives it an example axis
+    "lora_panel_examples": ("src/repro/kernels/lora_matmul.py:226",
+                            "lora_matmul.cu"),
     "flash_fwd": ("src/repro/kernels/flash_attention.py:116",
                   "flash_attention.cu"),
     "flash_dq": ("src/repro/kernels/flash_attention.py:223",
@@ -2479,6 +2635,11 @@ REPLACES = {
     # through XLA)
     "rwkv6_bwd": ("src/repro/kernels/rwkv6_scan.py:58", "rwkv6_scan.cu"),
 }
+
+
+# the kernels that port a TPU kernel in the form a reference ``vmap`` gives
+# it: {kernel: the vmap's file:line}
+VMAPPED = {"lora_panel_examples": "src/repro/core/fedavg.py:83"}
 
 
 def main() -> int:
@@ -2538,9 +2699,10 @@ def main() -> int:
     by_path["base_grad"] = run_base_grad(device)
     print(f"  phase 9 wall_s={time.perf_counter() - t0:.1f}")
     print(f"  phases 1-9 wall_s={time.perf_counter() - t_start:.1f}")
-    print("final-LoRA margins (share of the limit; the last recorded "
-          "run's in parentheses): " + ", ".join(
-              f"{path} {MARGINS[path]:.3f} ({before:.3f})"
+    print("margins (share of the limit; the last recorded run's in "
+          "parentheses): " + ", ".join(
+              f"{path} {MARGINS[path]:.3f} ("
+              + ("new" if before is None else f"{before:.3f}") + ")"
               for path, before in MARGINS_BEFORE.items()))
 
     # ``launches`` sums the kernel runs of the paths; ``launches_by_path``
@@ -2549,7 +2711,10 @@ def main() -> int:
     # flash rows with their RecurrentGemma-2B shapes under
     # ``at_recurrentgemma`` (RWKV-6's under ``at_rwkv6``, the panel's at
     # a DP batch-1 pass under ``at_dp_batch1``); the KD kernels'
-    # generative-vocabulary timings are printed above.
+    # generative-vocabulary timings are printed above.  The per-example
+    # panel's rows add its fp64 error over torch.bmm's and the old way's
+    # times (B launches of lora_panel, eager and in a graph).
+    extra = ("fp64_rms_ratio", "old_way_ms", "old_way_graph_ms")
     kernels = []
     for name, (replaces, src) in REPLACES.items():
         row = rows[name]
@@ -2557,13 +2722,15 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": replaces, "launches": sum(per_path.values()),
+            "replaces": replaces,
+            **({"under_vmap_of": VMAPPED[name]} if name in VMAPPED else {}),
+            "launches": sum(per_path.values()),
             "launches_by_path": per_path,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **{key: row[key] for key in ("graph_ms", "library_graph_ms",
-                                         "cold_ms", "bound_fp32_ms")
+                                         "cold_ms", "bound_fp32_ms") + extra
                if key in row}})
         for tag, key in (("rg", "at_recurrentgemma"), ("rwkv", "at_rwkv6"),
                          ("dp", "at_dp_batch1")):
@@ -2573,7 +2740,7 @@ def main() -> int:
                     field: at[field] for field in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms", "bound_fp32_ms",
-                        "graph_ms", "library_graph_ms")
+                        "graph_ms", "library_graph_ms") + extra
                     if field in at}
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -22,6 +22,7 @@ from repro_torch import tree as tree_lib
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import tasks
 from repro_torch.data.loader import epoch_batches
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import loss as losses
 from repro_torch.models.factory import Model
 from repro_torch.optim.api import make_optimizer
@@ -47,6 +48,7 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
     """Returns a dict with ``train_step``, ``per_example_grads``,
     ``eval_step``, ``logits_fn``, ``kd_step`` and ``opt_init``."""
     task_loss = tasks.get_loss_fn(task)
+    task_loss_rows = tasks.get_loss_rows_fn(task)
     opt_init, opt_update = make_optimizer(fed.optimizer)
     dp_clip = fed.privacy.dp_clip
 
@@ -57,30 +59,38 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
 
     def per_example_grads(base, lt, batch, gen=None):
         """(losses (B,), grads (B, P) fp32, fp64 for fp64 LoRA leaves):
-        each example's task loss and
-        its gradient w.r.t. the LoRA leaves, row b holding example b's
-        gradients in ``tree.leaves`` order.  Each example runs as a batch
-        of one through the same kernels as a batch (the reference's
-        ``example_loss`` under ``vmap``); the LoRA tree is bound once, so
-        every example sees the step's one dropout mask, as the
-        reference's shared rng gives."""
+        each example's task loss and its gradient w.r.t. the LoRA leaves,
+        row b holding example b's gradients in ``tree.leaves`` order: the
+        reference's ``vmap`` of ``value_and_grad(example_loss)``.
+
+        One forward and one backward of the whole batch, on the sum of the
+        per-example losses: no ported layer mixes examples, so each
+        example's activation gradient is its own.  Under
+        kernels/ops.per_example_scope each LoRA projection's backward
+        gives each example's gradient w.r.t. the bound a′ and b′ (the
+        ``lora_panel_examples`` kernel under the ``cuda`` policy); bind's
+        own VJP, batched over the examples, carries them to the leaves.
+        The LoRA tree is bound once, so every example sees the step's one
+        dropout mask, as the reference's shared rng gives."""
         live = [t.detach().requires_grad_(True) for t in tree_lib.leaves(lt)]
         bound = _bind(base, tree_lib.unflatten(lt, live), gen)
         B = batch["tokens"].shape[0]
-        P = sum(t.numel() for t in live)
+        with kernel_ops.per_example_scope(B) as sites:
+            logits, aux = model.forward(bound, batch)
+        if torch.is_tensor(aux) and aux.requires_grad:
+            raise ValueError("per_example_grads: the model's aux term "
+                             "carries a gradient; it mixes the examples, so "
+                             "one batched pass cannot give each example's "
+                             "gradient")
+        losses_ = task_loss_rows(logits, batch) + aux
+        sinks = [t for site in sites for t in site[2:]]
+        per_site = torch.autograd.grad(losses_.sum(), sinks)
+        grads = torch.autograd.grad(
+            [t for site in sites for t in site[:2]], live, per_site,
+            is_grads_batched=True)
         dt = compute_dtype(live[0].dtype)
-        grads = torch.empty((B, P), dtype=dt, device=live[0].device)
-        losses_ = torch.empty(B, dtype=dt, device=live[0].device)
-        for b in range(B):
-            one = {k: v[b:b + 1] for k, v in batch.items()}
-            logits, aux = model.forward(bound, one)
-            loss, _ = task_loss(logits, one)
-            loss = loss + aux
-            # the bound tree's graph serves every example
-            g = torch.autograd.grad(loss, live, retain_graph=True)
-            torch.cat([x.reshape(-1).to(dt) for x in g], out=grads[b])
-            losses_[b] = loss.detach()
-        return losses_, grads
+        rows = torch.cat([g.reshape(B, -1).to(dt) for g in grads], dim=1)
+        return losses_.detach().to(dt), rows
 
     def train_step(base, lt, opt_state, batch, gen=None):
         """One local step: value and gradient of the task loss w.r.t. the

@@ -26,6 +26,13 @@ def classification_loss_fn(logits, batch):
     return loss, cl
 
 
+def classification_loss_rows(logits, batch):
+    """Each example's cross-entropy (B,): the mean of these rows is
+    classification_loss_fn's loss, and row b is the loss of example b
+    taken as a batch of one."""
+    return losses.nll(class_logits(logits, batch), batch["labels"])
+
+
 def classification_accuracy(logits, batch):
     return losses.accuracy(class_logits(logits, batch), batch["labels"])
 
@@ -34,3 +41,10 @@ def get_loss_fn(task: str):
     if task != "classification":
         raise NotImplementedError(f"task {task!r} is not ported yet")
     return classification_loss_fn
+
+
+def get_loss_rows_fn(task: str):
+    """The per-example form of get_loss_fn's loss (the DP-SGD step's)."""
+    if task != "classification":
+        raise NotImplementedError(f"task {task!r} is not ported yet")
+    return classification_loss_rows

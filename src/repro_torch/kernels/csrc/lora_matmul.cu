@@ -12,7 +12,11 @@
 //       gradient.
 //   * panel_grad_kernel (+ dw_sum_kernel) <- _panel_grad_call /
 //       _panel_grad_kernel: (L, r) = lhsᵀ·panel, i.e. dA = xᵀ·gb and dB =
-//       (gᵀ·xa)ᵀ, M split over blocks and summed in a fixed order.
+//       (gᵀ·xa)ᵀ, M split over blocks and summed in a fixed order;
+//       with an example axis (lora_panel_examples), the same kernel with
+//       one slice per example gives each example's (L, r) straight: the
+//       form _panel_grad_call takes under the vmap of the DP-SGD step's
+//       per-example loss (src/repro/core/fedavg.py).
 //
 // The fused kernel runs its three products (x@W, the rank-r panel x@A and
 // the epilogue (x@A)@B) on the tensor cores at fp32 accuracy: mma.sync
@@ -898,6 +902,29 @@ int lora_panel_grad(const float* lhs, const float* panel, float* out,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   sum_slices(ws, out, (size_t)L * r, splits, s);
+  return (int)cudaGetLastError();
+}
+
+// Each example's (L, r) = lhs_bᵀ·panel_b from lhs (B, S, L) and panel (B,
+// S, r) into out (B, L, r); (B, r, L) if transpose_out.  The DP-SGD
+// step's per-example dA and dB in one launch: panel_grad_kernel with
+// one slice of S rows per example, whose slice partials are then the
+// answer, written straight to out (no workspace, no sum).  At GPT-2's
+// (16, 80, 768) that is 6 x 16 = 96 blocks, under one wave on 132 SMs,
+// for 3.9 MB of lhs: bound by bytes (1.3 µs at 3.35 TB/s) and by the
+// launch.  The same fixed summation order as lora_panel_grad's: the
+// same bits on every run.
+int lora_panel_examples(const float* lhs, const float* panel, float* out,
+                        int B, int S, int L, int r, int transpose_out,
+                        void* stream) {
+  if (B <= 0 || B > 65535 || S <= 0 || L <= 0 || r < 1 || r > R_MAX ||
+      (long)B * S > 0x7fffffffL)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int vec = aligned16(lhs) && L % 4 == 0;
+  const dim3 grid((L + PC - 1) / PC, B);
+  panel_grad_kernel<<<grid, 32 * PWARPS, 0, s>>>(
+      lhs, panel, out, B * S, L, r, S, transpose_out, vec);
   return (int)cudaGetLastError();
 }
 

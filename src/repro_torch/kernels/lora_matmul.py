@@ -8,13 +8,20 @@ become the CUDA kernels of ``csrc/lora_matmul.cu``:
                                 (the forward's template, operands transposed)
     lora_dw     <- _dw_call     the dense dW = xᵀg, summed over M
     lora_panel  <- _panel_grad_call   dA = xᵀ·gb, dB = (gᵀ·xa)ᵀ
+    lora_panel_examples <- _panel_grad_call under the ``vmap`` of the
+                DP-SGD step's per-example loss: each example's dA and dB,
+                (B, K, r) and (B, r, N)
 
 ``LoRAMatmul`` is the ``torch.autograd.Function`` around them.  For CUDA
 tensors it launches the kernels (or raises); for CPU tensors it takes the
 plain versions in kernels/ref.py.  dW runs only where W itself requires a
 gradient (``ctx.needs_input_grad``): in PEFT the base is frozen, so every
 training path skips it; the gradient with respect to the bound base
-weights reaches it.
+weights reaches it.  ``LoRAMatmulExamples`` is its per-example form for
+the DP-SGD step's one batched pass (kernels/ops.per_example_scope): the
+same forward, and a backward that gives each example's dA and dB
+(through ``lora_panel_examples``) as the gradients of two sink tensors,
+so that no gradient summed over the examples is formed.
 
 Each kernel wrapper adds one to ``LAUNCHES[name]`` where it launches.
 """
@@ -26,7 +33,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-LAUNCHES = {"lora_fwd": 0, "lora_dx": 0, "lora_dw": 0, "lora_panel": 0}
+LAUNCHES = {"lora_fwd": 0, "lora_dx": 0, "lora_dw": 0, "lora_panel": 0,
+            "lora_panel_examples": 0}
 R_MAX = 64
 _LIB = None
 
@@ -47,6 +55,8 @@ def _lib():
         lib.lora_panel_splits.restype = i32
         lib.lora_panel_grad.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
         lib.lora_panel_grad.restype = i32
+        lib.lora_panel_examples.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+        lib.lora_panel_examples.restype = i32
         lib.lora_dw_splits.argtypes = [i32] * 3
         lib.lora_dw_splits.restype = i32
         lib.lora_dw.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
@@ -141,6 +151,26 @@ def lora_panel(lhs, panel, transpose_out: bool = False):
     return out
 
 
+def lora_panel_examples(lhs, panel, transpose_out: bool = False):
+    """lhs (B, S, L), panel (B, S, r) -> each example's lhs_bᵀ·panel_b,
+    (B, L, r), or (B, r, L) transposed: one launch, one slice of S rows
+    per example, written straight to the output."""
+    B, S, L = lhs.shape
+    r = panel.shape[2]
+    _rank(r, "lora_panel_examples")
+    build.check_tensors("lora_panel_examples", lhs.device,
+                        lhs=(lhs, (B, S, L)), panel=(panel, (B, S, r)))
+    out = torch.empty((B, r, L) if transpose_out else (B, L, r),
+                      device=lhs.device, dtype=torch.float32)
+    rc = _lib().lora_panel_examples(lhs.data_ptr(), panel.data_ptr(),
+                                    out.data_ptr(), B, S, L, r,
+                                    int(transpose_out),
+                                    build.stream(lhs.device))
+    build.check(rc, "lora_panel_examples")
+    LAUNCHES["lora_panel_examples"] += 1
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # autograd
 # --------------------------------------------------------------------------- #
@@ -169,6 +199,37 @@ class LoRAMatmul(torch.autograd.Function):
         if need_db:
             db = (lora_panel if cuda else ref.panel_grad)(g, xa, True)
         return (dx if need_dx else None), dw, da, db
+
+
+class LoRAMatmulExamples(torch.autograd.Function):
+    """x (B, S, K), w (K, N), a (K, r), b (r, N) -> x@W + (x@A)@B, (B, S,
+    N), with the sinks sa (B, K, r) and sb (B, r, N): y does not read
+    them, and their gradients are each example's dA_b = x_bᵀ·gb_b and dB_b
+    = (g_bᵀ·xa_b)ᵀ.  w, a and b get no gradient.  ``cuda`` (the resolved
+    kernel policy) picks the kernels or their plain twins."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, sa, sb, cuda):
+        B, S, K = x.shape
+        y, xa = (lora_fwd if cuda else ref.lora_fwd)(x.view(B * S, K), w, a,
+                                                    b)
+        ctx.cuda = cuda
+        ctx.save_for_backward(x, w, a, b, xa)
+        return y.view(B, S, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, a, b, xa = ctx.saved_tensors
+        B, S, K = x.shape
+        g = g.contiguous()
+        cuda = ctx.cuda
+        panel = lora_panel_examples if cuda else ref.panel_grad_examples
+        dx, gb = (lora_dx if cuda else ref.lora_dx)(g.view(B * S, -1), w, a,
+                                                    b)
+        da = panel(x, gb.view(B, S, -1))
+        db = panel(g, xa.view(B, S, -1), True)
+        dx = dx.view(B, S, K) if ctx.needs_input_grad[0] else None
+        return dx, None, None, None, da, db, None
 
 
 def lora_matmul(x, w, a, b):

@@ -26,6 +26,12 @@ models/rwkv6.timemix_fwd call ``lora_matmul``, ``mha_attention``,
 
 The kernels mask their ragged edges, so unlike the reference there is no
 block fitting and no padding of M or R here.
+
+``per_example_scope`` is the DP-SGD step's counterpart of the reference's
+``vmap`` of the per-example loss (core/fedavg.per_example_grads): inside
+it every LoRA projection is one batched pass whose backward gives each
+example's LoRA gradients (kernels/lora_matmul.LoRAMatmulExamples, under
+either policy).
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from repro_torch.kernels import rwkv6_scan as _rw
 
 POLICIES = ("torch", "cuda", "auto")
 _ACTIVE = "auto"
+_EXAMPLES = None        # (batch, sites) of the open per_example_scope
 
 
 def resolve(policy: str, device) -> str:
@@ -71,6 +78,26 @@ def policy_scope(policy: str):
         _ACTIVE = prev
 
 
+@contextlib.contextmanager
+def per_example_scope(batch: int):
+    """Route every lora_matmul to its per-example form for one batched
+    pass of ``batch`` examples.  Yields the pass's sites: (a, b, sink_a,
+    sink_b) for each call of lora_matmul, in call order; the gradient of
+    the summed per-example losses with respect to sink_a (B, K, r) and
+    sink_b (B, r, N) is each example's gradient with respect to the bound
+    a and b.  Every LoRA projection's input must lead with the batch, and
+    no layer may mix examples (core/fedavg.per_example_grads checks the
+    model's ``aux``)."""
+    global _EXAMPLES
+    if _EXAMPLES is not None:
+        raise RuntimeError("per_example_scope: already open")
+    _EXAMPLES = (batch, [])
+    try:
+        yield _EXAMPLES[1]
+    finally:
+        _EXAMPLES = None
+
+
 def use_cuda(t: torch.Tensor) -> bool:
     return resolve(_ACTIVE, t.device) == "cuda"
 
@@ -84,12 +111,42 @@ def _require_cuda(op: str, *tensors) -> None:
 
 def lora_matmul(x, w, a, b):
     """x: (..., K) -> (..., N): x@W + (x@A)@B, differentiable."""
+    if _EXAMPLES is not None:
+        return _lora_matmul_examples(x, w, a, b)
     if not use_cuda(x):
         return ref.lora_matmul_ref(x, w, a, b)
     _require_cuda("lora_matmul", x, w, a, b)
     *lead, K = x.shape
     out = _lm.lora_matmul(x.reshape(math.prod(lead), K).contiguous(), w, a, b)
     return out.reshape(*lead, w.shape[1])
+
+
+def _lora_matmul_examples(x, w, a, b):
+    """lora_matmul under per_example_scope: x (B, ..., K) as (B, S, K);
+    a and b enter detached, and two fresh sinks, recorded in the scope's
+    sites, carry each example's gradients."""
+    B, sites = _EXAMPLES
+    *lead, K = x.shape
+    if not lead or lead[0] != B:
+        raise ValueError(f"lora_matmul: a per-example pass of {B} examples "
+                         f"needs inputs that lead with the batch, got "
+                         f"{tuple(x.shape)}")
+    if w.requires_grad:
+        raise ValueError("lora_matmul: a per-example pass forms no gradient "
+                         "of the bound base weight")
+    cuda = use_cuda(x)
+    if cuda:
+        _require_cuda("lora_matmul", x, w, a, b)
+    r, N = b.shape
+    sa = torch.empty((B, K, r), dtype=a.dtype, device=a.device,
+                     requires_grad=True)
+    sb = torch.empty((B, r, N), dtype=b.dtype, device=b.device,
+                     requires_grad=True)
+    sites.append((a, b, sa, sb))
+    S = math.prod(lead[1:])
+    y = _lm.LoRAMatmulExamples.apply(x.reshape(B, S, K).contiguous(), w,
+                                     a.detach(), b.detach(), sa, sb, cuda)
+    return y.reshape(*lead, N)
 
 
 def mha_attention(q, k, v, causal: bool = True, window: int = 0,

@@ -56,6 +56,14 @@ def panel_grad(lhs, panel, transpose_out: bool = False):
     return out.t().contiguous() if transpose_out else out
 
 
+def panel_grad_examples(lhs, panel, transpose_out: bool = False):
+    """Each example's lhs_bᵀ·panel_b: (B, S, L), (B, S, r) -> (B, L, r),
+    or (B, r, L) transposed: row 4 under the ``vmap`` of the DP-SGD
+    step's per-example loss."""
+    out = lhs.transpose(1, 2) @ panel
+    return out.transpose(1, 2).contiguous() if transpose_out else out
+
+
 # --------------------------------------------------------------------------- #
 # Attention
 # --------------------------------------------------------------------------- #

@@ -6,12 +6,18 @@ from __future__ import annotations
 import torch
 
 
-def cross_entropy(logits, labels):
-    """logits: (..., V); labels: (...) int.  Returns (mean_loss, n_tokens)."""
+def nll(logits, labels):
+    """logits: (..., V); labels: (...) int -> each position's negative
+    log-likelihood (...)."""
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - gold
-    return nll.mean(), nll.numel()
+    return lse - gold
+
+
+def cross_entropy(logits, labels):
+    """logits: (..., V); labels: (...) int.  Returns (mean_loss, n_tokens)."""
+    nll_ = nll(logits, labels)
+    return nll_.mean(), nll_.numel()
 
 
 def accuracy(logits, labels):

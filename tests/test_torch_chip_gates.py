@@ -180,3 +180,17 @@ def test_byte_bound_kernels_keep_the_fp32_rate():
     got = cs.kernel_bound("dp_clip_norms", nbytes, nflops, H100)
     assert got == {"bound_ms": pytest.approx(nbytes / H100[1] * 1e3),
                    "bound_by": "bytes"}
+
+
+def test_every_counted_kernel_has_its_row_in_the_kernels_line():
+    """chip_smoke's JSON line has one row for each launch counter the
+    port keeps (``ops.launches()``), the per-example panel with the
+    ``vmap`` of the reference's DP step beside the TPU kernel it
+    replaces."""
+    pytest.importorskip("torch")
+    from repro_torch.kernels import ops
+
+    assert set(cs.REPLACES) == set(ops.launches())
+    assert set(cs.VMAPPED) <= set(cs.REPLACES)
+    assert cs.REPLACES["lora_panel_examples"][0] == \
+        cs.REPLACES["lora_panel"][0]
