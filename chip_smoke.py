@@ -50,7 +50,15 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    batch-1 pass's M 80, ranks 64, 1 and 13, K and N that no tile or 8
    divides) and the panel gradient at its edges (M 80 and 1, ranks 1, 13
    and 64, L 770, lhs misaligned, RecurrentGemma-2B's (1280, 2560) and
-   (1280, 256)), both layouts out, and with an example axis (the DP
+   (1280, 256)), both layouts out, with a client axis (rows 1ᶜ, 2ᶜ and
+   4ᶜ, the spmd backend's stacked clients: GPT-2's (3, 1280, 768, 768),
+   RecurrentGemma-2B's and RWKV-6's widths and 8 clients timed eager and
+   in a graph beside their twins, the library chain and the old way, C
+   launches of rows 1, 2 and 4; C 1, M_c 1279, ranks 1, 13 and 64, a
+   ragged (2050, 261) and a misaligned x checked; at every shape each
+   client's outputs bit for bit those of the one-client kernel on its
+   rows; the flash and KD kernels once at the stacked batch), and with
+   an example axis (the DP
    step's per-example dA and dB: GPT-2's (16, 80, 768), RecurrentGemma-2B's
    (16, 80, 2560) and (16, 80, 256), RWKV-6's (16, 80, 2048), a ragged
    (3, 37, 770) at rank 13, S 1 at rank 64 and a misaligned lhs; its
@@ -206,7 +214,26 @@ outside that limit.  fp32_gates holds that arithmetic.
    projections) beside one train step's LoRA and flash launches, the
    plain runs nothing.  The dense dW kernel launches on no other path.
 
-After phase 9 it prints the final-LoRA margins of phase 7, Split int8
+10. The spmd backend (``FedConfig(backend="spmd")``: the 3 clients
+   stacked on a leading axis, each LoRA projection one client-axis pass)
+   at full gpt2 width from phase 3's weights and data, through the
+   kernels and plain.  FedLLM: each client's LoRA gradient of the first
+   stacked step through the kernels gated from fp64 as phase 3 gates
+   client 0's (first_step_grads of that client), and the final LoRA of
+   the kernel run from phase 3's fp64 run within phase 3's limit, its
+   round losses within phase 3's of its plain run.  KD (top-k 8, int8):
+   phase 4's spread gates against phase 4's runs.  Split (int8): the
+   final LoRA, round losses and launch counts bit for bit those of phase
+   6's sequential runs (the server half threads client after client
+   through the same split steps).  Every run's ledger and client FLOPs
+   equal the sequential kernel run's; the kernel runs' launch counts are
+   those the stacked shapes predict (model_launches with ``clients``:
+   per stacked train step 36 lora_fwd_clients, 36 lora_dx_clients and 72
+   lora_panel_clients; the single model's forwards and backwards keep
+   rows 1, 2 and 4), the plain runs' none.  Round times of both
+   backends and both policies are printed.
+
+After phase 10 it prints the final-LoRA margins of phase 7, Split int8
 and RWKV-6 and phase 5's first-step and final-LoRA margins (each kernel
 run's share of its limit, beside the last recorded run's), then one JSON
 line with every kernel's numbers and, last, the line ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -239,7 +266,9 @@ GRAPH_TIMED = ("kd_fwd", "kd_bwd", "kd_bwd_dt", "topk_quantize",
                "dp_clip_norms", "dp_clip_acc", "quantize_rows",
                "quantize_rows_int4", "quantize_pack4", "rglru_fwd",
                "rglru_bwd", "rwkv6_fwd", "rwkv6_bwd", "lora_panel",
-               "lora_panel_t", "lora_panel_examples", "lora_panel_examples_t")
+               "lora_panel_t", "lora_panel_examples", "lora_panel_examples_t",
+               "lora_fwd_clients", "lora_dx_clients", "lora_panel_clients",
+               "lora_panel_clients_t")
 # kernels also timed with the L2 flushed before each call: their input
 # (28.3 MB at the DP path, 26-39 MB at the RG-LRU's) fits the 50 MB L2, so
 # back-to-back calls read it from there, while in a step the passes
@@ -255,8 +284,10 @@ PEAKS = {"H100 PCIe": (51.2e12, 2.0e12, 378e12),
 # kernels whose products run on the tensor cores in 3xTF32 (three TF32
 # products each): their operation bound is at a third of the TF32 peak
 TF32X3 = ("lora_fwd", "lora_dx", "lora_dw", "flash_fwd", "flash_dq",
-          "flash_dkv")
+          "flash_dkv", "lora_fwd_clients", "lora_dx_clients")
 BATCH, PAD_LEN, RANK = 16, 80, 8
+# the case study's clients, stacked on a leading axis by the spmd backend
+CLIENTS = 3
 SPLIT_LAYER, SPLIT_BITS = 2, 8
 # LoRA parameters per example at gpt2 width: rank 8 on wq/wk/wv, 12 layers
 DP_WIDTH = 12 * 3 * 2 * RANK * 768
@@ -656,6 +687,163 @@ def panel_examples_checks(device, peaks_) -> dict:
                                                  old_way_graph_ms=graph)
         print(f"  the old way {where}: {B} launches of lora_panel at M {S}, "
               f"eager {eager:.4f} ms, in a graph {graph:.4f} ms")
+    return rows
+
+
+def clients_inputs(device, C, M, K, N, r, offset, seed):
+    """The client-axis LoRA kernels' inputs: x (C, M, K) and g (C, M, N)
+    placed ``offset`` floats into their storage (misaligned for 16-byte
+    copies at 1), w (K, N), a (C, K, r), b (C, r, N), and the panels xa
+    and gb scaled by M^-0.5 (O(1) outputs)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rn(*shape, std=1.0, at=0):
+        flat = torch.randn(at + math.prod(shape), device=device,
+                           generator=gen) * std
+        return flat[at:].view(shape)
+
+    x, g = rn(C, M, K, at=offset), rn(C, M, N, at=offset)
+    w = rn(K, N, std=K ** -0.5)
+    a, b = rn(C, K, r, std=K ** -0.5), rn(C, r, N, std=N ** -0.5)
+    xa, gb = (x @ a) * M ** -0.5, (g @ b.transpose(1, 2)) * M ** -0.5
+    return x, g, w, a, b, xa, gb
+
+
+def clients_cases(x, g, w, a, b, xa, gb):
+    """Rows 1ᶜ, 2ᶜ and 4ᶜ (both layouts) as {name: (kernel, plain,
+    library chain, bytes, flops, the old way: C launches of the
+    one-client kernel)}."""
+    import torch
+
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels import ref
+
+    C, M, K = x.shape
+    N, r = w.shape[1], a.shape[2]
+    f4 = 4
+    nbytes = f4 * (C * M * K + K * N + C * K * r + C * r * N + C * M * N
+                   + C * M * r)
+    nflops = 2 * C * M * (K * N + K * r + r * N)
+    xt, gt, xat = x.transpose(1, 2), g.transpose(1, 2), xa.transpose(1, 2)
+    bt, at_ = b.transpose(1, 2), a.transpose(1, 2)
+
+    def fwd_chain():
+        return ((x.reshape(-1, K) @ w).view(C, M, N)
+                + torch.bmm(torch.bmm(x, a), b))
+
+    def dx_chain():
+        return ((g.reshape(-1, N) @ w.t()).view(C, M, K)
+                + torch.bmm(torch.bmm(g, bt), at_))
+
+    def each(fn, *args):
+        def old_way():
+            return [fn(*(t[c] if t.dim() == 3 else t for t in args))
+                    for c in range(C)]
+        return old_way
+
+    return {
+        "lora_fwd_clients": (lambda: lm.lora_fwd_clients(x, w, a, b),
+                             lambda: ref.lora_fwd_clients(x, w, a, b),
+                             fwd_chain, nbytes, nflops,
+                             each(lm.lora_fwd, x, w, a, b)),
+        "lora_dx_clients": (lambda: lm.lora_dx_clients(g, w, a, b),
+                            lambda: ref.lora_dx_clients(g, w, a, b),
+                            dx_chain, nbytes, nflops,
+                            each(lm.lora_dx, g, w, a, b)),
+        "lora_panel_clients": (
+            lambda: lm.lora_panel_clients(x, gb),
+            lambda: ref.panel_grad_clients(x, gb),
+            lambda: torch.bmm(xt, gb), f4 * (C * M * K + C * M * r
+                                             + C * K * r),
+            2 * C * M * K * r, each(lm.lora_panel, x, gb)),
+        "lora_panel_clients_t": (
+            lambda: lm.lora_panel_clients(g, xa, True),
+            lambda: ref.panel_grad_clients(g, xa, True),
+            lambda: torch.bmm(xat, g), f4 * (C * M * N + C * M * r
+                                             + C * N * r),
+            2 * C * M * N * r,
+            each(lambda gc, xac: lm.lora_panel(gc, xac, True), g, xa)),
+    }
+
+
+def clients_same_bits(name: str, got, per_client) -> None:
+    """Each client's outputs of a client-axis launch are the bits of the
+    one-client kernel launched on that client's rows (``per_client``: C
+    of its outputs, a tensor or a tuple each)."""
+    import torch
+
+    got = _flat(got)
+    for c, want in enumerate(per_client):
+        for i, (a, b) in enumerate(zip(got, _flat(want))):
+            require(torch.equal(a[c], b), f"{name}: output {i} of client "
+                    f"{c} differs from the one-client launch in "
+                    f"{int((a[c] != b).sum())} of {b.numel()} elements")
+
+
+def clients_checks(device, peaks_) -> dict:
+    """Phase 2's part for rows 1ᶜ, 2ᶜ and 4ᶜ (the spmd backend's stacked
+    clients: W shared, A, B and rows per client): at GPT-2's (3, 1280,
+    768, 768), RecurrentGemma-2B's (3, 1280, 2560, 2560), RWKV-6's (3,
+    1280, 2048, 2048) and C 8 at GPT-2's width, and at the edges (C 1,
+    M_c 1279, ranks 1, 13 and 64, a ragged K and N, x and g misaligned),
+    each client's outputs bit for bit those of the one-client kernels on
+    its rows (the same tiles and summation order) and within the
+    tolerance of their plain twins; at the four timed shapes the kernel
+    eager and in a CUDA graph beside its twin, the library chain and the
+    old way (C launches of the one-client kernel, eager and in a graph).
+    Returns the timed rows ("<name>", "<name>@rg", "<name>@rwkv",
+    "<name>@c8")."""
+    shapes = [(CLIENTS, BATCH * PAD_LEN, 768, 768, RANK, 0, ""),
+              (CLIENTS, BATCH * PAD_LEN, 2560, 2560, RANK, 0, "@rg"),
+              (CLIENTS, BATCH * PAD_LEN, 2048, 2048, RANK, 0, "@rwkv"),
+              (8, BATCH * PAD_LEN, 768, 768, RANK, 0, "@c8"),
+              (1, BATCH * PAD_LEN, 768, 768, RANK, 0, None),
+              (CLIENTS, 1279, 768, 768, RANK, 0, None),
+              (CLIENTS, 333, 768, 768, 1, 0, None),
+              (CLIENTS, 333, 2050, 261, 13, 0, None),
+              (CLIENTS, 200, 768, 768, 64, 0, None),
+              (CLIENTS, BATCH * PAD_LEN, 768, 768, RANK, 1, None)]
+    rows = {}
+    for i, (C, M, K, N, r, offset, tag) in enumerate(shapes):
+        where = f"(C {C}, M_c {M}, K {K}, N {N}, r {r}, offset {offset})"
+        cases = clients_cases(*clients_inputs(device, C, M, K, N, r, offset,
+                                              230 + i))
+        for name, (kern, plain, lib, nbytes, nflops, old) in cases.items():
+            clients_same_bits(name, kern(), old())
+            if tag is None:
+                err = max_err(name, kern(), plain())
+                print(f"  {name} {where}: max abs err {err:.3e}; each "
+                      f"client bit-identical to the one-client kernel")
+                continue
+            print(f"  {name} {where}, each client bit-identical to the "
+                  f"one-client kernel:")
+            row = time_case(name, (kern, plain, lib, nbytes, nflops),
+                            peaks_)
+            row.update(old_way_ms=cuda_ms(old), old_way_graph_ms=graph_ms(
+                old, calls=4))
+            print(f"  the old way {where}: {C} launches, eager "
+                  f"{row['old_way_ms']:.4f} ms, in a graph "
+                  f"{row['old_way_graph_ms']:.4f} ms")
+            rows[name + tag] = row
+    # the flash and KD kernels once at the stacked batch: BH 3·16·12 heads,
+    # 3·64 public rows of KD's b8
+    for name, (kern, plain, *_rest) in kernel_cases(
+            device, M=64, K=64, N=64, r=RANK, BH=CLIENTS * BATCH * 12,
+            BKV=CLIENTS * BATCH * 12, S=PAD_LEN, Skv=PAD_LEN, D=64,
+            causal=True, window=0, q_offset=0, seed=240).items():
+        if name.startswith("flash_"):
+            err = max_err(name, kern(), plain())
+            print(f"  {name} at the stacked clients' BH "
+                  f"{CLIENTS * BATCH * 12}: max abs err {err:.3e}")
+    for name, (kern, plain, *_rest) in kd_cases(
+            device, R=CLIENTS * 64, V=77, T=2.0, topk_teacher=True, Rq=150,
+            Cq=77, k=8, bits=8, ties=False, seed=241).items():
+        if name.startswith("kd_"):
+            err = max_err(name, kern(), plain())
+            print(f"  {name} at the stacked clients' {CLIENTS * 64} rows: "
+                  f"max abs err {err:.3e}")
     return rows
 
 
@@ -1421,6 +1609,7 @@ def check_kernels(device, card: str):
                   f"r {shape['r']}, offset {shape['offset']}): max abs err "
                   f"{err:.3e}")
     rows = panel_examples_checks(device, peaks_)
+    rows.update(clients_checks(device, peaks_))
     for i, shape in enumerate(kd_checks):
         for name, (kern, plain, *_rest) in kd_cases(
                 device, seed=200 + i, **shape).items():
@@ -1715,6 +1904,9 @@ def nudged(base, seed: int, device):
 # step), keyed by path, and the share the last run recorded in PERF.md
 # printed beside it (None: no run recorded it yet)
 MARGINS = {}
+# phases 3, 4 and 6's runs, launch counts and gate limits (run_case's
+# ``keep``), the yardsticks of phase 10's spmd runs
+CASES = {}
 MARGINS_BEFORE = {"phase 7": 0.402, "Split int8": 0.862, "RWKV-6": 0.867,
                   "DP first step": 0.176, "DP final LoRA": 0.311,
                   "DP first-step rows": None}
@@ -1736,7 +1928,7 @@ def rwkv_bwd_repeat(device, seed) -> None:
 
 
 def run_case(device, cfg, base, fed, data, ledger, expect,
-             kind="continuous", seeds=0, margin=None):
+             kind="continuous", seeds=0, margin=None, keep=None):
     """One framework's case study through the kernels and through plain
     PyTorch (under two BLAS libraries, two summation orders of the same
     fp32 products, and under TF32), from the same weights, and ``seeds``
@@ -1760,7 +1952,9 @@ def run_case(device, cfg, base, fed, data, ledger, expect,
     difference between the plain run and another fp32 run, and such a
     phase gates the kernels' precision on its first step, before the runs
     part.  ``margin`` names the path in MARGINS, where the kernel run's
-    final-LoRA share of its limit is then kept."""
+    final-LoRA share of its limit is then kept; ``keep`` names it in
+    CASES, where its runs, launch counts and gate limits are kept for
+    phase 10."""
     import torch
 
     from repro_torch.core.rounds import run_federated
@@ -1854,6 +2048,9 @@ def run_case(device, cfg, base, fed, data, ledger, expect,
               f"max abs {worst:.3e}")
     if margin is not None:
         MARGINS[margin] = gaps["kernels"][1] / limits["lora"]
+    if keep is not None:
+        CASES[keep] = {"results": results, "counts": counts,
+                       "limits": limits, "kind": kind}
     require(not failed, "; ".join(failed))
 
     got = {name: n for name, n in counts["kernels"].items() if name in expect}
@@ -1868,14 +2065,26 @@ def run_case(device, cfg, base, fed, data, ledger, expect,
     return counts["kernels"], kern
 
 
-def model_launches(L, train_steps, fwd_batches):
+def model_launches(L, train_steps, fwd_batches, clients: bool = False):
     """LoRA and attention launches the model's shapes predict: 3 LoRA
     projections and one attention per layer; forward in every batch,
-    backward in every train step (dx, and two panel grads per projection)."""
+    backward in every train step (dx, and two panel grads per projection).
+    With ``clients``, the steps and batches are stacked clients' (the
+    spmd backend's): the LoRA launches are the client-axis kernels'."""
     fwd = train_steps + fwd_batches
-    return {"lora_fwd": 3 * L * fwd, "lora_dx": 3 * L * train_steps,
-            "lora_panel": 6 * L * train_steps, "flash_fwd": L * fwd,
+    tag = "_clients" if clients else ""
+    return {f"lora_fwd{tag}": 3 * L * fwd, f"lora_dx{tag}": 3 * L * train_steps,
+            f"lora_panel{tag}": 6 * L * train_steps, "flash_fwd": L * fwd,
             "flash_dq": L * train_steps, "flash_dkv": L * train_steps}
+
+
+def add_counts(*counts) -> dict:
+    """The sum of launch-count dicts, name by name."""
+    out = {}
+    for c in counts:
+        for name, n in c.items():
+            out[name] = out.get(name, 0) + n
+    return out
 
 
 def run_slices(device):
@@ -1913,7 +2122,7 @@ def run_slices(device):
         device, cfg, base, fed, data,
         ledger={"lora_params": fed.rounds * C * 2 * lora_bytes},
         expect=model_launches(L, steps * fed.rounds,
-                              evals * fed.rounds))
+                              evals * fed.rounds), keep="fedllm")
     print(f"  phase 3 wall_s={time.perf_counter() - t0:.1f}")
 
     t0 = time.perf_counter()
@@ -1946,7 +2155,7 @@ def run_slices(device):
     by_path["kd"], _ = run_case(
         device, cfg, base, fed, data,
         ledger={"logits": fed.rounds * C * 2 * wire}, expect=expect,
-        kind="spread", seeds=NUDGED_SEEDS)
+        kind="spread", seeds=NUDGED_SEEDS, keep="kd")
     print(f"  phase 4 wall_s={time.perf_counter() - t0:.1f}")
 
     t0 = time.perf_counter()
@@ -2100,7 +2309,8 @@ def run_split(device, cfg, base, data, steps, evals):
                     "activations": fed.rounds * steps * c2,
                     "act_grads": fed.rounds * steps * c4},
             expect=expect, kind="spread" if bits else "continuous",
-            seeds=NUDGED_SEEDS, margin="Split int8" if bits else None)
+            seeds=NUDGED_SEEDS, margin="Split int8" if bits else None,
+            keep=path)
         per_client = kern.ledger.per_client_round()
         require(all(v == len(clients[ci]["tokens"]) // BATCH * (c2 + c4)
                     + 2 * half for (_, ci), v in per_client.items()),
@@ -2303,9 +2513,9 @@ def run_recurrent(device):
     return counts
 
 
-def first_step_inputs(device, base, fed, clients):
+def first_step_inputs(device, base, fed, clients, ci: int = 0):
     """The first train step's inputs: the run's initial LoRA and client
-    0's first batch of round 0, on the card."""
+    ``ci``'s first batch of round 0, on the card."""
     import torch
 
     from repro_torch.core.fedavg import to_device
@@ -2316,15 +2526,15 @@ def first_step_inputs(device, base, fed, clients):
                             base, fed.lora_targets or lora_lib.DEFAULT_TARGETS,
                             fed.lora_rank, fed.lora_alpha)
     batch = to_device(next(iter(epoch_batches(
-        clients[0], BATCH, seed=fed.seed * 997))), device)
+        clients[ci], BATCH, seed=fed.seed * 997))), device)
     return lt, batch
 
 
-def first_step_gaps(device, cfg, base, fed, clients):
-    """The LoRA gradient of FedLLM's first train step (client 0's first
-    batch, the run's initial LoRA) under each of each_run(exact=True)'s
-    settings, recomputed under its policy and setting.  Returns each run's
-    relative L2 distance from the fp64 gradient (from_exact)."""
+def first_step_grads(device, cfg, base, fed, clients, ci: int = 0):
+    """The LoRA gradient of FedLLM's first train step (client ``ci``'s
+    first batch, the run's initial LoRA) under each of
+    each_run(exact=True)'s settings, recomputed under its policy and
+    setting: {role: gradient leaves}."""
     import torch
 
     from repro_torch import tree as tree_lib
@@ -2333,7 +2543,7 @@ def first_step_gaps(device, cfg, base, fed, clients):
     from repro_torch.models.factory import build_model
     from repro_torch.peft import lora as lora_lib
 
-    lt, batch = first_step_inputs(device, base, fed, clients)
+    lt, batch = first_step_inputs(device, base, fed, clients, ci)
     loss_fn = tasks.get_loss_fn("classification")
     grads = {}
     for role, tag, policy in each_run(exact=True):
@@ -2347,7 +2557,15 @@ def first_step_gaps(device, cfg, base, fed, clients):
             grads[role] = torch.autograd.grad(loss, tree_lib.leaves(live))
         del b, l
     torch.cuda.empty_cache()
-    return from_exact(grads, "round 0 step 0 LoRA gradient")
+    return grads
+
+
+def first_step_gaps(device, cfg, base, fed, clients):
+    """Each run's relative L2 distance from the fp64 gradient
+    (from_exact) of FedLLM's first train step (first_step_grads, client
+    0)."""
+    return from_exact(first_step_grads(device, cfg, base, fed, clients),
+                      "round 0 step 0 LoRA gradient")
 
 
 def dp_first_step_gaps(device, cfg, base, fed, clients):
@@ -2582,6 +2800,218 @@ def run_base_grad(device):
     return counts["kernels"]
 
 
+def spmd_first_step(device, cfg, base, fed, clients):
+    """The spmd backend's first stacked train step through the kernels:
+    every client's first batch of round 0 (first_step_inputs) against the
+    run's initial LoRA stacked for the clients, the gradient that the
+    stacked train step takes (make_fns' ``grads_clients``, the body of
+    ``train_step_clients``) under policy ``cuda`` (the client-axis
+    kernels).  Returns each client's LoRA gradient leaves."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import fed_spmd
+    from repro_torch.core.fedavg import make_fns
+    from repro_torch.kernels import ops
+    from repro_torch.models.factory import build_model
+
+    C = len(clients)
+    inputs = [first_step_inputs(device, base, fed, clients, ci)
+              for ci in range(C)]
+    slt = fed_spmd.stack_for_clients(inputs[0][0], C)
+    batch = {k: torch.cat([b[k] for _, b in inputs]) for k in inputs[0][1]}
+    fns = make_fns(build_model(dataclasses.replace(cfg, kernel_policy="cuda")),
+                   fed)
+    with ops.policy_scope("cuda"):
+        _, grads = fns["grads_clients"](base, slt, batch)
+    grads = tree_lib.leaves(grads)
+    return [[g[c] for g in grads] for c in range(C)]
+
+
+def run_spmd(device):
+    """Phase 10: the spmd backend (the 3 clients stacked on a leading
+    axis) at full gpt2 width, from phase 3's weights and data, through
+    the kernels and plain, each run held to the sequential runs of phases
+    3, 4 and 6 (CASES): FedLLM (each client's first stacked step's LoRA
+    gradient and the final LoRA gated from phase 3's fp64 runs with phase
+    3's limits), KD top-k 8 int8 (phase 4's spread gates) and Split int8
+    (phase 6's final LoRA and launch counts, bit for bit); the ledger and
+    client FLOPs equal the sequential runs', and the launch counts the
+    stacked shapes' (model_launches with ``clients``).  Returns {path:
+    kernel-run launch counts}."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.configs.gpt2_small import gpt2
+    from repro_torch.core.rounds import run_federated
+    from repro_torch.data import banking77, partition
+    from repro_torch.kernels import ops
+    from repro_torch.models.factory import build_model
+
+    cfg = gpt2()
+    pub, train, test = banking77.paper_splits(cfg.vocab_size,
+                                              pad_len=PAD_LEN, scale=0.03)
+    clients = partition.iid_partition(train, CLIENTS)
+    data = (pub, clients, test)
+    base = build_model(cfg).init(torch.Generator().manual_seed(0), device)
+    L, C = cfg.n_layers, len(clients)
+    stacked = max(len(c["tokens"]) // BATCH for c in clients)  # per round
+    evals = len(test["tokens"]) // 64
+    pub_batches = -(-len(pub["tokens"]) // 64)
+
+    def run(fed, policy, expect):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = run_federated(dataclasses.replace(cfg, kernel_policy=policy),
+                            fed, pub, clients, test, batch_size=BATCH,
+                            eval_batch=64, device=device, base=base)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launches()
+        for h in res.history:
+            require(math.isfinite(h.loss) and 0.0 <= h.accuracy <= 1.0,
+                    f"round {h.round} metrics out of range")
+            print(f"  [spmd {policy}] round {h.round}: acc={h.accuracy:.4f} "
+                  f"loss={h.loss:.6f} wall_s={h.seconds:.3f}")
+        print(f"  [spmd {policy}] run wall_s={wall:.3f} launches="
+              f"{ {n: k for n, k in counts.items() if k} }")
+        want = {n: k for n, k in expect.items() if k} if policy == "cuda" \
+            else {}
+        require({n: k for n, k in counts.items() if k} == want,
+                f"spmd {policy} launches {counts} != expected {want}")
+        return res, counts
+
+    def same_accounting(res, seq, what):
+        require(res.ledger.by_name() == seq.ledger.by_name(),
+                f"{what}: ledger by_name {res.ledger.by_name()} != "
+                f"{seq.ledger.by_name()}")
+        require(res.ledger.per_client_round() == seq.ledger.per_client_round(),
+                f"{what}: ledger per_client_round")
+        require(res.client_flops == seq.client_flops, f"{what}: client FLOPs")
+
+    def round_times(path, runs):
+        for what, res in runs:
+            print(f"  {path} round wall_s, {what}: "
+                  + ", ".join(f"{h.seconds:.3f}" for h in res.history))
+
+    by_path = {}
+    print(f"phase 10: the spmd backend ({C} clients stacked), gpt2 full "
+          f"width, 2 rounds: FedLLM")
+    fed = FedConfig(framework="fedllm", rounds=2, lora_rank=RANK,
+                    lora_dropout=0.0, backend="spmd")
+    seq = CASES["fedllm"]
+    for ci, grads in enumerate(spmd_first_step(device, cfg, base, fed,
+                                               clients)):
+        runs = first_step_grads(device, cfg, base, fed, clients, ci)
+        runs["kernels"] = grads
+        floor_gate(f"client {ci}'s first-step LoRA gradient, stacked "
+                   f"kernel step", from_exact(runs, f"round 0 step 0 LoRA "
+                                              f"gradient of client {ci}"))
+    expect = add_counts(model_launches(L, stacked * fed.rounds, 0, True),
+                        model_launches(L, 0, evals * fed.rounds))
+    res = {}
+    for policy in ("cuda", "torch"):
+        res[policy], counts = run(fed, policy, expect)
+        same_accounting(res[policy], seq["results"]["kernels"],
+                        f"FedLLM spmd {policy}")
+        if policy == "cuda":
+            by_path["fedllm_spmd"] = counts
+    exact, plain = seq["results"]["exact"], seq["results"]["plain"]
+    for policy, r in res.items():
+        share, rel, worst = lora_gap(r.final_lora, exact.final_lora)
+        print(f"  final LoRA spmd {policy} vs phase 3's fp64: relative L2 "
+              f"{rel:.3e} (limit {seq['limits']['lora']:.3e}, "
+              f"{rel / seq['limits']['lora']:.3f} of it), outside atol "
+              f"5e-5/rtol 5e-4 {share:.3e}, max abs {worst:.3e}")
+        for h, hp, lim in zip(r.history, plain.history,
+                              seq["limits"]["loss"]):
+            print(f"  round {h.round} loss spmd {policy} vs phase 3's "
+                  f"plain: {abs(h.loss - hp.loss):.3e} (limit {lim:.3e})")
+    kern = res["cuda"]
+    require(lora_gap(kern.final_lora, exact.final_lora)[1]
+            <= seq["limits"]["lora"], "FedLLM spmd: final LoRA of the "
+            "kernel run off phase 3's fp64 run beyond phase 3's limit")
+    require(all(abs(h.loss - hp.loss) <= lim for h, hp, lim in zip(
+        kern.history, plain.history, seq["limits"]["loss"])),
+        "FedLLM spmd: round loss of the kernel run off phase 3's plain run")
+    round_times("FedLLM", [("spmd kernels", kern), ("spmd plain",
+                                                    res["torch"]),
+                           ("sequential kernels", seq["results"]["kernels"]),
+                           ("sequential plain", plain)])
+
+    print("phase 10: KD, top-k 8 int8 logits, spmd")
+    fed = FedConfig(framework="kd", rounds=2, lora_rank=RANK,
+                    lora_dropout=0.0, logit_topk=8, logit_quant_bits=8,
+                    backend="spmd")
+    seq = CASES["kd"]
+    R, kd_steps = fed.rounds, fed.kd_epochs * pub_batches
+    # stacked: b1 train steps and b8 distillation (one KD forward and
+    # backward each), b2 logits; one model: b5 distillation, b6 logits
+    # and evaluation; the b3 top-k upload a client and round
+    expect = add_counts(
+        model_launches(L, (stacked + kd_steps) * R, pub_batches * R, True),
+        model_launches(L, kd_steps * R, (pub_batches + evals) * R),
+        {"kd_fwd": 2 * kd_steps * R, "kd_bwd": 2 * kd_steps * R,
+         "topk_quantize": C * R})
+    res = {}
+    for policy in ("cuda", "torch"):
+        res[policy], counts = run(fed, policy, expect)
+        same_accounting(res[policy], seq["results"]["kernels"],
+                        f"KD spmd {policy}")
+        if policy == "cuda":
+            by_path["kd_spmd"] = counts
+    plain = seq["results"]["plain"]
+    for policy, r in res.items():
+        rel = lora_gap(r.final_lora, plain.final_lora)[1]
+        print(f"  final LoRA spmd {policy} vs phase 4's plain: relative L2 "
+              f"{rel:.3e} (limit {seq['limits']['lora']:.3e}, "
+              f"{rel / seq['limits']['lora']:.3f} of it)")
+        for h, hp, lim in zip(r.history, plain.history,
+                              seq["limits"]["loss"]):
+            print(f"  round {h.round} loss spmd {policy} vs phase 4's "
+                  f"plain: {abs(h.loss - hp.loss):.3e} (limit {lim:.3e})")
+    kern = res["cuda"]
+    require(lora_gap(kern.final_lora, plain.final_lora)[1]
+            <= seq["limits"]["lora"], "KD spmd: final LoRA of the kernel "
+            "run off phase 4's plain run beyond phase 4's spread limit")
+    require(all(abs(h.loss - hp.loss) <= lim for h, hp, lim in zip(
+        kern.history, plain.history, seq["limits"]["loss"])),
+        "KD spmd: round loss of the kernel run beyond phase 4's limit")
+    round_times("KD", [("spmd kernels", kern), ("spmd plain", res["torch"]),
+                       ("sequential kernels", seq["results"]["kernels"]),
+                       ("sequential plain", plain)])
+
+    print(f"phase 10: Split-FedLLM, split_layer {SPLIT_LAYER}, "
+          f"int{SPLIT_BITS} boundary, spmd")
+    fed = FedConfig(framework="split", rounds=2, lora_rank=RANK,
+                    lora_dropout=0.0, split_layer=SPLIT_LAYER,
+                    activation_quant_bits=SPLIT_BITS, backend="spmd")
+    seq = CASES["split"]
+    for policy, role in (("cuda", "kernels"), ("torch", "plain")):
+        # the server half threads client after client: the sequential
+        # run's split steps on the same batches, so the same launches
+        r, counts = run(fed, policy, seq["counts"][role])
+        same_accounting(r, seq["results"][role], f"Split spmd {policy}")
+        require(all(torch.equal(a, b) for a, b in zip(
+            tree_lib.leaves(r.final_lora),
+            tree_lib.leaves(seq["results"][role].final_lora))),
+            f"Split spmd {policy}: final LoRA differs from phase 6's "
+            f"sequential {role} run")
+        require([h.loss for h in r.history]
+                == [h.loss for h in seq["results"][role].history],
+                f"Split spmd {policy}: round losses differ from phase 6's")
+        print(f"  Split spmd {policy}: final LoRA, round losses and launches "
+              f"bit-identical to phase 6's sequential {role} run")
+        round_times("Split", [(f"spmd {role}", r),
+                              (f"sequential {role}", seq["results"][role])])
+        if policy == "cuda":
+            by_path["split_spmd"] = counts
+    del base
+    torch.cuda.empty_cache()
+    return by_path
+
+
 # the kernels that must not spill: {kernel: (source, instances)}
 NO_SPILLS = {"lora_fused_kernel": ("lora_matmul", 8),
              "lora_dw_kernel": ("lora_matmul", 1),
@@ -2634,12 +3064,23 @@ REPLACES = {
     # the gradient of row 16 (the reference differentiates its WKV
     # through XLA)
     "rwkv6_bwd": ("src/repro/kernels/rwkv6_scan.py:58", "rwkv6_scan.cu"),
+    # rows 1, 2 and 4 under the vmap over clients of the spmd backend's
+    # stacked local update (VMAPPED), which gives them a client axis
+    "lora_fwd_clients": ("src/repro/kernels/lora_matmul.py:74",
+                         "lora_matmul.cu"),
+    "lora_dx_clients": ("src/repro/kernels/lora_matmul.py:140",
+                        "lora_matmul.cu"),
+    "lora_panel_clients": ("src/repro/kernels/lora_matmul.py:226",
+                           "lora_matmul.cu"),
 }
 
 
 # the kernels that port a TPU kernel in the form a reference ``vmap`` gives
 # it: {kernel: the vmap's file:line}
-VMAPPED = {"lora_panel_examples": "src/repro/core/fedavg.py:83"}
+VMAPPED = {"lora_panel_examples": "src/repro/core/fedavg.py:83",
+           "lora_fwd_clients": "src/repro/core/fed_spmd.py:319",
+           "lora_dx_clients": "src/repro/core/fed_spmd.py:319",
+           "lora_panel_clients": "src/repro/core/fed_spmd.py:319"}
 
 
 def main() -> int:
@@ -2698,7 +3139,10 @@ def main() -> int:
     t0 = time.perf_counter()
     by_path["base_grad"] = run_base_grad(device)
     print(f"  phase 9 wall_s={time.perf_counter() - t0:.1f}")
-    print(f"  phases 1-9 wall_s={time.perf_counter() - t_start:.1f}")
+    t0 = time.perf_counter()
+    by_path.update(run_spmd(device))
+    print(f"  phase 10 wall_s={time.perf_counter() - t0:.1f}")
+    print(f"  phases 1-10 wall_s={time.perf_counter() - t_start:.1f}")
     print("margins (share of the limit; the last recorded run's in "
           "parentheses): " + ", ".join(
               f"{path} {MARGINS[path]:.3f} ("
@@ -2710,10 +3154,12 @@ def main() -> int:
     # the RG-LRU scan's at RecurrentGemma-2B's train step), the LoRA and
     # flash rows with their RecurrentGemma-2B shapes under
     # ``at_recurrentgemma`` (RWKV-6's under ``at_rwkv6``, the panel's at
-    # a DP batch-1 pass under ``at_dp_batch1``); the KD kernels'
+    # a DP batch-1 pass under ``at_dp_batch1``, the client-axis rows'
+    # at 8 clients under ``at_8_clients``); the KD kernels'
     # generative-vocabulary timings are printed above.  The per-example
-    # panel's rows add its fp64 error over torch.bmm's and the old way's
-    # times (B launches of lora_panel, eager and in a graph).
+    # panel's rows add its fp64 error over torch.bmm's, and its and the
+    # client-axis rows the old way's times (B or C launches of the
+    # one-example or one-client kernel, eager and in a graph).
     extra = ("fp64_rms_ratio", "old_way_ms", "old_way_graph_ms")
     kernels = []
     for name, (replaces, src) in REPLACES.items():
@@ -2733,7 +3179,7 @@ def main() -> int:
                                          "cold_ms", "bound_fp32_ms") + extra
                if key in row}})
         for tag, key in (("rg", "at_recurrentgemma"), ("rwkv", "at_rwkv6"),
-                         ("dp", "at_dp_batch1")):
+                         ("dp", "at_dp_batch1"), ("c8", "at_8_clients")):
             if f"{name}@{tag}" in rows:
                 at = rows[f"{name}@{tag}"]
                 kernels[-1][key] = {

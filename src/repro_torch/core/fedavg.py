@@ -7,7 +7,9 @@
 
 Counterpart of ``make_fns`` (train, eval, logit and KD steps, shared by
 the frameworks), ``fedavg`` and ``evaluate`` in
-``src/repro/core/fedavg.py``.  The base model is a frozen
+``src/repro/core/fedavg.py``, with the stacked clients' forms of the
+train, logit and KD steps that the ``spmd`` backend runs where the
+reference ``vmap``s them (core/fed_spmd.py).  The base model is a frozen
 constant of the loss: gradients are taken with respect to the LoRA leaves
 only (the PEFT property, paper fn.1).
 """
@@ -25,7 +27,7 @@ from repro_torch.data.loader import epoch_batches
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import loss as losses
 from repro_torch.models.factory import Model
-from repro_torch.optim.api import make_optimizer
+from repro_torch.optim.api import make_client_update, make_optimizer
 from repro_torch.peft import lora as lora_lib
 from repro_torch.privacy import dp as dp_mod
 from repro_torch.runtime import compute_dtype
@@ -46,10 +48,13 @@ def _grad(loss, live):
 
 def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
     """Returns a dict with ``train_step``, ``per_example_grads``,
-    ``eval_step``, ``logits_fn``, ``kd_step`` and ``opt_init``."""
+    ``eval_step``, ``logits_fn``, ``kd_step``, ``opt_init`` and the
+    stacked clients' ``grads_clients``, ``train_step_clients``,
+    ``logits_fn_clients`` and ``kd_step_clients``."""
     task_loss = tasks.get_loss_fn(task)
     task_loss_rows = tasks.get_loss_rows_fn(task)
     opt_init, opt_update = make_optimizer(fed.optimizer)
+    clients_update = make_client_update(fed.optimizer)
     dp_clip = fed.privacy.dp_clip
 
     def _bind(base, lt, gen: Optional[torch.Generator] = None):
@@ -147,9 +152,80 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
                                      opt_state, lt, fed.lr)
         return new_lt, new_opt, loss.detach()
 
+    # ---- the stacked clients (the ``spmd`` backend) -------------------- #
+    # Every LoRA leaf leads with the client axis C and a batch holds the
+    # clients' batches one after another (C·B rows); each LoRA projection
+    # is one client-axis pass (kernels/ops.lora_matmul), and one forward
+    # and backward of the sum over clients of each client's mean loss
+    # gives each client its own gradient, since no ported layer mixes
+    # examples.  ``gens`` holds each client's dropout generator.
+    def _clients_grads(base, slt, batch, gens, rows_fn):
+        """(each client's loss (C,), each client's LoRA gradient as a tree
+        like ``slt``) of one stacked pass; ``rows_fn(logits)`` gives each
+        example's loss."""
+        live = tree_lib.map_(lambda t: t.detach().requires_grad_(True),
+                             slt)
+        C = tree_lib.leaves(slt)[0].shape[0]
+        logits, aux = model.forward(_bind(base, live, gens), batch)
+        if torch.is_tensor(aux) and aux.requires_grad:
+            raise ValueError("stacked clients' step: the model's aux term "
+                             "carries a gradient; it mixes the clients' "
+                             "examples, so one stacked pass cannot give each "
+                             "client its own gradient")
+        losses_ = rows_fn(logits).view(C, -1).mean(dim=1) + aux
+        return (losses_.detach(),
+                tree_lib.unflatten(slt, _grad(losses_.sum(), live)))
+
+    def grads_clients(base, slt, batch, gens=None):
+        """The stacked train step's (each client's loss (C,), each
+        client's LoRA gradient with ``slt``'s leading client axis)."""
+        return _clients_grads(base, slt, batch, gens,
+                              lambda lg: task_loss_rows(lg, batch))
+
+    def train_step_clients(base, slt, sopt, batch, gens=None, valid=None):
+        """train_step for stacked clients: ``slt`` and ``sopt`` lead with
+        the client axis (``sopt["step"]`` each client's count), ``batch``
+        holds the clients' batches one after another.  A client whose
+        ``valid`` entry is false (a padded step) keeps its LoRA and Adam
+        state.  Returns (new_slt, new_sopt, each client's loss (C,))."""
+        if dp_clip > 0.0:
+            raise NotImplementedError("DP-SGD over stacked clients is not "
+                                      "ported yet")
+        loss, grads = grads_clients(base, slt, batch, gens)
+        new_lt, new_opt = clients_update(grads, sopt, slt, fed.lr, valid)
+        return new_lt, new_opt, torch.where(torch.isfinite(loss), loss, 0.0)
+
+    @torch.no_grad()
+    def logits_fn_clients(base, slt, batch):
+        """logits_fn of every stacked client on its rows of ``batch`` (a
+        batch repeated C times): (C, B, n_classes)."""
+        C = tree_lib.leaves(slt)[0].shape[0]
+        logits, _ = model.forward(_bind(base, slt), batch)
+        cl = tasks.class_logits(logits, batch)
+        return cl.view(C, -1, cl.shape[-1])
+
+    def kd_step_clients(base, slt, sopt, batch, teacher_logits, gens=None):
+        """kd_step of every stacked client on its rows of ``batch`` (a
+        public batch repeated C times) against the shared
+        ``teacher_logits`` (B, D).  Returns (new_slt, new_sopt, each
+        client's loss (C,))."""
+        def rows(logits):
+            student = tasks.class_logits(logits, batch)
+            C = student.shape[0] // teacher_logits.shape[0]
+            return losses.kd_kl_rows(student, teacher_logits.repeat(C, 1),
+                                     fed.kd_temperature)
+
+        loss, grads = _clients_grads(base, slt, batch, gens, rows)
+        new_lt, new_opt = clients_update(grads, sopt, slt, fed.lr)
+        return new_lt, new_opt, loss
+
     return {"train_step": train_step, "per_example_grads": per_example_grads,
             "eval_step": eval_step, "logits_fn": logits_fn,
-            "kd_step": kd_step, "opt_init": opt_init}
+            "kd_step": kd_step, "opt_init": opt_init,
+            "grads_clients": grads_clients,
+            "train_step_clients": train_step_clients,
+            "logits_fn_clients": logits_fn_clients,
+            "kd_step_clients": kd_step_clients}
 
 
 # --------------------------------------------------------------------------- #

@@ -3,15 +3,16 @@
     broadcast -> local_update -> upload -> aggregate -> evaluate
 
 Counterpart of the parts of ``src/repro/core/round_program.py`` that run
-FedLLM, KD-FedLLM and Split-FedLLM with sequential clients and sync
-rounds: ``RoundContext``, the ``SyncSchedule``, the
-``SequentialExecutor`` (a Python loop over clients, one train step per
-batch), the ``FedLLMProgram``, ``KDProgram`` and ``SplitProgram``
-stage-specs and ``run_program`` with
-the privacy middleware (upload noise, secure-aggregation masking around
-aggregation, the RDP accountant) and without the fault middleware.
-Ledger bytes are derived from payload shapes, so they equal the
-reference's exactly.
+FedLLM, KD-FedLLM and Split-FedLLM with sync rounds: ``RoundContext``,
+the ``SyncSchedule``, the ``SequentialExecutor`` (a Python loop over
+clients, one train step per batch), the ``SpmdExecutor`` (the round's
+clients stacked on a leading axis, one stacked program per rank bucket:
+core/fed_spmd.py), the ``FedLLMProgram``, ``KDProgram`` and
+``SplitProgram`` stage-specs and ``run_program`` with the privacy
+middleware (upload noise, secure-aggregation masking around aggregation,
+the RDP accountant), which is the same under either executor, and
+without the fault middleware.  Ledger bytes are derived from payload
+shapes, so they equal the reference's exactly.
 """
 from __future__ import annotations
 
@@ -23,9 +24,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FedConfig, ModelConfig
+from repro_torch.core import fed_spmd
 from repro_torch.core import kd as kd_mod
 from repro_torch.core import metrics as M
 from repro_torch.core import split as split_mod
+from repro_torch import tree as tree_lib
 from repro_torch.core.fedavg import evaluate, fedavg, make_fns, to_device
 from repro_torch.data.loader import epoch_batches
 from repro_torch.peft import lora as lora_lib
@@ -100,6 +103,8 @@ class RoundContext:
                                                      batch_size))
         self.secagg = SecureAggSession(fed)
         self.releases = [0] * self.n_clients   # noisy uploads per client
+        # each client's LoRA rank: uniform (client_ranks is not ported)
+        self.ranks = [fed.lora_rank] * self.n_clients
 
     def secagg_start(self, rnd: int, ci: int) -> int:
         """The secure-agg cohort key of client ``ci``'s job started in
@@ -147,6 +152,8 @@ def local_generator(fed: FedConfig, rnd: int, ci: int) -> torch.Generator:
 class SequentialExecutor:
     """Python loop over clients, one train step per batch — the
     paper-literal reference and the numerical ground truth."""
+
+    backend = "sequential"
 
     def __init__(self, ctx: RoundContext):
         self.ctx = ctx
@@ -227,6 +234,143 @@ class SequentialExecutor:
                 shape = batch["tokens"].shape
             out.append((c_lt, n_tok, n_steps, shape))
         return out
+
+
+class SpmdExecutor:
+    """The ready set stacked on a leading client axis, one stacked program
+    per rank bucket (core/fed_spmd.py): each step trains every client of
+    the bucket on its own batch in one forward and backward, the LoRA
+    projections as client-axis passes.  Each client draws its dropout
+    masks from the generator the sequential executor gives it, in the
+    same order, so the two executors see the same masks."""
+
+    backend = "spmd"
+
+    def __init__(self, ctx: RoundContext):
+        self.ctx = ctx
+        self._local_update = fed_spmd.make_local_update(
+            ctx.model, ctx.fed, ctx.task, ctx.fns)
+
+    def _gens(self, rnd, cis):
+        return [local_generator(self.ctx.fed, rnd, ci) for ci in cis]
+
+    def _local_finetune(self, program, cis, slt, sopt, rnd):
+        """Every client of ``cis`` fine-tunes its stacked LoRA over its
+        epochs of padded, masked batches; returns (slt, sopt, n_tok)."""
+        ctx, fed = self.ctx, self.ctx.fed
+        seeds = [fed.seed * program.epoch_seed_mult + rnd + ep
+                 for ep in range(fed.local_epochs)]
+        batches, valid, n_tok = fed_spmd.stack_client_batches(
+            [ctx.clients_data[ci] for ci in cis], ctx.batch_size, seeds)
+        slt, sopt, _ = self._local_update(ctx.base, slt, sopt, batches,
+                                          valid, self._gens(rnd, cis),
+                                          ctx.device)
+        return slt, sopt, n_tok
+
+    # -- FedLLM a2 ------------------------------------------------------ #
+    def train(self, program, jobs, rnd):
+        """jobs: [(ci, lt)] -> [(new_lt, n_tok)] in job order."""
+        ctx = self.ctx
+        by_ci = dict(jobs)
+        results = {}
+        for _, cis in fed_spmd.rank_buckets(ctx.ranks, list(by_ci)):
+            slt = fed_spmd.stack_trees([by_ci[ci] for ci in cis])
+            sopt = fed_spmd.stack_for_clients(
+                ctx.fns["opt_init"](by_ci[cis[0]]), len(cis))
+            slt, _, n_tok = self._local_finetune(program, cis, slt, sopt,
+                                                 rnd)
+            for k, (ci, t) in enumerate(zip(cis,
+                                            fed_spmd.unstack_tree(slt))):
+                results[ci] = (t, n_tok[k])
+        return [results[ci] for ci, _ in jobs]
+
+    # -- KD b1 + b2 ----------------------------------------------------- #
+    def kd_train_and_logits(self, program, cis, rnd):
+        """KD b1 + b2 over stacked clients; [(logits, n_tok)] in client
+        order."""
+        ctx = self.ctx
+        lts, opts = program.lts, program.opts
+        results = {}
+        for _, bcis in fed_spmd.rank_buckets(ctx.ranks, cis):
+            sl, so, n_tok = self._local_finetune(
+                program, bcis, fed_spmd.stack_trees([lts[ci] for ci in bcis]),
+                fed_spmd.stack_trees([opts[ci] for ci in bcis]), rnd)
+            logits = _batched_public_logits(ctx, sl)
+            for k, (ci, lt, opt) in enumerate(zip(
+                    bcis, fed_spmd.unstack_tree(sl),
+                    fed_spmd.unstack_tree(so))):
+                lts[ci], opts[ci] = lt, opt
+                results[ci] = (logits[k], n_tok[k])
+        return [results[ci] for ci in cis]
+
+    # -- KD b8 ---------------------------------------------------------- #
+    def kd_distill(self, program, cis, glob, rnd):
+        ctx = self.ctx
+        lts, opts = program.lts, program.opts
+        for _, bcis in fed_spmd.rank_buckets(ctx.ranks, cis):
+            sl = fed_spmd.stack_trees([lts[ci] for ci in bcis])
+            so = fed_spmd.stack_trees([opts[ci] for ci in bcis])
+            sl, so = _batched_distill(ctx, sl, so, glob, rnd, bcis)
+            for ci, lt, opt in zip(bcis, fed_spmd.unstack_tree(sl),
+                                   fed_spmd.unstack_tree(so)):
+                lts[ci], opts[ci] = lt, opt
+
+    # -- Split c1-c5 ---------------------------------------------------- #
+    def split_train(self, program, jobs, rnd):
+        """Split's shared server half threads client after client (the
+        reference's scan over the client axis), so with uniform ranks the
+        stacked program is the sequential executor's: the same
+        ``split_step`` on the same batches, in the same order.  A client
+        with no full batch raises, as the stacked programs do."""
+        fed_spmd.require_full_batch(
+            [self.ctx.clients_data[ci] for ci, _ in jobs],
+            self.ctx.batch_size)
+        return SequentialExecutor.split_train(self, program, jobs, rnd)
+
+
+def _batched_public_logits(ctx, stacked_lt):
+    """b2 for every stacked client at once: the same batch order and
+    original-row-order scatter as kd.client_logits, giving (C, N, D) with
+    row i holding public sample i's logits."""
+    C = tree_lib.leaves(stacked_lt)[0].shape[0]
+    outs = [ctx.fns["logits_fn_clients"](
+                ctx.base, stacked_lt,
+                fed_spmd.repeat_batch(batch, C, ctx.device))
+            for batch in epoch_batches(ctx.public, ctx.eval_batch, seed=0,
+                                       drop_remainder=False)]
+    stacked = torch.cat(outs, dim=1)
+    perm = torch.as_tensor(kd_mod._epoch_perm(len(ctx.public["tokens"]), 0),
+                           device=stacked.device)
+    out = torch.zeros_like(stacked)
+    out[:, perm] = stacked
+    return out
+
+
+def _batched_distill(ctx, stacked_lt, stacked_opt, teacher, rnd,
+                     client_ids):
+    """b8 for every client of a stack at once: kd.distill's batches and
+    teacher rows, each client's dropout generator seeded as the
+    sequential executor's (seed + 31·rnd + ci)."""
+    fed = ctx.fed
+    gens = [torch.Generator().manual_seed(fed.seed + 31 * rnd + ci)
+            for ci in client_ids]
+    C, n = len(client_ids), len(ctx.public["tokens"])
+    for ep in range(fed.kd_epochs):
+        perm = torch.as_tensor(kd_mod._epoch_perm(n, ep),
+                               device=teacher.device)
+        start = 0
+        for batch in epoch_batches(ctx.public, ctx.eval_batch, seed=ep,
+                                   drop_remainder=False):
+            b = len(batch["tokens"])
+            t = teacher[perm[start:start + b]]
+            start += b
+            stacked_lt, stacked_opt, _ = ctx.fns["kd_step_clients"](
+                ctx.base, stacked_lt, stacked_opt,
+                fed_spmd.repeat_batch(batch, C, ctx.device), t, gens)
+    return stacked_lt, stacked_opt
+
+
+EXECUTORS = {"sequential": SequentialExecutor, "spmd": SpmdExecutor}
 
 
 def staleness_weight(staleness: int, decay: float) -> float:
@@ -480,14 +624,15 @@ def run_program(model, base, cfg: ModelConfig, fed: FedConfig, targets,
                 public: Dict, clients_data: List[Dict], test: Dict,
                 task: str, batch_size: int, eval_batch: int, verbose: bool,
                 device, lora=None) -> FedResult:
-    """Run ``fed.rounds`` rounds of ``fed.framework`` with sequential
-    clients and sync aggregation.  ``lora`` (optional) is the initial LoRA
-    state: the global tree for FedLLM, ``{"server": tree, "clients":
-    [tree, ...]}`` for KD, the full-model tree (split at L) for Split."""
+    """Run ``fed.rounds`` rounds of ``fed.framework`` with sync
+    aggregation, the clients' local work run by ``fed.backend``'s
+    executor.  ``lora`` (optional) is the initial LoRA state: the global
+    tree for FedLLM, ``{"server": tree, "clients": [tree, ...]}`` for KD,
+    the full-model tree (split at L) for Split."""
     ctx = RoundContext(model, base, cfg, fed, targets, public, clients_data,
                        test, task, batch_size, eval_batch, verbose, device)
     program = PROGRAMS[fed.framework](ctx, lora)
-    ex = SequentialExecutor(ctx)
+    ex = EXECUTORS[fed.backend](ctx)
     schedule = SyncSchedule(fed, ctx.n_clients)
     for rnd in range(fed.rounds):
         t0 = time.perf_counter()
@@ -517,7 +662,7 @@ def run_program(model, base, cfg: ModelConfig, fed: FedConfig, targets,
             epsilon=round_epsilon(ctx.acct, max(ctx.releases, default=0)),
             seconds=time.perf_counter() - t0))
         if verbose:
-            print(f"[{fed.framework}/sequential] round {rnd}: "
+            print(f"[{fed.framework}/{ex.backend}] round {rnd}: "
                   f"acc={acc:.4f} loss={loss:.4f}")
     return FedResult(ctx.history, ctx.ledger, program.final_state(ctx),
                      [c.flops for c in ctx.cost])

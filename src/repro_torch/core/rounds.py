@@ -7,9 +7,15 @@
 every wire transfer.  The port runs FedLLM (the paper's SSV case study),
 KD-FedLLM and Split-FedLLM on the dense family (GPT-2); FedLLM and
 KD-FedLLM on the Griffin hybrid (RecurrentGemma; Split refuses it); and
-FedLLM on RWKV-6 (Finch; Split refuses it too).  Each runs with
-sequential clients and sync rounds, with or without the privacy knobs (``FedConfig.privacy``: DP-SGD clipping, upload noise,
-secure aggregation; on Split the c2 boundary clip and noise).  An invalid
+FedLLM on RWKV-6 (Finch; Split refuses it too).  Each runs with sync
+rounds under either execution backend: ``sequential`` (a loop over
+clients) or ``spmd`` (the round's clients stacked on a leading axis,
+core/fed_spmd.py), with or without the privacy
+knobs (``FedConfig.privacy``: DP-SGD clipping, upload noise, secure
+aggregation; on Split the c2 boundary clip and noise), except that
+``spmd`` refuses ``privacy.dp_clip > 0`` (DP-SGD over a client axis is
+not ported yet).  The ``cohort`` backend and a ``mesh`` are not
+ported.  An invalid
 setting raises ValueError, as in the reference; a valid ``FedConfig``
 setting outside the ported slices raises NotImplementedError rather than
 being ignored.
@@ -55,7 +61,9 @@ from repro_torch.runtime import resolve_device
 def _unported(fed: FedConfig, task: str) -> List[str]:
     """The settings of ``fed`` the port does not run yet."""
     checks = [
-        (fed.backend != "sequential", f"backend={fed.backend!r}"),
+        (fed.backend == "cohort", f"backend={fed.backend!r}"),
+        (fed.backend == "spmd" and fed.privacy.dp_clip > 0.0,
+         "backend='spmd' with privacy.dp_clip > 0"),
         (fed.aggregation != "sync", f"aggregation={fed.aggregation!r}"),
         (fed.peft != "lora", f"peft={fed.peft!r}"),
         (fed.optimizer != "adam", f"optimizer={fed.optimizer!r}"),

@@ -17,6 +17,12 @@
 //       one slice per example gives each example's (L, r) straight: the
 //       form _panel_grad_call takes under the vmap of the DP-SGD step's
 //       per-example loss (src/repro/core/fedavg.py).
+//   * with a client axis (lora_fused_clients, lora_panel_clients): the
+//       fused kernel and the panel gradient over stacked clients, W shared
+//       and A, B per client, blockIdx.z the client: the forms _fwd_call,
+//       _dx_call and _panel_grad_call take under the vmap over clients of
+//       the stacked local update (src/repro/core/fed_spmd.py).  Each
+//       client's outputs are the bits of a launch on its rows alone.
 //
 // The fused kernel runs its three products (x@W, the rank-r panel x@A and
 // the epilogue (x@A)@B) on the tensor cores at fp32 accuracy: mma.sync
@@ -266,6 +272,11 @@ __device__ __forceinline__ FragB frag_b(const float* T, int k0, int n0,
 //                           Aop and A as Bop.
 // NR: the panel's n8 fragments, ceil(r / 8) rounded up to 1, 2, 4 or 8.
 // vec_x, vec_w: 16-byte copies of X and of W (see tile_async).
+// With a client axis (gridDim.z clients, blockIdx.z the client) X, out and
+// xa_out hold the clients' M rows one after another, Aop and Bop their
+// (C, r) and (r, Nout) factors one after another, and W is shared: client
+// z's blocks compute what a launch on its rows and factors alone computes,
+// in the same order.
 template <bool TRANS, int NR>
 __global__ void __launch_bounds__(FT)
 lora_fused_kernel(const float* __restrict__ X, const float* __restrict__ W,
@@ -275,6 +286,12 @@ lora_fused_kernel(const float* __restrict__ X, const float* __restrict__ W,
   using F = Fused<TRANS, NR>;
   constexpr int PM = F::PM, RP = F::RP, KT = KB / TK;
   extern __shared__ __align__(16) float smem[];
+  const size_t client = blockIdx.z;
+  X += client * M * C;
+  out += client * M * Nout;
+  xa_out += client * M * r;
+  Aop += client * C * r;
+  Bop += client * r * Nout;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wr = (warp / WARPS_N) * 16 * FM;   // the warp's first row
@@ -514,7 +531,10 @@ __device__ __forceinline__ float4 lhs_quad(const float* row, int c, int L,
 // l] when transposed), slice z = rows [z·rows, (z+1)·rows) ∩ [0, M): one
 // block per (128 columns, slice).  Warp w sums rows w, w + 4, ... of the
 // slice in order, the warps are added in order through shared memory;
-// ranks in groups of 8, each rereading the slice's rows (from L1/L2)
+// ranks in groups of 8, each rereading the slice's rows (from L1/L2).
+// With a client axis (gridDim.z clients, blockIdx.z the client) lhs and
+// panel hold the clients' M rows one after another, and client c's slice
+// z goes to out[c·gridDim.y + z]: what a launch on its rows alone writes
 __global__ void __launch_bounds__(32 * PWARPS)
 panel_grad_kernel(const float* __restrict__ lhs,
                   const float* __restrict__ panel, float* __restrict__ out,
@@ -525,7 +545,10 @@ panel_grad_kernel(const float* __restrict__ lhs,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c = blockIdx.x * PC + 4 * lane;
   const int mbeg = blockIdx.y * rows, mend = min(M, mbeg + rows);
-  float* dst = out + (size_t)blockIdx.y * L * r;
+  const size_t client = blockIdx.z;
+  lhs += client * M * L;
+  panel += client * M * r;
+  float* dst = out + (client * gridDim.y + blockIdx.y) * L * r;
 
   for (int j0 = 0; j0 < r; j0 += PRG) {
     float acc[4][PRG];
@@ -735,14 +758,19 @@ lora_dw_kernel(const float* __restrict__ X, const float* __restrict__ G,
   }
 }
 
-// dw[i] = ws[0][i] + ws[1][i] + ... + ws[splits-1][i], in that order
+// For each of `count` sums c of n floats: dw[c][i] = ws[c][0][i] +
+// ws[c][1][i] + ... + ws[c][splits-1][i], in that order (ws (count, splits,
+// n), dw (count, n))
 __global__ void dw_sum_kernel(const float* __restrict__ ws,
-                              float* __restrict__ dw, size_t n, int splits) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = ws[i];
-    for (int z = 1; z < splits; ++z) s += ws[(size_t)z * n + i];
-    dw[i] = s;
+                              float* __restrict__ dw, size_t n, int splits,
+                              int count) {
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+       e < n * count; e += (size_t)gridDim.x * blockDim.x) {
+    const size_t c = e / n, i = e - c * n;
+    const float* src = ws + c * splits * n + i;
+    float s = src[0];
+    for (int z = 1; z < splits; ++z) s += src[(size_t)z * n];
+    dw[e] = s;
   }
 }
 
@@ -817,13 +845,14 @@ int sm_count() {
 // the blocks that fill the current device: DW_PER_SM on each SM
 int dw_blocks() { return DW_PER_SM * sm_count(); }
 
-// out[i] = ws[0][i] + ws[1][i] + ... over `splits` slices of n floats
+// out[c][i] = ws[c][0][i] + ws[c][1][i] + ... over `splits` slices of n
+// floats, for each of `count` sums
 void sum_slices(const float* ws, float* out, size_t n, int splits,
-                cudaStream_t s) {
-  const size_t need = (n + 255) / 256;
+                cudaStream_t s, int count = 1) {
+  const size_t need = (n * count + 255) / 256;
   const size_t most = (size_t)dw_blocks();
   const int blocks = (int)(need < most ? need : most);
-  dw_sum_kernel<<<blocks, 256, 0, s>>>(ws, out, n, splits);
+  dw_sum_kernel<<<blocks, 256, 0, s>>>(ws, out, n, splits, count);
 }
 
 // rows of M per panel slice (at least PANEL_MIN_ROWS, unless M is less)
@@ -851,6 +880,49 @@ void dw_split(int M, int K, int N, int* rows, int* splits) {
   *splits = (M + *rows - 1) / *rows;
 }
 
+// lora_fused and lora_fused_clients: `clients` stacked clients of M rows
+int fused(const float* X, const float* W, const float* A, const float* B,
+          float* out, float* xa, int clients, int M, int C, int Nout, int r,
+          int trans, void* stream) {
+  if (clients <= 0 || clients > 65535 || M <= 0 || C <= 0 || Nout <= 0 ||
+      r < 1 || r > R_MAX)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((Nout + TN - 1) / TN, (M + TM - 1) / TM, clients);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // W (K, N) has a row stride of N in both directions; a client's rows
+  // start 16-byte aligned when the first's do and C % 4 == 0
+  const int n = trans ? C : Nout;
+  const int vec_x = aligned16(X) && C % 4 == 0;
+  const int vec_w = aligned16(W) && n % 4 == 0;
+  if (trans)
+    return launch_fused_rank<true>(grid, s, X, W, B, A, out, xa, M, C, Nout,
+                                   r, vec_x, vec_w);
+  return launch_fused_rank<false>(grid, s, X, W, A, B, out, xa, M, C, Nout, r,
+                                  vec_x, vec_w);
+}
+
+// lora_panel_grad and lora_panel_clients: `clients` stacked clients of M
+// rows, each split as one client's M is, its slices summed in order
+int panel_grad(const float* lhs, const float* panel, float* out, float* ws,
+               int clients, int M, int L, int r, int transpose_out,
+               void* stream) {
+  if (clients <= 0 || clients > 65535 || M <= 0 || L <= 0 || r < 1 ||
+      r > R_MAX)
+    return (int)cudaErrorInvalidValue;
+  int rows, splits;
+  panel_split(M, L, &rows, &splits);
+  if (splits > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int vec = aligned16(lhs) && L % 4 == 0;
+  const dim3 grid((L + PC - 1) / PC, splits, clients);
+  panel_grad_kernel<<<grid, 32 * PWARPS, 0, s>>>(
+      lhs, panel, splits > 1 ? ws : out, M, L, r, rows, transpose_out, vec);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  sum_slices(ws, out, (size_t)L * r, splits, s, clients);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -860,19 +932,23 @@ extern "C" {
 int lora_fused(const float* X, const float* W, const float* A, const float* B,
                float* out, float* xa, int M, int C, int Nout, int r, int trans,
                void* stream) {
-  if (M <= 0 || C <= 0 || Nout <= 0 || r < 1 || r > R_MAX)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((Nout + TN - 1) / TN, (M + TM - 1) / TM);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // W (K, N) has a row stride of N in both directions
-  const int n = trans ? C : Nout;
-  const int vec_x = aligned16(X) && C % 4 == 0;
-  const int vec_w = aligned16(W) && n % 4 == 0;
-  if (trans)
-    return launch_fused_rank<true>(grid, s, X, W, B, A, out, xa, M, C, Nout,
-                                   r, vec_x, vec_w);
-  return launch_fused_rank<false>(grid, s, X, W, A, B, out, xa, M, C, Nout, r,
-                                  vec_x, vec_w);
+  return fused(X, W, A, B, out, xa, 1, M, C, Nout, r, trans, stream);
+}
+
+// lora_fused with a client axis: X (clients, M, C), A (clients, K, r), B
+// (clients, r, N), out (clients, M, Nout) and xa (clients, M, r), with W
+// (K, N) shared.  One launch, a grid of (column tiles, M tiles, clients)
+// in which no M tile straddles two clients; client c's blocks compute
+// what lora_fused computes on client c's rows and factors, the same bits.
+// The stacked clients' forward (trans = 0) and dx (trans = 1): the form
+// _fwd_call and _dx_call take under the vmap over clients of the stacked
+// local update (src/repro/core/fed_spmd.py).  At GPT-2's (3, 1280, 768,
+// 768) that is 720 blocks in one launch in place of three of 240.
+int lora_fused_clients(const float* X, const float* W, const float* A,
+                       const float* B, float* out, float* xa, int clients,
+                       int M, int C, int Nout, int r, int trans,
+                       void* stream) {
+  return fused(X, W, A, B, out, xa, clients, M, C, Nout, r, trans, stream);
 }
 
 // The number of M slices lora_panel_grad splits (M, L) into: with more
@@ -890,19 +966,26 @@ int lora_panel_splits(int M, int L, int r) {
 int lora_panel_grad(const float* lhs, const float* panel, float* out,
                     float* ws, int M, int L, int r, int transpose_out,
                     void* stream) {
-  if (M <= 0 || L <= 0 || r < 1 || r > R_MAX) return (int)cudaErrorInvalidValue;
-  int rows, splits;
-  panel_split(M, L, &rows, &splits);
-  if (splits > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int vec = aligned16(lhs) && L % 4 == 0;
-  const dim3 grid((L + PC - 1) / PC, splits);
-  panel_grad_kernel<<<grid, 32 * PWARPS, 0, s>>>(
-      lhs, panel, splits > 1 ? ws : out, M, L, r, rows, transpose_out, vec);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  sum_slices(ws, out, (size_t)L * r, splits, s);
-  return (int)cudaGetLastError();
+  return panel_grad(lhs, panel, out, ws, 1, M, L, r, transpose_out, stream);
+}
+
+// lora_panel_grad with a client axis: each client's (L, r) = lhs_cᵀ·panel_c
+// from lhs (clients, M, L) and panel (clients, M, r) into out (clients, L,
+// r), (clients, r, L) if transpose_out; ws holds (clients,
+// lora_panel_splits(M, L, r)) slices of (L, r) when that is above 1.  A
+// grid of (column tiles, slices, clients): each client's M is split as
+// lora_panel_grad splits it, and one dw_sum_kernel adds every client's
+// slices in the same order, so each client gets the bits of a
+// lora_panel_grad launch on its rows.  The stacked clients' dA and dB:
+// the form _panel_grad_call takes under the vmap over clients of the
+// stacked local update (src/repro/core/fed_spmd.py).  At GPT-2's (3,
+// 1280, 768) that is 6 x 40 x 3 = 720 blocks; its work is the bytes of
+// lhs, so it is bound by bytes and by its two launches.
+int lora_panel_clients(const float* lhs, const float* panel, float* out,
+                       float* ws, int clients, int M, int L, int r,
+                       int transpose_out, void* stream) {
+  return panel_grad(lhs, panel, out, ws, clients, M, L, r, transpose_out,
+                    stream);
 }
 
 // Each example's (L, r) = lhs_bᵀ·panel_b from lhs (B, S, L) and panel (B,

@@ -11,6 +11,12 @@ become the CUDA kernels of ``csrc/lora_matmul.cu``:
     lora_panel_examples <- _panel_grad_call under the ``vmap`` of the
                 DP-SGD step's per-example loss: each example's dA and dB,
                 (B, K, r) and (B, r, N)
+    lora_fwd_clients, lora_dx_clients, lora_panel_clients
+                <- _fwd_call, _dx_call, _panel_grad_call under the ``vmap``
+                over clients of the ``spmd`` backend's stacked local update:
+                W shared, each client's A, B and rows its own, every
+                client's outputs the bits of the one-client kernel on its
+                rows
 
 ``LoRAMatmul`` is the ``torch.autograd.Function`` around them.  For CUDA
 tensors it launches the kernels (or raises); for CPU tensors it takes the
@@ -22,6 +28,10 @@ the DP-SGD step's one batched pass (kernels/ops.per_example_scope): the
 same forward, and a backward that gives each example's dA and dB
 (through ``lora_panel_examples``) as the gradients of two sink tensors,
 so that no gradient summed over the examples is formed.
+``LoRAMatmulClients`` is the stacked clients' form (core/fedavg's stacked
+train step): x (C, M_c, K) against each client's (C, K, r) and (C, r, N)
+factors, whose backward gives each client's dA and dB straight as the
+gradients of the stacked factors.
 
 Each kernel wrapper adds one to ``LAUNCHES[name]`` where it launches.
 """
@@ -34,7 +44,8 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES = {"lora_fwd": 0, "lora_dx": 0, "lora_dw": 0, "lora_panel": 0,
-            "lora_panel_examples": 0}
+            "lora_panel_examples": 0, "lora_fwd_clients": 0,
+            "lora_dx_clients": 0, "lora_panel_clients": 0}
 R_MAX = 64
 _LIB = None
 
@@ -57,6 +68,10 @@ def _lib():
         lib.lora_panel_grad.restype = i32
         lib.lora_panel_examples.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
         lib.lora_panel_examples.restype = i32
+        lib.lora_fused_clients.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+        lib.lora_fused_clients.restype = i32
+        lib.lora_panel_clients.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+        lib.lora_panel_clients.restype = i32
         lib.lora_dw_splits.argtypes = [i32] * 3
         lib.lora_dw_splits.restype = i32
         lib.lora_dw.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
@@ -171,6 +186,65 @@ def lora_panel_examples(lhs, panel, transpose_out: bool = False):
     return out
 
 
+def _fused_clients(x, w, a, b, trans: bool, name: str):
+    """lora_fused_clients: x (C, M, Cin) against w (K, N), a (C, K, r), b
+    (C, r, N) -> (out (C, M, Nout), panel (C, M, r))."""
+    Cl, M, Cin = x.shape
+    K, N = w.shape
+    r = a.shape[2]
+    _rank(r, name)
+    build.check_tensors(name, x.device, x=(x, (Cl, M, N if trans else K)),
+                        w=(w, (K, N)), a=(a, (Cl, K, r)), b=(b, (Cl, r, N)))
+    nout = K if trans else N
+    out = torch.empty((Cl, M, nout), device=x.device, dtype=torch.float32)
+    panel = torch.empty((Cl, M, r), device=x.device, dtype=torch.float32)
+    rc = _lib().lora_fused_clients(x.data_ptr(), w.data_ptr(), a.data_ptr(),
+                                   b.data_ptr(), out.data_ptr(),
+                                   panel.data_ptr(), Cl, M, Cin, nout, r,
+                                   int(trans), build.stream(x.device))
+    build.check(rc, name)
+    LAUNCHES[name] += 1
+    return out, panel
+
+
+def lora_fwd_clients(x, w, a, b):
+    """x (C, M, K), w (K, N), a (C, K, r), b (C, r, N) -> (y (C, M, N), xa
+    (C, M, r)): lora_fwd on each client's rows and factors, one launch."""
+    return _fused_clients(x, w, a, b, False, "lora_fwd_clients")
+
+
+def lora_dx_clients(g, w, a, b):
+    """g (C, M, N), w (K, N), a (C, K, r), b (C, r, N) -> (dx (C, M, K),
+    gb (C, M, r)): lora_dx on each client's rows and factors, one launch."""
+    return _fused_clients(g, w, a, b, True, "lora_dx_clients")
+
+
+def lora_panel_clients(lhs, panel, transpose_out: bool = False):
+    """lhs (C, M, L), panel (C, M, r) -> each client's lhs_cᵀ·panel_c, (C,
+    L, r), or (C, r, L) transposed: lora_panel on each client's rows, the
+    same slices summed in the same order through a workspace allocated
+    here, one launch (and one of the sum)."""
+    Cl, M, L = lhs.shape
+    r = panel.shape[2]
+    _rank(r, "lora_panel_clients")
+    build.check_tensors("lora_panel_clients", lhs.device,
+                        lhs=(lhs, (Cl, M, L)), panel=(panel, (Cl, M, r)))
+    lib = _lib()
+    splits = lib.lora_panel_splits(M, L, r)
+    out = torch.empty((Cl, r, L) if transpose_out else (Cl, L, r),
+                      device=lhs.device, dtype=torch.float32)
+    ws = torch.empty((Cl, splits, L * r), device=lhs.device,
+                     dtype=torch.float32) if splits > 1 else None
+    rc = lib.lora_panel_clients(lhs.data_ptr(), panel.data_ptr(),
+                                out.data_ptr(),
+                                None if ws is None else ws.data_ptr(), Cl, M,
+                                L, r, int(transpose_out),
+                                build.stream(lhs.device))
+    build.check(rc, "lora_panel_clients")
+    LAUNCHES["lora_panel_clients"] += 1
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # autograd
 # --------------------------------------------------------------------------- #
@@ -230,6 +304,39 @@ class LoRAMatmulExamples(torch.autograd.Function):
         db = panel(g, xa.view(B, S, -1), True)
         dx = dx.view(B, S, K) if ctx.needs_input_grad[0] else None
         return dx, None, None, None, da, db, None
+
+
+class LoRAMatmulClients(torch.autograd.Function):
+    """x (C, M, K), w (K, N), a (C, K, r), b (C, r, N) -> y (C, M, N),
+    each client's x_c@W + (x_c@A_c)@B_c.  The backward gives dx and each
+    client's dA_c = x_cᵀ·gb_c and dB_c = (g_cᵀ·xa_c)ᵀ as the gradients of
+    a and b; w gets none.  ``cuda`` (the resolved kernel policy) picks the
+    kernels or their plain twins."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, cuda):
+        y, xa = (lora_fwd_clients if cuda else ref.lora_fwd_clients)(x, w, a,
+                                                                    b)
+        ctx.cuda = cuda
+        ctx.save_for_backward(x, w, a, b, xa)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, a, b, xa = ctx.saved_tensors
+        g = g.contiguous()
+        cuda = ctx.cuda
+        panel = lora_panel_clients if cuda else ref.panel_grad_clients
+        need_dx, _, need_da, need_db, _ = ctx.needs_input_grad
+        dx = da = db = None
+        if need_dx or need_da:
+            dx, gb = (lora_dx_clients if cuda else ref.lora_dx_clients)(
+                g, w, a, b)
+            if need_da:
+                da = panel(x, gb)
+        if need_db:
+            db = panel(g, xa, True)
+        return (dx if need_dx else None), None, da, db, None
 
 
 def lora_matmul(x, w, a, b):

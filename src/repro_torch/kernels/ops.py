@@ -27,6 +27,11 @@ models/rwkv6.timemix_fwd call ``lora_matmul``, ``mha_attention``,
 The kernels mask their ragged edges, so unlike the reference there is no
 block fitting and no padding of M or R here.
 
+A LoRA factor with a leading client axis (a (C, K, r), b (C, r, N): the
+``spmd`` backend's stacked clients, core/fedavg's stacked train step)
+makes ``lora_matmul`` one client-axis pass over the stacked batch
+(kernels/lora_matmul.LoRAMatmulClients, under either policy).
+
 ``per_example_scope`` is the DP-SGD step's counterpart of the reference's
 ``vmap`` of the per-example loss (core/fedavg.per_example_grads): inside
 it every LoRA projection is one batched pass whose backward gives each
@@ -110,7 +115,11 @@ def _require_cuda(op: str, *tensors) -> None:
 
 
 def lora_matmul(x, w, a, b):
-    """x: (..., K) -> (..., N): x@W + (x@A)@B, differentiable."""
+    """x: (..., K) -> (..., N): x@W + (x@A)@B, differentiable.  With
+    stacked clients' factors, a (C, K, r) and b (C, r, N), the rows of x
+    come in C equal groups, one a client (_lora_matmul_clients)."""
+    if a.dim() == 3:
+        return _lora_matmul_clients(x, w, a, b)
     if _EXAMPLES is not None:
         return _lora_matmul_examples(x, w, a, b)
     if not use_cuda(x):
@@ -149,6 +158,32 @@ def _lora_matmul_examples(x, w, a, b):
     return y.reshape(*lead, N)
 
 
+def _lora_matmul_clients(x, w, a, b):
+    """lora_matmul for the stacked clients of the ``spmd`` backend (the
+    reference's ``vmap`` over clients, W shared): x (C·B, ..., K) viewed
+    as (C, M_c, K), client c's rows against a[c] and b[c]; the kernels of
+    kernels/lora_matmul.LoRAMatmulClients under the ``cuda`` policy, their
+    plain twins under ``torch``.  A client-axis pass forms no gradient of
+    the bound base weight."""
+    if w.requires_grad:
+        raise ValueError("lora_matmul: a client-axis pass forms no gradient "
+                         "of the bound base weight")
+    C = a.shape[0]
+    *lead, K = x.shape
+    rows = math.prod(lead)
+    if not lead or lead[0] % C:
+        raise ValueError(f"lora_matmul: {C} stacked clients need inputs "
+                         f"whose leading axis is a multiple of {C}, got "
+                         f"{tuple(x.shape)}")
+    cuda = use_cuda(x)
+    if cuda:
+        _require_cuda("lora_matmul", x, w, a, b)
+    y = _lm.LoRAMatmulClients.apply(
+        x.reshape(C, rows // C, K).contiguous(), w, a.contiguous(),
+        b.contiguous(), cuda)
+    return y.reshape(*lead, w.shape[1])
+
+
 def mha_attention(q, k, v, causal: bool = True, window: int = 0,
                   q_offset: int = 0):
     """q: (B, Sq, H, D); k, v: (B, Skv, KV, D) -> (B, Sq, H, D).
@@ -174,18 +209,23 @@ def kd_loss(teacher, student, temperature: float = 1.0, mask=None):
     differentiable w.r.t. both logit sets: the streaming KD kernels under
     the ``cuda`` policy, the log-softmax form (kernels/ref.py) under
     ``torch``."""
+    rows = kd_loss_rows(teacher, student, temperature)
+    if mask is None:
+        return rows.mean()
+    m = mask.reshape(-1).float()
+    return (rows * m).sum() / torch.clamp_min(m.sum(), 1.0)
+
+
+def kd_loss_rows(teacher, student, temperature: float = 1.0):
+    """teacher/student: (..., V) -> each row's KD loss, flattened (R,),
+    differentiable: kd_loss before its mean."""
     V = teacher.shape[-1]
     t = teacher.reshape(-1, V).float()
     s = student.reshape(-1, V).float()
     if use_cuda(teacher):
         _require_cuda("kd_loss", teacher, student)
-        rows = _kd.kd_loss_rows(t.contiguous(), s.contiguous(), temperature)
-    else:
-        rows = ref.kd_loss_rows_ref(t, s, temperature)
-    if mask is None:
-        return rows.mean()
-    m = mask.reshape(-1).float()
-    return (rows * m).sum() / torch.clamp_min(m.sum(), 1.0)
+        return _kd.kd_loss_rows(t.contiguous(), s.contiguous(), temperature)
+    return ref.kd_loss_rows_ref(t, s, temperature)
 
 
 def topk_quantize(x, k: int, bits: int = 8):

@@ -64,6 +64,27 @@ def panel_grad_examples(lhs, panel, transpose_out: bool = False):
     return out.transpose(1, 2).contiguous() if transpose_out else out
 
 
+def lora_fwd_clients(x, w, a, b):
+    """(y, xa) of each client: x (C, M, K), w (K, N) shared, a (C, K, r),
+    b (C, r, N) -> y (C, M, N), xa (C, M, r) (rows 1ᶜ under the ``vmap``
+    over clients of the stacked local update)."""
+    xa = x @ a
+    return x @ w + xa @ b, xa
+
+
+def lora_dx_clients(g, w, a, b):
+    """(dx, gb) of each client: g (C, M, N) -> dx (C, M, K), gb (C, M, r)
+    (row 2ᶜ)."""
+    gb = g @ b.transpose(1, 2)
+    return g @ w.t() + gb @ a.transpose(1, 2), gb
+
+
+def panel_grad_clients(lhs, panel, transpose_out: bool = False):
+    """Each client's lhs_cᵀ·panel_c: (C, M, L), (C, M, r) -> (C, L, r), or
+    (C, r, L) transposed (row 4ᶜ): the per-example form's function."""
+    return panel_grad_examples(lhs, panel, transpose_out)
+
+
 # --------------------------------------------------------------------------- #
 # Attention
 # --------------------------------------------------------------------------- #

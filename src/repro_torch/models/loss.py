@@ -35,3 +35,11 @@ def kd_kl(student_logits, teacher_logits, temperature: float = 1.0,
     from repro_torch.kernels import ops as kernel_ops
     return kernel_ops.kd_loss(teacher_logits, student_logits,
                               float(temperature), mask)
+
+
+def kd_kl_rows(student_logits, teacher_logits, temperature: float = 1.0):
+    """kd_kl before its mean: each row's KL(teacher || student) · T², the
+    rows flattened."""
+    from repro_torch.kernels import ops as kernel_ops
+    return kernel_ops.kd_loss_rows(teacher_logits, student_logits,
+                                   float(temperature))

@@ -9,10 +9,12 @@ corrections differently, so it is not used.)
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
 from repro_torch import tree as tree_lib
-from repro_torch.runtime import compute_dtype
+from repro_torch.runtime import compute_dtype, upload
 
 
 def init(params):
@@ -29,6 +31,32 @@ def _bias_correction(b: float, t: torch.Tensor) -> float:
     return float(1.0 - torch.tensor(b, dtype=torch.float32) ** t)
 
 
+def _moments(g, m, v, p, lr, bc1, bc2, b1, b2, eps, weight_decay):
+    """One leaf's step: its (m, v, p) after gradient ``g``; ``bc1`` and
+    ``bc2`` are the bias corrections, Python floats or tensors that
+    broadcast over ``p``."""
+    dt = compute_dtype(p.dtype)
+    g = g.to(dt)
+    m = b1 * m + (1 - b1) * g
+    v = b2 * v + (1 - b2) * g * g
+    u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+    if weight_decay:
+        u = u + weight_decay * p.to(dt)
+    return m, v, (p.to(dt) - lr * u).to(p.dtype)
+
+
+def _tree_step(grads, state, params, step, leaf):
+    """(new_params, new_state) from ``leaf(g, m, v, p) -> (m, v, p)``
+    over the trees' leaves."""
+    flat = [leaf(g, m, v, p) for g, m, v, p in zip(
+        tree_lib.leaves(grads), tree_lib.leaves(state["m"]),
+        tree_lib.leaves(state["v"]), tree_lib.leaves(params))]
+    return (tree_lib.unflatten(params, [f[2] for f in flat]),
+            {"m": tree_lib.unflatten(params, [f[0] for f in flat]),
+             "v": tree_lib.unflatten(params, [f[1] for f in flat]),
+             "step": step})
+
+
 @torch.no_grad()
 def update(grads, state, params, lr, b1: float = 0.9, b2: float = 0.999,
            eps: float = 1e-8, weight_decay: float = 0.0):
@@ -37,21 +65,41 @@ def update(grads, state, params, lr, b1: float = 0.9, b2: float = 0.999,
     t = torch.tensor(step, dtype=torch.float32)
     bc1 = _bias_correction(b1, t)
     bc2 = _bias_correction(b2, t)
+    return _tree_step(grads, state, params, step, lambda g, m, v, p: _moments(
+        g, m, v, p, lr, bc1, bc2, b1, b2, eps, weight_decay))
 
-    def upd(g, m, v, p):
-        dt = compute_dtype(p.dtype)
-        g = g.to(dt)
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g * g
-        u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-        if weight_decay:
-            u = u + weight_decay * p.to(dt)
-        return m, v, (p.to(dt) - lr * u).to(p.dtype)
 
-    flat = [upd(g, m, v, p) for g, m, v, p in zip(
-        tree_lib.leaves(grads), tree_lib.leaves(state["m"]),
-        tree_lib.leaves(state["v"]), tree_lib.leaves(params))]
-    return (tree_lib.unflatten(params, [f[2] for f in flat]),
-            {"m": tree_lib.unflatten(params, [f[0] for f in flat]),
-             "v": tree_lib.unflatten(params, [f[1] for f in flat]),
-             "step": step})
+@torch.no_grad()
+def update_clients(grads, state, params, lr, valid: Sequence[bool] = None,
+                   b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                   weight_decay: float = 0.0):
+    """``update`` for stacked clients: every leaf leads with the client
+    axis C, ``state["step"]`` is an int64 (C,) host tensor of each
+    client's step count, and client c steps only where ``valid[c]`` (every
+    client when ``valid`` is None): a padded step keeps its parameters,
+    moments and count (the reference's ``_select`` in
+    core/fed_spmd.py).  Each client's bias corrections are ``update``'s
+    fp32 values at its own count, formed on the host with the mask and
+    sent to the card in one copy that does not wait for the stream.
+    Returns (new_params, new_state)."""
+    keep = torch.ones(state["step"].shape[0], dtype=torch.bool) \
+        if valid is None else torch.as_tensor(list(valid), dtype=torch.bool)
+    step = state["step"] + keep.long()
+    leaves = tree_lib.leaves(params)
+    if not leaves:
+        return params, dict(state, step=step)
+    ctl = upload(torch.tensor(
+        [keep.float().tolist()] + [[_bias_correction(b, t) for t in
+                                    step.float()] for b in (b1, b2)]),
+        leaves[0].device)
+    ok = ctl[0] > 0
+
+    def leaf(g, m, v, p):
+        shape = (-1,) + (1,) * (p.dim() - 1)
+        bc1, bc2 = (c.to(compute_dtype(p.dtype)).view(shape)
+                    for c in ctl[1:])
+        new = _moments(g, m, v, p, lr, bc1, bc2, b1, b2, eps, weight_decay)
+        return tuple(torch.where(ok.view(shape), n, o)
+                     for n, o in zip(new, (m, v, p)))
+
+    return _tree_step(grads, state, params, step, leaf)

@@ -20,7 +20,7 @@ under the ``cuda`` policy).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Sequence, Tuple
 
 import torch
 
@@ -81,23 +81,34 @@ def init_lora(gen: torch.Generator, base_params, targets: Sequence[str],
 
 
 def bind(base_params, lora_tree, alpha: float, rank: int,
-         dropout_gen: Optional[torch.Generator] = None,
-         dropout: float = 0.0):
+         dropout_gen=None, dropout: float = 0.0):
     """The model-consumable tree with LoRA leaves bound.
 
     ``dropout`` drops input features on the LoRA branch only: a per-call
     feature mask from ``dropout_gen``, folded into A
-    ((x*m)@A == x@(m[:, None]*A))."""
+    ((x*m)@A == x@(m[:, None]*A)).
+
+    A stacked clients' tree (a (C, K, r), b (C, r, N): the ``spmd``
+    backend) binds each client's factors; ``dropout_gen`` is then a list
+    of C generators, client c's mask drawn from the c-th in the order a
+    one-client bind draws it, so each client sees the masks of its
+    sequential run."""
     scale = alpha / max(rank, 1)
 
     def combine(b, l):
         if isinstance(l, dict) and set(l) == {"a", "b"}:
             a = l["a"]
             if dropout > 0.0 and dropout_gen is not None:
-                keep = torch.rand(a.shape[-2], generator=dropout_gen) \
-                    >= dropout
-                mask = keep.float().to(a.device) / (1.0 - dropout)
-                a = a * mask[:, None]
+                if a.dim() == 3:
+                    keep = torch.stack([torch.rand(a.shape[-2], generator=g)
+                                        for g in dropout_gen]) >= dropout
+                    mask = keep.float().to(a.device) / (1.0 - dropout)
+                    a = a * mask[:, :, None]
+                else:
+                    keep = torch.rand(a.shape[-2], generator=dropout_gen) \
+                        >= dropout
+                    mask = keep.float().to(a.device) / (1.0 - dropout)
+                    a = a * mask[:, None]
             return {"w": b, "a": a, "b": l["b"] * scale}
         if isinstance(b, dict):
             return {k: combine(b[k], l[k]) if (isinstance(l, dict) and k in l)

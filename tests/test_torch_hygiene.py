@@ -52,7 +52,8 @@ assert {"repro_torch.privacy.dp", "repro_torch.privacy.accountant",
         "repro_torch.kernels.rglru_scan", "repro_torch.models.rglru",
         "repro_torch.configs.recurrentgemma_2b",
         "repro_torch.kernels.rwkv6_scan", "repro_torch.models.rwkv6",
-        "repro_torch.configs.rwkv6_1_6b"} <= set(names), names
+        "repro_torch.configs.rwkv6_1_6b",
+        "repro_torch.core.fed_spmd"} <= set(names), names
 """
 
 
@@ -152,7 +153,8 @@ def test_auto_policy_resolves_by_device():
 
 @pytest.mark.parametrize("change", [
     dict(framework="kd", aggregation="async"),
-    dict(framework="split", aggregation="async"), dict(backend="spmd"),
+    dict(framework="split", aggregation="async"),
+    dict(backend="spmd", privacy=PrivacyConfig(dp_clip=0.5)),
     dict(backend="cohort"), dict(aggregation="async"),
     dict(client_ranks=(2, 4, 4)), dict(robust_agg="median"),
     dict(quorum=0.5), dict(screen_factor=3.0), dict(optimizer="sgd"),
