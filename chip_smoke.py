@@ -9,8 +9,8 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    capability 9.0 and builds the CUDA kernels from kernels/csrc/ with nvcc,
    printing each kernel's registers and spills (ptxas -v); the 8
    instances of the fused LoRA kernel, the dense dW kernel, the 4 of
-   flash_dq, the 6 of the WKV backward and the 2 of the radix top-k
-   must not spill.
+   flash_dq, the 6 of the WKV backward, the 2 of the radix top-k, the
+   panel gradient and the 4 of the one-pass roundtrip must not spill.
 2. Holds every ported kernel against its plain PyTorch version on the card
    at the main path's shapes, at ragged shapes and (KD loss, top-k) at a
    generative vocabulary (1280 x 50257), and times the kernel, the plain
@@ -34,10 +34,15 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    FP64_FACTOR times the larger of its fp32 twin's and vector_norm's, and
    its bits the same on two eager calls and two replays of one CUDA
    graph; the per-row quantizers (int8 and int4
-   levels, and the int4 pack) bit for bit at the Split boundary's
-   (1280, 768) and at ragged widths (warp and block variants, float4 and
-   scalar loads, a misaligned row start), each with a row of zeros and
-   rows of exact half levels; the RG-LRU scan kernels bit for bit (their
+   levels, the int4 pack, and the one-pass roundtrip's dequantized
+   values, compared as integers so that the sign of a zero counts) bit
+   for bit at the Split boundary's (1280, 768) and at ragged widths (warp
+   and block variants, float4 and scalar loads, a misaligned row start,
+   a row longer than the roundtrip's registers hold), each with a row of
+   zeros and rows of exact half levels, the roundtrip also with +-0 and
+   levels that round to -0 and at (1280, 2560) and (1280, 2048), timed
+   beside the old way (quantize_rows, q.float(), * scale); the RG-LRU
+   scan kernels bit for bit (their
    twins round the same multiply and add) at the train step's (16, 80,
    2560), timed eager, in a graph and with a cold L2, and at the eval
    batch's (64, 80, 2560), a ragged width (2561, scalar loads), one step,
@@ -65,6 +70,14 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    bits the same on two eager calls and two graph replays, its rms error
    against fp64 within FP64_FACTOR times torch.bmm's, timed beside
    torch.bmm and the old way, B launches of the panel kernel at M 80);
+   its pair (a LoRA site's dA and dB in one launch) at each site's (16,
+   80, K | N), GPT-2's (768 | 768), RecurrentGemma-2B's (2560 | 2560) and
+   (2560 | 256), RWKV-6's (2048 | 2048), and ragged, S 1 and misaligned:
+   the bits of the two single launches it replaces, the same over calls
+   and graph replays, its rms error against fp64 within PAIR_FP64_FACTOR
+   times two torch.bmm calls', timed beside them and the two single
+   launches; the launch floor (an empty kernel eager, in a CUDA graph and
+   as a bare graph launch);
    the dense dW kernel
    (x (M, K), g (M, N) scaled by M^-0.5) at each of those shapes, at a
    ragged (1279, 770, 97) and at RecurrentGemma-2B's (1280, 2560, 256);
@@ -136,8 +149,9 @@ outside that limit.  fp32_gates holds that arithmetic.
    local step runs one forward and one backward of its 16 examples
    through the LoRA and attention kernels, whose backward gives each
    example's LoRA gradients through the per-example panel kernel
-   (lora_panel_examples, 6 launches a layer, the summed panel kernel
-   none), then the two clip kernels; its first-step gates are on the
+   (lora_panel_examples_pair, a site's dA and dB in one launch: 3 a
+   layer, the summed panel kernel none), then the two clip kernels; its
+   first-step gates are on the
    first batch's (16, P) per-example gradient rows and on their clipped
    mean.  The kernel run's norms must show clipping in some but not all
    rows, the ledger must hold the LoRA payloads plus the
@@ -157,7 +171,8 @@ outside that limit.  fp32_gates holds that arithmetic.
    part from fp64 by ~1e-4 and others stay within ~1e-5.  This set gates the kernels' precision over
    the whole Split path (both halves forward and backward,
    evaluation).  With an int8 boundary (four runs) every step adds two
-   per-row quantize launches (c2 activations up, c4 gradients down) and
+   launches of the one-pass roundtrip (quant_roundtrip_rows: c2
+   activations up, c4 gradients down) and
    the ledger must equal the hand reckoning (6,518,976 bytes per client
    per round).  This boundary is discontinuous: where two fp32 runs
    differ in the last bits, a value near a half level rounds to the
@@ -182,7 +197,11 @@ outside that limit.  fp32_gates holds that arithmetic.
    after them).  LoRA sits on wq/wk/wv of the 8 local-attention
    layers; every batch runs the RG-LRU scan kernel in the 18 recurrent
    layers, every train step its backward in the 16 that follow the first
-   LoRA layer (autograd does not reach layers 0-1).
+   LoRA layer (autograd does not reach layers 0-1).  Then one DP-SGD step
+   from the same weights (clip at the median per-example norm of the
+   first batch, noise 0): its (16, P) per-example rows and their clipped
+   mean gated from fp64 as phase 5's, the pair launched 24 times (8
+   layers x wq/wk/wv; at wk/wv dB is 256 wide).
 
 8. FedLLM on RWKV-6 Finch 1.6B at full width and depth (24 rwkv6 layers,
    d 2048, 32 heads of 64, d_ff 7168, V 65536, 1.58e9 parameters; random
@@ -233,7 +252,9 @@ outside that limit.  fp32_gates holds that arithmetic.
    rows 1, 2 and 4), the plain runs' none.  Round times of both
    backends and both policies are printed.
 
-After phase 10 it prints the final-LoRA margins of phase 7, Split int8
+After phase 10 it prints each kernel's launches times its time beyond
+max(bound, launch floor) (the rule-2 queue), the final-LoRA margins of
+phase 7, Split int8
 and RWKV-6 and phase 5's first-step and final-LoRA margins (each kernel
 run's share of its limit, beside the last recorded run's), then one JSON
 line with every kernel's numbers and, last, the line ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -254,7 +275,11 @@ ATOL, RTOL = 1e-4, 1e-4
 KD_ATOL, KD_RTOL = 1e-5, 1e-4
 DP_ATOL, DP_RTOL = 1e-6, 1e-5
 EXACT = ("topk_quantize", "quantize_rows", "quantize_rows_int4",
-         "quantize_pack4", "rglru_fwd", "rglru_bwd")
+         "quantize_pack4", "rglru_fwd", "rglru_bwd", "quant_roundtrip_rows",
+         "quant_roundtrip_rows_int4")
+# of those, the ones whose fp32 outputs are compared as integers (+0.0 and
+# -0.0 apart): the roundtrip's y must be its twin's to the sign of a zero
+EXACT_SIGNED = ("quant_roundtrip_rows", "quant_roundtrip_rows_int4")
 # outputs compared bit for bit in kernels otherwise held to a tolerance:
 # the WKV forward's S_final (its state update rounds as the plain one)
 EXACT_OUTPUTS = {"rwkv6_fwd": (1,)}
@@ -264,9 +289,11 @@ WKV_ATOL, WKV_RTOL = 1e-5, 1e-4
 # device time
 GRAPH_TIMED = ("kd_fwd", "kd_bwd", "kd_bwd_dt", "topk_quantize",
                "dp_clip_norms", "dp_clip_acc", "quantize_rows",
-               "quantize_rows_int4", "quantize_pack4", "rglru_fwd",
+               "quantize_rows_int4", "quantize_pack4", "quant_roundtrip_rows",
+               "quant_roundtrip_rows_int4", "rglru_fwd",
                "rglru_bwd", "rwkv6_fwd", "rwkv6_bwd", "lora_panel",
                "lora_panel_t", "lora_panel_examples", "lora_panel_examples_t",
+               "lora_panel_examples_pair",
                "lora_fwd_clients", "lora_dx_clients", "lora_panel_clients",
                "lora_panel_clients_t")
 # kernels also timed with the L2 flushed before each call: their input
@@ -305,6 +332,10 @@ SPREAD_FACTOR = 1.2
 # GPT-2 and RecurrentGemma-2B), at most this many times the default BLAS
 # library's for the same products
 FP64_FACTOR = 1.5
+# row 4ᵉ's pair: its rms error against fp64 at most this many times
+# torch.bmm's, 1.1 times the 0.56-0.57 that the single launches it
+# replaces reach at the DP step's four sites
+PAIR_FP64_FACTOR = 1.1 * 0.57
 # the LoRA (wq of a local-attention layer) and flash shapes of a
 # RecurrentGemma-2B train step
 RG_SHAPES = dict(M=BATCH * PAD_LEN, K=2560, N=2560, r=RANK, BH=BATCH * 10,
@@ -424,7 +455,8 @@ def max_err(name: str, got, want) -> float:
                 f"{name}: output {tuple(g.shape)} {g.dtype} vs plain "
                 f"{tuple(w.shape)} {w.dtype}")
         if name in EXACT or i in EXACT_OUTPUTS.get(name, ()):
-            diff = g != w
+            diff = g.view(torch.int32) != w.view(torch.int32) \
+                if name in EXACT_SIGNED else g != w
             require(not bool(diff.any()),
                     f"{name} is not bit-identical to its plain version: "
                     f"{int(diff.sum())} of {diff.numel()} {g.dtype} entries "
@@ -687,6 +719,89 @@ def panel_examples_checks(device, peaks_) -> dict:
                                                  old_way_graph_ms=graph)
         print(f"  the old way {where}: {B} launches of lora_panel at M {S}, "
               f"eager {eager:.4f} ms, in a graph {graph:.4f} ms")
+    return rows
+
+
+def pair_checks(device, peaks_) -> dict:
+    """Phase 2's part for row 4ᵉ's pair (lora_panel_examples_pair: a LoRA
+    site's dA = each x_bᵀ·gb_b and dB = each (g_bᵀ·xa_b)ᵀ in one launch),
+    at the DP batch's (B, S) = (16, 80), rank 8, for each site's (K | N):
+    GPT-2's (768 | 768), RecurrentGemma-2B's wq (2560 | 2560) and wk/wv
+    (2560 | 256), RWKV-6's (2048 | 2048); and at a ragged (3, 37, 770 |
+    261) at rank 13, S 1 at rank 64 and a misaligned x and g.  At every
+    shape its bits are those of the two lora_panel_examples launches it
+    replaces (the old way) and the same over two eager calls and two graph
+    replays, and it agrees with its twin within the LoRA tolerance; at the
+    four sites its rms error against fp64 (dA and dB together) is within
+    PAIR_FP64_FACTOR times torch.bmm's, and it is timed eager and in a
+    graph beside its twin, two torch.bmm calls (the library), the old way
+    and its bound.  Returns the timed rows ("lora_panel_examples_pair",
+    "...@rg", "...@rg256", "...@rwkv")."""
+    import torch
+
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels import ref
+
+    shapes = [(BATCH, PAD_LEN, 768, 768, RANK, 0, ""),
+              (BATCH, PAD_LEN, 2560, 2560, RANK, 0, "@rg"),
+              (BATCH, PAD_LEN, 2560, 256, RANK, 0, "@rg256"),
+              (BATCH, PAD_LEN, 2048, 2048, RANK, 0, "@rwkv"),
+              (3, 37, 770, 261, 13, 0, None),
+              (5, 1, 768, 768, 64, 0, None),
+              (BATCH, PAD_LEN, 768, 768, RANK, 1, None)]
+    name = "lora_panel_examples_pair"
+    rows = {}
+    for i, (B, S, K, N, r, offset, tag) in enumerate(shapes):
+        where = f"(B {B}, S {S}, K {K} | N {N}, r {r}, offset {offset})"
+        x, gb = panel_examples_inputs(device, B, S, K, r, offset, 250 + i)
+        g, xa = panel_examples_inputs(device, B, S, N, r, offset, 260 + i)
+
+        def kern():
+            return lm.lora_panel_examples_pair(x, gb, g, xa)
+
+        def old():
+            return (lm.lora_panel_examples(x, gb),
+                    lm.lora_panel_examples(g, xa, True))
+
+        same_bits_repeated(name, kern)
+        for got, was in zip(kern(), old()):
+            require(torch.equal(got, was), f"{name} {where}: not the bits of "
+                    f"the two lora_panel_examples launches")
+        case = (kern, lambda: ref.panel_grad_examples_pair(x, gb, g, xa),
+                lambda: (torch.bmm(x.transpose(1, 2), gb),
+                         torch.bmm(xa.transpose(1, 2), g)),
+                4 * (B * S * (K + N + 2 * r) + B * r * (K + N)),
+                2 * B * S * r * (K + N))
+        if tag is None:
+            err = max_err(name, kern(), case[1]())
+            print(f"  {name} {where}: max abs err {err:.3e}; the bits of "
+                  f"the two single launches, over two eager calls and two "
+                  f"graph replays")
+            continue
+        print(f"  {name} {where}, the bits of the two single launches, over "
+              f"two eager calls and two graph replays:")
+        row = time_case(name, case, peaks_)
+        exact = (x.double().transpose(1, 2) @ gb.double(),
+                 xa.double().transpose(1, 2) @ g.double())
+
+        def rms(outs):
+            sq = sum(float(((y.double() - e) ** 2).sum())
+                     for y, e in zip(outs, exact))
+            return math.sqrt(sq / sum(e.numel() for e in exact))
+
+        ratio = rms(kern()) / rms(case[2]())
+        print(f"  {name} {where}: rms error against fp64 {rms(kern()):.3e}, "
+              f"torch.bmm {rms(case[2]()):.3e} (pair / torch.bmm "
+              f"{ratio:.2f}, limit {PAIR_FP64_FACTOR:.3f})")
+        require(ratio <= PAIR_FP64_FACTOR,
+                f"{name} {where}: rms error against fp64 {ratio:.3f} times "
+                f"torch.bmm's, above {PAIR_FP64_FACTOR:.3f}")
+        row.update(fp64_rms_ratio=ratio, old_way_ms=cuda_ms(old),
+                   old_way_graph_ms=graph_ms(old, calls=10))
+        print(f"  the old way {where}: two lora_panel_examples launches, "
+              f"eager {row['old_way_ms']:.4f} ms, in a graph "
+              f"{row['old_way_graph_ms']:.4f} ms")
+        rows[name + tag] = row
     return rows
 
 
@@ -1313,6 +1428,30 @@ def dp_norm_fp64_errors(device, seed) -> dict:
     return rms
 
 
+def launch_floor(device) -> dict:
+    """The least time any launch takes: an empty kernel (csrc/floor.cu)
+    timed eager, as one launch among 20 in a CUDA graph, and as a graph of
+    its own (a bare graph launch, replayed 50 times back to back)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    lib = build.load("floor")
+    lib.empty_launch.argtypes = [ctypes.c_void_p]
+    lib.empty_launch.restype = ctypes.c_int
+
+    def empty():
+        build.check(lib.empty_launch(build.stream(device)), "empty_launch")
+
+    floor = {"eager_ms": cuda_ms(empty), "graph_ms": graph_ms(empty),
+             "graph_launch_ms": graph_ms(empty, calls=1, replays=50)}
+    print(f"  launch floor: an empty kernel eager {floor['eager_ms']:.4f} ms, "
+          f"in a CUDA graph {floor['graph_ms']:.4f} ms a launch, a bare graph "
+          f"launch (one empty kernel a graph) {floor['graph_launch_ms']:.4f} "
+          f"ms")
+    return floor
+
+
 def same_bits_repeated(name: str, call) -> None:
     """``call()``'s outputs (a tensor or a list of them) are the same bits
     on a second eager call and on two replays of one CUDA graph that
@@ -1347,8 +1486,10 @@ def dp_norms_repeat(device, seed) -> None:
 
 
 def quant_cases(device, R, C, special, offset, seed):
-    """The per-row quantizers on seeded (R, C) rows, as kernel_cases: int8
-    and int4 levels, and (C even) the int4 pack.  With ``special``, row 1
+    """The per-row quantizers on seeded (R, C) rows, as kernel_cases: the
+    one-pass roundtrip's y at int8 and int4 (its library the eager chain
+    of quantize and dequantize), int8 and int4 levels, and (C even) the
+    int4 pack.  With ``special``, row 1
     is all zeros and rows 2 and 3 hold exact half levels (absmax 127 and
     7, so the scale is exactly 1 at bits 8 and 4; +-0.5, 1.5, 2.5 round
     half to even to 0, +-2, +-2).  ``offset`` floats before the first row
@@ -1379,8 +1520,20 @@ def quant_cases(device, R, C, special, offset, seed):
         q, sc = lib(4)
         return compression.pack_int4(q), sc
 
+    def lib_roundtrip(bits):
+        q, sc = lib(bits)
+        return q.float() * sc
+
     f4 = 4
     cases = {
+        "quant_roundtrip_rows": (lambda: qz.quant_roundtrip_rows(x, 8),
+                                 lambda: ref.quant_roundtrip_rows_ref(x, 8)[0],
+                                 lambda: lib_roundtrip(8), 2 * f4 * R * C,
+                                 3 * R * C),
+        "quant_roundtrip_rows_int4": (
+            lambda: qz.quant_roundtrip_rows(x, 4),
+            lambda: ref.quant_roundtrip_rows_ref(x, 4)[0],
+            lambda: lib_roundtrip(4), 2 * f4 * R * C, 3 * R * C),
         "quantize_rows": (lambda: qz.quantize_rows(x, 8),
                           lambda: ref.quantize_rows_ref(x, 8),
                           lambda: lib(8), f4 * R * C + R * C + f4 * R,
@@ -1396,6 +1549,61 @@ def quant_cases(device, R, C, special, offset, seed):
             lambda: ref.quantize_pack4_rows_ref(x), lib_pack4,
             f4 * R * C + R * C // 2 + f4 * R, 2 * R * C)
     return cases
+
+
+def roundtrip_checks(device, peaks_) -> dict:
+    """Phase 2's part for the Split boundary's one-pass roundtrip
+    (quant_roundtrip_rows): at (1280, 768), int8 and int4, and at the next
+    Split paths' widths (1280, 2560) and (1280, 2048), with a row of
+    zeros, half levels, +-0 and levels that round to -0, its y and scale
+    bit for bit its twin's (as integers: the sign of a zero counts), with
+    and without the scale asked for; timed eager and in a graph beside
+    its twin, the eager torch chain of quantize and dequantize (the
+    library), the old way (quantize_rows, then q.float() and * scale) and
+    its bound.  Returns the timed rows ("quant_roundtrip_rows",
+    "..._int4", "...@rg", "...@rwkv")."""
+    import torch
+
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import ref
+
+    R, rows = BATCH * PAD_LEN, {}
+    for C, tag in ((768, ""), (2560, "@rg"), (2048, "@rwkv")):
+        gen = torch.Generator(device=device).manual_seed(270 + C)
+        x = torch.randn((R, C), device=device, generator=gen) * 3.0
+        x[1:3] = 0.0
+        x[2, 0] = 7.0
+        x[2, 1:7] = torch.tensor([0.5, -0.5, 0.0, -0.0, -0.01, -1e-30],
+                                 device=device)
+        for bits in ((8, 4) if C == 768 else (8,)):
+            name = "quant_roundtrip_rows" + ("_int4" if bits == 4 else "")
+            max_err(name, qz.quant_roundtrip_rows(x, bits, with_scale=True),
+                    ref.quant_roundtrip_rows_ref(x, bits))
+            print(f"  {name} ({R}, {C}), zeros, half levels, +-0: y and "
+                  f"scale bit-identical (as integers)")
+            qmax = float((1 << (bits - 1)) - 1)
+
+            def lib(bits=bits, qmax=qmax):
+                sc = torch.clamp_min(x.abs().amax(-1, keepdim=True) / qmax,
+                                     1e-12)
+                q = torch.clamp(torch.round(x / sc), -qmax, qmax)
+                return q.to(torch.int8).float() * sc
+
+            def old(bits=bits):
+                q, scale = qz.quantize_rows(x, bits)
+                return q.float() * scale
+
+            row = time_case(name, (
+                lambda bits=bits: qz.quant_roundtrip_rows(x, bits),
+                lambda bits=bits: ref.quant_roundtrip_rows_ref(x, bits)[0],
+                lib, 8 * R * C, 3 * R * C), peaks_)
+            row.update(old_way_ms=cuda_ms(old), old_way_graph_ms=graph_ms(
+                old))
+            print(f"  the old way ({R}, {C}) int{bits}: quantize_rows, "
+                  f"q.float(), * scale: eager {row['old_way_ms']:.4f} ms, in "
+                  f"a graph {row['old_way_graph_ms']:.4f} ms")
+            rows[name + tag] = row
+    return rows
 
 
 def kernel_bound(name, nbytes, nflops, peaks_) -> dict:
@@ -1501,9 +1709,11 @@ def check_rwkv_kernels(device, peaks_) -> dict:
 
 
 def check_kernels(device, card: str):
-    """Phase 2.  Returns the per-kernel JSON rows (main-path shapes)."""
+    """Phase 2.  Returns the per-kernel JSON rows (main-path shapes) and the
+    launch floor (launch_floor)."""
     import torch
     peaks_ = peaks(card)
+    floor = launch_floor(device)
     cfg = dict(M=BATCH * PAD_LEN, K=768, N=768, r=RANK, BH=BATCH * 12,
                BKV=BATCH * 12, S=PAD_LEN, Skv=PAD_LEN, D=64, causal=True,
                window=0, q_offset=0)
@@ -1609,6 +1819,7 @@ def check_kernels(device, card: str):
                   f"r {shape['r']}, offset {shape['offset']}): max abs err "
                   f"{err:.3e}")
     rows = panel_examples_checks(device, peaks_)
+    rows.update(pair_checks(device, peaks_))
     rows.update(clients_checks(device, peaks_))
     for i, shape in enumerate(kd_checks):
         for name, (kern, plain, *_rest) in kd_cases(
@@ -1705,7 +1916,9 @@ def check_kernels(device, card: str):
           f"({BATCH * PAD_LEN} x 768), a row of zeros and half levels:")
     for name, case in quant_cases(device, BATCH * PAD_LEN, 768, True, 0,
                                   11).items():
-        rows[name] = time_case(name, case, peaks_)
+        if not name.startswith("quant_roundtrip"):
+            rows[name] = time_case(name, case, peaks_)
+    rows.update(roundtrip_checks(device, peaks_))
     print(f"  DP clip kernels at the main path's shape ({BATCH} x "
           f"{DP_WIDTH}, half the rows clipped):")
     cases, C, clipped = dp_cases(device, BATCH, DP_WIDTH, "half", False, 10)
@@ -1715,7 +1928,7 @@ def check_kernels(device, card: str):
     dp_norm_fp64_errors(device, 22)
     dp_norms_repeat(device, 23)
     torch.cuda.empty_cache()
-    return rows
+    return rows, floor
 
 
 # --------------------------------------------------------------------------- #
@@ -1908,8 +2121,8 @@ MARGINS = {}
 # ``keep``), the yardsticks of phase 10's spmd runs
 CASES = {}
 MARGINS_BEFORE = {"phase 7": 0.402, "Split int8": 0.862, "RWKV-6": 0.867,
-                  "DP first step": 0.176, "DP final LoRA": 0.311,
-                  "DP first-step rows": None}
+                  "DP first step": 0.195, "DP final LoRA": 0.390,
+                  "DP first-step rows": 0.199}
 
 
 def rwkv_bwd_repeat(device, seed) -> None:
@@ -2292,7 +2505,7 @@ def run_split(device, cfg, base, data, steps, evals):
                 + f" (limit {limits['flips']:.3e}; kernels at "
                 f"{flips['kernels'] / limits['flips']:.3f} of it)")
             require(not failed, "; ".join(failed))
-            expect["quantize_rows"] = 2 * steps * fed.rounds
+            expect["quant_roundtrip_rows"] = 2 * steps * fed.rounds
         # Both sets add nudged fp32 runs.  The int8 set takes the spread
         # test: its nudged fp32 runs part in a round's loss by more than
         # the TF32 run (up to 4.4e-3 against 1.3e-3 and 6.7e-3), while
@@ -2432,9 +2645,10 @@ def run_dp(device, cfg, base, data, steps, evals, lora_bytes):
         dp_steps = steps * fed.rounds
         # one forward and one backward of the batch a DP step, whose
         # backward gives each example's panel gradients (row 4 with an
-        # example axis) in place of the summed ones
+        # example axis) in place of the summed ones, a site's dA and dB in
+        # one launch of the pair
         expect = model_launches(L, dp_steps, evals * fed.rounds)
-        expect["lora_panel_examples"] = expect.pop("lora_panel")
+        expect["lora_panel_examples_pair"] = expect.pop("lora_panel") // 2
         expect.update(dp_clip_norms=dp_steps, dp_clip_acc=dp_steps)
         keys_up, keys_down = key_exchange_bytes(C)
         counts, kern = run_case(
@@ -2508,8 +2722,50 @@ def run_recurrent(device):
                                  * lora_bytes},
                          expect=expect, seeds=NUDGED_SEEDS, margin="phase 7")
     print(f"  phase 7 wall_s={time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    # one DP step's per-example gradients: a forward and a backward of the
+    # batch, each LoRA site's dA and dB one launch of the pair
+    dp_counts = rg_dp_first_step(device, cfg, base, clients, {
+        "lora_fwd": 3 * n_attn, "lora_dx": 3 * n_attn,
+        "lora_panel_examples_pair": 3 * n_attn, "flash_fwd": n_attn,
+        "flash_dq": n_attn, "flash_dkv": n_attn, "rglru_fwd": n_rglru,
+        "rglru_bwd": n_rglru_bwd, "dp_clip_norms": 1, "dp_clip_acc": 1})
+    print(f"  phase 7 DP step wall_s={time.perf_counter() - t0:.1f}")
     del base
     torch.cuda.empty_cache()
+    return counts, dp_counts
+
+
+def rg_dp_first_step(device, cfg, base, clients, expect):
+    """Phase 7's DP step on RecurrentGemma-2B from its weights: DP-SGD
+    (clip at the median per-example gradient norm of the first batch,
+    noise 0), the first step's (16, P) per-example gradient rows and their
+    clipped mean (dp_first_step_gaps) gated from fp64 as phase 5 gates
+    GPT-2's; the kernel run's launches must be ``expect`` (rows 4ᵉ's pair
+    at L 256 on wk/wv, which no other phase runs).  Returns them."""
+    from repro_torch.configs.base import FedConfig, PrivacyConfig
+    from repro_torch.kernels import ops
+
+    print(f"  DP-SGD first step on {cfg.name} (clip at the median norm, "
+          f"noise 0), per-example rows from fp64:")
+    fed = FedConfig(framework="fedllm", rounds=2, lora_rank=RANK,
+                    lora_dropout=0.0,
+                    privacy=PrivacyConfig(dp_clip=1.0, secure_agg=True))
+    clip = first_batch_clip(device, cfg, base, fed, clients)
+    fed = dataclasses.replace(fed, privacy=dataclasses.replace(
+        fed.privacy, dp_clip=clip))
+    ops.reset_launches()
+    rows_gaps, mean_gaps = dp_first_step_gaps(device, cfg, base, fed,
+                                              clients)
+    counts = ops.launches()
+    floor_gate(f"{cfg.name} first-step per-example gradient rows",
+               rows_gaps)
+    floor_gate(f"{cfg.name} first-step clipped mean gradient", mean_gaps)
+    got = {n: k for n, k in counts.items() if k}
+    print(f"  {cfg.name} DP step launches (kernel run; the plain runs "
+          f"none): {got}")
+    require(got == expect, f"{cfg.name} DP step launches {got} != "
+            f"expected {expect}")
     return counts
 
 
@@ -3017,7 +3273,9 @@ NO_SPILLS = {"lora_fused_kernel": ("lora_matmul", 8),
              "lora_dw_kernel": ("lora_matmul", 1),
              "flash_dq_kernel": ("flash_attention", 4),
              "rwkv6_bwd_kernel": ("rwkv6_scan", 6),
-             "topk_radix_kernel": ("quantize", 2)}
+             "topk_radix_kernel": ("quantize", 2),
+             "panel_grad_kernel": ("lora_matmul", 1),
+             "quant_roundtrip_kernel": ("quantize", 4)}
 
 
 def kernel_spills(log: str, kernel: str) -> dict:
@@ -3043,6 +3301,9 @@ REPLACES = {
     # (VMAPPED), which gives it an example axis
     "lora_panel_examples": ("src/repro/kernels/lora_matmul.py:226",
                             "lora_matmul.cu"),
+    # a LoRA site's two row-4ᵉ products (dA and dB) in one launch
+    "lora_panel_examples_pair": ("src/repro/kernels/lora_matmul.py:226",
+                                 "lora_matmul.cu"),
     "flash_fwd": ("src/repro/kernels/flash_attention.py:116",
                   "flash_attention.cu"),
     "flash_dq": ("src/repro/kernels/flash_attention.py:223",
@@ -3055,6 +3316,10 @@ REPLACES = {
     "dp_clip_norms": ("src/repro/kernels/dp_clip.py:65", "dp_clip.cu"),
     "dp_clip_acc": ("src/repro/kernels/dp_clip.py:73", "dp_clip.cu"),
     "quantize_rows": ("src/repro/kernels/quantize.py:42", "quantize.cu"),
+    # row 10 with its dequantization in the same pass, the form the
+    # reference's compression.quant_roundtrip runs at the Split boundary
+    "quant_roundtrip_rows": ("src/repro/kernels/quantize.py:42",
+                             "quantize.cu"),
     "quantize_pack4": ("src/repro/kernels/quantize.py:79", "quantize.cu"),
     "rglru_fwd": ("src/repro/kernels/rglru_scan.py:56", "rglru_scan.cu"),
     # the gradient of row 15 (the reference differentiates the scan
@@ -3078,9 +3343,29 @@ REPLACES = {
 # the kernels that port a TPU kernel in the form a reference ``vmap`` gives
 # it: {kernel: the vmap's file:line}
 VMAPPED = {"lora_panel_examples": "src/repro/core/fedavg.py:83",
+           "lora_panel_examples_pair": "src/repro/core/fedavg.py:83",
            "lora_fwd_clients": "src/repro/core/fed_spmd.py:319",
            "lora_dx_clients": "src/repro/core/fed_spmd.py:319",
            "lora_panel_clients": "src/repro/core/fed_spmd.py:319"}
+
+
+def rule2_queue(kernels, floor) -> None:
+    """Prints each kernel's device time lost in this run beyond what the
+    card could do, largest first: launches x (time - max(bound, floor)),
+    the time and floor in a CUDA graph where the kernel was timed in one
+    (else eager, against the eager floor)."""
+    lost = []
+    for k in kernels:
+        graph = "graph_ms" in k
+        ms = k["graph_ms"] if graph else k["ms"]
+        least = max(k["bound_ms"], floor["graph_ms" if graph else "eager_ms"])
+        lost.append((k["launches"] * max(ms - least, 0.0), k["name"], ms,
+                     least, k["launches"], graph))
+    print("rule-2 queue (launches x (time - max(bound, floor)), ms lost in "
+          "this run; [graph] times in a CUDA graph):")
+    for total, name, ms, least, n, graph in sorted(lost, reverse=True):
+        print(f"  {name}: {n} x ({ms:.4f} - {least:.4f}) = {total:.4f}"
+              + (" [graph]" if graph else ""))
 
 
 def main() -> int:
@@ -3130,11 +3415,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     print("phase 2: kernels against their plain versions")
-    rows = check_kernels(device, card)
+    rows, floor = check_kernels(device, card)
     print(f"  phase 2 wall_s={time.perf_counter() - t0:.1f}")
 
     by_path = run_slices(device)
-    by_path["recurrentgemma"] = run_recurrent(device)
+    by_path["recurrentgemma"], by_path["recurrentgemma_dp_step"] = \
+        run_recurrent(device)
     by_path["rwkv6"] = run_rwkv(device)
     t0 = time.perf_counter()
     by_path["base_grad"] = run_base_grad(device)
@@ -3178,8 +3464,10 @@ def main() -> int:
             **{key: row[key] for key in ("graph_ms", "library_graph_ms",
                                          "cold_ms", "bound_fp32_ms") + extra
                if key in row}})
-        for tag, key in (("rg", "at_recurrentgemma"), ("rwkv", "at_rwkv6"),
-                         ("dp", "at_dp_batch1"), ("c8", "at_8_clients")):
+        for tag, key in (("rg", "at_recurrentgemma"),
+                         ("rg256", "at_recurrentgemma_wk_wv"),
+                         ("rwkv", "at_rwkv6"), ("dp", "at_dp_batch1"),
+                         ("c8", "at_8_clients")):
             if f"{name}@{tag}" in rows:
                 at = rows[f"{name}@{tag}"]
                 kernels[-1][key] = {
@@ -3188,6 +3476,7 @@ def main() -> int:
                         "bound_by", "library_ms", "bound_fp32_ms",
                         "graph_ms", "library_graph_ms") + extra
                     if field in at}
+    rule2_queue(kernels, floor)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -84,6 +84,19 @@ minute):
 
     python3 scripts/chip_attribution.py wkv
 
+With ``pair``, what sets the time of row 4ᵉ's pair
+(``lora_panel_examples_pair``) and of the Split boundary's roundtrip
+(``quant_roundtrip_rows``): copies of csrc/ under build/pair-ablation/
+with one design choice changed (PAIR_VARIANTS, ROUNDTRIP_VARIANTS), their
+ptxas registers and spills, and each timed in a CUDA graph (the faster
+of two turns) beside the shipped kernel, its old way (two
+lora_panel_examples launches; quantize_rows, then q.float() and *
+scale) and the library (two torch.bmm calls; the eager quantize chain),
+at the DP step's four LoRA sites and at the boundary's widths; every
+variant must give the shipped kernel's bits (under a minute):
+
+    python3 scripts/chip_attribution.py pair
+
 Needs a CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -297,6 +310,169 @@ def wkv_ablation(dev) -> None:
           f"of two turns): " + ", ".join(f"{k} {min(v):.4f}"
                                          for k, v in times.items()),
           flush=True)
+
+
+# (name, what it shows, then pairs of the text of panel_grad_kernel it
+# replaces and what it puts there)
+PAIR_VARIANTS = (
+    ("prefetch", "each warp's first 8 rows of lhs loaded before the panel "
+     "is staged (their latency overlaps the staging's)",
+     """      __syncthreads();              // the last chunk's panel and red are read
+      for (int e = threadIdx.x; e < PCH * PRG; e += 32 * PWARPS) {""",
+     """      float4 x[P_UNROLL];
+      #pragma unroll
+      for (int u = 0; u < P_UNROLL; ++u) {
+        const int mm = warp + u * PWARPS;
+        x[u] = mm < n ? lhs_quad(lhs + (size_t)(m0 + mm) * L, c, L, vec)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      __syncthreads();              // the last chunk's panel and red are read
+      for (int e = threadIdx.x; e < PCH * PRG; e += 32 * PWARPS) {""",
+     """      for (int i0 = warp; i0 < n; i0 += PWARPS * P_UNROLL) {
+        float4 x[P_UNROLL];
+        #pragma unroll
+        for (int u = 0; u < P_UNROLL; ++u) {""",
+     """      for (int i0 = warp; i0 < n; i0 += PWARPS * P_UNROLL) {
+        #pragma unroll
+        for (int u = 0; u < P_UNROLL && i0 != warp; ++u) {"""),
+    ("rows16", "16 rows of lhs in flight a warp instead of 8",
+     "constexpr int P_UNROLL = 8;", "constexpr int P_UNROLL = 16;"),
+)
+# (name, what it shows, then pairs of the text of quantize.cu it replaces
+# and what it puts there)
+ROUNDTRIP_VARIANTS = tuple(
+    (f"tpr{tpr}", f"{tpr} threads a row up to C 1024, {per} floats held a "
+     f"thread", "constexpr int RT_TPR = 128;", f"constexpr int RT_TPR = {tpr};",
+     "constexpr int RT_PER = 8;", f"constexpr int RT_PER = {per};")
+    for tpr, per in ((32, 32), (64, 16), (256, 4)))
+
+
+def ablation_library(name, source, variants, dst_root):
+    """Builds csrc/<source>.cu with each variant's edits into
+    dst_root/<variant>/; prints each one's registers and spills; returns
+    {variant: ctypes library}."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    text0 = (build.CSRC / f"{source}.cu").read_text()
+    procs = {}
+    for vname, what, *edits in variants:
+        text = text0
+        for old, new in zip(edits[::2], edits[1::2]):
+            if text.count(old) != 1:
+                raise RuntimeError(f"chip_attribution: {vname}: the text it "
+                                   f"replaces is not in {source}.cu once")
+            text = text.replace(old, new)
+        dst = dst_root / vname
+        shutil.rmtree(dst, ignore_errors=True)
+        shutil.copytree(build.CSRC, dst)
+        (dst / f"{source}.cu").write_text(text)
+        procs[vname] = (what, dst, subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(dst / "lib.so"),
+             str(dst / f"{source}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for vname, (what, dst, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"chip_attribution: {vname}: nvcc failed\n"
+                               f"{log}")
+        lines = log.splitlines()
+        regs = [f"{lines[i + 2].split(':')[-1].strip()}; "
+                f"{lines[i + 1].strip()}"
+                for i, line in enumerate(lines)
+                if "properties for" in line and name in line]
+        print(f"{vname}: {what}; {name}: " + " | ".join(regs), flush=True)
+        libs[vname] = ctypes.CDLL(str(dst / "lib.so"))
+    return libs
+
+
+def pair_ablation(dev) -> None:
+    """``pair``: see the module's docstring."""
+    import ctypes
+
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels import quantize as qz
+
+    root = ROOT / "build" / "pair-ablation"
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    plibs = ablation_library("panel_grad_kernel", "lora_matmul",
+                             PAIR_VARIANTS, root)
+    for lib in plibs.values():
+        lib.lora_panel_examples_pair.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        lib.lora_panel_examples_pair.restype = i32
+    qlibs = ablation_library("quant_roundtrip_kernel", "quantize",
+                             ROUNDTRIP_VARIANTS, root)
+    for lib in qlibs.values():
+        lib.quant_roundtrip_rows.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+        lib.quant_roundtrip_rows.restype = i32
+
+    def faster_of_two(calls):
+        times = {name: [] for name in calls}
+        for _ in range(2):
+            for name, fn in calls.items():
+                times[name].append(cs.graph_ms(fn))
+        return ", ".join(f"{k} {min(v):.4f}" for k, v in times.items())
+
+    B, S, r = cs.BATCH, cs.PAD_LEN, cs.RANK
+    for K, N in ((768, 768), (2560, 2560), (2560, 256), (2048, 2048)):
+        x, gb = cs.panel_examples_inputs(dev, B, S, K, r, 0, 1)
+        g, xa = cs.panel_examples_inputs(dev, B, S, N, r, 0, 2)
+        want = lm.lora_panel_examples_pair(x, gb, g, xa)
+        calls = {
+            "pair": lambda: lm.lora_panel_examples_pair(x, gb, g, xa),
+            "old way": lambda: (lm.lora_panel_examples(x, gb),
+                                lm.lora_panel_examples(g, xa, True)),
+            "torch.bmm x2": lambda: (torch.bmm(x.transpose(1, 2), gb),
+                                     torch.bmm(xa.transpose(1, 2), g))}
+        for vname, lib in plibs.items():
+            def call(lib=lib):
+                da, db = torch.empty_like(want[0]), torch.empty_like(want[1])
+                build.check(lib.lora_panel_examples_pair(
+                    x.data_ptr(), gb.data_ptr(), g.data_ptr(), xa.data_ptr(),
+                    da.data_ptr(), db.data_ptr(), B, S, K, N, r,
+                    build.stream(dev)), vname)
+                return da, db
+            got = call()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise RuntimeError(f"chip_attribution: {vname} changes the "
+                                   f"pair's bits")
+            calls[vname] = call
+        print(f"pair at (16, 80, {K} | {N}), ms in a CUDA graph: "
+              + faster_of_two(calls), flush=True)
+    R = B * S
+    for C in (768, 769, 2048, 2560):
+        x = torch.randn((R, C), device=dev, generator=torch.Generator(
+            device=dev).manual_seed(C)) * 3.0
+        x[1] = 0.0
+        want = qz.quant_roundtrip_rows(x, 8)
+
+        def old():
+            q, scale = qz.quantize_rows(x, 8)
+            return q.float() * scale
+
+        calls = {"roundtrip": lambda: qz.quant_roundtrip_rows(x, 8),
+                 "quantize_rows": lambda: qz.quantize_rows(x, 8),
+                 "old way": old}
+        for vname, lib in qlibs.items():
+            def call(lib=lib):
+                y = torch.empty_like(x)
+                build.check(lib.quant_roundtrip_rows(
+                    x.data_ptr(), y.data_ptr(), None, R, C, 8,
+                    build.stream(dev)), vname)
+                return y
+            if not torch.equal(call().view(torch.int32),
+                               want.view(torch.int32)):
+                raise RuntimeError(f"chip_attribution: {vname} changes the "
+                                   f"roundtrip's bits")
+            calls[vname] = call
+        print(f"roundtrip at ({R}, {C}) int8, ms in a CUDA graph: "
+              + faster_of_two(calls), flush=True)
 
 
 def kblock(kb: int) -> int:
@@ -998,6 +1174,14 @@ def main() -> int:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip(), torch.__version__, flush=True)
         wkv_ablation(torch.device("cuda", 0))
+        return 0
+    if sys.argv[1:] == ["pair"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip(), torch.__version__, flush=True)
+        pair_ablation(torch.device("cuda", 0))
         return 0
     if sys.argv[1:] == ["fp64"]:
         torch.backends.cuda.matmul.allow_tf32 = False

@@ -8,9 +8,9 @@ Counterpart of ``src/repro/core/compression.py``:
   ``cuda`` kernel policy), int4 nibble-packed;
 - int8/int4 symmetric per-row quantization (``quantize``/``dequantize``,
   int4 nibble-packed) and its straight-through round trip
-  (``quant_roundtrip``, the Split boundary), both through the per-row
-  CUDA kernels of kernels/quantize.py under the ``cuda`` policy, with the
-  exact wire size;
+  (``quant_roundtrip``, the Split boundary, one pass), both through the
+  per-row CUDA kernels of kernels/quantize.py under the ``cuda`` policy,
+  with the exact wire size;
 - softened labels (temperature + float16).
 
 Each compressor returns its payload with the exact wire size; each
@@ -147,11 +147,11 @@ def dequantize(comp):
 
 def quant_roundtrip(x, bits: int = 8):
     """Quantize -> dequantize with the wire size ``quantize`` would report
-    for the same tensor (the packed payload is never built).  The levels
-    come from kernels/ops.quantize (the CUDA kernel under the ``cuda``
-    policy); the dequantization stays plain."""
-    q, scale = kernel_ops.quantize(x, bits)
-    return (q.float() * scale).to(x.dtype), quant_wire_bytes(x.shape, bits)
+    for the same tensor (the packed payload is never built).  One pass of
+    kernels/ops.quant_roundtrip (a single CUDA kernel under the ``cuda``
+    policy, which writes the dequantized values and no levels)."""
+    return (kernel_ops.quant_roundtrip(x, bits).to(x.dtype),
+            quant_wire_bytes(x.shape, bits))
 
 
 # --------------------------------------------------------------------------- #

@@ -16,7 +16,8 @@
 //       with an example axis (lora_panel_examples), the same kernel with
 //       one slice per example gives each example's (L, r) straight: the
 //       form _panel_grad_call takes under the vmap of the DP-SGD step's
-//       per-example loss (src/repro/core/fedavg.py).
+//       per-example loss (src/repro/core/fedavg.py); the step takes a
+//       LoRA site's dA and dB in one launch (lora_panel_examples_pair).
 //   * with a client axis (lora_fused_clients, lora_panel_clients): the
 //       fused kernel and the panel gradient over stacked clients, W shared
 //       and A, B per client, blockIdx.z the client: the forms _fwd_call,
@@ -132,7 +133,17 @@
 // more than one slice each writes a partial into a (slices, L·r)
 // workspace in the output's layout that dw_sum_kernel adds in order: no
 // atomics, the same bits every run.  Ragged edges are masked in the
-// loads.
+// loads.  With an example axis (the DP step) a slice is one example's S
+// = 80 rows, 20 a warp: too few to hide a load's latency behind, so a
+// block's time is a short chain of latencies (the panel, then three
+// batches of 8 rows) that no width of grid shortens; one launch takes
+// both of a site's products, dA's blocks and dB's side by side, so the
+// two chains overlap and the second launch's floor is gone.  What keeps
+// that one wave is the register count: at 96 (no spill) five blocks fit
+// an SM, 660 on the card, so RecurrentGemma-2B's wq pair (640 blocks)
+// runs in one wave; staging the panel by cp.async while each warp's
+// first rows load took it to 128 registers and a spill, four blocks an
+// SM and two waves, slower there than the two launches it replaces.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -527,28 +538,45 @@ __device__ __forceinline__ float4 lhs_quad(const float* row, int c, int L,
   return v;
 }
 
+// One product of the panel gradient: out = lhsᵀ·panel over slices of M,
+// lhs (clients·M, L), panel (clients·M, r), out (clients·slices, L, r),
+// or (.., r, L) where transpose_out.  `tiles` column tiles of PC.
+struct PanelJob {
+  const float* lhs;
+  const float* panel;
+  float* out;
+  int L, tiles, transpose_out, vec;
+};
+
 // out[z][l, j] = sum over slice z of M of lhs[m, l] panel[m, j] (out[z][j,
 // l] when transposed), slice z = rows [z·rows, (z+1)·rows) ∩ [0, M): one
-// block per (128 columns, slice).  Warp w sums rows w, w + 4, ... of the
+// block per (128 columns, slice) of a job: blocks x < job0.tiles take job
+// 0, the rest job 1, so one launch computes two products of the same
+// rows (the DP step's dA and dB).  Warp w sums rows w, w + 4, ... of the
 // slice in order, the warps are added in order through shared memory;
 // ranks in groups of 8, each rereading the slice's rows (from L1/L2).
 // With a client axis (gridDim.z clients, blockIdx.z the client) lhs and
 // panel hold the clients' M rows one after another, and client c's slice
 // z goes to out[c·gridDim.y + z]: what a launch on its rows alone writes
 __global__ void __launch_bounds__(32 * PWARPS)
-panel_grad_kernel(const float* __restrict__ lhs,
-                  const float* __restrict__ panel, float* __restrict__ out,
-                  int M, int L, int r, int rows, int transpose_out, int vec) {
+panel_grad_kernel(const PanelJob job0, const PanelJob job1, int M, int r,
+                  int rows) {
   __shared__ __align__(16) float Ps[PCH][PRG];
   __shared__ __align__(16) float red[PWARPS][PRG][PC];
 
+  const bool second = blockIdx.x >= job0.tiles;
+  const int L = second ? job1.L : job0.L;
+  const int transpose_out = second ? job1.transpose_out : job0.transpose_out;
+  const bool vec = second ? job1.vec : job0.vec;
+  const int tile = blockIdx.x - (second ? job0.tiles : 0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c = blockIdx.x * PC + 4 * lane;
+  const int c = tile * PC + 4 * lane;
   const int mbeg = blockIdx.y * rows, mend = min(M, mbeg + rows);
   const size_t client = blockIdx.z;
-  lhs += client * M * L;
-  panel += client * M * r;
-  float* dst = out + (client * gridDim.y + blockIdx.y) * L * r;
+  const float* lhs = (second ? job1.lhs : job0.lhs) + client * M * L;
+  const float* panel = (second ? job1.panel : job0.panel) + client * M * r;
+  float* dst = (second ? job1.out : job0.out) +
+               (client * gridDim.y + blockIdx.y) * L * r;
 
   for (int j0 = 0; j0 < r; j0 += PRG) {
     float acc[4][PRG];
@@ -597,7 +625,7 @@ panel_grad_kernel(const float* __restrict__ lhs,
           make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
     __syncthreads();
     // thread t sums column t's ranks over the warps, in order
-    const int l = blockIdx.x * PC + threadIdx.x;
+    const int l = tile * PC + threadIdx.x;
     #pragma unroll
     for (int j = 0; j < PRG; ++j) {
       float s = red[0][j][threadIdx.x];
@@ -901,6 +929,23 @@ int fused(const float* X, const float* W, const float* A, const float* B,
                                   vec_x, vec_w);
 }
 
+// one product of the panel gradient over `lhs` (·, L)
+PanelJob panel_job(const float* lhs, const float* panel, float* out, int L,
+                   int transpose_out) {
+  const int vec = aligned16(lhs) && L % 4 == 0;
+  return PanelJob{lhs, panel, out, L, (L + PC - 1) / PC, transpose_out, vec};
+}
+
+// job 0, then job 1's blocks (none where its tiles are 0), over `slices`
+// slices of `rows` rows of M for each of `clients`
+cudaError_t launch_panel(const PanelJob& job0, const PanelJob& job1, int M,
+                         int r, int rows, int slices, int clients,
+                         cudaStream_t s) {
+  const dim3 grid(job0.tiles + job1.tiles, slices, clients);
+  panel_grad_kernel<<<grid, 32 * PWARPS, 0, s>>>(job0, job1, M, r, rows);
+  return cudaGetLastError();
+}
+
 // lora_panel_grad and lora_panel_clients: `clients` stacked clients of M
 // rows, each split as one client's M is, its slices summed in order
 int panel_grad(const float* lhs, const float* panel, float* out, float* ws,
@@ -913,14 +958,18 @@ int panel_grad(const float* lhs, const float* panel, float* out, float* ws,
   panel_split(M, L, &rows, &splits);
   if (splits > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int vec = aligned16(lhs) && L % 4 == 0;
-  const dim3 grid((L + PC - 1) / PC, splits, clients);
-  panel_grad_kernel<<<grid, 32 * PWARPS, 0, s>>>(
-      lhs, panel, splits > 1 ? ws : out, M, L, r, rows, transpose_out, vec);
-  cudaError_t err = cudaGetLastError();
+  const PanelJob none{};
+  cudaError_t err = launch_panel(
+      panel_job(lhs, panel, splits > 1 ? ws : out, L, transpose_out), none,
+      M, r, rows, splits, clients, s);
   if (err != cudaSuccess || splits == 1) return (int)err;
   sum_slices(ws, out, (size_t)L * r, splits, s, clients);
   return (int)cudaGetLastError();
+}
+
+bool examples_ok(int B, int S, int r) {
+  return B > 0 && B <= 65535 && S > 0 && r >= 1 && r <= R_MAX &&
+         (long)B * S <= 0x7fffffffL;
 }
 
 }  // namespace
@@ -989,26 +1038,37 @@ int lora_panel_clients(const float* lhs, const float* panel, float* out,
 }
 
 // Each example's (L, r) = lhs_bᵀ·panel_b from lhs (B, S, L) and panel (B,
-// S, r) into out (B, L, r); (B, r, L) if transpose_out.  The DP-SGD
-// step's per-example dA and dB in one launch: panel_grad_kernel with
-// one slice of S rows per example, whose slice partials are then the
-// answer, written straight to out (no workspace, no sum).  At GPT-2's
-// (16, 80, 768) that is 6 x 16 = 96 blocks, under one wave on 132 SMs,
-// for 3.9 MB of lhs: bound by bytes (1.3 µs at 3.35 TB/s) and by the
-// launch.  The same fixed summation order as lora_panel_grad's: the
-// same bits on every run.
+// S, r) into out (B, L, r); (B, r, L) if transpose_out: panel_grad_kernel
+// with one slice of S rows per example, whose slice partials are then the
+// answer, written straight to out (no workspace, no sum).  The same fixed
+// summation order as lora_panel_grad's: the same bits on every run.
 int lora_panel_examples(const float* lhs, const float* panel, float* out,
                         int B, int S, int L, int r, int transpose_out,
                         void* stream) {
-  if (B <= 0 || B > 65535 || S <= 0 || L <= 0 || r < 1 || r > R_MAX ||
-      (long)B * S > 0x7fffffffL)
+  if (!examples_ok(B, S, r) || L <= 0) return (int)cudaErrorInvalidValue;
+  const PanelJob none{};
+  return (int)launch_panel(panel_job(lhs, panel, out, L, transpose_out), none,
+                           B * S, r, S, B, 1,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The DP-SGD step's per-example dA and dB of one LoRA site in one launch:
+// da (B, K, r) = each x_bᵀ·gb_b and db (B, r, N) = each (g_bᵀ·xa_b)ᵀ, from
+// x (B, S, K), gb (B, S, r), g (B, S, N) and xa (B, S, r).  The grid
+// holds dA's column tiles over K, then dB's over N, by B examples, each
+// block lora_panel_examples' block on its example: the bits of the two
+// lora_panel_examples launches it replaces.  A site whose product fills
+// few SMs on its own (RecurrentGemma-2B's wk/wv dB at N 256: 2 x 16
+// blocks) shares one wave with the other (dA at K 2560: 20 x 16); at
+// GPT-2's (16, 80, 768 | 768) 192 blocks in place of 96 + 96.
+int lora_panel_examples_pair(const float* x, const float* gb, const float* g,
+                             const float* xa, float* da, float* db, int B,
+                             int S, int K, int N, int r, void* stream) {
+  if (!examples_ok(B, S, r) || K <= 0 || N <= 0)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int vec = aligned16(lhs) && L % 4 == 0;
-  const dim3 grid((L + PC - 1) / PC, B);
-  panel_grad_kernel<<<grid, 32 * PWARPS, 0, s>>>(
-      lhs, panel, out, B * S, L, r, S, transpose_out, vec);
-  return (int)cudaGetLastError();
+  return (int)launch_panel(panel_job(x, gb, da, K, 0),
+                           panel_job(g, xa, db, N, 1), B * S, r, S, B, 1,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // The number of M slices lora_dw splits (M, K, N) into: with more than

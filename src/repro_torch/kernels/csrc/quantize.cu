@@ -9,6 +9,12 @@
 //   * quantize_rows_kernel<.., true> <- quantize_pack4_rows (row 11): the
 //       same at qmax 7, two levels a byte, the even column in the low
 //       nibble (two's complement): q uint8 (R, C/2), C even.
+//   * quant_roundtrip_kernel <- quantize_rows and its dequantization, as
+//       the reference's compression.quant_roundtrip runs them (the Split
+//       boundary's straight-through quantizer, activations up and
+//       gradients down): y = float(q) * scale of row 10's levels, written
+//       in fp32 in the same pass (no levels in memory), and the scale
+//       where asked.
 //   * topk_quantize_kernel (C <= 2048) and topk_radix_kernel (longer
 //       rows) <- topk_quantize_rows / _topk_kernel (row 12): per row, the
 //       k largest values (ties to the lower index, the order of
@@ -25,6 +31,19 @@
 // in the warp and, for a block, warp order through shared memory; then
 // one pass that writes the levels, 16-byte loads and 4- (int8) or 2-byte
 // (packed) stores where the row allows them.
+//
+// The roundtrip reads x once and writes y once, 8 bytes an element: 7.9
+// MB at (1280, 768), 0.0023 ms at 3.35 TB/s, where row 10 followed by
+// the dequantization (q.float(), then * scale) moves about 18 bytes an
+// element in three launches.  Each thread holds its share of the row in
+// registers between the absmax and the levels: four warps a row up to C
+// 1024 (8 floats a thread: at C 768 one or two float4), one 256-thread
+// block a row above (16 floats a thread, so up to C 4096; a longer row's
+// rest is read again from L1/L2).  A row is one link of a chain (load,
+// reduce, levels, store), so what sets the time is how many threads
+// share a row: on an H100 (80GB HBM3, 700 W) at (1280, 768), in a CUDA
+// graph with its outputs rewritten in place, one warp a row took 0.0041
+// ms, 2, 4 and 8 warps 0.0036, 0.0032 and 0.0034.
 //
 // Top-k: the data is read once in principle (R*C*4 bytes in, R*k*5 +
 // R*4 out): 39 KB at the KD path's (150, 77), 257 MB (0.077 ms) at
@@ -51,13 +70,16 @@
 //
 // Every quantization uses IEEE division and rintf (no fast math, no
 // reciprocal), so q, idx and scale are bit-identical to the plain
-// PyTorch versions (kernels/ref.py).
+// PyTorch versions (kernels/ref.py); the roundtrip's product is one
+// __fmul_rn of the level, turned into an integer and back as the twin's
+// int8 is (so -0 becomes +0), and the scale: y is bit-identical too.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <limits.h>
 #include <math.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -422,6 +444,94 @@ quantize_rows_kernel(const float* __restrict__ X, uint8_t* __restrict__ Q,
   if (tr == 0) SCALE[row] = scale;
 }
 
+// the roundtrip value of v: its level, through an integer as the twin's
+// int8 (so a level of -0 is +0), times the scale, rounded once
+__device__ __forceinline__ float roundtrip(float v, float scale, float qmax) {
+  return __fmul_rn((float)(int)level(v, scale, qmax), scale);
+}
+
+__device__ __forceinline__ float4 roundtrip(float4 v, float scale,
+                                            float qmax) {
+  return make_float4(roundtrip(v.x, scale, qmax), roundtrip(v.y, scale, qmax),
+                     roundtrip(v.z, scale, qmax), roundtrip(v.w, scale, qmax));
+}
+
+__device__ __forceinline__ float absmax(float v) { return fabsf(v); }
+
+__device__ __forceinline__ float absmax(float4 v) {
+  return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
+}
+
+// TPR threads a row, each holding PER floats of it in registers (PER / 4
+// float4 where VEC: C % 4 == 0, x and y 16-byte aligned); the elements a
+// thread holds are j = tr + TPR·h (in float4 where VEC), those past them
+// are read again for the levels.  SCALE may be null.
+template <int TPR, int PER, bool VEC>
+__global__ void __launch_bounds__(NT)
+quant_roundtrip_kernel(const float* __restrict__ X, float* __restrict__ Y,
+                       float* __restrict__ SCALE, int R, int C, float qmax) {
+  using T = std::conditional_t<VEC, float4, float>;
+  constexpr int RPB = NT / TPR;          // rows per block
+  constexpr int WPR = TPR / 32;          // warps per row
+  constexpr int NH = VEC ? PER / 4 : PER;   // loads a thread holds
+  __shared__ float redm[RPB][WPR];
+  const int rb = threadIdx.x / TPR, tr = threadIdx.x % TPR;
+  const int row = blockIdx.x * RPB + rb;
+  const bool live = row < R;
+  const size_t off = (size_t)(live ? row : 0) * C;
+  const T* x = reinterpret_cast<const T*>(X + off);
+  T* y = reinterpret_cast<T*>(Y + off);
+  const int n = VEC ? C / 4 : C;         // loads a row
+
+  T v[NH] = {};                          // zeroed: no instance spills
+  float am = 0.f;
+  #pragma unroll
+  for (int h = 0; h < NH; ++h) {
+    const int j = tr + h * TPR;
+    if (live && j < n) {
+      v[h] = x[j];
+      am = fmaxf(am, absmax(v[h]));
+    }
+  }
+  if (live)
+    for (int j = tr + NH * TPR; j < n; j += TPR) am = fmaxf(am, absmax(x[j]));
+  am = warp_max(am);
+  if constexpr (WPR > 1) {               // every thread reaches it
+    if (tr % 32 == 0) redm[rb][tr / 32] = am;
+    __syncthreads();
+    am = redm[rb][0];
+    for (int w = 1; w < WPR; ++w) am = fmaxf(am, redm[rb][w]);
+  }
+  if (!live) return;
+  const float scale = fmaxf(am / qmax, 1e-12f);
+  #pragma unroll
+  for (int h = 0; h < NH; ++h) {
+    const int j = tr + h * TPR;
+    if (j < n) y[j] = roundtrip(v[h], scale, qmax);
+  }
+  for (int j = tr + NH * TPR; j < n; j += TPR)
+    y[j] = roundtrip(x[j], scale, qmax);
+  if (SCALE != nullptr && tr == 0) SCALE[row] = scale;
+}
+
+// rows up to RT_WARP_MAX take RT_TPR threads, each holding RT_PER floats;
+// longer ones a block of NT threads, each holding 16 (up to C 4096)
+constexpr int RT_TPR = 128;
+constexpr int RT_PER = 8;
+constexpr int RT_WARP_MAX = RT_TPR * RT_PER;
+
+template <int TPR, int PER>
+void launch_roundtrip(bool vec, const float* x, float* y, float* scale, int R,
+                      int C, float qmax, cudaStream_t s) {
+  const int grid = (R + NT / TPR - 1) / (NT / TPR);
+  if (vec)
+    quant_roundtrip_kernel<TPR, PER, true><<<grid, NT, 0, s>>>(x, y, scale,
+                                                               R, C, qmax);
+  else
+    quant_roundtrip_kernel<TPR, PER, false><<<grid, NT, 0, s>>>(x, y, scale,
+                                                                R, C, qmax);
+}
+
 template <bool PACK>
 int launch_quantize(const float* x, uint8_t* q, float* scale, int R, int C,
                     float qmax, void* stream) {
@@ -456,6 +566,24 @@ int quantize_rows(const float* x, int8_t* q, float* scale, int R, int C,
     return (int)cudaErrorInvalidValue;
   return launch_quantize<false>(x, reinterpret_cast<uint8_t*>(q), scale, R,
                                 C, (float)((1 << (bits - 1)) - 1), stream);
+}
+
+// y fp32 (R, C), each row's levels (quantize_rows') times its scale, and
+// the scale fp32 (R,) where `scale` is not null, from x fp32 (R, C); bits
+// in [2, 8].  One launch; no levels are written.
+int quant_roundtrip_rows(const float* x, float* y, float* scale, int R, int C,
+                         int bits, void* stream) {
+  if (R <= 0 || C <= 0 || bits < 2 || bits > 8)
+    return (int)cudaErrorInvalidValue;
+  const float qmax = (float)((1 << (bits - 1)) - 1);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  if (C <= RT_WARP_MAX)
+    launch_roundtrip<RT_TPR, RT_PER>(vec, x, y, scale, R, C, qmax, s);
+  else
+    launch_roundtrip<NT, 16>(vec, x, y, scale, R, C, qmax, s);
+  return (int)cudaGetLastError();
 }
 
 // packed int4 uint8 (R, C/2), scale fp32 (R,) from x fp32 (R, C), C even.

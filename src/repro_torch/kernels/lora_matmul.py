@@ -9,8 +9,10 @@ become the CUDA kernels of ``csrc/lora_matmul.cu``:
     lora_dw     <- _dw_call     the dense dW = xᵀg, summed over M
     lora_panel  <- _panel_grad_call   dA = xᵀ·gb, dB = (gᵀ·xa)ᵀ
     lora_panel_examples <- _panel_grad_call under the ``vmap`` of the
-                DP-SGD step's per-example loss: each example's dA and dB,
-                (B, K, r) and (B, r, N)
+                DP-SGD step's per-example loss: each example's dA or dB,
+                (B, K, r) or (B, r, N)
+    lora_panel_examples_pair <- the same, both of a LoRA site's products
+                (each example's dA and dB) in one launch
     lora_fwd_clients, lora_dx_clients, lora_panel_clients
                 <- _fwd_call, _dx_call, _panel_grad_call under the ``vmap``
                 over clients of the ``spmd`` backend's stacked local update:
@@ -26,7 +28,7 @@ training path skips it; the gradient with respect to the bound base
 weights reaches it.  ``LoRAMatmulExamples`` is its per-example form for
 the DP-SGD step's one batched pass (kernels/ops.per_example_scope): the
 same forward, and a backward that gives each example's dA and dB
-(through ``lora_panel_examples``) as the gradients of two sink tensors,
+(through ``lora_panel_examples_pair``) as the gradients of two sink tensors,
 so that no gradient summed over the examples is formed.
 ``LoRAMatmulClients`` is the stacked clients' form (core/fedavg's stacked
 train step): x (C, M_c, K) against each client's (C, K, r) and (C, r, N)
@@ -44,7 +46,8 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES = {"lora_fwd": 0, "lora_dx": 0, "lora_dw": 0, "lora_panel": 0,
-            "lora_panel_examples": 0, "lora_fwd_clients": 0,
+            "lora_panel_examples": 0, "lora_panel_examples_pair": 0,
+            "lora_fwd_clients": 0,
             "lora_dx_clients": 0, "lora_panel_clients": 0}
 R_MAX = 64
 _LIB = None
@@ -68,6 +71,8 @@ def _lib():
         lib.lora_panel_grad.restype = i32
         lib.lora_panel_examples.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
         lib.lora_panel_examples.restype = i32
+        lib.lora_panel_examples_pair.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        lib.lora_panel_examples_pair.restype = i32
         lib.lora_fused_clients.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
         lib.lora_fused_clients.restype = i32
         lib.lora_panel_clients.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
@@ -186,6 +191,28 @@ def lora_panel_examples(lhs, panel, transpose_out: bool = False):
     return out
 
 
+def lora_panel_examples_pair(x, gb, g, xa):
+    """x (B, S, K), gb (B, S, r), g (B, S, N), xa (B, S, r) -> (da (B, K,
+    r), db (B, r, N)): each example's dA_b = x_bᵀ·gb_b and dB_b = (g_bᵀ·
+    xa_b)ᵀ in one launch, the bits of lora_panel_examples(x, gb) and
+    lora_panel_examples(g, xa, True)."""
+    B, S, K = x.shape
+    N, r = g.shape[2], gb.shape[2]
+    _rank(r, "lora_panel_examples_pair")
+    build.check_tensors("lora_panel_examples_pair", x.device,
+                        x=(x, (B, S, K)), gb=(gb, (B, S, r)),
+                        g=(g, (B, S, N)), xa=(xa, (B, S, r)))
+    da = torch.empty((B, K, r), device=x.device, dtype=torch.float32)
+    db = torch.empty((B, r, N), device=x.device, dtype=torch.float32)
+    rc = _lib().lora_panel_examples_pair(x.data_ptr(), gb.data_ptr(),
+                                         g.data_ptr(), xa.data_ptr(),
+                                         da.data_ptr(), db.data_ptr(), B, S,
+                                         K, N, r, build.stream(x.device))
+    build.check(rc, "lora_panel_examples_pair")
+    LAUNCHES["lora_panel_examples_pair"] += 1
+    return da, db
+
+
 def _fused_clients(x, w, a, b, trans: bool, name: str):
     """lora_fused_clients: x (C, M, Cin) against w (K, N), a (C, K, r), b
     (C, r, N) -> (out (C, M, Nout), panel (C, M, r))."""
@@ -297,11 +324,11 @@ class LoRAMatmulExamples(torch.autograd.Function):
         B, S, K = x.shape
         g = g.contiguous()
         cuda = ctx.cuda
-        panel = lora_panel_examples if cuda else ref.panel_grad_examples
         dx, gb = (lora_dx if cuda else ref.lora_dx)(g.view(B * S, -1), w, a,
                                                     b)
-        da = panel(x, gb.view(B, S, -1))
-        db = panel(g, xa.view(B, S, -1), True)
+        da, db = (lora_panel_examples_pair if cuda
+                  else ref.panel_grad_examples_pair)(
+            x, gb.view(B, S, -1), g, xa.view(B, S, -1))
         dx = dx.view(B, S, K) if ctx.needs_input_grad[0] else None
         return dx, None, None, None, da, db, None
 

@@ -8,8 +8,9 @@ peft/lora.lora_apply, models/attention.attention_fwd, models/loss.kd_kl,
 core/compression (``topk_quantize``, ``quantize``, ``quant_roundtrip``),
 privacy/dp.clipped_grad_mean, models/rglru.rglru_fwd and
 models/rwkv6.timemix_fwd call ``lora_matmul``, ``mha_attention``,
-``kd_loss``, ``topk_quantize``, ``quantize``, ``quantize_pack4``,
-``clip_mean_rows``, ``rglru`` and ``rwkv6``, which follow it:
+``kd_loss``, ``topk_quantize``, ``quantize``, ``quant_roundtrip``,
+``quantize_pack4``, ``clip_mean_rows``, ``rglru`` and ``rwkv6``, which
+follow it:
 
     ``cuda``  — the CUDA kernels (kernels/lora_matmul.py,
                 kernels/flash_attention.py, kernels/kd_loss.py,
@@ -257,6 +258,21 @@ def quantize(x, bits: int = 8):
     else:
         q, sc = ref.quantize_rows_ref(xf, bits)
     return q.reshape(*lead, C), sc.reshape(*lead, 1)
+
+
+def quant_roundtrip(x, bits: int = 8):
+    """x: (..., C) -> fp32 (..., C): ``quantize``'s levels times their row
+    scale, the Split boundary's straight-through value.  One CUDA kernel
+    under the ``cuda`` policy (no levels in memory), the bit-identical
+    plain version (kernels/ref.py) under ``torch``."""
+    *lead, C = x.shape
+    xf = x.reshape(-1, C).float()
+    if use_cuda(x):
+        _require_cuda("quant_roundtrip", x)
+        y = _q.quant_roundtrip_rows(xf.contiguous(), bits)
+    else:
+        y, _ = ref.quant_roundtrip_rows_ref(xf, bits)
+    return y.reshape(*lead, C)
 
 
 def quantize_pack4(x):

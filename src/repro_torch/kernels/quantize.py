@@ -6,6 +6,10 @@ the CUDA kernels of ``csrc/quantize.cu``:
 
     quantize_rows  <- quantize_rows        per-row absmax -> int8/intN
                                            levels and an fp32 scale
+    quant_roundtrip_rows <- quantize_rows  its levels dequantized in the
+                                           same pass (float(q) * scale, in
+                                           fp32): the Split boundary's
+                                           compression.quant_roundtrip
     quantize_pack4 <- quantize_pack4_rows  the same at int4, two levels a
                                            byte (even column low nibble)
     topk_quantize  <- topk_quantize_rows   k largest values per row (ties
@@ -13,8 +17,8 @@ the CUDA kernels of ``csrc/quantize.cu``:
                                            int8/int4 level and fp32 scale
 
 For CUDA tensors each wrapper launches its kernel (or raises); the plain
-versions are kernels/ref.{quantize_rows_ref, quantize_pack4_rows_ref,
-topk_quantize_rows_ref}, bit-identical.
+versions are kernels/ref.{quantize_rows_ref, quant_roundtrip_rows_ref,
+quantize_pack4_rows_ref, topk_quantize_rows_ref}, bit-identical.
 
 Each wrapper adds one to ``LAUNCHES[<its name>]`` where it launches.
 """
@@ -26,7 +30,8 @@ import torch
 
 from repro_torch.kernels import build
 
-LAUNCHES = {"quantize_rows": 0, "quantize_pack4": 0, "topk_quantize": 0}
+LAUNCHES = {"quantize_rows": 0, "quant_roundtrip_rows": 0,
+            "quantize_pack4": 0, "topk_quantize": 0}
 K_MAX = 512
 _LIB = None
 
@@ -45,6 +50,8 @@ def _lib():
         lib.topk_quantize.restype = i32
         lib.quantize_rows.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
         lib.quantize_rows.restype = i32
+        lib.quant_roundtrip_rows.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+        lib.quant_roundtrip_rows.restype = i32
         lib.quantize_pack4.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
         lib.quantize_pack4.restype = i32
         _LIB = lib
@@ -64,6 +71,26 @@ def quantize_rows(x, bits: int = 8):
     build.check(rc, "quantize_rows")
     LAUNCHES["quantize_rows"] += 1
     return q, scale
+
+
+def quant_roundtrip_rows(x, bits: int = 8, with_scale: bool = False):
+    """x fp32 (R, C) on CUDA -> y fp32 (R, C), each row's int levels times
+    its scale, in one pass; with ``with_scale``, (y, scale fp32 (R, 1))."""
+    R, C = x.shape
+    if bits not in (4, 8):
+        raise ValueError(f"quant_roundtrip_rows: bits={bits} (expected 4 or "
+                         f"8)")
+    build.check_tensors("quant_roundtrip_rows", x.device, x=(x, (R, C)))
+    y = torch.empty((R, C), device=x.device, dtype=torch.float32)
+    scale = torch.empty((R, 1), device=x.device, dtype=torch.float32) \
+        if with_scale else None
+    rc = _lib().quant_roundtrip_rows(x.data_ptr(), y.data_ptr(),
+                                     None if scale is None
+                                     else scale.data_ptr(), R, C, bits,
+                                     build.stream(x.device))
+    build.check(rc, "quant_roundtrip_rows")
+    LAUNCHES["quant_roundtrip_rows"] += 1
+    return (y, scale) if with_scale else y
 
 
 def quantize_pack4(x):

@@ -64,6 +64,13 @@ def panel_grad_examples(lhs, panel, transpose_out: bool = False):
     return out.transpose(1, 2).contiguous() if transpose_out else out
 
 
+def panel_grad_examples_pair(x, gb, g, xa):
+    """(dA, dB) of a LoRA site for each example: x (B, S, K), gb (B, S,
+    r), g (B, S, N), xa (B, S, r) -> ((B, K, r), (B, r, N)), row 4ᵉ's
+    two products in one call."""
+    return panel_grad_examples(x, gb), panel_grad_examples(g, xa, True)
+
+
 def lora_fwd_clients(x, w, a, b):
     """(y, xa) of each client: x (C, M, K), w (K, N) shared, a (C, K, r),
     b (C, r, N) -> y (C, M, N), xa (C, M, r) (rows 1ᶜ under the ``vmap``
@@ -219,6 +226,14 @@ def quantize_rows_ref(x, bits: int = 8):
     scale = torch.clamp_min(absmax / absmax.new_tensor(qmax), 1e-12)
     q = torch.clamp(torch.round(xf / scale), -qmax, qmax)
     return q.to(torch.int8), scale
+
+
+def quant_roundtrip_rows_ref(x, bits: int = 8):
+    """x (R, C) -> (y fp32 (R, C), scale fp32 (R, 1)): the levels of
+    ``quantize_rows_ref`` dequantized, y = float(q) * scale, the reference's
+    ``compression.quant_roundtrip``."""
+    q, scale = quantize_rows_ref(x, bits)
+    return q.float() * scale, scale
 
 
 def quantize_pack4_rows_ref(x):

@@ -156,7 +156,9 @@ def test_no_spill_check_covers_flash_dq_and_the_fused_lora_kernel():
                             "lora_dw_kernel": ("lora_matmul", 1),
                             "flash_dq_kernel": ("flash_attention", 4),
                             "rwkv6_bwd_kernel": ("rwkv6_scan", 6),
-                            "topk_radix_kernel": ("quantize", 2)}
+                            "topk_radix_kernel": ("quantize", 2),
+                            "panel_grad_kernel": ("lora_matmul", 1),
+                            "quant_roundtrip_kernel": ("quantize", 4)}
 
 
 H100 = cs.PEAKS["H100"]

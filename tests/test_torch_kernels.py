@@ -403,6 +403,86 @@ def test_ops_quantize_pack4_odd_width_matches_reference(R, C):
                                rtol=1e-6)
 
 
+def _roundtrip_input(R, C, special):
+    """_quant_input's rows; with ``special`` also row 4 of +0.0, -0.0 and
+    values whose level rounds to -0 (absmax 7: scale 1 at bits 4, 7/127 at
+    bits 8), which the dequantized value must carry as +0.0 (the level is
+    an integer there)."""
+    x = _quant_input(R, C, special)
+    if special:
+        x[4, :] = 0.0
+        x[4, 0] = 7.0
+        x[4, 1:7] = [0.0, -0.0, -0.01, -0.02, 0.01, -1e-30]
+    return x
+
+
+# a row multiple of 4, 2 mod 4, odd, and longer than 2048
+ROUNDTRIP_SHAPES = [(8, 128, False), (8, 130, True), (6, 131, True),
+                    (5, 2050, True)]
+
+
+@pytest.mark.parametrize("R,C,special", ROUNDTRIP_SHAPES)
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_roundtrip_rows_matches_reference_bit_for_bit(R, C, special,
+                                                            bits):
+    """The one-pass roundtrip's twin (row 10's levels dequantized, the
+    kernel's plain version on the card) bit for bit, sign of zero
+    included, against the reference's ``compression.quant_roundtrip``, and
+    against quantize_rows in interpret mode followed by the dequantization:
+    its levels times the twin's scale bit for bit, times its own scale at
+    the reference's tolerance for that scale (rtol 1e-6: XLA may turn
+    ``absmax / qmax`` into a reciprocal product).  Odd widths, widths that
+    are 2 mod 4, all-zero rows, half levels and ±0; directly, through
+    ops.quant_roundtrip on a 3-D input and through compression's, whose
+    wire size is the reference's."""
+    from repro.core import compression as jax_compression
+    from repro_torch.core import compression
+
+    x = _roundtrip_input(R, C, special)
+    want, wire = jax_compression.quant_roundtrip(jnp.asarray(x), bits)
+    want = np.asarray(want)
+    y, scale = ref.quant_roundtrip_rows_ref(torch.tensor(x), bits)
+    assert y.dtype == scale.dtype == torch.float32
+    assert y.shape == (R, C) and scale.shape == (R, 1)
+    np.testing.assert_array_equal(y.numpy().view(np.int32),
+                                  want.view(np.int32))
+    q_p, sc_p = jax_quantize(jnp.asarray(x), bits=bits, br=1,
+                             interpret=True)
+    q_p = np.asarray(q_p).astype(np.float32)
+    np.testing.assert_array_equal((q_p * scale.numpy()).view(np.int32),
+                                  want.view(np.int32))
+    np.testing.assert_allclose(q_p * np.asarray(sc_p), want, rtol=1e-6,
+                               atol=0)
+    if special:
+        assert not y[1].any() and not np.signbit(y.numpy()[4, 1:7]).any()
+    with ops.policy_scope("torch"):
+        via_ops = ops.quant_roundtrip(torch.tensor(x).reshape(1, R, C), bits)
+        via_comp, wire_got = compression.quant_roundtrip(
+            torch.tensor(x).reshape(1, R, C), bits)
+    for got in (via_ops, via_comp):
+        assert got.shape == (1, R, C)
+        np.testing.assert_array_equal(got.reshape(R, C).numpy().view(
+            np.int32), want.view(np.int32))
+    assert wire_got == wire
+
+
+def test_new_kernel_wrappers_refuse_cpu_tensors():
+    """The pair and the roundtrip launch on CUDA tensors only: their
+    wrappers, and the roundtrip's dispatch under the ``cuda`` policy,
+    raise on a CPU tensor before anything is built."""
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels import quantize as qz
+
+    x, g, p = torch.randn(2, 5, 16), torch.randn(2, 5, 8), torch.randn(2, 5, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        lm.lora_panel_examples_pair(x, p, g, p)
+    with pytest.raises(ValueError, match="CUDA"):
+        qz.quant_roundtrip_rows(x[0], 8)
+    with ops.policy_scope("cuda"):
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.quant_roundtrip(x, 8)
+
+
 # --------------------------------------------------------------------------- #
 # Top-k + int quantization (row 12)
 # --------------------------------------------------------------------------- #

@@ -157,6 +157,78 @@ def test_panel_grad_examples_matches_vmapped_pallas_panel_grad_call(
         atol=1e-5, rtol=1e-5)
 
 
+# (B, S, K, N, r) of the four sites the DP step meets, at reduced width:
+# GPT-2 (K = N), RecurrentGemma-2B's wq (K = N) and wk/wv (N < 128, a
+# single 128-column tile of dB), RWKV-6 (K = N); then K not a multiple of
+# 4 with N odd, at rank 5
+PAIR_SITES = [(4, 24, 192, 192, 8), (3, 20, 320, 320, 8),
+              (3, 20, 320, 32, 8), (2, 24, 256, 256, 8),
+              (3, 17, 130, 69, 5)]
+
+
+@pytest.mark.parametrize("B,S,K,N,r", PAIR_SITES)
+def test_panel_grad_examples_pair_matches_vmapped_pallas_panel_grad_call(
+        B, S, K, N, r):
+    """Row 4ᵉ's pair (a LoRA site's dA and dB of each example, one launch
+    on the card): the twin against ``jax.vmap`` of the reference's
+    ``_panel_grad_call`` in interpret mode, dA = _panel_grad_call(x, gb)
+    and dB = _panel_grad_call(g, xa)ᵀ as its backward takes them, one block
+    over each whole width; and bit for bit the two single-product twins
+    it replaces.  Panels scaled by S^-0.5 (O(1) outputs)."""
+    rng = np.random.default_rng(B * S + K + N + r)
+    x = rng.standard_normal((B, S, K)).astype(np.float32)
+    g = rng.standard_normal((B, S, N)).astype(np.float32)
+    gb, xa = ((rng.standard_normal((B, S, r)) * S ** -0.5).astype(np.float32)
+              for _ in range(2))
+
+    def pallas(lhs, panel):
+        return np.asarray(jax.vmap(lambda u, p: _panel_grad_call(
+            u, p, S, lhs.shape[2], True, jnp.float32))(jnp.asarray(lhs),
+                                                       jnp.asarray(panel)))
+
+    tx, tgb, tg, txa = (torch.tensor(t) for t in (x, gb, g, xa))
+    da, db = ref.panel_grad_examples_pair(tx, tgb, tg, txa)
+    assert da.shape == (B, K, r) and db.shape == (B, r, N)
+    assert da.dtype == db.dtype == torch.float32 and db.is_contiguous()
+    np.testing.assert_allclose(da.numpy(), pallas(x, gb), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(db.numpy(), pallas(g, xa).transpose(0, 2, 1),
+                               atol=1e-5, rtol=1e-5)
+    assert torch.equal(da, ref.panel_grad_examples(tx, tgb))
+    assert torch.equal(db, ref.panel_grad_examples(tg, txa, True))
+
+
+def test_lora_examples_backward_takes_one_pair_a_site(monkeypatch):
+    """LoRAMatmulExamples' backward makes one call of the pair (one launch
+    on the card) for the site's dA and dB, and its sink gradients are each
+    example's own: those of a batch-1 pass of the plain LoRA product."""
+    from repro_torch.kernels import lora_matmul as lm
+
+    calls = []
+    real = ref.panel_grad_examples_pair
+
+    def counting(*args):
+        calls.append(args[0].shape)
+        return real(*args)
+
+    monkeypatch.setattr(ref, "panel_grad_examples_pair", counting)
+    B, S, K, N, r = 3, 5, 12, 10, 4
+    gen = torch.Generator().manual_seed(0)
+    x, w, a, b, probe = (torch.randn(shape, generator=gen) for shape in
+                         ((B, S, K), (K, N), (K, r), (r, N), (B, S, N)))
+    sa = torch.zeros(B, K, r, requires_grad=True)
+    sb = torch.zeros(B, r, N, requires_grad=True)
+    y = lm.LoRAMatmulExamples.apply(x, w, a, b, sa, sb, False)
+    da, db = torch.autograd.grad((y * probe).sum(), (sa, sb))
+    assert calls == [(B, S, K)]
+    for i in range(B):
+        a1, b1 = (t.detach().clone().requires_grad_(True) for t in (a, b))
+        y1 = ref.lora_matmul_ref(x[i], w, a1, b1)
+        want = torch.autograd.grad((y1 * probe[i]).sum(), (a1, b1))
+        torch.testing.assert_close(da[i], want[0], atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(db[i], want[1], atol=1e-5, rtol=1e-5)
+
+
 def test_per_example_grads_match_reference_vmap(gpt2_case):
     """The port's rows and losses against the reference's ``vmap`` of
     ``value_and_grad(example_loss)`` under ``pallas`` at gpt2_tiny, from
