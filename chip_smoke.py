@@ -1235,23 +1235,17 @@ def rwkv_fp64_errors(device, BH, S, D, U, seed) -> dict:
     return errs
 
 
-def kd_cases(device, R, V, T, topk_teacher, Rq, Cq, k, bits, ties, seed):
-    """KD-loss and top-k cases, as kernel_cases: the KD loss on (R, V)
-    logits at temperature T (when ``topk_teacher``, the teacher the
-    server distills from: the mean of three uploads after top-k 8 with
-    int8, whose rows peak near the fill value where the supports
-    differ), top-k quantization on (Rq, Cq) (values rounded to integers,
-    so with many ties, when ``ties``)."""
+def kd_inputs(device, R, V, topk_teacher, offset, gen):
+    """Teacher and student (R, V) logits ~ 3 N(0, 1) (when
+    ``topk_teacher``, the teacher the server distills from: the mean of
+    three uploads after top-k 8 with int8, whose rows peak near the fill
+    value where the supports differ), and an upstream gradient g (R,) ~
+    N(0, 1); with ``offset``, the teacher starts that many floats past a
+    16-byte boundary (the student does not)."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.core import compression
-    from repro_torch.kernels import kd_loss as kdl
     from repro_torch.kernels import ops
-    from repro_torch.kernels import quantize as qz
-    from repro_torch.kernels import ref
-
-    gen = torch.Generator(device=device).manual_seed(seed)
 
     def rn(*shape):
         return torch.randn(shape, device=device, generator=gen) * 3.0
@@ -1262,14 +1256,47 @@ def kd_cases(device, R, V, T, topk_teacher, Rq, Cq, k, bits, ties, seed):
             t = sum(compression.topk_dequantize(
                 compression.topk_quantize(x, 8, 8)[0])
                 for x in (t, rn(R, V), rn(R, V))) / 3
+    if offset:
+        t = torch.empty(R * V + offset, device=device)[offset:].view(
+            R, V).copy_(t)
+    return t, s, g
+
+
+def kd_lib_rows(t, s, T):
+    """The library's per-row KD loss: F.kl_div of the log-softmaxes."""
+    import torch.nn.functional as F
+    return F.kl_div(F.log_softmax(s / T, -1), F.log_softmax(t / T, -1),
+                    log_target=True, reduction="none").sum(-1) * T * T
+
+
+def kd_cases(device, R, V, T, topk_teacher, Rq, Cq, k, bits, ties, seed,
+             offset=0):
+    """KD-loss and top-k cases, as kernel_cases: the KD loss on (R, V)
+    logits at temperature T (kd_inputs), top-k quantization on (Rq, Cq)
+    (values rounded to integers, so with many ties, when ``ties``)."""
+    import torch
+
+    from repro_torch.kernels import kd_loss as kdl
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, device=device, generator=gen) * 3.0
+
+    t, s, g = kd_inputs(device, R, V, topk_teacher, offset, gen)
     rows, stats = ref.kd_loss_fwd(t, s, T)
+    # the backward kernel rebuilds t/T as t * (1/T) and its twin as t / T:
+    # where 1/T is inexact (T not a power of two) each is fed its own
+    # forward's statistics, as KDLoss feeds it.  Fed the other's, it would
+    # rebuild p from a maximum one rounding apart, which at a teacher row
+    # near the top-k fill value (t/T ~ -2e8, fp32 spacing 16) is a factor
+    # of e^16 in p
+    kstats = stats if math.frexp(T)[0] == 0.5 else kdl.kd_fwd(t, s, T)[1]
     f4, RV = 4, R * V
     lib_t = t.detach().clone().requires_grad_(True)
     lib_s = s.detach().clone().requires_grad_(True)
-
-    def lib_rows(tt, ss):
-        return F.kl_div(F.log_softmax(ss / T, -1), F.log_softmax(tt / T, -1),
-                        log_target=True, reduction="none").sum(-1) * T * T
 
     # the library's forward is recorded on a stream of its own, where
     # autograd then runs its backward: a CUDA graph can capture that
@@ -1277,8 +1304,8 @@ def kd_cases(device, R, V, T, topk_teacher, Rq, Cq, k, bits, ties, seed):
     lib_stream = torch.cuda.Stream(device)
     lib_stream.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(lib_stream):
-        lib_out = lib_rows(lib_t, lib_s)
-        lib_out_s = lib_rows(t, lib_s)
+        lib_out = kd_lib_rows(lib_t, lib_s, T)
+        lib_out_s = kd_lib_rows(t, lib_s, T)
     torch.cuda.current_stream(device).wait_stream(lib_stream)
 
     def lib_bwd():
@@ -1304,12 +1331,12 @@ def kd_cases(device, R, V, T, topk_teacher, Rq, Cq, k, bits, ties, seed):
     return {
         "kd_fwd": (lambda: kdl.kd_fwd(t, s, T),
                    lambda: ref.kd_loss_fwd(t, s, T),
-                   lambda: lib_rows(t, s),
+                   lambda: kd_lib_rows(t, s, T),
                    2 * f4 * RV + 6 * f4 * R, 12 * RV),
-        "kd_bwd": (lambda: kdl.kd_bwd(t, s, stats, g, T, need_dt=False),
+        "kd_bwd": (lambda: kdl.kd_bwd(t, s, kstats, g, T, need_dt=False),
                    lambda: ref.kd_loss_bwd(t, s, stats, g, T, need_dt=False),
                    lib_bwd, 3 * f4 * RV + 6 * f4 * R, 10 * RV),
-        "kd_bwd_dt": (lambda: kdl.kd_bwd(t, s, stats, g, T),
+        "kd_bwd_dt": (lambda: kdl.kd_bwd(t, s, kstats, g, T),
                       lambda: ref.kd_loss_bwd(t, s, stats, g, T),
                       lib_bwd_dt, 4 * f4 * RV + 6 * f4 * R, 16 * RV),
         "topk_quantize": (lambda: qz.topk_quantize(x, k, bits),
@@ -1317,6 +1344,34 @@ def kd_cases(device, R, V, T, topk_teacher, Rq, Cq, k, bits, ties, seed):
                           lib_topk, f4 * Rq * Cq + 5 * Rq * k + f4 * Rq,
                           Rq * Cq),
     }
+
+
+def kd_fp64_errors(device, R, V, T, topk_teacher, seed) -> float:
+    """rms error of row 8's rows against the same rows in fp64 (log-softmax
+    of t/T and s/T in float64), beside F.kl_div's in fp32 on the same
+    inputs (kd_inputs); fails unless the kernel's is within FP64_FACTOR
+    times the library's.  Prints both; returns their ratio."""
+    import torch
+
+    from repro_torch.kernels import kd_loss as kdl
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t, s, _ = kd_inputs(device, R, V, topk_teacher, 0, gen)
+    lp = torch.log_softmax(t.double() / T, -1)
+    lq = torch.log_softmax(s.double() / T, -1)
+    exact = (lp.exp() * (lp - lq)).sum(-1) * T * T
+    rms = {who: float(((y.double() - exact) ** 2).mean().sqrt())
+           for who, y in (("kernel", kdl.kd_fwd(t, s, T)[0]),
+                          ("F.kl_div", kd_lib_rows(t, s, T)))}
+    ratio = rms["kernel"] / rms["F.kl_div"]
+    print(f"  kd_fwd rows at ({R}, {V}), T {T}: rms error against fp64 "
+          f"kernel {rms['kernel']:.3e}, F.kl_div {rms['F.kl_div']:.3e} "
+          f"(kernel / F.kl_div {ratio:.2f}, limit {FP64_FACTOR})")
+    require(rms["kernel"] <= FP64_FACTOR * rms["F.kl_div"],
+            f"kd_fwd at ({R}, {V}): rms error against fp64 "
+            f"{rms['kernel']:.3e} exceeds {FP64_FACTOR} times F.kl_div's "
+            f"{rms['F.kl_div']:.3e}")
+    return ratio
 
 
 def topk_wide_cases(device, seed) -> None:
@@ -1708,6 +1763,84 @@ def check_rwkv_kernels(device, peaks_) -> dict:
     return rows
 
 
+def kd_checks(device, peaks_) -> dict:
+    """Phase 2's KD part: rows 8, 9 and 12 against their twins at the
+    shapes below (row 9 bit for bit where 1/T is exact), then timed at the
+    main path's shapes (rows "kd_fwd", "kd_bwd", "kd_bwd_dt",
+    "topk_quantize") and at the generative vocabulary ("<name>@generative"),
+    with row 8's rms error against fp64 beside F.kl_div's
+    (kd_fp64_errors; ``fp64_rms_ratio``)."""
+    from repro_torch.kernels import kd_loss as kdl
+
+    rows = {}
+    # the main path's server batches (64 and 22 public rows of 77 class
+    # logits) and its b3 upload (150 x 77, top-k 8); the forward's narrow
+    # instances (1 to 32 values a lane: V 1, 31, 33, 1001 and the
+    # crossover NARROW_MAX) and one above it, where the wide kernel takes
+    # over; a temperature whose reciprocal is inexact (1.5), one row and
+    # ragged R; wide rows that start unaligned (odd V: a scalar head and
+    # tail around the float4 body) and a teacher off the student's
+    # alignment (scalar loads); a top-k teacher at the generative
+    # vocabulary
+    kd_main = dict(R=64, V=77, T=2.0, topk_teacher=True, Rq=150, Cq=77, k=8,
+                   bits=8, ties=False)
+    cross = kdl.narrow_max()
+    shapes = [dict(R=22, V=77, T=2.0, topk_teacher=False, Rq=150, Cq=77, k=8,
+                   bits=4, ties=False),
+              dict(R=37, V=1001, T=1.0, topk_teacher=False, Rq=37, Cq=1001,
+                   k=13, bits=8, ties=True),
+              dict(R=5, V=4099, T=4.0, topk_teacher=True, Rq=5, Cq=4099,
+                   k=100, bits=4, ties=True),
+              dict(R=65, V=77, T=1.5, topk_teacher=True, Rq=150, Cq=77, k=8,
+                   bits=8, ties=False),
+              dict(R=3, V=1, T=2.0, topk_teacher=False, Rq=150, Cq=77, k=8,
+                   bits=8, ties=False),
+              dict(R=1, V=31, T=1.5, topk_teacher=False, Rq=150, Cq=77, k=8,
+                   bits=8, ties=False),
+              dict(R=9, V=33, T=1.0, topk_teacher=False, Rq=150, Cq=77, k=8,
+                   bits=8, ties=False),
+              dict(R=17, V=cross, T=2.0, topk_teacher=False, Rq=150, Cq=77,
+                   k=8, bits=8, ties=False),
+              dict(R=17, V=cross + 1, T=1.5, topk_teacher=False, Rq=150,
+                   Cq=77, k=8, bits=8, ties=False),
+              dict(R=1, V=50257, T=2.0, topk_teacher=False, Rq=1, Cq=50257,
+                   k=64, bits=8, ties=False),
+              dict(R=7, V=50257, T=1.5, topk_teacher=False, Rq=7, Cq=50257,
+                   k=64, bits=8, ties=False, offset=1),
+              dict(R=3, V=4099, T=2.0, topk_teacher=False, Rq=150, Cq=77,
+                   k=8, bits=8, ties=False, offset=3),
+              dict(R=64, V=50257, T=2.0, topk_teacher=True, Rq=64, Cq=50257,
+                   k=64, bits=8, ties=False)]
+    for i, shape in enumerate(shapes):
+        for name, (kern, plain, *_rest) in kd_cases(
+                device, seed=200 + i, **shape).items():
+            err = max_err(name, kern(), plain())
+            print(f"  kd shape {i} {name} ({shape['R']}x{shape['V']}, T "
+                  f"{shape['T']}, offset {shape.get('offset', 0)}; top-k "
+                  f"{shape['Rq']}x{shape['Cq']} k={shape['k']} "
+                  f"bits={shape['bits']}): max abs err {err:.3e}")
+            # row 9 scales by 1/T as its twin divides by T: the same bits
+            # where 1/T is exact
+            if name.startswith("kd_bwd") and shape["T"] in (1.0, 2.0, 4.0):
+                require(err == 0.0, f"{name} is not its twin's bits at T "
+                        f"{shape['T']}")
+    print("  KD kernels at the main path's shapes (64 x 77; top-k 150 x 77, "
+          "k 8, int8):")
+    for name, case in kd_cases(device, seed=8, **kd_main).items():
+        rows[name] = time_case(name, case, peaks_)
+    rows["kd_fwd"]["fp64_rms_ratio"] = kd_fp64_errors(
+        device, 64, 77, 2.0, True, 8)
+    print("  KD kernels at a generative vocabulary (1280 x 50257; top-k "
+          "k 64, int8):")
+    gen_shape = dict(R=1280, V=50257, T=2.0, topk_teacher=False, Rq=1280,
+                     Cq=50257, k=64, bits=8, ties=False)
+    for name, case in kd_cases(device, seed=9, **gen_shape).items():
+        rows[f"{name}@generative"] = time_case(name, case, peaks_)
+    rows["kd_fwd@generative"]["fp64_rms_ratio"] = kd_fp64_errors(
+        device, 1280, 50257, 2.0, False, 9)
+    return rows
+
+
 def check_kernels(device, card: str):
     """Phase 2.  Returns the per-kernel JSON rows (main-path shapes) and the
     launch floor (launch_floor)."""
@@ -1746,18 +1879,6 @@ def check_kernels(device, card: str):
                          offset=0),
                     dict(B=4, S=19, W=2560, h0=True, dh_final=True,
                          offset=1)]
-    # KD: the main path's server batches (64 and 22 public rows of 77
-    # class logits) and its b3 upload (150 x 77, top-k 8); ragged shapes
-    # for both kernel variants (a warp per row below V = 2049, a block
-    # above); the generative vocabulary
-    kd_main = dict(R=64, V=77, T=2.0, topk_teacher=True, Rq=150, Cq=77, k=8,
-                   bits=8, ties=False)
-    kd_checks = [dict(R=22, V=77, T=2.0, topk_teacher=False, Rq=150, Cq=77,
-                      k=8, bits=4, ties=False),
-                 dict(R=37, V=1001, T=1.0, topk_teacher=False, Rq=37,
-                      Cq=1001, k=13, bits=8, ties=True),
-                 dict(R=5, V=4099, T=4.0, topk_teacher=True, Rq=5, Cq=4099,
-                      k=100, bits=4, ties=True)]
     for i, shape in enumerate(ragged):
         for name, (kern, plain, *_rest) in kernel_cases(
                 device, seed=100 + i, **shape).items():
@@ -1821,13 +1942,6 @@ def check_kernels(device, card: str):
     rows = panel_examples_checks(device, peaks_)
     rows.update(pair_checks(device, peaks_))
     rows.update(clients_checks(device, peaks_))
-    for i, shape in enumerate(kd_checks):
-        for name, (kern, plain, *_rest) in kd_cases(
-                device, seed=200 + i, **shape).items():
-            err = max_err(name, kern(), plain())
-            print(f"  kd shape {i} {name} ({shape['R']}x{shape['V']}; top-k "
-                  f"{shape['Rq']}x{shape['Cq']} k={shape['k']} "
-                  f"bits={shape['bits']}): max abs err {err:.3e}")
     for i, shape in enumerate(rglru_checks):
         for name, (kern, plain, *_rest) in rglru_cases(
                 device, seed=500 + i, **shape).items():
@@ -1864,16 +1978,7 @@ def check_kernels(device, card: str):
                                   0, 13).items():
         rows[name] = time_case(name, case, peaks_)
     rows.update(check_rwkv_kernels(device, peaks_))
-    print("  KD kernels at the main path's shapes (64 x 77; top-k 150 x 77, "
-          "k 8, int8):")
-    for name, case in kd_cases(device, seed=8, **kd_main).items():
-        rows[name] = time_case(name, case, peaks_)
-    print("  KD kernels at a generative vocabulary (1280 x 50257; top-k "
-          "k 64, int8):")
-    gen_shape = dict(R=1280, V=50257, T=2.0, topk_teacher=False, Rq=1280,
-                     Cq=50257, k=64, bits=8, ties=False)
-    for name, case in kd_cases(device, seed=9, **gen_shape).items():
-        rows[f"{name}@generative"] = time_case(name, case, peaks_)
+    rows.update(kd_checks(device, peaks_))
     topk_wide_cases(device, 19)
     # DP: every row clipped (float4 loads), a ragged width (scalar loads),
     # none clipped (scalar), half clipped with a ragged last share and a
@@ -2122,7 +2227,9 @@ MARGINS = {}
 CASES = {}
 MARGINS_BEFORE = {"phase 7": 0.402, "Split int8": 0.862, "RWKV-6": 0.867,
                   "DP first step": 0.195, "DP final LoRA": 0.390,
-                  "DP first-step rows": 0.199}
+                  "DP first-step rows": 0.199, "RWKV-6 KD upload": None,
+                  "RWKV-6 DP first-step rows": None,
+                  "RWKV-6 DP first step": None}
 
 
 def rwkv_bwd_repeat(device, seed) -> None:
@@ -2266,16 +2373,54 @@ def run_case(device, cfg, base, fed, data, ledger, expect,
                        "limits": limits, "kind": kind}
     require(not failed, "; ".join(failed))
 
-    got = {name: n for name, n in counts["kernels"].items() if name in expect}
-    require(got == expect and all(n > 0 for n in expect.values()),
-            f"launches {counts['kernels']} != expected {expect}")
-    require(all(n == 0 for name, n in counts["kernels"].items()
-                if name not in expect),
-            f"kernels off this path launched: {counts['kernels']}")
+    check_launches(counts["kernels"], expect)
     for role in counts.keys() - {"kernels"}:
         require(all(n == 0 for n in counts[role].values()),
                 f"plain run launched kernels: {counts[role]}")
     return counts["kernels"], kern
+
+
+def check_launches(counts, expect) -> None:
+    """Fails unless the kernel run launched each kernel of ``expect``
+    exactly that many times (each at least once) and no other kernel."""
+    got = {name: n for name, n in counts.items() if name in expect}
+    require(got == expect and all(n > 0 for n in expect.values()),
+            f"launches {counts} != expected {expect}")
+    require(all(n == 0 for name, n in counts.items() if name not in expect),
+            f"kernels off this path launched: {counts}")
+
+
+def kernel_run(device, cfg, base, fed, data, ledger, expect):
+    """One run of a case study through the kernels alone (policy
+    ``cuda``), for a path whose plain runs are too slow to repeat: every
+    round's metrics in range, the ledger bytes by name equal to
+    ``ledger`` (reckoned by hand from the payload shapes) and the launch
+    counts to ``expect``.  Returns the launch counts."""
+    import torch
+
+    from repro_torch.core.rounds import run_federated
+    from repro_torch.kernels import ops
+
+    pub, clients, test = data
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = run_federated(dataclasses.replace(cfg, kernel_policy="cuda"), fed,
+                        pub, clients, test, batch_size=BATCH, eval_batch=64,
+                        device=device, base=base)
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    for h in res.history:
+        require(math.isfinite(h.loss) and 0.0 <= h.accuracy <= 1.0,
+                f"round {h.round} metrics out of range")
+        print(f"  [cuda] round {h.round}: acc={h.accuracy:.4f} "
+              f"loss={h.loss:.6f} wall_s={h.seconds:.3f}")
+    print(f"  [cuda] run wall_s={time.perf_counter() - t0:.3f} "
+          f"launches={counts}")
+    require(res.ledger.by_name() == ledger,
+            f"ledger bytes {res.ledger.by_name()} != {ledger} from the "
+            f"payload shapes")
+    check_launches(counts, expect)
+    return counts
 
 
 def model_launches(L, train_steps, fwd_batches, clients: bool = False):
@@ -2308,7 +2453,6 @@ def run_slices(device):
 
     from repro_torch.configs.base import FedConfig
     from repro_torch.configs.gpt2_small import gpt2
-    from repro_torch.core import metrics
     from repro_torch.data import banking77, partition
     from repro_torch.models.factory import build_model
 
@@ -2343,20 +2487,9 @@ def run_slices(device):
           "clients, top-k 8 int8 logits")
     fed = FedConfig(framework="kd", rounds=2, lora_rank=RANK,
                     lora_dropout=0.0, logit_topk=8, logit_quant_bits=8)
-    n_pub = len(pub["tokens"])
-    pub_batches = -(-n_pub // 64)       # public batches, ragged last
-    # per round: b1 train steps; b2 client logits and b6 server logits
-    # (forward only); b5 server and b8 client distillation (kd_epochs
-    # passes of kd_step over the public set: one KD forward and
-    # backward each); evaluation
-    kd_steps = (1 + C) * fed.kd_epochs * pub_batches
-    expect = model_launches(L, (steps + kd_steps) * fed.rounds,
-                            ((C + 1) * pub_batches + evals) * fed.rounds)
-    expect.update(kd_fwd=kd_steps * fed.rounds,
-                  kd_bwd=kd_steps * fed.rounds,
-                  topk_quantize=C * fed.rounds)
-    wire = metrics.logit_bytes(n_pub, 77, fed.logit_topk,
-                               fed.logit_quant_bits)
+    ledger, expect = kd_expect(fed, data, steps, evals,
+                               lambda train, fwd: model_launches(L, train,
+                                                                 fwd))
     # The precision gate: client 0's first upload before the int8 wire
     # (see kd_upload_gaps); the runs are then held to the gates of a
     # chaotic path, since one uploaded level that moves parts them.  The
@@ -2366,8 +2499,7 @@ def run_slices(device):
     floor_gate("first upload's logits",
                kd_upload_gaps(device, cfg, base, fed, pub))
     by_path["kd"], _ = run_case(
-        device, cfg, base, fed, data,
-        ledger={"logits": fed.rounds * C * 2 * wire}, expect=expect,
+        device, cfg, base, fed, data, ledger=ledger, expect=expect,
         kind="spread", seeds=NUDGED_SEEDS, keep="kd")
     print(f"  phase 4 wall_s={time.perf_counter() - t0:.1f}")
 
@@ -2380,6 +2512,29 @@ def run_slices(device):
     by_path.update(run_split(device, cfg, base, data, steps, evals))
     print(f"  phase 6 wall_s={time.perf_counter() - t0:.1f}")
     return by_path
+
+
+def kd_expect(fed, data, steps, evals, model):
+    """A KD case study's ledger bytes by name and launch counts, from the
+    payload shapes and ``model(train steps, forward-only batches)``, the
+    model's launches.  Per round: b1 train steps (``steps``); b2 client
+    logits and b6 server logits (forward only); b5 server and b8 client
+    distillation (kd_epochs passes of kd_step over the public set: one KD
+    forward and backward each); evaluation (``evals`` batches)."""
+    from repro_torch.core import metrics
+
+    pub, clients, _ = data
+    C, n_pub = len(clients), len(pub["tokens"])
+    pub_batches = -(-n_pub // 64)       # public batches, ragged last
+    kd_steps = (1 + C) * fed.kd_epochs * pub_batches
+    expect = model((steps + kd_steps) * fed.rounds,
+                   ((C + 1) * pub_batches + evals) * fed.rounds)
+    expect.update(kd_fwd=kd_steps * fed.rounds,
+                  kd_bwd=kd_steps * fed.rounds,
+                  topk_quantize=C * fed.rounds)
+    wire = metrics.logit_bytes(n_pub, 77, fed.logit_topk,
+                               fed.logit_quant_bits)
+    return {"logits": fed.rounds * C * 2 * wire}, expect
 
 
 def kd_upload_gaps(device, cfg, base, fed, pub):
@@ -2725,7 +2880,7 @@ def run_recurrent(device):
     t0 = time.perf_counter()
     # one DP step's per-example gradients: a forward and a backward of the
     # batch, each LoRA site's dA and dB one launch of the pair
-    dp_counts = rg_dp_first_step(device, cfg, base, clients, {
+    dp_counts = dp_first_step(device, cfg, base, clients, {
         "lora_fwd": 3 * n_attn, "lora_dx": 3 * n_attn,
         "lora_panel_examples_pair": 3 * n_attn, "flash_fwd": n_attn,
         "flash_dq": n_attn, "flash_dkv": n_attn, "rglru_fwd": n_rglru,
@@ -2736,13 +2891,16 @@ def run_recurrent(device):
     return counts, dp_counts
 
 
-def rg_dp_first_step(device, cfg, base, clients, expect):
-    """Phase 7's DP step on RecurrentGemma-2B from its weights: DP-SGD
-    (clip at the median per-example gradient norm of the first batch,
-    noise 0), the first step's (16, P) per-example gradient rows and their
-    clipped mean (dp_first_step_gaps) gated from fp64 as phase 5 gates
-    GPT-2's; the kernel run's launches must be ``expect`` (rows 4ᵉ's pair
-    at L 256 on wk/wv, which no other phase runs).  Returns them."""
+def dp_first_step(device, cfg, base, clients, expect, targets=None,
+                  margin=None):
+    """One DP step on ``cfg`` from its weights (phases 7 and 8), LoRA on
+    ``targets`` (None: FedConfig's default): DP-SGD (clip at the median
+    per-example gradient norm of the first batch, noise 0), the first
+    step's (16, P) per-example gradient rows and their clipped mean
+    (dp_first_step_gaps) gated from fp64 as phase 5 gates GPT-2's; the
+    kernel run's launches must be ``expect``.  With ``margin``, the two
+    gates' shares go to MARGINS as "<margin> DP first-step rows" and
+    "<margin> DP first step".  Returns the launch counts."""
     from repro_torch.configs.base import FedConfig, PrivacyConfig
     from repro_torch.kernels import ops
 
@@ -2751,6 +2909,8 @@ def rg_dp_first_step(device, cfg, base, clients, expect):
     fed = FedConfig(framework="fedllm", rounds=2, lora_rank=RANK,
                     lora_dropout=0.0,
                     privacy=PrivacyConfig(dp_clip=1.0, secure_agg=True))
+    if targets is not None:
+        fed = dataclasses.replace(fed, lora_targets=tuple(targets))
     clip = first_batch_clip(device, cfg, base, fed, clients)
     fed = dataclasses.replace(fed, privacy=dataclasses.replace(
         fed.privacy, dp_clip=clip))
@@ -2758,9 +2918,13 @@ def rg_dp_first_step(device, cfg, base, clients, expect):
     rows_gaps, mean_gaps = dp_first_step_gaps(device, cfg, base, fed,
                                               clients)
     counts = ops.launches()
-    floor_gate(f"{cfg.name} first-step per-example gradient rows",
-               rows_gaps)
-    floor_gate(f"{cfg.name} first-step clipped mean gradient", mean_gaps)
+    shares = (rows_gaps["kernels"] / floor_gate(
+        f"{cfg.name} first-step per-example gradient rows", rows_gaps),
+        mean_gaps["kernels"] / floor_gate(
+            f"{cfg.name} first-step clipped mean gradient", mean_gaps))
+    if margin is not None:
+        MARGINS[f"{margin} DP first-step rows"], \
+            MARGINS[f"{margin} DP first step"] = shares
     got = {n: k for n, k in counts.items() if k}
     print(f"  {cfg.name} DP step launches (kernel run; the plain runs "
           f"none): {got}")
@@ -2897,13 +3061,29 @@ def split_first_step(device, cfg, base, fed, clients, exact: bool,
     return out
 
 
+def rwkv_launches(L, n_t, train_steps, fwd_batches):
+    """The launches RWKV-6's shapes predict: per layer and batch n_t LoRA
+    projections and one WKV forward; per train step their backward (dx
+    and two panel grads a projection) and one WKV backward (layer 0's r,
+    k and v carry LoRA, so autograd reaches every layer's WKV)."""
+    fwd = train_steps + fwd_batches
+    return {"lora_fwd": n_t * L * fwd, "lora_dx": n_t * L * train_steps,
+            "lora_panel": 2 * n_t * L * train_steps, "rwkv6_fwd": L * fwd,
+            "rwkv6_bwd": L * train_steps}
+
+
 def run_rwkv(device):
-    """Phase 8: FedLLM on RWKV-6 Finch 1.6B at full width and depth (24
-    rwkv6 layers, d 2048, 32 heads of 64, V 65536; random weights from
-    seed 0), LoRA on w_r/w_k/w_v/w_g, phase 3's data; the first step's
+    """Phase 8 on RWKV-6 Finch 1.6B at full width and depth (24 rwkv6
+    layers, d 2048, 32 heads of 64, V 65536; random weights from seed 0),
+    LoRA on w_r/w_k/w_v/w_g, phase 3's data.  FedLLM: the first step's
     gradient gate, then run_case's gates for a chaotic path, with
-    NUDGED_SEEDS nudged fp32 runs beside the floor run.  Returns the kernel
-    run's launch counts."""
+    NUDGED_SEEDS nudged fp32 runs beside the floor run.  KD (top-k 8,
+    int8): client 0's first upload's logits gated from fp64
+    (kd_upload_gaps), then one run through the kernels alone (its plain
+    rounds take ~20 s each) with its ledger and launches exact.  DP-SGD:
+    one step (dp_first_step), its rows and clipped mean from fp64.
+    Returns the three kernel runs' launch counts: (FedLLM, KD, DP
+    step)."""
     import torch
 
     from repro_torch import tree as tree_lib
@@ -2917,6 +3097,7 @@ def run_rwkv(device):
     pub, train, test = banking77.paper_splits(cfg.vocab_size,
                                               pad_len=PAD_LEN, scale=0.03)
     clients = partition.iid_partition(train, 3)
+    data = (pub, clients, test)
     t0 = time.perf_counter()
     base = build_model(cfg).init(torch.Generator().manual_seed(0), device)
     torch.cuda.synchronize()
@@ -2933,14 +3114,7 @@ def run_rwkv(device):
                     lora_dropout=0.0, lora_targets=lora.RWKV_TARGETS)
     n_t = len(lora.RWKV_TARGETS)
     train_steps, fwd_batches = steps * fed.rounds, evals * fed.rounds
-    fwd = train_steps + fwd_batches
-    # per layer and batch: n_t LoRA projections and one WKV forward; per
-    # train step their backward (dx and two panel grads a projection) and
-    # one WKV backward: layer 0's r, k and v carry LoRA, so autograd
-    # reaches every layer's WKV
-    expect = {"lora_fwd": n_t * L * fwd, "lora_dx": n_t * L * train_steps,
-              "lora_panel": 2 * n_t * L * train_steps,
-              "rwkv6_fwd": L * fwd, "rwkv6_bwd": L * train_steps}
+    expect = rwkv_launches(L, n_t, train_steps, fwd_batches)
     print(f"  {L} rwkv6 layers; {train_steps} train steps, {fwd_batches} "
           f"eval batches; expected launches {expect}")
     t0 = time.perf_counter()
@@ -2951,15 +3125,39 @@ def run_rwkv(device):
     # between fp32 plain runs, beyond phase 3's 1e-3)
     floor_gate("first-step LoRA gradient",
                first_step_gaps(device, cfg, base, fed, clients))
-    counts, _ = run_case(device, cfg, base, fed, (pub, clients, test),
+    counts, _ = run_case(device, cfg, base, fed, data,
                          ledger={"lora_params": fed.rounds * C * 2 * L * n_t
                                  * RANK * (d + d) * 4},
                          expect=expect, kind="spread", seeds=NUDGED_SEEDS,
                          margin="RWKV-6")
-    print(f"  phase 8 wall_s={time.perf_counter() - t0:.1f}")
+    print(f"  phase 8 FedLLM wall_s={time.perf_counter() - t0:.1f}")
+
+    t0 = time.perf_counter()
+    print(f"  KD-FedLLM on {cfg.name}, top-k 8 int8 logits, through the "
+          f"kernels:")
+    fed = dataclasses.replace(fed, framework="kd", logit_topk=8,
+                              logit_quant_bits=8)
+    gaps = kd_upload_gaps(device, cfg, base, fed, pub)
+    MARGINS["RWKV-6 KD upload"] = gaps["kernels"] / floor_gate(
+        "first upload's logits", gaps)
+    ledger, expect = kd_expect(
+        fed, data, steps, evals,
+        lambda train, fwd: rwkv_launches(L, n_t, train, fwd))
+    kd_counts = kernel_run(device, cfg, base, fed, data, ledger, expect)
+    print(f"  phase 8 KD wall_s={time.perf_counter() - t0:.1f}")
+
+    t0 = time.perf_counter()
+    # one forward and one backward of the batch, each LoRA site's dA and
+    # dB one launch of the pair
+    dp_counts = dp_first_step(device, cfg, base, clients, {
+        "lora_fwd": n_t * L, "lora_dx": n_t * L,
+        "lora_panel_examples_pair": n_t * L, "rwkv6_fwd": L,
+        "rwkv6_bwd": L, "dp_clip_norms": 1, "dp_clip_acc": 1},
+        targets=lora.RWKV_TARGETS, margin="RWKV-6")
+    print(f"  phase 8 DP step wall_s={time.perf_counter() - t0:.1f}")
     del base
     torch.cuda.empty_cache()
-    return counts
+    return counts, kd_counts, dp_counts
 
 
 def live_targets(base, targets):
@@ -3275,6 +3473,7 @@ NO_SPILLS = {"lora_fused_kernel": ("lora_matmul", 8),
              "rwkv6_bwd_kernel": ("rwkv6_scan", 6),
              "topk_radix_kernel": ("quantize", 2),
              "panel_grad_kernel": ("lora_matmul", 1),
+             "kd_fwd_kernel": ("kd_loss", 7),
              "quant_roundtrip_kernel": ("quantize", 4)}
 
 
@@ -3421,7 +3620,10 @@ def main() -> int:
     by_path = run_slices(device)
     by_path["recurrentgemma"], by_path["recurrentgemma_dp_step"] = \
         run_recurrent(device)
-    by_path["rwkv6"] = run_rwkv(device)
+    t0 = time.perf_counter()
+    by_path["rwkv6"], by_path["rwkv6_kd"], by_path["rwkv6_dp_step"] = \
+        run_rwkv(device)
+    print(f"  phase 8 wall_s={time.perf_counter() - t0:.1f}")
     t0 = time.perf_counter()
     by_path["base_grad"] = run_base_grad(device)
     print(f"  phase 9 wall_s={time.perf_counter() - t0:.1f}")

@@ -97,6 +97,22 @@ variant must give the shipped kernel's bits (under a minute):
 
     python3 scripts/chip_attribution.py pair
 
+With ``kd``, the design choices of row 8's forward (``kd_fwd``): copies of
+csrc/kd_loss.cu under build/kd-ablation/ with one choice changed
+(kd_variants: the online kernel row 8 shipped before its redesign, the
+streaming kernel at every V, division in place of the reciprocal,
+narrow blocks of 32 or 128 threads, narrow rows
+to V 2048, clusters of at most 1, 2 or 8 blocks a wide row or of
+smaller blocks, 2 or 8 loads in flight), their ptxas registers and spills, each held to the plain twin
+and timed in a CUDA graph (the faster of two turns) beside the shipped
+kernel and F.kl_div at the main path's (64, 77) with a top-k teacher, at
+the generative (1280, 50257), and at R 64 and 1280 across the two
+regimes' crossover and the wide kernel's cluster sizes (V 512,
+NARROW_MAX, NARROW_MAX + 1, 2048 to 32768), all at T 2 (about a
+minute):
+
+    python3 scripts/chip_attribution.py kd
+
 Needs a CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -473,6 +489,181 @@ def pair_ablation(dev) -> None:
             calls[vname] = call
         print(f"roundtrip at ({R}, {C}) int8, ms in a CUDA graph: "
               + faster_of_two(calls), flush=True)
+
+
+# kd_fwd_kernel, the online pass row 8 shipped before its redesign:
+# TPR threads a row (a warp to V 2048, a block above), a division an
+# element, (m_t, z_t, u, m_s, z_s) merged by xor butterfly
+PARENT_KD_FWD = r"""
+// TPR threads per row (32: one warp, NT: the whole block).
+template <int TPR>
+__global__ void __launch_bounds__(NT)
+kd_fwd_kernel(const float* __restrict__ T, const float* __restrict__ S,
+              float* __restrict__ rows, float* __restrict__ mt_out,
+              float* __restrict__ zt_out, float* __restrict__ ms_out,
+              float* __restrict__ zs_out, float* __restrict__ u_out, int R,
+              int V, float temp) {
+  constexpr int RPB = NT / TPR;            // rows per block
+  constexpr int WPR = TPR / 32;            // warps per row
+  __shared__ Stats part[RPB][WPR];
+  const int rb = threadIdx.x / TPR, tr = threadIdx.x % TPR;
+  const int row = blockIdx.x * RPB + rb;
+  Stats st{NEG_INIT, 0.f, 0.f, NEG_INIT, 0.f};
+  if (row < R) {
+    const float* t_row = T + (size_t)row * V;
+    const float* s_row = S + (size_t)row * V;
+    for (int j = tr; j < V; j += TPR) {
+      const float t = t_row[j] / temp, s = s_row[j] / temp;
+      if (t > st.mt) {                   // new teacher max: rescale, shift
+        const float c = expf(st.mt - t);
+        st.u = c * (st.u - st.zt * (t - st.mt));
+        st.zt *= c;
+        st.mt = t;
+      }
+      if (s > st.ms) {                   // new student max: shift, rescale
+        st.u += st.zt * (s - st.ms);
+        st.zs *= expf(st.ms - s);
+        st.ms = s;
+      }
+      const float et = expf(t - st.mt);
+      st.zt += et;
+      st.zs += expf(s - st.ms);
+      st.u += et * ((t - st.mt) - (s - st.ms));
+    }
+  }
+  st = warp_merge(st);
+  if constexpr (WPR > 1) {
+    if (tr % 32 == 0) part[rb][tr / 32] = st;
+    __syncthreads();
+    if (tr == 0) {
+      st = part[rb][0];
+      for (int w = 1; w < WPR; ++w) st = merge(st, part[rb][w]);
+    }
+  }
+  if (tr == 0 && row < R) {
+    const float kl = st.u / st.zt - logf(st.zt) + logf(st.zs);
+    rows[row] = kl * temp * temp;
+    mt_out[row] = st.mt;
+    zt_out[row] = st.zt;
+    ms_out[row] = st.ms;
+    zs_out[row] = st.zs;
+    u_out[row] = st.u;
+  }
+}
+"""
+PARENT_KD_DISPATCH = """  if (V <= 2048) {
+    kd_fwd_kernel<32><<<(R + NT / 32 - 1) / (NT / 32), NT, 0, st>>>(
+        teacher, student, rows, mt, zt, ms, zs, u, R, V, temp);
+  } else {
+    kd_fwd_kernel<NT><<<R, NT, 0, st>>>(teacher, student, rows, mt, zt, ms,
+                                       zs, u, R, V, temp);
+  }
+  return (int)cudaGetLastError();
+"""
+KD_ROWS_AT = "template <int PER>\nvoid launch_rows("
+KD_DISPATCH = "  const float inv = 1.f / temp, t2 = temp * temp;\n"
+KD_LAST_NARROW = """  } else {
+    launch_rows<32>(teacher, student, rows, mt, zt, ms, zs, u, R, V, inv, t2,
+                    st);
+  }"""
+
+
+def kd_variants(text):
+    """(name, what it shows, then pairs of the text of csrc/kd_loss.cu it
+    replaces and what it puts there) for ``kd``, read against ``text``,
+    the source as it stands (its constants are read from it)."""
+    def const(name):
+        return re.search(rf"^constexpr int {name} = \d+;", text, re.M)[0]
+
+    def set_(name, value):
+        return const(name), f"constexpr int {name} = {value};"
+
+    return (
+        ("parent", "the previous online kernel (a warp a row to V 2048, a "
+         "block above, x / T an element)", KD_ROWS_AT, PARENT_KD_FWD + KD_ROWS_AT,
+         KD_DISPATCH, PARENT_KD_DISPATCH + KD_DISPATCH),
+        ("wide only", "the streaming kernel at every V",
+         *set_("NARROW_MAX", 0)),
+        ("division", "x / T an element in place of x * (1/T)",
+         "  return __fmul_rn(x, inv_temp);", "  return x / inv_temp;",
+         KD_DISPATCH, KD_DISPATCH.replace("1.f / temp", "temp")),
+        ("block 32", "narrow blocks of 32 threads (a row each)",
+         *set_("NARROW_THREADS", 32)),
+        ("block 128", "narrow blocks of 128 threads (4 rows each)",
+         *set_("NARROW_THREADS", 128)),
+        ("narrow 2048", "rows to V 2048 held in registers (64 values a "
+         "lane from V 1025)", *set_("NARROW_MAX", 2048), KD_LAST_NARROW,
+         KD_LAST_NARROW.replace("} else {", "} else if (V <= 1024) {")
+         + """ else {
+    launch_rows<64>(teacher, student, rows, mt, zt, ms, zs, u, R, V, inv, t2,
+                    st);
+  }"""),
+        ("cluster 1", "one block a wide row", *set_("WIDE_CLUSTER", 1)),
+        ("cluster 2", "at most 2 blocks a wide row",
+         *set_("WIDE_CLUSTER", 2)),
+        ("cluster 8", "up to 8 blocks of at least 4096 elements a wide row",
+         *set_("WIDE_CLUSTER", 8), *set_("WIDE_SPAN", 4096)),
+        ("span 2048", "up to 4 blocks of at least 2048 elements a wide row",
+         *set_("WIDE_SPAN", 2048)),
+        ("unroll 2", "2 float4 loads of each tensor in flight a thread",
+         *set_("WIDE_UNROLL", 2)),
+        ("unroll 8", "8 float4 loads of each tensor in flight a thread",
+         *set_("WIDE_UNROLL", 8)),
+    )
+
+
+def kd_ablation(dev) -> None:
+    """``kd``: see the module's docstring."""
+    import ctypes
+
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.kernels import kd_loss as kdl
+    from repro_torch.kernels import ref
+
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    text = (build.CSRC / "kd_loss.cu").read_text()
+    libs = ablation_library("kd_fwd_kernel", "kd_loss", kd_variants(text),
+                            ROOT / "build" / "kd-ablation")
+    for lib in libs.values():
+        lib.kd_fwd.argtypes = [ptr] * 8 + [i32, i32, f32, ptr]
+        lib.kd_fwd.restype = i32
+
+    def faster_of_two(calls):
+        times = {name: [] for name in calls}
+        for _ in range(2):
+            for name, fn in calls.items():
+                times[name].append(cs.graph_ms(fn))
+        return ", ".join(f"{k} {min(v):.4f}" for k, v in times.items())
+
+    def variant(lib, t, s, T):
+        def call():
+            R, V = t.shape
+            rows, *stats = torch.empty((6, R), device=dev)
+            build.check(lib.kd_fwd(t.data_ptr(), s.data_ptr(),
+                                   rows.data_ptr(),
+                                   *(x.data_ptr() for x in stats), R, V, T,
+                                   build.stream(dev)), "kd_fwd")
+            return rows, tuple(stats)
+        return call
+
+    cross = kdl.narrow_max()
+    shapes = [(64, 77, True), (1280, 50257, False)] + [
+        (R, V, False) for R in (64, 1280)
+        for V in (512, cross, cross + 1, 2048, 4096, 8192, 16384, 32768)]
+    for R, V, topk in shapes:
+        gen = torch.Generator(device=dev).manual_seed(R + V)
+        t, s, _ = cs.kd_inputs(dev, R, V, topk, 0, gen)
+        want = ref.kd_loss_fwd(t, s, 2.0)
+        calls = {"kernel": lambda: kdl.kd_fwd(t, s, 2.0),
+                 "F.kl_div": lambda: cs.kd_lib_rows(t, s, 2.0)}
+        for vname, lib in libs.items():
+            calls[vname] = variant(lib, t, s, 2.0)
+            cs.max_err("kd_fwd", calls[vname](), want)
+        print(f"kd_fwd at ({R}, {V}), T 2{', top-k teacher' if topk else ''}"
+              f", ms in a CUDA graph: " + faster_of_two(calls), flush=True)
 
 
 def kblock(kb: int) -> int:
@@ -1182,6 +1373,13 @@ def main() -> int:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip(), torch.__version__, flush=True)
         pair_ablation(torch.device("cuda", 0))
+        return 0
+    if sys.argv[1:] == ["kd"]:
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip(), torch.__version__, flush=True)
+        kd_ablation(torch.device("cuda", 0))
         return 0
     if sys.argv[1:] == ["fp64"]:
         torch.backends.cuda.matmul.allow_tf32 = False

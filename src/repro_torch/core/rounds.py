@@ -7,18 +7,17 @@
 every wire transfer.  The port runs FedLLM (the paper's SSV case study),
 KD-FedLLM and Split-FedLLM on the dense family (GPT-2); FedLLM and
 KD-FedLLM on the Griffin hybrid (RecurrentGemma; Split refuses it); and
-FedLLM on RWKV-6 (Finch; Split refuses it too).  Each runs with sync
-rounds under either execution backend: ``sequential`` (a loop over
-clients) or ``spmd`` (the round's clients stacked on a leading axis,
-core/fed_spmd.py), with or without the privacy
-knobs (``FedConfig.privacy``: DP-SGD clipping, upload noise, secure
-aggregation; on Split the c2 boundary clip and noise), except that
-``spmd`` refuses ``privacy.dp_clip > 0`` (DP-SGD over a client axis is
-not ported yet).  The ``cohort`` backend and a ``mesh`` are not
-ported.  An invalid
-setting raises ValueError, as in the reference; a valid ``FedConfig``
-setting outside the ported slices raises NotImplementedError rather than
-being ignored.
+FedLLM and KD-FedLLM on RWKV-6 (Finch; Split refuses it too).  Each runs
+with sync rounds under either execution backend: ``sequential`` (a loop
+over clients) or ``spmd`` (the round's clients stacked on a leading
+axis, core/fed_spmd.py), with or without the privacy knobs
+(``FedConfig.privacy``: DP-SGD clipping, upload noise, secure
+aggregation; on Split the c2 boundary clip and noise), on every family
+above, except that ``spmd`` refuses ``privacy.dp_clip > 0`` (DP-SGD over
+a client axis is not ported yet).  The ``cohort`` backend and a ``mesh``
+are not ported.  An invalid setting raises ValueError, as in the
+reference; a valid ``FedConfig`` setting outside the ported slices raises
+NotImplementedError rather than being ignored.
 
 LoRA targets are ``fed.lora_targets``, or ``peft/lora.default_targets``
 when that is empty, as in the reference.  ``FedConfig``'s default targets

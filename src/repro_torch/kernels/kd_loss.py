@@ -44,8 +44,17 @@ def _lib():
         lib.kd_fwd.restype = i32
         lib.kd_bwd.argtypes = [ptr] * 10 + [i32, i32, f32, ptr]
         lib.kd_bwd.restype = i32
+        lib.kd_narrow_max.argtypes = []
+        lib.kd_narrow_max.restype = i32
         _LIB = lib
     return _LIB
+
+
+def narrow_max() -> int:
+    """The widest row ``kd_fwd`` holds in registers (csrc/kd_loss.cu's
+    NARROW_MAX): the crossover between its two regimes.  Loads the
+    library, so it needs the built kernels."""
+    return int(_lib().kd_narrow_max())
 
 
 def _temperature(kernel: str, temperature: float) -> float:

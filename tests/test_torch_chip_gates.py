@@ -158,6 +158,7 @@ def test_no_spill_check_covers_flash_dq_and_the_fused_lora_kernel():
                             "rwkv6_bwd_kernel": ("rwkv6_scan", 6),
                             "topk_radix_kernel": ("quantize", 2),
                             "panel_grad_kernel": ("lora_matmul", 1),
+                            "kd_fwd_kernel": ("kd_loss", 7),
                             "quant_roundtrip_kernel": ("quantize", 4)}
 
 
