@@ -201,7 +201,15 @@ outside that limit.  fp32_gates holds that arithmetic.
    from the same weights (clip at the median per-example norm of the
    first batch, noise 0): its (16, P) per-example rows and their clipped
    mean gated from fp64 as phase 5's, the pair launched 24 times (8
-   layers x wq/wk/wv; at wk/wv dB is 256 wide).
+   layers x wq/wk/wv; at wk/wv dB is 256 wide).  Then Split-FedLLM from
+   the same weights with an int8 boundary at split_layer 2 (the client
+   holds pattern groups 0-1, layers 0-5 with two local-attention layers;
+   the server 18 layers and the 2-layer tail, the final RMSNorm and the
+   tied head): the first step's flipped-level share and run_case's
+   spread gates, as phase 6's int8 set, the ledger against a hand count
+   (c2 1280 x 2560 levels, 1280 scales, 16 labels; c4 the same without
+   the labels; the client half's wq/wk/wv of two layers down and up each
+   round), 36 roundtrips among the exact launches.
 
 8. FedLLM on RWKV-6 Finch 1.6B at full width and depth (24 rwkv6 layers,
    d 2048, 32 heads of 64, d_ff 7168, V 65536, 1.58e9 parameters; random
@@ -221,7 +229,14 @@ outside that limit.  fp32_gates holds that arithmetic.
    exact; each round's loss within 1e-3 plus FLOOR_FACTOR times the
    largest fp32 run's difference; the final LoRA, which sums every step's
    flips, within SPREAD_FACTOR times the largest fp32 run's distance plus
-   FLOOR_SLACK, and the TF32 control's outside.
+   FLOOR_SLACK, and the TF32 control's outside.  Then KD (top-k 8 int8;
+   client 0's first upload from fp64, one kernel run) and one DP step;
+   then Split-FedLLM at split_layer 2 (the client holds layers 0-1),
+   judged at the first step only: with an fp32 boundary the LoRA gradient
+   of both halves from fp64, with an int8 boundary the flipped-level
+   share, then one 2-round int8 run through the kernels alone, its
+   ledger (the client half: 2 layers x 4 targets at 2048, fp32) and
+   launches (36 roundtrips) exact.
 
 9. The gradient of the classification loss with respect to the bound
    base weights: GPT-2 at full width (seed-0 weights), client 0's first
@@ -252,11 +267,23 @@ outside that limit.  fp32_gates holds that arithmetic.
    rows 1, 2 and 4), the plain runs' none.  Round times of both
    backends and both policies are printed.
 
-After phase 10 it prints each kernel's launches times its time beyond
+11. Heterogeneous client ranks and async aggregation (run_hetero):
+   FedLLM at full gpt2 width from phase 3's weights and data with
+   client_ranks (2, 4, 8): the first step of the rank-2 and rank-4
+   clients gated from fp64; run_case's continuous gates under hetero_agg
+   "zeropad" and "svd" (the latter's final LoRA compared through its
+   deltas alpha / r * A @ B, the SVD's signs being the library's), and
+   under async aggregation with max_staleness 2 over 4 rounds, the
+   ledger reckoned by hand from the participation schedule; every
+   launch count exact.  Async with max_staleness 0 must give phase 3's
+   sync kernel run to the last bit.
+
+After phase 11 it prints each kernel's launches times its time beyond
 max(bound, launch floor) (the rule-2 queue), the final-LoRA margins of
-phase 7, Split int8
-and RWKV-6 and phase 5's first-step and final-LoRA margins (each kernel
-run's share of its limit, beside the last recorded run's), then one JSON
+phase 7, Split int8 and RWKV-6, phase 5's first-step and final-LoRA
+margins, phase 8's KD and DP shares and the shares of the Split, hetero
+and async gates of phases 7, 8 and 11 (each kernel run's share of its
+limit, beside the last recorded run's, or "new"), then one JSON
 line with every kernel's numbers and, last, the line ``{"ok": true, "device": {...}}``.  It imports nothing of
 JAX.
 """
@@ -2227,9 +2254,14 @@ MARGINS = {}
 CASES = {}
 MARGINS_BEFORE = {"phase 7": 0.402, "Split int8": 0.862, "RWKV-6": 0.867,
                   "DP first step": 0.195, "DP final LoRA": 0.390,
-                  "DP first-step rows": 0.199, "RWKV-6 KD upload": None,
-                  "RWKV-6 DP first-step rows": None,
-                  "RWKV-6 DP first step": None}
+                  "DP first-step rows": 0.199, "RWKV-6 KD upload": 0.215,
+                  "RWKV-6 DP first-step rows": 0.198,
+                  "RWKV-6 DP first step": 0.198,
+                  "RecurrentGemma-2B Split int8 flips": None,
+                  "RecurrentGemma-2B Split int8": None,
+                  "RWKV-6 Split fp32 first step": None,
+                  "RWKV-6 Split int8 flips": None,
+                  "hetero zeropad": None, "hetero svd": None, "async": None}
 
 
 def rwkv_bwd_repeat(device, seed) -> None:
@@ -2248,7 +2280,7 @@ def rwkv_bwd_repeat(device, seed) -> None:
 
 
 def run_case(device, cfg, base, fed, data, ledger, expect,
-             kind="continuous", seeds=0, margin=None, keep=None):
+             kind="continuous", seeds=0, margin=None, keep=None, view=None):
     """One framework's case study through the kernels and through plain
     PyTorch (under two BLAS libraries, two summation orders of the same
     fp32 products, and under TF32), from the same weights, and ``seeds``
@@ -2274,7 +2306,9 @@ def run_case(device, cfg, base, fed, data, ledger, expect,
     part.  ``margin`` names the path in MARGINS, where the kernel run's
     final-LoRA share of its limit is then kept; ``keep`` names it in
     CASES, where its runs, launch counts and gate limits are kept for
-    phase 10."""
+    phase 10.  ``view`` (a final LoRA tree -> tensors) is what the
+    final-LoRA gates compare, the tree's leaves by default (lora_deltas
+    for svd-harmonized trees)."""
     import torch
 
     from repro_torch.core.rounds import run_federated
@@ -2344,8 +2378,9 @@ def run_case(device, cfg, base, fed, data, ledger, expect,
     # width differ by more than atol 5e-5 / rtol 5e-4 in a few elements.
     # The gate is the spread the fp32 plain runs show in this run; the
     # TF32 run shows that the gate rejects a run of lower precision.
-    gaps = {role: lora_gap(res.final_lora,
-                           results[yardstick(role, kind)].final_lora)
+    view = view or (lambda tree: tree)
+    gaps = {role: lora_gap(view(res.final_lora),
+                           view(results[yardstick(role, kind)].final_lora))
             for role, res in results.items()
             if not role.startswith("exact")
             and role != yardstick(role, kind)}
@@ -2395,7 +2430,7 @@ def kernel_run(device, cfg, base, fed, data, ledger, expect):
     ``cuda``), for a path whose plain runs are too slow to repeat: every
     round's metrics in range, the ledger bytes by name equal to
     ``ledger`` (reckoned by hand from the payload shapes) and the launch
-    counts to ``expect``.  Returns the launch counts."""
+    counts to ``expect``.  Returns (the launch counts, the result)."""
     import torch
 
     from repro_torch.core.rounds import run_federated
@@ -2420,7 +2455,7 @@ def kernel_run(device, cfg, base, fed, data, ledger, expect):
             f"ledger bytes {res.ledger.by_name()} != {ledger} from the "
             f"payload shapes")
     check_launches(counts, expect)
-    return counts
+    return counts, res
 
 
 def model_launches(L, train_steps, fwd_batches, clients: bool = False):
@@ -2614,6 +2649,34 @@ def split_level_flips(device, cfg, base, fed, clients):
     return share
 
 
+def split_flips_gate(device, cfg, base, fed, clients) -> float:
+    """The precision gate of a quantized Split boundary: a level flips
+    where one run's fp32 value crosses a half level that the other's does
+    not, so the share of flipped levels at round 0, step 0
+    (split_level_flips) measures how far the path up to the boundary (c2)
+    and back from the loss (c4) is off the plain run, before training
+    amplifies it; within FLOOR_FACTOR times the largest fp32 share, the
+    TF32 control outside.  Returns the kernel run's share of the limit."""
+    flips = split_level_flips(device, cfg, base, fed, clients)
+    limits, failed = fp32_gates(flips=flips)
+    print("  flipped share: " + ", ".join(
+        f"{role} {v:.3e}" for role, v in flips.items())
+        + f" (limit {limits['flips']:.3e}; kernels at "
+        f"{flips['kernels'] / limits['flips']:.3f} of it)")
+    require(not failed, "; ".join(failed))
+    return flips["kernels"] / limits["flips"]
+
+
+def split_wire_bytes(cfg, bits: int):
+    """(c2, c4) bytes of one Split step at the case study's batch, by
+    hand: BATCH * PAD_LEN boundary rows of d_model values, int(bits)
+    levels and a 4-byte scale a row (bits 0: 4 bytes a value); c2 adds
+    the batch's int32 labels."""
+    rows, d = BATCH * PAD_LEN, cfg.d_model
+    payload = rows * d * bits // 8 + rows * 4 if bits else rows * d * 4
+    return payload + BATCH * 4, payload
+
+
 def run_split(device, cfg, base, data, steps, evals):
     """Phase 6: Split-FedLLM, client layers [0, SPLIT_LAYER), with an
     fp32 boundary and with an int(SPLIT_BITS) one.  Returns {"split_fp32"
@@ -2622,7 +2685,6 @@ def run_split(device, cfg, base, data, steps, evals):
 
     pub, clients, test = data
     L, C, d = cfg.n_layers, len(clients), cfg.d_model
-    rows = BATCH * PAD_LEN
     half = SPLIT_LAYER * 3 * 2 * RANK * d * 4
     by_path = {}
     for path, bits in (("split_fp32", 0), ("split", SPLIT_BITS)):
@@ -2636,8 +2698,7 @@ def run_split(device, cfg, base, data, steps, evals):
         # 4-byte scale a row; fp32: 4 bytes a value), plus 16 int32
         # labels; c4 the same without labels; the client half (2 layers x
         # 3 targets x (A + B) fp32) goes down and up each round
-        payload = rows * d * bits // 8 + rows * 4 if bits else rows * d * 4
-        c2, c4 = payload + BATCH * 4, payload
+        c2, c4 = split_wire_bytes(cfg, bits)
         expect = model_launches(L, steps * fed.rounds, evals * fed.rounds)
         if not bits:
             # the precision gate of the continuous set: round 0, step 0's
@@ -2647,19 +2708,9 @@ def run_split(device, cfg, base, data, steps, evals):
                     device, cfg, base, fed, clients, exact=True).items()},
                 "round 0 step 0 LoRA gradient of both halves"))
         if bits:
-            # the precision gate of a quantized boundary: a level flips
-            # where one run's fp32 value crosses a half level that the
-            # other's does not, so the share of flipped levels at round 0,
-            # step 0 measures how far the path up to the boundary (c2) and
-            # back from the loss (c4) is off the plain run, before
-            # training amplifies it; the TF32 control must fail
-            flips = split_level_flips(device, cfg, base, fed, clients)
-            limits, failed = fp32_gates(flips=flips)
-            print("  flipped share: " + ", ".join(
-                f"{role} {v:.3e}" for role, v in flips.items())
-                + f" (limit {limits['flips']:.3e}; kernels at "
-                f"{flips['kernels'] / limits['flips']:.3f} of it)")
-            require(not failed, "; ".join(failed))
+            # the precision gate of a quantized boundary (the TF32 control
+            # must fail it)
+            split_flips_gate(device, cfg, base, fed, clients)
             expect["quant_roundtrip_rows"] = 2 * steps * fed.rounds
         # Both sets add nudged fp32 runs.  The int8 set takes the spread
         # test: its nudged fp32 runs part in a round's loss by more than
@@ -2886,9 +2937,53 @@ def run_recurrent(device):
         "flash_dq": n_attn, "flash_dkv": n_attn, "rglru_fwd": n_rglru,
         "rglru_bwd": n_rglru_bwd, "dp_clip_norms": 1, "dp_clip_acc": 1})
     print(f"  phase 7 DP step wall_s={time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    split_counts = recurrent_split(device, cfg, base, (pub, clients, test),
+                                   steps, expect)
+    print(f"  phase 7 Split wall_s={time.perf_counter() - t0:.1f}")
     del base
     torch.cuda.empty_cache()
-    return counts, dp_counts
+    return counts, dp_counts, split_counts
+
+
+def recurrent_split(device, cfg, base, data, steps, expect):
+    """Phase 7's Split-FedLLM on RecurrentGemma-2B (``cfg``, ``base``) with
+    an int(SPLIT_BITS) boundary at SPLIT_LAYER: the flipped-level gate,
+    then run_case's spread gates with NUDGED_SEEDS nudged fp32 runs, the
+    ledger by hand and the launches of the FedLLM run (``expect``: the
+    same layers forward and backward) plus two roundtrips a step.
+    Returns the kernel run's launch counts."""
+    from repro_torch.configs.base import FedConfig
+
+    pub, clients, test = data
+    C, d = len(clients), cfg.d_model
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    print(f"  Split-FedLLM on {cfg.name}, split_layer {SPLIT_LAYER} (the "
+          f"client holds pattern groups 0-{SPLIT_LAYER - 1}, layers 0-"
+          f"{SPLIT_LAYER * len(cfg.layer_pattern) - 1}), int{SPLIT_BITS} "
+          f"boundary:")
+    fed = FedConfig(framework="split", rounds=2, lora_rank=RANK,
+                    lora_dropout=0.0, split_layer=SPLIT_LAYER,
+                    activation_quant_bits=SPLIT_BITS)
+    MARGINS["RecurrentGemma-2B Split int8 flips"] = split_flips_gate(
+        device, cfg, base, fed, clients)
+    # by hand: c2 is 1280 rows of 2560 int8 levels, a 4-byte scale a row
+    # and 16 int32 labels, c4 the same without the labels; the client
+    # half (one local-attention layer a group: A and B of wq, wk and wv,
+    # fp32) goes down and up each round
+    c2, c4 = split_wire_bytes(cfg, SPLIT_BITS)
+    half = SPLIT_LAYER * RANK * ((d + q) + 2 * (d + kv)) * 4
+    print(f"  ledger by hand: c2 {c2}, c4 {c4} bytes a step, client half "
+          f"{half} bytes each way")
+    split_counts, _ = run_case(
+        device, cfg, base, fed, (pub, clients, test),
+        ledger={"lora_params": fed.rounds * C * 2 * half,
+                "activations": fed.rounds * steps * c2,
+                "act_grads": fed.rounds * steps * c4},
+        expect=dict(expect, quant_roundtrip_rows=2 * steps * fed.rounds),
+        kind="spread", seeds=NUDGED_SEEDS,
+        margin="RecurrentGemma-2B Split int8")
+    return split_counts
 
 
 def dp_first_step(device, cfg, base, clients, expect, targets=None,
@@ -2934,8 +3029,9 @@ def dp_first_step(device, cfg, base, clients, expect, targets=None,
 
 
 def first_step_inputs(device, base, fed, clients, ci: int = 0):
-    """The first train step's inputs: the run's initial LoRA and client
-    ``ci``'s first batch of round 0, on the card."""
+    """The first train step's inputs: the run's initial LoRA (truncated to
+    client ``ci``'s rank when ``fed.client_ranks`` gives it one) and
+    client ``ci``'s first batch of round 0, on the card."""
     import torch
 
     from repro_torch.core.fedavg import to_device
@@ -2945,6 +3041,9 @@ def first_step_inputs(device, base, fed, clients, ci: int = 0):
     lt = lora_lib.init_lora(torch.Generator().manual_seed(fed.seed + 1),
                             base, fed.lora_targets or lora_lib.DEFAULT_TARGETS,
                             fed.lora_rank, fed.lora_alpha)
+    if fed.client_ranks:
+        lt = lora_lib.maybe_truncate_rank(lt, fed.client_ranks[ci],
+                                          fed.lora_rank)
     batch = to_device(next(iter(epoch_batches(
         clients[ci], BATCH, seed=fed.seed * 997))), device)
     return lt, batch
@@ -2972,7 +3071,8 @@ def first_step_grads(device, cfg, base, fed, clients, ci: int = 0):
         with ops.policy_scope(policy):
             live = tree_lib.map_(lambda t: t.detach().requires_grad_(True), l)
             logits, _ = model.forward(lora_lib.bind(
-                b, live, fed.lora_alpha, fed.lora_rank), batch)
+                b, live, fed.lora_alpha,
+                lora_lib.tree_rank(live, fed.lora_rank)), batch)
             loss, _ = loss_fn(logits, batch)
             grads[role] = torch.autograd.grad(loss, tree_lib.leaves(live))
         del b, l
@@ -3034,7 +3134,8 @@ def split_first_step(device, cfg, base, fed, clients, exact: bool,
     from repro_torch.peft import lora as lora_lib
 
     lt = lora_lib.init_lora(torch.Generator().manual_seed(fed.seed + 3),
-                            base, lora_lib.DEFAULT_TARGETS, fed.lora_rank,
+                            base, fed.lora_targets
+                            or lora_lib.default_targets(cfg), fed.lora_rank,
                             fed.lora_alpha)
     batch = to_device(next(iter(epoch_batches(
         clients[0], BATCH, seed=fed.seed * 983))), device)
@@ -3048,7 +3149,7 @@ def split_first_step(device, cfg, base, fed, clients, exact: bool,
     for role, policy, seed in settings():
         sfns = split.make_split_fns(build_model(dataclasses.replace(
             cfg, kernel_policy=policy)), fed)
-        L = sfns["n_client_groups"]
+        L = sfns["n_client_layers"]
         b, l = (fp64(base), fp64(lt)) if role == "exact" else \
             (base if seed is None else nudged(base, seed, device), lt)
         c_lt, s_lt = split.split_lora(l, L)
@@ -3082,8 +3183,12 @@ def run_rwkv(device):
     (kd_upload_gaps), then one run through the kernels alone (its plain
     rounds take ~20 s each) with its ledger and launches exact.  DP-SGD:
     one step (dp_first_step), its rows and clipped mean from fp64.
-    Returns the three kernel runs' launch counts: (FedLLM, KD, DP
-    step)."""
+    Split (split_layer SPLIT_LAYER): the first step's LoRA gradient of
+    both halves through an fp32 boundary from fp64, the flipped-level
+    share of an int(SPLIT_BITS) boundary against the fp32 runs', then one
+    int8 run through the kernels alone, ledger and launches exact.
+    Returns the four kernel runs' launch counts: (FedLLM, KD, DP step,
+    Split)."""
     import torch
 
     from repro_torch import tree as tree_lib
@@ -3143,7 +3248,7 @@ def run_rwkv(device):
     ledger, expect = kd_expect(
         fed, data, steps, evals,
         lambda train, fwd: rwkv_launches(L, n_t, train, fwd))
-    kd_counts = kernel_run(device, cfg, base, fed, data, ledger, expect)
+    kd_counts, _ = kernel_run(device, cfg, base, fed, data, ledger, expect)
     print(f"  phase 8 KD wall_s={time.perf_counter() - t0:.1f}")
 
     t0 = time.perf_counter()
@@ -3155,9 +3260,57 @@ def run_rwkv(device):
         "rwkv6_bwd": L, "dp_clip_norms": 1, "dp_clip_acc": 1},
         targets=lora.RWKV_TARGETS, margin="RWKV-6")
     print(f"  phase 8 DP step wall_s={time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    split_counts = rwkv_split(device, cfg, base, data, steps, evals)
+    print(f"  phase 8 Split wall_s={time.perf_counter() - t0:.1f}")
     del base
     torch.cuda.empty_cache()
-    return counts, kd_counts, dp_counts
+    return counts, kd_counts, dp_counts, split_counts
+
+
+def rwkv_split(device, cfg, base, data, steps, evals):
+    """Phase 8's Split-FedLLM on RWKV-6 (``cfg``, ``base``) at
+    SPLIT_LAYER, LoRA on w_r/w_k/w_v/w_g, judged at the first step: the
+    LoRA gradient of both halves through an fp32 boundary from fp64, the
+    flipped-level share of an int(SPLIT_BITS) boundary; then one int8 run
+    through the kernels alone, ledger by hand and launches exact.
+    Returns its launch counts."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.peft import lora
+
+    pub, clients, test = data
+    L, C, d = cfg.n_layers, len(clients), cfg.d_model
+    n_t = len(lora.RWKV_TARGETS)
+    print(f"  Split-FedLLM on {cfg.name}, split_layer {SPLIT_LAYER}, judged "
+          f"at the first step, then one int{SPLIT_BITS} run through the "
+          f"kernels:")
+    fed = FedConfig(framework="split", rounds=2, lora_rank=RANK,
+                    lora_dropout=0.0, split_layer=SPLIT_LAYER,
+                    lora_targets=lora.RWKV_TARGETS)
+    gaps = from_exact(
+        {role: grads for role, (grads, _, _) in split_first_step(
+            device, cfg, base, fed, clients, exact=True).items()},
+        "round 0 step 0 LoRA gradient of both halves, fp32 boundary")
+    MARGINS["RWKV-6 Split fp32 first step"] = gaps["kernels"] / floor_gate(
+        "first-step LoRA gradient (split program)", gaps)
+    fed = dataclasses.replace(fed, activation_quant_bits=SPLIT_BITS)
+    MARGINS["RWKV-6 Split int8 flips"] = split_flips_gate(device, cfg, base,
+                                                          fed, clients)
+    # by hand: c2 is 1280 rows of 2048 int8 levels, a 4-byte scale a row
+    # and 16 int32 labels, c4 the same without the labels; the client
+    # half (2 layers x 4 targets x (A + B), fp32) down and up each round
+    c2, c4 = split_wire_bytes(cfg, SPLIT_BITS)
+    half = SPLIT_LAYER * n_t * RANK * (d + d) * 4
+    print(f"  ledger by hand: c2 {c2}, c4 {c4} bytes a step, client half "
+          f"{half} bytes each way")
+    split_counts, _ = kernel_run(
+        device, cfg, base, fed, data,
+        {"lora_params": fed.rounds * C * 2 * half,
+         "activations": fed.rounds * steps * c2,
+         "act_grads": fed.rounds * steps * c4},
+        dict(rwkv_launches(L, n_t, steps * fed.rounds, evals * fed.rounds),
+             quant_roundtrip_rows=2 * steps * fed.rounds))
+    return split_counts
 
 
 def live_targets(base, targets):
@@ -3466,6 +3619,149 @@ def run_spmd(device):
     return by_path
 
 
+def lora_deltas(tree, alpha: float):
+    """Each LoRA leaf's delta alpha / r * A @ B, in tree order: what two
+    svd-harmonized trees are compared through, the signs of their
+    factors' columns being the SVD library's choice."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.peft import lora as lora_lib
+
+    return tree_lib.leaves(lora_lib.map_factors(
+        lambda f: f["a"] @ f["b"] * (alpha / f["a"].shape[-1]), tree))
+
+
+def async_reckoning(seed: int, n_clients: int, max_staleness: int,
+                    rounds: int):
+    """An async run's jobs, reckoned by hand with numpy: a client's
+    slowness drawn from ``seed``, each job's delay a Binomial(max_staleness
+    + 1, slowness) draw from the client's own generator (seeded (seed,
+    7919, client)), a client free again once its job has arrived.
+    Returns (starts [(round, client)], arrivals [(round, client,
+    staleness)])."""
+    import numpy as np
+
+    slowness = np.random.default_rng(seed).uniform(0.15, 0.85, n_clients)
+    gens = [np.random.default_rng((seed, 7919, ci))
+            for ci in range(n_clients)]
+    busy, starts, arrivals = {}, [], []
+    for rnd in range(rounds):
+        for ci in range(n_clients):
+            if ci not in busy:
+                delay = int(gens[ci].binomial(max_staleness + 1,
+                                              slowness[ci])) \
+                    if max_staleness > 0 else 0
+                busy[ci] = (rnd, rnd + delay)
+                starts.append((rnd, ci))
+        for ci in sorted(c for c, (_, end) in busy.items() if end == rnd):
+            arrivals.append((rnd, ci, rnd - busy.pop(ci)[0]))
+    return starts, arrivals
+
+
+def run_hetero(device):
+    """Phase 11: FedLLM at full gpt2 width from phase 3's weights and data
+    with heterogeneous client ranks (2, 4, RANK): the first train step of
+    clients 0 and 1 (ranks 2 and 4, the fused LoRA kernels' rank padded
+    to one n8 fragment) gated from fp64; then run_case's continuous gates
+    under ``hetero_agg`` "zeropad" and "svd" (svd's final LoRA compared
+    through its deltas, lora_deltas), and async aggregation with
+    max_staleness 2 over 4 rounds (zeropad), ledger reckoned by hand
+    (async_reckoning) and launches exact; and async with max_staleness 0,
+    which must give phase 3's sync kernel run (CASES) to the last bit.
+    Returns the sum of the kernel runs' launch counts."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.configs.gpt2_small import gpt2
+    from repro_torch.data import banking77, partition
+    from repro_torch.models.factory import build_model
+
+    cfg = gpt2()
+    pub, train, test = banking77.paper_splits(cfg.vocab_size,
+                                              pad_len=PAD_LEN, scale=0.03)
+    clients = partition.iid_partition(train, CLIENTS)
+    data = (pub, clients, test)
+    base = build_model(cfg).init(torch.Generator().manual_seed(0), device)
+    L, C, d = cfg.n_layers, len(clients), cfg.d_model
+    ranks = (2, 4, RANK)
+    client_steps = [len(c["tokens"]) // BATCH for c in clients]
+    evals = len(test["tokens"]) // 64
+
+    def lora_bytes(r):
+        # A (d, r) and B (r, d) of wq, wk and wv in every layer, fp32
+        return L * 3 * 2 * r * d * 4
+
+    print(f"phase 11: heterogeneous client ranks {ranks} and async "
+          f"aggregation, FedLLM, gpt2 full width")
+    fed = FedConfig(framework="fedllm", rounds=2, lora_rank=RANK,
+                    lora_dropout=0.0, client_ranks=ranks)
+    for ci in (0, 1):
+        floor_gate(f"client {ci}'s first-step LoRA gradient at rank "
+                   f"{ranks[ci]}", from_exact(
+                       first_step_grads(device, cfg, base, fed, clients, ci),
+                       f"round 0 step 0 LoRA gradient of client {ci}"))
+    # every client downloads the global tree truncated to its rank and
+    # uploads its tree at that rank, each round
+    ledger = {"lora_params": fed.rounds * 2 * sum(lora_bytes(r)
+                                                  for r in ranks)}
+    expect = model_launches(L, sum(client_steps) * fed.rounds,
+                            evals * fed.rounds)
+    counts = []
+    for agg in ("zeropad", "svd"):
+        print(f"phase 11: hetero_agg {agg!r}, 2 rounds")
+        c, _ = run_case(
+            device, cfg, base, dataclasses.replace(fed, hetero_agg=agg),
+            data, ledger=ledger, expect=expect, margin=f"hetero {agg}",
+            view=None if agg == "zeropad" else
+            (lambda t: lora_deltas(t, fed.lora_alpha)))
+        counts.append(c)
+
+    rounds, staleness = 4, 2
+    print(f"phase 11: async, max_staleness {staleness}, {rounds} rounds, "
+          f"ranks {ranks}, zeropad")
+    fed = dataclasses.replace(fed, aggregation="async", rounds=rounds,
+                              max_staleness=staleness)
+    starts, arrivals = async_reckoning(fed.seed + 17, C, staleness, rounds)
+    print(f"  by hand: jobs started {starts}; arrivals (round, client, "
+          f"staleness) {arrivals}")
+    require(any(0 < s <= staleness for _, _, s in arrivals)
+            and any(s > staleness for _, _, s in arrivals),
+            "the schedule keeps no stale update or discards none")
+    c, _ = run_case(
+        device, cfg, base, fed, data,
+        ledger={"lora_params": sum(lora_bytes(ranks[ci])
+                                   for _, ci in starts)
+                + sum(lora_bytes(ranks[ci]) for _, ci, _ in arrivals)},
+        expect=model_launches(L, sum(client_steps[ci] for _, ci in starts),
+                              evals * rounds), margin="async")
+    counts.append(c)
+
+    print("phase 11: async, max_staleness 0, against phase 3's sync "
+          "kernel run")
+    seq = CASES["fedllm"]
+    sync = seq["results"]["kernels"]
+    fed = FedConfig(framework="fedllm", rounds=2, lora_rank=RANK,
+                    lora_dropout=0.0, aggregation="async", max_staleness=0)
+    c, res = kernel_run(device, cfg, base, fed, data, sync.ledger.by_name(),
+                        {n: k for n, k in seq["counts"]["kernels"].items()
+                         if k})
+    require(res.ledger.per_client_round() == sync.ledger.per_client_round()
+            and res.client_flops == sync.client_flops,
+            "async at max_staleness 0: ledger or FLOPs differ from sync")
+    require([(h.loss, h.accuracy) for h in res.history]
+            == [(h.loss, h.accuracy) for h in sync.history],
+            "async at max_staleness 0: round metrics differ from sync")
+    require(all(torch.equal(a, b) for a, b in zip(
+        tree_lib.leaves(res.final_lora), tree_lib.leaves(sync.final_lora))),
+        "async at max_staleness 0: final LoRA differs from sync")
+    print("  async at max_staleness 0: round metrics, ledger, FLOPs, launches "
+          "and final LoRA bit-identical to phase 3's sync kernel run")
+    counts.append(c)
+    del base
+    torch.cuda.empty_cache()
+    return add_counts(*counts)
+
+
 # the kernels that must not spill: {kernel: (source, instances)}
 NO_SPILLS = {"lora_fused_kernel": ("lora_matmul", 8),
              "lora_dw_kernel": ("lora_matmul", 1),
@@ -3618,11 +3914,11 @@ def main() -> int:
     print(f"  phase 2 wall_s={time.perf_counter() - t0:.1f}")
 
     by_path = run_slices(device)
-    by_path["recurrentgemma"], by_path["recurrentgemma_dp_step"] = \
-        run_recurrent(device)
+    (by_path["recurrentgemma"], by_path["recurrentgemma_dp_step"],
+     by_path["split_rg"]) = run_recurrent(device)
     t0 = time.perf_counter()
-    by_path["rwkv6"], by_path["rwkv6_kd"], by_path["rwkv6_dp_step"] = \
-        run_rwkv(device)
+    (by_path["rwkv6"], by_path["rwkv6_kd"], by_path["rwkv6_dp_step"],
+     by_path["split_rwkv"]) = run_rwkv(device)
     print(f"  phase 8 wall_s={time.perf_counter() - t0:.1f}")
     t0 = time.perf_counter()
     by_path["base_grad"] = run_base_grad(device)
@@ -3630,7 +3926,10 @@ def main() -> int:
     t0 = time.perf_counter()
     by_path.update(run_spmd(device))
     print(f"  phase 10 wall_s={time.perf_counter() - t0:.1f}")
-    print(f"  phases 1-10 wall_s={time.perf_counter() - t_start:.1f}")
+    t0 = time.perf_counter()
+    by_path["hetero_async"] = run_hetero(device)
+    print(f"  phase 11 wall_s={time.perf_counter() - t0:.1f}")
+    print(f"  phases 1-11 wall_s={time.perf_counter() - t_start:.1f}")
     print("margins (share of the limit; the last recorded run's in "
           "parentheses): " + ", ".join(
               f"{path} {MARGINS[path]:.3f} ("

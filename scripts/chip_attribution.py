@@ -1194,7 +1194,7 @@ def split_spread(dev, copies: int = 8, keys=()) -> None:
                                 base, lora_lib.DEFAULT_TARGETS, f.lora_rank,
                                 f.lora_alpha)
         lt = cs.fp64(lt) if mode == "fp64" else lt
-        L = sfns["n_client_groups"]
+        L = sfns["n_client_layers"]
         c_glob, s_lt = split.split_lora(lt, L)
         base_c, base_s = split.split_base(weights(mode, seed), L)
         s_opt, steps = sfns["opt_init"](s_lt), []
@@ -1254,7 +1254,7 @@ def split_spread(dev, copies: int = 8, keys=()) -> None:
                                 base, lora_lib.DEFAULT_TARGETS, f.lora_rank,
                                 f.lora_alpha)
         lt = cs.fp64(lt) if mode == "fp64" else lt
-        L = sfns["n_client_groups"]
+        L = sfns["n_client_layers"]
         c_lt, s_lt = split.split_lora(lt, L)
         base_c, base_s = split.split_base(weights(mode, seed), L)
         batch = to_device(next(iter(epoch_batches(

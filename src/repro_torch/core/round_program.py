@@ -3,16 +3,20 @@
     broadcast -> local_update -> upload -> aggregate -> evaluate
 
 Counterpart of the parts of ``src/repro/core/round_program.py`` that run
-FedLLM, KD-FedLLM and Split-FedLLM with sync rounds: ``RoundContext``,
-the ``SyncSchedule``, the ``SequentialExecutor`` (a Python loop over
-clients, one train step per batch), the ``SpmdExecutor`` (the round's
-clients stacked on a leading axis, one stacked program per rank bucket:
-core/fed_spmd.py), the ``FedLLMProgram``, ``KDProgram`` and
-``SplitProgram`` stage-specs and ``run_program`` with the privacy
-middleware (upload noise, secure-aggregation masking around aggregation,
-the RDP accountant), which is the same under either executor, and
-without the fault middleware.  Ledger bytes are derived from payload
-shapes, so they equal the reference's exactly.
+FedLLM, KD-FedLLM and Split-FedLLM: ``RoundContext`` (with each client's
+LoRA rank, core/heterogeneous.normalize_ranks), the ``AsyncSchedule``
+(core/async_agg.py; a sync round is its case with every delay 0), the
+``SequentialExecutor`` (a Python loop over clients, one train step per
+batch), the ``SpmdExecutor`` (the round's clients stacked on a leading
+axis, one stacked program per rank bucket: core/fed_spmd.py), the
+``FedLLMProgram``, ``KDProgram`` and ``SplitProgram`` stage-specs (a
+client below the global rank gets the global tree truncated to its rank,
+and its upload is harmonized by ``FedConfig.hetero_agg``) and
+``run_program`` with the privacy middleware (upload noise,
+secure-aggregation masking around aggregation, the RDP accountant),
+which is the same under either executor and aggregation, and without the
+fault middleware.  Ledger bytes are derived from payload shapes, so they
+equal the reference's exactly.
 """
 from __future__ import annotations
 
@@ -25,11 +29,15 @@ import torch
 
 from repro_torch.configs.base import FedConfig, ModelConfig
 from repro_torch.core import fed_spmd
+from repro_torch.core.async_agg import (ParticipationSchedule, _Job,
+                                        _pop_arrivals, stale_weighted_avg,
+                                        staleness_weight)
+from repro_torch.core.heterogeneous import normalize_ranks
 from repro_torch.core import kd as kd_mod
 from repro_torch.core import metrics as M
 from repro_torch.core import split as split_mod
 from repro_torch import tree as tree_lib
-from repro_torch.core.fedavg import evaluate, fedavg, make_fns, to_device
+from repro_torch.core.fedavg import evaluate, make_fns, to_device
 from repro_torch.data.loader import epoch_batches
 from repro_torch.peft import lora as lora_lib
 from repro_torch.privacy import dp as dp_mod
@@ -103,8 +111,8 @@ class RoundContext:
                                                      batch_size))
         self.secagg = SecureAggSession(fed)
         self.releases = [0] * self.n_clients   # noisy uploads per client
-        # each client's LoRA rank: uniform (client_ranks is not ported)
-        self.ranks = [fed.lora_rank] * self.n_clients
+        self.ranks = normalize_ranks(fed.client_ranks, self.n_clients,
+                                     fed.lora_rank)
 
     def secagg_start(self, rnd: int, ci: int) -> int:
         """The secure-agg cohort key of client ``ci``'s job started in
@@ -113,34 +121,30 @@ class RoundContext:
         return rnd
 
 
-@dataclasses.dataclass
-class _Job:
-    """One in-flight client update."""
-    client: int
-    start: int          # round the client pulled the global and trained
-    arrival: int        # round the update lands on the server
-    payload: object
-
-
-class SyncSchedule:
-    """The paper-literal parameter-server round: every client starts a job
-    each round and its upload arrives the same round."""
+class AsyncSchedule:
+    """FedAsync-style participation: a free client starts a job (pulls
+    the current global, trains now) and its upload is in flight for a
+    seeded delay a job (core/async_agg.ParticipationSchedule, seeded with
+    ``fed.seed + 17`` as the reference's).  Under ``aggregation="sync"``
+    every delay is 0: every client starts a job each round and its upload
+    arrives the same round, the paper-literal parameter-server round."""
 
     def __init__(self, fed: FedConfig, n_clients: int):
         self.n = n_clients
-        self._pending: List[_Job] = []
+        self.sched = ParticipationSchedule(
+            n_clients, fed.seed + 17,
+            fed.max_staleness if fed.aggregation == "async" else 0)
+        self.in_flight: Dict[int, _Job] = {}
 
     def starters(self, rnd: int) -> List[int]:
-        return list(range(self.n))
+        return [ci for ci in range(self.n) if ci not in self.in_flight]
 
     def submit(self, rnd: int, ci: int, payload):
-        self._pending.append(_Job(ci, rnd, rnd, payload))
+        self.in_flight[ci] = _Job(ci, rnd, rnd + self.sched.next_delay(ci),
+                                  payload)
 
     def pop_arrivals(self, rnd: int) -> List[_Job]:
-        out = sorted((j for j in self._pending if j.arrival == rnd),
-                     key=lambda j: j.client)
-        self._pending = [j for j in self._pending if j.arrival != rnd]
-        return out
+        return _pop_arrivals(self.in_flight, rnd)
 
 
 def local_generator(fed: FedConfig, rnd: int, ci: int) -> torch.Generator:
@@ -373,26 +377,6 @@ def _batched_distill(ctx, stacked_lt, stacked_opt, teacher, rnd,
 EXECUTORS = {"sequential": SequentialExecutor, "spmd": SpmdExecutor}
 
 
-def staleness_weight(staleness: int, decay: float) -> float:
-    """Polynomial staleness decay (FedAsync): ``(1 + s)^-decay``."""
-    return float((1.0 + staleness) ** (-decay))
-
-
-def stale_weighted_avg(global_tree, arrivals, total_weight: float, fed):
-    """Staleness-weighted FedAvg of arrived trees, ``arrivals`` being
-    ``(client, tree, staleness, data_weight)``.  Clients that delivered
-    nothing anchor their data weight on the current global tree; when every
-    client arrives fresh this is plain data-weighted FedAvg."""
-    trees = [t for _, t, _, _ in arrivals]
-    ws = [w * staleness_weight(s, fed.staleness_decay)
-          for _, _, s, w in arrivals]
-    absent = total_weight - sum(w for _, _, _, w in arrivals)
-    if absent > 0:
-        trees = [global_tree] + trees
-        ws = [absent] + ws
-    return fedavg(trees, ws)
-
-
 class FedLLMProgram:
     """FedLLMs (paper SSII.A): a1 broadcast global LoRA params, a2 local
     PEFT fine-tuning, a3 upload the tuned params, a4 FedAvg."""
@@ -409,9 +393,11 @@ class FedLLMProgram:
     def broadcast(self, ctx, cohort, rnd):
         jobs = []
         for ci in cohort:
+            lt = lora_lib.maybe_truncate_rank(self.global_lt, ctx.ranks[ci],
+                                              ctx.fed.lora_rank)
             ctx.ledger.record(rnd, ci, "lora_params", M.DOWN,
-                              M.tree_bytes(self.global_lt))
-            jobs.append((ci, self.global_lt))
+                              M.tree_bytes(lt))
+            jobs.append((ci, lt))
         return jobs
 
     def local_update(self, ctx, ex, jobs, rnd):
@@ -441,7 +427,8 @@ class FedLLMProgram:
     def aggregate(self, ctx, ex, kept, arrived, rnd):
         if kept:
             self.global_lt = stale_weighted_avg(self.global_lt, kept,
-                                                ctx.total_w, ctx.fed)
+                                              ctx.total_w, ctx.fed,
+                                              ctx.ranks)
 
     def evaluate(self, ctx):
         return evaluate(ctx.fns, ctx.base, self.global_lt, ctx.test,
@@ -455,7 +442,8 @@ class KDProgram:
     """KD-FedLLMs (paper SSII.B): params never cross the wire.  Clients
     upload public-set logits (b3), the server fuses knowledge (b4),
     distills (b5), and re-broadcasts global knowledge (b6-b8).  Every
-    client keeps its own LoRA tree and Adam state across rounds."""
+    client keeps its own LoRA tree, at its own rank, and Adam state across
+    rounds."""
 
     epoch_seed_mult = 991
 
@@ -464,11 +452,11 @@ class KDProgram:
         if lora is None:
             gen = torch.Generator().manual_seed(fed.seed + 2)
 
-            def draw():
-                return lora_lib.init_lora(gen, ctx.base, ctx.targets,
-                                          fed.lora_rank, fed.lora_alpha)
-            lora = {"clients": [draw() for _ in range(ctx.n_clients)],
-                    "server": draw()}
+            def draw(rank):
+                return lora_lib.init_lora(gen, ctx.base, ctx.targets, rank,
+                                          fed.lora_alpha)
+            lora = {"clients": [draw(r) for r in ctx.ranks],
+                    "server": draw(fed.lora_rank)}
         if len(lora["clients"]) != ctx.n_clients:
             raise ValueError(f"lora['clients'] holds {len(lora['clients'])} "
                              f"trees for {ctx.n_clients} clients")
@@ -552,23 +540,31 @@ class SplitProgram:
         fed = ctx.fed
         self.sfns = split_mod.make_split_fns(ctx.model, fed, ctx.task)
         L = self.sfns["n_client_groups"]
+        n_client = self.sfns["n_client_layers"]
         if lora is None:
             gen = torch.Generator().manual_seed(fed.seed + 3)
             lora = lora_lib.init_lora(gen, ctx.base, ctx.targets,
                                       fed.lora_rank, fed.lora_alpha)
-        self.c_global, self.s_lt = split_mod.split_lora(lora, L)
-        self.base_c, self.base_s = split_mod.split_base(ctx.base, L)
+        self.c_global, self.s_lt = split_mod.split_lora(lora, n_client)
+        self.base_c, self.base_s = split_mod.split_base(ctx.base, n_client)
         self.s_opt = self.sfns["opt_init"](self.s_lt)
+        # the client's share of the model's FLOPs counts pattern groups,
+        # not layers, as the reference's does: L / G (on the hybrid 2/8
+        # at split_layer 2, where the client holds 6 of 26 layers)
         self.frac_client = L / max(self.sfns["n_groups"], 1)
         self.label_bytes = ctx.batch_size * 4 \
             if "labels" in ctx.clients_data[0] else 0
         self.joined = lora
 
     def broadcast(self, ctx, cohort, rnd):
+        jobs = []
         for ci in cohort:
+            c_init = lora_lib.maybe_truncate_rank(
+                self.c_global, ctx.ranks[ci], ctx.fed.lora_rank)
             ctx.ledger.record(rnd, ci, "lora_params", M.DOWN,
-                              M.tree_bytes(self.c_global))             # cc3
-        return [(ci, self.c_global) for ci in cohort]
+                              M.tree_bytes(c_init))                    # cc3
+            jobs.append((ci, c_init))
+        return jobs
 
     def local_update(self, ctx, ex, jobs, rnd):
         outs = ex.split_train(self, jobs, rnd)
@@ -605,7 +601,8 @@ class SplitProgram:
     def aggregate(self, ctx, ex, kept, arrived, rnd):
         if kept:                                                       # cc2
             self.c_global = stale_weighted_avg(self.c_global, kept,
-                                               ctx.total_w, ctx.fed)
+                                             ctx.total_w, ctx.fed,
+                                             ctx.ranks)
         self.joined = split_mod.join_lora(self.c_global, self.s_lt)
 
     def evaluate(self, ctx):
@@ -624,16 +621,18 @@ def run_program(model, base, cfg: ModelConfig, fed: FedConfig, targets,
                 public: Dict, clients_data: List[Dict], test: Dict,
                 task: str, batch_size: int, eval_batch: int, verbose: bool,
                 device, lora=None) -> FedResult:
-    """Run ``fed.rounds`` rounds of ``fed.framework`` with sync
-    aggregation, the clients' local work run by ``fed.backend``'s
-    executor.  ``lora`` (optional) is the initial LoRA state: the global
+    """Run ``fed.rounds`` rounds of ``fed.framework`` under
+    ``fed.aggregation``'s schedule, the clients' local work run by
+    ``fed.backend``'s executor.  ``lora`` (optional) is the initial LoRA state: the global
     tree for FedLLM, ``{"server": tree, "clients": [tree, ...]}`` for KD,
     the full-model tree (split at L) for Split."""
     ctx = RoundContext(model, base, cfg, fed, targets, public, clients_data,
                        test, task, batch_size, eval_batch, verbose, device)
     program = PROGRAMS[fed.framework](ctx, lora)
     ex = EXECUTORS[fed.backend](ctx)
-    schedule = SyncSchedule(fed, ctx.n_clients)
+    schedule = AsyncSchedule(fed, ctx.n_clients)
+    tag = f"{fed.framework}/{ex.backend}" + \
+        ("/async" if fed.aggregation == "async" else "")
     for rnd in range(fed.rounds):
         t0 = time.perf_counter()
         # the clients starting this round form its secure-agg cohort
@@ -662,7 +661,8 @@ def run_program(model, base, cfg: ModelConfig, fed: FedConfig, targets,
             epsilon=round_epsilon(ctx.acct, max(ctx.releases, default=0)),
             seconds=time.perf_counter() - t0))
         if verbose:
-            print(f"[{fed.framework}/{ex.backend}] round {rnd}: "
-                  f"acc={acc:.4f} loss={loss:.4f}")
+            print(f"[{tag}] round {rnd}: acc={acc:.4f} loss={loss:.4f}"
+                  + (f" arrived={len(arrived)}"
+                     if fed.aggregation == "async" else ""))
     return FedResult(ctx.history, ctx.ledger, program.final_state(ctx),
                      [c.flops for c in ctx.cost])

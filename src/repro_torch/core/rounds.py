@@ -5,16 +5,21 @@
 
 ``result.history`` is a list of RoundMetrics; ``result.ledger`` holds
 every wire transfer.  The port runs FedLLM (the paper's SSV case study),
-KD-FedLLM and Split-FedLLM on the dense family (GPT-2); FedLLM and
-KD-FedLLM on the Griffin hybrid (RecurrentGemma; Split refuses it); and
-FedLLM and KD-FedLLM on RWKV-6 (Finch; Split refuses it too).  Each runs
+KD-FedLLM and Split-FedLLM on all three families it builds: the dense
+family (GPT-2), the Griffin hybrid (RecurrentGemma; Split at a pattern
+group boundary, the tail on the server) and RWKV-6 (Finch).  Each runs
 with sync rounds under either execution backend: ``sequential`` (a loop
 over clients) or ``spmd`` (the round's clients stacked on a leading
 axis, core/fed_spmd.py), with or without the privacy knobs
 (``FedConfig.privacy``: DP-SGD clipping, upload noise, secure
 aggregation; on Split the c2 boundary clip and noise), on every family
 above, except that ``spmd`` refuses ``privacy.dp_clip > 0`` (DP-SGD over
-a client axis is not ported yet).  The ``cohort`` backend and a ``mesh``
+a client axis is not ported yet).  Under ``sequential`` the three
+frameworks also run heterogeneous client ranks (``client_ranks``,
+harmonized by ``hetero_agg``: core/heterogeneous.py) and async
+aggregation (``aggregation="async"``: core/async_agg.py), secure
+aggregation included; ``spmd`` refuses both, and async refuses a
+``robust_agg`` other than "mean".  The ``cohort`` backend and a ``mesh``
 are not ported.  An invalid setting raises ValueError, as in the
 reference; a valid ``FedConfig`` setting outside the ported slices raises
 NotImplementedError rather than being ignored.
@@ -50,6 +55,7 @@ import torch
 
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import FedConfig, ModelConfig
+from repro_torch.core.heterogeneous import normalize_ranks
 from repro_torch.core.round_program import FedResult, run_program
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.factory import build_model
@@ -63,10 +69,13 @@ def _unported(fed: FedConfig, task: str) -> List[str]:
         (fed.backend == "cohort", f"backend={fed.backend!r}"),
         (fed.backend == "spmd" and fed.privacy.dp_clip > 0.0,
          "backend='spmd' with privacy.dp_clip > 0"),
-        (fed.aggregation != "sync", f"aggregation={fed.aggregation!r}"),
+        (fed.backend == "spmd" and fed.aggregation == "async",
+         "backend='spmd' with aggregation='async'"),
+        (fed.backend == "spmd" and any(r != fed.lora_rank
+                                       for r in fed.client_ranks or ()),
+         "backend='spmd' with client_ranks below lora_rank"),
         (fed.peft != "lora", f"peft={fed.peft!r}"),
         (fed.optimizer != "adam", f"optimizer={fed.optimizer!r}"),
-        (fed.client_ranks is not None, "client_ranks"),
         (fed.faults.enabled, "fault injection"),
         (fed.robust_agg != "mean", f"robust_agg={fed.robust_agg!r}"),
         (fed.quorum > 0.0, "quorum"),
@@ -111,16 +120,7 @@ def _check_values(fed: FedConfig, n_clients: int,
             raise ValueError("fault rates are probabilities in [0, 1]")
     if checkpoint_every > 0 and not checkpoint_dir:
         raise ValueError("checkpoint_every > 0 requires checkpoint_dir")
-    ranks = fed.client_ranks
-    if ranks:            # the reference's heterogeneous.normalize_ranks
-        if len(ranks) != n_clients:
-            raise ValueError(f"client_ranks has {len(ranks)} entries for "
-                             f"{n_clients} clients")
-        if any(r < 1 or r > fed.lora_rank for r in ranks):
-            raise ValueError(
-                f"client_ranks must lie in [1, lora_rank={fed.lora_rank}] "
-                f"(got {tuple(ranks)}); weak clients truncate the global "
-                "rank, they never exceed it")
+    normalize_ranks(fed.client_ranks, n_clients, fed.lora_rank)
 
 
 def run_federated(cfg: ModelConfig, fed: FedConfig, public: Dict,

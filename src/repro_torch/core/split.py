@@ -7,10 +7,13 @@
     c5 client: backprop through its layers, update its LoRA
     cc1-cc4 clients <-> server: LoRA FedAvg of the *client-side* params
 
-Counterpart of ``src/repro/core/split.py`` for the dense decoder family
-with an *inter* split point: the client holds layers [0, L), the server
-layers [L, n) with the final norm and the (tied) head.  Encoder-decoder
-models are not ported (models/transformer.check_supported raises).
+Counterpart of ``src/repro/core/split.py`` for the decoder families the
+port builds (GPT-2, the Griffin hybrid, RWKV-6) with an *inter* split
+point at a pattern-group boundary: the client holds pattern groups [0,
+L), the server the groups [L, G), the tail layers that follow the last
+full group, the final norm and the head (tied to the embedding in GPT-2
+and RecurrentGemma, which both halves keep).  Encoder-decoder models are
+not ported (models/transformer.check_supported raises).
 
 The boundary transfers pass through int8/int4 straight-through
 quantization (paper SSIV.C.2) when ``activation_quant_bits`` is set: the
@@ -38,13 +41,16 @@ from repro_torch.privacy import dp as dp_mod
 # --------------------------------------------------------------------------- #
 # LoRA and base-tree partitioning
 # --------------------------------------------------------------------------- #
-def split_lora(lt, n_client_groups: int):
-    """(client_tree, server_tree) from a full-model LoRA tree."""
+def split_lora(lt, n_client_layers: int):
+    """(client_tree, server_tree) from a full-model LoRA tree: the client
+    takes the first ``n_client_layers`` entries of the flat ``layers``
+    list (L pattern groups: ``make_split_fns``' ``n_client_layers``, L·P),
+    the server the rest, tail included."""
     client, server = {}, {}
     for k, v in lt.items():
         if k == "layers":
-            client[k] = v[:n_client_groups]
-            server[k] = v[n_client_groups:]
+            client[k] = v[:n_client_layers]
+            server[k] = v[n_client_layers:]
         elif k == "encoder":
             client[k] = v
         else:
@@ -63,16 +69,16 @@ def join_lora(client, server):
     return out
 
 
-def split_base(base, n_client_groups: int):
-    """The frozen base params sliced at the split point.  The client half
-    drops the final norm and the head; the server keeps the embedding,
-    which GPT-2's tied head reads."""
+def split_base(base, n_client_layers: int):
+    """The frozen base params sliced after layer ``n_client_layers`` (as
+    ``split_lora``).  The client half drops the final norm and the head;
+    the server keeps the embedding, which a tied head reads."""
     client = dict(base)
-    client["layers"] = base["layers"][:n_client_groups]
-    for k in ("tail", "final_norm", "lm_head"):
+    client["layers"] = base["layers"][:n_client_layers]
+    for k in ("final_norm", "lm_head"):
         client.pop(k, None)
     server = dict(base)
-    server["layers"] = base["layers"][n_client_groups:]
+    server["layers"] = base["layers"][n_client_layers:]
     return client, server
 
 
@@ -82,7 +88,9 @@ def split_base(base, n_client_groups: int):
 def make_split_fns(model: Model, fed: FedConfig,
                    task: str = "classification"):
     """Returns a dict with ``split_step``, ``split_grads``, ``opt_init``,
-    ``n_client_groups`` (L), ``wire_bytes_per_batch`` and ``n_groups``."""
+    ``n_client_groups`` (L), ``n_client_layers`` (L times the pattern's
+    length: the split point of ``split_lora`` and ``split_base``),
+    ``wire_bytes_per_batch`` and ``n_groups``."""
     cfg = model.cfg
     task_loss = tasks.get_loss_fn(task)
     opt_init, opt_update = make_optimizer(fed.optimizer)
@@ -130,7 +138,7 @@ def make_split_fns(model: Model, fed: FedConfig,
             hs, aux = transformer.forward_groups(bound, cfg, h_wire, pos, 0,
                                                  n_groups - L,
                                                  include_tail=True)
-            hs = common.layernorm(bound["final_norm"], hs)
+            hs = common.apply_norm(cfg.norm, bound["final_norm"], hs)
             loss, _ = task_loss(transformer.lm_logits(bound, cfg, hs), batch)
             loss = loss + aux
             *s_grads, h_grad = torch.autograd.grad(loss, s_live + [h_wire])
@@ -171,6 +179,7 @@ def make_split_fns(model: Model, fed: FedConfig,
 
     return {"split_step": split_step, "split_grads": split_grads,
             "opt_init": opt_init, "n_client_groups": L,
+            "n_client_layers": L * transformer.group_len(cfg),
             "wire_bytes_per_batch": wire_bytes_per_batch,
             "n_groups": n_groups}
 

@@ -151,13 +151,17 @@ def forward(params, cfg: ModelConfig, tokens):
 # Layer-range application (Split-FedLLM)
 # --------------------------------------------------------------------------- #
 def n_groups_of(cfg: ModelConfig) -> int:
-    """Pattern groups of the trunk: one per layer in the dense family.
-    Split-FedLLM runs the dense family only: other patterns raise."""
+    """Full pattern groups of the trunk (the tail layers after the last
+    one are not counted): one per layer in the dense family and in
+    RWKV-6, one per (rglru, rglru, local_attn) in the Griffin hybrid."""
     check_supported(cfg)
-    if cfg.family != "dense" or cfg.layer_pattern is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: Split-FedLLM is ported for the dense family only")
-    return cfg.n_layers
+    return _group_split(cfg)[1]
+
+
+def group_len(cfg: ModelConfig) -> int:
+    """Layers per pattern group: pattern group g holds layers [g·P,
+    (g + 1)·P) of ``params["layers"]``."""
+    return len(_group_split(cfg)[0])
 
 
 def forward_groups(params, cfg: ModelConfig, h, positions, start: int,

@@ -137,3 +137,74 @@ def n_params(lora_tree) -> int:
 def n_bytes(lora_tree) -> int:
     return sum(x.numel() * x.element_size()
                for x in tree_lib.leaves(lora_tree))
+
+
+# --------------------------------------------------------------------------- #
+# Heterogeneous-rank harmonization (paper SS IV.A.2)
+# --------------------------------------------------------------------------- #
+def map_factors(fn: Callable, *trees):
+    """``fn`` over the matching LoRA leaves ({"a", "b"} dicts) of
+    ``trees``, one leaf of each tree a call, keeping the first tree's
+    containers and its ``None`` layers."""
+    t0 = trees[0]
+    if isinstance(t0, dict) and set(t0) == {"a", "b"}:
+        return fn(*trees)
+    if isinstance(t0, dict):
+        return {k: map_factors(fn, *[t[k] for t in trees]) for k in t0}
+    if isinstance(t0, (tuple, list)):
+        return type(t0)(
+            None if v is None else map_factors(fn, *[t[i] for t in trees])
+            for i, v in enumerate(t0))
+    return t0
+
+
+def pad_rank(lora_tree, target_rank: int, rescale: bool = True):
+    """Zero-pad a LoRA tree's rank dim up to ``target_rank``.
+
+    bind scales the delta by alpha/rank, so growing the rank would shrink
+    the learned delta; with ``rescale`` (default) B is multiplied by
+    target/orig so the effective delta is preserved exactly (the padded
+    rows of B are zero, so the extra rank starts inert)."""
+
+    def pad(leaf):
+        orig = leaf["a"].shape[-1]
+        n = target_rank - orig
+        gain = (target_rank / orig) if (rescale and orig) else 1.0
+        b = leaf["b"] * gain
+        if n <= 0:
+            return {"a": leaf["a"], "b": b}
+        return {"a": torch.nn.functional.pad(leaf["a"], (0, n)),
+                "b": torch.nn.functional.pad(b, (0, 0, 0, n))}
+
+    return map_factors(pad, lora_tree)
+
+
+def truncate_rank(lora_tree, rank: int, orig_rank: int):
+    """Keep the first ``rank`` components, rescaling for bind's alpha/r:
+    the client binds with alpha/rank, the global delta was alpha/orig, so
+    B shrinks by rank/orig to keep the effective delta's scale.  The
+    factors are copied contiguous, as the fused LoRA kernels take them."""
+    gain = rank / max(orig_rank, 1)
+    return map_factors(
+        lambda leaf: {"a": leaf["a"][..., :rank].contiguous(),
+                      "b": leaf["b"][..., :rank, :] * gain}, lora_tree)
+
+
+def maybe_truncate_rank(lora_tree, rank: int, orig_rank: int):
+    """The a1/cc3 distribution rule: a weak client gets a truncated copy
+    of the global tree, a full-rank client the tree itself."""
+    if rank == orig_rank:
+        return lora_tree
+    return truncate_rank(lora_tree, rank, orig_rank)
+
+
+def svd_truncate(delta: torch.Tensor, rank: int):
+    """Rank-``rank`` factorization (U·S, Vᵀ) of a (possibly stacked)
+    delta by ``torch.linalg.svd``, in fp32 (fp64 for an fp64 delta): the
+    reference calls ``jnp.linalg.svd`` outside any Pallas kernel.  The
+    signs of the factors' columns are the library's choice, so only the
+    product is comparable across libraries."""
+    u, s, vt = torch.linalg.svd(delta.to(compute_dtype(delta.dtype)),
+                                full_matrices=False)
+    return (u[..., :, :rank] * s[..., None, :rank]).contiguous(), \
+        vt[..., :rank, :].contiguous()

@@ -197,3 +197,58 @@ def test_every_counted_kernel_has_its_row_in_the_kernels_line():
     assert set(cs.VMAPPED) <= set(cs.REPLACES)
     assert cs.REPLACES["lora_panel_examples"][0] == \
         cs.REPLACES["lora_panel"][0]
+
+
+@pytest.mark.parametrize("seed,n,staleness,rounds", [
+    (17, 3, 2, 4), (17, 3, 0, 3), (4, 5, 3, 7), (30, 2, 1, 6)])
+def test_async_reckoning_is_the_schedule_the_run_follows(seed, n, staleness,
+                                                         rounds):
+    """Phase 11's hand reckoning of an async run's jobs (numpy alone) is
+    the round program's AsyncSchedule driven as run_program drives it:
+    the same starts, and the same arrivals at the same staleness."""
+    pytest.importorskip("torch")
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core.round_program import AsyncSchedule
+
+    sched = AsyncSchedule(FedConfig(seed=seed - 17, max_staleness=staleness,
+                                    aggregation="async"), n)
+    starts, arrivals = [], []
+    for rnd in range(rounds):
+        for ci in sched.starters(rnd):
+            starts.append((rnd, ci))
+            sched.submit(rnd, ci, None)
+        arrivals += [(rnd, j.client, rnd - j.start)
+                     for j in sched.pop_arrivals(rnd)]
+    assert cs.async_reckoning(seed, n, staleness, rounds) == (starts,
+                                                              arrivals)
+
+
+def test_lora_deltas_walks_the_tree_in_order():
+    """Phase 11's lora_deltas: alpha / r * A @ B of every LoRA leaf, in
+    tree order, skipping the None layers of a hybrid; two trees whose
+    factors differ by a sign flip of a rank component give the same
+    deltas."""
+    torch = pytest.importorskip("torch")
+    gen = torch.Generator().manual_seed(0)
+
+    def leaf(d, r, f):
+        return {"a": torch.randn(d, r, generator=gen),
+                "b": torch.randn(r, f, generator=gen)}
+    tree = {"layers": [None, {"attn": {"wq": leaf(6, 2, 5),
+                                       "wv": leaf(6, 2, 3)}},
+                       None, {"attn": {"wq": leaf(6, 4, 5)}}]}
+    flip = torch.tensor([-1.0, 1.0])
+    flipped = {"layers": [None, {"attn": {
+        k: {"a": v["a"] * flip, "b": v["b"] * flip[:, None]}
+        for k, v in tree["layers"][1]["attn"].items()}}, None,
+        tree["layers"][3]]}
+    want = [8.0 / 2 * tree["layers"][1]["attn"]["wq"]["a"]
+            @ tree["layers"][1]["attn"]["wq"]["b"],
+            8.0 / 2 * tree["layers"][1]["attn"]["wv"]["a"]
+            @ tree["layers"][1]["attn"]["wv"]["b"],
+            8.0 / 4 * tree["layers"][3]["attn"]["wq"]["a"]
+            @ tree["layers"][3]["attn"]["wq"]["b"]]
+    for got in (cs.lora_deltas(tree, 8.0), cs.lora_deltas(flipped, 8.0)):
+        assert [g.shape for g in got] == [w.shape for w in want]
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)

@@ -152,15 +152,15 @@ def test_auto_policy_resolves_by_device():
 
 
 @pytest.mark.parametrize("change", [
-    dict(framework="kd", aggregation="async"),
-    dict(framework="split", aggregation="async"),
+    dict(framework="kd", backend="spmd", aggregation="async"),
+    dict(framework="split", backend="spmd", aggregation="async"),
     dict(backend="spmd", privacy=PrivacyConfig(dp_clip=0.5)),
-    dict(backend="cohort"), dict(aggregation="async"),
-    dict(client_ranks=(2, 4, 4)), dict(robust_agg="median"),
+    dict(backend="cohort"), dict(backend="spmd", aggregation="async"),
+    dict(backend="spmd", client_ranks=(2, 4, 4)), dict(robust_agg="median"),
     dict(quorum=0.5), dict(screen_factor=3.0), dict(optimizer="sgd"),
     dict(peft="adapter"),
-    dict(framework="split", client_ranks=(2, 4, 4)),
-    dict(aggregation="async", privacy=PrivacyConfig(secure_agg=True)),
+    dict(framework="split", backend="spmd", client_ranks=(2, 4, 4)),
+    dict(aggregation="async", robust_agg="median"),
     dict(faults=FaultConfig(dropout_rate=0.2)),
 ])
 def test_unported_settings_raise(tiny_case, change):

@@ -442,12 +442,16 @@ def test_kd_and_dp_rounds_and_final_lora_close(other_runs, case):
         np.testing.assert_allclose(g, w, atol=5e-5, rtol=5e-4)
 
 
-def test_split_refuses_the_hybrid(hybrid):
-    cfg = hybrid["cfg"]
-    pub, train, test = banking77.paper_splits(cfg.vocab_size, pad_len=16,
-                                              scale=0.02)
-    fed = FedConfig(framework="split", split_layer=1, rounds=1,
-                    lora_dropout=0.0)
-    with pytest.raises(NotImplementedError, match="Split"):
-        run_federated(cfg, fed, pub, partition.iid_partition(train, 3), test,
-                      device="cpu", base=hybrid["base"])
+def test_split_step_on_the_hybrid_matches_reference():
+    """Split-FedLLM runs on this 5-layer hybrid (one pattern group and the
+    two-layer tail, so split_layer 1 leaves the client no layer: L = 0,
+    the client only embeds and the server holds every layer, the final
+    RMSNorm and the tied head), as the reference's does: the reference's
+    own split_train_step runs, and one port split step from the same
+    weights and batch gives its boundary, c4 gradient, LoRA gradient and
+    loss (tests/test_torch_split_family.py; the runs against the
+    reference: tests/test_torch_split_hybrid*.py)."""
+    import test_torch_split_family as fam
+    sfns = fam.assert_split_step_matches("hybrid", 5, 1, 6)
+    assert sfns["n_client_groups"] == 0 and sfns["n_groups"] == 1
+    assert sfns["n_client_layers"] == 0

@@ -631,12 +631,16 @@ def test_kd_and_dp_rounds_and_final_lora_close(other_runs, case):
     assert apart <= 1e-5
 
 
-def test_split_refuses_rwkv(model_case):
-    cfg = model_case["cfg"]
-    pub, train, test = banking77.paper_splits(cfg.vocab_size, pad_len=16,
-                                              scale=0.02)
-    fed = FedConfig(framework="split", split_layer=1, rounds=1,
-                    lora_dropout=0.0, lora_targets=TARGETS)
-    with pytest.raises(NotImplementedError, match="Split"):
-        run_federated(cfg, fed, pub, partition.iid_partition(train, 3), test,
-                      device="cpu", base=model_case["base"])
+def test_split_step_on_rwkv_matches_reference():
+    """Split-FedLLM runs on this 2-layer RWKV-6 (split_layer 1: the client
+    holds layer 0, the server layer 1, the final LayerNorm and the untied
+    head), as the reference's does: the reference's own split_train_step
+    runs, and one port split step from the same weights and batch gives
+    its boundary, c4 gradient, LoRA gradient of both halves and loss
+    (tests/test_torch_split_family.py; the runs against the reference:
+    tests/test_torch_split_rwkv*.py).  At S 24 the reference's WKV takes
+    its step scan, so no exponent clamp binds."""
+    import test_torch_split_family as fam
+    assert 24 % ref_rwkv6.CHUNK != 0
+    sfns = fam.assert_split_step_matches("rwkv", 2, 1, 8)
+    assert sfns["n_client_groups"] == sfns["n_client_layers"] == 1
