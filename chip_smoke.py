@@ -33,7 +33,12 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    the norm kernel's error against an fp64 sqrt(sum(g·g)) within
    FP64_FACTOR times the larger of its fp32 twin's and vector_norm's, and
    its bits the same on two eager calls and two replays of one CUDA
-   graph; the per-row quantizers (int8 and int4
+   graph; the clip-accumulate kernel with a client axis (row 14ᶜ) at the
+   spmd DP step's (3, 16, 442368) and at four edges (one client, a
+   ragged width, a zero row, a misaligned base), each client bit for bit
+   one dp_clip_acc launch on its rows, timed beside torch.bmm, and the
+   norm kernel and row 4ᵉ's pair at the step's 48 stacked examples;
+   the per-row quantizers (int8 and int4
    levels, the int4 pack, and the one-pass roundtrip's dequantized
    values, compared as integers so that the sign of a zero counts) bit
    for bit at the Split boundary's (1280, 768) and at ragged widths (warp
@@ -265,7 +270,21 @@ outside that limit.  fp32_gates holds that arithmetic.
    per stacked train step 36 lora_fwd_clients, 36 lora_dx_clients and 72
    lora_panel_clients; the single model's forwards and backwards keep
    rows 1, 2 and 4), the plain runs' none.  Round times of both
-   backends and both policies are printed.
+   backends and both policies are printed.  FedLLM async at
+   max_staleness 0 under spmd gives the sync spmd kernel run to the last
+   bit.  DP-FedLLM under spmd (run_spmd_dp: phase 5's clip, noise 0,
+   secure aggregation): each client's (16, P) per-example rows and
+   clipped mean of the first stacked step gated from fp64 as phase 5
+   gates client 0's, row 14ᶜ's mean held bit for bit to one dp_clip_acc
+   launch a client; one kernel run whose ledger, client FLOPs and
+   epsilon are phase 5's sequential kernel run's, whose final LoRA lies
+   within phase 5's limit of phase 5's fp64 run, and whose stacked step
+   launches 36 lora_panel_examples_pair over the 48 stacked examples,
+   one dp_clip_norms and one dp_clip_acc_clients.  After phase 11, whose
+   runs are their yardsticks (run_spmd_hetero): client ranks (2, 4, 8)
+   under spmd, zeropad and svd, and async with max_staleness 2 over 4
+   rounds, each within phase 11's limits of phase 11's runs, ledgers and
+   launches exact.
 
 11. Heterogeneous client ranks and async aggregation (run_hetero):
    FedLLM at full gpt2 width from phase 3's weights and data with
@@ -278,11 +297,26 @@ outside that limit.  fp32_gates holds that arithmetic.
    launch count exact.  Async with max_staleness 0 must give phase 3's
    sync kernel run to the last bit.
 
-After phase 11 it prints each kernel's launches times its time beyond
+12. The cohort backend (run_cohort): FedLLM, KD and Split at full gpt2
+   width from phase 3's weights over a lazy DirichletPopulation of 12
+   clients drawn from phase 3's training rows (16 rows each, alpha 0.5,
+   seed 0), streamed in chunks of 4 (one stacked spmd program and one
+   secure-aggregation cohort a chunk) through 2 edge aggregators.
+   FedLLM with secure aggregation takes run_case's continuous gates
+   (kernels, two fp32 plain runs, TF32, fp64); its ledger by name and by
+   hop is reckoned by hand (the client->edge hop equal to the same run's
+   total at n_edges 0, two edges' fused payload up and down a round),
+   client FLOPs by hand, launches exact, and its peak device memory
+   must lie below the same run's with the whole fleet in one chunk.  KD
+   (top-k 8, int8) and Split (int8 boundary): one kernel run each
+   against a kernel run with cohort_size 0, within the spread limits of
+   phases 4 and 6, ledgers and launches exact.
+
+After phase 12 it prints each kernel's launches times its time beyond
 max(bound, launch floor) (the rule-2 queue), the final-LoRA margins of
 phase 7, Split int8 and RWKV-6, phase 5's first-step and final-LoRA
 margins, phase 8's KD and DP shares and the shares of the Split, hetero
-and async gates of phases 7, 8 and 11 (each kernel run's share of its
+and async gates of phases 7, 8, 10, 11 and 12 (each kernel run's share of its
 limit, beside the last recorded run's, or "new"), then one JSON
 line with every kernel's numbers and, last, the line ``{"ok": true, "device": {...}}``.  It imports nothing of
 JAX.
@@ -315,7 +349,8 @@ WKV_ATOL, WKV_RTOL = 1e-5, 1e-4
 # them: at the main path's shapes an eager call's host cost exceeds their
 # device time
 GRAPH_TIMED = ("kd_fwd", "kd_bwd", "kd_bwd_dt", "topk_quantize",
-               "dp_clip_norms", "dp_clip_acc", "quantize_rows",
+               "dp_clip_norms", "dp_clip_acc", "dp_clip_acc_clients",
+               "quantize_rows",
                "quantize_rows_int4", "quantize_pack4", "quant_roundtrip_rows",
                "quant_roundtrip_rows_int4", "rglru_fwd",
                "rglru_bwd", "rwkv6_fwd", "rwkv6_bwd", "lora_panel",
@@ -759,17 +794,20 @@ def pair_checks(device, peaks_) -> dict:
     shape its bits are those of the two lora_panel_examples launches it
     replaces (the old way) and the same over two eager calls and two graph
     replays, and it agrees with its twin within the LoRA tolerance; at the
-    four sites its rms error against fp64 (dA and dB together) is within
-    PAIR_FP64_FACTOR times torch.bmm's, and it is timed eager and in a
-    graph beside its twin, two torch.bmm calls (the library), the old way
-    and its bound.  Returns the timed rows ("lora_panel_examples_pair",
-    "...@rg", "...@rg256", "...@rwkv")."""
+    four sites, and at GPT-2's over the spmd DP step's stacked batch of
+    CLIENTS x BATCH examples, its rms error against fp64 (dA and dB
+    together) is within PAIR_FP64_FACTOR times torch.bmm's, and it is
+    timed eager and in a graph beside its twin, two torch.bmm calls (the
+    library), the old way and its bound.  Returns the timed rows
+    ("lora_panel_examples_pair", "...@c48", "...@rg", "...@rg256",
+    "...@rwkv")."""
     import torch
 
     from repro_torch.kernels import lora_matmul as lm
     from repro_torch.kernels import ref
 
     shapes = [(BATCH, PAD_LEN, 768, 768, RANK, 0, ""),
+              (CLIENTS * BATCH, PAD_LEN, 768, 768, RANK, 0, "@c48"),
               (BATCH, PAD_LEN, 2560, 2560, RANK, 0, "@rg"),
               (BATCH, PAD_LEN, 2560, 256, RANK, 0, "@rg256"),
               (BATCH, PAD_LEN, 2048, 2048, RANK, 0, "@rwkv"),
@@ -829,6 +867,77 @@ def pair_checks(device, peaks_) -> dict:
               f"eager {row['old_way_ms']:.4f} ms, in a graph "
               f"{row['old_way_graph_ms']:.4f} ms")
         rows[name + tag] = row
+    return rows
+
+
+def clip_clients_checks(device, peaks_) -> dict:
+    """Phase 2's part for row 14ᶜ (dp_clip_acc_clients: each stacked
+    client's mean of its clipped rows, the client on a grid axis) at the
+    spmd DP step's (CLIENTS, BATCH, DP_WIDTH), half the rows clipped, and
+    at edges: one client, a ragged width (scalar loads), a zero row, and
+    the main shape from a base one float off 16-byte alignment.  At every
+    shape each client's output is bit for bit that of dp_clip_acc (one
+    launch a client) on its rows, and the kernel agrees with its twin
+    within the DP tolerance; at the main shape it is timed eager and in a
+    graph beside its twin, torch.bmm (the library: each client's scales
+    (1, B) times its rows) and its bound, and row 13 (one dp_clip_norms
+    launch over the C·B rows) is timed beside it.  Returns the rows
+    "dp_clip_acc_clients" and "dp_clip_norms@c48"."""
+    import torch
+
+    from repro_torch.kernels import dp_clip
+    from repro_torch.kernels import ref
+    from repro_torch.optim.clip import EPS
+
+    name = "dp_clip_acc_clients"
+    shapes = [(1, 8, 384, False, 0, False), (3, 4, 257, False, 0, False),
+              (2, 5, 100003, True, 0, False),
+              (CLIENTS, BATCH, DP_WIDTH, True, 1, False),
+              (CLIENTS, BATCH, DP_WIDTH, False, 0, True)]
+    rows = {}
+    for i, (C, B, P, zero_row, offset, main) in enumerate(shapes):
+        g = dp_rows(device, C * B, P, zero_row, offset, 330 + i).view(C, B, P)
+        sq = dp_clip.dp_clip_norms(g.view(C * B, P)).view(C, B)
+        clip = float(sq.sqrt().median())
+        clipped = int((sq.sqrt() > clip).sum())
+        where = (f"({C}, {B}, {P}), C {clip:.4g}, {clipped} of {C * B} rows "
+                 f"clipped{', a zero row' if zero_row else ''}"
+                 f"{', offset 1' if offset else ''}")
+        got = dp_clip.dp_clip_acc_clients(g, sq, clip)
+        for c in range(C):
+            require(torch.equal(got[c], dp_clip.dp_clip_acc(g[c], sq[c],
+                                                            clip)),
+                    f"{name} {where}: client {c} not the bits of dp_clip_acc "
+                    f"on its rows")
+
+        def lib():
+            scale = torch.clamp_max(torch.full_like(sq, clip)
+                                    / torch.clamp_min(sq.sqrt(), EPS), 1.0)
+            return torch.bmm(scale.view(C, 1, B), g).view(C, P) * (1.0 / B)
+
+        case = (lambda: dp_clip.dp_clip_acc_clients(g, sq, clip),
+                lambda: ref.clip_acc_clients(g, sq, clip), lib,
+                4 * (C * B * P + C * B + C * P), 2 * C * B * P + 3 * C * B)
+        if not main:
+            err = max_err(name, case[0](), case[1]())
+            print(f"  {name} {where}: max abs err {err:.3e}; each client the "
+                  f"bits of dp_clip_acc on its rows")
+            continue
+        require(0 < clipped < C * B, f"{name}: {clipped} of {C * B} rows "
+                f"clipped")
+        print(f"  {name} at the spmd DP step's {where}, each client the bits "
+              f"of dp_clip_acc on its rows:")
+        rows[name] = time_case(name, case, peaks_)
+        rows[name].update(old_way_ms=cuda_ms(
+            lambda: [dp_clip.dp_clip_acc(g[c], sq[c], clip)
+                     for c in range(C)]))
+        print(f"  the old way: {C} dp_clip_acc launches, eager "
+              f"{rows[name]['old_way_ms']:.4f} ms")
+        print(f"  dp_clip_norms over the stacked step's {C * B} rows:")
+        rows["dp_clip_norms@c48"] = time_case(
+            "dp_clip_norms",
+            dp_cases(device, C * B, P, "half", False, 340)[0]["dp_clip_norms"],
+            peaks_)
     return rows
 
 
@@ -2057,6 +2166,7 @@ def check_kernels(device, card: str):
     require(0 < clipped < BATCH, f"{clipped} of {BATCH} rows clipped")
     for name, case in cases.items():
         rows[name] = time_case(name, case, peaks_)
+    rows.update(clip_clients_checks(device, peaks_))
     dp_norm_fp64_errors(device, 22)
     dp_norms_repeat(device, 23)
     torch.cuda.empty_cache()
@@ -2261,7 +2371,9 @@ MARGINS_BEFORE = {"phase 7": 0.402, "Split int8": 0.862, "RWKV-6": 0.867,
                   "RecurrentGemma-2B Split int8": None,
                   "RWKV-6 Split fp32 first step": None,
                   "RWKV-6 Split int8 flips": None,
-                  "hetero zeropad": None, "hetero svd": None, "async": None}
+                  "hetero zeropad": None, "hetero svd": None, "async": None,
+                  "DP spmd final LoRA": None, "hetero zeropad spmd": None,
+                  "hetero svd spmd": None, "async spmd": None, "cohort": None}
 
 
 def rwkv_bwd_repeat(device, seed) -> None:
@@ -2478,6 +2590,12 @@ def add_counts(*counts) -> dict:
         for name, n in c.items():
             out[name] = out.get(name, 0) + n
     return out
+
+
+def nonzero(counts) -> dict:
+    """The entries of a launch-count dict that are not 0: check_launches'
+    ``expect`` names only the kernels a path launches."""
+    return {name: n for name, n in counts.items() if n}
 
 
 def run_slices(device):
@@ -2862,7 +2980,8 @@ def run_dp(device, cfg, base, data, steps, evals, lora_bytes):
             ledger={"lora_params": fed.rounds * C * 2 * lora_bytes,
                     "secagg_keys": fed.rounds * C * (keys_up + keys_down),
                     "dp_meta": fed.rounds * C * 12},
-            expect=expect, margin="DP final LoRA")
+            expect=expect, margin="DP final LoRA", keep="dp")
+        CASES["dp"]["clip"] = clip
     finally:
         dp_clip.dp_clip_norms = real_norms
     clipped = sum(int(n) for n, _ in seen)
@@ -3088,12 +3207,11 @@ def first_step_gaps(device, cfg, base, fed, clients):
                       "round 0 step 0 LoRA gradient")
 
 
-def dp_first_step_gaps(device, cfg, base, fed, clients):
-    """DP-FedLLM's first train step (client 0's first batch, the run's
-    initial LoRA) under each of each_run(exact=True)'s settings: the (B,
-    P) per-example gradient rows of the batched pass and their clipped
-    mean.  Returns each run's relative L2 distance from the fp64 run's,
-    (rows, clipped mean) (from_exact)."""
+def dp_first_step_runs(device, cfg, base, fed, clients, ci: int = 0):
+    """DP-FedLLM's first train step (client ``ci``'s first batch, the
+    run's initial LoRA) under each of each_run(exact=True)'s settings: the
+    (B, P) per-example gradient rows of the batched pass and their clipped
+    mean, ({role: [rows]}, {role: [clipped mean]})."""
     import torch
 
     from repro_torch.core.fedavg import make_fns
@@ -3101,7 +3219,7 @@ def dp_first_step_gaps(device, cfg, base, fed, clients):
     from repro_torch.models.factory import build_model
     from repro_torch.privacy import dp as dp_mod
 
-    lt, batch = first_step_inputs(device, base, fed, clients)
+    lt, batch = first_step_inputs(device, base, fed, clients, ci)
     rows, means = {}, {}
     for role, tag, policy in each_run(exact=True):
         model = build_model(dataclasses.replace(cfg, kernel_policy=policy))
@@ -3112,6 +3230,13 @@ def dp_first_step_gaps(device, cfg, base, fed, clients):
             means[role] = [dp_mod.clipped_grad_mean(got, fed.privacy.dp_clip)]
         del b, l
     torch.cuda.empty_cache()
+    return rows, means
+
+
+def dp_first_step_gaps(device, cfg, base, fed, clients):
+    """dp_first_step_runs of client 0: each run's relative L2 distance from
+    the fp64 run's, (rows, clipped mean) (from_exact)."""
+    rows, means = dp_first_step_runs(device, cfg, base, fed, clients)
     return (from_exact(rows, "round 0 step 0 per-example LoRA gradient "
                        "rows"),
             from_exact(means, "round 0 step 0 clipped mean LoRA gradient"))
@@ -3547,6 +3672,22 @@ def run_spmd(device):
                            ("sequential kernels", seq["results"]["kernels"]),
                            ("sequential plain", plain)])
 
+    print("phase 10: FedLLM, async at max_staleness 0, spmd, against the "
+          "sync spmd kernel run")
+    r0, counts = run(dataclasses.replace(fed, aggregation="async",
+                                         max_staleness=0), "cuda", expect)
+    same_accounting(r0, kern, "FedLLM spmd async at max_staleness 0")
+    require([(h.loss, h.accuracy) for h in r0.history]
+            == [(h.loss, h.accuracy) for h in kern.history]
+            and all(torch.equal(a, b) for a, b in zip(
+                tree_lib.leaves(r0.final_lora),
+                tree_lib.leaves(kern.final_lora))),
+            "FedLLM spmd async at max_staleness 0: round metrics or final "
+            "LoRA differ from the sync spmd kernel run")
+    print("  async at max_staleness 0: round metrics, ledger, FLOPs, launches "
+          "and final LoRA bit-identical to the sync spmd kernel run")
+    by_path["fedllm_spmd_async0"] = counts
+
     print("phase 10: KD, top-k 8 int8 logits, spmd")
     fed = FedConfig(framework="kd", rounds=2, lora_rank=RANK,
                     lora_dropout=0.0, logit_topk=8, logit_quant_bits=8,
@@ -3614,9 +3755,138 @@ def run_spmd(device):
                               (f"sequential {role}", seq["results"][role])])
         if policy == "cuda":
             by_path["split_spmd"] = counts
+
+    by_path["dp_spmd"] = run_spmd_dp(device, cfg, base, data, run,
+                                     same_accounting, round_times)
     del base
     torch.cuda.empty_cache()
     return by_path
+
+
+def spmd_dp_first_step(device, cfg, base, fed, clients):
+    """The spmd backend's first stacked DP-SGD step through the kernels:
+    every client's first batch of round 0 against the run's initial LoRA
+    stacked for the clients, the (C, B, P) per-example rows of the stacked
+    pass (make_fns' ``per_example_grads_clients``) and each client's
+    clipped mean (privacy/dp.clipped_grad_mean_clients) under policy
+    ``cuda``.  Row 14ᶜ's mean is held bit for bit, client by client, to
+    one dp_clip_acc launch on the client's rows (the same norms).  Returns
+    (rows, means)."""
+    import torch
+
+    from repro_torch.core import fed_spmd
+    from repro_torch.core.fedavg import make_fns
+    from repro_torch.kernels import dp_clip, ops
+    from repro_torch.models.factory import build_model
+    from repro_torch.privacy import dp as dp_mod
+
+    C = len(clients)
+    inputs = [first_step_inputs(device, base, fed, clients, ci)
+              for ci in range(C)]
+    slt = fed_spmd.stack_for_clients(inputs[0][0], C)
+    batch = {k: torch.cat([b[k] for _, b in inputs]) for k in inputs[0][1]}
+    fns = make_fns(build_model(dataclasses.replace(cfg, kernel_policy="cuda")),
+                   fed)
+    clip = fed.privacy.dp_clip
+    with ops.policy_scope("cuda"):
+        _, rows = fns["per_example_grads_clients"](base, slt, batch)
+        means = dp_mod.clipped_grad_mean_clients(rows, clip)
+    B, P = rows.shape[1:]
+    sq = dp_clip.dp_clip_norms(rows.view(C * B, P)).view(C, B)
+    for c in range(C):
+        require(torch.equal(means[c], dp_clip.dp_clip_acc(rows[c], sq[c],
+                                                          clip)),
+                f"spmd DP first step: client {c}'s clipped mean is not the "
+                f"bits of dp_clip_acc on its rows")
+    print(f"  the stacked step's ({C}, {B}, {P}) rows: each client's clipped "
+          f"mean (dp_clip_acc_clients) the bits of dp_clip_acc on its rows")
+    return rows, means
+
+
+def run_spmd_dp(device, cfg, base, data, run, same_accounting, round_times):
+    """Phase 10's DP-FedLLM under spmd: phase 5's clip C, noise 0, secure
+    aggregation, the 3 clients stacked.  Each client's (B, P) per-example
+    rows and clipped mean of the first stacked step gated from fp64 as
+    phase 5 gates client 0's; one kernel run: the ledger, client FLOPs
+    and epsilon those of phase 5's sequential kernel run, the final LoRA
+    from phase 5's fp64 run within phase 5's limit, each round's loss
+    within phase 5's limit of its plain run; a stacked step launches 36
+    lora_panel_examples_pair over the C·B examples, one dp_clip_norms and
+    one dp_clip_acc_clients, no lora_panel_clients.  Returns the launch
+    counts."""
+    from repro_torch.configs.base import FedConfig, PrivacyConfig
+    from repro_torch.kernels import lora_matmul as lm
+
+    pub, clients, test = data
+    L, C = cfg.n_layers, len(clients)
+    dp = CASES["dp"]
+    print(f"phase 10: DP-FedLLM, spmd ({C} clients stacked), phase 5's clip "
+          f"C = {dp['clip']:.6g}, noise 0, secure aggregation")
+    fed = FedConfig(framework="fedllm", rounds=2, lora_rank=RANK,
+                    lora_dropout=0.0, backend="spmd",
+                    privacy=PrivacyConfig(dp_clip=dp["clip"], secure_agg=True))
+    rows, means = spmd_dp_first_step(device, cfg, base, fed, clients)
+    for ci in range(C):
+        runs_rows, runs_means = dp_first_step_runs(device, cfg, base, fed,
+                                                   clients, ci)
+        runs_rows["kernels"], runs_means["kernels"] = [rows[ci]], [means[ci]]
+        floor_gate(f"client {ci}'s first-step per-example rows, stacked "
+                   f"kernel step", from_exact(
+                       runs_rows, f"round 0 step 0 per-example rows of "
+                       f"client {ci}"))
+        floor_gate(f"client {ci}'s first-step clipped mean, stacked kernel "
+                   f"step", from_exact(runs_means, f"round 0 step 0 clipped "
+                                       f"mean of client {ci}"))
+    del rows, means
+    stacked = max(len(c["tokens"]) // BATCH for c in clients) * fed.rounds
+    evals = len(test["tokens"]) // 64
+    expect = add_counts(model_launches(L, stacked, 0, True),
+                        model_launches(L, 0, evals * fed.rounds))
+    # one pass a stacked step: each LoRA site's per-example dA and dB in
+    # one pair launch over the C·B examples, in place of the client-axis
+    # panel gradient; the norms over the C·B rows, the clip-accumulate with
+    # the client on a grid axis
+    expect["lora_panel_examples_pair"] = expect.pop("lora_panel_clients") // 2
+    expect.update(dp_clip_norms=stacked, dp_clip_acc_clients=stacked)
+    real_pair, examples = lm.lora_panel_examples_pair, set()
+
+    def pair(x, gb, g, xa):
+        examples.add(x.shape[0])
+        return real_pair(x, gb, g, xa)
+
+    lm.lora_panel_examples_pair = pair
+    try:
+        kern, counts = run(fed, "cuda", expect)
+    finally:
+        lm.lora_panel_examples_pair = real_pair
+    require(examples == {C * BATCH}, f"spmd DP: pair launches over "
+            f"{sorted(examples)} examples, expected {C * BATCH}")
+    seq = dp["results"]["kernels"]
+    same_accounting(kern, seq, "DP spmd")
+    require([h.epsilon for h in kern.history]
+            == [h.epsilon for h in seq.history] == [math.inf] * fed.rounds,
+            f"DP spmd: epsilon {[h.epsilon for h in kern.history]}")
+    exact, plain = dp["results"]["exact"], dp["results"]["plain"]
+    share, rel, worst = lora_gap(kern.final_lora, exact.final_lora)
+    print(f"  final LoRA spmd kernels vs phase 5's fp64: relative L2 "
+          f"{rel:.3e} (limit {dp['limits']['lora']:.3e}, "
+          f"{rel / dp['limits']['lora']:.3f} of it), outside atol 5e-5/rtol "
+          f"5e-4 {share:.3e}, max abs {worst:.3e}")
+    MARGINS["DP spmd final LoRA"] = rel / dp["limits"]["lora"]
+    require(rel <= dp["limits"]["lora"], "DP spmd: final LoRA of the kernel "
+            "run off phase 5's fp64 run beyond phase 5's limit")
+    for h, hp, lim in zip(kern.history, plain.history, dp["limits"]["loss"]):
+        print(f"  round {h.round} loss spmd kernels vs phase 5's plain: "
+              f"{abs(h.loss - hp.loss):.3e} (limit {lim:.3e})")
+        require(abs(h.loss - hp.loss) <= lim, "DP spmd: round loss of the "
+                "kernel run off phase 5's plain run beyond phase 5's limit")
+    print(f"  a stacked step: {3 * L} pair "
+          f"launches over {C * BATCH} examples, one dp_clip_norms, one "
+          f"dp_clip_acc_clients")
+    round_times("DP-FedLLM", [("spmd kernels", kern),
+                              ("sequential kernels", seq),
+                              ("sequential plain", plain)])
+    return counts
 
 
 def lora_deltas(tree, alpha: float):
@@ -3713,7 +3983,7 @@ def run_hetero(device):
             device, cfg, base, dataclasses.replace(fed, hetero_agg=agg),
             data, ledger=ledger, expect=expect, margin=f"hetero {agg}",
             view=None if agg == "zeropad" else
-            (lambda t: lora_deltas(t, fed.lora_alpha)))
+            (lambda t: lora_deltas(t, fed.lora_alpha)), keep=f"hetero {agg}")
         counts.append(c)
 
     rounds, staleness = 4, 2
@@ -3733,7 +4003,7 @@ def run_hetero(device):
                                    for _, ci in starts)
                 + sum(lora_bytes(ranks[ci]) for _, ci, _ in arrivals)},
         expect=model_launches(L, sum(client_steps[ci] for _, ci in starts),
-                              evals * rounds), margin="async")
+                              evals * rounds), margin="async", keep="async")
     counts.append(c)
 
     print("phase 11: async, max_staleness 0, against phase 3's sync "
@@ -3760,6 +4030,318 @@ def run_hetero(device):
     del base
     torch.cuda.empty_cache()
     return add_counts(*counts)
+
+
+def run_spmd_hetero(device):
+    """Phase 10 after phase 11, whose runs are its yardsticks (CASES):
+    the spmd backend with client ranks (2, 4, RANK), one stacked program
+    a rank bucket (here one client each), at full gpt2 width from phase
+    3's weights and data, through the kernels: hetero_agg "zeropad" and
+    "svd" (2 rounds) and async aggregation with max_staleness 2 over 4
+    rounds (zeropad), each held to phase 11's sequential runs with phase
+    11's continuous gates: the final LoRA from phase 11's fp64 run within
+    its limit (svd's through its deltas, lora_deltas), each round's loss
+    within its limit of phase 11's plain run; the ledger (the async run's
+    reckoned by hand, async_reckoning) and client FLOPs those of phase
+    11's kernel runs; launches exact, the LoRA ones the client-axis
+    kernels'.  Returns the sum of the launch counts."""
+    import torch
+
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.configs.gpt2_small import gpt2
+    from repro_torch.data import banking77, partition
+    from repro_torch.models.factory import build_model
+
+    cfg = gpt2()
+    pub, train, test = banking77.paper_splits(cfg.vocab_size,
+                                              pad_len=PAD_LEN, scale=0.03)
+    clients = partition.iid_partition(train, CLIENTS)
+    data = (pub, clients, test)
+    base = build_model(cfg).init(torch.Generator().manual_seed(0), device)
+    L, C, d = cfg.n_layers, len(clients), cfg.d_model
+    ranks = (2, 4, RANK)
+    client_steps = [len(c["tokens"]) // BATCH for c in clients]
+    evals = len(test["tokens"]) // 64
+
+    def lora_bytes(r):
+        return L * 3 * 2 * r * d * 4
+
+    def held(res, seq, what, view=lambda t: t):
+        """The spmd kernel run ``res`` against phase 11's runs ``seq``."""
+        kern = seq["results"]["kernels"]
+        require(res.ledger.per_client_round()
+                == kern.ledger.per_client_round()
+                and res.client_flops == kern.client_flops,
+                f"{what}: ledger or client FLOPs differ from phase 11's")
+        share, rel, worst = lora_gap(view(res.final_lora),
+                                     view(seq["results"]["exact"].final_lora))
+        lim = seq["limits"]["lora"]
+        print(f"  final LoRA spmd kernels vs phase 11's fp64: relative L2 "
+              f"{rel:.3e} (limit {lim:.3e}, {rel / lim:.3f} of it), outside "
+              f"atol 5e-5/rtol 5e-4 {share:.3e}, max abs {worst:.3e}")
+        MARGINS[what] = rel / lim
+        require(rel <= lim, f"{what}: final LoRA off phase 11's fp64 run "
+                f"beyond phase 11's limit")
+        plain = seq["results"]["plain"]
+        for h, hp, lim in zip(res.history, plain.history,
+                              seq["limits"]["loss"]):
+            print(f"  round {h.round} loss spmd kernels vs phase 11's plain: "
+                  f"{abs(h.loss - hp.loss):.3e} (limit {lim:.3e})")
+            require(abs(h.loss - hp.loss) <= lim, f"{what}: round loss off "
+                    f"phase 11's plain run beyond its limit")
+        print(f"  round wall_s, spmd kernels: "
+              + ", ".join(f"{h.seconds:.3f}" for h in res.history)
+              + "; phase 11's sequential kernels: "
+              + ", ".join(f"{h.seconds:.3f}" for h in kern.history))
+
+    fed = FedConfig(framework="fedllm", rounds=2, lora_rank=RANK,
+                    lora_dropout=0.0, client_ranks=ranks, backend="spmd")
+    # each bucket (one client here) runs its own steps stacked
+    expect = nonzero(add_counts(
+        model_launches(L, sum(client_steps) * fed.rounds, 0, True),
+        model_launches(L, 0, evals * fed.rounds)))
+    counts = []
+    for agg in ("zeropad", "svd"):
+        print(f"phase 10 (after phase 11): spmd, client ranks {ranks}, "
+              f"hetero_agg {agg!r}, 2 rounds")
+        seq = CASES[f"hetero {agg}"]
+        c, res = kernel_run(device, cfg, base,
+                            dataclasses.replace(fed, hetero_agg=agg), data,
+                            seq["results"]["kernels"].ledger.by_name(),
+                            expect)
+        held(res, seq, f"hetero {agg} spmd",
+             (lambda t: t) if agg == "zeropad" else
+             (lambda t: lora_deltas(t, fed.lora_alpha)))
+        counts.append(c)
+
+    rounds, staleness = 4, 2
+    print(f"phase 10 (after phase 11): spmd, async, max_staleness "
+          f"{staleness}, {rounds} rounds, ranks {ranks}, zeropad")
+    fed = dataclasses.replace(fed, aggregation="async", rounds=rounds,
+                              max_staleness=staleness)
+    starts, arrivals = async_reckoning(fed.seed + 17, C, staleness, rounds)
+    c, res = kernel_run(
+        device, cfg, base, fed, data,
+        {"lora_params": sum(lora_bytes(ranks[ci]) for _, ci in starts)
+         + sum(lora_bytes(ranks[ci]) for _, ci, _ in arrivals)},
+        nonzero(add_counts(
+            model_launches(L, sum(client_steps[ci] for _, ci in starts), 0,
+                           True),
+            model_launches(L, 0, evals * rounds))))
+    held(res, CASES["async"], "async spmd")
+    counts.append(c)
+    del base
+    torch.cuda.empty_cache()
+    return add_counts(*counts)
+
+
+COHORT_CLIENTS, COHORT_SIZE, COHORT_EDGES = 12, 4, 2
+
+
+def run_cohort(device):
+    """Phase 12: the cohort-streaming backend (``backend="cohort"``) at
+    full gpt2 width from phase 3's weights, over a lazy
+    DirichletPopulation of COHORT_CLIENTS clients drawn from phase 3's
+    training rows (shard_size BATCH, alpha 0.5, seed 0), streamed
+    COHORT_SIZE clients at a time (each chunk one stacked spmd program and
+    one secure-aggregation cohort) with COHORT_EDGES edge aggregators.
+    FedLLM with secure aggregation: run_case's continuous gates (kernels,
+    the two fp32 plain runs, TF32, fp64); the ledger by name and by hop by
+    hand (the client->edge hop equal to a kernel run's total at n_edges 0,
+    the edge->server events counted), client FLOPs by hand, launches
+    exact; and its peak device memory below the same run's with the whole
+    fleet in one chunk (cohort_size 0).  KD (top-k 8, int8) and Split
+    (int8 boundary): one kernel run each against a kernel run with
+    cohort_size 0, held to the spread limits of phases 4 and 6 (CASES);
+    ledgers and launches exact.  Returns {path: launch counts}."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.base import FedConfig, PrivacyConfig
+    from repro_torch.configs.gpt2_small import gpt2
+    from repro_torch.core import kd as kd_mod
+    from repro_torch.core import metrics
+    from repro_torch.core.rounds import run_federated
+    from repro_torch.data import banking77, population
+    from repro_torch.kernels import ops
+    from repro_torch.models.factory import build_model
+    from repro_torch.privacy.secure_agg import key_exchange_bytes
+
+    cfg = gpt2()
+    pub, train, test = banking77.paper_splits(cfg.vocab_size,
+                                              pad_len=PAD_LEN, scale=0.03)
+    pop = population.DirichletPopulation(train, COHORT_CLIENTS, alpha=0.5,
+                                         seed=0, shard_size=BATCH)
+    data = (pub, pop, test)
+    base = build_model(cfg).init(torch.Generator().manual_seed(0), device)
+    L, d, n = cfg.n_layers, cfg.d_model, COHORT_CLIENTS
+    chunks = -(-n // COHORT_SIZE)
+    evals = len(test["tokens"]) // 64
+    pub_batches = -(-len(pub["tokens"]) // 64)
+    lora_bytes = L * 3 * 2 * RANK * d * 4
+    by_path = {}
+
+    def run(fed, expect):
+        """One kernel run over the population: launches exact; returns
+        (result, peak device memory in GB)."""
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = run_federated(dataclasses.replace(cfg, kernel_policy="cuda"),
+                            fed, pub, pop, test, batch_size=BATCH,
+                            eval_batch=64, device=device, base=base)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counts = ops.launches()
+        tag = f"cohort {fed.cohort_size}, n_edges {fed.n_edges}"
+        for h in res.history:
+            require(math.isfinite(h.loss) and 0.0 <= h.accuracy <= 1.0,
+                    f"round {h.round} metrics out of range")
+            print(f"  [{fed.framework} {tag}] round {h.round}: "
+                  f"acc={h.accuracy:.4f} loss={h.loss:.6f} "
+                  f"wall_s={h.seconds:.3f}")
+        print(f"  [{fed.framework} {tag}] run wall_s="
+              f"{time.perf_counter() - t0:.3f} peak memory {peak:.3f} GB")
+        check_launches(counts, expect)
+        return res, counts, peak
+
+    def spread(res, whole, case, what):
+        """``res`` against the cohort_size 0 run ``whole`` under phase
+        ``case``'s spread limits: payload ledger and FLOPs equal."""
+        lim = CASES[case]["limits"]
+        require(res.ledger.payload_view().per_client_round()
+                == whole.ledger.payload_view().per_client_round()
+                and res.client_flops == whole.client_flops,
+                f"{what}: payload ledger or FLOPs differ from cohort_size 0")
+        rel = lora_gap(res.final_lora, whole.final_lora)[1]
+        print(f"  {what} final LoRA vs cohort_size 0: relative L2 {rel:.3e} "
+              f"(spread limit {lim['lora']:.3e}, {rel / lim['lora']:.3f} of "
+              f"it)")
+        require(rel <= lim["lora"], f"{what}: final LoRA off the cohort_size "
+                f"0 run beyond the spread limit")
+        for h, hw, l in zip(res.history, whole.history, lim["loss"]):
+            print(f"  round {h.round} loss vs cohort_size 0: "
+                  f"{abs(h.loss - hw.loss):.3e} (limit {l:.3e})")
+            require(abs(h.loss - hw.loss) <= l, f"{what}: round loss off the "
+                    f"cohort_size 0 run beyond the spread limit")
+
+    t0 = time.perf_counter()
+    print(f"phase 12: the cohort backend, gpt2 full width, "
+          f"DirichletPopulation of {n} clients ({BATCH} rows each, alpha "
+          f"0.5), cohort_size {COHORT_SIZE} ({chunks} chunks), n_edges "
+          f"{COHORT_EDGES}: FedLLM with secure aggregation")
+    fed = FedConfig(framework="fedllm", rounds=2, lora_rank=RANK,
+                    lora_dropout=0.0, backend="cohort",
+                    cohort_size=COHORT_SIZE, n_edges=COHORT_EDGES,
+                    privacy=PrivacyConfig(secure_agg=True))
+    R = fed.rounds
+    # each client trains one step a round: a chunk is one stacked step
+    expect = nonzero(add_counts(model_launches(L, chunks * R, 0, True),
+                                model_launches(L, 0, evals * R)))
+    keys_up, keys_down = key_exchange_bytes(COHORT_SIZE)
+    # each round the chunks' groups go to edges 0, 1, 0: two edges each
+    # forward one fused tree up and pull the new global down
+    edge = R * COHORT_EDGES * 2 * lora_bytes
+    ledger = {"lora_params": R * n * 2 * lora_bytes,
+              "secagg_keys": R * n * (keys_up + keys_down),
+              "edge_agg": edge}
+    counts, kern = run_case(device, cfg, base, fed, data, ledger=ledger,
+                            expect=expect, margin="cohort")
+    by_path["fedllm_cohort"] = counts
+    flat, _, peak = run(dataclasses.replace(fed, n_edges=0), expect)
+    require(kern.ledger.by_hop() == {
+        metrics.CLIENT_EDGE: flat.ledger.total(),
+        metrics.EDGE_SERVER: edge}, f"ledger by hop {kern.ledger.by_hop()}")
+    events = sorted((e.round, e.client, e.direction, e.bytes)
+                    for e in kern.ledger.events
+                    if e.hop == metrics.EDGE_SERVER)
+    require(events == sorted((r, -(e + 1), w, lora_bytes) for r in range(R)
+                             for e in range(COHORT_EDGES)
+                             for w in (metrics.UP, metrics.DOWN)),
+            f"edge->server events {events}")
+    n_lora = L * 3 * 2 * RANK * d
+    require(kern.client_flops == [metrics.train_flops(
+        cfg, BATCH * PAD_LEN * R, True, n_lora)] * n,
+        f"client FLOPs {kern.client_flops}")
+    print(f"  ledger by hop {kern.ledger.by_hop()}: the client->edge hop the "
+          f"n_edges 0 run's total, {R * COHORT_EDGES * 2} edge->server "
+          f"events of {lora_bytes} bytes; client FLOPs by hand")
+    whole, _, whole_peak = run(
+        dataclasses.replace(fed, cohort_size=0, n_edges=0),
+        nonzero(add_counts(model_launches(L, R, 0, True),
+                           model_launches(L, 0, evals * R))))
+    print(f"  {torch.cuda.get_device_name(0)}: peak device memory, "
+          f"cohort_size {COHORT_SIZE} {peak:.3f} GB, whole fleet (cohort_size "
+          f"0) {whole_peak:.3f} GB")
+    require(peak < whole_peak, "cohort streaming does not lower the peak "
+            "device memory")
+    print(f"  final LoRA, cohort_size 0 vs {COHORT_SIZE}: relative L2 "
+          f"{lora_gap(whole.final_lora, flat.final_lora)[1]:.3e}")
+
+    print(f"phase 12: KD, top-k 8 int8 logits, cohort_size {COHORT_SIZE} "
+          f"against cohort_size 0")
+    fed = FedConfig(framework="kd", rounds=2, lora_rank=RANK,
+                    lora_dropout=0.0, logit_topk=8, logit_quant_bits=8,
+                    backend="cohort", cohort_size=COHORT_SIZE,
+                    n_edges=COHORT_EDGES)
+    kd_steps = fed.kd_epochs * pub_batches
+    wire = kd_mod.logit_wire_bytes((len(pub["tokens"]),
+                                    banking77.N_CLASSES), fed)
+    runs = {}
+    for size, k in ((COHORT_SIZE, chunks), (0, 1)):
+        # per round: b1 one stacked step and b2 the public logits a chunk,
+        # b8 the stacked distillation a chunk; b5 and b6 on one model
+        expect = add_counts(
+            model_launches(L, k * (1 + kd_steps) * R, k * pub_batches * R,
+                           True),
+            model_launches(L, kd_steps * R, (pub_batches + evals) * R),
+            {"kd_fwd": (k + 1) * kd_steps * R,
+             "kd_bwd": (k + 1) * kd_steps * R, "topk_quantize": n * R})
+        runs[size], c, _ = run(dataclasses.replace(fed, cohort_size=size),
+                               expect)
+        used = min(k, COHORT_EDGES)
+        require(runs[size].ledger.by_name() == {
+            "logits": R * n * 2 * wire, "edge_agg": R * used * 2 * wire},
+            f"KD ledger {runs[size].ledger.by_name()}")
+        if size:
+            by_path["kd_cohort"] = c
+    spread(runs[COHORT_SIZE], runs[0], "kd", "KD cohort")
+
+    print(f"phase 12: Split-FedLLM, split_layer {SPLIT_LAYER}, "
+          f"int{SPLIT_BITS} boundary, cohort_size {COHORT_SIZE} against "
+          f"cohort_size 0")
+    fed = FedConfig(framework="split", rounds=2, lora_rank=RANK,
+                    lora_dropout=0.0, split_layer=SPLIT_LAYER,
+                    activation_quant_bits=SPLIT_BITS, backend="cohort",
+                    cohort_size=COHORT_SIZE, n_edges=COHORT_EDGES)
+    c2, c4 = split_wire_bytes(cfg, SPLIT_BITS)
+    half = SPLIT_LAYER * 3 * 2 * RANK * d * 4
+    expect = model_launches(L, n * R, evals * R)
+    expect["quant_roundtrip_rows"] = 2 * n * R
+    runs = {}
+    for size, k in ((COHORT_SIZE, chunks), (0, 1)):
+        runs[size], c, _ = run(dataclasses.replace(fed, cohort_size=size),
+                               expect)
+        used = min(k, COHORT_EDGES)
+        require(runs[size].ledger.by_name() == {
+            "lora_params": R * n * 2 * half, "activations": R * n * c2,
+            "act_grads": R * n * c4, "edge_agg": R * used * 2 * half},
+            f"Split ledger {runs[size].ledger.by_name()}")
+        if size:
+            by_path["split_cohort"] = c
+    spread(runs[COHORT_SIZE], runs[0], "split", "Split cohort")
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_lib.leaves(runs[COHORT_SIZE].final_lora),
+        tree_lib.leaves(runs[0].final_lora)))
+    print(f"  Split cohort_size {COHORT_SIZE} and 0: final LoRA "
+          f"{'bit-identical' if same else 'differ'} (the server half threads "
+          f"the clients in the same order; the folds add in client order)")
+    print(f"  phase 12 wall_s={time.perf_counter() - t0:.1f}")
+    del base
+    torch.cuda.empty_cache()
+    return by_path
 
 
 # the kernels that must not spill: {kernel: (source, instances)}
@@ -3832,6 +4414,9 @@ REPLACES = {
                         "lora_matmul.cu"),
     "lora_panel_clients": ("src/repro/kernels/lora_matmul.py:226",
                            "lora_matmul.cu"),
+    # row 14 under the vmap over clients of the spmd backend's stacked
+    # DP-SGD step (VMAPPED), which gives it a client axis
+    "dp_clip_acc_clients": ("src/repro/kernels/dp_clip.py:73", "dp_clip.cu"),
 }
 
 
@@ -3841,7 +4426,8 @@ VMAPPED = {"lora_panel_examples": "src/repro/core/fedavg.py:83",
            "lora_panel_examples_pair": "src/repro/core/fedavg.py:83",
            "lora_fwd_clients": "src/repro/core/fed_spmd.py:319",
            "lora_dx_clients": "src/repro/core/fed_spmd.py:319",
-           "lora_panel_clients": "src/repro/core/fed_spmd.py:319"}
+           "lora_panel_clients": "src/repro/core/fed_spmd.py:319",
+           "dp_clip_acc_clients": "src/repro/core/fed_spmd.py:319"}
 
 
 def rule2_queue(kernels, floor) -> None:
@@ -3929,7 +4515,12 @@ def main() -> int:
     t0 = time.perf_counter()
     by_path["hetero_async"] = run_hetero(device)
     print(f"  phase 11 wall_s={time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    by_path["hetero_async_spmd"] = run_spmd_hetero(device)
+    print(f"  phase 10 after phase 11 wall_s={time.perf_counter() - t0:.1f}")
     print(f"  phases 1-11 wall_s={time.perf_counter() - t_start:.1f}")
+    by_path.update(run_cohort(device))
+    print(f"  phases 1-12 wall_s={time.perf_counter() - t_start:.1f}")
     print("margins (share of the limit; the last recorded run's in "
           "parentheses): " + ", ".join(
               f"{path} {MARGINS[path]:.3f} ("
@@ -3942,7 +4533,9 @@ def main() -> int:
     # flash rows with their RecurrentGemma-2B shapes under
     # ``at_recurrentgemma`` (RWKV-6's under ``at_rwkv6``, the panel's at
     # a DP batch-1 pass under ``at_dp_batch1``, the client-axis rows'
-    # at 8 clients under ``at_8_clients``); the KD kernels'
+    # at 8 clients under ``at_8_clients``, rows 4ᵉ's pair and 13 at the
+    # spmd DP step's 48 stacked examples under ``at_48_examples``); the KD
+    # kernels'
     # generative-vocabulary timings are printed above.  The per-example
     # panel's rows add its fp64 error over torch.bmm's, and its and the
     # client-axis rows the old way's times (B or C launches of the
@@ -3968,7 +4561,8 @@ def main() -> int:
         for tag, key in (("rg", "at_recurrentgemma"),
                          ("rg256", "at_recurrentgemma_wk_wv"),
                          ("rwkv", "at_rwkv6"), ("dp", "at_dp_batch1"),
-                         ("c8", "at_8_clients")):
+                         ("c8", "at_8_clients"),
+                         ("c48", "at_48_examples")):
             if f"{name}@{tag}" in rows:
                 at = rows[f"{name}@{tag}"]
                 kernels[-1][key] = {

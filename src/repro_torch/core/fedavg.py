@@ -49,8 +49,9 @@ def _grad(loss, live):
 def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
     """Returns a dict with ``train_step``, ``per_example_grads``,
     ``eval_step``, ``logits_fn``, ``kd_step``, ``opt_init`` and the
-    stacked clients' ``grads_clients``, ``train_step_clients``,
-    ``logits_fn_clients`` and ``kd_step_clients``."""
+    stacked clients' ``grads_clients``, ``per_example_grads_clients``,
+    ``train_step_clients``, ``logits_fn_clients`` and
+    ``kd_step_clients``."""
     task_loss = tasks.get_loss_fn(task)
     task_loss_rows = tasks.get_loss_rows_fn(task)
     opt_init, opt_update = make_optimizer(fed.optimizer)
@@ -61,6 +62,26 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
         rank = lora_lib.tree_rank(lt, fed.lora_rank)
         return lora_lib.bind(base, lt, fed.lora_alpha, rank,
                              dropout_gen=gen, dropout=fed.lora_dropout)
+
+    def _per_example_pass(base, lt, batch, gen, who):
+        """One forward of ``batch`` under kernels/ops.per_example_scope and
+        the backward of the summed per-example losses to the scope's
+        sinks: (the live LoRA leaves, each example's loss, the sites,
+        each site's sink gradients).  The LoRA tree is bound once, so
+        every example sees the step's one dropout mask, as the
+        reference's shared rng gives."""
+        live = [t.detach().requires_grad_(True) for t in tree_lib.leaves(lt)]
+        bound = _bind(base, tree_lib.unflatten(lt, live), gen)
+        with kernel_ops.per_example_scope(batch["tokens"].shape[0]) as sites:
+            logits, aux = model.forward(bound, batch)
+        if torch.is_tensor(aux) and aux.requires_grad:
+            raise ValueError(f"{who}: the model's aux term carries a "
+                             "gradient; it mixes the examples, so one "
+                             "batched pass cannot give each example's "
+                             "gradient")
+        losses_ = task_loss_rows(logits, batch) + aux
+        sinks = [t for site in sites for t in site[2:]]
+        return live, losses_, sites, torch.autograd.grad(losses_.sum(), sinks)
 
     def per_example_grads(base, lt, batch, gen=None):
         """(losses (B,), grads (B, P) fp32, fp64 for fp64 LoRA leaves):
@@ -74,22 +95,10 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
         kernels/ops.per_example_scope each LoRA projection's backward
         gives each example's gradient w.r.t. the bound a′ and b′ (the
         ``lora_panel_examples`` kernel under the ``cuda`` policy); bind's
-        own VJP, batched over the examples, carries them to the leaves.
-        The LoRA tree is bound once, so every example sees the step's one
-        dropout mask, as the reference's shared rng gives."""
-        live = [t.detach().requires_grad_(True) for t in tree_lib.leaves(lt)]
-        bound = _bind(base, tree_lib.unflatten(lt, live), gen)
+        own VJP, batched over the examples, carries them to the leaves."""
+        live, losses_, sites, per_site = _per_example_pass(
+            base, lt, batch, gen, "per_example_grads")
         B = batch["tokens"].shape[0]
-        with kernel_ops.per_example_scope(B) as sites:
-            logits, aux = model.forward(bound, batch)
-        if torch.is_tensor(aux) and aux.requires_grad:
-            raise ValueError("per_example_grads: the model's aux term "
-                             "carries a gradient; it mixes the examples, so "
-                             "one batched pass cannot give each example's "
-                             "gradient")
-        losses_ = task_loss_rows(logits, batch) + aux
-        sinks = [t for site in sites for t in site[2:]]
-        per_site = torch.autograd.grad(losses_.sum(), sinks)
         grads = torch.autograd.grad(
             [t for site in sites for t in site[:2]], live, per_site,
             is_grads_batched=True)
@@ -182,16 +191,55 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
         return _clients_grads(base, slt, batch, gens,
                               lambda lg: task_loss_rows(lg, batch))
 
+    def per_example_grads_clients(base, slt, batch, gens=None):
+        """per_example_grads of every stacked client on its rows of
+        ``batch``: (losses (C, B), rows (C, B, P)), rows[c, j] example j
+        of client c's gradient with respect to client c's LoRA leaves in
+        ``tree.leaves`` order (the reference's ``vmap`` over clients of
+        its per-example ``vmap``).  One forward and one backward of the
+        stacked batch under kernels/ops.per_example_scope: each LoRA site
+        gives each example's gradient with respect to its own client's
+        bound factors.  Bind acts on each client's factors alone, so its
+        VJP, batched over the B examples of a client with the C clients'
+        example j side by side in batch entry j, carries them to each
+        client's leaves: no gradient with respect to another client's
+        leaves is formed."""
+        live, losses_, sites, per_site = _per_example_pass(
+            base, slt, batch, gens, "per_example_grads_clients")
+        C = live[0].shape[0]
+        B = batch["tokens"].shape[0] // C
+        # (C·B, ...) -> (B, C, ...): batch entry j holds every client's
+        # example j, against the (C, ...) bound factors
+        per_site = [g.view(C, B, *g.shape[1:]).transpose(0, 1)
+                    for g in per_site]
+        grads = torch.autograd.grad(
+            [t for site in sites for t in site[:2]], live, per_site,
+            is_grads_batched=True)
+        dt = compute_dtype(live[0].dtype)
+        rows = torch.cat([g.transpose(0, 1).reshape(C, B, -1).to(dt)
+                          for g in grads], dim=2)
+        return losses_.detach().to(dt).view(C, B), rows
+
     def train_step_clients(base, slt, sopt, batch, gens=None, valid=None):
         """train_step for stacked clients: ``slt`` and ``sopt`` lead with
         the client axis (``sopt["step"]`` each client's count), ``batch``
-        holds the clients' batches one after another.  A client whose
-        ``valid`` entry is false (a padded step) keeps its LoRA and Adam
-        state.  Returns (new_slt, new_sopt, each client's loss (C,))."""
+        holds the clients' batches one after another.  Under DP each
+        client's gradient is the mean of its per-example gradients clipped
+        to ``dp_clip`` (privacy/dp.clipped_grad_mean_clients) and its loss
+        the mean of its per-example losses.  A client whose ``valid``
+        entry is false (a padded step) keeps its LoRA and Adam state.
+        Returns (new_slt, new_sopt, each client's loss (C,))."""
         if dp_clip > 0.0:
-            raise NotImplementedError("DP-SGD over stacked clients is not "
-                                      "ported yet")
-        loss, grads = grads_clients(base, slt, batch, gens)
+            losses_, rows = per_example_grads_clients(base, slt, batch, gens)
+            mean = dp_mod.clipped_grad_mean_clients(rows, dp_clip)  # (C, P)
+            leaves, off = [], 0
+            for t in tree_lib.leaves(slt):
+                n = t[0].numel()
+                leaves.append(mean[:, off:off + n].view_as(t))
+                off += n
+            loss, grads = losses_.mean(dim=1), tree_lib.unflatten(slt, leaves)
+        else:
+            loss, grads = grads_clients(base, slt, batch, gens)
         new_lt, new_opt = clients_update(grads, sopt, slt, fed.lr, valid)
         return new_lt, new_opt, torch.where(torch.isfinite(loss), loss, 0.0)
 
@@ -223,6 +271,7 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
             "eval_step": eval_step, "logits_fn": logits_fn,
             "kd_step": kd_step, "opt_init": opt_init,
             "grads_clients": grads_clients,
+            "per_example_grads_clients": per_example_grads_clients,
             "train_step_clients": train_step_clients,
             "logits_fn_clients": logits_fn_clients,
             "kd_step_clients": kd_step_clients}

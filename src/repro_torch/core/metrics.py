@@ -17,29 +17,48 @@ from repro_torch.configs.base import ModelConfig
 
 UP = "up"          # client -> server
 DOWN = "down"      # server -> client
+
+# Hops of the aggregation topology.  The flat engines record everything
+# on ``client_server``; the cohort-streaming executor under ``n_edges > 1``
+# records each client's traffic on ``client_edge`` (the same names and
+# shape-derived bytes) and each edge aggregator's fused payload on
+# ``edge_server``, so the two-hop topology's wire cost is reported per
+# hop.
+CLIENT_SERVER = "client_server"
+CLIENT_EDGE = "client_edge"
+EDGE_SERVER = "edge_server"
+
 # Privacy-machinery event names: overhead, not model payload
 # (privacy/secure_agg.py, core/round_program's record_arrival)
 PRIVACY_NAMES = ("secagg_keys", "secagg_recovery", "dp_meta")
+# Edge-infrastructure event names (the two-hop topology): overhead, not
+# client payload
+EDGE_NAMES = ("edge_agg",)
 DP_META_BYTES = 12   # fp32 clip + fp32 sigma + int32 stream id
 
 
 @dataclasses.dataclass
 class CommEvent:
     round: int
-    client: int
+    client: int          # negative ids denote edge aggregators
     name: str            # e.g. "lora_params"
     direction: str
     bytes: int
+    hop: str = CLIENT_SERVER
 
 
 class CommLedger:
     def __init__(self):
         self.events: List[CommEvent] = []
+        # the hop of records that name none: the streaming round sets it
+        # to CLIENT_EDGE under a two-hop topology, so every stage reports
+        # the right hop
+        self.default_hop = CLIENT_SERVER
 
     def record(self, rnd: int, client: int, name: str, direction: str,
-               nbytes: int):
+               nbytes: int, hop: Optional[str] = None):
         self.events.append(CommEvent(rnd, client, name, direction,
-                                     int(nbytes)))
+                                     int(nbytes), hop or self.default_hop))
 
     def total(self, direction: Optional[str] = None) -> int:
         return sum(e.bytes for e in self.events
@@ -75,6 +94,26 @@ class CommLedger:
         """Events net of privacy overhead: what the non-private engines
         would have recorded."""
         return [e for e in self.events if e.name not in PRIVACY_NAMES]
+
+    def by_hop(self, direction: Optional[str] = None) -> Dict[str, int]:
+        out = collections.defaultdict(int)
+        for e in self.events:
+            if direction is None or e.direction == direction:
+                out[e.hop] += e.bytes
+        return dict(out)
+
+    def hop_total(self, hop: str, direction: Optional[str] = None) -> int:
+        return sum(e.bytes for e in self.events if e.hop == hop
+                   and (direction is None or e.direction == direction))
+
+    def payload_view(self) -> "CommLedger":
+        """A ledger of the model-payload events alone (privacy and edge
+        overhead filtered out): what the cohort-streaming and two-hop
+        paths must report as the flat engines do."""
+        view = CommLedger()
+        view.events = [e for e in self.events
+                       if e.name not in PRIVACY_NAMES + EDGE_NAMES]
+        return view
 
 
 def tree_bytes(tree) -> int:

@@ -7,16 +7,22 @@ FedLLM, KD-FedLLM and Split-FedLLM: ``RoundContext`` (with each client's
 LoRA rank, core/heterogeneous.normalize_ranks), the ``AsyncSchedule``
 (core/async_agg.py; a sync round is its case with every delay 0), the
 ``SequentialExecutor`` (a Python loop over clients, one train step per
-batch), the ``SpmdExecutor`` (the round's clients stacked on a leading
-axis, one stacked program per rank bucket: core/fed_spmd.py), the
+batch), the ``SpmdExecutor`` (the round's ready set stacked on a
+leading axis, one stacked program per rank bucket: core/fed_spmd.py), the
+``CohortStreamingExecutor`` (``backend="cohort"``: the ready set streamed
+through the spmd executor ``FedConfig.cohort_size`` clients at a time,
+the partial aggregates folded between chunks, each chunk its own
+secure-aggregation cohort, clients drawn from a lazy
+data/population.ClientPopulation, and under ``FedConfig.n_edges > 1``
+the ledger split into a client->edge and an edge->server hop), the
 ``FedLLMProgram``, ``KDProgram`` and ``SplitProgram`` stage-specs (a
 client below the global rank gets the global tree truncated to its rank,
 and its upload is harmonized by ``FedConfig.hetero_agg``) and
 ``run_program`` with the privacy middleware (upload noise,
 secure-aggregation masking around aggregation, the RDP accountant),
-which is the same under either executor and aggregation, and without the
-fault middleware.  Ledger bytes are derived from payload shapes, so they
-equal the reference's exactly.
+which is the same under every executor and aggregation, and without the
+fault, screen and quorum middleware.  Ledger bytes are derived from
+payload shapes, so they equal the reference's exactly.
 """
 from __future__ import annotations
 
@@ -35,14 +41,18 @@ from repro_torch.core.async_agg import (ParticipationSchedule, _Job,
 from repro_torch.core.heterogeneous import normalize_ranks
 from repro_torch.core import kd as kd_mod
 from repro_torch.core import metrics as M
+from repro_torch.core import rng as rng_mod
 from repro_torch.core import split as split_mod
 from repro_torch import tree as tree_lib
 from repro_torch.core.fedavg import evaluate, make_fns, to_device
+from repro_torch.core.rng import local_generator
+from repro_torch.data import population as population_mod
 from repro_torch.data.loader import epoch_batches
 from repro_torch.peft import lora as lora_lib
 from repro_torch.privacy import dp as dp_mod
 from repro_torch.privacy.accountant import GaussianAccountant
 from repro_torch.privacy.secure_agg import SecureAggSession
+from repro_torch.runtime import compute_dtype
 
 
 @dataclasses.dataclass
@@ -79,25 +89,20 @@ def round_epsilon(acct, releases: int) -> float:
     return acct.epsilon(releases) if acct is not None else 0.0
 
 
-def sample_rate(clients_data: List[Dict], batch_size: int) -> float:
-    """Worst-case (largest) per-step subsampling rate over clients:
-    q_i = batch_size / |client i's data|, clamped to 1."""
-    return max(min(1.0, batch_size / max(len(d["tokens"]), 1))
-               for d in clients_data)
-
-
 class RoundContext:
     """Run-wide state shared by the stages: config, data, the train and
     eval steps, the ledger, the per-client cost model and the privacy
     middleware (accountant, secure-agg session, per-client release
-    counts)."""
+    counts).  ``clients_data`` is a ClientPopulation (a list of shards is
+    wrapped in one): a lazy population builds a client's shard only when
+    a stage reads ``clients_data[ci]``."""
 
     def __init__(self, model, base, cfg: ModelConfig, fed: FedConfig,
-                 targets, public, clients_data: List[Dict], test, task,
-                 batch_size, eval_batch, verbose, device):
+                 targets, public, clients_data, test, task, batch_size,
+                 eval_batch, verbose, device):
         self.model, self.base, self.cfg, self.fed = model, base, cfg, fed
         self.targets, self.public, self.test = targets, public, test
-        self.clients_data = list(clients_data)
+        self.clients_data = population_mod.as_population(clients_data)
         self.task, self.device, self.verbose = task, device, verbose
         self.batch_size, self.eval_batch = batch_size, eval_batch
         self.n_clients = len(self.clients_data)
@@ -105,20 +110,26 @@ class RoundContext:
         self.ledger = M.CommLedger()
         self.history: List[M.RoundMetrics] = []
         self.cost = [M.ClientCost() for _ in range(self.n_clients)]
-        self.data_w = [len(d["tokens"]) for d in self.clients_data]
+        # each client's sample count from the population, no shard built
+        self.data_w = self.clients_data.data_weights()
         self.total_w = float(sum(self.data_w))
-        self.acct = make_accountant(fed, sample_rate(self.clients_data,
-                                                     batch_size))
+        # the worst-case (largest) per-step subsampling rate over clients,
+        # q_i = batch_size / |client i's data| clamped to 1, from the weights
+        self.acct = make_accountant(
+            fed, max(min(1.0, batch_size / max(w, 1)) for w in self.data_w))
         self.secagg = SecureAggSession(fed)
         self.releases = [0] * self.n_clients   # noisy uploads per client
         self.ranks = normalize_ranks(fed.client_ranks, self.n_clients,
                                      fed.lora_rank)
+        # (rnd, ci) -> the secure-agg masking cohort of a streamed chunk
+        # (run_program's streaming branch); empty under the flat engines
+        self._cohort_ids: Dict[tuple, int] = {}
 
     def secagg_start(self, rnd: int, ci: int) -> int:
         """The secure-agg cohort key of client ``ci``'s job started in
-        ``rnd``: the start round (per-chunk ids come with the
-        cohort-streaming executor)."""
-        return rnd
+        ``rnd``: its chunk's cohort id under cohort streaming, the start
+        round everywhere else."""
+        return self._cohort_ids.get((rnd, ci), rnd)
 
 
 class AsyncSchedule:
@@ -147,17 +158,12 @@ class AsyncSchedule:
         return _pop_arrivals(self.in_flight, rnd)
 
 
-def local_generator(fed: FedConfig, rnd: int, ci: int) -> torch.Generator:
-    """The LoRA-dropout stream of one (round, client) job.  The seed formula
-    is the reference's (core/rng.local_rng); the draws are torch's own."""
-    return torch.Generator().manual_seed(fed.seed * 1013 + rnd * 131 + ci)
-
-
 class SequentialExecutor:
     """Python loop over clients, one train step per batch — the
     paper-literal reference and the numerical ground truth."""
 
     backend = "sequential"
+    streaming = False
 
     def __init__(self, ctx: RoundContext):
         self.ctx = ctx
@@ -249,6 +255,7 @@ class SpmdExecutor:
     same order, so the two executors see the same masks."""
 
     backend = "spmd"
+    streaming = False
 
     def __init__(self, ctx: RoundContext):
         self.ctx = ctx
@@ -374,7 +381,128 @@ def _batched_distill(ctx, stacked_lt, stacked_opt, teacher, rnd,
     return stacked_lt, stacked_opt
 
 
-EXECUTORS = {"sequential": SequentialExecutor, "spmd": SpmdExecutor}
+class CohortStreamingExecutor(SpmdExecutor):
+    """``backend="cohort"``: the per-chunk work is the spmd executor's;
+    run_program streams the round's ready set through it
+    ``FedConfig.cohort_size`` clients at a time and folds the partial
+    aggregates between chunks (the programs' ``agg_fold``), so peak
+    memory is one cohort's."""
+
+    backend = "cohort"
+    streaming = True
+
+
+# -- streaming partial-aggregate folds -------------------------------------- #
+def _fold_zeros(tree):
+    """A zero accumulator like ``tree``: fp32 (fp64 for fp64 leaves)."""
+    return tree_lib.map_(
+        lambda x: torch.zeros(x.shape, dtype=compute_dtype(x.dtype),
+                              device=x.device), tree)
+
+
+@torch.no_grad()
+def _fold_add(acc, tree, w: float):
+    """acc + w·tree leaf by leaf in the accumulator's precision, ``w``
+    rounded to it: two roundings, the product's and the sum's (the
+    reference's ``a + w * x``; no fused multiply-add)."""
+    first = tree_lib.leaves(acc)[:1]
+    if not first:
+        return acc
+    wt = first[0].new_tensor(w)
+    return tree_lib.map_(lambda a, x: a + wt * x.to(a.dtype), acc, tree)
+
+
+def _cohort_chunks(seq, size: int):
+    """A client-id or job sequence in cohorts of ``size`` (<= 0: one
+    chunk)."""
+    seq = list(seq)
+    if size <= 0 or size >= len(seq):
+        return [seq] if seq else []
+    return [seq[i:i + size] for i in range(0, len(seq), size)]
+
+
+def _cohort_uid(rnd: int, idx: int) -> int:
+    """The masking-cohort id of chunk ``idx`` of round ``rnd``: it keys the
+    secure-agg cohorts and seeds their pairwise masks, unique over a run
+    (a round's chunks stay far below the stride)."""
+    return rnd * 1_000_003 + idx
+
+
+def _stream_fold_params(ctx, state, kept, global_tree):
+    """FedLLM's a4 and Split's cc2 under streaming: one chunk of arrivals
+    into the running staleness-weighted sum of parameters.  zeropad
+    harmonization is linear leaf by leaf, so it streams in one
+    accumulator; svd's re-factorization is not, so with client ranks
+    below the global one the round's arrivals are kept instead
+    (O(arrivals this round))."""
+    fed = ctx.fed
+    if not kept:
+        return state
+    if fed.hetero_agg == "svd" and any(r != fed.lora_rank
+                                       for r in ctx.ranks):
+        if state is None:
+            state = ("buf", [])
+        state[1].extend(kept)
+        return state
+    if state is None:
+        state = ("sum", _fold_zeros(global_tree), 0.0, 0.0)
+    _, acc, w_sum, raw = state
+    for ci, tree, s, w in kept:
+        if ctx.ranks[ci] != fed.lora_rank:
+            tree = lora_lib.pad_rank(tree, fed.lora_rank)
+        ws = w * staleness_weight(s, fed.staleness_decay)
+        acc = _fold_add(acc, tree, ws)
+        w_sum += ws
+        raw += w
+    return ("sum", acc, w_sum, raw)
+
+
+@torch.no_grad()
+def _finalize_param_fold(ctx, state, global_tree):
+    """Closes a ``_stream_fold_params`` round: the data weight of the
+    clients that delivered nothing anchors the current global (the convex
+    combination ``stale_weighted_avg`` forms), then the sum is divided by
+    the total weight, rounded to the accumulator's precision.  Returns
+    the new global tree, ``global_tree`` itself when nothing was kept."""
+    if state is None:
+        return global_tree
+    if state[0] == "buf":
+        return stale_weighted_avg(global_tree, state[1], ctx.total_w,
+                                  ctx.fed, ctx.ranks)
+    _, acc, w_sum, raw = state
+    absent = ctx.total_w - raw
+    if absent > 0:
+        acc = _fold_add(acc, global_tree, absent)
+        w_sum += absent
+    return tree_lib.map_(lambda a, g: (a / a.new_tensor(w_sum)).to(g.dtype),
+                         acc, global_tree)
+
+
+class _LazyClientState:
+    """List-like per-client state built on first touch by ``factory(ci)``:
+    under cohort streaming over a lazy population only the clients that
+    take part are ever built (KD keeps each client's adapter after its
+    cohort: the one per-client state the port holds)."""
+
+    def __init__(self, n: int, factory):
+        self._n = int(n)
+        self._factory = factory
+        self._vals: Dict[int, object] = {}
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __getitem__(self, ci):
+        if ci not in self._vals:
+            self._vals[ci] = self._factory(ci)
+        return self._vals[ci]
+
+    def __setitem__(self, ci, val):
+        self._vals[ci] = val
+
+
+EXECUTORS = {"sequential": SequentialExecutor, "spmd": SpmdExecutor,
+             "cohort": CohortStreamingExecutor}
 
 
 class FedLLMProgram:
@@ -430,6 +558,19 @@ class FedLLMProgram:
                                               ctx.total_w, ctx.fed,
                                               ctx.ranks)
 
+    # -- streaming a4 (cohort executor): fold chunks, finalize once ---- #
+    def agg_init(self, ctx):
+        return None
+
+    def agg_fold(self, ctx, ex, state, kept, rnd):
+        return _stream_fold_params(ctx, state, kept, self.global_lt)
+
+    def agg_finalize(self, ctx, ex, state, arrived, rnd):
+        self.global_lt = _finalize_param_fold(ctx, state, self.global_lt)
+
+    def edge_payload_bytes(self, ctx) -> int:
+        return M.tree_bytes(self.global_lt)
+
     def evaluate(self, ctx):
         return evaluate(ctx.fns, ctx.base, self.global_lt, ctx.test,
                         ctx.eval_batch, ctx.device)
@@ -443,7 +584,14 @@ class KDProgram:
     upload public-set logits (b3), the server fuses knowledge (b4),
     distills (b5), and re-broadcasts global knowledge (b6-b8).  Every
     client keeps its own LoRA tree, at its own rank, and Adam state across
-    rounds."""
+    rounds, each built when the client first takes part.
+
+    Without ``lora`` the trees are drawn from ``fed.seed + 2``: over a
+    list of shards (an EagerPopulation) the clients' trees one after
+    another from one generator, then the server's; over a lazy population
+    the server's from that generator and client ``ci``'s from a generator
+    of its own, seeded with the words of core/rng.fold_chain(fed.seed + 2,
+    ci), so that building one client builds no other."""
 
     epoch_seed_mult = 991
 
@@ -452,20 +600,34 @@ class KDProgram:
         if lora is None:
             gen = torch.Generator().manual_seed(fed.seed + 2)
 
-            def draw(rank):
-                return lora_lib.init_lora(gen, ctx.base, ctx.targets, rank,
+            def draw(g, rank):
+                return lora_lib.init_lora(g, ctx.base, ctx.targets, rank,
                                           fed.lora_alpha)
-            lora = {"clients": [draw(r) for r in ctx.ranks],
-                    "server": draw(fed.lora_rank)}
-        if len(lora["clients"]) != ctx.n_clients:
-            raise ValueError(f"lora['clients'] holds {len(lora['clients'])} "
-                             f"trees for {ctx.n_clients} clients")
+            if isinstance(ctx.clients_data, population_mod.EagerPopulation):
+                lora = {"clients": [draw(gen, r) for r in ctx.ranks]}
+                lora["server"] = draw(gen, fed.lora_rank)
+                clients = lora["clients"].__getitem__
+            else:
+                lora = {"server": draw(gen, fed.lora_rank)}
+
+                def clients(ci):
+                    hi, lo = rng_mod.fold_chain(fed.seed + 2, ci)
+                    return draw(torch.Generator().manual_seed(hi << 32 | lo),
+                                ctx.ranks[ci])
+        else:
+            if len(lora["clients"]) != ctx.n_clients:
+                raise ValueError(
+                    f"lora['clients'] holds {len(lora['clients'])} trees "
+                    f"for {ctx.n_clients} clients")
+            clients = list(lora["clients"]).__getitem__
         opt_init = ctx.fns["opt_init"]
-        self.lts = list(lora["clients"])
-        self.opts = [opt_init(lt) for lt in self.lts]
+        self.lts = _LazyClientState(ctx.n_clients, clients)
+        self.opts = _LazyClientState(ctx.n_clients,
+                                     lambda ci: opt_init(self.lts[ci]))
         self.server_lt = lora["server"]
         self.server_opt = opt_init(self.server_lt)
-        self.n_lora = [lora_lib.n_params(lt) for lt in self.lts]
+        self.n_lora = _LazyClientState(
+            ctx.n_clients, lambda ci: lora_lib.n_params(self.lts[ci]))
         self.glob = None            # latest global knowledge (b6)
         self.pub_tok = ctx.public["tokens"].size
 
@@ -519,6 +681,54 @@ class KDProgram:
                 ctx.cost[ci].add_train(ctx.cfg, self.pub_tok * fed.kd_epochs,
                                        self.n_lora[ci])
             ex.kd_distill(self, cis, self.glob, rnd)
+
+    # -- streaming b4-b8 (cohort executor) ----------------------------- #
+    def agg_init(self, ctx):
+        return None
+
+    def agg_fold(self, ctx, ex, state, kept, rnd):
+        """One chunk of arrivals' logits into the running b4 teacher sum
+        (the weighted mean is linear, so it streams exactly)."""
+        if not kept:
+            return state
+        acc, w_sum = state if state is not None else (None, 0.0)
+        for _, p, s, w in kept:
+            ws = w * staleness_weight(s, ctx.fed.staleness_decay)
+            acc = _fold_add(acc if acc is not None else _fold_zeros(p[0]),
+                            p[0], ws)
+            w_sum += ws
+        return acc, w_sum
+
+    def agg_finalize(self, ctx, ex, state, arrived, rnd):
+        """b5: the server distills the normalized teacher; then b6-b8
+        streamed over the arrived clients in cohort-sized chunks (one
+        stacked distillation a chunk)."""
+        fed = ctx.fed
+        if state is not None and state[1] > 0:
+            acc, w_sum = state
+            with torch.no_grad():
+                teacher = (acc / acc.new_tensor(w_sum)).float()
+            self.server_lt, self.server_opt, _ = kd_mod.distill(
+                ctx.fns, ctx.base, self.server_lt, self.server_opt,
+                ctx.public, teacher, fed.kd_epochs, ctx.eval_batch,
+                ctx.device, seed=fed.seed + rnd)
+            self.glob = kd_mod.client_logits(ctx.fns, ctx.base,
+                                             self.server_lt, ctx.public,
+                                             ctx.eval_batch, ctx.device)
+        if arrived and self.glob is not None:
+            glob_wire = kd_mod.logit_wire_bytes(self.glob.shape, fed)
+            for chunk in _cohort_chunks(arrived, fed.cohort_size):
+                for ci in chunk:
+                    ctx.ledger.record(rnd, ci, "logits", M.DOWN, glob_wire)
+                    ctx.cost[ci].add_train(ctx.cfg,
+                                           self.pub_tok * fed.kd_epochs,
+                                           self.n_lora[ci])
+                ex.kd_distill(self, chunk, self.glob, rnd)
+
+    def edge_payload_bytes(self, ctx) -> int:
+        if self.glob is None:
+            return 0
+        return kd_mod.logit_wire_bytes(self.glob.shape, ctx.fed)
 
     def evaluate(self, ctx):
         return evaluate(ctx.fns, ctx.base, self.server_lt, ctx.test,
@@ -605,6 +815,20 @@ class SplitProgram:
                                              ctx.ranks)
         self.joined = split_mod.join_lora(self.c_global, self.s_lt)
 
+    # -- streaming cc2 (cohort executor) ------------------------------- #
+    def agg_init(self, ctx):
+        return None
+
+    def agg_fold(self, ctx, ex, state, kept, rnd):
+        return _stream_fold_params(ctx, state, kept, self.c_global)
+
+    def agg_finalize(self, ctx, ex, state, arrived, rnd):
+        self.c_global = _finalize_param_fold(ctx, state, self.c_global)
+        self.joined = split_mod.join_lora(self.c_global, self.s_lt)
+
+    def edge_payload_bytes(self, ctx) -> int:
+        return M.tree_bytes(self.c_global)
+
     def evaluate(self, ctx):
         return evaluate(ctx.fns, ctx.base, self.joined, ctx.test,
                         ctx.eval_batch, ctx.device)
@@ -617,43 +841,106 @@ PROGRAMS = {"fedllm": FedLLMProgram, "kd": KDProgram,
             "split": SplitProgram}
 
 
+def _streamed_round(ctx, program, ex, schedule, rnd, n_edges):
+    """One round of the cohort-streaming executor: the starters stream
+    through the executor a chunk at a time, each chunk its own
+    secure-agg masking cohort; the arrivals are grouped by masking cohort
+    (in insertion order), each group delivered and folded into the
+    running aggregate before the next, then the round is finalized once.
+    Under ``n_edges > 1`` group g goes to edge g mod n_edges, and each
+    edge that aggregated a group forwards one fused payload up and pulls
+    the new global down (negative client ids: the edge aggregators).
+    Returns the number of clients that arrived."""
+    fed = ctx.fed
+    for k, chunk in enumerate(_cohort_chunks(schedule.starters(rnd),
+                                             fed.cohort_size)):
+        cid = _cohort_uid(rnd, k)
+        for ci in chunk:
+            ctx._cohort_ids[(rnd, ci)] = cid
+        ctx.secagg.begin_cohort(ctx.ledger, rnd, chunk, cohort_id=cid)
+        jobs = program.broadcast(ctx, chunk, rnd)
+        outs = program.local_update(ctx, ex, jobs, rnd)
+        for ci, payload in program.upload(ctx, outs, rnd):
+            schedule.submit(rnd, ci, payload)
+    groups: Dict[int, List] = {}
+    for j in schedule.pop_arrivals(rnd):
+        groups.setdefault(ctx.secagg_start(j.start, j.client), []).append(j)
+    state = program.agg_init(ctx)
+    arrived, used_edges = [], set()
+    for gi, (gkey, gjobs) in enumerate(groups.items()):
+        kept, delivered = [], []
+        for j in gjobs:
+            arrived.append(j.client)
+            program.record_arrival(ctx, j, rnd)
+            s = rnd - j.start
+            if s <= fed.max_staleness:
+                kept.append((j.client, j.payload, s, ctx.data_w[j.client]))
+                delivered.append((gkey, j.client))
+            else:
+                ctx.secagg.discard(gkey, j.client)
+        ctx.secagg.deliver(ctx.ledger, rnd, delivered)
+        state = program.agg_fold(ctx, ex, state, kept, rnd)
+        used_edges.add(gi % n_edges)
+    program.agg_finalize(ctx, ex, state, arrived, rnd)
+    if n_edges > 1 and arrived:
+        eb = program.edge_payload_bytes(ctx)
+        for e in sorted(used_edges):
+            for direction in (M.UP, M.DOWN):
+                ctx.ledger.record(rnd, -(e + 1), "edge_agg", direction, eb,
+                                  hop=M.EDGE_SERVER)
+    return len(arrived)
+
+
 def run_program(model, base, cfg: ModelConfig, fed: FedConfig, targets,
-                public: Dict, clients_data: List[Dict], test: Dict,
-                task: str, batch_size: int, eval_batch: int, verbose: bool,
-                device, lora=None) -> FedResult:
+                public: Dict, clients_data, test: Dict, task: str,
+                batch_size: int, eval_batch: int, verbose: bool, device,
+                lora=None) -> FedResult:
     """Run ``fed.rounds`` rounds of ``fed.framework`` under
     ``fed.aggregation``'s schedule, the clients' local work run by
-    ``fed.backend``'s executor.  ``lora`` (optional) is the initial LoRA state: the global
-    tree for FedLLM, ``{"server": tree, "clients": [tree, ...]}`` for KD,
-    the full-model tree (split at L) for Split."""
+    ``fed.backend``'s executor (``cohort``: a round streamed through the
+    spmd executor, _streamed_round).  ``clients_data`` is a
+    ClientPopulation or a list of shards.  ``lora`` (optional) is the
+    initial LoRA state: the global tree for FedLLM, ``{"server": tree,
+    "clients": [tree, ...]}`` for KD, the full-model tree (split at L)
+    for Split."""
     ctx = RoundContext(model, base, cfg, fed, targets, public, clients_data,
                        test, task, batch_size, eval_batch, verbose, device)
     program = PROGRAMS[fed.framework](ctx, lora)
     ex = EXECUTORS[fed.backend](ctx)
     schedule = AsyncSchedule(fed, ctx.n_clients)
+    n_edges = (fed.n_edges or 1) if ex.streaming else 1
+    if n_edges > 1:
+        # two hops: every per-client wire event is the client -> edge hop
+        ctx.ledger.default_hop = M.CLIENT_EDGE
     tag = f"{fed.framework}/{ex.backend}" + \
         ("/async" if fed.aggregation == "async" else "")
     for rnd in range(fed.rounds):
         t0 = time.perf_counter()
-        # the clients starting this round form its secure-agg cohort
-        starters = schedule.starters(rnd)
-        ctx.secagg.begin_cohort(ctx.ledger, rnd, starters)
-        jobs = program.broadcast(ctx, starters, rnd)
-        outs = program.local_update(ctx, ex, jobs, rnd)
-        for ci, payload in program.upload(ctx, outs, rnd):
-            schedule.submit(rnd, ci, payload)
-        kept, delivered, arrived = [], [], []
-        for j in schedule.pop_arrivals(rnd):
-            arrived.append(j)
-            program.record_arrival(ctx, j, rnd)
-            s = rnd - j.start
-            if s <= fed.max_staleness:
-                kept.append((j.client, j.payload, s, ctx.data_w[j.client]))
-                delivered.append((j.start, j.client))
-            else:
-                ctx.secagg.discard(j.start, j.client)
-        ctx.secagg.deliver(ctx.ledger, rnd, delivered)
-        program.aggregate(ctx, ex, kept, arrived, rnd)
+        if ex.streaming:
+            n_arrived = _streamed_round(ctx, program, ex, schedule, rnd,
+                                        n_edges)
+        else:
+            # the clients starting this round form its secure-agg cohort
+            starters = schedule.starters(rnd)
+            ctx.secagg.begin_cohort(ctx.ledger, rnd, starters)
+            jobs = program.broadcast(ctx, starters, rnd)
+            outs = program.local_update(ctx, ex, jobs, rnd)
+            for ci, payload in program.upload(ctx, outs, rnd):
+                schedule.submit(rnd, ci, payload)
+            kept, delivered, arrived = [], [], []
+            for j in schedule.pop_arrivals(rnd):
+                arrived.append(j)
+                program.record_arrival(ctx, j, rnd)
+                s = rnd - j.start
+                if s <= fed.max_staleness:
+                    kept.append((j.client, j.payload, s,
+                                 ctx.data_w[j.client]))
+                    delivered.append((j.start, j.client))
+                else:
+                    ctx.secagg.discard(j.start, j.client)
+            ctx.secagg.deliver(ctx.ledger, rnd, delivered)
+            program.aggregate(ctx, ex, kept, arrived, rnd)
+            n_arrived = len(arrived)
         acc, loss = program.evaluate(ctx)
         ctx.history.append(M.RoundMetrics(
             rnd, acc, loss, ctx.ledger.mean_client_bytes_per_round(),
@@ -662,7 +949,7 @@ def run_program(model, base, cfg: ModelConfig, fed: FedConfig, targets,
             seconds=time.perf_counter() - t0))
         if verbose:
             print(f"[{tag}] round {rnd}: acc={acc:.4f} loss={loss:.4f}"
-                  + (f" arrived={len(arrived)}"
+                  + (f" arrived={n_arrived}"
                      if fed.aggregation == "async" else ""))
     return FedResult(ctx.history, ctx.ledger, program.final_state(ctx),
                      [c.flops for c in ctx.cost])

@@ -4,24 +4,29 @@
     result = run_federated(cfg, fed, public, clients, test, device="cuda")
 
 ``result.history`` is a list of RoundMetrics; ``result.ledger`` holds
-every wire transfer.  The port runs FedLLM (the paper's SSV case study),
-KD-FedLLM and Split-FedLLM on all three families it builds: the dense
-family (GPT-2), the Griffin hybrid (RecurrentGemma; Split at a pattern
-group boundary, the tail on the server) and RWKV-6 (Finch).  Each runs
-with sync rounds under either execution backend: ``sequential`` (a loop
-over clients) or ``spmd`` (the round's clients stacked on a leading
-axis, core/fed_spmd.py), with or without the privacy knobs
-(``FedConfig.privacy``: DP-SGD clipping, upload noise, secure
-aggregation; on Split the c2 boundary clip and noise), on every family
-above, except that ``spmd`` refuses ``privacy.dp_clip > 0`` (DP-SGD over
-a client axis is not ported yet).  Under ``sequential`` the three
-frameworks also run heterogeneous client ranks (``client_ranks``,
-harmonized by ``hetero_agg``: core/heterogeneous.py) and async
-aggregation (``aggregation="async"``: core/async_agg.py), secure
-aggregation included; ``spmd`` refuses both, and async refuses a
-``robust_agg`` other than "mean".  The ``cohort`` backend and a ``mesh``
-are not ported.  An invalid setting raises ValueError, as in the
-reference; a valid ``FedConfig`` setting outside the ported slices raises
+every wire transfer.  ``clients`` is a data/population.ClientPopulation
+(for example the lazy ``DirichletPopulation``) or a list of per-client
+shards, which is wrapped in an ``EagerPopulation``; the port does not
+warn on a list (the reference's DeprecationWarning retires an older API
+of its own that the port never had).  The port runs FedLLM (the paper's
+SSV case study), KD-FedLLM and Split-FedLLM on all three families it
+builds: the dense family (GPT-2), the Griffin hybrid (RecurrentGemma;
+Split at a pattern group boundary, the tail on the server) and RWKV-6
+(Finch).  Each runs under every execution backend: ``sequential`` (a
+loop over clients), ``spmd`` (the round's ready set stacked on a leading
+axis, core/fed_spmd.py) and ``cohort`` (the ready set streamed through
+the spmd executor ``cohort_size`` clients at a time, the aggregate
+folded between chunks, each chunk its own secure-aggregation cohort;
+``n_edges > 1`` splits the ledger into a client->edge and an
+edge->server hop), with sync or async aggregation (``aggregation=
+"async"``: core/async_agg.py), heterogeneous client ranks
+(``client_ranks``, harmonized by ``hetero_agg``: core/heterogeneous.py)
+and the privacy knobs (``FedConfig.privacy``: DP-SGD clipping, upload
+noise, secure aggregation; on Split the c2 boundary clip and noise).  A
+``robust_agg`` other than "mean", a quorum, the norm screen and fault
+injection are refused on every backend, and a ``mesh`` is not ported.
+An invalid setting raises ValueError, as in the reference; a valid
+``FedConfig`` setting outside the ported slices raises
 NotImplementedError rather than being ignored.
 
 LoRA targets are ``fed.lora_targets``, or ``peft/lora.default_targets``
@@ -57,6 +62,7 @@ from repro_torch import tree as tree_lib
 from repro_torch.configs.base import FedConfig, ModelConfig
 from repro_torch.core.heterogeneous import normalize_ranks
 from repro_torch.core.round_program import FedResult, run_program
+from repro_torch.data.population import as_population
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.factory import build_model
 from repro_torch.peft import lora as lora_lib
@@ -66,14 +72,6 @@ from repro_torch.runtime import resolve_device
 def _unported(fed: FedConfig, task: str) -> List[str]:
     """The settings of ``fed`` the port does not run yet."""
     checks = [
-        (fed.backend == "cohort", f"backend={fed.backend!r}"),
-        (fed.backend == "spmd" and fed.privacy.dp_clip > 0.0,
-         "backend='spmd' with privacy.dp_clip > 0"),
-        (fed.backend == "spmd" and fed.aggregation == "async",
-         "backend='spmd' with aggregation='async'"),
-        (fed.backend == "spmd" and any(r != fed.lora_rank
-                                       for r in fed.client_ranks or ()),
-         "backend='spmd' with client_ranks below lora_rank"),
         (fed.peft != "lora", f"peft={fed.peft!r}"),
         (fed.optimizer != "adam", f"optimizer={fed.optimizer!r}"),
         (fed.faults.enabled, "fault injection"),
@@ -124,12 +122,13 @@ def _check_values(fed: FedConfig, n_clients: int,
 
 
 def run_federated(cfg: ModelConfig, fed: FedConfig, public: Dict,
-                  clients: List[Dict], test: Dict,
+                  clients, test: Dict,
                   task: str = "classification", batch_size: int = 16,
                   eval_batch: int = 64, verbose: bool = False,
                   device=None, base=None, lora=None,
                   checkpoint_every: int = 0, checkpoint_dir: str = None,
                   resume_from: str = None) -> FedResult:
+    clients = as_population(clients)
     _check_values(fed, len(clients), checkpoint_every, checkpoint_dir)
     unported = _unported(fed, task)
     if checkpoint_every or checkpoint_dir or resume_from:

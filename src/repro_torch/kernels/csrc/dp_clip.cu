@@ -9,12 +9,18 @@
 //       sq[b] = sum_p g[b, p]^2, accumulated in fp32;
 //   * dp_clip_acc   <- _clip_acc_kernel: out[p] = (1/B) * sum_b g[b, p] *
 //       min(1, C / max(sqrt(sq[b]), eps)), summed over b in order.
+//   * dp_clip_acc_clients <- _clip_acc_kernel under the vmap over clients
+//       of the spmd backend's stacked DP-SGD step: g (C, B, P), sq (C, B)
+//       -> out (C, P), client c on grid row c, each client's output the
+//       bits of the one-client launch on its rows (the same kernel: a
+//       one-client launch is its grid row 0).
 //
 // What bounds them on this card: each reads g once (B*P*4 bytes) and does
 // two operations per element, far below the ridge, so the bound is bytes:
 // at the main path's (16, 442368) g is 28.3 MB, 0.0085 ms at 3.35 TB/s
 // for each pass.  28.3 MB fits in the 50 MB L2, so the second pass may
-// find g there.
+// find g there.  With the spmd backend's client axis, (3, 16, 442368), g
+// is 84.9 MB, 0.025 ms a pass, and the L2 no longer holds it.
 //
 // The design, for a card whose blocks run in parallel and in no order (the
 // TPU's kernels carry the norms across a sequential grid instead):
@@ -140,12 +146,17 @@ norm_kernel(const float* __restrict__ G, float* __restrict__ sq, int P,
   cluster.sync();
 }
 
+// client c = blockIdx.y: its rows G[c] (B, P), norms sq[c] (B,) and
+// output out[c] (P,); a one-client launch has one grid row
 template <bool VEC>
 __global__ void __launch_bounds__(NT)
 clip_acc_kernel(const float* __restrict__ G, const float* __restrict__ sq,
                 float* __restrict__ out, int B, int P, float clip, float eps,
                 float inv_b) {
   extern __shared__ float scale[];   // B floats
+  G += (size_t)blockIdx.y * B * P;
+  sq += (size_t)blockIdx.y * B;
+  out += (size_t)blockIdx.y * P;
   for (int b = threadIdx.x; b < B; b += NT)
     scale[b] = fminf(1.f, clip / fmaxf(sqrtf(sq[b]), eps));
   __syncthreads();
@@ -195,24 +206,35 @@ int dp_clip_norms(const float* g, float* sq, int B, int P, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// out fp32 (P,) = (1/B) sum_b g[b] * min(1, clip / max(sqrt(sq[b]), eps)).
-// vec: P % 4 == 0 and g, out 16-byte aligned.
-int dp_clip_acc(const float* g, const float* sq, float* out, int B, int P,
-                float clip, float eps, int vec, void* stream) {
-  if (B <= 0 || B > MAX_B || P <= 0 || (vec && P % 4))
+// out fp32 (C, P): out[c] = (1/B) sum_b g[c, b] * min(1, clip /
+// max(sqrt(sq[c, b]), eps)) for each of the C clients, one grid row a
+// client.  vec: P % 4 == 0 and g, out 16-byte aligned (then every
+// client's rows and output are too).
+int dp_clip_acc_clients(const float* g, const float* sq, float* out, int C,
+                        int B, int P, float clip, float eps, int vec,
+                        void* stream) {
+  if (C <= 0 || C > 65535 || B <= 0 || B > MAX_B || P <= 0 ||
+      (vec && P % 4))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float inv_b = 1.f / (float)B;
   const size_t smem = (size_t)B * sizeof(float);
   if (vec) {
     const int n = P / 4;
-    clip_acc_kernel<true><<<(n + NT - 1) / NT, NT, smem, s>>>(
+    clip_acc_kernel<true><<<dim3((n + NT - 1) / NT, C), NT, smem, s>>>(
         g, sq, out, B, P, clip, eps, inv_b);
   } else {
-    clip_acc_kernel<false><<<(P + NT - 1) / NT, NT, smem, s>>>(
+    clip_acc_kernel<false><<<dim3((P + NT - 1) / NT, C), NT, smem, s>>>(
         g, sq, out, B, P, clip, eps, inv_b);
   }
   return (int)cudaGetLastError();
+}
+
+// out fp32 (P,) = (1/B) sum_b g[b] * min(1, clip / max(sqrt(sq[b]), eps)):
+// the launch of one client.  vec: P % 4 == 0 and g, out 16-byte aligned.
+int dp_clip_acc(const float* g, const float* sq, float* out, int B, int P,
+                float clip, float eps, int vec, void* stream) {
+  return dp_clip_acc_clients(g, sq, out, 1, B, P, clip, eps, vec, stream);
 }
 
 }  // extern "C"

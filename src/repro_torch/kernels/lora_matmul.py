@@ -33,7 +33,10 @@ so that no gradient summed over the examples is formed.
 ``LoRAMatmulClients`` is the stacked clients' form (core/fedavg's stacked
 train step): x (C, M_c, K) against each client's (C, K, r) and (C, r, N)
 factors, whose backward gives each client's dA and dB straight as the
-gradients of the stacked factors.
+gradients of the stacked factors.  ``LoRAMatmulClientsExamples`` is the
+stacked clients' form under the DP-SGD step's per-example pass: the
+client-axis forward and dx, and each example's dA and dB through one
+``lora_panel_examples_pair`` launch over the C·B examples.
 
 Each kernel wrapper adds one to ``LAUNCHES[name]`` where it launches.
 """
@@ -364,6 +367,40 @@ class LoRAMatmulClients(torch.autograd.Function):
         if need_db:
             db = panel(g, xa, True)
         return (dx if need_dx else None), None, da, db, None
+
+
+class LoRAMatmulClientsExamples(torch.autograd.Function):
+    """x (C, B·S, K), w (K, N), a (C, K, r), b (C, r, N) -> y (C, B·S, N)
+    as LoRAMatmulClients, with the sinks sa (C·B, K, r) and sb (C·B, r,
+    N): y does not read them, and their gradients are each example's dA
+    and dB with respect to its client's factors (example j of client c at
+    row c·B + j).  The example axis is the flattened client and batch
+    axes, so one pair launch serves the whole stacked batch.  w, a and b
+    get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, sa, sb, S, cuda):
+        y, xa = (lora_fwd_clients if cuda else ref.lora_fwd_clients)(x, w, a,
+                                                                    b)
+        ctx.cuda, ctx.S = cuda, S
+        ctx.save_for_backward(x, w, a, b, xa)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, a, b, xa = ctx.saved_tensors
+        Cl, M, K = x.shape
+        S, cuda = ctx.S, ctx.cuda
+        n = Cl * M // S
+        g = g.contiguous()
+        dx, gb = (lora_dx_clients if cuda else ref.lora_dx_clients)(g, w, a,
+                                                                    b)
+        da, db = (lora_panel_examples_pair if cuda
+                  else ref.panel_grad_examples_pair)(
+            x.view(n, S, K), gb.view(n, S, -1), g.view(n, S, -1),
+            xa.view(n, S, -1))
+        dx = dx if ctx.needs_input_grad[0] else None
+        return dx, None, None, None, da, db, None, None
 
 
 def lora_matmul(x, w, a, b):

@@ -37,7 +37,12 @@ makes ``lora_matmul`` one client-axis pass over the stacked batch
 ``vmap`` of the per-example loss (core/fedavg.per_example_grads): inside
 it every LoRA projection is one batched pass whose backward gives each
 example's LoRA gradients (kernels/lora_matmul.LoRAMatmulExamples, under
-either policy).
+either policy).  With stacked clients' factors inside the scope (the
+``spmd`` backend's DP-SGD step, core/fedavg.per_example_grads_clients:
+the reference's ``vmap`` over clients of that ``vmap``) the projection
+is the client-axis pass whose backward gives each example's gradients
+with respect to its own client's factors
+(kernels/lora_matmul.LoRAMatmulClientsExamples).
 """
 from __future__ import annotations
 
@@ -93,7 +98,10 @@ def per_example_scope(batch: int):
     sink_b (B, r, N) is each example's gradient with respect to the bound
     a and b.  Every LoRA projection's input must lead with the batch, and
     no layer may mix examples (core/fedavg.per_example_grads checks the
-    model's ``aux``)."""
+    model's ``aux``).  With stacked clients' factors a (C, K, r), b (C, r,
+    N), ``batch`` counts the C·B examples of the stacked batch, client c's
+    B one after another: sink row c·B + j is example j of client c, its
+    gradient with respect to a[c] and b[c]."""
     global _EXAMPLES
     if _EXAMPLES is not None:
         raise RuntimeError("per_example_scope: already open")
@@ -120,6 +128,8 @@ def lora_matmul(x, w, a, b):
     stacked clients' factors, a (C, K, r) and b (C, r, N), the rows of x
     come in C equal groups, one a client (_lora_matmul_clients)."""
     if a.dim() == 3:
+        if _EXAMPLES is not None:
+            return _lora_matmul_clients_examples(x, w, a, b)
         return _lora_matmul_clients(x, w, a, b)
     if _EXAMPLES is not None:
         return _lora_matmul_examples(x, w, a, b)
@@ -183,6 +193,37 @@ def _lora_matmul_clients(x, w, a, b):
         x.reshape(C, rows // C, K).contiguous(), w, a.contiguous(),
         b.contiguous(), cuda)
     return y.reshape(*lead, w.shape[1])
+
+
+def _lora_matmul_clients_examples(x, w, a, b):
+    """lora_matmul of stacked clients under per_example_scope: x (C·B,
+    ..., K) as (C, B·S, K) against each client's a[c], b[c], which enter
+    detached; the two sinks, (C·B, K, r) and (C·B, r, N), carry each
+    example's gradients with respect to its own client's factors."""
+    n, sites = _EXAMPLES
+    C = a.shape[0]
+    *lead, K = x.shape
+    if not lead or lead[0] != n or n % C:
+        raise ValueError(f"lora_matmul: a per-example pass of {n} examples "
+                         f"over {C} stacked clients needs inputs that lead "
+                         f"with the stacked batch, got {tuple(x.shape)}")
+    if w.requires_grad:
+        raise ValueError("lora_matmul: a per-example pass forms no gradient "
+                         "of the bound base weight")
+    cuda = use_cuda(x)
+    if cuda:
+        _require_cuda("lora_matmul", x, w, a, b)
+    r, N = b.shape[1:]
+    sa = torch.empty((n, K, r), dtype=a.dtype, device=a.device,
+                     requires_grad=True)
+    sb = torch.empty((n, r, N), dtype=b.dtype, device=b.device,
+                     requires_grad=True)
+    sites.append((a, b, sa, sb))
+    S = math.prod(lead[1:])
+    y = _lm.LoRAMatmulClientsExamples.apply(
+        x.reshape(C, n // C * S, K).contiguous(), w,
+        a.detach().contiguous(), b.detach().contiguous(), sa, sb, S, cuda)
+    return y.reshape(*lead, N)
 
 
 def mha_attention(q, k, v, causal: bool = True, window: int = 0,
@@ -301,6 +342,19 @@ def clip_mean_rows(g, clip: float):
         return ref.clip_mean_rows_ref(g, clip)
     _require_cuda("clip_mean_rows", g)
     return _dp.clip_mean_rows(g.float().contiguous(), clip)
+
+
+def clip_mean_rows_clients(g, clip: float):
+    """g: (C, B, P) each stacked client's per-example grads -> (C, P)
+    fp32, each client's mean of its L2-clipped rows (clip_mean_rows with a
+    client axis, privacy/dp.clipped_grad_mean_clients): the norm kernel
+    over the C·B rows and the clip-accumulate kernel with the client on a
+    grid axis under the ``cuda`` policy, the plain version
+    (kernels/ref.py) under ``torch``.  Forward only."""
+    if not use_cuda(g):
+        return ref.clip_mean_rows_clients(g, clip)
+    _require_cuda("clip_mean_rows_clients", g)
+    return _dp.clip_mean_rows_clients(g.float().contiguous(), clip)
 
 
 def rglru(a, b, h0=None):

@@ -291,6 +291,22 @@ def clip_mean_rows_ref(g, clip: float):
     return clip_acc_ref(g, clip_norms_ref(g), clip)
 
 
+def clip_acc_clients(g, sq, clip: float):
+    """Each client's clip_acc_ref: g (C, B, P), sq (C, B) -> (C, P) fp32
+    (row 14ᶜ under the ``vmap`` over clients of the stacked DP-SGD
+    step)."""
+    scale = _clip_scale(torch.sqrt(sq.to(compute_dtype(sq.dtype))), clip)
+    return (g.to(compute_dtype(g.dtype)) * scale[..., None]).mean(dim=1)
+
+
+def clip_mean_rows_clients(g, clip: float):
+    """Each client's clip_mean_rows_ref: g (C, B, P) -> (C, P) fp32, the
+    squared norms of the C·B rows taken as one (B, P) call's."""
+    C, B, P = g.shape
+    return clip_acc_clients(g, clip_norms_ref(g.reshape(C * B, P)).view(C, B),
+                            clip)
+
+
 # --------------------------------------------------------------------------- #
 # RG-LRU linear recurrence
 # --------------------------------------------------------------------------- #

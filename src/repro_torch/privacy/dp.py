@@ -8,7 +8,9 @@ Two mechanisms compose:
   LoRA gradient into one row of a (B, P) fp32 matrix and takes the mean
   of the clipped rows through kernels/ops.clip_mean_rows (the CUDA
   kernels of kernels/dp_clip.py under the ``cuda`` policy, the plain
-  version otherwise).  Deterministic.
+  version otherwise); the ``spmd`` backend's stacked step, each client's
+  rows of a (C, B, P) matrix through ``clipped_grad_mean_clients``.
+  Deterministic.
 
 - **Seeded Gaussian noise on the uploaded payload**: the LoRA params
   (FedLLM) or the row-clipped logits (KD b3, before compression).  The
@@ -22,8 +24,9 @@ Two mechanisms compose:
 
 The noise scale is ``sigma * C`` (PrivacyConfig.noise_std): each round's
 upload is accounted as one Gaussian-mechanism release of a C-clipped
-quantity (privacy/accountant.py).  ``noise_key_grid`` (the stacked
-backends' keys) waits for the stacked backend.
+quantity (privacy/accountant.py).  ``noise_key_grid`` (the reference's
+stacked Split keys) has no counterpart: the port's Split under ``spmd``
+is the sequential loop, which draws from ``noise_generator``.
 """
 from __future__ import annotations
 
@@ -91,6 +94,19 @@ def clipped_grad_mean(per_example_grads, clip: float):
         out.append(mean[off:off + n].reshape(x.shape[1:]).to(x.dtype))
         off += n
     return tree_lib.unflatten(per_example_grads, out)
+
+
+def clipped_grad_mean_clients(rows, clip: float):
+    """Each stacked client's clipped mean: rows (C, B, P), client c's
+    per-example gradients in its B rows -> (C, P) fp32 (fp64 for fp64
+    rows), row c the clipped mean of client c's rows.  The reference's
+    ``vmap`` of ``clipped_grad_mean`` over the client axis (the spmd
+    backend's DP-SGD step), through the clip kernels with a client axis
+    (kernels/ops.clip_mean_rows_clients)."""
+    from repro_torch.kernels import ops as kernel_ops
+
+    return kernel_ops.clip_mean_rows_clients(
+        rows.to(compute_dtype(rows.dtype)), clip)
 
 
 # --------------------------------------------------------------------------- #

@@ -3,9 +3,7 @@
 The port's own copy of ``src/repro/privacy/secure_agg.py``: the same
 numpy uint64 masks from ``np.random.default_rng(seed + (start, lo, hi))``,
 so the masks, sums and ledger bytes are the reference's by construction.
-``state_dict``/``load_state_dict`` wait for checkpointing, and
-``begin_cohort``'s ``cohort_id`` (per-chunk cohorts) for the
-cohort-streaming executor.
+``state_dict``/``load_state_dict`` wait for checkpointing.
 
 Bonawitz-style pairwise additive masking, simulated faithfully enough
 to pin its two load-bearing properties in tests while staying
@@ -88,15 +86,22 @@ class SecureAggSession:
 
     # -- cohort setup ------------------------------------------------------ #
     def begin_cohort(self, ledger: M.CommLedger, rnd: int,
-                     cohort: Iterable[int]):
+                     cohort: Iterable[int], cohort_id: int = None):
         """Key/share exchange for the clients starting a job this round
-        (sync: everyone, every round).  Records the exchange bytes."""
+        (sync: everyone, every round).  Records the exchange bytes.
+
+        ``cohort_id`` keys the masking cohort where it is not the round:
+        the cohort-streaming executor masks each chunk of a round's
+        starters against itself (several cohorts a round), so a chunk's
+        masked sum cancels, and its payloads are freed, once the chunk
+        has delivered.  ``collect``, ``deliver`` and ``discard`` key by
+        the same id (their ``start_rnd``); the flat engines pass none."""
         if not self.enabled:
             return
         cis = list(cohort)
         if not cis:
             return
-        self._cohorts[rnd] = cis
+        self._cohorts[rnd if cohort_id is None else cohort_id] = cis
         n = len(cis)
         if n < 2:
             return                         # nothing to mask against

@@ -247,9 +247,39 @@ def test_async_at_zero_staleness_is_sync_bit_for_bit(runs, case):
         tree_lib.leaves(async0.final_lora), tree_lib.leaves(sync.final_lora)))
 
 
-def test_async_under_spmd_still_refuses():
+@pytest.mark.parametrize("case", list(RUNS))
+def test_async_under_spmd_matches_sequential(runs, case):
+    """``backend="spmd"`` stacks each round's ready set (the clients
+    that start a job): the sequential async run's ledger, FLOPs, secure
+    aggregation and discards exactly, its rounds within 1e-3 and its
+    final LoRA within atol 5e-5 / rtol 5e-4 (the spmd run against the
+    reference's: tests/test_torch_spmd_dp.py)."""
     cfg, pub, clients, test = _data()
-    fed = FedConfig(rounds=1, lora_rank=RANK, lora_dropout=0.0,
-                    backend="spmd", aggregation="async")
-    with pytest.raises(NotImplementedError, match="async"):
-        run_federated(cfg, fed, pub, clients, test, device="cpu")
+    _, seq, _, seq_seen = runs[case]
+    params = jax.tree.map(np.asarray,
+                          ref_build(ref_tiny()).init(jax.random.PRNGKey(SEED)))
+    lora = bridge.lora_from_reference(jax.tree.map(
+        np.asarray, ref_lora.init_lora(jax.random.PRNGKey(LORA_KEY[case]),
+                                       params, TARGETS, RANK, ALPHA)), "cpu")
+    seen = []
+    undo = _spy_secagg(secure_agg.SecureAggSession, seen)
+    try:
+        spmd = run_federated(cfg, FedConfig(
+            lora_rank=RANK, lora_dropout=0.0, seed=SEED, split_layer=2,
+            backend="spmd", privacy=PrivacyConfig(secure_agg=True),
+            **RUNS[case]), pub, clients, test, batch_size=16, eval_batch=64,
+            device="cpu", base=bridge.params_from_reference(params, "cpu"),
+            lora=lora)
+    finally:
+        undo()
+    assert seen == seq_seen
+    assert spmd.ledger.by_name() == seq.ledger.by_name()
+    assert spmd.ledger.per_client_round() == seq.ledger.per_client_round()
+    assert spmd.client_flops == seq.client_flops
+    for hp, hs in zip(spmd.history, seq.history):
+        assert abs(hp.loss - hs.loss) <= 1e-3
+        assert abs(hp.accuracy - hs.accuracy) <= 1e-3
+    for x, y in zip(tree_lib.leaves(spmd.final_lora),
+                    tree_lib.leaves(seq.final_lora)):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), atol=5e-5,
+                                   rtol=5e-4)

@@ -21,7 +21,6 @@ the svd deltas at atol 1e-5 / rtol 1e-5 (two LAPACK SVDs in fp32).
 KD-FedLLM with heterogeneous ranks runs in tests/test_torch_async_kd.py,
 its clients each at their own rank (KD aggregates no parameters, so
 ``hetero_agg`` does not reach it)."""
-import dataclasses
 import warnings
 
 import numpy as np
@@ -281,12 +280,31 @@ def test_hetero_rounds_and_final_lora_close(runs, case):
         np.testing.assert_allclose(g, w, atol=5e-5, rtol=5e-4)
 
 
-def test_hetero_ranks_under_spmd_still_refuse():
-    """Ranks below the global one under ``spmd`` are left to a later
-    slice: NotImplementedError."""
+def test_hetero_ranks_under_spmd_match_sequential(runs):
+    """Ranks below the global one under ``spmd``: one stacked program a
+    rank bucket, the stacked truncated trees contiguous.  The sequential
+    zeropad run's ledger and FLOPs exactly, its rounds within 1e-3 and
+    its final LoRA within atol 5e-5 / rtol 5e-4 (the spmd runs against
+    the reference's: tests/test_torch_spmd_dp.py)."""
     cfg, pub, clients, test = _data()
-    fed = dataclasses.replace(FedConfig(**dict(rounds=1, lora_rank=RANK,
-                                               lora_dropout=0.0)),
-                              backend="spmd", client_ranks=(2, 4, 1))
-    with pytest.raises(NotImplementedError, match="client_ranks"):
-        run_federated(cfg, fed, pub, clients, test, device="cpu")
+    _, seq = runs["fedllm-zeropad"]
+    params = jax.tree.map(np.asarray,
+                          ref_build(ref_tiny()).init(jax.random.PRNGKey(SEED)))
+    lt = ref_lora.init_lora(jax.random.PRNGKey(LORA_KEY["fedllm"]), params,
+                            TARGETS, RANK, ALPHA)
+    spmd = run_federated(
+        cfg, FedConfig(rounds=2, lora_rank=RANK, lora_dropout=0.0, seed=SEED,
+                       backend="spmd", **RUNS["fedllm-zeropad"]),
+        pub, clients, test, batch_size=16, eval_batch=64, device="cpu",
+        base=bridge.params_from_reference(params, "cpu"),
+        lora=bridge.lora_from_reference(jax.tree.map(np.asarray, lt), "cpu"))
+    assert spmd.ledger.by_name() == seq.ledger.by_name()
+    assert spmd.ledger.per_client_round() == seq.ledger.per_client_round()
+    assert spmd.client_flops == seq.client_flops
+    for hp, hs in zip(spmd.history, seq.history):
+        assert abs(hp.loss - hs.loss) <= 1e-3
+        assert abs(hp.accuracy - hs.accuracy) <= 1e-3
+    for x, y in zip(tree_lib.leaves(spmd.final_lora),
+                    tree_lib.leaves(seq.final_lora)):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), atol=5e-5,
+                                   rtol=5e-4)

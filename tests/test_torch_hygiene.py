@@ -53,7 +53,8 @@ assert {"repro_torch.privacy.dp", "repro_torch.privacy.accountant",
         "repro_torch.configs.recurrentgemma_2b",
         "repro_torch.kernels.rwkv6_scan", "repro_torch.models.rwkv6",
         "repro_torch.configs.rwkv6_1_6b",
-        "repro_torch.core.fed_spmd"} <= set(names), names
+        "repro_torch.core.fed_spmd", "repro_torch.core.rng",
+        "repro_torch.data.population"} <= set(names), names
 """
 
 
@@ -121,6 +122,8 @@ def test_cuda_policy_refuses_cpu_tensors():
         with pytest.raises(ValueError, match="CUDA"):
             ops.clip_mean_rows(g, 1.0)
         with pytest.raises(ValueError, match="CUDA"):
+            ops.clip_mean_rows_clients(g.view(2, 2, 96), 1.0)
+        with pytest.raises(ValueError, match="CUDA"):
             ops.quantize(g, 8)
         with pytest.raises(ValueError, match="CUDA"):
             ops.quantize_pack4(g)
@@ -141,6 +144,8 @@ def test_cuda_policy_refuses_cpu_tensors():
         dp_clip.dp_clip_norms(g)
     with pytest.raises(ValueError, match="CUDA"):
         dp_clip.dp_clip_acc(g, torch.ones(4), 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        dp_clip.dp_clip_acc_clients(g.view(2, 2, 96), torch.ones(2, 2), 1.0)
 
 
 def test_auto_policy_resolves_by_device():
@@ -152,14 +157,19 @@ def test_auto_policy_resolves_by_device():
 
 
 @pytest.mark.parametrize("change", [
-    dict(framework="kd", backend="spmd", aggregation="async"),
-    dict(framework="split", backend="spmd", aggregation="async"),
-    dict(backend="spmd", privacy=PrivacyConfig(dp_clip=0.5)),
-    dict(backend="cohort"), dict(backend="spmd", aggregation="async"),
-    dict(backend="spmd", client_ranks=(2, 4, 4)), dict(robust_agg="median"),
+    dict(framework="kd", backend="cohort", robust_agg="median"),
+    dict(framework="split", backend="cohort", quorum=0.5),
+    dict(backend="spmd", privacy=PrivacyConfig(dp_clip=0.5),
+         faults=FaultConfig(dropout_rate=0.2)),
+    dict(backend="cohort", screen_factor=3.0),
+    dict(backend="cohort", aggregation="async", robust_agg="trimmed_mean"),
+    dict(backend="spmd", client_ranks=(2, 4, 4),
+         faults=FaultConfig(straggler_rate=0.5)),
+    dict(robust_agg="median"),
     dict(quorum=0.5), dict(screen_factor=3.0), dict(optimizer="sgd"),
     dict(peft="adapter"),
-    dict(framework="split", backend="spmd", client_ranks=(2, 4, 4)),
+    dict(framework="split", backend="cohort", client_ranks=(2, 4, 4),
+         robust_agg="norm_clip"),
     dict(aggregation="async", robust_agg="median"),
     dict(faults=FaultConfig(dropout_rate=0.2)),
 ])

@@ -41,7 +41,8 @@ from repro.models.factory import build_model as ref_build  # noqa: E402
 from repro.peft import lora as ref_lora  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch import tree as tree_lib  # noqa: E402
-from repro_torch.configs.base import FedConfig, PrivacyConfig  # noqa: E402
+from repro_torch.configs.base import (FaultConfig, FedConfig,  # noqa: E402
+                                      PrivacyConfig)
 from repro_torch.configs.gpt2_small import gpt2_tiny  # noqa: E402
 from repro_torch.configs.recurrentgemma_2b import \
     recurrentgemma_2b  # noqa: E402
@@ -523,13 +524,28 @@ def test_spmd_and_sequential_draw_the_same_dropout_masks(bridged):
         tree_lib.leaves(out["spmd"].final_lora)))
 
 
-def test_spmd_refuses_what_it_does_not_port():
-    """DP-SGD over the client axis raises NotImplementedError; ``mesh`` is
-    no keyword of the port's entry point."""
+def test_spmd_refuses_what_it_does_not_port(bridged):
+    """DP-SGD over the client axis runs: at clip 0.5 the sequential
+    run's ledger exactly and its final LoRA within the fp32 bar (against
+    the reference's spmd DP runs: tests/test_torch_spmd_dp.py); fault
+    injection under ``spmd`` still raises NotImplementedError, and
+    ``mesh`` is no keyword of the port's entry point."""
+    params, lt = bridged
     cfg, pub, clients, test = _tiny_data()
-    dp = FedConfig(backend="spmd", privacy=PrivacyConfig(dp_clip=0.5))
-    with pytest.raises(NotImplementedError, match="dp_clip"):
-        run_federated(cfg, dp, pub, clients, test, device="cpu")
+    out = {}
+    for backend in ("sequential", "spmd"):
+        out[backend] = run_federated(
+            cfg, FedConfig(backend=backend, privacy=PrivacyConfig(
+                dp_clip=0.5), **dict(FED, rounds=1)), pub, clients, test,
+            batch_size=16, eval_batch=64, device="cpu",
+            base=bridge.params_from_reference(params, "cpu"),
+            lora=bridge.lora_from_reference(lt, "cpu"))
+    assert out["spmd"].ledger.by_name() == out["sequential"].ledger.by_name()
+    assert out["spmd"].client_flops == out["sequential"].client_flops
+    _lora_close(out["spmd"].final_lora, out["sequential"].final_lora)
+    faults = FedConfig(backend="spmd", faults=FaultConfig(dropout_rate=0.2))
+    with pytest.raises(NotImplementedError, match="fault"):
+        run_federated(cfg, faults, pub, clients, test, device="cpu")
     with pytest.raises(TypeError):
         run_federated(cfg, FedConfig(backend="spmd"), pub, clients, test,
                       device="cpu", mesh=None)
