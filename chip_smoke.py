@@ -312,11 +312,31 @@ outside that limit.  fp32_gates holds that arithmetic.
    against a kernel run with cohort_size 0, within the spread limits of
    phases 4 and 6, ledgers and launches exact.
 
-After phase 12 it prints each kernel's launches times its time beyond
+13. Fault tolerance (run_faults) at full gpt2 width from phase 3's
+   weights and data: FedLLM with trimmed_mean, the norm screen, dropout
+   and a NaN client under secure aggregation takes run_case's
+   continuous gates, every run's quarantine and retransmit events and
+   rollovers those reckoned from the FaultPlan by hand
+   (fault_reckoning); KD (top-k 8 int8, a NaN client, a median
+   teacher) quarantines the same uploads as its plain run, within
+   phase 4's spread limits; FedLLM under quorum 1.0 with dropout 0.5
+   rolls over as reckoned; and kill-and-resume through the kernels
+   (FedLLM async with secure aggregation, KD, Split int8, FedLLM under
+   cohort with faults, trimmed_mean and a quorum, whose streamed
+   quarantines and rollover are the reckoned ones) ends bit for bit as
+   each uninterrupted run, the two legs' launches its launches.
+
+Phase 2 also holds the quantizers (rows 10, 11, 12) to their twins on
+rows holding a NaN, all NaN, +inf, -inf, all -inf and all three
+(nonfinite_checks): the scale NaN as NaN, non-finite where the twin's
+dequantized row is, the top-k's indices, the finite rows bit for bit.
+
+After phase 13 it prints each kernel's launches times its time beyond
 max(bound, launch floor) (the rule-2 queue), the final-LoRA margins of
 phase 7, Split int8 and RWKV-6, phase 5's first-step and final-LoRA
-margins, phase 8's KD and DP shares and the shares of the Split, hetero
-and async gates of phases 7, 8, 10, 11 and 12 (each kernel run's share of its
+margins, phase 8's KD and DP shares and the shares of the Split, hetero,
+async and fault gates of phases 7, 8, 10, 11, 12 and 13 (each kernel
+run's share of its
 limit, beside the last recorded run's, or "new"), then one JSON
 line with every kernel's numbers and, last, the line ``{"ok": true, "device": {...}}``.  It imports nothing of
 JAX.
@@ -1538,6 +1558,110 @@ def topk_wide_cases(device, seed) -> None:
               f"abs err {err:.3e}, bit-identical")
 
 
+# the rows that nonfinite_rows makes non-finite, in order
+NONFINITE_ROWS = ("one NaN", "all NaN", "one +inf", "one -inf", "all -inf",
+                  "NaN, +inf and -inf")
+
+
+def nonfinite_rows(device, R, C, seed):
+    """Seeded (R, C) rows whose first len(NONFINITE_ROWS) rows hold what
+    NONFINITE_ROWS names, at seeded columns; the rest are finite."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((R, C), device=device, generator=gen) * 3.0
+    c0, c1, c2 = torch.randperm(C, generator=gen, device=device)[:3].tolist()
+    x[0, c0] = math.nan
+    x[1] = math.nan
+    x[2, c0] = math.inf
+    x[3, c1] = -math.inf
+    x[4] = -math.inf
+    x[5, c0], x[5, c1], x[5, c2] = math.nan, math.inf, -math.inf
+    return x
+
+
+def dequantized(name: str, out):
+    """A quantizer's outputs as the values they stand for: the
+    roundtrip's y, else its levels (the pack's nibbles unpacked) times
+    the row's scale."""
+    from repro_torch.core import compression
+    if name.startswith("quant_roundtrip"):
+        return out[0]
+    q, scale = out[0], out[-1]
+    if name == "quantize_pack4":
+        q = compression.unpack_int4(q, 2 * q.shape[1])
+    return q.float() * scale
+
+
+def nonfinite_agree(name: str, got, want, n_bad: int) -> int:
+    """Holds a quantizer's outputs (``got``, the scale last) to its twin's
+    (``want``) on rows whose first ``n_bad`` are non-finite: the rows
+    after them bit for bit (max_err), and on the first ``n_bad`` the
+    scale (NaN as NaN), the places where the dequantized row is not
+    finite and, for top-k, the indices.  Returns how many levels of the
+    non-finite rows differ, which is not gated (a NaN level's integer is
+    the conversion's)."""
+    import torch
+    max_err(name, [o[n_bad:] for o in got], [w[n_bad:] for w in want])
+    gs, ws = got[-1][:n_bad], want[-1][:n_bad]
+    same = (gs == ws) | (torch.isnan(gs) & torch.isnan(ws))
+    require(bool(same.all()), f"{name}: scales of non-finite rows "
+            f"{gs.flatten().tolist()} vs its twin's {ws.flatten().tolist()}")
+    dg = ~torch.isfinite(dequantized(name, got)[:n_bad])
+    dw = ~torch.isfinite(dequantized(name, want)[:n_bad])
+    require(torch.equal(dg, dw), f"{name}: the dequantized non-finite rows "
+            f"are not finite in {int(dg.sum())} places, the twin's in "
+            f"{int(dw.sum())}, {int((dg != dw).sum())} apart")
+    if name == "topk_quantize":
+        require(torch.equal(got[1][:n_bad], want[1][:n_bad]),
+                f"{name}: the indices of non-finite rows are not the "
+                f"twin's")
+    if name.startswith("quant_roundtrip"):
+        return 0
+    return int((got[0][:n_bad] != want[0][:n_bad]).sum())
+
+
+def nonfinite_checks(device) -> None:
+    """Rows 10, 11 and 12 against their twins on rows with a NaN, all NaN,
+    +inf, -inf, all -inf and all three (nonfinite_rows) beside finite
+    rows (nonfinite_agree): the levels and the roundtrip at int8 and int4
+    and the int4 pack at (150, 77), (1280, 768), C 2048 and 2049; the
+    top-k at (150, 77) k 8, (1280, 768) k 8, C 2048 (the last one-warp
+    row) and 2049 (radix) at k 64, and the generative shape (1280, 50257)
+    k 64."""
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import ref
+
+    n_bad = len(NONFINITE_ROWS)
+    shapes = ((150, 77, 8), (BATCH * PAD_LEN, 768, 8), (16, 2048, 64),
+              (16, 2049, 64), (BATCH * PAD_LEN, 50257, 64))
+    for i, (R, C, k) in enumerate(shapes):
+        x = nonfinite_rows(device, R, C, 700 + i)
+        cases = {"topk_quantize": (lambda: qz.topk_quantize(x, k, 8),
+                                   lambda: ref.topk_quantize_rows_ref(x, k,
+                                                                      8))}
+        if C != 50257:
+            for bits, tag in ((8, ""), (4, "_int4")):
+                cases["quantize_rows" + tag] = (
+                    lambda b=bits: qz.quantize_rows(x, b),
+                    lambda b=bits: ref.quantize_rows_ref(x, b))
+                cases["quant_roundtrip_rows" + tag] = (
+                    lambda b=bits: qz.quant_roundtrip_rows(x, b,
+                                                           with_scale=True),
+                    lambda b=bits: ref.quant_roundtrip_rows_ref(x, b))
+            if C % 2 == 0:
+                cases["quantize_pack4"] = (
+                    lambda: qz.quantize_pack4(x),
+                    lambda: ref.quantize_pack4_rows_ref(x))
+        for name, (kern, plain) in cases.items():
+            differ = nonfinite_agree(name, kern(), plain(), n_bad)
+            print(f"  {name} ({R}, {C}){f' k {k}' if 'topk' in name else ''}"
+                  f": rows with {', '.join(NONFINITE_ROWS)}: scale (NaN as "
+                  f"NaN), non-finite places"
+                  f"{' and indices' if 'topk' in name else ''} as the "
+                  f"twin's, finite rows bit-identical; levels of the "
+                  f"non-finite rows that differ (not gated): {differ}")
+
+
 def dp_rows(device, B, P, zero_row, offset, seed):
     """(B, P) per-example gradients whose row norms spread over 0.5-1.5x,
     row 3 all zeros when ``zero_row``, placed ``offset`` floats into their
@@ -2116,6 +2240,7 @@ def check_kernels(device, card: str):
     rows.update(check_rwkv_kernels(device, peaks_))
     rows.update(kd_checks(device, peaks_))
     topk_wide_cases(device, 19)
+    nonfinite_checks(device)
     # DP: every row clipped (float4 loads), a ragged width (scalar loads),
     # none clipped (scalar), half clipped with a ragged last share and a
     # zero row (float4); one row at the main width; P 3 (fewer elements
@@ -2360,7 +2485,8 @@ def nudged(base, seed: int, device):
 # printed beside it (None: no run recorded it yet)
 MARGINS = {}
 # phases 3, 4 and 6's runs, launch counts and gate limits (run_case's
-# ``keep``), the yardsticks of phase 10's spmd runs
+# ``keep``), the yardsticks of phase 10's spmd runs (phase 13 keeps its
+# faulted FedLLM runs there too)
 CASES = {}
 MARGINS_BEFORE = {"phase 7": 0.402, "Split int8": 0.862, "RWKV-6": 0.867,
                   "DP first step": 0.195, "DP final LoRA": 0.390,
@@ -2373,7 +2499,8 @@ MARGINS_BEFORE = {"phase 7": 0.402, "Split int8": 0.862, "RWKV-6": 0.867,
                   "RWKV-6 Split int8 flips": None,
                   "hetero zeropad": None, "hetero svd": None, "async": None,
                   "DP spmd final LoRA": None, "hetero zeropad spmd": None,
-                  "hetero svd spmd": None, "async spmd": None, "cohort": None}
+                  "hetero svd spmd": None, "async spmd": None, "cohort": None,
+                  "faults": None}
 
 
 def rwkv_bwd_repeat(device, seed) -> None:
@@ -2667,19 +2794,24 @@ def run_slices(device):
     return by_path
 
 
-def kd_expect(fed, data, steps, evals, model):
+def kd_expect(fed, data, steps, evals, model, arrived=None):
     """A KD case study's ledger bytes by name and launch counts, from the
     payload shapes and ``model(train steps, forward-only batches)``, the
     model's launches.  Per round: b1 train steps (``steps``); b2 client
     logits and b6 server logits (forward only); b5 server and b8 client
     distillation (kd_epochs passes of kd_step over the public set: one KD
-    forward and backward each); evaluation (``evals`` batches)."""
+    forward and backward each); evaluation (``evals`` batches).  With
+    ``arrived`` (fewer than the clients: the others' uploads quarantined
+    every round, none dropped) only the arrivals upload logits and
+    distill (b8), and each quarantined upload is charged as
+    ``quarantine``."""
     from repro_torch.core import metrics
 
     pub, clients, _ = data
     C, n_pub = len(clients), len(pub["tokens"])
+    A = C if arrived is None else arrived
     pub_batches = -(-n_pub // 64)       # public batches, ragged last
-    kd_steps = (1 + C) * fed.kd_epochs * pub_batches
+    kd_steps = (1 + A) * fed.kd_epochs * pub_batches
     expect = model((steps + kd_steps) * fed.rounds,
                    ((C + 1) * pub_batches + evals) * fed.rounds)
     expect.update(kd_fwd=kd_steps * fed.rounds,
@@ -2687,7 +2819,10 @@ def kd_expect(fed, data, steps, evals, model):
                   topk_quantize=C * fed.rounds)
     wire = metrics.logit_bytes(n_pub, 77, fed.logit_topk,
                                fed.logit_quant_bits)
-    return {"logits": fed.rounds * C * 2 * wire}, expect
+    ledger = {"logits": fed.rounds * A * 2 * wire}
+    if A < C:
+        ledger["quarantine"] = fed.rounds * (C - A) * wire
+    return ledger, expect
 
 
 def kd_upload_gaps(device, cfg, base, fed, pub):
@@ -4344,6 +4479,323 @@ def run_cohort(device):
     return by_path
 
 
+def fault_reckoning(fed, n_clients: int, lora_bytes: int):
+    """A sync FedLLM run's fault accounting reckoned by hand from its
+    FaultPlan (dropout and ``nan`` or ``inf`` clients, no stragglers,
+    every honest payload inside the norm screen): each round every client
+    downloads; a dropped upload is a ``retransmit`` (charged as it is
+    sent), a corrupt client's a ``quarantine`` (charged when the round's
+    arrivals are screened), the others arrive; under secure aggregation each
+    arrival uploads a share for every client its round misses; a round
+    whose arrivals fall below the quorum rolls over.  Returns (ledger
+    bytes by name, [(round, client, name)] of the fault events in order,
+    rollovers)."""
+    from repro_torch.faults.plan import FaultPlan
+    from repro_torch.privacy.secure_agg import SHARE_BYTES, key_exchange_bytes
+
+    fc = fed.faults
+    require(fc.straggler_rate == 0.0 and (
+        fc.byzantine == 0 or fc.byzantine_mode in ("nan", "inf")),
+        "fault_reckoning: stragglers and finite corruption are not reckoned")
+    plan, n, R = FaultPlan(fed, n_clients), n_clients, fed.rounds
+    ledger = {"lora_params": R * n * lora_bytes}
+    events, rollovers, recovery = [], 0, 0
+    for rnd in range(R):
+        # the lost uploads are charged as they are sent, the quarantined
+        # ones when the round's arrivals are screened
+        lost = [ci for ci in range(n) if plan.dropped(rnd, ci)]
+        bad = [ci for ci in range(n) if ci not in lost and plan.corrupts(ci)]
+        kept = [ci for ci in range(n) if ci not in lost + bad]
+        for name, cis in (("retransmit", lost), ("quarantine", bad)):
+            events += [(rnd, ci, name) for ci in cis]
+            if cis:
+                ledger[name] = ledger.get(name, 0) + len(cis) * lora_bytes
+        ledger["lora_params"] += len(kept) * lora_bytes
+        if fed.privacy.secure_agg and kept:
+            recovery += len(kept) * (n - len(kept)) * SHARE_BYTES
+        rollovers += bool(fed.quorum > 0 and len(kept) < fed.quorum * n)
+    if fed.privacy.secure_agg:
+        up, down = key_exchange_bytes(n)
+        ledger["secagg_keys"] = R * n * (up + down)
+        if recovery:
+            ledger["secagg_recovery"] = recovery
+    return ledger, events, rollovers
+
+
+def fault_events(res):
+    """[(round, client, name)] of a result's fault events, in order."""
+    from repro_torch.core import metrics
+    return [(e.round, e.client, e.name) for e in res.ledger.events
+            if e.name in metrics.FAULT_NAMES]
+
+
+def resumed_run(device, cfg, base, fed, data, stop: int):
+    """A run through the kernels killed after round ``stop`` and resumed:
+    rounds 0 to stop - 1 with ``checkpoint_every=1`` into a temporary
+    directory, then the whole run with ``resume_from`` it.  Returns (the
+    resumed result, the launches of both legs)."""
+    import tempfile
+
+    from repro_torch.core.rounds import run_federated
+    from repro_torch.kernels import ops
+
+    pub, clients, test = data
+    cfg = dataclasses.replace(cfg, kernel_policy="cuda")
+    counts = []
+    with tempfile.TemporaryDirectory() as ckpt:
+        for leg in (dict(fed=dataclasses.replace(fed, rounds=stop),
+                         checkpoint_every=1, checkpoint_dir=ckpt),
+                    dict(fed=fed, resume_from=ckpt)):
+            ops.reset_launches()
+            res = run_federated(cfg, leg.pop("fed"), pub, clients, test,
+                                batch_size=BATCH, eval_batch=64,
+                                device=device, base=base, **leg)
+            counts.append(ops.launches())
+    return res, add_counts(*counts)
+
+
+def same_run(res, full, what: str) -> None:
+    """Fails unless ``res`` is ``full`` bit for bit: ledger events,
+    history but the wall-time ``seconds``, rollovers and the final
+    LoRA."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+
+    def history(r):
+        return [dataclasses.replace(h, seconds=0.0) for h in r.history]
+
+    got, want = (tree_lib.leaves(r.final_lora) for r in (res, full))
+    require(res.ledger.events == full.ledger.events, f"{what}: ledger events")
+    require(history(res) == history(full), f"{what}: history")
+    require(res.rollovers == full.rollovers, f"{what}: rollovers")
+    require(len(got) == len(want) > 0 and all(
+        torch.equal(a, b) for a, b in zip(got, want)), f"{what}: final LoRA")
+
+
+def run_faults(device):
+    """Phase 13: fault tolerance at full gpt2 width from phase 3's weights
+    and data, through the kernels.
+
+    1. FedLLM, 3 rounds, trimmed_mean (trim 0.34), the norm screen at 10,
+       dropout 0.3 and one ``nan`` client, secure aggregation: run_case's
+       continuous gates (kernels, two fp32 plain runs, TF32, fp64); every
+       run's fault events and rollovers those fault_reckoning reckons from
+       the plan; ledger by hand, launches exact.
+    2. KD, top-k 8 int8 logits, one ``nan`` client, a median teacher, 2
+       rounds: a kernel and a plain run, the same quarantines (the
+       quantizer keeps the corrupt client's NaN), ledgers by hand, within
+       phase 4's spread limits (needs ``CASES["kd"]``), launches exact.
+    3. FedLLM under quorum 1.0 with dropout 0.5 and norm_clip, 3 rounds:
+       a kernel and a plain run, rollovers and ledger as reckoned.
+    4. Kill-and-resume through the kernels (resumed_run, same_run): each
+       resumed run bit for bit its own uninterrupted one, its two legs'
+       launches the uninterrupted run's.  FedLLM async (``max_staleness``
+       2) with secure aggregation stopped after round 2 of 3; KD top-k 8
+       int8 and Split int8 after round 1 of 2; FedLLM under ``cohort``
+       over phase 12's population (chunks of COHORT_SIZE, COHORT_EDGES
+       edges, secure aggregation) with faults (trimmed_mean, quorum 0.75,
+       dropout 0.3, one ``nan`` client: the streamed round's screen,
+       quarantines, robust buffer and rollover, its fault events and
+       rollovers as fault_reckoning reckons them) after round 1 of 2.
+
+    Returns {path: launch counts}."""
+    import torch
+
+    from repro_torch.configs.base import (FaultConfig, FedConfig,
+                                          PrivacyConfig)
+    from repro_torch.configs.gpt2_small import gpt2
+    from repro_torch.core.rounds import run_federated
+    from repro_torch.data import banking77, partition, population
+    from repro_torch.faults.plan import FaultPlan
+    from repro_torch.kernels import ops
+    from repro_torch.models.factory import build_model
+
+    t0 = time.perf_counter()
+    cfg = gpt2()
+    pub, train, test = banking77.paper_splits(cfg.vocab_size,
+                                              pad_len=PAD_LEN, scale=0.03)
+    clients = partition.iid_partition(train, 3)
+    data = (pub, clients, test)
+    base = build_model(cfg).init(torch.Generator().manual_seed(0), device)
+    L, C = cfg.n_layers, len(clients)
+    steps = sum(len(c["tokens"]) // BATCH for c in clients)  # per round
+    evals = len(test["tokens"]) // 64
+    lora_bytes = L * 3 * 2 * RANK * cfg.d_model * 4
+    by_path = {}
+
+    def run(fed, policy, data=data):
+        """One run from phase 3's weights: its metrics in range; returns
+        (result, launch counts)."""
+        ops.reset_launches()
+        t1 = time.perf_counter()
+        res = run_federated(dataclasses.replace(cfg, kernel_policy=policy),
+                            fed, data[0], data[1], data[2], batch_size=BATCH,
+                            eval_batch=64, device=device, base=base)
+        torch.cuda.synchronize()
+        for h in res.history:
+            require(math.isfinite(h.loss) and 0.0 <= h.accuracy <= 1.0,
+                    f"round {h.round} metrics out of range")
+            print(f"  [{fed.framework} {policy}] round {h.round}: "
+                  f"acc={h.accuracy:.4f} loss={h.loss:.6f} "
+                  f"wall_s={h.seconds:.3f}")
+        print(f"  [{fed.framework} {policy}] run wall_s="
+              f"{time.perf_counter() - t1:.3f} rollovers {res.rollovers}")
+        return res, ops.launches()
+
+    def plain_launches_none(counts, what):
+        require(not any(counts.values()), f"{what}: the plain run launched "
+                f"kernels: {nonzero(counts)}")
+
+    print("phase 13: fault tolerance, gpt2 full width, 3 clients; FedLLM, "
+          "3 rounds, trimmed_mean 0.34, screen_factor 10, dropout 0.3, one "
+          "nan client, secure aggregation")
+    fed = FedConfig(framework="fedllm", rounds=3, lora_rank=RANK,
+                    lora_dropout=0.0, robust_agg="trimmed_mean",
+                    trim_frac=0.34, screen_factor=10.0,
+                    faults=FaultConfig(dropout_rate=0.3, byzantine=1,
+                                       byzantine_mode="nan"),
+                    privacy=PrivacyConfig(secure_agg=True))
+    ledger, events, rollovers = fault_reckoning(fed, C, lora_bytes)
+    require({"quarantine", "retransmit"} <= {e[2] for e in events},
+            f"the plan's faults {events} hold no quarantine or retransmit")
+    by_path["faults_fedllm"], kern = run_case(
+        device, cfg, base, fed, data, ledger=ledger,
+        expect=model_launches(L, steps * fed.rounds, evals * fed.rounds),
+        margin="faults", keep="faults")
+    for role, res in CASES["faults"]["results"].items():
+        require(fault_events(res) == events and res.rollovers == rollovers,
+                f"{role} run: fault events {fault_events(res)}, rollovers "
+                f"{res.rollovers}; reckoned {events}, {rollovers}")
+    print(f"  every run's fault events as reckoned from the plan: {events}; "
+          f"rollovers {rollovers}; fault overhead "
+          f"{kern.ledger.fault_overhead_bytes()} bytes")
+
+    print("phase 13: KD, top-k 8 int8 logits, one nan client, median "
+          "teacher, 2 rounds, kernels against plain")
+    fed = FedConfig(framework="kd", rounds=2, lora_rank=RANK,
+                    lora_dropout=0.0, logit_topk=8, logit_quant_bits=8,
+                    robust_agg="median",
+                    faults=FaultConfig(byzantine=1, byzantine_mode="nan"))
+    (bad,) = FaultPlan(fed, C).byzantine
+    kd_ledger, expect = kd_expect(
+        fed, data, steps, evals,
+        lambda train, fwd: model_launches(L, train, fwd), arrived=C - 1)
+    kd = {}
+    for policy in ("cuda", "torch"):
+        kd[policy], counts = run(fed, policy)
+        require(kd[policy].ledger.by_name() == kd_ledger,
+                f"KD {policy}: ledger {kd[policy].ledger.by_name()} != "
+                f"{kd_ledger}")
+        require(fault_events(kd[policy]) == [(r, bad, "quarantine")
+                                             for r in range(fed.rounds)],
+                f"KD {policy}: fault events {fault_events(kd[policy])}")
+        if policy == "cuda":
+            check_launches(counts, expect)
+            by_path["faults_kd"] = counts
+        else:
+            plain_launches_none(counts, "KD")
+    lim = CASES["kd"]["limits"]
+    rel = lora_gap(kd["cuda"].final_lora, kd["torch"].final_lora)[1]
+    print(f"  KD: client {bad}'s upload quarantined each round in both "
+          f"runs; final LoRA vs plain: relative L2 {rel:.3e} (phase 4's "
+          f"spread limit {lim['lora']:.3e}, {rel / lim['lora']:.3f} of it)")
+    require(rel <= lim["lora"], "KD faulted: final LoRA beyond phase 4's "
+            "spread limit")
+    for h, hp, limit in zip(kd["cuda"].history, kd["torch"].history,
+                            lim["loss"]):
+        print(f"  round {h.round} loss vs plain {abs(h.loss - hp.loss):.3e} "
+              f"(limit {limit:.3e})")
+        require(abs(h.loss - hp.loss) <= limit, "KD faulted: a round's loss "
+                "beyond phase 4's spread limit")
+
+    print("phase 13: FedLLM, quorum 1.0, dropout 0.5, norm_clip, 3 rounds, "
+          "kernels against plain")
+    fed = FedConfig(framework="fedllm", rounds=3, lora_rank=RANK,
+                    lora_dropout=0.0, quorum=1.0, robust_agg="norm_clip",
+                    faults=FaultConfig(dropout_rate=0.5))
+    ledger, events, rollovers = fault_reckoning(fed, C, lora_bytes)
+    require(0 < rollovers < fed.rounds, f"the plan rolls {rollovers} of "
+            f"{fed.rounds} rounds over")
+    quorum = {}
+    for policy in ("cuda", "torch"):
+        quorum[policy], counts = run(fed, policy)
+        res = quorum[policy]
+        require(res.rollovers == rollovers and res.ledger.by_name() == ledger
+                and fault_events(res) == events,
+                f"quorum {policy}: rollovers {res.rollovers}, ledger "
+                f"{res.ledger.by_name()}; reckoned {rollovers}, {ledger}")
+        if policy == "cuda":
+            check_launches(counts, model_launches(L, steps * fed.rounds,
+                                                  evals * fed.rounds))
+            by_path["faults_quorum"] = counts
+        else:
+            plain_launches_none(counts, "quorum")
+    require(quorum["cuda"].ledger.events == quorum["torch"].ledger.events,
+            "quorum: ledger events differ from the plain run's")
+    rel = lora_gap(quorum["cuda"].final_lora, quorum["torch"].final_lora)[1]
+    print(f"  quorum: {rollovers} of {fed.rounds} rounds rolled over in both "
+          f"runs, as reckoned; ledgers equal; final LoRA vs plain: relative "
+          f"L2 {rel:.3e}")
+
+    pop = population.DirichletPopulation(train, COHORT_CLIENTS, alpha=0.5,
+                                         seed=0, shard_size=BATCH)
+    secagg = PrivacyConfig(secure_agg=True)
+    resumes = [
+        ("FedLLM async, max_staleness 2, secure aggregation", 2, data,
+         FedConfig(framework="fedllm", rounds=3, aggregation="async",
+                   max_staleness=2, privacy=secagg)),
+        ("KD, top-k 8 int8", 1, data,
+         FedConfig(framework="kd", rounds=2, logit_topk=8,
+                   logit_quant_bits=8)),
+        (f"Split, int{SPLIT_BITS} boundary", 1, data,
+         FedConfig(framework="split", rounds=2, split_layer=SPLIT_LAYER,
+                   activation_quant_bits=SPLIT_BITS)),
+        (f"FedLLM cohort, {COHORT_CLIENTS} clients in chunks of "
+         f"{COHORT_SIZE}, {COHORT_EDGES} edges, secure aggregation, "
+         f"trimmed_mean 0.34, quorum 0.75, dropout 0.3, one nan client", 1,
+         (pub, pop, test),
+         FedConfig(framework="fedllm", rounds=2, backend="cohort",
+                   cohort_size=COHORT_SIZE, n_edges=COHORT_EDGES,
+                   privacy=secagg, robust_agg="trimmed_mean",
+                   trim_frac=0.34, quorum=0.75,
+                   faults=FaultConfig(dropout_rate=0.3, byzantine=1,
+                                      byzantine_mode="nan")))]
+    resume_counts = []
+    for what, stop, rdata, fed in resumes:
+        fed = dataclasses.replace(fed, lora_rank=RANK, lora_dropout=0.0)
+        print(f"phase 13: kill-and-resume, {what}: stopped after round "
+              f"{stop} of {fed.rounds}")
+        full, counts = run(fed, "cuda", rdata)
+        if fed.faults.enabled:
+            # the streamed round's screen, quarantines and rollover
+            _, events, rollovers = fault_reckoning(fed, len(rdata[1]),
+                                                   lora_bytes)
+            require(0 < rollovers < fed.rounds and {"quarantine",
+                    "retransmit"} <= {e[2] for e in events},
+                    f"{what}: the plan's faults {events}, rollovers "
+                    f"{rollovers}, exercise no rollover or no quarantine")
+            require(fault_events(full) == events
+                    and full.rollovers == rollovers,
+                    f"{what}: fault events {fault_events(full)}, rollovers "
+                    f"{full.rollovers}; reckoned {events}, {rollovers}")
+            print(f"  fault events as reckoned from the plan: {events}; "
+                  f"rollovers {rollovers}")
+        res, legs = resumed_run(device, cfg, base, fed, rdata, stop)
+        same_run(res, full, what)
+        require(legs == counts, f"{what}: the two legs launched {legs}, the "
+                f"uninterrupted run {counts}")
+        resume_counts += [counts, legs]
+        print(f"  resumed run bit for bit the uninterrupted one (ledger "
+              f"events, history but seconds, rollovers, final LoRA); the "
+              f"legs' launches its launches")
+    by_path["resume"] = add_counts(*resume_counts)
+    del base
+    torch.cuda.empty_cache()
+    print(f"  phase 13 wall_s={time.perf_counter() - t0:.1f}")
+    return by_path
+
+
 # the kernels that must not spill: {kernel: (source, instances)}
 NO_SPILLS = {"lora_fused_kernel": ("lora_matmul", 8),
              "lora_dw_kernel": ("lora_matmul", 1),
@@ -4521,6 +4973,8 @@ def main() -> int:
     print(f"  phases 1-11 wall_s={time.perf_counter() - t_start:.1f}")
     by_path.update(run_cohort(device))
     print(f"  phases 1-12 wall_s={time.perf_counter() - t_start:.1f}")
+    by_path.update(run_faults(device))
+    print(f"  phases 1-13 wall_s={time.perf_counter() - t_start:.1f}")
     print("margins (share of the limit; the last recorded run's in "
           "parentheses): " + ", ".join(
               f"{path} {MARGINS[path]:.3f} ("

@@ -113,6 +113,22 @@ minute):
 
     python3 scripts/chip_attribution.py kd
 
+With ``nan``, what keeping NaN costs the quantizers (rows 10, 11, 12):
+copies of csrc/quantize.cu under build/nan-ablation/ with the NaN-keeping
+maximum and level written another way (NAN_VARIANTS: "shipped", the
+source as it is; "select", a compare and select; "fmaxf", fmaxf / fminf
+and no NaN key, which drop NaN as the kernels did before; "parent", the
+source before the kernels kept NaN, "fmaxf" with the warp top-k comparing
+floats again), their ptxas registers and spills, each held bit for bit
+to the shipped wrapper on finite rows (and, but for "fmaxf" and
+"parent", to the twin on chip_smoke's non-finite rows) and timed in a
+CUDA graph (the faster of two turns) in turns: the roundtrip at
+(1280, 768) int8 and (1280, 2560), the levels and the int4 pack at
+(1280, 768), the top-k at (150, 77) k 8 and (1280, 50257) k 64 (under a
+minute):
+
+    python3 scripts/chip_attribution.py nan
+
 Needs a CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -489,6 +505,197 @@ def pair_ablation(dev) -> None:
             calls[vname] = call
         print(f"roundtrip at ({R}, {C}) int8, ms in a CUDA graph: "
               + faster_of_two(calls), flush=True)
+
+
+# (name, what it shows, then pairs of the text of quantize.cu it replaces
+# and what it puts there)
+NAN_MAX = """  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;"""
+NAN_MIN = """  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;"""
+# the warp top-k as it compared floats before the NaN key (its Pick, its
+# order, its shuffle and its selection loop storing from lane 0)
+FLOAT_PICK = (
+    "struct Pick {\n  uint32_t key;", "struct Pick {\n  float v;",
+    """__device__ __forceinline__ bool before(uint32_t ak, int aj, uint32_t bk,
+                                       int bj) {
+  return ak > bk || (ak == bk && aj < bj);""",
+    """__device__ __forceinline__ bool before(float av, int aj, float bv, int bj) {
+  return av > bv || (av == bv && aj < bj);""",
+    """    const uint32_t ok = __shfl_xor_sync(0xffffffffu, p.key, off);
+    const int oj = __shfl_xor_sync(0xffffffffu, p.j, off);
+    if (before(ok, oj, p.key, p.j)) p = Pick{ok, oj};""",
+    """    const float ov = __shfl_xor_sync(0xffffffffu, p.v, off);
+    const int oj = __shfl_xor_sync(0xffffffffu, p.j, off);
+    if (before(ov, oj, p.v, p.j)) p = Pick{ov, oj};""",
+    """  uint32_t prev_k = 0xFFFFFFFFu;
+  int prev_j = -1;
+  for (int t = 0; t < k; ++t) {
+    Pick best{0u, INT_MAX};
+    float best_v = 0.f;
+    if (live) {
+      for (int j = tr; j < C; j += 32) {
+        const float v = x[j];
+        const uint32_t key = fkey(v);
+        if (before(prev_k, prev_j, key, j) && before(key, j, best.key,
+                                                     best.j)) {
+          best = Pick{key, j};
+          best_v = v;
+        }
+      }
+    }
+    // the lane whose own best won stores it (its j is unique in the warp)
+    const Pick win = warp_best(best);
+    if (live && win.j == best.j) {
+      pv[rb][t] = best_v;
+      pj[rb][t] = best.j;
+    }
+    prev_k = win.key;
+    prev_j = win.j;""",
+    """  float prev_v = INFINITY;
+  int prev_j = -1;
+  for (int t = 0; t < k; ++t) {
+    Pick best{-INFINITY, INT_MAX};
+    if (live) {
+      for (int j = tr; j < C; j += 32) {
+        const float v = x[j];
+        if (before(prev_v, prev_j, v, j) && before(v, j, best.v, best.j))
+          best = Pick{v, j};
+      }
+    }
+    best = warp_best(best);
+    if (tr == 0) {
+      pv[rb][t] = best.v;
+      pj[rb][t] = best.j;
+    }
+    prev_v = best.v;
+    prev_j = best.j;""")
+# the levels stored straight from the float (no int between)
+FLOAT_LEVELS = tuple(x for old in (
+    """    Q[(size_t)row * k + t] = (int8_t)(int)q;
+    IDX[(size_t)row * k + t] = pj[rb][t];""",
+    """    Q[(size_t)row * k + t] = (int8_t)(int)q;
+    IDX[(size_t)row * k + t] = sidx[t];""",
+    *(f"(signed char)(int)level(v.{c}, scale, qmax)" for c in "xyzw"),
+    "q[j] = (int8_t)(int)level(x[j], scale, qmax);")
+    for x in (old, old.replace("(int)", "", 1)))
+NAN_VARIANTS = (
+    ("shipped", "csrc/quantize.cu as it is"),
+    ("select", "the NaN-keeping maximum and minimum as a compare and a "
+     "select", NAN_MAX, "  return (a != a || a > b) ? a : b;",
+     NAN_MIN, "  return (a != a || a < b) ? a : b;"),
+    ("fmaxf", "fmaxf / fminf and no NaN key: NaN dropped, as the kernels "
+     "did before they kept it",
+     NAN_MAX, "  return fmaxf(a, b);", NAN_MIN, "  return fminf(a, b);",
+     "  if (x != x) return 0xFFFFFFFFu;\n", ""),
+    ("parent", "the source before the kernels kept NaN: fmaxf / fminf, no "
+     "NaN key, the warp top-k comparing floats",
+     NAN_MAX, "  return fmaxf(a, b);", NAN_MIN, "  return fminf(a, b);",
+     "  if (x != x) return 0xFFFFFFFFu;\n", "", *FLOAT_PICK, *FLOAT_LEVELS),
+)
+
+
+def nan_ablation(dev) -> None:
+    """``nan``: see the module's docstring."""
+    import ctypes
+
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import ref
+
+    def qz_call(name, x, k):
+        """The shipped wrapper's outputs (the scale last)."""
+        if name.startswith("quant_roundtrip"):
+            return qz.quant_roundtrip_rows(x, 8, with_scale=True)
+        if name == "topk_quantize":
+            return qz.topk_quantize(x, k, 8)
+        if name == "quantize_pack4":
+            return qz.quantize_pack4(x)
+        return qz.quantize_rows(x, 8)
+
+    libs = ablation_library("quantize_cu", "quantize", NAN_VARIANTS,
+                            ROOT / "build" / "nan-ablation")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for lib in libs.values():
+        lib.quant_roundtrip_rows.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+        lib.quantize_rows.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+        lib.quantize_pack4.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
+        lib.topk_quantize.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+        for fn in ("quant_roundtrip_rows", "quantize_rows", "quantize_pack4",
+                   "topk_quantize"):
+            getattr(lib, fn).restype = i32
+
+    def variant(lib, name, x, k=8):
+        R, C = x.shape
+        s = build.stream(dev)
+        scale = torch.empty((R, 1), device=dev)
+        if name.startswith("quant_roundtrip"):
+            y = torch.empty_like(x)
+            build.check(lib.quant_roundtrip_rows(
+                x.data_ptr(), y.data_ptr(), scale.data_ptr(), R, C,
+                8, s), name)
+            return y, scale
+        if name == "topk_quantize":
+            q = torch.empty((R, k), device=dev, dtype=torch.int8)
+            idx = torch.empty((R, k), device=dev, dtype=torch.int32)
+            build.check(lib.topk_quantize(
+                x.data_ptr(), q.data_ptr(), idx.data_ptr(),
+                scale.data_ptr(), R, C, k, 8, s), name)
+            return q, idx, scale
+        if name == "quantize_pack4":
+            q = torch.empty((R, C // 2), device=dev, dtype=torch.uint8)
+            build.check(lib.quantize_pack4(x.data_ptr(), q.data_ptr(),
+                                           scale.data_ptr(), R, C, s), name)
+            return q, scale
+        q = torch.empty((R, C), device=dev, dtype=torch.int8)
+        build.check(lib.quantize_rows(x.data_ptr(), q.data_ptr(),
+                                      scale.data_ptr(), R, C, 8, s), name)
+        return q, scale
+
+    twins = {
+        "quant_roundtrip_rows": lambda x, k: ref.quant_roundtrip_rows_ref(
+            x, 8),
+        "quantize_rows": lambda x, k: ref.quantize_rows_ref(x, 8),
+        "quantize_pack4": lambda x, k: ref.quantize_pack4_rows_ref(x),
+        "topk_quantize": lambda x, k: ref.topk_quantize_rows_ref(x, k, 8)}
+    R = cs.BATCH * cs.PAD_LEN
+    cases = (("quant_roundtrip_rows", R, 768, 8),
+             ("quant_roundtrip_rows", R, 2560, 8),
+             ("quantize_rows", R, 768, 8), ("quantize_pack4", R, 768, 8),
+             ("topk_quantize", 150, 77, 8), ("topk_quantize", R, 50257, 64))
+    n_bad = len(cs.NONFINITE_ROWS)
+    for i, (name, rows, C, k) in enumerate(cases):
+        x = torch.randn((rows, C), device=dev, generator=torch.Generator(
+            device=dev).manual_seed(900 + i)) * 3.0
+        bad = cs.nonfinite_rows(dev, rows, C, 950 + i)
+        want = qz_call(name, x, k)
+        calls = {}
+        for vname, lib in libs.items():
+            got = variant(lib, name, x, k)
+            if not all(torch.equal(g.view(torch.int32) if g.is_floating_point()
+                                   else g, w.view(torch.int32)
+                                   if w.is_floating_point() else w)
+                       for g, w in zip(got, want)):
+                raise RuntimeError(f"chip_attribution: {vname} changes "
+                                   f"{name}'s bits on finite rows")
+            if vname not in ("fmaxf", "parent"):
+                cs.nonfinite_agree(name, variant(lib, name, bad, k),
+                                   twins[name](bad, k), n_bad)
+            calls[vname] = lambda lib=lib: variant(lib, name, x, k)
+        times = {v: [] for v in calls}
+        for _ in range(2):
+            for v, fn in calls.items():
+                times[v].append(cs.graph_ms(fn))
+        print(f"{name} at ({rows}, {C})" + (f" k {k}" if "topk" in name
+                                             else "")
+              + ", ms in a CUDA graph: "
+              + ", ".join(f"{v} {min(t):.4f}" for v, t in times.items()),
+              flush=True)
 
 
 # kd_fwd_kernel, the online pass row 8 shipped before its redesign:
@@ -1373,6 +1580,13 @@ def main() -> int:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip(), torch.__version__, flush=True)
         pair_ablation(torch.device("cuda", 0))
+        return 0
+    if sys.argv[1:] == ["nan"]:
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip(), torch.__version__, flush=True)
+        nan_ablation(torch.device("cuda", 0))
         return 0
     if sys.argv[1:] == ["kd"]:
         print(subprocess.run(

@@ -212,9 +212,8 @@ class PrivacyConfig:
     aggregation event); key-exchange bytes (and recovery bytes for absent
     members) go into the CommLedger.
 
-    The port runs them for FedLLM and KD-FedLLM; for Split (and with any
-    setting the port does not run) core/rounds.run_federated raises
-    NotImplementedError."""
+    The port runs them for FedLLM, KD-FedLLM and Split-FedLLM (on Split
+    the c2 boundary clip and noise)."""
 
     dp_clip: float = 0.0             # C: per-example L2 clip (0 = DP off)
     dp_noise_multiplier: float = 0.0  # sigma: noise stddev / dp_clip
@@ -240,8 +239,8 @@ class PrivacyConfig:
 @dataclasses.dataclass(frozen=True)
 class FaultConfig:
     """Seeded fault injection knobs (reference:
-    ``repro.configs.base.FaultConfig``).  Not run by the port yet:
-    core/rounds.run_federated raises NotImplementedError when enabled."""
+    ``repro.configs.base.FaultConfig``), run by faults/plan.FaultPlan at
+    core/round_program's upload seam."""
 
     dropout_rate: float = 0.0        # P(upload lost) per started job
     straggler_rate: float = 0.0      # P(upload delayed) per started job

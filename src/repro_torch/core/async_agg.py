@@ -17,9 +17,9 @@ pipeline.  Counterpart of ``src/repro/core/async_agg.py``.
 The payload in flight is the framework's: LoRA params for FedLLM,
 public-set logits for KD-FedLLM, the client half's adapters for
 Split-FedLLM.  core/round_program.AsyncSchedule composes this model with
-the programs and executors.  ``robust_agg`` other than "mean" is not
-ported (core/rounds.run_federated refuses it), so the programs combine
-their arrivals with ``stale_weighted_avg`` alone.
+the programs and executors, which combine their arrivals through
+``combine_arrivals``: ``stale_weighted_avg``, or under ``robust_agg``
+other than "mean" ``robust_stale_combine``.
 """
 from __future__ import annotations
 
@@ -27,9 +27,14 @@ import dataclasses
 from typing import Dict, List
 
 import numpy as np
+import torch
 
+from repro_torch import tree as tree_lib
+from repro_torch.core import fed_spmd
 from repro_torch.core.fedavg import fedavg
 from repro_torch.core.heterogeneous import aggregate_hetero
+from repro_torch.peft import lora as lora_lib
+from repro_torch.runtime import compute_dtype
 
 
 class ParticipationSchedule:
@@ -56,6 +61,15 @@ class ParticipationSchedule:
             return 0
         return int(self._rngs[ci].binomial(self.max_staleness + 1,
                                            self.slowness[ci]))
+
+    def state(self) -> List[dict]:
+        """Each client's generator state (``bit_generator.state``), the
+        only mutable part: the slowness traits follow from the seed."""
+        return [g.bit_generator.state for g in self._rngs]
+
+    def load_state(self, states: List[dict]):
+        for g, st in zip(self._rngs, states):
+            g.bit_generator.state = st
 
 
 def staleness_weight(staleness: int, decay: float) -> float:
@@ -104,3 +118,50 @@ def stale_weighted_avg(global_tree, arrivals, total_weight: float, fed,
                                 ws, fed.hetero_agg)
     return fedavg(trees, ws)
 
+
+
+def robust_stale_combine(global_tree, arrivals, total_weight: float, fed,
+                         ranks: List[int]):
+    """The Byzantine-robust counterpart of ``stale_weighted_avg``: the
+    robust statistic (core/fed_spmd.robust_client_combine) runs over the
+    arrived updates only (an anchor on the current global inside a
+    median would act as one more client), then the result is blended
+    with the current global by the arrived share ``rho`` of the
+    staleness-weighted mass, so a thin round moves the model a little.
+    When every client arrives fresh (no absent weight) it is the robust
+    combine itself.  Trees below the global rank are zero-padded to it
+    first (the statistic needs one client axis)."""
+    trees = []
+    for ci, t, _, _ in arrivals:
+        if ranks[ci] != fed.lora_rank:
+            t = lora_lib.pad_rank(t, fed.lora_rank)
+        trees.append(t)
+    ws = [w * staleness_weight(s, fed.staleness_decay)
+          for _, _, s, w in arrivals]
+    stacked = fed_spmd.stack_trees(trees)
+    agg = fed_spmd.robust_client_combine(
+        stacked, torch.tensor(ws, dtype=torch.float32,
+                              device=tree_lib.leaves(stacked)[0].device),
+        fed.robust_agg, fed.trim_frac, fed.clip_norm)
+    absent = total_weight - sum(w for _, _, _, w in arrivals)
+    if absent <= 0:
+        return agg
+    rho = sum(ws) / (absent + sum(ws))
+
+    def blend(g, a):
+        dt = compute_dtype(g.dtype)
+        return ((1.0 - rho) * g.to(dt) + rho * a.to(dt)).to(g.dtype)
+
+    return tree_lib.map_(blend, global_tree, agg)
+
+
+def combine_arrivals(global_tree, arrivals, total_weight: float, fed,
+                     ranks: List[int]):
+    """The round's configured combine of arrived trees: the staleness-
+    weighted, rank-aware FedAvg, or the robust combine when
+    ``fed.robust_agg`` names one."""
+    if fed.robust_agg != "mean" and arrivals:
+        return robust_stale_combine(global_tree, arrivals, total_weight,
+                                    fed, ranks)
+    return stale_weighted_avg(global_tree, arrivals, total_weight, fed,
+                              ranks)

@@ -25,16 +25,23 @@ stacked program is the sequential executor's loop
 (core/round_program.SpmdExecutor.split_train); ``rank_segments`` is the
 rule that groups its clients once ranks differ.
 
-Not ported: ``weighted_client_mean`` (aggregation stays the programs'
-``fedavg`` under either executor), ``hierarchical_client_mean`` (the
-cohort-streaming executor's), ``robust_client_combine`` (``robust_agg``
-is refused), ``make_kd_spmd_fns`` (the KD stages call core/fedavg's
-stacked steps directly), and the PRNG key grids (``split_keys``,
-``split_each``): the port draws each client's dropout masks from
-``round_program.local_generator``.
+The client-axis reductions: ``weighted_client_mean`` (FedAvg over the
+leading axis, which ``norm_clip`` ends with) and the Byzantine-robust
+``robust_client_combine`` (median, trimmed mean, norm clip), which
+core/async_agg.combine_arrivals and KD's robust teacher
+(core/round_program) call on the stacked arrivals.
+
+Not ported: ``client_combine`` (no caller in the reference either),
+``hierarchical_client_mean`` and the launch layer's
+whole-round programs, its only callers (the cohort-streaming executor
+folds through round_program._fold_add), ``make_kd_spmd_fns`` (the KD
+stages call core/fedavg's stacked steps directly), and the PRNG key
+grids (``split_keys``, ``split_each``): the port draws each client's
+dropout masks from ``round_program.local_generator``.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -45,6 +52,7 @@ from repro_torch.configs.base import FedConfig
 from repro_torch.core.fedavg import make_fns, to_device
 from repro_torch.data.loader import epoch_batches
 from repro_torch.models.factory import Model
+from repro_torch.runtime import compute_dtype
 
 
 # --------------------------------------------------------------------------- #
@@ -167,6 +175,96 @@ def rank_segments(ranks: Sequence[int], clients: Sequence[int] = None):
         else:
             segs.append((ranks[ci], [ci]))
     return segs
+
+
+# --------------------------------------------------------------------------- #
+# Client-axis reductions: FedAvg and the Byzantine-robust combines
+# --------------------------------------------------------------------------- #
+def _normalized(weights):
+    """Weights normalized to sum 1, uniform when the total is zero (a
+    cohort of zero weight must not make the aggregate NaN).  For a
+    positive total the divisor is the plain sum."""
+    w = weights.float()
+    s = w.sum()
+    return torch.where(s > 0, w / torch.where(s > 0, s, s.new_tensor(1.0)),
+                       1.0 / w.shape[0])
+
+
+def _client_axis(w, x):
+    """``w`` (C,) shaped to multiply a (C, ...) leaf."""
+    return w.reshape((-1,) + (1,) * (x.dim() - 1))
+
+
+def weighted_client_mean(stacked_tree, weights):
+    """FedAvg as a reduction over the leading client axis, summed in fp32
+    (fp64 for fp64 leaves, as core/fedavg.fedavg) and cast back."""
+    def mean(x):
+        dt = compute_dtype(x.dtype)
+        w = _normalized(weights).to(x.device, dt)
+        return (_client_axis(w, x) * x.to(dt)).sum(dim=0).to(x.dtype)
+
+    return tree_lib.map_(mean, stacked_tree)
+
+
+def _median(x):
+    """The median over axis 0 as ``jnp.median`` takes it: the middle pair
+    of the sorted client axis times 0.5 (their mean for an even count,
+    the middle value for an odd one), NaN where the axis holds a NaN.
+    ``torch.median`` takes the lower of the pair, and ``torch.quantile``
+    refuses inputs above 2^24 elements."""
+    C = x.shape[0]
+    s = torch.sort(x, dim=0).values
+    m = (s[(C - 1) // 2] + s[C // 2]) * 0.5
+    return torch.where(torch.isnan(x).any(dim=0), x.new_tensor(math.nan), m)
+
+
+def robust_client_combine(stacked_tree, weights, method: str,
+                          trim_frac: float = 0.2, clip_norm: float = 0.0):
+    """Byzantine-robust counterpart of ``weighted_client_mean`` over the
+    stacked client axis (``FedConfig.robust_agg``):
+
+    - ``median``: the coordinate-wise median, unweighted.
+    - ``trimmed_mean``: per coordinate, the sorted client axis less
+      ``int(trim_frac * C)`` values at each end (at most ``(C - 1) //
+      2``), then the unweighted mean.
+    - ``norm_clip``: each client's update clipped to a global L2 norm of
+      ``clip_norm`` (0: the median of the C norms), then the weighted
+      mean.
+
+    Each sums in fp32 (fp64 for fp64 leaves) and casts back to the leaf
+    dtype; none changes a payload's shape, so the ledger bytes are the
+    plain mean's."""
+    if method in ("mean", None, ""):
+        return weighted_client_mean(stacked_tree, weights)
+    C = tree_lib.leaves(stacked_tree)[0].shape[0]
+    if method == "median":
+        return tree_lib.map_(
+            lambda x: _median(x.to(compute_dtype(x.dtype))).to(x.dtype),
+            stacked_tree)
+    if method == "trimmed_mean":
+        k = int(trim_frac * C)
+        if 2 * k >= C:
+            k = (C - 1) // 2
+
+        def tmean(x):
+            s = torch.sort(x.to(compute_dtype(x.dtype)), dim=0).values
+            return s[k:C - k].mean(dim=0).to(x.dtype)
+
+        return tree_lib.map_(tmean, stacked_tree)
+    if method == "norm_clip":
+        xs = tree_lib.leaves(stacked_tree)
+        dt = compute_dtype(xs[0].dtype)
+        sq = sum(x.to(dt).square().reshape(C, -1).sum(dim=1) for x in xs)
+        norms = torch.sqrt(sq)                                  # (C,)
+        tau = norms.new_tensor(clip_norm) if clip_norm > 0 \
+            else _median(norms)
+        scale = torch.clamp_max(tau / torch.clamp_min(norms, 1e-12), 1.0)
+        clipped = tree_lib.map_(
+            lambda x: (_client_axis(scale, x).to(x.device)
+                       * x.to(compute_dtype(x.dtype))).to(x.dtype),
+            stacked_tree)
+        return weighted_client_mean(clipped, weights)
+    raise ValueError(f"unknown robust_agg {method!r}")
 
 
 # --------------------------------------------------------------------------- #

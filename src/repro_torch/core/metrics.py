@@ -34,6 +34,12 @@ PRIVACY_NAMES = ("secagg_keys", "secagg_recovery", "dp_meta")
 # Edge-infrastructure event names (the two-hop topology): overhead, not
 # client payload
 EDGE_NAMES = ("edge_agg",)
+# Fault-tolerance event names (faults/ and run_program's upload-seam
+# middleware): ``quarantine``, an arrival the screen rejected (its bytes
+# crossed the wire but never reached the aggregate), and ``retransmit``,
+# an upload a FaultPlan dropout lost in transit.  Overhead, not model
+# payload
+FAULT_NAMES = ("quarantine", "retransmit")
 DP_META_BYTES = 12   # fp32 clip + fp32 sigma + int32 stream id
 
 
@@ -95,6 +101,10 @@ class CommLedger:
         would have recorded."""
         return [e for e in self.events if e.name not in PRIVACY_NAMES]
 
+    def fault_overhead_bytes(self) -> int:
+        """Wire bytes wasted on faults: quarantined and lost uploads."""
+        return sum(e.bytes for e in self.events if e.name in FAULT_NAMES)
+
     def by_hop(self, direction: Optional[str] = None) -> Dict[str, int]:
         out = collections.defaultdict(int)
         for e in self.events:
@@ -107,12 +117,13 @@ class CommLedger:
                    and (direction is None or e.direction == direction))
 
     def payload_view(self) -> "CommLedger":
-        """A ledger of the model-payload events alone (privacy and edge
-        overhead filtered out): what the cohort-streaming and two-hop
+        """A ledger of the model-payload events alone (privacy, edge and
+        fault overhead filtered out): what the cohort-streaming and two-hop
         paths must report as the flat engines do."""
         view = CommLedger()
         view.events = [e for e in self.events
-                       if e.name not in PRIVACY_NAMES + EDGE_NAMES]
+                       if e.name not in PRIVACY_NAMES + EDGE_NAMES
+                       + FAULT_NAMES]
         return view
 
 

@@ -4,8 +4,10 @@
 
 Counterpart of the parts of ``src/repro/core/round_program.py`` that run
 FedLLM, KD-FedLLM and Split-FedLLM: ``RoundContext`` (with each client's
-LoRA rank, core/heterogeneous.normalize_ranks), the ``AsyncSchedule``
-(core/async_agg.py; a sync round is its case with every delay 0), the
+LoRA rank, core/heterogeneous.normalize_ranks), the ``SyncSchedule``
+(every client starts a job each round, its upload arriving that round
+or, as a straggler, later) and the ``AsyncSchedule``
+(core/async_agg.ParticipationSchedule's seeded delays), the
 ``SequentialExecutor`` (a Python loop over clients, one train step per
 batch), the ``SpmdExecutor`` (the round's ready set stacked on a
 leading axis, one stacked program per rank bucket: core/fed_spmd.py), the
@@ -18,11 +20,15 @@ the ledger split into a client->edge and an edge->server hop), the
 ``FedLLMProgram``, ``KDProgram`` and ``SplitProgram`` stage-specs (a
 client below the global rank gets the global tree truncated to its rank,
 and its upload is harmonized by ``FedConfig.hetero_agg``) and
-``run_program`` with the privacy middleware (upload noise,
-secure-aggregation masking around aggregation, the RDP accountant),
-which is the same under every executor and aggregation, and without the
-fault, screen and quorum middleware.  Ledger bytes are derived from
-payload shapes, so they equal the reference's exactly.
+``run_program`` with its middleware, the same under every executor and
+aggregation: privacy (upload noise, secure-aggregation masking around
+aggregation, the RDP accountant), fault tolerance (faults/: seeded
+dropout, straggler delay and Byzantine corruption at the upload seam;
+the finite check and the norm screen over each round's arrivals, which
+quarantine offenders; the quorum rollover), the robust combines of
+``FedConfig.robust_agg`` in each program's aggregate stage, and
+checkpoint and resume (checkpoint/federated.py).  Ledger bytes are
+derived from payload shapes, so they equal the reference's exactly.
 """
 from __future__ import annotations
 
@@ -33,10 +39,12 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import federated as fed_ckpt
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import FedConfig, ModelConfig
 from repro_torch.core import fed_spmd
 from repro_torch.core.async_agg import (ParticipationSchedule, _Job,
-                                        _pop_arrivals, stale_weighted_avg,
+                                        _pop_arrivals, combine_arrivals,
                                         staleness_weight)
 from repro_torch.core.heterogeneous import normalize_ranks
 from repro_torch.core import kd as kd_mod
@@ -48,6 +56,8 @@ from repro_torch.core.fedavg import evaluate, make_fns, to_device
 from repro_torch.core.rng import local_generator
 from repro_torch.data import population as population_mod
 from repro_torch.data.loader import epoch_batches
+from repro_torch.faults import guard as fault_guard
+from repro_torch.faults.plan import FaultPlan
 from repro_torch.peft import lora as lora_lib
 from repro_torch.privacy import dp as dp_mod
 from repro_torch.privacy.accountant import GaussianAccountant
@@ -61,6 +71,9 @@ class FedResult:
     ledger: M.CommLedger
     final_lora: Dict
     client_flops: List[float]
+    # rounds that missed the participation quorum and rolled over with
+    # the global state unchanged (0 without a quorum)
+    rollovers: int = 0
 
     @property
     def final_accuracy(self) -> float:
@@ -132,30 +145,85 @@ class RoundContext:
         return self._cohort_ids.get((rnd, ci), rnd)
 
 
+class SyncSchedule:
+    """The paper-literal parameter-server round: every client starts a job
+    each round and its upload arrives the same round.  The jobs in flight
+    are a list, so a straggler's late job and its next one can both be in
+    flight."""
+
+    def __init__(self, fed: FedConfig, n_clients: int):
+        self.n = n_clients
+        self._pending: List[_Job] = []
+
+    def starters(self, rnd: int) -> List[int]:
+        return list(range(self.n))
+
+    def submit(self, rnd: int, ci: int, payload, extra_delay: int = 0):
+        """``extra_delay``: a fault-injected straggler's lag; the upload
+        arrives that many rounds late and is weighted by its staleness
+        like any async arrival."""
+        self._pending.append(_Job(ci, rnd, rnd + extra_delay, payload))
+
+    def pop_arrivals(self, rnd: int) -> List[_Job]:
+        out = sorted((j for j in self._pending if j.arrival == rnd),
+                     key=lambda j: j.client)
+        self._pending = [j for j in self._pending if j.arrival != rnd]
+        return out
+
+    # -- checkpoint/resume (checkpoint/federated.py) --------------------- #
+    def jobs(self) -> List[_Job]:
+        return list(self._pending)
+
+    def load_jobs(self, jobs):
+        self._pending = list(jobs)
+
+    def rng_state(self):
+        return None
+
+    def load_rng_state(self, state):
+        pass
+
+
 class AsyncSchedule:
     """FedAsync-style participation: a free client starts a job (pulls
     the current global, trains now) and its upload is in flight for a
     seeded delay a job (core/async_agg.ParticipationSchedule, seeded with
-    ``fed.seed + 17`` as the reference's).  Under ``aggregation="sync"``
-    every delay is 0: every client starts a job each round and its upload
-    arrives the same round, the paper-literal parameter-server round."""
+    ``fed.seed + 17`` as the reference's); ``max_staleness`` 0 makes
+    every delay 0 and the run the sync one."""
 
     def __init__(self, fed: FedConfig, n_clients: int):
         self.n = n_clients
-        self.sched = ParticipationSchedule(
-            n_clients, fed.seed + 17,
-            fed.max_staleness if fed.aggregation == "async" else 0)
+        self.sched = ParticipationSchedule(n_clients, fed.seed + 17,
+                                           fed.max_staleness)
         self.in_flight: Dict[int, _Job] = {}
 
     def starters(self, rnd: int) -> List[int]:
         return [ci for ci in range(self.n) if ci not in self.in_flight]
 
-    def submit(self, rnd: int, ci: int, payload):
-        self.in_flight[ci] = _Job(ci, rnd, rnd + self.sched.next_delay(ci),
-                                  payload)
+    def submit(self, rnd: int, ci: int, payload, extra_delay: int = 0):
+        self.in_flight[ci] = _Job(
+            ci, rnd, rnd + self.sched.next_delay(ci) + extra_delay, payload)
 
     def pop_arrivals(self, rnd: int) -> List[_Job]:
         return _pop_arrivals(self.in_flight, rnd)
+
+    # -- checkpoint/resume (checkpoint/federated.py) --------------------- #
+    def jobs(self) -> List[_Job]:
+        return [self.in_flight[ci] for ci in sorted(self.in_flight)]
+
+    def load_jobs(self, jobs):
+        self.in_flight = {j.client: j for j in jobs}
+
+    def rng_state(self):
+        return self.sched.state()
+
+    def load_rng_state(self, state):
+        self.sched.load_state(state)
+
+
+def make_schedule(fed: FedConfig, n_clients: int):
+    return (SyncSchedule if fed.aggregation == "sync"
+            else AsyncSchedule)(fed, n_clients)
 
 
 class SequentialExecutor:
@@ -432,14 +500,15 @@ def _stream_fold_params(ctx, state, kept, global_tree):
     """FedLLM's a4 and Split's cc2 under streaming: one chunk of arrivals
     into the running staleness-weighted sum of parameters.  zeropad
     harmonization is linear leaf by leaf, so it streams in one
-    accumulator; svd's re-factorization is not, so with client ranks
-    below the global one the round's arrivals are kept instead
-    (O(arrivals this round))."""
+    accumulator; svd's re-factorization and the robust combines' order
+    statistics are not, so under them the round's arrivals are kept
+    instead (O(arrivals this round))."""
     fed = ctx.fed
     if not kept:
         return state
-    if fed.hetero_agg == "svd" and any(r != fed.lora_rank
-                                       for r in ctx.ranks):
+    if fed.robust_agg != "mean" or (
+            fed.hetero_agg == "svd" and any(r != fed.lora_rank
+                                            for r in ctx.ranks)):
         if state is None:
             state = ("buf", [])
         state[1].extend(kept)
@@ -467,8 +536,8 @@ def _finalize_param_fold(ctx, state, global_tree):
     if state is None:
         return global_tree
     if state[0] == "buf":
-        return stale_weighted_avg(global_tree, state[1], ctx.total_w,
-                                  ctx.fed, ctx.ranks)
+        return combine_arrivals(global_tree, state[1], ctx.total_w,
+                                ctx.fed, ctx.ranks)
     _, acc, w_sum, raw = state
     absent = ctx.total_w - raw
     if absent > 0:
@@ -552,9 +621,15 @@ class FedLLMProgram:
             ctx.ledger.record(rnd, job.client, "dp_meta", M.UP,
                               M.DP_META_BYTES)
 
+    def payload_bytes(self, ctx, payload) -> int:
+        return M.tree_bytes(payload)
+
+    def payload_arrays(self, payload):
+        return tree_lib.leaves(payload)
+
     def aggregate(self, ctx, ex, kept, arrived, rnd):
         if kept:
-            self.global_lt = stale_weighted_avg(self.global_lt, kept,
+            self.global_lt = combine_arrivals(self.global_lt, kept,
                                               ctx.total_w, ctx.fed,
                                               ctx.ranks)
 
@@ -577,6 +652,13 @@ class FedLLMProgram:
 
     def final_state(self, ctx):
         return self.global_lt
+
+    # -- checkpoint/resume (checkpoint/federated.py) --------------------- #
+    def state_dict(self, ctx):
+        return {"global_lt": self.global_lt}
+
+    def load_state_dict(self, ctx, st):
+        self.global_lt = st["global_lt"]
 
 
 class KDProgram:
@@ -658,13 +740,35 @@ class KDProgram:
             ctx.ledger.record(rnd, job.client, "dp_meta", M.UP,
                               M.DP_META_BYTES)
 
+    def payload_bytes(self, ctx, payload) -> int:
+        return payload[1]
+
+    def payload_arrays(self, payload):
+        return [payload[0]]
+
+    @staticmethod
+    def _robust_teacher(ctx, kept):
+        """b4 under a robust combine: order statistics over the stacked
+        client logits instead of the weighted mean."""
+        fed = ctx.fed
+        stacked = torch.stack([p[0].float() for _, p, _, _ in kept])
+        ws = [w * staleness_weight(s, fed.staleness_decay)
+              for _, _, s, w in kept]
+        return fed_spmd.robust_client_combine(
+            stacked, torch.tensor(ws, dtype=torch.float32,
+                                  device=stacked.device),
+            fed.robust_agg, fed.trim_frac, fed.clip_norm)
+
     def aggregate(self, ctx, ex, kept, arrived, rnd):
         fed = ctx.fed
         if kept:
-            ws = [w * staleness_weight(s, fed.staleness_decay)
-                  for _, _, s, w in kept]
-            teacher = kd_mod.aggregate_knowledge(
-                [p[0] for _, p, _, _ in kept], ws)
+            if fed.robust_agg != "mean":
+                teacher = self._robust_teacher(ctx, kept)
+            else:
+                ws = [w * staleness_weight(s, fed.staleness_decay)
+                      for _, _, s, w in kept]
+                teacher = kd_mod.aggregate_knowledge(
+                    [p[0] for _, p, _, _ in kept], ws)
             self.server_lt, self.server_opt, _ = kd_mod.distill(
                 ctx.fns, ctx.base, self.server_lt, self.server_opt,
                 ctx.public, teacher, fed.kd_epochs, ctx.eval_batch,
@@ -688,8 +792,15 @@ class KDProgram:
 
     def agg_fold(self, ctx, ex, state, kept, rnd):
         """One chunk of arrivals' logits into the running b4 teacher sum
-        (the weighted mean is linear, so it streams exactly)."""
+        (the weighted mean is linear, so it streams exactly).  A robust
+        combine is not linear, so under one the round's arrivals are kept
+        instead (O(arrivals this round), as svd's harmonization)."""
         if not kept:
+            return state
+        if ctx.fed.robust_agg != "mean":
+            if state is None:
+                state = ("buf", [])
+            state[1].extend(kept)
             return state
         acc, w_sum = state if state is not None else (None, 0.0)
         for _, p, s, w in kept:
@@ -704,6 +815,8 @@ class KDProgram:
         streamed over the arrived clients in cohort-sized chunks (one
         stacked distillation a chunk)."""
         fed = ctx.fed
+        if state is not None and isinstance(state[0], str):   # robust buffer
+            state = (self._robust_teacher(ctx, state[1]), 1.0)
         if state is not None and state[1] > 0:
             acc, w_sum = state
             with torch.no_grad():
@@ -736,6 +849,21 @@ class KDProgram:
 
     def final_state(self, ctx):
         return self.server_lt
+
+    # -- checkpoint/resume (checkpoint/federated.py) --------------------- #
+    def state_dict(self, ctx):
+        """Only the clients built so far are saved: the others are built
+        on resume as they would have been."""
+        return {"lts": dict(self.lts._vals), "opts": dict(self.opts._vals),
+                "server_lt": self.server_lt, "server_opt": self.server_opt,
+                "glob": self.glob}
+
+    def load_state_dict(self, ctx, st):
+        self.lts._vals = dict(st["lts"])
+        self.opts._vals = dict(st["opts"])
+        self.server_lt = st["server_lt"]
+        self.server_opt = st["server_opt"]
+        self.glob = st["glob"]
 
 
 class SplitProgram:
@@ -808,9 +936,15 @@ class SplitProgram:
         ctx.ledger.record(rnd, job.client, "lora_params", M.UP,
                           M.tree_bytes(job.payload))                   # cc1
 
+    def payload_bytes(self, ctx, payload) -> int:
+        return M.tree_bytes(payload)
+
+    def payload_arrays(self, payload):
+        return tree_lib.leaves(payload)
+
     def aggregate(self, ctx, ex, kept, arrived, rnd):
         if kept:                                                       # cc2
-            self.c_global = stale_weighted_avg(self.c_global, kept,
+            self.c_global = combine_arrivals(self.c_global, kept,
                                              ctx.total_w, ctx.fed,
                                              ctx.ranks)
         self.joined = split_mod.join_lora(self.c_global, self.s_lt)
@@ -836,40 +970,143 @@ class SplitProgram:
     def final_state(self, ctx):
         return self.joined
 
+    # -- checkpoint/resume (checkpoint/federated.py) --------------------- #
+    def state_dict(self, ctx):
+        return {"c_global": self.c_global, "s_lt": self.s_lt,
+                "s_opt": self.s_opt}
+
+    def load_state_dict(self, ctx, st):
+        self.c_global, self.s_lt = st["c_global"], st["s_lt"]
+        self.s_opt = st["s_opt"]
+        self.joined = split_mod.join_lora(self.c_global, self.s_lt)
+
 
 PROGRAMS = {"fedllm": FedLLMProgram, "kd": KDProgram,
             "split": SplitProgram}
 
 
-def _streamed_round(ctx, program, ex, schedule, rnd, n_edges):
+class _Seam:
+    """The upload-seam middleware of ``run_program``, the reference's
+    ``_submit``, ``_screen`` and ``_quarantine``: with ``fed.faults`` on,
+    a seeded FaultPlan corrupts, drops or delays uploads; every arrival
+    then passes the finite check and, with ``fed.screen_factor > 0``, the
+    norm screen, and an offender is quarantined."""
+
+    def __init__(self, ctx, program, schedule):
+        self.ctx, self.program, self.schedule = ctx, program, schedule
+        self.plan = FaultPlan(ctx.fed, ctx.n_clients) \
+            if ctx.fed.faults.enabled else None
+
+    def submit(self, outs, rnd):
+        """Corruption happens before the upload stage, so the noise, the
+        compression and the secure-agg masking all act on what a corrupt
+        client sends; a dropped upload is lost after it (its bytes were
+        spent: charged as ``retransmit``, its mask discarded); a
+        straggler's upload arrives ``extra_delay`` rounds late."""
+        ctx, plan = self.ctx, self.plan
+        if plan is not None:
+            outs = [(ci, plan.corrupt(p, rnd, ci)) for ci, p in outs]
+        for ci, payload in self.program.upload(ctx, outs, rnd):
+            if plan is not None and plan.dropped(rnd, ci):
+                ctx.ledger.record(rnd, ci, "retransmit", M.UP,
+                                  self.program.payload_bytes(ctx, payload))
+                ctx.secagg.discard(ctx.secagg_start(rnd, ci), ci)
+                continue
+            extra = plan.extra_delay(rnd, ci) if plan is not None else 0
+            self.schedule.submit(rnd, ci, payload, extra)
+
+    def screen(self, arrivals):
+        """The verdicts on the whole round's arrivals at once (the norm
+        screen's median is the round's, so the flat and the streamed
+        rounds quarantine the same set)."""
+        if not arrivals:
+            return []
+        return fault_guard.screen(
+            [self.program.payload_arrays(j.payload) for j in arrivals],
+            self.ctx.fed.screen_factor)
+
+    def quarantine(self, j, rnd):
+        ctx = self.ctx
+        ctx.ledger.record(rnd, j.client, "quarantine", M.UP,
+                          self.program.payload_bytes(ctx, j.payload))
+        ctx.secagg.discard(ctx.secagg_start(j.start, j.client), j.client)
+
+
+def _below_quorum(fed, n_kept: int, starters) -> bool:
+    """A round whose kept arrivals fall below ``fed.quorum`` times its
+    starters rolls over: its masks settle and nothing folds."""
+    return bool(fed.quorum > 0 and starters
+                and n_kept < fed.quorum * len(starters))
+
+
+def _flat_round(ctx, program, ex, seam, rnd):
+    """One round of the sequential and spmd executors.  Returns (clients
+    that arrived, whether the round rolled over)."""
+    fed = ctx.fed
+    # the clients starting this round form its secure-agg cohort
+    starters = seam.schedule.starters(rnd)
+    ctx.secagg.begin_cohort(ctx.ledger, rnd, starters)
+    jobs = program.broadcast(ctx, starters, rnd)
+    seam.submit(program.local_update(ctx, ex, jobs, rnd), rnd)
+    arrivals = seam.schedule.pop_arrivals(rnd)
+    kept, delivered, arrived = [], [], []
+    for j, good in zip(arrivals, seam.screen(arrivals)):
+        if not good:
+            seam.quarantine(j, rnd)
+            continue
+        arrived.append(j)
+        program.record_arrival(ctx, j, rnd)
+        s = rnd - j.start
+        if s <= fed.max_staleness:
+            kept.append((j.client, j.payload, s, ctx.data_w[j.client]))
+            delivered.append((j.start, j.client))
+        else:
+            ctx.secagg.discard(j.start, j.client)
+    ctx.secagg.deliver(ctx.ledger, rnd, delivered)
+    roll = _below_quorum(fed, len(kept), starters)
+    if roll:
+        kept, arrived = [], []
+    program.aggregate(ctx, ex, kept, arrived, rnd)
+    return len(arrived), roll
+
+
+def _streamed_round(ctx, program, ex, seam, rnd, n_edges):
     """One round of the cohort-streaming executor: the starters stream
     through the executor a chunk at a time, each chunk its own
-    secure-agg masking cohort; the arrivals are grouped by masking cohort
-    (in insertion order), each group delivered and folded into the
-    running aggregate before the next, then the round is finalized once.
-    Under ``n_edges > 1`` group g goes to edge g mod n_edges, and each
-    edge that aggregated a group forwards one fused payload up and pulls
-    the new global down (negative client ids: the edge aggregators).
-    Returns the number of clients that arrived."""
-    fed = ctx.fed
-    for k, chunk in enumerate(_cohort_chunks(schedule.starters(rnd),
-                                             fed.cohort_size)):
+    secure-agg masking cohort; the whole round's arrivals are screened
+    at once, then grouped by masking cohort (in insertion order), each
+    group delivered and folded into the running aggregate before the
+    next, then the round is finalized once.  Under ``n_edges > 1`` group
+    g goes to edge g mod n_edges, and each edge that aggregated a group
+    forwards one fused payload up and pulls the new global down
+    (negative client ids: the edge aggregators).  Returns (clients that
+    arrived, whether the round rolled over)."""
+    fed, schedule = ctx.fed, seam.schedule
+    starters = schedule.starters(rnd)
+    for k, chunk in enumerate(_cohort_chunks(starters, fed.cohort_size)):
         cid = _cohort_uid(rnd, k)
         for ci in chunk:
             ctx._cohort_ids[(rnd, ci)] = cid
         ctx.secagg.begin_cohort(ctx.ledger, rnd, chunk, cohort_id=cid)
         jobs = program.broadcast(ctx, chunk, rnd)
-        outs = program.local_update(ctx, ex, jobs, rnd)
-        for ci, payload in program.upload(ctx, outs, rnd):
-            schedule.submit(rnd, ci, payload)
+        seam.submit(program.local_update(ctx, ex, jobs, rnd), rnd)
+    arrivals = schedule.pop_arrivals(rnd)
+    ok = seam.screen(arrivals)
+    roll = _below_quorum(
+        fed, sum(1 for j, good in zip(arrivals, ok)
+                 if good and rnd - j.start <= fed.max_staleness), starters)
     groups: Dict[int, List] = {}
-    for j in schedule.pop_arrivals(rnd):
-        groups.setdefault(ctx.secagg_start(j.start, j.client), []).append(j)
+    for j, good in zip(arrivals, ok):
+        groups.setdefault(ctx.secagg_start(j.start, j.client),
+                          []).append((j, good))
     state = program.agg_init(ctx)
     arrived, used_edges = [], set()
     for gi, (gkey, gjobs) in enumerate(groups.items()):
         kept, delivered = [], []
-        for j in gjobs:
+        for j, good in gjobs:
+            if not good:
+                seam.quarantine(j, rnd)
+                continue
             arrived.append(j.client)
             program.record_arrival(ctx, j, rnd)
             s = rnd - j.start
@@ -879,8 +1116,13 @@ def _streamed_round(ctx, program, ex, schedule, rnd, n_edges):
             else:
                 ctx.secagg.discard(gkey, j.client)
         ctx.secagg.deliver(ctx.ledger, rnd, delivered)
-        state = program.agg_fold(ctx, ex, state, kept, rnd)
+        if not roll:
+            state = program.agg_fold(ctx, ex, state, kept, rnd)
         used_edges.add(gi % n_edges)
+    if roll:
+        # the cohort's payloads were received and their masks settled,
+        # but nothing folds into the global state
+        state, arrived = None, []
     program.agg_finalize(ctx, ex, state, arrived, rnd)
     if n_edges > 1 and arrived:
         eb = program.edge_payload_bytes(ctx)
@@ -888,13 +1130,15 @@ def _streamed_round(ctx, program, ex, schedule, rnd, n_edges):
             for direction in (M.UP, M.DOWN):
                 ctx.ledger.record(rnd, -(e + 1), "edge_agg", direction, eb,
                                   hop=M.EDGE_SERVER)
-    return len(arrived)
+    return len(arrived), roll
 
 
 def run_program(model, base, cfg: ModelConfig, fed: FedConfig, targets,
                 public: Dict, clients_data, test: Dict, task: str,
                 batch_size: int, eval_batch: int, verbose: bool, device,
-                lora=None) -> FedResult:
+                lora=None, checkpoint_every: int = 0,
+                checkpoint_dir: str = None,
+                resume_from: str = None) -> FedResult:
     """Run ``fed.rounds`` rounds of ``fed.framework`` under
     ``fed.aggregation``'s schedule, the clients' local work run by
     ``fed.backend``'s executor (``cohort``: a round streamed through the
@@ -902,45 +1146,52 @@ def run_program(model, base, cfg: ModelConfig, fed: FedConfig, targets,
     ClientPopulation or a list of shards.  ``lora`` (optional) is the
     initial LoRA state: the global tree for FedLLM, ``{"server": tree,
     "clients": [tree, ...]}`` for KD, the full-model tree (split at L)
-    for Split."""
+    for Split.
+
+    Fault tolerance: with ``fed.faults`` on, a seeded FaultPlan drops,
+    delays or corrupts uploads at the seam between local_update and
+    upload (_Seam); every arrival then passes the finite check and the
+    optional norm screen, offenders are quarantined (ledger
+    ``quarantine`` events; their masks discarded, so the cohort's
+    survivors recover them as for any absent member), and a round whose
+    kept arrivals fall below ``fed.quorum`` times its starters rolls
+    over with the global state unchanged (``FedResult.rollovers``).
+
+    Crash recovery: ``checkpoint_every > 0`` snapshots the whole run
+    state into ``checkpoint_dir`` after every k-th round
+    (checkpoint/federated.py); ``resume_from`` restores the latest
+    snapshot of a directory and continues, to the same ledger, history
+    and final state bit for bit as the run that was not interrupted
+    (but for ``RoundMetrics.seconds``, wall time)."""
     ctx = RoundContext(model, base, cfg, fed, targets, public, clients_data,
                        test, task, batch_size, eval_batch, verbose, device)
     program = PROGRAMS[fed.framework](ctx, lora)
     ex = EXECUTORS[fed.backend](ctx)
-    schedule = AsyncSchedule(fed, ctx.n_clients)
+    schedule = make_schedule(fed, ctx.n_clients)
+    seam = _Seam(ctx, program, schedule)
     n_edges = (fed.n_edges or 1) if ex.streaming else 1
     if n_edges > 1:
         # two hops: every per-client wire event is the client -> edge hop
         ctx.ledger.default_hop = M.CLIENT_EDGE
     tag = f"{fed.framework}/{ex.backend}" + \
         ("/async" if fed.aggregation == "async" else "")
-    for rnd in range(fed.rounds):
+    mgr = None
+    if checkpoint_every and checkpoint_every > 0:
+        if not checkpoint_dir:
+            raise ValueError("checkpoint_every requires checkpoint_dir")
+        mgr = CheckpointManager(checkpoint_dir)
+    start_rnd, rollovers = 0, 0
+    if resume_from:
+        start_rnd, rollovers = fed_ckpt.restore_run(resume_from, ctx,
+                                                    program, schedule)
+    for rnd in range(start_rnd, fed.rounds):
         t0 = time.perf_counter()
         if ex.streaming:
-            n_arrived = _streamed_round(ctx, program, ex, schedule, rnd,
-                                        n_edges)
+            n_arrived, roll = _streamed_round(ctx, program, ex, seam, rnd,
+                                              n_edges)
         else:
-            # the clients starting this round form its secure-agg cohort
-            starters = schedule.starters(rnd)
-            ctx.secagg.begin_cohort(ctx.ledger, rnd, starters)
-            jobs = program.broadcast(ctx, starters, rnd)
-            outs = program.local_update(ctx, ex, jobs, rnd)
-            for ci, payload in program.upload(ctx, outs, rnd):
-                schedule.submit(rnd, ci, payload)
-            kept, delivered, arrived = [], [], []
-            for j in schedule.pop_arrivals(rnd):
-                arrived.append(j)
-                program.record_arrival(ctx, j, rnd)
-                s = rnd - j.start
-                if s <= fed.max_staleness:
-                    kept.append((j.client, j.payload, s,
-                                 ctx.data_w[j.client]))
-                    delivered.append((j.start, j.client))
-                else:
-                    ctx.secagg.discard(j.start, j.client)
-            ctx.secagg.deliver(ctx.ledger, rnd, delivered)
-            program.aggregate(ctx, ex, kept, arrived, rnd)
-            n_arrived = len(arrived)
+            n_arrived, roll = _flat_round(ctx, program, ex, seam, rnd)
+        rollovers += roll
         acc, loss = program.evaluate(ctx)
         ctx.history.append(M.RoundMetrics(
             rnd, acc, loss, ctx.ledger.mean_client_bytes_per_round(),
@@ -951,5 +1202,7 @@ def run_program(model, base, cfg: ModelConfig, fed: FedConfig, targets,
             print(f"[{tag}] round {rnd}: acc={acc:.4f} loss={loss:.4f}"
                   + (f" arrived={n_arrived}"
                      if fed.aggregation == "async" else ""))
+        if mgr is not None and (rnd + 1) % checkpoint_every == 0:
+            fed_ckpt.save_run(mgr, ctx, program, schedule, rnd, rollovers)
     return FedResult(ctx.history, ctx.ledger, program.final_state(ctx),
-                     [c.flops for c in ctx.cost])
+                     [c.flops for c in ctx.cost], rollovers=rollovers)

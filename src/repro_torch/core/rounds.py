@@ -20,13 +20,19 @@ folded between chunks, each chunk its own secure-aggregation cohort;
 ``n_edges > 1`` splits the ledger into a client->edge and an
 edge->server hop), with sync or async aggregation (``aggregation=
 "async"``: core/async_agg.py), heterogeneous client ranks
-(``client_ranks``, harmonized by ``hetero_agg``: core/heterogeneous.py)
-and the privacy knobs (``FedConfig.privacy``: DP-SGD clipping, upload
-noise, secure aggregation; on Split the c2 boundary clip and noise).  A
-``robust_agg`` other than "mean", a quorum, the norm screen and fault
-injection are refused on every backend, and a ``mesh`` is not ported.
-An invalid setting raises ValueError, as in the reference; a valid
-``FedConfig`` setting outside the ported slices raises
+(``client_ranks``, harmonized by ``hetero_agg``: core/heterogeneous.py),
+the privacy knobs (``FedConfig.privacy``: DP-SGD clipping, upload
+noise, secure aggregation; on Split the c2 boundary clip and noise) and
+fault tolerance: seeded fault injection (``FedConfig.faults``: dropout,
+stragglers, the four Byzantine modes; faults/), the finite check and the
+norm screen (``screen_factor``) that quarantine offenders, the quorum
+rollover (``quorum``), the robust combines (``robust_agg`` median,
+trimmed_mean or norm_clip) and checkpoint and resume
+(``checkpoint_every``, ``checkpoint_dir``, ``resume_from``:
+checkpoint/).  A ``mesh`` is not ported.  An invalid setting raises
+ValueError, as in the reference; a valid ``FedConfig`` setting outside
+the ported slices (a ``peft`` other than LoRA, an ``optimizer`` other
+than Adam, a ``task`` other than classification) raises
 NotImplementedError rather than being ignored.
 
 LoRA targets are ``fed.lora_targets``, or ``peft/lora.default_targets``
@@ -74,10 +80,6 @@ def _unported(fed: FedConfig, task: str) -> List[str]:
     checks = [
         (fed.peft != "lora", f"peft={fed.peft!r}"),
         (fed.optimizer != "adam", f"optimizer={fed.optimizer!r}"),
-        (fed.faults.enabled, "fault injection"),
-        (fed.robust_agg != "mean", f"robust_agg={fed.robust_agg!r}"),
-        (fed.quorum > 0.0, "quorum"),
-        (fed.screen_factor > 0.0, "screen_factor"),
         (task != "classification", f"task={task!r}"),
     ]
     return [what for bad, what in checks if bad]
@@ -131,8 +133,6 @@ def run_federated(cfg: ModelConfig, fed: FedConfig, public: Dict,
     clients = as_population(clients)
     _check_values(fed, len(clients), checkpoint_every, checkpoint_dir)
     unported = _unported(fed, task)
-    if checkpoint_every or checkpoint_dir or resume_from:
-        unported.append("checkpointing")
     if unported:
         raise NotImplementedError("not ported yet: " + ", ".join(unported))
     device = resolve_device(device)
@@ -146,4 +146,7 @@ def run_federated(cfg: ModelConfig, fed: FedConfig, public: Dict,
     with kernel_ops.policy_scope(cfg.kernel_policy):
         return run_program(model, base, cfg, fed, targets, public, clients,
                            test, task, batch_size, eval_batch, verbose,
-                           device, lora=lora)
+                           device, lora=lora,
+                           checkpoint_every=checkpoint_every,
+                           checkpoint_dir=checkpoint_dir,
+                           resume_from=resume_from)

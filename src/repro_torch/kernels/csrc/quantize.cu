@@ -54,7 +54,8 @@
 // row needs no writable copy.  Longer rows (a generative vocabulary)
 // take topk_radix_kernel, one block of 1024 threads a row, which reads
 // the row once: each value becomes an order-preserving 32-bit key (-0.0
-// and +0.0 one key, as they are equal in the order), staged in shared
+// and +0.0 one key, as they are equal in the order; every NaN the
+// largest key), staged in shared
 // memory where the row fits (C <= ~52900: 201 KB at C = 50257, one block
 // an SM; a longer row is read again from device memory each pass); a
 // histogram of the top 12 bits is counted while the row is staged, then
@@ -73,6 +74,12 @@
 // PyTorch versions (kernels/ref.py); the roundtrip's product is one
 // __fmul_rn of the level, turned into an integer and back as the twin's
 // int8 is (so -0 becomes +0), and the scale: y is bit-identical too.
+// Non-finite rows keep what the twins keep: the absmax, the scale's clamp
+// and the level's clamp carry a NaN through (nanmax below, where fmaxf
+// would drop it), so a row holding a NaN gets a NaN scale and dequantizes
+// to NaN, a row holding +-inf an inf scale; a NaN level becomes the
+// integer 0.  The top-k order ranks every NaN above +inf, NaNs in index
+// order, as torch.sort does.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <limits.h>
@@ -87,21 +94,64 @@ constexpr int NT = 256;          // threads per block
 constexpr int K_MAX = 512;       // largest k
 
 struct Pick {
-  float v;
+  uint32_t key;
   int j;
 };
 
-// a comes before b in the order (value descending, index ascending)
-__device__ __forceinline__ bool before(float av, int aj, float bv, int bj) {
-  return av > bv || (av == bv && aj < bj);
+// the larger and the smaller of a and b, NaN where either is NaN (fmaxf
+// and fminf drop a NaN operand; torch.amax, clamp_min and clamp keep it):
+// one max.NaN / min.NaN instruction each (sm_80 and later)
+__device__ __forceinline__ float nanmax(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float nanmin(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// an order-preserving key: a > b as floats iff key(a) > key(b) as
+// unsigned, with -0.0 taken as +0.0 (the two are equal in the order) and
+// every NaN one key above +inf (torch.sort ranks NaN above +inf, NaNs
+// equal to each other); no float maps to key 0
+__device__ __forceinline__ uint32_t fkey(float x) {
+  if (x != x) return 0xFFFFFFFFu;
+  const uint32_t u = __float_as_uint(x == 0.f ? 0.f : x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float fval(uint32_t key) {
+  return __uint_as_float((key & 0x80000000u) ? (key ^ 0x80000000u) : ~key);
+}
+
+// a comes before b in the order (key descending, index ascending)
+__device__ __forceinline__ bool before(uint32_t ak, int aj, uint32_t bk,
+                                       int bj) {
+  return ak > bk || (ak == bk && aj < bj);
+}
+
+// a row's scale: absmax / qmax by IEEE division, at least 1e-12; NaN
+// where the absmax is NaN
+__device__ __forceinline__ float row_scale(float am, float qmax) {
+  return nanmax(am / qmax, 1e-12f);
+}
+
+// the level of v at a row's scale: IEEE division, round half to even,
+// clamped to [-qmax, qmax]; a NaN quotient stays NaN, as torch.clamp keeps
+// it (it becomes the integer 0)
+__device__ __forceinline__ float level(float v, float scale, float qmax) {
+  return nanmin(nanmax(rintf(v / scale), -qmax), qmax);
 }
 
 __device__ __forceinline__ Pick warp_best(Pick p) {
   #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, p.v, off);
+    const uint32_t ok = __shfl_xor_sync(0xffffffffu, p.key, off);
     const int oj = __shfl_xor_sync(0xffffffffu, p.j, off);
-    if (before(ov, oj, p.v, p.j)) p = Pick{ov, oj};
+    if (before(ok, oj, p.key, p.j)) p = Pick{ok, oj};
   }
   return p;
 }
@@ -109,7 +159,7 @@ __device__ __forceinline__ Pick warp_best(Pick p) {
 __device__ __forceinline__ float warp_max(float v) {
   #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    v = nanmax(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 
@@ -127,36 +177,43 @@ topk_quantize_kernel(const float* __restrict__ X, int8_t* __restrict__ Q,
   const float* x = X + (size_t)(live ? row : 0) * C;
 
   // the previous pick; the first round takes the row's first element in
-  // the order, i.e. everything comes "after" (+inf, -1)
-  float prev_v = INFINITY;
+  // the order, i.e. everything comes "after" (the largest key, -1); the
+  // picks compare by key (NaN above +inf), and keep their values
+  uint32_t prev_k = 0xFFFFFFFFu;
   int prev_j = -1;
   for (int t = 0; t < k; ++t) {
-    Pick best{-INFINITY, INT_MAX};
+    Pick best{0u, INT_MAX};
+    float best_v = 0.f;
     if (live) {
       for (int j = tr; j < C; j += 32) {
         const float v = x[j];
-        if (before(prev_v, prev_j, v, j) && before(v, j, best.v, best.j))
-          best = Pick{v, j};
+        const uint32_t key = fkey(v);
+        if (before(prev_k, prev_j, key, j) && before(key, j, best.key,
+                                                     best.j)) {
+          best = Pick{key, j};
+          best_v = v;
+        }
       }
     }
-    best = warp_best(best);
-    if (tr == 0) {
-      pv[rb][t] = best.v;
+    // the lane whose own best won stores it (its j is unique in the warp)
+    const Pick win = warp_best(best);
+    if (live && win.j == best.j) {
+      pv[rb][t] = best_v;
       pj[rb][t] = best.j;
     }
-    prev_v = best.v;
-    prev_j = best.j;
+    prev_k = win.key;
+    prev_j = win.j;
   }
   __syncwarp();
 
   float am = 0.f;
-  for (int t = tr; t < k; t += 32) am = fmaxf(am, fabsf(pv[rb][t]));
+  for (int t = tr; t < k; t += 32) am = nanmax(am, fabsf(pv[rb][t]));
   am = warp_max(am);
   if (!live) return;
-  const float scale = fmaxf(am / qmax, 1e-12f);
+  const float scale = row_scale(am, qmax);
   for (int t = tr; t < k; t += 32) {
-    const float q = fminf(fmaxf(rintf(pv[rb][t] / scale), -qmax), qmax);
-    Q[(size_t)row * k + t] = (int8_t)q;
+    const float q = level(pv[rb][t], scale, qmax);
+    Q[(size_t)row * k + t] = (int8_t)(int)q;
     IDX[(size_t)row * k + t] = pj[rb][t];
   }
   if (tr == 0) SCALE[row] = scale;
@@ -167,17 +224,6 @@ constexpr int RNT = 1024;            // threads a block
 constexpr int HIST = 4096;           // bins of the first digit (12 bits)
 // dynamic shared memory beside the staged row: at most 227 KB a block
 constexpr int SMEM_MAX = 232448;
-
-// an order-preserving key: a > b as floats iff key(a) > key(b) as
-// unsigned, with -0.0 taken as +0.0 (the two are equal in the order)
-__device__ __forceinline__ uint32_t fkey(float x) {
-  const uint32_t u = __float_as_uint(x == 0.f ? 0.f : x);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float fval(uint32_t key) {
-  return __uint_as_float((key & 0x80000000u) ? (key ^ 0x80000000u) : ~key);
-}
 
 // inclusive prefix sum of v over the block in thread order; *total gets
 // the block's sum; ws holds RNT / 32 ints.  Ends with a barrier.
@@ -352,24 +398,19 @@ topk_radix_kernel(const float* __restrict__ X, int8_t* __restrict__ Q,
   }
   __syncthreads();
   float am = 0.f;
-  for (int t = tid; t < k; t += RNT) am = fmaxf(am, fabsf(fval(skey[t])));
+  for (int t = tid; t < k; t += RNT) am = nanmax(am, fabsf(fval(skey[t])));
   am = warp_max(am);
   if ((tid & 31) == 0) redm[tid >> 5] = am;
   __syncthreads();
   am = redm[0];
-  for (int w = 1; w < RNT / 32; ++w) am = fmaxf(am, redm[w]);
-  const float scale = fmaxf(am / qmax, 1e-12f);
+  for (int w = 1; w < RNT / 32; ++w) am = nanmax(am, redm[w]);
+  const float scale = row_scale(am, qmax);
   for (int t = tid; t < k; t += RNT) {
-    const float q = fminf(fmaxf(rintf(fval(skey[t]) / scale), -qmax), qmax);
-    Q[(size_t)row * k + t] = (int8_t)q;
+    const float q = level(fval(skey[t]), scale, qmax);
+    Q[(size_t)row * k + t] = (int8_t)(int)q;
     IDX[(size_t)row * k + t] = sidx[t];
   }
   if (tid == 0) SCALE[row] = scale;
-}
-
-// the level of v at a row's scale: IEEE division, round half to even
-__device__ __forceinline__ float level(float v, float scale, float qmax) {
-  return fminf(fmaxf(rintf(v / scale), -qmax), qmax);
 }
 
 __device__ __forceinline__ uint8_t nibbles(float lo, float hi, float scale) {
@@ -397,11 +438,11 @@ quantize_rows_kernel(const float* __restrict__ X, uint8_t* __restrict__ Q,
     if constexpr (VEC) {
       for (int j = tr; j < C / 4; j += TPR) {
         const float4 v = x4[j];
-        am = fmaxf(am, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
-                             fmaxf(fabsf(v.z), fabsf(v.w))));
+        am = nanmax(am, nanmax(nanmax(fabsf(v.x), fabsf(v.y)),
+                               nanmax(fabsf(v.z), fabsf(v.w))));
       }
     } else {
-      for (int j = tr; j < C; j += TPR) am = fmaxf(am, fabsf(x[j]));
+      for (int j = tr; j < C; j += TPR) am = nanmax(am, fabsf(x[j]));
     }
   }
   am = warp_max(am);
@@ -409,10 +450,10 @@ quantize_rows_kernel(const float* __restrict__ X, uint8_t* __restrict__ Q,
     if (tr % 32 == 0) redm[rb][tr / 32] = am;
     __syncthreads();
     am = redm[rb][0];
-    for (int w = 1; w < WPR; ++w) am = fmaxf(am, redm[rb][w]);
+    for (int w = 1; w < WPR; ++w) am = nanmax(am, redm[rb][w]);
   }
   if (!live) return;
-  const float scale = fmaxf(am / qmax, 1e-12f);
+  const float scale = row_scale(am, qmax);
   if constexpr (PACK) {
     uint8_t* q = Q + (size_t)row * (C / 2);
     if constexpr (VEC) {
@@ -431,14 +472,14 @@ quantize_rows_kernel(const float* __restrict__ X, uint8_t* __restrict__ Q,
       for (int j = tr; j < C / 4; j += TPR) {
         const float4 v = x4[j];
         reinterpret_cast<char4*>(q)[j] = make_char4(
-            (signed char)level(v.x, scale, qmax),
-            (signed char)level(v.y, scale, qmax),
-            (signed char)level(v.z, scale, qmax),
-            (signed char)level(v.w, scale, qmax));
+            (signed char)(int)level(v.x, scale, qmax),
+            (signed char)(int)level(v.y, scale, qmax),
+            (signed char)(int)level(v.z, scale, qmax),
+            (signed char)(int)level(v.w, scale, qmax));
       }
     } else {
       for (int j = tr; j < C; j += TPR)
-        q[j] = (int8_t)level(x[j], scale, qmax);
+        q[j] = (int8_t)(int)level(x[j], scale, qmax);
     }
   }
   if (tr == 0) SCALE[row] = scale;
@@ -459,7 +500,8 @@ __device__ __forceinline__ float4 roundtrip(float4 v, float scale,
 __device__ __forceinline__ float absmax(float v) { return fabsf(v); }
 
 __device__ __forceinline__ float absmax(float4 v) {
-  return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
+  return nanmax(nanmax(fabsf(v.x), fabsf(v.y)),
+                nanmax(fabsf(v.z), fabsf(v.w)));
 }
 
 // TPR threads a row, each holding PER floats of it in registers (PER / 4
@@ -490,20 +532,20 @@ quant_roundtrip_kernel(const float* __restrict__ X, float* __restrict__ Y,
     const int j = tr + h * TPR;
     if (live && j < n) {
       v[h] = x[j];
-      am = fmaxf(am, absmax(v[h]));
+      am = nanmax(am, absmax(v[h]));
     }
   }
   if (live)
-    for (int j = tr + NH * TPR; j < n; j += TPR) am = fmaxf(am, absmax(x[j]));
+    for (int j = tr + NH * TPR; j < n; j += TPR) am = nanmax(am, absmax(x[j]));
   am = warp_max(am);
   if constexpr (WPR > 1) {               // every thread reaches it
     if (tr % 32 == 0) redm[rb][tr / 32] = am;
     __syncthreads();
     am = redm[rb][0];
-    for (int w = 1; w < WPR; ++w) am = fmaxf(am, redm[rb][w]);
+    for (int w = 1; w < WPR; ++w) am = nanmax(am, redm[rb][w]);
   }
   if (!live) return;
-  const float scale = fmaxf(am / qmax, 1e-12f);
+  const float scale = row_scale(am, qmax);
   #pragma unroll
   for (int h = 0; h < NH; ++h) {
     const int j = tr + h * TPR;

@@ -3,7 +3,8 @@
 The port's own copy of ``src/repro/privacy/secure_agg.py``: the same
 numpy uint64 masks from ``np.random.default_rng(seed + (start, lo, hi))``,
 so the masks, sums and ledger bytes are the reference's by construction.
-``state_dict``/``load_state_dict`` wait for checkpointing.
+``state_dict``/``load_state_dict`` carry the session across a checkpoint
+(checkpoint/federated.py), the fixed-point vectors as numpy uint64.
 
 Bonawitz-style pairwise additive masking, simulated faithfully enough
 to pin its two load-bearing properties in tests while staying
@@ -196,6 +197,27 @@ class SecureAggSession:
         (its pairwise masks are recovered by later events as usual)."""
         if self.enabled:
             self._plain.pop((start_rnd, ci), None)
+
+    # -- checkpoint/resume (checkpoint/federated.py) ----------------------- #
+    def state_dict(self) -> dict:
+        """The session's mutable state.  Keys are strings for the JSON
+        manifest; the fixed-point vectors stay uint64 arrays (bit
+        exact)."""
+        return {
+            "cohorts": {str(k): [int(x) for x in v]
+                        for k, v in self._cohorts.items()},
+            "size": {str(k): int(v) for k, v in self._size.items()},
+            "plain": {f"{s}:{c}": q for (s, c), q in self._plain.items()},
+        }
+
+    def load_state_dict(self, st: dict):
+        self._cohorts = {int(k): [int(x) for x in v]
+                         for k, v in st["cohorts"].items()}
+        self._size = {int(k): int(v) for k, v in st["size"].items()}
+        self._plain = {}
+        for key, q in st["plain"].items():
+            s, c = key.split(":")
+            self._plain[(int(s), int(c))] = np.asarray(q, np.uint64)
 
 
 def key_exchange_bytes(cohort_size: int) -> Tuple[int, int]:

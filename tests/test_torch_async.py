@@ -88,7 +88,7 @@ def test_stale_weighted_avg_matches_reference(hetero_agg, absent):
     """Arrivals of ranks 4, 2 and 4 at staleness 0, 2 and 1, with and
     without absent data weight anchored on the global tree: the
     reference's combine_arrivals under robust_agg "mean" (svd's through
-    its deltas; the robust combines are refused: test_torch_hygiene)."""
+    its deltas; the robust combines: tests/test_torch_faults.py)."""
     fed = FedConfig(lora_rank=4, hetero_agg=hetero_agg, staleness_decay=0.5)
     ref_fed = RefFedConfig(lora_rank=4, hetero_agg=hetero_agg,
                            staleness_decay=0.5)

@@ -252,3 +252,95 @@ def test_lora_deltas_walks_the_tree_in_order():
         assert [g.shape for g in got] == [w.shape for w in want]
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("faults,quorum,secagg,cohort", [
+    (dict(dropout_rate=0.3, byzantine=1, byzantine_mode="nan"), 0.0, True,
+     {}),
+    (dict(dropout_rate=0.5), 1.0, False, {}),
+    (dict(dropout_rate=0.4, byzantine=1, byzantine_mode="inf", seed=3), 0.5,
+     True, {}),
+    (dict(dropout_rate=0.3, byzantine=1, byzantine_mode="nan"), 0.5, True,
+     dict(backend="cohort", cohort_size=2, n_edges=2,
+          robust_agg="trimmed_mean", trim_frac=0.34))])
+def test_fault_reckoning_is_the_run_the_port_makes(faults, quorum, secagg,
+                                                   cohort):
+    """Phase 13's hand reckoning of a faulted sync FedLLM run (numpy and
+    the FaultPlan alone) against the port's run on the CPU at a tiny
+    size: the ledger by name, the fault events in order and the
+    rollovers.  Streamed by the cohort executor (4 clients in chunks of
+    2 over 2 edges, as phase 13's faulted cohort run is) the key
+    exchange, the recovery shares and the edge hop are the chunks', so
+    there the fault events, the rollovers and the payload and fault
+    bytes are held."""
+    pytest.importorskip("torch")
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.base import FaultConfig, FedConfig, PrivacyConfig
+    from repro_torch.configs.gpt2_small import gpt2_tiny
+    from repro_torch.core import metrics
+    from repro_torch.core.rounds import run_federated
+    from repro_torch.data import banking77, partition
+
+    cfg = gpt2_tiny()
+    pub, train, test = banking77.paper_splits(cfg.vocab_size, pad_len=24,
+                                              scale=0.02)
+    n = 4 if cohort else 3
+    fed = FedConfig(rounds=3, lora_rank=2, lora_dropout=0.0, quorum=quorum,
+                    faults=FaultConfig(**faults),
+                    privacy=PrivacyConfig(secure_agg=secagg), **cohort)
+    res = run_federated(cfg, fed, pub, partition.iid_partition(train, n),
+                        test, device="cpu")
+    lora_bytes = metrics.tree_bytes(res.final_lora)
+    assert lora_bytes == sum(x.numel() * 4
+                             for x in tree_lib.leaves(res.final_lora))
+    ledger, events, rollovers = cs.fault_reckoning(fed, n, lora_bytes)
+    got = res.ledger.by_name()
+    if cohort:
+        names = ("lora_params", "quarantine", "retransmit")
+        got, ledger = ({k: d.get(k) for k in names} for d in (got, ledger))
+        assert 0 < rollovers < fed.rounds
+    assert got == ledger
+    assert cs.fault_events(res) == events
+    assert res.rollovers == rollovers
+    assert events
+
+
+def _drops_nan(x, bits=8):
+    """Row 10's levels as fmaxf-based kernels would take them: NaN left
+    out of the absmax and the scale's clamp, a NaN level clamped to
+    -qmax."""
+    import torch
+    qmax = float((1 << (bits - 1)) - 1)
+    xf = x.float()
+    absmax = torch.nan_to_num(xf.abs(), nan=0.0).amax(-1, keepdim=True)
+    scale = torch.clamp_min(absmax / qmax, 1e-12)
+    q = torch.nan_to_num(torch.round(xf / scale), nan=-qmax)
+    return torch.clamp(q, -qmax, qmax).to(torch.int8), scale
+
+
+def test_nonfinite_agree_holds_twins_and_catches_a_dropped_nan():
+    """Phase 2's check on non-finite rows: each quantizer's twin agrees
+    with itself on nonfinite_rows, whose first rows hold NaN and +-inf
+    where NONFINITE_ROWS says; a quantizer that drops a NaN (a finite
+    scale where the twin's is NaN) fails it."""
+    torch = pytest.importorskip("torch")
+    from repro_torch.kernels import ref
+
+    n_bad = len(cs.NONFINITE_ROWS)
+    x = cs.nonfinite_rows("cpu", 40, 77, 5)
+    assert torch.isnan(x[1]).all() and torch.isneginf(x[4]).all()
+    assert torch.isfinite(x[n_bad:]).all()
+    for name, out in (
+            ("topk_quantize", lambda: ref.topk_quantize_rows_ref(x, 8, 8)),
+            ("quantize_rows", lambda: ref.quantize_rows_ref(x, 8)),
+            ("quant_roundtrip_rows",
+             lambda: ref.quant_roundtrip_rows_ref(x, 8)),
+            ("quantize_pack4",
+             lambda: ref.quantize_pack4_rows_ref(x[:, :76].contiguous()))):
+        assert cs.nonfinite_agree(name, out(), out(), n_bad) == 0
+    q, scale = ref.quantize_rows_ref(x, 8)
+    assert torch.isnan(scale[[0, 1, 5]]).all()
+    assert torch.isinf(scale[[2, 3]]).all()
+    with pytest.raises(RuntimeError, match="scales of non-finite rows"):
+        cs.nonfinite_agree("quantize_rows", _drops_nan(x),
+                           ref.quantize_rows_ref(x, 8), n_bad)

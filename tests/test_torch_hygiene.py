@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 # one intra-op thread: the suite runs several pytest workers per host
 torch.set_num_threads(1)
 
+from repro_torch import tree as tree_lib  # noqa: E402
 from repro_torch.configs.base import (FaultConfig, FedConfig,  # noqa: E402
                                       PrivacyConfig)
 from repro_torch.configs.gpt2_small import gpt2_tiny  # noqa: E402
@@ -54,7 +55,10 @@ assert {"repro_torch.privacy.dp", "repro_torch.privacy.accountant",
         "repro_torch.kernels.rwkv6_scan", "repro_torch.models.rwkv6",
         "repro_torch.configs.rwkv6_1_6b",
         "repro_torch.core.fed_spmd", "repro_torch.core.rng",
-        "repro_torch.data.population"} <= set(names), names
+        "repro_torch.data.population", "repro_torch.faults.plan",
+        "repro_torch.faults.guard", "repro_torch.checkpoint.serialization",
+        "repro_torch.checkpoint.manager",
+        "repro_torch.checkpoint.federated"} <= set(names), names
 """
 
 
@@ -157,6 +161,16 @@ def test_auto_policy_resolves_by_device():
 
 
 @pytest.mark.parametrize("change", [
+    dict(optimizer="sgd"), dict(peft="adapter"),
+])
+def test_unported_settings_raise(tiny_case, change):
+    cfg, pub, clients, test = tiny_case
+    fed = dataclasses.replace(FedConfig(rounds=1, lora_dropout=0.0), **change)
+    with pytest.raises(NotImplementedError):
+        run_federated(cfg, fed, pub, clients, test, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
     dict(framework="kd", backend="cohort", robust_agg="median"),
     dict(framework="split", backend="cohort", quorum=0.5),
     dict(backend="spmd", privacy=PrivacyConfig(dp_clip=0.5),
@@ -166,18 +180,24 @@ def test_auto_policy_resolves_by_device():
     dict(backend="spmd", client_ranks=(2, 4, 4),
          faults=FaultConfig(straggler_rate=0.5)),
     dict(robust_agg="median"),
-    dict(quorum=0.5), dict(screen_factor=3.0), dict(optimizer="sgd"),
-    dict(peft="adapter"),
+    dict(quorum=0.5), dict(screen_factor=3.0),
     dict(framework="split", backend="cohort", client_ranks=(2, 4, 4),
          robust_agg="norm_clip"),
     dict(aggregation="async", robust_agg="median"),
     dict(faults=FaultConfig(dropout_rate=0.2)),
 ])
-def test_unported_settings_raise(tiny_case, change):
+def test_fault_tolerance_settings_run(tiny_case, change):
+    """The settings the port refused before fault tolerance was ported
+    (faults, robust_agg, quorum, the norm screen, under each backend) run
+    a round to its end: one history entry, a finite final LoRA, an int
+    count of rollovers."""
     cfg, pub, clients, test = tiny_case
     fed = dataclasses.replace(FedConfig(rounds=1, lora_dropout=0.0), **change)
-    with pytest.raises(NotImplementedError):
-        run_federated(cfg, fed, pub, clients, test, device="cpu")
+    res = run_federated(cfg, fed, pub, clients, test, device="cpu")
+    assert len(res.history) == 1
+    leaves = tree_lib.leaves(res.final_lora)
+    assert leaves and all(bool(torch.isfinite(x).all()) for x in leaves)
+    assert isinstance(res.rollovers, int)
 
 
 @pytest.mark.parametrize("change,kwargs", [
@@ -247,12 +267,15 @@ def test_noise_without_clip_raises(tiny_case):
         run_federated(cfg, fed, pub, clients, test, device="cpu")
 
 
-def test_checkpointing_and_unported_models_raise(tiny_case):
+def test_checkpointing_and_unported_models_raise(tiny_case, tmp_path):
+    """Checkpointing runs (a run of one round with ``checkpoint_every=1``
+    writes its snapshot into ``tmp_path``); qk-norm is refused."""
     cfg, pub, clients, test = tiny_case
     fed = FedConfig(rounds=1, lora_dropout=0.0)
-    with pytest.raises(NotImplementedError):
-        run_federated(cfg, fed, pub, clients, test, device="cpu",
-                      checkpoint_every=1, checkpoint_dir="ckpt")
+    run_federated(cfg, fed, pub, clients, test, device="cpu",
+                  checkpoint_every=1, checkpoint_dir=str(tmp_path))
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "ckpt_00000001.npz", "ckpt_00000001.npz.json"]
     qwen3 = dataclasses.replace(cfg, qk_norm=True)
     with pytest.raises(NotImplementedError, match="qk-norm"):
         run_federated(qwen3, fed, pub, clients, test, device="cpu")

@@ -528,8 +528,10 @@ def test_spmd_refuses_what_it_does_not_port(bridged):
     """DP-SGD over the client axis runs: at clip 0.5 the sequential
     run's ledger exactly and its final LoRA within the fp32 bar (against
     the reference's spmd DP runs: tests/test_torch_spmd_dp.py); fault
-    injection under ``spmd`` still raises NotImplementedError, and
-    ``mesh`` is no keyword of the port's entry point."""
+    injection runs under ``spmd`` too, dropping and quarantining the
+    uploads the sequential run does (the same ledger events, its final
+    LoRA within the fp32 bar); ``mesh`` is no keyword of the port's entry
+    point."""
     params, lt = bridged
     cfg, pub, clients, test = _tiny_data()
     out = {}
@@ -543,9 +545,17 @@ def test_spmd_refuses_what_it_does_not_port(bridged):
     assert out["spmd"].ledger.by_name() == out["sequential"].ledger.by_name()
     assert out["spmd"].client_flops == out["sequential"].client_flops
     _lora_close(out["spmd"].final_lora, out["sequential"].final_lora)
-    faults = FedConfig(backend="spmd", faults=FaultConfig(dropout_rate=0.2))
-    with pytest.raises(NotImplementedError, match="fault"):
-        run_federated(cfg, faults, pub, clients, test, device="cpu")
+    for backend in ("sequential", "spmd"):
+        out[backend] = run_federated(
+            cfg, FedConfig(backend=backend, faults=FaultConfig(
+                dropout_rate=0.4, byzantine=1, byzantine_mode="nan"),
+                **dict(FED, rounds=2)), pub, clients, test, batch_size=16,
+            eval_batch=64, device="cpu",
+            base=bridge.params_from_reference(params, "cpu"),
+            lora=bridge.lora_from_reference(lt, "cpu"))
+    assert out["spmd"].ledger.events == out["sequential"].ledger.events
+    assert {"quarantine", "retransmit"} <= set(out["spmd"].ledger.by_name())
+    _lora_close(out["spmd"].final_lora, out["sequential"].final_lora)
     with pytest.raises(TypeError):
         run_federated(cfg, FedConfig(backend="spmd"), pub, clients, test,
                       device="cpu", mesh=None)
