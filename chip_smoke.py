@@ -8,9 +8,11 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
 1. Prints the card's name and power limit (nvidia-smi), checks compute
    capability 9.0 and builds the CUDA kernels from kernels/csrc/ with nvcc,
    printing each kernel's registers and spills (ptxas -v); the 8
-   instances of the fused LoRA kernel, the dense dW kernel, the 4 of
-   flash_dq, the 6 of the WKV backward, the 2 of the radix top-k, the
-   panel gradient and the 4 of the one-pass roundtrip must not spill.
+   instances of the fused LoRA kernel, the dense dW kernel, the 4 head-dim
+   instances (DT 32, 64, 128, 256) of each flash kernel (forward, dq,
+   dk/dv; their registers and spills printed by instance), the 6 of the
+   WKV backward, the 2 of the radix top-k, the panel gradient and the 4
+   of the one-pass roundtrip must not spill.
 2. Holds every ported kernel against its plain PyTorch version on the card
    at the main path's shapes, at ragged shapes and (KD loss, top-k) at a
    generative vocabulary (1280 x 50257), and times the kernel, the plain
@@ -94,7 +96,14 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    shapes) within FP64_FACTOR times the larger of the fp32 twins' and
    SDPA's; flash_dkv's head chunks at G 3 and 5 (chunks of unequal
    size); the flash kernels at G 10, D 256 with a window shorter than S,
-   ragged S and a q_offset; and the RWKV-6 WKV
+   ragged S and a q_offset, and at G 6, D 128 (Qwen2's 12 heads over 2)
+   with ragged S and a q_offset; at phase 14's shapes
+   (family_kernel_checks) the flash kernels' DT 128 instances at
+   Qwen3-1.7B's (BH 256 over 128, S 80, D 128) and Mixtral-8x7B's (512
+   over 128, window 4096) train steps, held to their twins, their fp64
+   error gated as above and timed beside SDPA, and the LoRA kernels at
+   their wq (1280, d, d) and wk/wv (1280, d, 1024), d 2048 and 4096,
+   timed beside the matmul chain; and the RWKV-6 WKV
    kernels at the train step's (512, 80, 64) with checkpoints (timed
    eager, in a graph and with a cold L2), at the eval batch's (2048, 80,
    64) without, at a ragged S, one step, head dims 16 and 32, log-decays
@@ -216,12 +225,14 @@ outside that limit.  fp32_gates holds that arithmetic.
    the labels; the client half's wq/wk/wv of two layers down and up each
    round), 36 roundtrips among the exact launches.
 
-8. FedLLM on RWKV-6 Finch 1.6B at full width and depth (24 rwkv6 layers,
-   d 2048, 32 heads of 64, d_ff 7168, V 65536, 1.58e9 parameters; random
+8. RWKV-6 Finch 1.6B at full width and depth (24 rwkv6 layers, d 2048,
+   32 heads of 64, d_ff 7168, V 65536, 1.58e9 parameters; random
    weights from seed 0), LoRA on w_r/w_k/w_v/w_g, phase 3's data, rounds
-   and rank; every batch runs the WKV forward kernel in
-   all 24 layers, every train step its backward in all 24 (layer 0's
-   r, k and v carry LoRA).  Each run prints its peak device memory.
+   and rank.  Its FedLLM set runs at full width and RWKV6_FEDLLM_LAYERS
+   (6) of the 24 layers, the first 6 of the seed-0 draw (the plain WKV
+   twin takes 16-19 s a round at 24); every batch runs the WKV forward
+   kernel in all its layers, every train step its backward in all of
+   them (layer 0's r, k and v carry LoRA).  Each run prints its peak device memory.
    This path is chaotic at full width: Adam's first update moves every
    LoRA B coordinate by lr times its gradient's sign, so coordinates whose
    gradient sits at the fp32 noise floor step apart and the runs part; a
@@ -331,11 +342,28 @@ rows holding a NaN, all NaN, +inf, -inf, all -inf and all three
 (nonfinite_checks): the scale NaN as NaN, non-finite where the twin's
 dequantized row is, the top-k's indices, the finite rows bit for bit.
 
-After phase 13 it prints each kernel's launches times its time beyond
+14. The registry's decoder-only families at full width (run_families):
+   Qwen3-1.7B at full depth (28 layers, d 2048, 16 query heads of 128
+   over 8 kv heads with qk-norm, SwiGLU d_ff 6144, V 151936 tied, 1.72e9
+   parameters; seed-0 weights), FedLLM on phase 3's data, its first
+   step's LoRA gradient and run_case's five runs gated from fp64, ledger
+   by hand, launches exact; then Mixtral-8x7B at MIXTRAL_LAYERS (2) of
+   its 32 layers (32 hold ~187 GB of fp32 weights; d 4096, 32 heads of
+   128 over 8, window 4096, 8 experts of d_ff 14336, top 2, capacity
+   factor 1.25, batched dispatch, V 32000 untied, 3.2e9 parameters):
+   the first step's routes (each token's top-2 experts at both layers)
+   of every run against the fp64 run's; with none changed in the kernel
+   run its LoRA gradient and the five runs are gated from fp64, else the
+   route flips are gated as a quantized wire's levels (fp32_gates'
+   flips, NUDGED_SEEDS nudged runs among the yardsticks) and the runs
+   take the spread gates; then one DP-SGD step (dp_first_step), its rows
+   and clipped mean from fp64, 6 launches of row 4ᵉ's pair.
+
+After phase 14 it prints each kernel's launches times its time beyond
 max(bound, launch floor) (the rule-2 queue), the final-LoRA margins of
 phase 7, Split int8 and RWKV-6, phase 5's first-step and final-LoRA
 margins, phase 8's KD and DP shares and the shares of the Split, hetero,
-async and fault gates of phases 7, 8, 10, 11, 12 and 13 (each kernel
+async and fault gates of phases 7, 8, 10, 11, 12, 13 and 14 (each kernel
 run's share of its
 limit, beside the last recorded run's, or "new"), then one JSON
 line with every kernel's numbers and, last, the line ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -435,6 +463,23 @@ NUDGED_SEEDS = 3
 RWKV_SHAPES = dict(M=BATCH * PAD_LEN, K=2048, N=2048, r=RANK, BH=BATCH * 12,
                    BKV=BATCH * 12, S=PAD_LEN, Skv=PAD_LEN, D=64, causal=True,
                    window=0, q_offset=0)
+# phase 8's FedLLM set runs the first RWKV6_FEDLLM_LAYERS of RWKV-6's 24
+# layers (its plain WKV twin takes 16-19 s a round at 24); KD, DP and
+# Split keep all 24
+RWKV6_FEDLLM_LAYERS = 6
+# phase 14: the LoRA (wq; K = N = d) and flash shapes of a Qwen3-1.7B and
+# a Mixtral-8x7B train step, both at head dim 128 (the flash kernels'
+# DT = 128 instances); their wk/wv are (d, 8 kv heads x 128 = 1024)
+Q3_SHAPES = dict(M=BATCH * PAD_LEN, K=2048, N=2048, r=RANK, BH=BATCH * 16,
+                 BKV=BATCH * 8, S=PAD_LEN, Skv=PAD_LEN, D=128, causal=True,
+                 window=0, q_offset=0)
+MX_SHAPES = dict(M=BATCH * PAD_LEN, K=4096, N=4096, r=RANK, BH=BATCH * 32,
+                 BKV=BATCH * 8, S=PAD_LEN, Skv=PAD_LEN, D=128, causal=True,
+                 window=4096, q_offset=0)
+KV_WIDTH = 8 * 128
+# Mixtral-8x7B runs 2 of its 32 layers at full width: 32 are ~187 GB of
+# fp32 weights, 2 are 12.7 GB (25.4 GB in fp64)
+MIXTRAL_LAYERS = 2
 
 
 def require(ok: bool, what: str) -> None:
@@ -2101,6 +2146,35 @@ def kd_checks(device, peaks_) -> dict:
     return rows
 
 
+def family_kernel_checks(device, peaks_) -> dict:
+    """Phase 2 at phase 14's shapes: the flash kernels' DT = 128
+    instances at Qwen3-1.7B's (BH 256 over 128, S 80, D 128, causal) and
+    Mixtral-8x7B's (512 over 128, window 4096) train steps, held to their
+    twins, their rms error against fp64 within FP64_FACTOR times the
+    larger of the fp32 twins' and SDPA's, and timed beside SDPA; the LoRA
+    kernels (rows 1, 2, 4) at wq's (1280, d, d) and wk/wv's (1280, d,
+    1024), d 2048 and 4096, held to their twins and timed beside the
+    matmul chain.  Returns the rows, tagged "@q3", "@q3kv", "@mx",
+    "@mxkv"."""
+    rows = {}
+    for tag, shape, seed in (("q3", Q3_SHAPES, 30), ("mx", MX_SHAPES, 31)):
+        print(f"  LoRA and flash kernels at {tag}'s shapes (M "
+              f"{shape['M']}, K = N = {shape['K']}; BH {shape['BH']} over "
+              f"{shape['BKV']}, D {shape['D']}, window {shape['window']}):")
+        flash_fp64_errors(device, shape["BH"], shape["BKV"], shape["S"],
+                          shape["D"], shape["causal"], shape["window"], seed)
+        for name, case in kernel_cases(device, seed=seed, **shape).items():
+            if name != "lora_dw":
+                rows[f"{name}@{tag}"] = time_case(name, case, peaks_)
+        print(f"  LoRA kernels at {tag}'s wk/wv (M {shape['M']}, K "
+              f"{shape['K']}, N {KV_WIDTH}):")
+        kv = dict(shape, N=KV_WIDTH)
+        for name, case in kernel_cases(device, seed=seed + 10, **kv).items():
+            if name.startswith("lora_") and name != "lora_dw":
+                rows[f"{name}@{tag}kv"] = time_case(name, case, peaks_)
+    return rows
+
+
 def check_kernels(device, card: str):
     """Phase 2.  Returns the per-kernel JSON rows (main-path shapes) and the
     launch floor (launch_floor)."""
@@ -2154,6 +2228,16 @@ def check_kernels(device, card: str):
             err = max_err(name, kern(), plain())
             print(f"  flash edge (G 10, D 256, S 37 over 53, window 24, "
                   f"q_offset 16) {name}: max abs err {err:.3e}")
+    # the flash kernels' DT = 128 instances at G 6 (Qwen2-1.5B's 12 query
+    # heads over 2), ragged S and Skv, a q_offset
+    d128_edge = dict(M=64, K=64, N=64, r=RANK, BH=12, BKV=2, S=37, Skv=53,
+                     D=128, causal=True, window=0, q_offset=16)
+    for name, (kern, plain, *_rest) in kernel_cases(
+            device, seed=125, **d128_edge).items():
+        if name.startswith("flash_"):
+            err = max_err(name, kern(), plain())
+            print(f"  flash edge (G 6, D 128, S 37 over 53, q_offset 16) "
+                  f"{name}: max abs err {err:.3e}")
     # dW: a ragged M, K and N; RecurrentGemma-2B's wk and wv (2560, 256)
     for i, (M, K, N) in enumerate(((1279, 770, 97),
                                    (BATCH * PAD_LEN, 2560, 256))):
@@ -2237,6 +2321,7 @@ def check_kernels(device, card: str):
     for name, case in rglru_cases(device, BATCH, PAD_LEN, 2560, False, False,
                                   0, 13).items():
         rows[name] = time_case(name, case, peaks_)
+    rows.update(family_kernel_checks(device, peaks_))
     rows.update(check_rwkv_kernels(device, peaks_))
     rows.update(kd_checks(device, peaks_))
     topk_wide_cases(device, 19)
@@ -2346,7 +2431,8 @@ def floor_gate(what: str, gaps: dict) -> float:
 FP32_EXCLUDED = ("kernels", "control")
 
 
-def fp32_gates(kind: str = "continuous", loss=(), lora=None, flips=None):
+def fp32_gates(kind: str = "continuous", loss=(), lora=None, flips=None,
+               loss_kind=None):
     """The limits of the gates that hold a case study's runs to its fp32
     plain runs, and the gates that fail, from the measured distances
     alone.  A role is "kernels", "control" (TF32) or an fp32 plain run's
@@ -2359,7 +2445,11 @@ def fp32_gates(kind: str = "continuous", loss=(), lora=None, flips=None):
     limit adds FLOOR_FACTOR times the largest fp32 difference from the
     plain run; the final LoRA, measured from the plain run, within
     SPREAD_FACTOR times the largest fp32 distance).  Either way the TF32
-    control must fall outside the final-LoRA limit.
+    control must fall outside the final-LoRA limit.  ``loss_kind``
+    ("continuous" or "spread", default ``kind``) sets the round-loss
+    limits alone: a path whose final LoRA holds to fp64 while its round
+    losses part beyond 1e-3 between fp32 runs takes the final LoRA's
+    continuous gate and the losses' spread one.
     loss: one {role: |round loss - the plain run's|} a round.
     lora: {role: the final LoRA's relative L2 distance from the
     yardstick}, or None.
@@ -2374,7 +2464,8 @@ def fp32_gates(kind: str = "continuous", loss=(), lora=None, flips=None):
     limits = {"loss": [], "lora": None, "flips": None}
     failed = []
     for d in loss:
-        widen = 0.0 if kind == "continuous" else FLOOR_FACTOR * largest(d)
+        widen = 0.0 if (loss_kind or kind) == "continuous" \
+            else FLOOR_FACTOR * largest(d)
         limits["loss"].append(1e-3 + widen)
     if any(d["kernels"] > lim for d, lim in zip(loss, limits["loss"])):
         failed.append("round loss of the kernel run is off the plain run's "
@@ -2488,7 +2579,9 @@ MARGINS = {}
 # ``keep``), the yardsticks of phase 10's spmd runs (phase 13 keeps its
 # faulted FedLLM runs there too)
 CASES = {}
-MARGINS_BEFORE = {"phase 7": 0.402, "Split int8": 0.862, "RWKV-6": 0.867,
+MARGINS_BEFORE = {"phase 7": 0.402, "Split int8": 0.862,
+                  # 0.867 at 24 layers before the cut: a new baseline
+                  f"RWKV-6 ({RWKV6_FEDLLM_LAYERS} layers)": None,
                   "DP first step": 0.195, "DP final LoRA": 0.390,
                   "DP first-step rows": 0.199, "RWKV-6 KD upload": 0.215,
                   "RWKV-6 DP first-step rows": 0.198,
@@ -2500,7 +2593,11 @@ MARGINS_BEFORE = {"phase 7": 0.402, "Split int8": 0.862, "RWKV-6": 0.867,
                   "hetero zeropad": None, "hetero svd": None, "async": None,
                   "DP spmd final LoRA": None, "hetero zeropad spmd": None,
                   "hetero svd spmd": None, "async spmd": None, "cohort": None,
-                  "faults": None}
+                  "faults": None, "Qwen3-1.7B first step": None,
+                  "Qwen3-1.7B": None, "Mixtral-8x7B route flips": None,
+                  "Mixtral-8x7B first step": None, "Mixtral-8x7B": None,
+                  "Mixtral-8x7B DP first-step rows": None,
+                  "Mixtral-8x7B DP first step": None}
 
 
 def rwkv_bwd_repeat(device, seed) -> None:
@@ -2519,7 +2616,8 @@ def rwkv_bwd_repeat(device, seed) -> None:
 
 
 def run_case(device, cfg, base, fed, data, ledger, expect,
-             kind="continuous", seeds=0, margin=None, keep=None, view=None):
+             kind="continuous", seeds=0, margin=None, keep=None, view=None,
+             loss_kind=None):
     """One framework's case study through the kernels and through plain
     PyTorch (under two BLAS libraries, two summation orders of the same
     fp32 products, and under TF32), from the same weights, and ``seeds``
@@ -2547,7 +2645,7 @@ def run_case(device, cfg, base, fed, data, ledger, expect,
     CASES, where its runs, launch counts and gate limits are kept for
     phase 10.  ``view`` (a final LoRA tree -> tensors) is what the
     final-LoRA gates compare, the tree's leaves by default (lora_deltas
-    for svd-harmonized trees)."""
+    for svd-harmonized trees).  ``loss_kind`` is fp32_gates'."""
     import torch
 
     from repro_torch.core.rounds import run_federated
@@ -2624,7 +2722,8 @@ def run_case(device, cfg, base, fed, data, ledger, expect,
             if not role.startswith("exact")
             and role != yardstick(role, kind)}
     limits, failed = fp32_gates(
-        kind, loss, {role: gap[1] for role, gap in gaps.items()})
+        kind, loss, {role: gap[1] for role, gap in gaps.items()},
+        loss_kind=loss_kind)
     for i, (d, lim) in enumerate(zip(loss, limits["loss"])):
         hp = plain.history[i]
         fp64_ = "" if not continuous else \
@@ -3436,9 +3535,11 @@ def rwkv_launches(L, n_t, train_steps, fwd_batches):
 def run_rwkv(device):
     """Phase 8 on RWKV-6 Finch 1.6B at full width and depth (24 rwkv6
     layers, d 2048, 32 heads of 64, V 65536; random weights from seed 0),
-    LoRA on w_r/w_k/w_v/w_g, phase 3's data.  FedLLM: the first step's
-    gradient gate, then run_case's gates for a chaotic path, with
-    NUDGED_SEEDS nudged fp32 runs beside the floor run.  KD (top-k 8,
+    LoRA on w_r/w_k/w_v/w_g, phase 3's data.  FedLLM at full width and
+    RWKV6_FEDLLM_LAYERS of its layers (the first of the 24 drawn from
+    seed 0, which are the weights ``init`` gives the cut config): the
+    first step's gradient gate, then run_case's gates for a chaotic path,
+    with NUDGED_SEEDS nudged fp32 runs beside the floor run.  KD (top-k 8,
     int8): client 0's first upload's logits gated from fp64
     (kd_upload_gaps), then one run through the kernels alone (its plain
     rounds take ~20 s each) with its ledger and launches exact.  DP-SGD:
@@ -3467,10 +3568,11 @@ def run_rwkv(device):
     base = build_model(cfg).init(torch.Generator().manual_seed(0), device)
     torch.cuda.synchronize()
     n_tree = sum(t.numel() for t in tree_lib.leaves(base))
-    print(f"phase 8: FedLLM case study, {cfg.name} full width and depth "
-          f"({n_tree} parameters in the tree, {n_tree * 4 / 1e9:.2f} GB fp32;"
-          f" cfg.param_count() {cfg.param_count()}), 2 rounds, 3 clients, "
-          f"LoRA on {', '.join(lora.RWKV_TARGETS)}")
+    print(f"phase 8: {cfg.name} full width and depth ({n_tree} parameters "
+          f"in the tree, {n_tree * 4 / 1e9:.2f} GB fp32; cfg.param_count() "
+          f"{cfg.param_count()}), 2 rounds, 3 clients, LoRA on "
+          f"{', '.join(lora.RWKV_TARGETS)}; the FedLLM set at full width "
+          f"and {RWKV6_FEDLLM_LAYERS} of its {cfg.n_layers} layers")
     print(f"  init wall_s={time.perf_counter() - t0:.1f}")
     L, C, d = cfg.n_layers, len(clients), cfg.d_model
     steps = sum(len(c["tokens"]) // BATCH for c in clients)
@@ -3479,9 +3581,12 @@ def run_rwkv(device):
                     lora_dropout=0.0, lora_targets=lora.RWKV_TARGETS)
     n_t = len(lora.RWKV_TARGETS)
     train_steps, fwd_batches = steps * fed.rounds, evals * fed.rounds
-    expect = rwkv_launches(L, n_t, train_steps, fwd_batches)
-    print(f"  {L} rwkv6 layers; {train_steps} train steps, {fwd_batches} "
-          f"eval batches; expected launches {expect}")
+    L6 = RWKV6_FEDLLM_LAYERS
+    cfg6 = dataclasses.replace(cfg, n_layers=L6)
+    base6 = dict(base, layers=base["layers"][:L6])
+    expect = rwkv_launches(L6, n_t, train_steps, fwd_batches)
+    print(f"  FedLLM: {L6} rwkv6 layers; {train_steps} train steps, "
+          f"{fwd_batches} eval batches; expected launches {expect}")
     t0 = time.perf_counter()
     # The precision gate: the first step's LoRA gradient, before Adam's
     # first update (lr times the gradient's sign) turns the coordinates
@@ -3489,12 +3594,13 @@ def run_rwkv(device):
     # and the runs part (a round's loss then differs by 1e-2 to 1.4e-1
     # between fp32 plain runs, beyond phase 3's 1e-3)
     floor_gate("first-step LoRA gradient",
-               first_step_gaps(device, cfg, base, fed, clients))
-    counts, _ = run_case(device, cfg, base, fed, data,
-                         ledger={"lora_params": fed.rounds * C * 2 * L * n_t
-                                 * RANK * (d + d) * 4},
+               first_step_gaps(device, cfg6, base6, fed, clients))
+    counts, _ = run_case(device, cfg6, base6, fed, data,
+                         ledger={"lora_params": fed.rounds * C * 2 * L6
+                                 * n_t * RANK * (d + d) * 4},
                          expect=expect, kind="spread", seeds=NUDGED_SEEDS,
-                         margin="RWKV-6")
+                         margin=f"RWKV-6 ({L6} layers)")
+    del base6
     print(f"  phase 8 FedLLM wall_s={time.perf_counter() - t0:.1f}")
 
     t0 = time.perf_counter()
@@ -4796,10 +4902,260 @@ def run_faults(device):
     return by_path
 
 
+# --------------------------------------------------------------------------- #
+# Phase 14: the registry's decoder-only families at full width
+# --------------------------------------------------------------------------- #
+def family_case(cfg, what: str):
+    """Phase 3's data for ``cfg``'s vocabulary, the clients, the steps a
+    round and eval batches, and FedLLM's config (2 rounds, rank 8 on
+    wq/wk/wv, dropout 0)."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.data import banking77, partition
+
+    pub, train, test = banking77.paper_splits(cfg.vocab_size,
+                                              pad_len=PAD_LEN, scale=0.03)
+    clients = partition.iid_partition(train, 3)
+    steps = sum(len(c["tokens"]) // BATCH for c in clients)
+    evals = len(test["tokens"]) // 64
+    fed = FedConfig(framework="fedllm", rounds=2, lora_rank=RANK,
+                    lora_dropout=0.0)
+    print(f"phase 14: FedLLM case study, {what}, 2 rounds, 3 clients, LoRA "
+          f"rank {RANK} on wq, wk, wv")
+    return (pub, clients, test), steps, evals, fed
+
+
+def family_init(device, cfg):
+    """``cfg``'s seed-0 weights on the card (drawn on the host), with the
+    draw's wall time and the tree's size printed."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.models.factory import build_model
+
+    t0 = time.perf_counter()
+    base = build_model(cfg).init(torch.Generator().manual_seed(0), device)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_lib.leaves(base))
+    print(f"  init wall_s={time.perf_counter() - t0:.1f} ({n} parameters in "
+          f"the tree, {n * 4 / 1e9:.2f} GB fp32; cfg.param_count() "
+          f"{cfg.param_count()})")
+    return base
+
+
+def lora_site_bytes(cfg) -> int:
+    """Bytes of one layer's LoRA factors on wq, wk and wv, fp32: A (d, r)
+    and B (r, out) each."""
+    d = cfg.d_model
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    return RANK * ((d + q) + 2 * (d + kv)) * 4
+
+
+def run_qwen3(device):
+    """Phase 14's Qwen3-1.7B at full width and depth (28 layers, d 2048,
+    16 query heads of 128 over 8 kv heads with qk-norm, SwiGLU d_ff 6144,
+    V 151936 tied; seed-0 weights): FedLLM on phase 3's data, the first
+    step's LoRA gradient gated from fp64, then run_case's continuous
+    gates (kernels, two fp32 plain runs, TF32, fp64), ledger by hand,
+    launches exact.  Returns the kernel run's launch counts."""
+    import torch
+
+    from repro_torch.configs import registry
+
+    cfg = registry.get_config("qwen3-1.7b")
+    data, steps, evals, fed = family_case(
+        cfg, f"{cfg.name} full width and depth ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} over "
+        f"{cfg.n_kv_heads}, qk-norm, V {cfg.vocab_size} tied)")
+    base = family_init(device, cfg)
+    L, C = cfg.n_layers, len(data[1])
+    train_steps, fwd_batches = steps * fed.rounds, evals * fed.rounds
+    expect = model_launches(L, train_steps, fwd_batches)
+    print(f"  {train_steps} train steps, {fwd_batches} eval batches; "
+          f"expected launches {expect}")
+    gaps = first_step_gaps(device, cfg, base, fed, data[1])
+    MARGINS["Qwen3-1.7B first step"] = gaps["kernels"] / floor_gate(
+        "first-step LoRA gradient", gaps)
+    # on the card the final LoRA holds to fp64 (0.28 of its limit), but
+    # round 1's loss parts between fp32 runs by ~4e-3 (the cuBLASLt run
+    # 4.4e-3 from plain, fp64 1.9e-3): past 1e-3, so the round losses
+    # take the spread gate
+    counts, _ = run_case(device, cfg, base, fed, data,
+                         ledger={"lora_params": fed.rounds * C * 2 * L
+                                 * lora_site_bytes(cfg)},
+                         expect=expect, margin="Qwen3-1.7B",
+                         loss_kind="spread")
+    del base
+    torch.cuda.empty_cache()
+    return counts
+
+
+def first_step_routes(device, cfg, base, fed, clients, roles=None):
+    """FedLLM's first train step (client 0's first batch, the run's
+    initial LoRA) under each of each_run(exact=True)'s settings (those in
+    ``roles``, if given), the MoE layers' routes traced: ({role: LoRA
+    gradient leaves}, {role: [each MoE layer's top-k expert ids (B, S,
+    k)]})."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import tasks
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.factory import build_model
+    from repro_torch.peft import lora as lora_lib
+
+    lt, batch = first_step_inputs(device, base, fed, clients)
+    loss_fn = tasks.get_loss_fn("classification")
+    grads, routes = {}, {}
+    for role, tag, policy in each_run(exact=True):
+        if roles is not None and role not in roles:
+            continue
+        model = build_model(dataclasses.replace(cfg, kernel_policy=policy))
+        b, l = (fp64(base), fp64(lt)) if role == "exact" else (base, lt)
+        with ops.policy_scope(policy), moe.trace_routes() as trace:
+            live = tree_lib.map_(lambda t: t.detach().requires_grad_(True), l)
+            logits, aux = model.forward(lora_lib.bind(
+                b, live, fed.lora_alpha,
+                lora_lib.tree_rank(live, fed.lora_rank)), batch)
+            loss, _ = loss_fn(logits, batch)
+            grads[role] = torch.autograd.grad(loss + aux,
+                                              tree_lib.leaves(live))
+        routes[role] = trace
+        del b, l
+    torch.cuda.empty_cache()
+    return grads, routes
+
+
+def route_flips(routes, role: str, yard: str) -> float:
+    """Share of (token, MoE layer) pairs whose set of top-k experts in run
+    ``role`` differs from run ``yard``'s."""
+    flips = n = 0
+    for a, b in zip(routes[role], routes[yard]):
+        a, b = a.sort(dim=-1).values, b.sort(dim=-1).values
+        flips += int((a != b).any(dim=-1).sum())
+        n += a.shape[0] * a.shape[1]
+    return flips / n
+
+
+def run_mixtral(device):
+    """Phase 14's Mixtral-8x7B at full width and MIXTRAL_LAYERS of its 32
+    layers (d 4096, 32 query heads of 128 over 8 kv heads, window 4096,
+    8 experts of d_ff 14336, top 2, capacity factor 1.25, ``shard_map``
+    dispatch, run as ``batched``; V 32000 untied; seed-0 weights):
+    FedLLM on phase 3's data.  The first step's routes (every token's
+    top-2 experts at each layer) of each run against the fp64 run's: with
+    none changed in the kernel run, the first step's LoRA gradient is
+    gated from fp64; with some, the route is a quantized wire (a flipped
+    route moves a token to other experts), so the share of flipped
+    routes is gated against the fp32 runs' (NUDGED_SEEDS nudged among
+    them, fp32_gates' flips).  The rounds, where routes flip, take
+    run_case's spread gates with NUDGED_SEEDS nudged runs, each run's
+    routes printed against the plain run's.  Ledger by hand, launches
+    exact.
+    Then one DP-SGD step (dp_first_step: clip at the median per-example
+    norm, noise 0), its rows and clipped mean from fp64, the pair of row
+    4ᵉ launched 3 x MIXTRAL_LAYERS times.  Returns the two kernel runs'
+    launch counts."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(registry.get_config("mixtral-8x7b"),
+                              n_layers=MIXTRAL_LAYERS)
+    data, steps, evals, fed = family_case(
+        cfg, f"{cfg.name} full width, {MIXTRAL_LAYERS} of its 32 layers "
+        f"(d {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} over "
+        f"{cfg.n_kv_heads}, window {cfg.sliding_window}, {cfg.n_experts} "
+        f"experts of d_ff {cfg.d_ff}, top {cfg.top_k}, capacity factor "
+        f"{cfg.moe_capacity_factor}, {cfg.moe_dispatch} dispatch run as "
+        f"batched, V {cfg.vocab_size} untied)")
+    base = family_init(device, cfg)
+    L, C = cfg.n_layers, len(data[1])
+    train_steps, fwd_batches = steps * fed.rounds, evals * fed.rounds
+    expect = model_launches(L, train_steps, fwd_batches)
+    print(f"  {train_steps} train steps, {fwd_batches} eval batches; "
+          f"expected launches {expect}")
+    grads, routes = first_step_routes(device, cfg, base, fed, data[1])
+    shares = {role: route_flips(routes, role, "exact")
+              for role in routes if role != "exact"}
+    n = sum(r.shape[0] * r.shape[1] for r in routes["exact"])
+    print(f"  round 0 step 0 routes (top-{cfg.top_k} expert sets of {n} "
+          f"token-layer pairs), share changed from the fp64 run's: "
+          + ", ".join(f"{role} {v:.3e}" for role, v in shares.items()))
+    ledger = {"lora_params": fed.rounds * C * 2 * L * lora_site_bytes(cfg)}
+    if shares["kernels"] == 0.0:
+        gaps = from_exact(grads, "round 0 step 0 LoRA gradient")
+        MARGINS["Mixtral-8x7B first step"] = gaps["kernels"] / floor_gate(
+            "first-step LoRA gradient", gaps)
+    else:
+        # the nudged runs' routes join the yardstick: flips against the
+        # plain run's, as phase 6 holds its boundary levels
+        for seed in range(NUDGED_SEEDS):
+            nb = nudged(base, seed, device)
+            routes[f"seed {seed}"] = first_step_routes(
+                device, cfg, nb, fed, data[1], roles=("plain",))[1]["plain"]
+            del nb
+        flips = {role: route_flips(routes, role, "plain")
+                 for role in routes if role not in ("plain", "exact")}
+        limits, failed = fp32_gates(flips=flips)
+        print("  route flips against the plain run: " + ", ".join(
+            f"{role} {v:.3e}" for role, v in flips.items())
+            + f" (limit {limits['flips']:.3e}; kernels at "
+            f"{flips['kernels'] / limits['flips']:.3f} of it)")
+        require(not failed, "; ".join(failed))
+        MARGINS["Mixtral-8x7B first step"] = \
+            flips["kernels"] / limits["flips"]
+    MARGINS["Mixtral-8x7B route flips"] = shares["kernels"]
+    # Over the rounds a route flips somewhere in every run but the ones
+    # that share the plain run's bits, and a flipped route sends a token
+    # to other experts: the runs part as a quantized wire's do (on the
+    # card round 1's loss parted by 2.8e-2 kernels, 5.0e-2 fp64 from
+    # plain), so the rounds take the spread gates with nudged runs; the
+    # routes of every run are printed against the plain run's
+    with moe.trace_routes() as trace:
+        counts, _ = run_case(device, cfg, base, fed, data, ledger=ledger,
+                             expect=expect, kind="spread",
+                             seeds=NUDGED_SEEDS, margin="Mixtral-8x7B")
+    roles = ["kernels", "plain", "floor", "control"] + [
+        f"seed {seed}" for seed in range(NUDGED_SEEDS)]
+    per = len(trace) // len(roles)
+    require(per * len(roles) == len(trace) and per == L * (
+        train_steps + fwd_batches), f"{len(trace)} traced MoE calls")
+    runs = {role: trace[i * per:(i + 1) * per]
+            for i, role in enumerate(roles)}
+    print(f"  routes over each run ({per} MoE calls), share of token-layer "
+          f"pairs changed from the plain run's: " + ", ".join(
+              f"{role} {route_flips(runs, role, 'plain'):.3e}"
+              for role in roles if role != "plain"))
+    del grads, routes
+    dp_counts = dp_first_step(device, cfg, base, data[1], {
+        "lora_fwd": 3 * L, "lora_dx": 3 * L,
+        "lora_panel_examples_pair": 3 * L, "flash_fwd": L, "flash_dq": L,
+        "flash_dkv": L, "dp_clip_norms": 1, "dp_clip_acc": 1},
+        margin="Mixtral-8x7B")
+    del base
+    torch.cuda.empty_cache()
+    return counts, dp_counts
+
+
+def run_families(device):
+    """Phase 14: Qwen3-1.7B (run_qwen3) and Mixtral-8x7B (run_mixtral).
+    Returns {path: kernel-run launch counts}."""
+    t0 = time.perf_counter()
+    by_path = {"qwen3": run_qwen3(device)}
+    print(f"  phase 14 Qwen3-1.7B wall_s={time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    by_path["mixtral"], by_path["mixtral_dp_step"] = run_mixtral(device)
+    print(f"  phase 14 Mixtral-8x7B wall_s={time.perf_counter() - t0:.1f}")
+    return by_path
+
 # the kernels that must not spill: {kernel: (source, instances)}
 NO_SPILLS = {"lora_fused_kernel": ("lora_matmul", 8),
              "lora_dw_kernel": ("lora_matmul", 1),
+             "flash_fwd_kernel": ("flash_attention", 4),
              "flash_dq_kernel": ("flash_attention", 4),
+             "flash_dkv_kernel": ("flash_attention", 4),
              "rwkv6_bwd_kernel": ("rwkv6_scan", 6),
              "topk_radix_kernel": ("quantize", 2),
              "panel_grad_kernel": ("lora_matmul", 1),
@@ -4811,14 +5167,39 @@ def kernel_spills(log: str, kernel: str) -> dict:
     """{instance of ``kernel``: bytes of spill stores plus loads} from a
     ptxas -v report (each "Function properties for" line is followed by
     its stack and spill line)."""
+    return {name: spill for name, (spill, _) in
+            kernel_resources(log, kernel).items()}
+
+
+def kernel_resources(log: str, kernel: str) -> dict:
+    """{instance of ``kernel``: (spill bytes, registers)} from a ptxas -v
+    report: each "Function properties for" line is followed by its stack
+    and spill line, then its "Used N registers" line."""
     import re
     lines, out = log.splitlines(), {}
     for i, line in enumerate(lines):
         if "properties for" in line and kernel in line:
             nums = re.findall(r"(\d+) bytes spill", lines[i + 1])
-            out[line.split("properties for")[-1].strip()] = sum(
-                int(n) for n in nums)
+            regs = re.findall(r"Used (\d+) registers", " ".join(
+                lines[i + 2:i + 3]))
+            out[line.split("properties for")[-1].strip()] = (
+                sum(int(n) for n in nums), int(regs[0]) if regs else -1)
     return out
+
+
+def flash_instances(log: str) -> None:
+    """Prints each flash kernel's four head-dim instances (DT 32, 64, 128,
+    256) with their registers and spill bytes."""
+    import re
+    for kernel in ("flash_fwd_kernel", "flash_dq_kernel",
+                   "flash_dkv_kernel"):
+        by_dt = {}
+        for name, (spill, regs) in kernel_resources(log, kernel).items():
+            dt = re.search(kernel + r"ILi(\d+)E", name)
+            by_dt[int(dt.group(1)) if dt else name] = (regs, spill)
+        print(f"  {kernel}: " + ", ".join(
+            f"DT {dt} {regs} registers {spill} bytes spilled"
+            for dt, (regs, spill) in sorted(by_dt.items())))
 
 
 REPLACES = {
@@ -4944,6 +5325,7 @@ def main() -> int:
         require(not any(spills.values()), f"{kernel} spills: "
                 f"{ {k: v for k, v in spills.items() if v} }")
         print(f"  {kernel}: {len(spills)} instances, no spills")
+    flash_instances(report["flash_attention"]["log"])
     print(f"  build wall_s={time.perf_counter() - t0:.1f}")
 
     t0 = time.perf_counter()
@@ -4975,6 +5357,10 @@ def main() -> int:
     print(f"  phases 1-12 wall_s={time.perf_counter() - t_start:.1f}")
     by_path.update(run_faults(device))
     print(f"  phases 1-13 wall_s={time.perf_counter() - t_start:.1f}")
+    t0 = time.perf_counter()
+    by_path.update(run_families(device))
+    print(f"  phase 14 wall_s={time.perf_counter() - t0:.1f}")
+    print(f"  phases 1-14 wall_s={time.perf_counter() - t_start:.1f}")
     print("margins (share of the limit; the last recorded run's in "
           "parentheses): " + ", ".join(
               f"{path} {MARGINS[path]:.3f} ("
@@ -5016,7 +5402,9 @@ def main() -> int:
                          ("rg256", "at_recurrentgemma_wk_wv"),
                          ("rwkv", "at_rwkv6"), ("dp", "at_dp_batch1"),
                          ("c8", "at_8_clients"),
-                         ("c48", "at_48_examples")):
+                         ("c48", "at_48_examples"), ("q3", "at_qwen3"),
+                         ("q3kv", "at_qwen3_wk_wv"), ("mx", "at_mixtral"),
+                         ("mxkv", "at_mixtral_wk_wv")):
             if f"{name}@{tag}" in rows:
                 at = rows[f"{name}@{tag}"]
                 kernels[-1][key] = {

@@ -10,8 +10,11 @@ position pi, and the tail comes last.  In a reference LoRA tree a pattern
 position (or tail layer) without a targeted weight is ``None`` and a
 ``tail`` without any is left out; the port's LoRA list holds ``None`` at
 those layers.  Both store weights as (d_in, d_out) with ``y = x @ W``, so
-nothing is transposed.  Inputs are numpy arrays, or anything
-``np.asarray`` accepts; this module imports no JAX.
+nothing is transposed.  A MoE layer's router (d, E) and experts (E, d,
+ff) and a qk-norm layer's (D,) ``q_norm``/``k_norm`` scales are leaves
+like any other, stacked over the groups in the reference.  Inputs are
+numpy arrays, or anything ``np.asarray`` accepts; this module imports no
+JAX.
 """
 from __future__ import annotations
 
@@ -82,12 +85,12 @@ def lora_from_reference(ref_lora: Dict, device, cfg=None) -> Dict:
     return {"layers": _layers(ref_lora, device, _n_tail(cfg))}
 
 
-def lora_to_reference(lora: Dict, cfg=None) -> Dict:
-    """A port LoRA tree -> the reference's nested numpy layout, with
-    ``None`` where the reference's has no target.  ``cfg`` gives the
-    layer pattern; without it each layer is its own group (the dense
-    family)."""
-    layers = lora["layers"]
+def _blocks(layers: List, cfg) -> Dict:
+    """The port's per-layer list as the reference's {"blocks": (...),
+    "tail": (...)} of numpy arrays, each pattern position's layers
+    stacked over the full groups; ``None`` stays where a layer has no
+    entry.  ``cfg`` gives the layer pattern; without it each layer is its
+    own group (the dense family)."""
     P = len(cfg.layer_pattern or (None,)) if cfg is not None else 1
     n_tail = _n_tail(cfg)
     G = (len(layers) - n_tail) // P
@@ -100,15 +103,31 @@ def lora_to_reference(lora: Dict, cfg=None) -> Dict:
             return {k: rec(v, [r[k] for r in rest]) for k, v in first.items()}
         return stack(first, *rest)
 
-    def numpy(tree):
-        return _np_map(lambda t: t.detach().cpu().numpy(), tree)
-
     blocks = []
     for pos in range(P):
         group = [layers[g * P + pos] for g in range(G)]
         blocks.append(None if group[0] is None else rec(group[0], group[1:]))
-    out = {"blocks": tuple(blocks)}
-    tail = [numpy(t) for t in layers[G * P:]]
-    if any(t is not None for t in tail):
-        out["tail"] = tuple(tail)
+    tail = [_np_map(lambda t: t.detach().cpu().numpy(), t)
+            for t in layers[G * P:]]
+    return {"blocks": tuple(blocks), "tail": tuple(tail)}
+
+
+def params_to_reference(params: Dict, cfg=None) -> Dict:
+    """Port parameters -> the reference's ``model.init`` layout (numpy),
+    the inverse of ``params_from_reference``: a round trip through both
+    gives every leaf back bit for bit."""
+    out = {k: _np_map(lambda t: t.detach().cpu().numpy(), v)
+           for k, v in params.items() if k != "layers"}
+    out.update(_blocks(params["layers"], cfg))
+    return out
+
+
+def lora_to_reference(lora: Dict, cfg=None) -> Dict:
+    """A port LoRA tree -> the reference's nested numpy layout, with
+    ``None`` where the reference's has no target.  ``cfg`` gives the
+    layer pattern; without it each layer is its own group (the dense
+    family)."""
+    out = _blocks(lora["layers"], cfg)
+    if not any(t is not None for t in out["tail"]):
+        del out["tail"]
     return out

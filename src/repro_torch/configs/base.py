@@ -54,7 +54,7 @@ class ModelConfig:
     top_k: int = 0
     router_aux_coef: float = 0.01     # load-balance loss coefficient
     moe_capacity_factor: float = 1.25  # train-time token-drop threshold
-    moe_dispatch: str = "global"      # global | batched
+    moe_dispatch: str = "global"      # global | batched | shard_map (batched)
 
     # -- layer pattern ----------------------------------------------------
     layer_pattern: Optional[Tuple[str, ...]] = None

@@ -69,17 +69,22 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
         sinks: (the live LoRA leaves, each example's loss, the sites,
         each site's sink gradients).  The LoRA tree is bound once, so
         every example sees the step's one dropout mask, as the
-        reference's shared rng gives."""
+        reference's shared rng gives.  A MoE model routes each example on
+        its own inside the scope and gives each its aux term (B,), which
+        joins that example's loss, as the reference's batch-1 passes
+        do."""
         live = [t.detach().requires_grad_(True) for t in tree_lib.leaves(lt)]
         bound = _bind(base, tree_lib.unflatten(lt, live), gen)
         with kernel_ops.per_example_scope(batch["tokens"].shape[0]) as sites:
             logits, aux = model.forward(bound, batch)
-        if torch.is_tensor(aux) and aux.requires_grad:
+        rows = task_loss_rows(logits, batch)
+        if torch.is_tensor(aux) and aux.requires_grad and \
+                aux.shape != rows.shape:
             raise ValueError(f"{who}: the model's aux term carries a "
-                             "gradient; it mixes the examples, so one "
-                             "batched pass cannot give each example's "
-                             "gradient")
-        losses_ = task_loss_rows(logits, batch) + aux
+                             "gradient and is not one a row; it mixes the "
+                             "examples, so one batched pass cannot give "
+                             "each example's gradient")
+        losses_ = rows + aux
         sinks = [t for site in sites for t in site[2:]]
         return live, losses_, sites, torch.autograd.grad(losses_.sum(), sinks)
 
@@ -90,8 +95,9 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
         reference's ``vmap`` of ``value_and_grad(example_loss)``.
 
         One forward and one backward of the whole batch, on the sum of the
-        per-example losses: no ported layer mixes examples, so each
-        example's activation gradient is its own.  Under
+        per-example losses: no ported layer mixes examples inside the
+        scope (a MoE layer routes each row alone), so each example's
+        activation gradient is its own.  Under
         kernels/ops.per_example_scope each LoRA projection's backward
         gives each example's gradient w.r.t. the bound a′ and b′ (the
         ``lora_panel_examples`` kernel under the ``cuda`` policy); bind's
@@ -167,7 +173,10 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
     # is one client-axis pass (kernels/ops.lora_matmul), and one forward
     # and backward of the sum over clients of each client's mean loss
     # gives each client its own gradient, since no ported layer mixes
-    # examples.  ``gens`` holds each client's dropout generator.
+    # clients: under kernels/ops.clients_scope a MoE layer routes each
+    # client's rows on their own and gives each client its aux term (C,),
+    # as the reference's vmap over clients does.  ``gens`` holds each
+    # client's dropout generator.
     def _clients_grads(base, slt, batch, gens, rows_fn):
         """(each client's loss (C,), each client's LoRA gradient as a tree
         like ``slt``) of one stacked pass; ``rows_fn(logits)`` gives each
@@ -175,12 +184,14 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
         live = tree_lib.map_(lambda t: t.detach().requires_grad_(True),
                              slt)
         C = tree_lib.leaves(slt)[0].shape[0]
-        logits, aux = model.forward(_bind(base, live, gens), batch)
-        if torch.is_tensor(aux) and aux.requires_grad:
+        with kernel_ops.clients_scope(C):
+            logits, aux = model.forward(_bind(base, live, gens), batch)
+        if torch.is_tensor(aux) and aux.requires_grad and \
+                aux.shape != (C,):
             raise ValueError("stacked clients' step: the model's aux term "
-                             "carries a gradient; it mixes the clients' "
-                             "examples, so one stacked pass cannot give each "
-                             "client its own gradient")
+                             "carries a gradient and is not one a client; "
+                             "it mixes the clients' examples, so one stacked "
+                             "pass cannot give each client its own gradient")
         losses_ = rows_fn(logits).view(C, -1).mean(dim=1) + aux
         return (losses_.detach(),
                 tree_lib.unflatten(slt, _grad(losses_.sum(), live)))
@@ -248,7 +259,8 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
         """logits_fn of every stacked client on its rows of ``batch`` (a
         batch repeated C times): (C, B, n_classes)."""
         C = tree_lib.leaves(slt)[0].shape[0]
-        logits, _ = model.forward(_bind(base, slt), batch)
+        with kernel_ops.clients_scope(C):
+            logits, _ = model.forward(_bind(base, slt), batch)
         cl = tasks.class_logits(logits, batch)
         return cl.view(C, -1, cl.shape[-1])
 

@@ -63,6 +63,7 @@ from repro_torch.kernels import rwkv6_scan as _rw
 POLICIES = ("torch", "cuda", "auto")
 _ACTIVE = "auto"
 _EXAMPLES = None        # (batch, sites) of the open per_example_scope
+_CLIENTS = None         # stacked clients of the open clients_scope
 
 
 def resolve(policy: str, device) -> str:
@@ -97,11 +98,13 @@ def per_example_scope(batch: int):
     the summed per-example losses with respect to sink_a (B, K, r) and
     sink_b (B, r, N) is each example's gradient with respect to the bound
     a and b.  Every LoRA projection's input must lead with the batch, and
-    no layer may mix examples (core/fedavg.per_example_grads checks the
-    model's ``aux``).  With stacked clients' factors a (C, K, r), b (C, r,
-    N), ``batch`` counts the C·B examples of the stacked batch, client c's
-    B one after another: sink row c·B + j is example j of client c, its
-    gradient with respect to a[c] and b[c]."""
+    no layer may mix examples: a MoE layer routes each example on its own
+    and gives each its aux term (models/moe.py); core/fedavg's
+    per_example_grads refuses a scalar ``aux`` that carries a gradient.
+    With stacked clients' factors a (C, K, r), b (C, r, N), ``batch``
+    counts the C·B examples of the stacked batch, client c's B one after
+    another: sink row c·B + j is example j of client c, its gradient with
+    respect to a[c] and b[c]."""
     global _EXAMPLES
     if _EXAMPLES is not None:
         raise RuntimeError("per_example_scope: already open")
@@ -110,6 +113,32 @@ def per_example_scope(batch: int):
         yield _EXAMPLES[1]
     finally:
         _EXAMPLES = None
+
+
+@contextlib.contextmanager
+def clients_scope(n_clients: int):
+    """Mark one forward of ``n_clients`` stacked clients' batches, laid
+    one after another on the batch axis (the ``spmd`` backend's stacked
+    steps, core/fedavg): a layer that mixes the rows of its batch (the
+    MoE router's capacity and load-balance term, models/moe.py) keeps
+    each client's rows to themselves, as the reference's ``vmap`` over
+    clients does."""
+    global _CLIENTS
+    prev, _CLIENTS = _CLIENTS, n_clients
+    try:
+        yield
+    finally:
+        _CLIENTS = prev
+
+
+def example_batch():
+    """The batch of the open per_example_scope, or None."""
+    return None if _EXAMPLES is None else _EXAMPLES[0]
+
+
+def stacked_clients():
+    """The client count of the open clients_scope, or None."""
+    return _CLIENTS
 
 
 def use_cuda(t: torch.Tensor) -> bool:

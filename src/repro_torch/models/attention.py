@@ -1,13 +1,15 @@
 """Causal self-attention: multi-head with QKV bias and learned positions
-(GPT-2), or grouped-query with RoPE and a sliding window
-(RecurrentGemma's local attention).
+(GPT-2), or grouped-query with RoPE, optionally with QKV bias (Qwen2),
+per-head qk-norm (Qwen3) and a sliding window (RecurrentGemma's local
+attention, Mixtral).
 
 Counterpart of ``init_attention`` and ``attention_fwd`` in
 ``src/repro/models/attention.py``: projections through models/common.mm
 (LoRA-bound leaves go through the fused LoRA kernel), attention through
 kernels/ops.mha_attention (the flash kernels under the ``cuda`` policy,
-which group the KV heads and mask the window themselves).  qk-norm is
-not ported yet and raises NotImplementedError.
+which group the KV heads and mask the window themselves).  qk-norm is an
+RMSNorm over each head's D of q and of k, after the bias and the reshape
+and before RoPE, with a (D,) scale shared by the heads.
 """
 from __future__ import annotations
 
@@ -32,6 +34,9 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, device):
         p["bq"] = torch.zeros(h * hd, device=device)
         p["bk"] = torch.zeros(kv * hd, device=device)
         p["bv"] = torch.zeros(kv * hd, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(hd, device=device)
+        p["k_norm"] = torch.ones(hd, device=device)
     return p
 
 
@@ -39,8 +44,6 @@ def attention_fwd(params, cfg: ModelConfig, x, positions=None,
                   window: int = 0, use_rope=None):
     """x: (B, S, d) -> (B, S, d).  ``window`` > 0 -> sliding window;
     ``positions`` (B, S) or (S,) feed RoPE (default 0 .. S-1)."""
-    if cfg.qk_norm:
-        raise NotImplementedError("qk-norm is not ported yet")
     rope = cfg.use_rope if use_rope is None else use_rope
     B, S, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -52,6 +55,9 @@ def attention_fwd(params, cfg: ModelConfig, x, positions=None,
     q = q.reshape(B, S, h, hd)
     k = k.reshape(B, S, kv, hd)
     v = v.reshape(B, S, kv, hd)
+    if "q_norm" in params:
+        q = common.rmsnorm({"scale": params["q_norm"]}, q)
+        k = common.rmsnorm({"scale": params["k_norm"]}, k)
     if rope:
         if positions is None:
             positions = torch.arange(S, device=x.device)

@@ -6,10 +6,15 @@
 
 ``init``'s ``device=None`` means ``"cuda"`` and raises without it (pass
 ``device="cpu"`` for the CPU); the weights are drawn on the CPU from the
-generator, so a seed gives the same weights on every device.  The dense
-family (GPT-2) and the Griffin hybrid (RecurrentGemma) are ported
-(models/transformer.check_supported).  ``batch`` is a dict with
-``"tokens"`` (B, S) on the parameters' device.
+generator, so a seed gives the same weights on every device.  Ported
+(models/transformer.check_supported), by ``configs/registry`` name:
+``gpt2``, ``gpt2-tiny``, ``qwen2-1.5b``, ``qwen3-1.7b``,
+``mistral-large-123b``, ``nemotron-4-340b`` (dense), ``mixtral-8x7b``,
+``qwen3-moe-235b-a22b`` (MoE, models/moe.py), ``recurrentgemma-2b`` (the
+Griffin hybrid) and ``rwkv6-1.6b``; ``llava-next-34b`` (the VLM
+image-embedding prefix) and ``whisper-base`` (the encoder-decoder) raise
+NotImplementedError.  ``batch`` is a dict with ``"tokens"`` (B, S) on
+the parameters' device.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
-"""Dense MLP blocks: SwiGLU (RecurrentGemma) and GELU (GPT-2).
-Counterpart of ``src/repro/models/mlp.py``; squared ReLU is not ported
-yet."""
+"""Dense MLP blocks: SwiGLU (RecurrentGemma, Qwen2, Qwen3, Mistral),
+GELU (GPT-2) and squared ReLU (Nemotron-4).  Counterpart of
+``src/repro/models/mlp.py``."""
 from __future__ import annotations
 
 import torch
@@ -17,9 +17,6 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, device):
                 "w_in": common.dense_init(gen, (d, ff), device),
                 "w_out": common.dense_init(gen, (ff, d), device,
                                            scale=ff ** -0.5)}
-    if cfg.activation != "gelu":
-        raise NotImplementedError(
-            f"activation {cfg.activation!r} is not ported yet")
     return {"w_in": common.dense_init(gen, (d, ff), device),
             "w_out": common.dense_init(gen, (ff, d), device,
                                        scale=ff ** -0.5)}
@@ -29,4 +26,5 @@ def mlp_fwd(params, cfg: ModelConfig, x):
     if cfg.activation == "swiglu":
         g = common.silu(mm(x, params["w_gate"]))
         return mm(mm(x, params["w_in"]) * g, params["w_out"])
-    return mm(common.gelu(mm(x, params["w_in"])), params["w_out"])
+    act = common.relu2 if cfg.activation == "relu2" else common.gelu
+    return mm(act(mm(x, params["w_in"])), params["w_out"])

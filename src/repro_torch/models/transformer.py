@@ -1,9 +1,12 @@
 """Decoder-only LM: GPT-2 (learned positions, pre-LayerNorm blocks of
-GELU MLP and multi-head attention) and the Griffin hybrid of
-RecurrentGemma (RG-LRU and local-attention layers in a repeating
-pattern, RMSNorm, SwiGLU, RoPE, the embedding scaled by sqrt(d)), both
-with tied embeddings; and RWKV-6 (``rwkv6`` blocks of time-mix and
-squared-ReLU channel-mix, LayerNorm, an untied head).
+GELU MLP and multi-head attention); the dense GQA families (Qwen2 with
+QKV bias, Qwen3 with qk-norm, Mistral-Large; RoPE, RMSNorm, SwiGLU;
+Nemotron-4 with LayerNorm and a squared-ReLU MLP); the MoE families
+(Mixtral with a sliding window, Qwen3-MoE with qk-norm; models/moe.py in
+place of the MLP); the Griffin hybrid of RecurrentGemma (RG-LRU and
+local-attention layers in a repeating pattern, the embedding scaled by
+sqrt(d)); and RWKV-6 (``rwkv6`` blocks of time-mix and squared-ReLU
+channel-mix, LayerNorm, an untied head).
 
 Counterpart of ``init_params``, ``init_block``, ``block_fwd``,
 ``embed_tokens``, ``forward``, ``lm_logits`` and the layer-range
@@ -16,14 +19,23 @@ position pi, then the tail) and the forward is a Python loop
 (repro_torch/bridge.py converts between the two layouts).  Layer i has
 kind ``cfg.layer_kinds[i]``; an RG-LRU layer keeps its recurrent block
 under "attn", and an RWKV-6 layer its time-mix and channel-mix weights
-together under "attn" with no "mlp", as the reference does.
+together under "attn" with no "mlp", as the reference does.  A MoE
+model's "mlp" holds its router and stacked experts.
 
     {"embed": (V, d), ["pos_embed": (P, d)], ["lm_head": (d, V)],
      "final_norm": {...},
-     "layers": [{"norm1", "attn": {wq, wk, wv, wo, [bq, bk, bv]}
+     "layers": [{"norm1", "attn": {wq, wk, wv, wo, [bq, bk, bv],
+                                   [q_norm, k_norm]}
                                   | {w_rec_in, ..., lambda, w_out}
                                   | {mu_r, ..., w_r, ..., cm_w_r},
-                 "norm2", ["mlp": {[w_gate], w_in, w_out}]}, ...]}
+                 "norm2", ["mlp": {[w_gate], w_in, w_out}
+                                  | {router, [w_gate], w_in, w_out}]},
+                ...]}
+
+The forward's ``aux`` is the sum over layers of the MoE load-balance
+terms (0 without MoE layers): a scalar, or one entry a routing group
+(models/moe.routing_groups) under the per-example and stacked-clients
+scopes of kernels/ops.
 """
 from __future__ import annotations
 
@@ -33,7 +45,7 @@ import torch
 
 from repro_torch.configs.base import (ATTN, LOCAL_ATTN, RGLRU, RWKV6,
                                      ModelConfig)
-from repro_torch.models import attention, common, mlp, rglru, rwkv6
+from repro_torch.models import attention, common, mlp, moe, rglru, rwkv6
 from repro_torch.runtime import resolve_device
 
 KINDS = (ATTN, LOCAL_ATTN, RGLRU, RWKV6)
@@ -42,20 +54,17 @@ KINDS = (ATTN, LOCAL_ATTN, RGLRU, RWKV6)
 def check_supported(cfg: ModelConfig) -> None:
     """Raises NotImplementedError for what the port does not run yet."""
     missing = []
-    if cfg.family not in ("dense", "hybrid", "ssm"):
+    if cfg.n_image_tokens:
+        missing.append("the VLM image-embedding prefix (llava)")
+    if cfg.is_encoder_decoder:
+        missing.append("the encoder-decoder (whisper)")
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         missing.append(f"family {cfg.family!r}")
     unported = sorted(set(cfg.layer_kinds) - set(KINDS))
     if unported:
         missing.append(f"layer kinds {unported}")
-    if cfg.is_moe or cfg.is_encoder_decoder or cfg.n_image_tokens:
-        missing.append("MoE, encoder-decoder and VLM models")
-    if cfg.qk_norm:
-        missing.append("qk-norm")
-    # relu2 runs in RWKV-6's channel-mix; the dense relu2 MLP does not
-    all_rwkv = set(cfg.layer_kinds) == {RWKV6}
-    activations = ("gelu", "swiglu") + (("relu2",) if all_rwkv else ())
     if cfg.norm not in ("layernorm", "rmsnorm") or \
-            cfg.activation not in activations:
+            cfg.activation not in ("gelu", "swiglu", "relu2"):
         missing.append(f"norm {cfg.norm!r} / activation {cfg.activation!r}")
     if missing:
         raise NotImplementedError(
@@ -80,16 +89,18 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, device):
     return {"norm1": common.init_norm(cfg.norm, d, device),
             "attn": mixer,
             "norm2": common.init_norm(cfg.norm, d, device),
-            "mlp": mlp.init_mlp(gen, cfg, device)}
+            "mlp": moe.init_moe(gen, cfg, device) if cfg.is_moe
+            else mlp.init_mlp(gen, cfg, device)}
 
 
 def block_fwd(p, cfg: ModelConfig, kind: str, x, positions):
+    """Returns (x, aux): aux the MoE load-balance term, None without."""
     h = common.apply_norm(cfg.norm, p["norm1"], x)
     if kind == RWKV6:
         out, _ = rwkv6.timemix_fwd(p["attn"], cfg, h)
         x = x + out
         h = common.apply_norm(cfg.norm, p["norm2"], x)
-        return x + rwkv6.channelmix_fwd(p["attn"], cfg, h)
+        return x + rwkv6.channelmix_fwd(p["attn"], cfg, h), None
     if kind == RGLRU:
         out, _ = rglru.rglru_fwd(p["attn"], cfg, h)
     else:
@@ -98,7 +109,10 @@ def block_fwd(p, cfg: ModelConfig, kind: str, x, positions):
                                       window=window)
     x = x + out
     h = common.apply_norm(cfg.norm, p["norm2"], x)
-    return x + mlp.mlp_fwd(p["mlp"], cfg, h)
+    if cfg.is_moe:
+        m, aux = moe.moe_fwd(p["mlp"], cfg, h)
+        return x + m, aux
+    return x + mlp.mlp_fwd(p["mlp"], cfg, h), None
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, device=None):
@@ -139,7 +153,8 @@ def lm_logits(params, cfg: ModelConfig, h):
 
 
 def forward(params, cfg: ModelConfig, tokens):
-    """Returns (logits (B, S, V), aux_loss) — aux is 0 for these models."""
+    """Returns (logits (B, S, V), aux_loss) — the MoE layers' summed
+    load-balance terms, 0 without MoE layers."""
     h, positions = embed_tokens(params, cfg, tokens)
     h, aux = forward_groups(params, cfg, h, positions, 0,
                             _group_split(cfg)[1], include_tail=True)
@@ -169,13 +184,17 @@ def forward_groups(params, cfg: ModelConfig, h, positions, start: int,
     """Apply pattern groups [start, end) of ``params["layers"]`` (layers
     [start·P, end·P)) to the embedded hidden ``h``, then, with
     ``include_tail``, the tail layers that follow the last full group;
-    returns (h, aux), aux 0 for these models.  ``params`` may hold a
-    Split half: its layers are counted from the start of that half."""
+    returns (h, aux), aux the sum of the MoE layers' load-balance terms
+    (0 without).  ``params`` may hold a Split half: its layers are
+    counted from the start of that half."""
     pat, _, n_tail = _group_split(cfg)
     P, layers = len(pat), params["layers"]
     idx = list(range(start * P, end * P))
     if include_tail:
         idx += range(len(layers) - n_tail, len(layers))
+    aux = torch.zeros((), device=h.device)
     for i in idx:
-        h = block_fwd(layers[i], cfg, pat[i % P], h, positions)
-    return h, torch.zeros((), device=h.device)
+        h, a = block_fwd(layers[i], cfg, pat[i % P], h, positions)
+        if a is not None:
+            aux = aux + a
+    return h, aux

@@ -69,6 +69,10 @@ def init_lora(gen: torch.Generator, base_params, targets: Sequence[str],
     def init_leaf(path, leaf):
         if path[-1] not in targets or leaf.dim() < 2:
             return None
+        if leaf.dim() > 2:
+            raise NotImplementedError(
+                f"LoRA on the stacked expert weight {'/'.join(path)} "
+                f"{tuple(leaf.shape)} is not ported")
         d_in, d_out = leaf.shape
         a = torch.randn((d_in, rank), generator=gen) * rank ** -0.5
         dt = compute_dtype(leaf.dtype)

@@ -151,10 +151,25 @@ def test_kernel_spills_reads_each_instance_of_the_named_kernel(kernel, want):
     assert cs.kernel_spills(PTXAS, kernel) == want
 
 
+def test_kernel_resources_reads_registers_beside_spills():
+    """The build report's registers and spill bytes of each instance,
+    printed for the three flash kernels by head dim (flash_instances)."""
+    assert cs.kernel_resources(PTXAS, "flash_dq_kernel") == {
+        "_Z15flash_dq_kernelILi64EEvPKf": (0, 128),
+        "_Z15flash_dq_kernelILi256EEvPKf": (32, 255)}
+    assert cs.kernel_resources(PTXAS, "flash_fwd_kernel") == {
+        "_Z17flash_fwd_kernelILi64EEvPKf": (16, 96)}
+
+
 def test_no_spill_check_covers_flash_dq_and_the_fused_lora_kernel():
+    """Every flash kernel's four head-dim instances (DT 128 among them,
+    the attention of Qwen2/3, Mistral, Mixtral and Qwen3-MoE) join the
+    check."""
     assert cs.NO_SPILLS == {"lora_fused_kernel": ("lora_matmul", 8),
                             "lora_dw_kernel": ("lora_matmul", 1),
+                            "flash_fwd_kernel": ("flash_attention", 4),
                             "flash_dq_kernel": ("flash_attention", 4),
+                            "flash_dkv_kernel": ("flash_attention", 4),
                             "rwkv6_bwd_kernel": ("rwkv6_scan", 6),
                             "topk_radix_kernel": ("quantize", 2),
                             "panel_grad_kernel": ("lora_matmul", 1),
@@ -344,3 +359,23 @@ def test_nonfinite_agree_holds_twins_and_catches_a_dropped_nan():
     with pytest.raises(RuntimeError, match="scales of non-finite rows"):
         cs.nonfinite_agree("quantize_rows", _drops_nan(x),
                            ref.quantize_rows_ref(x, 8), n_bad)
+
+
+def test_loss_kind_widens_the_round_losses_alone():
+    """``loss_kind="spread"`` on a continuous path: each round's loss
+    limit adds FLOOR_FACTOR times the largest fp32 difference from plain,
+    while the final LoRA keeps the continuous limit from fp64."""
+    loss = [{"kernels": 4.1e-3, "floor": 4.4e-3, "control": 2.8e-3}]
+    lora = {"kernels": 1.3e-4, "plain": 1.0e-4, "floor": 1.6e-4,
+            "control": 1.1e-3}
+    limits, failed = cs.fp32_gates("continuous", loss, lora)
+    assert limits["loss"] == [1e-3] and failed == [
+        "round loss of the kernel run is off the plain run's beyond its "
+        "limit"]
+    limits, failed = cs.fp32_gates("continuous", loss, lora,
+                                   loss_kind="spread")
+    assert failed == []
+    assert limits["loss"] == [pytest.approx(1e-3 + cs.FLOOR_FACTOR * 4.4e-3)]
+    assert limits["lora"] == pytest.approx(cs.FLOOR_FACTOR * 1.6e-4
+                                           + cs.FLOOR_SLACK)
+

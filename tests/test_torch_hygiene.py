@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch import tree as tree_lib  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.base import (FaultConfig, FedConfig,  # noqa: E402
                                       PrivacyConfig)
 from repro_torch.configs.gpt2_small import gpt2_tiny  # noqa: E402
@@ -58,7 +59,15 @@ assert {"repro_torch.privacy.dp", "repro_torch.privacy.accountant",
         "repro_torch.data.population", "repro_torch.faults.plan",
         "repro_torch.faults.guard", "repro_torch.checkpoint.serialization",
         "repro_torch.checkpoint.manager",
-        "repro_torch.checkpoint.federated"} <= set(names), names
+        "repro_torch.checkpoint.federated", "repro_torch.configs.registry",
+        "repro_torch.configs.qwen2_1_5b", "repro_torch.configs.qwen3_1_7b",
+        "repro_torch.configs.mistral_large_123b",
+        "repro_torch.configs.nemotron_4_340b",
+        "repro_torch.configs.mixtral_8x7b",
+        "repro_torch.configs.qwen3_moe_235b_a22b",
+        "repro_torch.configs.llava_next_34b",
+        "repro_torch.configs.whisper_base",
+        "repro_torch.models.moe"} <= set(names), names
 """
 
 
@@ -269,16 +278,20 @@ def test_noise_without_clip_raises(tiny_case):
 
 def test_checkpointing_and_unported_models_raise(tiny_case, tmp_path):
     """Checkpointing runs (a run of one round with ``checkpoint_every=1``
-    writes its snapshot into ``tmp_path``); qk-norm is refused."""
+    writes its snapshot into ``tmp_path``); the registry's two models the
+    port does not run, LLaVA's image-embedding prefix and Whisper's
+    encoder-decoder, are refused by name."""
     cfg, pub, clients, test = tiny_case
     fed = FedConfig(rounds=1, lora_dropout=0.0)
     run_federated(cfg, fed, pub, clients, test, device="cpu",
                   checkpoint_every=1, checkpoint_dir=str(tmp_path))
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "ckpt_00000001.npz", "ckpt_00000001.npz.json"]
-    qwen3 = dataclasses.replace(cfg, qk_norm=True)
-    with pytest.raises(NotImplementedError, match="qk-norm"):
-        run_federated(qwen3, fed, pub, clients, test, device="cpu")
+    for arch, what in (("llava-next-34b", "VLM"),
+                       ("whisper-base", "encoder-decoder")):
+        unported = registry.get_config(arch).reduced()
+        with pytest.raises(NotImplementedError, match=what):
+            run_federated(unported, fed, pub, clients, test, device="cpu")
 
 
 def test_lora_dropout_runs_on_own_generator(tiny_case):

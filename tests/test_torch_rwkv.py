@@ -372,7 +372,8 @@ def test_timemix_channelmix_block_match_reference(model_case, S):
         rwkv6.channelmix_fwd(tp["attn"], cfg, xt).numpy(),
         np.asarray(want_cm), **LAYER)
     want_b, _ = ref_transformer.block_fwd(p, ref_cfg, "rwkv6", xj, None)
-    got_b = transformer.block_fwd(tp, cfg, "rwkv6", xt, None)
+    got_b, aux = transformer.block_fwd(tp, cfg, "rwkv6", xt, None)
+    assert aux is None
     np.testing.assert_allclose(got_b.numpy(), np.asarray(want_b), **LAYER)
 
 
