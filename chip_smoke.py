@@ -358,12 +358,37 @@ dequantized row is, the top-k's indices, the finite rows bit for bit.
    flips, NUDGED_SEEDS nudged runs among the yardsticks) and the runs
    take the spread gates; then one DP-SGD step (dp_first_step), its rows
    and clipped mean from fp64, 6 launches of row 4ᵉ's pair.
+15. The registry's encoder-decoder and VLM (run_vlm_encdec), from
+   seed-0 weights on phase 3's data, each batch with the stub embeddings
+   its forward reads, 0.02·N(0, 1) drawn from a seed on the host
+   (run_federated attaches none, as the reference's): Whisper-base at
+   full width and depth (6 encoder and 6 decoder layers, d 512, 8 heads
+   of 64, V 51865, 1500 stub frames): the first step's LoRA gradient
+   (wq/wk/wv of the encoder, the decoder's self-attention and its
+   cross-attention: 54 sites, 18 flash calls a pass) and the LoRA after
+   WHISPER_STEPS Adam steps, both from fp64; one DP step's rows and
+   clipped mean from fp64; the Split encoder-decoder int8 first step
+   (client = encoder, boundary (16, 1500, 512)), its flipped levels
+   gated as phases 6-8 gate theirs; then LLaVA-NeXT-34B at full width
+   and LLAVA_LAYERS (2) of its 60 layers (60 hold ~134 GB of fp32
+   weights; d 7168, 56 heads of 128 over 8, d_ff 20480, V 64000, 576
+   stub image tokens of dim 1024 projected and prepended, 2.0e9
+   parameters): the first step's LoRA gradient from fp64.  Every
+   kernel run's launches are the ones its sites predict.
 
-After phase 14 it prints each kernel's launches times its time beyond
+Phase 2 also takes the flash kernels to phase 15's shapes
+(vlm_encdec_kernel_checks): non-causal at Whisper's encoder (BH 128, S
+1500, D 64), cross-attention (80 queries over 1500 keys) and LLaVA's
+causal G 7 (BH 896 over 128, S 656, D 128), each against its twin, its
+fp64 error gated as above and timed beside SDPA; the LoRA kernels (rows
+1, 2, 4) at (24000, 512, 512) and (10496, 7168, 7168 | 1024); row 4ᵉ's
+pair at (16, 1500, 512 | 512); row 10's roundtrip at (24000, 512).
+
+After phase 15 it prints each kernel's launches times its time beyond
 max(bound, launch floor) (the rule-2 queue), the final-LoRA margins of
 phase 7, Split int8 and RWKV-6, phase 5's first-step and final-LoRA
 margins, phase 8's KD and DP shares and the shares of the Split, hetero,
-async and fault gates of phases 7, 8, 10, 11, 12, 13 and 14 (each kernel
+async and fault gates of phases 7, 8, 10, 11, 12, 13, 14 and 15 (each kernel
 run's share of its
 limit, beside the last recorded run's, or "new"), then one JSON
 line with every kernel's numbers and, last, the line ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -480,6 +505,26 @@ KV_WIDTH = 8 * 128
 # Mixtral-8x7B runs 2 of its 32 layers at full width: 32 are ~187 GB of
 # fp32 weights, 2 are 12.7 GB (25.4 GB in fp64)
 MIXTRAL_LAYERS = 2
+# phase 15: Whisper-base's 1500 stub frames; its encoder's flash and LoRA
+# shapes (8 heads of 64 over 16 x 1500 frames; wq/wk/wv and the
+# cross-attention's wk/wv at K = N = 512) and its cross-attention (80
+# text queries over 1500 frames); LLaVA-NeXT-34B's 576 stub image tokens
+# prepended to 80 text tokens, 56 query heads of 128 over 8 kv heads
+WH_FRAMES = 1500
+WH_SHAPES = dict(M=BATCH * WH_FRAMES, K=512, N=512, r=RANK, BH=BATCH * 8,
+                 BKV=BATCH * 8, S=WH_FRAMES, Skv=WH_FRAMES, D=64,
+                 causal=False, window=0, q_offset=0)
+WHX_SHAPES = dict(WH_SHAPES, M=BATCH * PAD_LEN, S=PAD_LEN)
+LV_IMAGE = 576
+LV_SHAPES = dict(M=BATCH * (LV_IMAGE + PAD_LEN), K=7168, N=7168, r=RANK,
+                 BH=BATCH * 56, BKV=BATCH * 8, S=LV_IMAGE + PAD_LEN,
+                 Skv=LV_IMAGE + PAD_LEN, D=128, causal=True, window=0,
+                 q_offset=0)
+# Whisper's Adam steps: client 0's three batches of round 0
+WHISPER_STEPS = 3
+# LLaVA-NeXT-34B runs 2 of its 60 layers at full width: 60 are ~134 GB
+# of fp32 weights, 2 are 8.1 GB (16.2 GB in fp64)
+LLAVA_LAYERS = 2
 
 
 def require(ok: bool, what: str) -> None:
@@ -655,9 +700,11 @@ def kernel_cases(device, M, K, N, r, BH, BKV, S, Skv, D, causal, window,
     cfg = (causal, window, q_offset)
     # the library yardstick: one scaled_dot_product_attention call on the
     # same tensors viewed as (1, heads, S, D), where it computes the same
-    # function (no offset, no window shorter than S); with GQA on k and v
-    # expanded to the query heads beforehand
-    sdpa_ok = q_offset == 0 and (window == 0 or window >= S) and S == Skv
+    # function (no offset, no window shorter than S, and S == Skv when
+    # causal: SDPA aligns a causal mask to the top left); with GQA on k
+    # and v expanded to the query heads beforehand
+    sdpa_ok = q_offset == 0 and (window == 0 or window >= S) and (
+        S == Skv or not causal)
     G = BH // BKV
     ke, ve = (t.repeat_interleave(G, dim=0) for t in (k, v))
 
@@ -859,13 +906,15 @@ def pair_checks(device, peaks_) -> dict:
     shape its bits are those of the two lora_panel_examples launches it
     replaces (the old way) and the same over two eager calls and two graph
     replays, and it agrees with its twin within the LoRA tolerance; at the
-    four sites, and at GPT-2's over the spmd DP step's stacked batch of
-    CLIENTS x BATCH examples, its rms error against fp64 (dA and dB
+    four sites, at GPT-2's over the spmd DP step's stacked batch of
+    CLIENTS x BATCH examples and at Whisper-base's encoder and
+    cross-attention wk/wv sites (16, 1500, 512 | 512), its rms error
+    against fp64 (dA and dB
     together) is within PAIR_FP64_FACTOR times torch.bmm's, and it is
     timed eager and in a graph beside its twin, two torch.bmm calls (the
     library), the old way and its bound.  Returns the timed rows
     ("lora_panel_examples_pair", "...@c48", "...@rg", "...@rg256",
-    "...@rwkv")."""
+    "...@rwkv", "...@wh")."""
     import torch
 
     from repro_torch.kernels import lora_matmul as lm
@@ -876,6 +925,7 @@ def pair_checks(device, peaks_) -> dict:
               (BATCH, PAD_LEN, 2560, 2560, RANK, 0, "@rg"),
               (BATCH, PAD_LEN, 2560, 256, RANK, 0, "@rg256"),
               (BATCH, PAD_LEN, 2048, 2048, RANK, 0, "@rwkv"),
+              (BATCH, WH_FRAMES, 512, 512, RANK, 0, "@wh"),
               (3, 37, 770, 261, 13, 0, None),
               (5, 1, 768, 768, 64, 0, None),
               (BATCH, PAD_LEN, 768, 768, RANK, 1, None)]
@@ -1216,12 +1266,14 @@ def lora_fp64_errors(device, M, K, N, seed) -> dict:
     return rms, default
 
 
-def flash_fp64_errors(device, BH, BKV, S, D, causal, window, seed) -> dict:
+def flash_fp64_errors(device, BH, BKV, S, D, causal, window, seed,
+                      Skv=None) -> dict:
     """rms error against an fp64 run of the plain twins of o, lse, dq, dk
     and dv through the flash kernels (forward, then dq and dk/dv from its
     own lse and D = rowsum(do∘o)), through the fp32 twins and through SDPA
     (o, and dq, dk and dv from its backward, dk and dv summed over each
-    GQA group; SDPA gives no lse), on kernel_cases' N(0, 1) inputs.
+    GQA group; SDPA gives no lse), on kernel_cases' N(0, 1) inputs; S
+    queries over ``Skv`` keys (default S; non-causal where they differ).
     Fails unless each kernel error is within FP64_FACTOR times the larger
     of the fp32 twins' and SDPA's; returns {"kernel" | "plain fp32" |
     "sdpa": {output: rms}}."""
@@ -1232,8 +1284,9 @@ def flash_fp64_errors(device, BH, BKV, S, D, causal, window, seed) -> dict:
     from repro_torch.kernels import ref
 
     gen = torch.Generator(device=device).manual_seed(seed)
+    Skv = S if Skv is None else Skv
     q, k, v, do = (torch.randn(shape, device=device, generator=gen)
-                   for shape in ((BH, S, D), (BKV, S, D), (BKV, S, D),
+                   for shape in ((BH, S, D), (BKV, Skv, D), (BKV, Skv, D),
                                  (BH, S, D)))
     cfg = (causal, window, 0)
     G = BH // BKV
@@ -1256,14 +1309,15 @@ def flash_fp64_errors(device, BH, BKV, S, D, causal, window, seed) -> dict:
     out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
     dqe, dke, dve = torch.autograd.grad(out, leaves, do[None])
     got["sdpa"] = {"o": out[0].detach(), "dq": dqe[0],
-                   "dk": dke[0].view(BKV, G, S, D).sum(1),
-                   "dv": dve[0].view(BKV, G, S, D).sum(1)}
+                   "dk": dke[0].view(BKV, G, Skv, D).sum(1),
+                   "dv": dve[0].view(BKV, G, Skv, D).sum(1)}
     rms = {who: {name: float(((y.double() - exact[name]) ** 2).mean().sqrt())
                  for name, y in outs.items()} for who, outs in got.items()}
     for name in exact:
         yard = max(rms[who][name] for who in ("plain fp32", "sdpa")
                    if name in rms[who])
-        print(f"  flash {name} at BH {BH} over {BKV}, S {S}, D {D}: rms "
+        print(f"  flash {name} at BH {BH} over {BKV}, S {S} over {Skv}, D "
+              f"{D}: rms "
               f"error against fp64 " + ", ".join(
                   f"{who} {rms[who][name]:.3e}" for who in rms
                   if name in rms[who])
@@ -1920,15 +1974,19 @@ def roundtrip_checks(device, peaks_) -> dict:
     and without the scale asked for; timed eager and in a graph beside
     its twin, the eager torch chain of quantize and dequantize (the
     library), the old way (quantize_rows, then q.float() and * scale) and
-    its bound.  Returns the timed rows ("quant_roundtrip_rows",
-    "..._int4", "...@rg", "...@rwkv")."""
+    its bound; and at the encoder-decoder Split boundary's (24000, 512).
+    Returns the timed rows ("quant_roundtrip_rows", "..._int4", "...@rg",
+    "...@rwkv", "...@wh")."""
     import torch
 
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import ref
 
-    R, rows = BATCH * PAD_LEN, {}
-    for C, tag in ((768, ""), (2560, "@rg"), (2048, "@rwkv")):
+    rows = {}
+    for R, C, tag in ((BATCH * PAD_LEN, 768, ""),
+                      (BATCH * PAD_LEN, 2560, "@rg"),
+                      (BATCH * PAD_LEN, 2048, "@rwkv"),
+                      (BATCH * WH_FRAMES, 512, "@wh")):
         gen = torch.Generator(device=device).manual_seed(270 + C)
         x = torch.randn((R, C), device=device, generator=gen) * 3.0
         x[1:3] = 0.0
@@ -2175,6 +2233,42 @@ def family_kernel_checks(device, peaks_) -> dict:
     return rows
 
 
+def vlm_encdec_kernel_checks(device, peaks_) -> dict:
+    """Phase 2 at phase 15's shapes: the flash kernels non-causal at
+    Whisper-base's encoder self-attention (BH 128, S 1500, D 64), at its
+    cross-attention (80 queries over 1500 keys) and causal at LLaVA's G 7
+    (BH 896 over 128, S 656, D 128), each held to its twins, its rms error
+    against fp64 within FP64_FACTOR times the larger of the fp32 twins'
+    and SDPA's, and timed beside SDPA; the LoRA kernels (rows 1, 2, 4) at
+    Whisper's encoder and cross-attention wk/wv sites (24000, 512, 512)
+    and at LLaVA's wq (10496, 7168, 7168) and wk/wv (10496, 7168, 1024),
+    held to their twins and timed beside the matmul chain.  Returns the
+    rows, tagged "@wh", "@whx", "@lv", "@lvkv"."""
+    rows = {}
+    for tag, shape, seed, what in (
+            ("wh", WH_SHAPES, 32, "Whisper-base's encoder"),
+            ("whx", WHX_SHAPES, 33, "Whisper-base's cross-attention"),
+            ("lv", LV_SHAPES, 34, "LLaVA-NeXT-34B's")):
+        print(f"  {what} shapes (LoRA M {shape['M']}, K = N = "
+              f"{shape['K']}; flash BH {shape['BH']} over {shape['BKV']}, "
+              f"S {shape['S']} over {shape['Skv']}, D {shape['D']}, causal "
+              f"{shape['causal']}):")
+        flash_fp64_errors(device, shape["BH"], shape["BKV"], shape["S"],
+                          shape["D"], shape["causal"], shape["window"], seed,
+                          Skv=shape["Skv"])
+        for name, case in kernel_cases(device, seed=seed, **shape).items():
+            if name == "lora_dw" or (tag == "whx" and name.startswith("lora")):
+                continue
+            rows[f"{name}@{tag}"] = time_case(name, case, peaks_)
+    print(f"  LoRA kernels at LLaVA-NeXT-34B's wk/wv (M {LV_SHAPES['M']}, K "
+          f"{LV_SHAPES['K']}, N {KV_WIDTH}):")
+    kv = dict(LV_SHAPES, N=KV_WIDTH)
+    for name, case in kernel_cases(device, seed=44, **kv).items():
+        if name.startswith("lora_") and name != "lora_dw":
+            rows[f"{name}@lvkv"] = time_case(name, case, peaks_)
+    return rows
+
+
 def check_kernels(device, card: str):
     """Phase 2.  Returns the per-kernel JSON rows (main-path shapes) and the
     launch floor (launch_floor)."""
@@ -2322,6 +2416,7 @@ def check_kernels(device, card: str):
                                   0, 13).items():
         rows[name] = time_case(name, case, peaks_)
     rows.update(family_kernel_checks(device, peaks_))
+    rows.update(vlm_encdec_kernel_checks(device, peaks_))
     rows.update(check_rwkv_kernels(device, peaks_))
     rows.update(kd_checks(device, peaks_))
     topk_wide_cases(device, 19)
@@ -2580,24 +2675,30 @@ MARGINS = {}
 # faulted FedLLM runs there too)
 CASES = {}
 MARGINS_BEFORE = {"phase 7": 0.402, "Split int8": 0.862,
-                  # 0.867 at 24 layers before the cut: a new baseline
-                  f"RWKV-6 ({RWKV6_FEDLLM_LAYERS} layers)": None,
+                  f"RWKV-6 ({RWKV6_FEDLLM_LAYERS} layers)": 0.782,
                   "DP first step": 0.195, "DP final LoRA": 0.390,
                   "DP first-step rows": 0.199, "RWKV-6 KD upload": 0.215,
                   "RWKV-6 DP first-step rows": 0.198,
                   "RWKV-6 DP first step": 0.198,
-                  "RecurrentGemma-2B Split int8 flips": None,
-                  "RecurrentGemma-2B Split int8": None,
-                  "RWKV-6 Split fp32 first step": None,
-                  "RWKV-6 Split int8 flips": None,
-                  "hetero zeropad": None, "hetero svd": None, "async": None,
-                  "DP spmd final LoRA": None, "hetero zeropad spmd": None,
-                  "hetero svd spmd": None, "async spmd": None, "cohort": None,
-                  "faults": None, "Qwen3-1.7B first step": None,
-                  "Qwen3-1.7B": None, "Mixtral-8x7B route flips": None,
-                  "Mixtral-8x7B first step": None, "Mixtral-8x7B": None,
-                  "Mixtral-8x7B DP first-step rows": None,
-                  "Mixtral-8x7B DP first step": None}
+                  "RecurrentGemma-2B Split int8 flips": 0.129,
+                  "RecurrentGemma-2B Split int8": 0.814,
+                  "RWKV-6 Split fp32 first step": 0.197,
+                  "RWKV-6 Split int8 flips": 0.263,
+                  "hetero zeropad": 0.245, "hetero svd": 0.372,
+                  "async": 0.027, "DP spmd final LoRA": 0.541,
+                  "hetero zeropad spmd": 0.249, "hetero svd spmd": 0.286,
+                  "async spmd": 0.026, "cohort": 0.175, "faults": 0.276,
+                  "Qwen3-1.7B first step": 0.209, "Qwen3-1.7B": 0.281,
+                  "Mixtral-8x7B route flips": 0.0,
+                  "Mixtral-8x7B first step": 0.287, "Mixtral-8x7B": 0.840,
+                  "Mixtral-8x7B DP first-step rows": 0.287,
+                  "Mixtral-8x7B DP first step": 0.287,
+                  "Whisper-base first step": 0.177,
+                  f"Whisper-base {WHISPER_STEPS} steps": 0.265,
+                  "Whisper-base DP first-step rows": 0.152,
+                  "Whisper-base DP first step": 0.154,
+                  "Whisper-base Split int8 flips": 0.358,
+                  "LLaVA-NeXT-34B first step": 0.278}
 
 
 def rwkv_bwd_repeat(device, seed) -> None:
@@ -2972,7 +3073,7 @@ def kd_upload_gaps(device, cfg, base, fed, pub):
     return from_exact(logits, "round 0 upload logits of client 0")
 
 
-def split_level_flips(device, cfg, base, fed, clients):
+def split_level_flips(device, cfg, base, fed, clients, extras=None):
     """Boundary levels of round 0, step 0 (split_first_step) that differ
     between the plain run and the kernel run, the other fp32 plain run
     (the floor), NUDGED_SEEDS fp32 plain runs from nudged weights and the
@@ -2982,7 +3083,7 @@ def split_level_flips(device, cfg, base, fed, clients):
     from repro_torch.kernels import ref
 
     steps = split_first_step(device, cfg, base, fed, clients, exact=False,
-                             seeds=NUDGED_SEEDS)
+                             seeds=NUDGED_SEEDS, extras=extras)
     levels = {role: [ref.quantize_rows_ref(t.reshape(-1, t.shape[-1]),
                                            SPLIT_BITS)[0]
                      for t in (h, h_grad)]
@@ -3001,7 +3102,7 @@ def split_level_flips(device, cfg, base, fed, clients):
     return share
 
 
-def split_flips_gate(device, cfg, base, fed, clients) -> float:
+def split_flips_gate(device, cfg, base, fed, clients, extras=None) -> float:
     """The precision gate of a quantized Split boundary: a level flips
     where one run's fp32 value crosses a half level that the other's does
     not, so the share of flipped levels at round 0, step 0
@@ -3009,7 +3110,7 @@ def split_flips_gate(device, cfg, base, fed, clients) -> float:
     and back from the loss (c4) is off the plain run, before training
     amplifies it; within FLOOR_FACTOR times the largest fp32 share, the
     TF32 control outside.  Returns the kernel run's share of the limit."""
-    flips = split_level_flips(device, cfg, base, fed, clients)
+    flips = split_level_flips(device, cfg, base, fed, clients, extras)
     limits, failed = fp32_gates(flips=flips)
     print("  flipped share: " + ", ".join(
         f"{role} {v:.3e}" for role, v in flips.items())
@@ -3094,16 +3195,18 @@ def run_split(device, cfg, base, data, steps, evals):
     return by_path
 
 
-def first_batch_clip(device, cfg, base, fed, clients):
+def first_batch_clip(device, cfg, base, fed, clients, extras=None):
     """The median per-example gradient norm of client 0's first batch of
-    round 0 at the run's initial LoRA (plain PyTorch on the card)."""
+    round 0 (with ``extras``, as first_step_inputs) at the run's initial
+    LoRA (plain PyTorch on the card)."""
     import torch
 
     from repro_torch.core.fedavg import make_fns
     from repro_torch.models.factory import build_model
 
     plain = dataclasses.replace(cfg, kernel_policy="torch")
-    lt, batch = first_step_inputs(device, base, fed, clients)
+    lt, batch = first_step_inputs(device, base, fed, clients,
+                                  extras=extras)
     fns = make_fns(build_model(plain), fed)
     _, rows = fns["per_example_grads"](base, lt, batch)
     norms = torch.linalg.vector_norm(rows, dim=1)
@@ -3340,7 +3443,7 @@ def recurrent_split(device, cfg, base, data, steps, expect):
 
 
 def dp_first_step(device, cfg, base, clients, expect, targets=None,
-                  margin=None):
+                  margin=None, extras=None):
     """One DP step on ``cfg`` from its weights (phases 7 and 8), LoRA on
     ``targets`` (None: FedConfig's default): DP-SGD (clip at the median
     per-example gradient norm of the first batch, noise 0), the first
@@ -3348,7 +3451,8 @@ def dp_first_step(device, cfg, base, clients, expect, targets=None,
     (dp_first_step_gaps) gated from fp64 as phase 5 gates GPT-2's; the
     kernel run's launches must be ``expect``.  With ``margin``, the two
     gates' shares go to MARGINS as "<margin> DP first-step rows" and
-    "<margin> DP first step".  Returns the launch counts."""
+    "<margin> DP first step".  ``extras`` (the model's stub embeddings)
+    join the batch, as first_step_inputs.  Returns the launch counts."""
     from repro_torch.configs.base import FedConfig, PrivacyConfig
     from repro_torch.kernels import ops
 
@@ -3359,12 +3463,12 @@ def dp_first_step(device, cfg, base, clients, expect, targets=None,
                     privacy=PrivacyConfig(dp_clip=1.0, secure_agg=True))
     if targets is not None:
         fed = dataclasses.replace(fed, lora_targets=tuple(targets))
-    clip = first_batch_clip(device, cfg, base, fed, clients)
+    clip = first_batch_clip(device, cfg, base, fed, clients, extras)
     fed = dataclasses.replace(fed, privacy=dataclasses.replace(
         fed.privacy, dp_clip=clip))
     ops.reset_launches()
     rows_gaps, mean_gaps = dp_first_step_gaps(device, cfg, base, fed,
-                                              clients)
+                                              clients, extras)
     counts = ops.launches()
     shares = (rows_gaps["kernels"] / floor_gate(
         f"{cfg.name} first-step per-example gradient rows", rows_gaps),
@@ -3381,10 +3485,12 @@ def dp_first_step(device, cfg, base, clients, expect, targets=None,
     return counts
 
 
-def first_step_inputs(device, base, fed, clients, ci: int = 0):
+def first_step_inputs(device, base, fed, clients, ci: int = 0,
+                      extras=None):
     """The first train step's inputs: the run's initial LoRA (truncated to
     client ``ci``'s rank when ``fed.client_ranks`` gives it one) and
-    client ``ci``'s first batch of round 0, on the card."""
+    client ``ci``'s first batch of round 0, on the card, with ``extras``
+    (a model's stub embeddings, {name: tensor}) added to it."""
     import torch
 
     from repro_torch.core.fedavg import to_device
@@ -3399,14 +3505,16 @@ def first_step_inputs(device, base, fed, clients, ci: int = 0):
                                           fed.lora_rank)
     batch = to_device(next(iter(epoch_batches(
         clients[ci], BATCH, seed=fed.seed * 997))), device)
-    return lt, batch
+    return lt, dict(batch, **(extras or {}))
 
 
-def first_step_grads(device, cfg, base, fed, clients, ci: int = 0):
+def first_step_grads(device, cfg, base, fed, clients, ci: int = 0,
+                     extras=None):
     """The LoRA gradient of FedLLM's first train step (client ``ci``'s
-    first batch, the run's initial LoRA) under each of
+    first batch with ``extras``, the run's initial LoRA) under each of
     each_run(exact=True)'s settings, recomputed under its policy and
-    setting: {role: gradient leaves}."""
+    setting (the fp64 run with the batch's floating-point entries in
+    fp64 too): {role: gradient leaves}."""
     import torch
 
     from repro_torch import tree as tree_lib
@@ -3415,33 +3523,36 @@ def first_step_grads(device, cfg, base, fed, clients, ci: int = 0):
     from repro_torch.models.factory import build_model
     from repro_torch.peft import lora as lora_lib
 
-    lt, batch = first_step_inputs(device, base, fed, clients, ci)
+    lt, batch = first_step_inputs(device, base, fed, clients, ci, extras)
     loss_fn = tasks.get_loss_fn("classification")
     grads = {}
     for role, tag, policy in each_run(exact=True):
         model = build_model(dataclasses.replace(cfg, kernel_policy=policy))
-        b, l = (fp64(base), fp64(lt)) if role == "exact" else (base, lt)
+        b, l, x = (fp64(base), fp64(lt), fp64(batch)) if role == "exact" \
+            else (base, lt, batch)
         with ops.policy_scope(policy):
             live = tree_lib.map_(lambda t: t.detach().requires_grad_(True), l)
             logits, _ = model.forward(lora_lib.bind(
                 b, live, fed.lora_alpha,
-                lora_lib.tree_rank(live, fed.lora_rank)), batch)
-            loss, _ = loss_fn(logits, batch)
+                lora_lib.tree_rank(live, fed.lora_rank)), x)
+            loss, _ = loss_fn(logits, x)
             grads[role] = torch.autograd.grad(loss, tree_lib.leaves(live))
-        del b, l
+        del b, l, x, logits
     torch.cuda.empty_cache()
     return grads
 
 
-def first_step_gaps(device, cfg, base, fed, clients):
+def first_step_gaps(device, cfg, base, fed, clients, extras=None):
     """Each run's relative L2 distance from the fp64 gradient
     (from_exact) of FedLLM's first train step (first_step_grads, client
     0)."""
-    return from_exact(first_step_grads(device, cfg, base, fed, clients),
+    return from_exact(first_step_grads(device, cfg, base, fed, clients,
+                                       extras=extras),
                       "round 0 step 0 LoRA gradient")
 
 
-def dp_first_step_runs(device, cfg, base, fed, clients, ci: int = 0):
+def dp_first_step_runs(device, cfg, base, fed, clients, ci: int = 0,
+                       extras=None):
     """DP-FedLLM's first train step (client ``ci``'s first batch, the
     run's initial LoRA) under each of each_run(exact=True)'s settings: the
     (B, P) per-example gradient rows of the batched pass and their clipped
@@ -3453,33 +3564,36 @@ def dp_first_step_runs(device, cfg, base, fed, clients, ci: int = 0):
     from repro_torch.models.factory import build_model
     from repro_torch.privacy import dp as dp_mod
 
-    lt, batch = first_step_inputs(device, base, fed, clients, ci)
+    lt, batch = first_step_inputs(device, base, fed, clients, ci, extras)
     rows, means = {}, {}
     for role, tag, policy in each_run(exact=True):
         model = build_model(dataclasses.replace(cfg, kernel_policy=policy))
-        b, l = (fp64(base), fp64(lt)) if role == "exact" else (base, lt)
+        b, l, x = (fp64(base), fp64(lt), fp64(batch)) if role == "exact" \
+            else (base, lt, batch)
         with ops.policy_scope(policy):
-            _, got = make_fns(model, fed)["per_example_grads"](b, l, batch)
+            _, got = make_fns(model, fed)["per_example_grads"](b, l, x)
             rows[role] = [got]
             means[role] = [dp_mod.clipped_grad_mean(got, fed.privacy.dp_clip)]
-        del b, l
+        del b, l, x
     torch.cuda.empty_cache()
     return rows, means
 
 
-def dp_first_step_gaps(device, cfg, base, fed, clients):
+def dp_first_step_gaps(device, cfg, base, fed, clients, extras=None):
     """dp_first_step_runs of client 0: each run's relative L2 distance from
     the fp64 run's, (rows, clipped mean) (from_exact)."""
-    rows, means = dp_first_step_runs(device, cfg, base, fed, clients)
+    rows, means = dp_first_step_runs(device, cfg, base, fed, clients,
+                                     extras=extras)
     return (from_exact(rows, "round 0 step 0 per-example LoRA gradient "
                        "rows"),
             from_exact(means, "round 0 step 0 clipped mean LoRA gradient"))
 
 
 def split_first_step(device, cfg, base, fed, clients, exact: bool,
-                     seeds: int = 0) -> dict:
-    """Round 0, step 0 of Split-FedLLM (client 0's first batch, the run's
-    initial LoRA) through the split program under each of
+                     seeds: int = 0, extras=None) -> dict:
+    """Round 0, step 0 of Split-FedLLM (client 0's first batch with
+    ``extras``, the run's initial LoRA) through the split program under
+    each of
     each_run(exact)'s settings, then plain from ``seeds`` nudged copies of
     the weights (roles "seed <i>"): {role: (the LoRA gradient of both
     halves, the raw boundary activations h, the server's raw gradient of
@@ -3496,8 +3610,9 @@ def split_first_step(device, cfg, base, fed, clients, exact: bool,
                             base, fed.lora_targets
                             or lora_lib.default_targets(cfg), fed.lora_rank,
                             fed.lora_alpha)
-    batch = to_device(next(iter(epoch_batches(
-        clients[0], BATCH, seed=fed.seed * 983))), device)
+    batch = dict(to_device(next(iter(epoch_batches(
+        clients[0], BATCH, seed=fed.seed * 983))), device), **(extras or {}))
+
     def settings():
         for role, tag, policy in each_run(exact):
             yield role, policy, None
@@ -3509,14 +3624,15 @@ def split_first_step(device, cfg, base, fed, clients, exact: bool,
         sfns = split.make_split_fns(build_model(dataclasses.replace(
             cfg, kernel_policy=policy)), fed)
         L = sfns["n_client_layers"]
-        b, l = (fp64(base), fp64(lt)) if role == "exact" else \
-            (base if seed is None else nudged(base, seed, device), lt)
+        b, l, x = (fp64(base), fp64(lt), fp64(batch)) if role == "exact" \
+            else (base if seed is None else nudged(base, seed, device), lt,
+                  batch)
         c_lt, s_lt = split.split_lora(l, L)
-        base_c, base_s = split.split_base(b, L)
+        base_c, base_s = split.split_base(b, L, sfns["enc_dec"])
         _, c_grads, s_grads, h, h_grad = sfns["split_grads"](
-            base_c, base_s, c_lt, s_lt, batch)
+            base_c, base_s, c_lt, s_lt, x)
         out[role] = (c_grads + s_grads, h, h_grad)
-        del b, l, base_c, base_s
+        del b, l, x, base_c, base_s
     torch.cuda.empty_cache()
     return out
 
@@ -5150,6 +5266,200 @@ def run_families(device):
     print(f"  phase 14 Mixtral-8x7B wall_s={time.perf_counter() - t0:.1f}")
     return by_path
 
+
+# --------------------------------------------------------------------------- #
+# Phase 15: the encoder-decoder (Whisper-base) and the VLM (LLaVA-NeXT-34B)
+# --------------------------------------------------------------------------- #
+def stub_embeds(device, name: str, shape, seed: int) -> dict:
+    """{name: 0.02·N(0, 1) of ``shape``}, drawn on the host from ``seed``:
+    the stub frontend's embeddings a batch carries (``enc_embeds``,
+    ``img_embeds``)."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    return {name: (torch.randn(shape, generator=gen) * 0.02).to(device)}
+
+
+def vlm_encdec_case(cfg, what: str):
+    """Phase 3's data for ``cfg``'s vocabulary over 3 clients and FedLLM's
+    config (rank 8 on wq/wk/wv, dropout 0), the model's description
+    printed."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.data import banking77, partition
+
+    _, train, _ = banking77.paper_splits(cfg.vocab_size, pad_len=PAD_LEN,
+                                         scale=0.03)
+    print(f"phase 15: {what}; LoRA rank {RANK} on wq, wk, wv")
+    return partition.iid_partition(train, 3), FedConfig(
+        framework="fedllm", rounds=1, lora_rank=RANK, lora_dropout=0.0)
+
+
+def lora_step_launches(sites: int, attn: int) -> dict:
+    """The launches of one forward and backward through ``sites`` LoRA
+    projections and ``attn`` attentions: per site a fused forward, a dx
+    (which gives gb) and two panel gradients (dA, dB); per attention the
+    flash forward, dq and dk/dv."""
+    return {"lora_fwd": sites, "lora_dx": sites, "lora_panel": 2 * sites,
+            "flash_fwd": attn, "flash_dq": attn, "flash_dkv": attn}
+
+
+def adam_step_runs(device, cfg, base, fed, clients, extras):
+    """Client 0's first len(extras) train steps of round 0 (its batches in
+    the run's order, batch i with ``extras[i]``) through
+    ``make_fns``' train step (Adam), from the run's initial LoRA, under
+    each of each_run(exact=True)'s settings (the fp64 run's batches cast
+    too): {role: the final LoRA's leaves}."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.core.fedavg import make_fns, to_device
+    from repro_torch.data.loader import epoch_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models.factory import build_model
+
+    lt, _ = first_step_inputs(device, base, fed, clients)
+    batches = [dict(to_device(b, device), **x) for b, x in zip(
+        epoch_batches(clients[0], BATCH, seed=fed.seed * 997), extras)]
+    require(len(batches) == len(extras), f"{len(batches)} batches")
+    out = {}
+    for role, tag, policy in each_run(exact=True):
+        fns = make_fns(build_model(dataclasses.replace(
+            cfg, kernel_policy=policy)), fed)
+        exact = role == "exact"
+        b, l = (fp64(base), fp64(lt)) if exact else (base, lt)
+        opt = fns["opt_init"](l)
+        with ops.policy_scope(policy):
+            for x in batches:
+                l, opt, loss = fns["train_step"](b, l, opt,
+                                                 fp64(x) if exact else x)
+                require(math.isfinite(float(loss)), f"{tag} loss {loss}")
+        out[role] = tree_lib.leaves(l)
+        del b, l, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_whisper(device):
+    """Phase 15's Whisper-base at full width and depth (6 encoder and 6
+    decoder layers, d 512, 8 heads of 64, GELU, LayerNorm, V 51865
+    untied, learned decoder positions; seed-0 weights; each batch with
+    1500 stub frames, 0.02·N(0, 1) from a seed): the first step's LoRA
+    gradient and the LoRA after WHISPER_STEPS Adam steps from fp64; one
+    DP step (dp_first_step) from fp64; the Split encoder-decoder int8
+    first step's flipped boundary levels (split_flips_gate).  Launches
+    exact for each.  Returns {path: the kernel run's launch counts}."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+
+    cfg = registry.get_config("whisper-base")
+    clients, fed = vlm_encdec_case(
+        cfg, f"{cfg.name} full width and depth ({cfg.n_encoder_layers} "
+        f"encoder and {cfg.n_layers} decoder layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim}, V {cfg.vocab_size}, "
+        f"{cfg.encoder_seq_len} stub frames a example)")
+    base = family_init(device, cfg)
+    frames = (BATCH, cfg.encoder_seq_len, cfg.d_model)
+    extras = [stub_embeds(device, "enc_embeds", frames, seed)
+              for seed in range(WHISPER_STEPS)]
+    # LoRA sites of a pass: the encoder's wq/wk/wv, the decoder's self-
+    # attention wq/wk/wv and its cross-attention's wq (on the text) and
+    # wk/wv (on the encoder's output); attentions: the encoder's, the
+    # decoder's self- and cross-attention
+    sites = 3 * cfg.n_encoder_layers + 6 * cfg.n_layers
+    attn = cfg.n_encoder_layers + 2 * cfg.n_layers
+    step = lora_step_launches(sites, attn)
+    print(f"  {sites} LoRA sites and {attn} attentions a pass; expected "
+          f"launches of a train step {step}")
+    by_path = {}
+    ops.reset_launches()
+    gaps = first_step_gaps(device, cfg, base, fed, clients, extras[0])
+    by_path["whisper_first_step"] = ops.launches()
+    check_launches(by_path["whisper_first_step"], step)
+    MARGINS["Whisper-base first step"] = gaps["kernels"] / floor_gate(
+        "first-step LoRA gradient", gaps)
+    ops.reset_launches()
+    finals = adam_step_runs(device, cfg, base, fed, clients, extras)
+    by_path["whisper_steps"] = ops.launches()
+    check_launches(by_path["whisper_steps"],
+                   {k: WHISPER_STEPS * n for k, n in step.items()})
+    gaps = from_exact(finals, f"LoRA after {WHISPER_STEPS} Adam steps")
+    MARGINS[f"Whisper-base {WHISPER_STEPS} steps"] = \
+        gaps["kernels"] / floor_gate(f"LoRA after {WHISPER_STEPS} steps",
+                                     gaps)
+    by_path["whisper_dp_step"] = dp_first_step(
+        device, cfg, base, clients, {
+            "lora_fwd": sites, "lora_dx": sites,
+            "lora_panel_examples_pair": sites, "flash_fwd": attn,
+            "flash_dq": attn, "flash_dkv": attn, "dp_clip_norms": 1,
+            "dp_clip_acc": 1}, margin="Whisper-base", extras=extras[0])
+    print(f"  Split encoder-decoder int{SPLIT_BITS} first step (client = "
+          f"encoder, boundary ({BATCH}, {cfg.encoder_seq_len}, "
+          f"{cfg.d_model})), boundary levels against the plain run's:")
+    sfed = dataclasses.replace(fed, framework="split",
+                               split_layer=SPLIT_LAYER,
+                               activation_quant_bits=SPLIT_BITS)
+    ops.reset_launches()
+    MARGINS["Whisper-base Split int8 flips"] = split_flips_gate(
+        device, cfg, base, sfed, clients, extras[0])
+    by_path["whisper_split"] = ops.launches()
+    check_launches(by_path["whisper_split"],
+                   dict(step, quant_roundtrip_rows=2))
+    del base
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def run_llava(device):
+    """Phase 15's LLaVA-NeXT-34B at full width and LLAVA_LAYERS of its 60
+    layers (d 7168, 56 query heads of 128 over 8, SwiGLU d_ff 20480,
+    RMSNorm, RoPE, V 64000 untied; seed-0 weights; each batch with 576
+    stub image tokens of dim 1024, 0.02·N(0, 1) from a seed, projected by
+    ``img_proj`` and prepended to the 80 text tokens): the first step's
+    LoRA gradient from fp64, launches exact.  Returns {path: the kernel
+    run's launch counts}."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+
+    cfg = dataclasses.replace(registry.get_config("llava-next-34b"),
+                              n_layers=LLAVA_LAYERS)
+    clients, fed = vlm_encdec_case(
+        cfg, f"{cfg.name} full width, {LLAVA_LAYERS} of its 60 layers (d "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} over "
+        f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, V {cfg.vocab_size}, "
+        f"{cfg.n_image_tokens} stub image tokens of dim "
+        f"{cfg.image_embed_dim} prepended)")
+    base = family_init(device, cfg)
+    extras = stub_embeds(device, "img_embeds", (
+        BATCH, cfg.n_image_tokens, cfg.image_embed_dim), 0)
+    step = lora_step_launches(3 * cfg.n_layers, cfg.n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    gaps = first_step_gaps(device, cfg, base, fed, clients, extras)
+    counts = ops.launches()
+    print(f"  launches {nonzero(counts)}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check_launches(counts, step)
+    MARGINS["LLaVA-NeXT-34B first step"] = gaps["kernels"] / floor_gate(
+        "first-step LoRA gradient", gaps)
+    del base
+    torch.cuda.empty_cache()
+    return {"llava_first_step": counts}
+
+
+def run_vlm_encdec(device):
+    """Phase 15: Whisper-base (run_whisper) and LLaVA-NeXT-34B
+    (run_llava).  Returns {path: kernel-run launch counts}."""
+    t0 = time.perf_counter()
+    by_path = run_whisper(device)
+    print(f"  phase 15 Whisper-base wall_s={time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    by_path.update(run_llava(device))
+    print(f"  phase 15 LLaVA-NeXT-34B wall_s={time.perf_counter() - t0:.1f}")
+    return by_path
+
 # the kernels that must not spill: {kernel: (source, instances)}
 NO_SPILLS = {"lora_fused_kernel": ("lora_matmul", 8),
              "lora_dw_kernel": ("lora_matmul", 1),
@@ -5361,6 +5671,10 @@ def main() -> int:
     by_path.update(run_families(device))
     print(f"  phase 14 wall_s={time.perf_counter() - t0:.1f}")
     print(f"  phases 1-14 wall_s={time.perf_counter() - t_start:.1f}")
+    t0 = time.perf_counter()
+    by_path.update(run_vlm_encdec(device))
+    print(f"  phase 15 wall_s={time.perf_counter() - t0:.1f}")
+    print(f"  phases 1-15 wall_s={time.perf_counter() - t_start:.1f}")
     print("margins (share of the limit; the last recorded run's in "
           "parentheses): " + ", ".join(
               f"{path} {MARGINS[path]:.3f} ("
@@ -5374,8 +5688,11 @@ def main() -> int:
     # ``at_recurrentgemma`` (RWKV-6's under ``at_rwkv6``, the panel's at
     # a DP batch-1 pass under ``at_dp_batch1``, the client-axis rows'
     # at 8 clients under ``at_8_clients``, rows 4ᵉ's pair and 13 at the
-    # spmd DP step's 48 stacked examples under ``at_48_examples``); the KD
-    # kernels'
+    # spmd DP step's 48 stacked examples under ``at_48_examples``; phase
+    # 14's under ``at_qwen3``, ``at_mixtral`` and their ``_wk_wv``, phase
+    # 15's under ``at_whisper_encoder`` (rows 1, 2, 4, 4ᵉ's pair, 5-7 and
+    # the roundtrip at the encoder's shapes), ``at_whisper_cross``,
+    # ``at_llava`` and ``at_llava_wk_wv``); the KD kernels'
     # generative-vocabulary timings are printed above.  The per-example
     # panel's rows add its fp64 error over torch.bmm's, and its and the
     # client-axis rows the old way's times (B or C launches of the
@@ -5404,7 +5721,10 @@ def main() -> int:
                          ("c8", "at_8_clients"),
                          ("c48", "at_48_examples"), ("q3", "at_qwen3"),
                          ("q3kv", "at_qwen3_wk_wv"), ("mx", "at_mixtral"),
-                         ("mxkv", "at_mixtral_wk_wv")):
+                         ("mxkv", "at_mixtral_wk_wv"),
+                         ("wh", "at_whisper_encoder"),
+                         ("whx", "at_whisper_cross"), ("lv", "at_llava"),
+                         ("lvkv", "at_llava_wk_wv")):
             if f"{name}@{tag}" in rows:
                 at = rows[f"{name}@{tag}"]
                 kernels[-1][key] = {

@@ -12,9 +12,16 @@ position (or tail layer) without a targeted weight is ``None`` and a
 those layers.  Both store weights as (d_in, d_out) with ``y = x @ W``, so
 nothing is transposed.  A MoE layer's router (d, E) and experts (E, d,
 ff) and a qk-norm layer's (D,) ``q_norm``/``k_norm`` scales are leaves
-like any other, stacked over the groups in the reference.  Inputs are
-numpy arrays, or anything ``np.asarray`` accepts; this module imports no
-JAX.
+like any other, stacked over the groups in the reference; so are a
+decoder layer's ``xnorm``/``xattn`` (the encoder-decoder's
+cross-attention).  Top-level leaves (``img_proj`` of a VLM) keep their
+place.  An encoder-decoder's ``encoder`` holds ``{"blocks": one tree
+stacked over its layers, "norm"}`` in the reference and ``{"layers":
+[...], "norm"}`` here; in a LoRA tree it holds the encoder's targets
+alone.  Adapter trees ({"blocks", "tail"} like the model's, one adapter
+a layer) become ``{"layers": [...]}``; a prompt tree ({"prompt"}) is
+copied.  Inputs are numpy arrays, or anything ``np.asarray`` accepts;
+this module imports no JAX.
 """
 from __future__ import annotations
 
@@ -54,12 +61,41 @@ def _layers(ref_tree, device, n_tail: int = None) -> List:
         tail += [None] * (n_tail - len(tail))
     stacked = [b for b in blocks if b is not None]
     G = np.shape(_first_leaf(stacked[0]))[0] if stacked else 0
-    out = []
-    for g in range(G):
-        for pos in blocks:
-            out.append(_np_map(
-                lambda x, g=g: _tensor(np.asarray(x)[g], device), pos))
+    per_pos = [[None] * G if pos is None else _unstack(pos, device)
+               for pos in blocks]
+    out = [layer for g in range(G) for layer in (p[g] for p in per_pos)]
     return out + [_np_map(lambda x: _tensor(x, device), t) for t in tail]
+
+
+def _unstack(tree, device) -> List:
+    """A tree stacked over a leading axis (a pattern position's blocks,
+    the encoder's blocks) as a list of per-layer trees."""
+    n = np.shape(_first_leaf(tree))[0]
+    return [_np_map(lambda x, i=i: _tensor(np.asarray(x)[i], device), tree)
+            for i in range(n)]
+
+
+def _stack(layers: List):
+    """The inverse of ``_unstack``, as numpy arrays."""
+    def rec(first, rest):
+        if isinstance(first, dict):
+            return {k: rec(v, [r[k] for r in rest]) for k, v in first.items()}
+        return np.stack([t.detach().cpu().numpy() for t in [first] + rest])
+    return rec(layers[0], layers[1:])
+
+
+def _encoder_from_reference(enc: Dict, device) -> Dict:
+    out = {"layers": _unstack(enc["blocks"], device)}
+    out.update({k: _np_map(lambda x: _tensor(x, device), v)
+                for k, v in enc.items() if k != "blocks"})
+    return out
+
+
+def _encoder_to_reference(enc: Dict) -> Dict:
+    out = {"blocks": _stack(enc["layers"])}
+    out.update({k: _np_map(lambda t: t.detach().cpu().numpy(), v)
+                for k, v in enc.items() if k != "layers"})
+    return out
 
 
 def _n_tail(cfg) -> int:
@@ -72,17 +108,25 @@ def _n_tail(cfg) -> int:
 def params_from_reference(ref_params: Dict, device) -> Dict:
     """The reference's ``model.init`` tree -> port parameters."""
     out = {k: _np_map(lambda x: _tensor(x, device), v)
-           for k, v in ref_params.items() if k not in ("blocks", "tail")}
+           for k, v in ref_params.items()
+           if k not in ("blocks", "tail", "encoder")}
     out["layers"] = _layers(ref_params, device)
+    if "encoder" in ref_params:
+        out["encoder"] = _encoder_from_reference(ref_params["encoder"],
+                                                 device)
     return out
 
 
 def lora_from_reference(ref_lora: Dict, device, cfg=None) -> Dict:
     """A reference LoRA tree ({"blocks": (..., {"attn": {...}}, ...)[,
-    "tail": (...)]}) -> port.  ``cfg`` (the model's config) gives the
-    number of tail layers, which a reference LoRA tree without targets
-    there does not record; without it the model has no tail."""
-    return {"layers": _layers(ref_lora, device, _n_tail(cfg))}
+    "tail": (...)][, "encoder": {"blocks": {...}}]}) -> port.  ``cfg``
+    (the model's config) gives the number of tail layers, which a
+    reference LoRA tree without targets there does not record; without
+    it the model has no tail."""
+    out = {"layers": _layers(ref_lora, device, _n_tail(cfg))}
+    if "encoder" in ref_lora:
+        out["encoder"] = _encoder_from_reference(ref_lora["encoder"], device)
+    return out
 
 
 def _blocks(layers: List, cfg) -> Dict:
@@ -94,19 +138,10 @@ def _blocks(layers: List, cfg) -> Dict:
     P = len(cfg.layer_pattern or (None,)) if cfg is not None else 1
     n_tail = _n_tail(cfg)
     G = (len(layers) - n_tail) // P
-
-    def stack(*leaves):
-        return np.stack([t.detach().cpu().numpy() for t in leaves])
-
-    def rec(first, rest):
-        if isinstance(first, dict):
-            return {k: rec(v, [r[k] for r in rest]) for k, v in first.items()}
-        return stack(first, *rest)
-
     blocks = []
     for pos in range(P):
         group = [layers[g * P + pos] for g in range(G)]
-        blocks.append(None if group[0] is None else rec(group[0], group[1:]))
+        blocks.append(None if group[0] is None else _stack(group))
     tail = [_np_map(lambda t: t.detach().cpu().numpy(), t)
             for t in layers[G * P:]]
     return {"blocks": tuple(blocks), "tail": tuple(tail)}
@@ -117,8 +152,10 @@ def params_to_reference(params: Dict, cfg=None) -> Dict:
     the inverse of ``params_from_reference``: a round trip through both
     gives every leaf back bit for bit."""
     out = {k: _np_map(lambda t: t.detach().cpu().numpy(), v)
-           for k, v in params.items() if k != "layers"}
+           for k, v in params.items() if k not in ("layers", "encoder")}
     out.update(_blocks(params["layers"], cfg))
+    if "encoder" in params:
+        out["encoder"] = _encoder_to_reference(params["encoder"])
     return out
 
 
@@ -130,4 +167,26 @@ def lora_to_reference(lora: Dict, cfg=None) -> Dict:
     out = _blocks(lora["layers"], cfg)
     if not any(t is not None for t in out["tail"]):
         del out["tail"]
+    if "encoder" in lora:
+        out["encoder"] = _encoder_to_reference(lora["encoder"])
     return out
+
+
+def adapters_from_reference(ref_adapters: Dict, device, cfg=None) -> Dict:
+    """A reference adapter tree (peft/adapters.init_adapters: {"blocks",
+    "tail"}) -> the port's {"layers": [...]}."""
+    return {"layers": _layers(ref_adapters, device, _n_tail(cfg))}
+
+
+def adapters_to_reference(adapters: Dict, cfg=None) -> Dict:
+    """The inverse of ``adapters_from_reference``."""
+    return _blocks(adapters["layers"], cfg)
+
+
+def prompt_from_reference(ref_prompt: Dict, device) -> Dict:
+    """A reference prompt tree ({"prompt": (n_virtual, d)}) -> port."""
+    return {k: _tensor(v, device) for k, v in ref_prompt.items()}
+
+
+def prompt_to_reference(prompt: Dict) -> Dict:
+    return {k: t.detach().cpu().numpy() for k, t in prompt.items()}

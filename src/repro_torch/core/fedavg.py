@@ -34,8 +34,13 @@ from repro_torch.runtime import compute_dtype
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """A numpy batch as int64 tensors on ``device``."""
-    return {k: torch.as_tensor(v, dtype=torch.int64, device=device)
+    """A numpy batch on ``device``: integer arrays (tokens, lengths,
+    labels) as int64, floating ones (a model's ``enc_embeds``,
+    ``img_embeds``, ``prefix_embeds``) as float32."""
+    return {k: torch.as_tensor(v, device=device, dtype=torch.float32
+                               if np.issubdtype(np.asarray(v).dtype,
+                                                np.floating)
+                               else torch.int64)
             for k, v in batch.items()}
 
 
@@ -97,7 +102,12 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
         One forward and one backward of the whole batch, on the sum of the
         per-example losses: no ported layer mixes examples inside the
         scope (a MoE layer routes each row alone), so each example's
-        activation gradient is its own.  Under
+        activation gradient is its own.  The batch's extras (a model's
+        ``enc_embeds`` or ``img_embeds``) lead with the batch too, so each
+        example reads its own rows of them, as the reference's ``vmap``
+        over the batch dict slices them; each LoRA site's per-example
+        length is its input's own (an encoder-decoder's encoder and
+        cross-attention wk/wv sites S_enc, its other sites the text's S).  Under
         kernels/ops.per_example_scope each LoRA projection's backward
         gives each example's gradient w.r.t. the bound a′ and b′ (the
         ``lora_panel_examples`` kernel under the ``cuda`` policy); bind's

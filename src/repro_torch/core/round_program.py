@@ -884,7 +884,8 @@ class SplitProgram:
             lora = lora_lib.init_lora(gen, ctx.base, ctx.targets,
                                       fed.lora_rank, fed.lora_alpha)
         self.c_global, self.s_lt = split_mod.split_lora(lora, n_client)
-        self.base_c, self.base_s = split_mod.split_base(ctx.base, n_client)
+        self.base_c, self.base_s = split_mod.split_base(
+            ctx.base, n_client, self.sfns["enc_dec"])
         self.s_opt = self.sfns["opt_init"](self.s_lt)
         # the client's share of the model's FLOPs counts pattern groups,
         # not layers, as the reference's does: L / G (on the hybrid 2/8

@@ -7,13 +7,17 @@
     c5 client: backprop through its layers, update its LoRA
     cc1-cc4 clients <-> server: LoRA FedAvg of the *client-side* params
 
-Counterpart of ``src/repro/core/split.py`` for the decoder families the
-port builds (GPT-2, the Griffin hybrid, RWKV-6) with an *inter* split
-point at a pattern-group boundary: the client holds pattern groups [0,
-L), the server the groups [L, G), the tail layers that follow the last
-full group, the final norm and the head (tied to the embedding in GPT-2
-and RecurrentGemma, which both halves keep).  Encoder-decoder models are
-not ported (models/transformer.check_supported raises).
+Counterpart of ``src/repro/core/split.py``.  A decoder-only model splits
+at an *inter* point, a pattern-group boundary: the client holds the
+embedding (with a VLM's ``img_proj``, which projects the batch's
+``img_embeds`` into the prefix) and pattern groups [0, L), the server
+the groups [L, G), the tail layers that follow the last full group, the
+final norm and the head (tied to the embedding in GPT-2 and
+RecurrentGemma, which both halves keep).  An encoder-decoder model
+(Whisper) splits at its natural boundary, L = 0: the client holds the
+encoder and runs models/encdec.encode on the batch's ``enc_embeds``, the
+boundary is the encoder's output (B, S_enc, d), and the server runs the
+whole decoder on it (models/encdec.decode_given_enc).
 
 The boundary transfers pass through int8/int4 straight-through
 quantization (paper SSIV.C.2) when ``activation_quant_bits`` is set: the
@@ -31,7 +35,7 @@ from repro_torch import tree as tree_lib
 from repro_torch.configs.base import FedConfig, ModelConfig
 from repro_torch.core import compression, tasks
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models import common, transformer
+from repro_torch.models import common, encdec, transformer
 from repro_torch.models.factory import Model
 from repro_torch.optim.api import make_optimizer
 from repro_torch.peft import lora as lora_lib
@@ -69,10 +73,15 @@ def join_lora(client, server):
     return out
 
 
-def split_base(base, n_client_layers: int):
+def split_base(base, n_client_layers: int, enc_dec: bool = False):
     """The frozen base params sliced after layer ``n_client_layers`` (as
     ``split_lora``).  The client half drops the final norm and the head;
-    the server keeps the embedding, which a tied head reads."""
+    the server keeps the embedding, which a tied head reads.  With
+    ``enc_dec`` the client holds the encoder alone and the server the
+    rest (the decoder)."""
+    if enc_dec:
+        return ({k: v for k, v in base.items() if k == "encoder"},
+                {k: v for k, v in base.items() if k != "encoder"})
     client = dict(base)
     client["layers"] = base["layers"][:n_client_layers]
     for k in ("final_norm", "lm_head"):
@@ -88,14 +97,16 @@ def split_base(base, n_client_layers: int):
 def make_split_fns(model: Model, fed: FedConfig,
                    task: str = "classification"):
     """Returns a dict with ``split_step``, ``split_grads``, ``opt_init``,
-    ``n_client_groups`` (L), ``n_client_layers`` (L times the pattern's
-    length: the split point of ``split_lora`` and ``split_base``),
+    ``n_client_groups`` (L; 0 for an encoder-decoder), ``n_client_layers``
+    (L times the pattern's length: the split point of ``split_lora`` and
+    ``split_base``), ``enc_dec`` (``split_base``'s argument),
     ``wire_bytes_per_batch`` and ``n_groups``."""
     cfg = model.cfg
     task_loss = tasks.get_loss_fn(task)
     opt_init, opt_update = make_optimizer(fed.optimizer)
     n_groups = transformer.n_groups_of(cfg)
-    L = min(max(fed.split_layer, 0), n_groups - 1)
+    enc_dec = cfg.is_encoder_decoder
+    L = 0 if enc_dec else min(max(fed.split_layer, 0), n_groups - 1)
     qbits = fed.activation_quant_bits
 
     def _bind(base, lt, gen: Optional[torch.Generator] = None):
@@ -121,8 +132,13 @@ def make_split_fns(model: Model, fed: FedConfig,
             c_live = [t.detach().requires_grad_(True)
                       for t in tree_lib.leaves(c_lt)]
             bound = _bind(base_c, tree_lib.unflatten(c_lt, c_live), gen)
-            h, positions = transformer.embed_tokens(bound, cfg, tokens)
-            h, _ = transformer.forward_groups(bound, cfg, h, positions, 0, L)
+            if enc_dec:
+                h = encdec.encode(bound, cfg, batch["enc_embeds"])
+            else:
+                h, positions = transformer.embed_tokens(
+                    bound, cfg, tokens, batch.get("img_embeds"))
+                h, _ = transformer.forward_groups(bound, cfg, h, positions,
+                                                  0, L)
             # c2: activations up, privatized then quantized.  Straight
             # through: the reference takes the client's vjp before the
             # clip, the noise and the rounding, so no gradient flows
@@ -133,13 +149,21 @@ def make_split_fns(model: Model, fed: FedConfig,
             s_live = [t.detach().requires_grad_(True)
                       for t in tree_lib.leaves(s_lt)]
             bound = _bind(base_s, tree_lib.unflatten(s_lt, s_live), gen)
-            Sp = h_wire.shape[1]
-            pos = torch.arange(Sp, device=h_wire.device)[None].expand(B, Sp)
-            hs, aux = transformer.forward_groups(bound, cfg, h_wire, pos, 0,
-                                                 n_groups - L,
-                                                 include_tail=True)
-            hs = common.apply_norm(cfg.norm, bound["final_norm"], hs)
-            loss, _ = task_loss(transformer.lm_logits(bound, cfg, hs), batch)
+            if enc_dec:
+                logits, aux = encdec.decode_given_enc(bound, cfg, tokens,
+                                                      h_wire)
+            else:
+                # the positions run over the boundary's rows (a VLM's
+                # image prefix included)
+                Sp = h_wire.shape[1]
+                pos = torch.arange(Sp, device=h_wire.device)[None].expand(
+                    B, Sp)
+                hs, aux = transformer.forward_groups(
+                    bound, cfg, h_wire, pos, 0, n_groups - L,
+                    include_tail=True)
+                hs = common.apply_norm(cfg.norm, bound["final_norm"], hs)
+                logits = transformer.lm_logits(bound, cfg, hs)
+            loss, _ = task_loss(logits, batch)
             loss = loss + aux
             *s_grads, h_grad = torch.autograd.grad(loss, s_live + [h_wire])
             # c4/c5: gradients down (quantized), applied to the client's
@@ -165,8 +189,12 @@ def make_split_fns(model: Model, fed: FedConfig,
     def wire_bytes_per_batch(batch_shape: Tuple[int, int]) -> Tuple[int, int]:
         """(activation_up, grad_down) bytes for one batch (c2/c4): the
         payload (int4 nibble-packed, ceil per row) plus a 4-byte scale a
-        row when quantized."""
+        row when quantized.  An encoder-decoder's boundary has
+        ``cfg.encoder_seq_len`` rows an example, whatever the text's
+        length."""
         B, S = batch_shape
+        if enc_dec:
+            S = cfg.encoder_seq_len
         rows, d = B * S, cfg.d_model
         if qbits == 4:
             payload = rows * ((d + 1) // 2)
@@ -180,6 +208,7 @@ def make_split_fns(model: Model, fed: FedConfig,
     return {"split_step": split_step, "split_grads": split_grads,
             "opt_init": opt_init, "n_client_groups": L,
             "n_client_layers": L * transformer.group_len(cfg),
+            "enc_dec": enc_dec,
             "wire_bytes_per_batch": wire_bytes_per_batch,
             "n_groups": n_groups}
 

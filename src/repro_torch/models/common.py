@@ -1,9 +1,9 @@
 """Shared model building blocks: initializers, LayerNorm and RMSNorm,
-GELU, SiLU and squared ReLU, rotary position embeddings, the LoRA-aware projection and
-the causal mask.
+GELU, SiLU and squared ReLU, rotary and sinusoidal position embeddings,
+the LoRA-aware projection and the causal mask.
 
-Counterpart of ``src/repro/models/common.py`` for what the GPT-2,
-RecurrentGemma and RWKV-6 paths use.  Parameters are nested dicts of tensors;
+Counterpart of ``src/repro/models/common.py`` for what the port's model
+paths use.  Parameters are nested dicts of tensors;
 initializers draw on the CPU from an explicit ``torch.Generator`` (so a
 seed gives the same weights on every device) and move the result to
 ``device``.  All math is fp32.
@@ -107,6 +107,16 @@ def apply_rope(x, positions, theta: float):
     cos, sin = torch.cos(angles).to(dt), torch.sin(angles).to(dt)
     x1, x2 = x.to(dt).chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def sinusoidal_positions(n_pos: int, d: int, device=None):
+    """Whisper's fixed sinusoidal embeddings (n_pos, d), fp32: the sines
+    of the first d/2 columns, then the cosines, as the reference."""
+    pos = torch.arange(n_pos, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    inv = torch.exp(-math.log(10000.0) * dim / (d // 2 - 1 + 1e-9))
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # --------------------------------------------------------------------------- #

@@ -6,15 +6,20 @@
 
 ``init``'s ``device=None`` means ``"cuda"`` and raises without it (pass
 ``device="cpu"`` for the CPU); the weights are drawn on the CPU from the
-generator, so a seed gives the same weights on every device.  Ported
-(models/transformer.check_supported), by ``configs/registry`` name:
+generator, so a seed gives the same weights on every device.  Every
+``configs/registry`` name builds (models/transformer.check_supported):
 ``gpt2``, ``gpt2-tiny``, ``qwen2-1.5b``, ``qwen3-1.7b``,
 ``mistral-large-123b``, ``nemotron-4-340b`` (dense), ``mixtral-8x7b``,
 ``qwen3-moe-235b-a22b`` (MoE, models/moe.py), ``recurrentgemma-2b`` (the
-Griffin hybrid) and ``rwkv6-1.6b``; ``llava-next-34b`` (the VLM
-image-embedding prefix) and ``whisper-base`` (the encoder-decoder) raise
-NotImplementedError.  ``batch`` is a dict with ``"tokens"`` (B, S) on
-the parameters' device.
+Griffin hybrid), ``rwkv6-1.6b``, ``llava-next-34b`` (the VLM image
+prefix) and ``whisper-base`` (the encoder-decoder, models/encdec.py).
+
+``batch`` is a dict with ``"tokens"`` (B, S) on the parameters' device,
+plus the family's extras, as the reference reads them: an
+encoder-decoder needs ``"enc_embeds"`` (B, S_enc, d) (a KeyError without
+them, as in the reference); a decoder-only model takes the optional
+``"img_embeds"`` (B, n_img, d_img) and ``"prefix_embeds"`` (B,
+n_virtual, d), prepended to the text (models/transformer.embed_tokens).
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,17 +38,26 @@ class Model:
     cfg: ModelConfig
 
     def init(self, gen: torch.Generator, device=None):
+        if self.cfg.is_encoder_decoder:
+            return encdec.init_encdec_params(gen, self.cfg, device)
         return transformer.init_params(gen, self.cfg, device)
 
     def forward(self, params, batch: Dict[str, Any]):
-        """(logits (B, S, V), aux) under the config's kernel policy.
+        """(logits (B, S', V), aux) under the config's kernel policy.
         The backward of a training step runs the autograd Functions the
         forward chose.  core/rounds.run_federated holds the same policy
         for a whole run (the KD loss and the top-k quantize run outside
         the forward); this scope serves callers that drive the model
         directly."""
         with kernel_ops.policy_scope(self.cfg.kernel_policy):
-            return transformer.forward(params, self.cfg, batch["tokens"])
+            if self.cfg.is_encoder_decoder:
+                return encdec.encdec_forward(params, self.cfg,
+                                             batch["tokens"],
+                                             batch["enc_embeds"])
+            return transformer.forward(
+                params, self.cfg, batch["tokens"],
+                img_embeds=batch.get("img_embeds"),
+                prefix_embeds=batch.get("prefix_embeds"))
 
 
 def build_model(cfg: ModelConfig) -> Model:

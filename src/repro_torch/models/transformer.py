@@ -5,8 +5,14 @@ Nemotron-4 with LayerNorm and a squared-ReLU MLP); the MoE families
 (Mixtral with a sliding window, Qwen3-MoE with qk-norm; models/moe.py in
 place of the MLP); the Griffin hybrid of RecurrentGemma (RG-LRU and
 local-attention layers in a repeating pattern, the embedding scaled by
-sqrt(d)); and RWKV-6 (``rwkv6`` blocks of time-mix and squared-ReLU
-channel-mix, LayerNorm, an untied head).
+sqrt(d)); RWKV-6 (``rwkv6`` blocks of time-mix and squared-ReLU
+channel-mix, LayerNorm, an untied head); the VLM image prefix (LLaVA:
+``img_proj`` projects the stub image embeddings, prepended to the text);
+and the decoder of the encoder-decoder (Whisper: each block adds a
+cross-attention on the encoder's output; models/encdec.py holds the
+encoder).  A soft prompt (peft/prompt.py) is prepended unprojected, and
+a block whose parameters carry an "adapter" (peft/adapters.py) applies
+it after the MLP residual.
 
 Counterpart of ``init_params``, ``init_block``, ``block_fwd``,
 ``embed_tokens``, ``forward``, ``lm_logits`` and the layer-range
@@ -23,14 +29,17 @@ together under "attn" with no "mlp", as the reference does.  A MoE
 model's "mlp" holds its router and stacked experts.
 
     {"embed": (V, d), ["pos_embed": (P, d)], ["lm_head": (d, V)],
-     "final_norm": {...},
+     ["img_proj": (d_img, d)], "final_norm": {...},
      "layers": [{"norm1", "attn": {wq, wk, wv, wo, [bq, bk, bv],
                                    [q_norm, k_norm]}
                                   | {w_rec_in, ..., lambda, w_out}
                                   | {mu_r, ..., w_r, ..., cm_w_r},
+                 ["xnorm", "xattn": {wq, wk, wv, wo}],
                  "norm2", ["mlp": {[w_gate], w_in, w_out}
-                                  | {router, [w_gate], w_in, w_out}]},
-                ...]}
+                                  | {router, [w_gate], w_in, w_out}],
+                 ["adapter": {w_down, w_up}]},
+                ...],
+     ["encoder": {"layers": [...], "norm": {...}}]}
 
 The forward's ``aux`` is the sum over layers of the MoE load-balance
 terms (0 without MoE layers): a scalar, or one entry a routing group
@@ -46,19 +55,18 @@ import torch
 from repro_torch.configs.base import (ATTN, LOCAL_ATTN, RGLRU, RWKV6,
                                      ModelConfig)
 from repro_torch.models import attention, common, mlp, moe, rglru, rwkv6
+from repro_torch.peft import adapters
 from repro_torch.runtime import resolve_device
 
 KINDS = (ATTN, LOCAL_ATTN, RGLRU, RWKV6)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raises NotImplementedError for what the port does not run yet."""
+    """Raises NotImplementedError for a config outside what the port
+    runs: every registry config runs, a family, layer kind, norm or
+    activation the port has no code for does not."""
     missing = []
-    if cfg.n_image_tokens:
-        missing.append("the VLM image-embedding prefix (llava)")
-    if cfg.is_encoder_decoder:
-        missing.append("the encoder-decoder (whisper)")
-    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm", "vlm", "audio"):
         missing.append(f"family {cfg.family!r}")
     unported = sorted(set(cfg.layer_kinds) - set(KINDS))
     if unported:
@@ -78,23 +86,33 @@ def _group_split(cfg: ModelConfig) -> Tuple[Tuple[str, ...], int, int]:
     return pat, n_groups, cfg.n_layers - n_groups * len(pat)
 
 
-def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, device):
+def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, device,
+               cross: bool = False):
+    """One layer's weights; ``cross`` adds a cross-attention ("xnorm",
+    "xattn"), drawn after the mixer and before the MLP."""
     d = cfg.d_model
     if kind == RWKV6:                     # the block embeds its channel-mix
         return {"norm1": common.init_norm(cfg.norm, d, device),
                 "attn": rwkv6.init_rwkv6(gen, cfg, device),
                 "norm2": common.init_norm(cfg.norm, d, device)}
-    mixer = rglru.init_rglru(gen, cfg, device) if kind == RGLRU \
-        else attention.init_attention(gen, cfg, device)
-    return {"norm1": common.init_norm(cfg.norm, d, device),
-            "attn": mixer,
-            "norm2": common.init_norm(cfg.norm, d, device),
-            "mlp": moe.init_moe(gen, cfg, device) if cfg.is_moe
-            else mlp.init_mlp(gen, cfg, device)}
+    p = {"norm1": common.init_norm(cfg.norm, d, device),
+         "attn": rglru.init_rglru(gen, cfg, device) if kind == RGLRU
+         else attention.init_attention(gen, cfg, device)}
+    if cross:
+        p["xnorm"] = common.init_norm(cfg.norm, d, device)
+        p["xattn"] = attention.init_attention(gen, cfg, device, cross=True)
+    p["norm2"] = common.init_norm(cfg.norm, d, device)
+    p["mlp"] = moe.init_moe(gen, cfg, device) if cfg.is_moe \
+        else mlp.init_mlp(gen, cfg, device)
+    return p
 
 
-def block_fwd(p, cfg: ModelConfig, kind: str, x, positions):
-    """Returns (x, aux): aux the MoE load-balance term, None without."""
+def block_fwd(p, cfg: ModelConfig, kind: str, x, positions, enc_kv=None,
+              causal: bool = True):
+    """Returns (x, aux): aux the MoE load-balance term, None without.
+    ``enc_kv`` (the encoder's (k, v) for this layer) adds the
+    cross-attention after the mixer; ``causal=False`` makes an attention
+    layer bidirectional, without a window."""
     h = common.apply_norm(cfg.norm, p["norm1"], x)
     if kind == RWKV6:
         out, _ = rwkv6.timemix_fwd(p["attn"], cfg, h)
@@ -103,16 +121,26 @@ def block_fwd(p, cfg: ModelConfig, kind: str, x, positions):
         return x + rwkv6.channelmix_fwd(p["attn"], cfg, h), None
     if kind == RGLRU:
         out, _ = rglru.rglru_fwd(p["attn"], cfg, h)
+    elif kind == ATTN and not causal:
+        out = attention.attention_fwd_noncausal(p["attn"], cfg, h, positions)
     else:
         window = cfg.local_window if kind == LOCAL_ATTN else cfg.sliding_window
         out = attention.attention_fwd(p["attn"], cfg, h, positions,
                                       window=window)
     x = x + out
+    if enc_kv is not None:
+        hx = common.apply_norm(cfg.norm, p["xnorm"], x)
+        x = x + attention.cross_attention_fwd(p["xattn"], cfg, hx, enc_kv)
     h = common.apply_norm(cfg.norm, p["norm2"], x)
+    aux = None
     if cfg.is_moe:
         m, aux = moe.moe_fwd(p["mlp"], cfg, h)
-        return x + m, aux
-    return x + mlp.mlp_fwd(p["mlp"], cfg, h), None
+    else:
+        m = mlp.mlp_fwd(p["mlp"], cfg, h)
+    x = x + m
+    if "adapter" in p:                    # bottleneck adapter (PEFT)
+        x = adapters.adapter_fwd(p["adapter"], x)
+    return x, aux
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, device=None):
@@ -130,18 +158,32 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None):
             gen, (cfg.max_position_embeddings, d), device)
     if not cfg.tie_embeddings:
         params["lm_head"] = common.dense_init(gen, (d, V), device)
-    params["layers"] = [init_block(gen, cfg, kind, device)
+    if cfg.n_image_tokens:
+        params["img_proj"] = common.dense_init(
+            gen, (cfg.image_embed_dim or d, d), device)
+    params["layers"] = [init_block(gen, cfg, kind, device,
+                                   cross=cfg.is_encoder_decoder)
                         for kind in cfg.layer_kinds]
     return params
 
 
-def embed_tokens(params, cfg: ModelConfig, tokens, pos_offset: int = 0):
-    """tokens: (B, S) int -> (h (B, S, d), positions (B, S))."""
-    B, S = tokens.shape
+def embed_tokens(params, cfg: ModelConfig, tokens, img_embeds=None,
+                 prefix_embeds=None, pos_offset: int = 0):
+    """tokens: (B, S) int -> (h (B, S', d), positions (B, S')).  A VLM's
+    image embeddings (B, n_img, d_img), projected by ``img_proj`` (a plain
+    matmul: no LoRA target), are prepended, then the soft prompt's
+    ``prefix_embeds`` (B, n_virtual, d) unprojected: S' = n_virtual +
+    n_img + S, and the positions run over all of them."""
     h = params["embed"][tokens]
     if cfg.embed_scale:
         h = h * cfg.d_model ** 0.5
-    positions = torch.arange(S, device=tokens.device) + pos_offset
+    if img_embeds is not None:
+        proj = img_embeds.to(h.dtype) @ params["img_proj"]
+        h = torch.cat([proj, h], dim=1)
+    if prefix_embeds is not None:
+        h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+    B, S = h.shape[:2]
+    positions = torch.arange(S, device=h.device) + pos_offset
     if not cfg.use_rope:
         h = h + params["pos_embed"][positions][None]
     return h, positions[None].expand(B, S)
@@ -152,10 +194,13 @@ def lm_logits(params, cfg: ModelConfig, h):
     return common.mm(h, w)
 
 
-def forward(params, cfg: ModelConfig, tokens):
-    """Returns (logits (B, S, V), aux_loss) — the MoE layers' summed
-    load-balance terms, 0 without MoE layers."""
-    h, positions = embed_tokens(params, cfg, tokens)
+def forward(params, cfg: ModelConfig, tokens, img_embeds=None,
+            prefix_embeds=None):
+    """Returns (logits (B, S', V), aux_loss) — the MoE layers' summed
+    load-balance terms, 0 without MoE layers; S' counts the prepended
+    image and prefix positions (embed_tokens)."""
+    h, positions = embed_tokens(params, cfg, tokens, img_embeds,
+                                prefix_embeds)
     h, aux = forward_groups(params, cfg, h, positions, 0,
                             _group_split(cfg)[1], include_tail=True)
     h = common.apply_norm(cfg.norm, params["final_norm"], h)

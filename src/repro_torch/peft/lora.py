@@ -16,7 +16,8 @@ computes ``x@W + (x@A)@B`` from it without materialising W + BA.
 core/fedavg differentiates the loss with respect to the LoRA leaves only
 (the PEFT property), so no training path forms a gradient of W; a caller
 that binds a W requiring a gradient gets dW = xᵀg (the dense dW kernel
-under the ``cuda`` policy).
+under the ``cuda`` policy).  ``merge`` materialises W + BA·alpha/r
+instead, the serving form.
 """
 from __future__ import annotations
 
@@ -114,6 +115,27 @@ def bind(base_params, lora_tree, alpha: float, rank: int,
                     mask = keep.float().to(a.device) / (1.0 - dropout)
                     a = a * mask[:, None]
             return {"w": b, "a": a, "b": l["b"] * scale}
+        if isinstance(b, dict):
+            return {k: combine(b[k], l[k]) if (isinstance(l, dict) and k in l)
+                    else b[k] for k in b}
+        if isinstance(b, (tuple, list)):
+            return [combine(bv, l[i]) if (isinstance(l, (tuple, list))
+                                          and l[i] is not None) else bv
+                    for i, bv in enumerate(b)]
+        return b
+
+    return combine(base_params, lora_tree)
+
+
+def merge(base_params, lora_tree, alpha: float, rank: int):
+    """The base tree with each targeted weight W replaced by W + A@B·
+    alpha/rank (the serving form; the inverse of bind's factored one).
+    The product is a plain matmul in W's dtype."""
+    scale = alpha / max(rank, 1)
+
+    def combine(b, l):
+        if isinstance(l, dict) and set(l) == {"a", "b"}:
+            return b + (l["a"] @ l["b"] * scale).to(b.dtype)
         if isinstance(b, dict):
             return {k: combine(b[k], l[k]) if (isinstance(l, dict) and k in l)
                     else b[k] for k in b}

@@ -5,7 +5,8 @@ GQA, Qwen3 with qk-norm, Mistral-Large, Nemotron-4 with LayerNorm and a
 squared-ReLU MLP, Mixtral and Qwen3-MoE through models/moe.py) at
 ``reduced()``: from the reference's init, bridged, the port's logits and
 aux term; qk-norm attention and the dense squared-ReLU MLP alone; the
-two architectures the port refuses (LLaVA, Whisper); the bridge's round
+two architectures the port refused before (LLaVA, Whisper), which now
+build and give the reference's logits; the bridge's round
 trip of MoE and qk-norm trees; and the analytic FLOPs the ledger's
 ``client_flops`` reads.
 
@@ -154,12 +155,36 @@ def test_dense_relu2_mlp_matches_reference():
     ("llava-next-34b", "VLM image-embedding prefix"),
     ("whisper-base", "encoder-decoder")])
 def test_unported_archs_raise(arch, what):
-    """Both names resolve; ``build_model`` refuses them by what is not
-    ported, at full size and reduced."""
+    """The two architectures the port refused until it ran the VLM
+    image-embedding prefix and the encoder-decoder: ``build_model``
+    accepts both at full size and reduced, and the reduced model, from
+    the reference's init bridged, gives the reference's logits with the
+    stub embeddings its forward reads (Whisper's 16 encoder frames,
+    LLaVA's 8 image tokens prepended to the text)."""
     for cfg in (registry.get_config(arch),
                 registry.get_config(arch).reduced()):
-        with pytest.raises(NotImplementedError, match=what):
-            build_model(cfg)
+        assert build_model(cfg).cfg is cfg
+    ref_cfg, cfg = _reduced(arch)
+    params = _np(ref_build(ref_cfg).init(jax.random.PRNGKey(8)))
+    rng = np.random.default_rng(9)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 10))}
+    if cfg.is_encoder_decoder:
+        batch["enc_embeds"] = 0.02 * rng.standard_normal(
+            (2, cfg.encoder_seq_len, cfg.d_model))
+    else:
+        batch["img_embeds"] = 0.02 * rng.standard_normal(
+            (2, cfg.n_image_tokens, cfg.image_embed_dim))
+    batch = {k: v.astype(np.float32 if v.dtype.kind == "f" else np.int32)
+             for k, v in batch.items()}
+    want, _ = ref_build(ref_cfg).forward(
+        params, {k: jnp.asarray(v) for k, v in batch.items()})
+    got, _ = build_model(cfg).forward(
+        bridge.params_from_reference(params, "cpu"),
+        {k: torch.from_numpy(v) if v.dtype.kind == "f"
+         else torch.from_numpy(v).long() for k, v in batch.items()})
+    assert got.shape == (2, 10 + (0 if cfg.is_encoder_decoder
+                                  else cfg.n_image_tokens), cfg.vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGITS)
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-235b-a22b",

@@ -3,6 +3,7 @@ package, it never carries on on the CPU when CUDA was asked for, its CUDA
 kernel paths refuse CPU tensors instead of falling back, and every
 ``FedConfig`` setting outside the ported slices raises."""
 import dataclasses
+import math
 import os
 import subprocess
 import sys
@@ -67,7 +68,8 @@ assert {"repro_torch.privacy.dp", "repro_torch.privacy.accountant",
         "repro_torch.configs.qwen3_moe_235b_a22b",
         "repro_torch.configs.llava_next_34b",
         "repro_torch.configs.whisper_base",
-        "repro_torch.models.moe"} <= set(names), names
+        "repro_torch.models.moe", "repro_torch.models.encdec",
+        "repro_torch.peft.adapters", "repro_torch.peft.prompt"} <= set(names), names
 """
 
 
@@ -278,20 +280,32 @@ def test_noise_without_clip_raises(tiny_case):
 
 def test_checkpointing_and_unported_models_raise(tiny_case, tmp_path):
     """Checkpointing runs (a run of one round with ``checkpoint_every=1``
-    writes its snapshot into ``tmp_path``); the registry's two models the
-    port does not run, LLaVA's image-embedding prefix and Whisper's
-    encoder-decoder, are refused by name."""
+    writes its snapshot into ``tmp_path``).  The registry's VLM and
+    encoder-decoder build, and ``run_federated``, whose batches carry no
+    stub embeddings (as the reference's), runs them as the reference
+    does (tests/test_torch_vlm_encdec.py holds both runs to the
+    reference's): LLaVA text-only, its ``img_proj`` unused (the run
+    without it is bit for bit the same), and Whisper fails on the
+    missing ``enc_embeds``, a KeyError naming them."""
     cfg, pub, clients, test = tiny_case
     fed = FedConfig(rounds=1, lora_dropout=0.0)
     run_federated(cfg, fed, pub, clients, test, device="cpu",
                   checkpoint_every=1, checkpoint_dir=str(tmp_path))
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "ckpt_00000001.npz", "ckpt_00000001.npz.json"]
-    for arch, what in (("llava-next-34b", "VLM"),
-                       ("whisper-base", "encoder-decoder")):
-        unported = registry.get_config(arch).reduced()
-        with pytest.raises(NotImplementedError, match=what):
-            run_federated(unported, fed, pub, clients, test, device="cpu")
+    vlm = registry.get_config("llava-next-34b").reduced(d_model=64)
+    base = build_model(vlm).init(torch.Generator().manual_seed(0), "cpu")
+    res = [run_federated(vlm, fed, pub, clients, test, device="cpu",
+                         base=b) for b in
+           (base, {k: v for k, v in base.items() if k != "img_proj"})]
+    assert "img_proj" in base and math.isfinite(res[0].history[0].loss)
+    assert res[0].history[0].loss == res[1].history[0].loss
+    for x, y in zip(tree_lib.leaves(res[0].final_lora),
+                    tree_lib.leaves(res[1].final_lora)):
+        assert torch.equal(x, y)
+    audio = registry.get_config("whisper-base").reduced(d_model=64)
+    with pytest.raises(KeyError, match="enc_embeds"):
+        run_federated(audio, fed, pub, clients, test, device="cpu")
 
 
 def test_lora_dropout_runs_on_own_generator(tiny_case):

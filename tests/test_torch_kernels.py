@@ -165,6 +165,11 @@ ATTN_CASES = [
     (2, 1, 16, 48, 32, True, 0, 32),
     # RecurrentGemma's geometry: 10 query heads of 256 on one kv head
     (10, 1, 40, 40, 256, True, 2048, 0),
+    # Whisper's cross-attention: non-causal, fewer queries than keys, a
+    # key count no tile divides
+    (4, 4, 10, 45, 32, False, 0, 0),
+    # LLaVA's odd GQA group: 7 query heads a kv head
+    (14, 2, 21, 21, 64, True, 0, 0),
 ]
 
 

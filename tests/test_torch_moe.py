@@ -111,8 +111,8 @@ def test_moe_fwd_matches_reference(dispatch, factor):
         out, aux = ref_moe.moe_fwd(p, ref_cfg, xj)
         return (out * r).sum() + aux, (out, aux)
 
-    (_, (want, want_aux)), want_dx = jax.value_and_grad(
-        ref_obj, has_aux=True)(jnp.asarray(x))
+    (_, (want, want_aux)), want_dx = jax.jit(jax.value_and_grad(
+        ref_obj, has_aux=True))(jnp.asarray(x))
     xt = torch.from_numpy(x).requires_grad_(True)
     with moe.trace_routes() as routes:
         got, aux = moe.moe_fwd(_torch(p), cfg, xt)
@@ -138,11 +138,16 @@ def test_router_ties_pick_lower_experts(dispatch):
         (2, 16, cfg.d_model)).astype(np.float32)
     copy = dict(p, router=p["router"].copy())
     copy["router"][:, 3] = copy["router"][:, 1]
+    # one compile, reused for both routers
+    @jax.jit
+    def ref_fwd(params):
+        xj = jnp.asarray(x)
+        out = ref_moe.moe_fwd(params, ref_cfg, xj)
+        probs = jax.nn.softmax(xj @ params["router"], axis=-1)
+        return out, jax.lax.top_k(probs, cfg.top_k)[1]
+
     for params in (dict(p, router=np.zeros_like(p["router"])), copy):
-        want, want_aux = ref_moe.moe_fwd(params, ref_cfg, jnp.asarray(x))
-        logits = jnp.asarray(x) @ params["router"]
-        _, want_e = jax.lax.top_k(jax.nn.softmax(logits, axis=-1),
-                                  cfg.top_k)
+        (want, want_aux), want_e = ref_fwd(params)
         with moe.trace_routes() as routes:
             got, aux = moe.moe_fwd(_torch(params), cfg, torch.from_numpy(x))
         np.testing.assert_array_equal(routes[0].numpy(), np.asarray(want_e))
@@ -199,7 +204,7 @@ def test_per_example_rows_match_reference(dispatch):
     def one(l, ex):
         return fn(l, jax.tree.map(lambda v: v[None], ex))
 
-    want_loss, want = jax.vmap(jax.value_and_grad(one), (None, 0))(
+    want_loss, want = jax.jit(jax.vmap(jax.value_and_grad(one), (None, 0)))(
         lt, {k: jnp.asarray(v) for k, v in batch.items()})
     fed = FedConfig(lora_rank=RANK, lora_alpha=ALPHA, lora_dropout=0.0)
     fns = make_fns(build_model(cfg), fed)
@@ -302,14 +307,18 @@ def test_stacked_clients_step_matches_reference(dispatch):
     C = len(batches)
     fn = _ref_loss(ref_cfg, params, lt, None)
     ref_model = ref_build(ref_cfg)
+    # one compile each, reused for the C clients' batches of one shape
+    value_and_grad = jax.jit(jax.value_and_grad(fn))
+    pj = jax.tree.map(jnp.asarray, params)
+    aux_of = jax.jit(lambda bj: ref_model.forward(
+        ref_lora.bind(pj, lt, ALPHA, RANK), bj)[1])
     want_loss, want_grads, want_aux = [], [], []
     for b in batches:
         bj = {k: jnp.asarray(v) for k, v in b.items()}
-        loss, g = jax.value_and_grad(fn)(lt, bj)
+        loss, g = value_and_grad(lt, bj)
         want_loss.append(float(loss))
         want_grads.append(g)
-        want_aux.append(float(ref_model.forward(
-            ref_lora.bind(params, lt, ALPHA, RANK), bj)[1]))
+        want_aux.append(float(aux_of(bj)))
     stacked = {k: np.concatenate([b[k] for b in batches])
                for k in batches[0]}
     slt = fed_spmd.stack_trees([plt] * C)
