@@ -384,13 +384,38 @@ fp64 error gated as above and timed beside SDPA; the LoRA kernels (rows
 1, 2, 4) at (24000, 512, 512) and (10496, 7168, 7168 | 1024); row 4ᵉ's
 pair at (16, 1500, 512 | 512); row 10's roundtrip at (24000, 512).
 
-After phase 15 it prints each kernel's launches times its time beyond
+16. Serving (run_serving): the decode path and launch/serve.py, from
+   seed-0 weights, batch 4, a 16-token prompt and 32 generated tokens
+   (serve.py's defaults: 48 decode steps), an fp32 cache of 48
+   positions.  GPT-2 at full width and depth with rank-8 LoRA on
+   wq/wk/wv (B drawn nonzero), served bound (row 1 at M 4: 36 launches
+   a step) and merged; Whisper-base at full width and depth, 1500 stub
+   frames, bound (24 row-1 launches and 6 flash cross-attentions, one
+   query over 1500 keys, a step; the prefill's encoder and cross K/V 30
+   and 6); Qwen3-1.7B at full depth, bound (84 a step);
+   RecurrentGemma-2B at RG_SERVE_LAYERS (one pattern group) and RWKV-6
+   at RWKV_SERVE_LAYERS of their layers, full width, merged (no
+   launch: the recurrent steps and the cache's attention are plain, as
+   in the reference).  Each model (serve_case): the fp64 plain run's
+   greedy tokens after the prompt make one sequence that every run
+   decodes teacher-forced; the kernel run's logits gated from fp64 over
+   all steps (floor_gate, TF32 outside) and at each step; against the
+   fp64 plain forward over the same tokens within that limit; GPT-2's
+   bound against its merged within it; launches exact; tokens/s batched,
+   kernels against plain.  Then ``serve.main`` on GPT-2 (sampled).
+   Before the runs, row 1 at (4, 768, 768 | r 8) and (4, 2048, 2048 |
+   1024) and row 5 at (BH 32, Sq 1, Skv 1500, D 64) against their
+   twins, timed eager and in a CUDA graph beside the matmul chain and
+   SDPA, their rms error against fp64 over the yardstick's
+   (decode_kernel_checks: "@dec", "@dec-q3", "@dec-q3kv", "@whd").
+
+After phase 16 it prints each kernel's launches times its time beyond
 max(bound, launch floor) (the rule-2 queue), the final-LoRA margins of
 phase 7, Split int8 and RWKV-6, phase 5's first-step and final-LoRA
 margins, phase 8's KD and DP shares and the shares of the Split, hetero,
-async and fault gates of phases 7, 8, 10, 11, 12, 13, 14 and 15 (each kernel
-run's share of its
-limit, beside the last recorded run's, or "new"), then one JSON
+async and fault gates of phases 7, 8, 10, 11, 12, 13, 14, 15 and 16
+(each kernel run's share of its limit, beside the last recorded run's,
+or "new"), then one JSON
 line with every kernel's numbers and, last, the line ``{"ok": true, "device": {...}}``.  It imports nothing of
 JAX.
 """
@@ -525,6 +550,33 @@ WHISPER_STEPS = 3
 # LLaVA-NeXT-34B runs 2 of its 60 layers at full width: 60 are ~134 GB
 # of fp32 weights, 2 are 8.1 GB (16.2 GB in fp64)
 LLAVA_LAYERS = 2
+# phase 16 (serving): serve.py's defaults, batch 4, a 16-token prompt and
+# 32 generated, so 48 decode steps over an fp32 cache of 48 positions;
+# RecurrentGemma-2B serves one full pattern group (rglru, rglru,
+# local_attn) of its 26 layers and RWKV-6 2 of its 24, at full width; a
+# served adapter is rank RANK at alpha 32 with B drawn N(0, SERVE_B_STD²)
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 32
+SERVE_LEN = SERVE_PROMPT + SERVE_GEN
+RG_SERVE_LAYERS, RWKV_SERVE_LAYERS = 3, 2
+SERVE_ALPHA, SERVE_B_STD = 32.0, 0.002
+# phase 16's kernel shapes: row 1 at a decode step's M = 4 rows (GPT-2's
+# wq/wk/wv; Qwen3-1.7B's wq and its wk/wv), row 5 at Whisper-base's
+# cross-attention, one query over the 1500 frames (4 x 8 heads of 64);
+# the unused half of each shape is kept small
+_NO_ATTN = dict(BH=1, BKV=1, S=1, Skv=1, D=64, causal=False, window=0,
+                q_offset=0)
+DEC_SHAPES = {
+    "dec": ("lora_fwd", dict(M=SERVE_BATCH, K=768, N=768, r=RANK,
+                             **_NO_ATTN)),
+    "dec-q3": ("lora_fwd", dict(M=SERVE_BATCH, K=2048, N=2048, r=RANK,
+                                **_NO_ATTN)),
+    "dec-q3kv": ("lora_fwd", dict(M=SERVE_BATCH, K=2048, N=KV_WIDTH, r=RANK,
+                                  **_NO_ATTN)),
+    "whd": ("flash_fwd", dict(M=SERVE_BATCH, K=512, N=512, r=RANK,
+                              BH=SERVE_BATCH * 8, BKV=SERVE_BATCH * 8, S=1,
+                              Skv=WH_FRAMES, D=64, causal=False, window=0,
+                              q_offset=0)),
+}
 
 
 def require(ok: bool, what: str) -> None:
@@ -2698,7 +2750,17 @@ MARGINS_BEFORE = {"phase 7": 0.402, "Split int8": 0.862,
                   "Whisper-base DP first-step rows": 0.152,
                   "Whisper-base DP first step": 0.154,
                   "Whisper-base Split int8 flips": 0.358,
-                  "LLaVA-NeXT-34B first step": 0.278}
+                  "LLaVA-NeXT-34B first step": 0.278,
+                  "gpt2 decode": 0.192, "gpt2 decode vs forward": 0.192,
+                  "gpt2 bound vs merged": 0.239,
+                  "whisper-base decode": 0.199,
+                  "whisper-base decode vs forward": 0.199,
+                  "qwen3-1.7b decode": 0.229,
+                  "qwen3-1.7b decode vs forward": 0.229,
+                  "recurrentgemma-2b decode": 0.181,
+                  "recurrentgemma-2b decode vs forward": 0.181,
+                  "rwkv6-1.6b decode": 0.240,
+                  "rwkv6-1.6b decode vs forward": 0.240}
 
 
 def rwkv_bwd_repeat(device, seed) -> None:
@@ -5460,6 +5522,298 @@ def run_vlm_encdec(device):
     print(f"  phase 15 LLaVA-NeXT-34B wall_s={time.perf_counter() - t0:.1f}")
     return by_path
 
+
+# --------------------------------------------------------------------------- #
+# Phase 16: serving (the decode path, launch/serve.py)
+# --------------------------------------------------------------------------- #
+def decode_fp64_ratio(device, name: str, shape: dict, seed: int) -> float:
+    """rms error against fp64 of a decode-shape kernel's output over its
+    yardstick's: row 1 (``lora_fwd``'s y) against the default BLAS
+    library's chain, row 5 (``flash_fwd``'s o) against the larger of its
+    fp32 twin's and SDPA's; kernel_cases' N(0, 1) inputs scaled as there.
+    Fails above FP64_FACTOR."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rn(*dims, std=1.0):
+        return torch.randn(dims, device=device, generator=gen) * std
+
+    if name == "lora_fwd":
+        M, K, N, r = (shape[k] for k in ("M", "K", "N", "r"))
+        x, w = rn(M, K), rn(K, N, std=K ** -0.5)
+        a, b = rn(K, r, std=K ** -0.5), rn(r, N, std=N ** -0.5)
+        x64, w64, a64, b64 = (t.double() for t in (x, w, a, b))
+        exact = x64 @ w64 + (x64 @ a64) @ b64
+        got = {"kernel": lm.lora_fwd(x, w, a, b)[0],
+               "yardstick": x @ w + (x @ a) @ b}
+    else:
+        BH, BKV, S, Skv, D = (shape[k] for k in ("BH", "BKV", "S", "Skv",
+                                                 "D"))
+        q, k, v = rn(BH, S, D), rn(BKV, Skv, D), rn(BKV, Skv, D)
+        exact = ref.attention_fwd(q.double(), k.double(), v.double(),
+                                  False)[0]
+        G = BH // BKV
+        sdpa = F.scaled_dot_product_attention(
+            q[None], k.repeat_interleave(G, 0)[None],
+            v.repeat_interleave(G, 0)[None])[0]
+        got = {"kernel": fa.flash_fwd(q, k, v, False, 0, 0)[0],
+               "plain fp32": ref.attention_fwd(q, k, v, False)[0],
+               "sdpa": sdpa}
+    rms = {who: float(((y.double() - exact) ** 2).mean().sqrt())
+           for who, y in got.items()}
+    ratio = rms["kernel"] / max(v for who, v in rms.items()
+                                if who != "kernel")
+    print(f"  {name} rms error against fp64: " + ", ".join(
+        f"{who} {v:.3e}" for who, v in rms.items())
+        + f" (kernel / yardstick {ratio:.2f})")
+    require(ratio <= FP64_FACTOR, f"{name} at a decode shape: rms error "
+            f"against fp64 {ratio:.2f} times its yardstick's")
+    return ratio
+
+
+def decode_kernel_checks(device, peaks_) -> dict:
+    """Phase 16's kernel rows: row 1 at a decode step's (4, 768, 768 | r
+    8) and (4, 2048, 2048 | 1024), row 5 at Whisper's decode
+    cross-attention (BH 32, Sq 1 over Skv 1500, D 64, non-causal): each
+    held to its twin, timed eager and in a CUDA graph beside the matmul
+    chain and SDPA, its rms error against fp64 over the yardstick's.
+    Returns the rows, tagged "@dec", "@dec-q3", "@dec-q3kv", "@whd"."""
+    rows = {}
+    for seed, (tag, (name, shape)) in enumerate(DEC_SHAPES.items(), 60):
+        kern, _, lib, _, _ = case = kernel_cases(device, seed=seed,
+                                                 **shape)[name]
+        print(f"  {name}@{tag} (" + ", ".join(
+            f"{k} {v}" for k, v in shape.items()
+            if (k in "MKNr") == (name == "lora_fwd")) + "):")
+        row = time_case(name, case, peaks_)
+        row["graph_ms"], row["library_graph_ms"] = graph_ms(kern), \
+            graph_ms(lib)
+        row["fp64_rms_ratio"] = decode_fp64_ratio(device, name, shape,
+                                                  seed + 10)
+        print(f"    in a CUDA graph: kernel {row['graph_ms']:.4f} ms, "
+              f"library {row['library_graph_ms']:.4f} ms")
+        rows[f"{name}@{tag}"] = row
+    return rows
+
+
+def served_adapter(cfg, base, targets, seed: int):
+    """A LoRA tree of rank RANK on ``targets`` as ``init_lora`` draws it,
+    with B drawn N(0, SERVE_B_STD²) too (a trained adapter's B is not
+    zero), both from ``seed`` on the host."""
+    import torch
+
+    from repro_torch.peft import lora
+
+    gen = torch.Generator().manual_seed(seed)
+    lt = lora.init_lora(gen, base, targets, RANK, SERVE_ALPHA)
+    return lora.map_factors(lambda f: {
+        "a": f["a"], "b": (torch.randn(f["b"].shape, generator=gen)
+                           * SERVE_B_STD).to(f["b"].device)}, lt)
+
+
+def serve_case(device, cfg, params, extras, expect, merged=None):
+    """Phase 16's gates on one served model (``params``: the served tree,
+    an adapter bound or merged; ``extras``: the stub frames an
+    encoder-decoder's cache reads).  The fp64 plain run (weights and
+    extras cast) generates greedily from a seeded prompt, serve.generate
+    at temperature 0; every run then decodes that sequence, the prompt
+    and the fp64 run's 32 tokens, teacher-forced (serve.decode_logits:
+    init_cache and 48 decode_steps), under each_run's settings.
+
+    1. The kernel run's logits from fp64: relative L2 over all steps
+       within FLOOR_FACTOR times the larger fp32 plain run's + slack,
+       TF32 outside (floor_gate), and at every step within that step's
+       own limit.
+    2. The kernel run's decode logits against the fp64 plain forward over
+       the same 48 tokens, within gate 1's limit.
+    3. With ``merged`` (the same adapter merged): its decode logits
+       through the kernel policy against the bound kernel run's, within
+       gate 1's limit, and no kernel launched.
+    Launches: the kernel run's exactly ``expect``.  Then tokens/s,
+    batched, as serve.py counts them (batch x 32 generated over the
+    host time of generate's 48 steps after init_cache), for the kernel
+    and plain fp32 policies (and the merged tree).  Returns the timed
+    kernel generate's launch counts and {setting: tokens/s}."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.factory import build_model
+
+    name = cfg.name
+
+    def model(policy):
+        return build_model(dataclasses.replace(cfg, kernel_policy=policy))
+
+    gen = torch.Generator().manual_seed(0)
+    prompt = torch.randint(1, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=gen).to(device)
+    with torch.inference_mode():
+        p64, x64 = fp64(params), fp64(extras)
+        m64 = model("torch")
+        greedy, _ = serve.generate(m64, p64, prompt, SERVE_GEN, 0.0,
+                                   batch=x64, cache_dtype=torch.float64)
+        seq = torch.cat([prompt, greedy], dim=1)
+        logits = {"exact": serve.decode_logits(m64, p64, seq, x64,
+                                               torch.float64)}
+        forward = m64.forward(p64, dict(x64, tokens=seq))[0]
+        print(f"  {name}: fp64 decode against the fp64 forward "
+              f"{rel_l2([logits['exact']], [forward]):.3e}")
+        del p64, x64
+        for role, tag, policy in each_run():
+            ops.reset_launches()
+            logits[role] = serve.decode_logits(model(policy), params, seq,
+                                               extras)
+            torch.cuda.synchronize()
+            if role == "kernels":
+                print(f"  [{tag}] launches {nonzero(ops.launches())}")
+                check_launches(ops.launches(), expect)
+            else:
+                check_launches(ops.launches(), {})
+        gaps = from_exact({r: [lg] for r, lg in logits.items()},
+                          f"{name} teacher-forced decode logits")
+        limit = floor_gate(f"{name} decode logits", gaps)
+        MARGINS[f"{name} decode"] = gaps["kernels"] / limit
+        worst = 0.0
+        for t in range(SERVE_LEN):
+            step = {r: rel_l2([lg[:, t]], [logits["exact"][:, t]])
+                    for r, lg in logits.items() if r != "exact"}
+            lim = FLOOR_FACTOR * max(step["plain"], step["floor"]) \
+                + FLOOR_SLACK
+            require(step["kernels"] <= lim, f"{name} decode step {t}: "
+                    f"kernels {step['kernels']:.3e} from fp64, limit "
+                    f"{lim:.3e}")
+            worst = max(worst, step["kernels"] / lim)
+        print(f"  every step within its own limit (the largest share "
+              f"{worst:.3f})")
+        gap = rel_l2([logits["kernels"]], [forward])
+        MARGINS[f"{name} decode vs forward"] = gap / limit
+        print(f"  kernel decode against the fp64 forward {gap:.3e}, at "
+              f"{gap / limit:.3f} of the limit")
+        require(gap <= limit, f"{name}: the kernel decode is off the fp64 "
+                f"forward beyond the limit")
+        del forward
+        if merged is not None:
+            ops.reset_launches()
+            lg = serve.decode_logits(model("cuda"), merged, seq, extras)
+            check_launches(ops.launches(), {})
+            gap = rel_l2([logits["kernels"]], [lg])
+            MARGINS[f"{name} bound vs merged"] = gap / limit
+            print(f"  the merged adapter's decode against the bound one's "
+                  f"{gap:.3e}, at {gap / limit:.3f} of the limit")
+            require(gap <= limit, f"{name}: the bound and the merged "
+                    f"adapter's decode disagree beyond the limit")
+        del logits
+
+        def tokens_per_s(policy, p):
+            m = model(policy)
+            cache = m.init_cache(p, SERVE_BATCH, SERVE_LEN, extras,
+                                 dtype=torch.float32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve.generate(m, p, prompt, SERVE_GEN, 0.0, cache=cache)
+            torch.cuda.synchronize()
+            return SERVE_BATCH * SERVE_GEN / (time.perf_counter() - t0)
+
+        ops.reset_launches()
+        rate = {"kernels": tokens_per_s("cuda", params)}
+        counts = ops.launches()
+        check_launches(counts, expect)
+        rate["plain"] = tokens_per_s("torch", params)
+        if merged is not None:
+            rate["merged"] = tokens_per_s("cuda", merged)
+    print(f"  {name}: tokens/s batched " + ", ".join(
+        f"{k} {v:.1f}" for k, v in rate.items())
+        + f" (kernels / plain {rate['kernels'] / rate['plain']:.3f})")
+    return counts, rate
+
+
+def run_serving(device, peaks_):
+    """Phase 16: serving on the H100 (module docstring).  Returns
+    ({path: the timed kernel generate's launch counts}, the kernel rows,
+    {model: tokens/s})."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.peft import lora
+
+    print("phase 16: serving (decode path, launch/serve.py): batch "
+          f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_GEN} generated, an "
+          f"fp32 cache of {SERVE_LEN}; seed-0 weights")
+    t_start = time.perf_counter()
+    rows = decode_kernel_checks(device, peaks_)
+    by_path, rates = {}, {}
+    qkv = ("wq", "wk", "wv")
+
+    def decode_launches(sites, attn=0, prefill_sites=0, prefill_attn=0):
+        out = {"lora_fwd": sites * SERVE_LEN + prefill_sites,
+               "flash_fwd": attn * SERVE_LEN + prefill_attn}
+        return nonzero(out)
+
+    def one(arch, what, layers=None, targets=qkv, bind=True, extras=None,
+            expect=None, merged=False):
+        """Serves ``arch`` (cut to ``layers``) with a bound (or merged)
+        adapter; ``expect(cfg)`` gives the kernel run's launches."""
+        t0 = time.perf_counter()
+        cfg = registry.get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        print(f"  {cfg.name}: {what}; adapter rank {RANK} on "
+              f"{'/'.join(targets)}, " + ("bound" if bind else "merged")
+              + (" and merged" if merged else ""))
+        base = family_init(device, cfg)
+        lt = served_adapter(cfg, base, targets, seed=1)
+        served = lora.bind(base, lt, SERVE_ALPHA, RANK) if bind \
+            else lora.merge(base, lt, SERVE_ALPHA, RANK)
+        both = lora.merge(base, lt, SERVE_ALPHA, RANK) if merged else None
+        by_path[f"serve {arch}"], rates[cfg.name] = serve_case(
+            device, cfg, served, extras or {},
+            expect(cfg) if expect else {}, merged=both)
+        del base, lt, served, both
+        torch.cuda.empty_cache()
+        print(f"  phase 16 {cfg.name} wall_s={time.perf_counter() - t0:.1f}")
+
+    # a bound adapter's step: wq/wk/wv of every layer through row 1
+    one("gpt2", "full width and depth (12 layers, d 768, V 50257)",
+        expect=lambda c: decode_launches(3 * c.n_layers), merged=True)
+    frames = stub_embeds(device, "enc_embeds", (
+        SERVE_BATCH, registry.get_config("whisper-base").encoder_seq_len,
+        registry.get_config("whisper-base").d_model), 0)
+    # Whisper's step: the self-attention's wq/wk/wv and the
+    # cross-attention's wq in each decoder layer, one flash
+    # cross-attention a layer; its prefill (init_cache): the encoder's
+    # wq/wk/wv and flash, and each layer's cross wk/wv of the encoder's
+    # output, once
+    one("whisper-base", f"full width and depth, {WH_FRAMES} stub frames a "
+        "row", extras=frames,
+        expect=lambda c: decode_launches(
+            4 * c.n_layers, c.n_layers, 3 * c.n_encoder_layers
+            + 2 * c.n_layers, c.n_encoder_layers))
+    del frames
+    one("qwen3-1.7b", "full width and depth (28 layers, d 2048, qk-norm, "
+        "V 151936)", expect=lambda c: decode_launches(3 * c.n_layers))
+    one("recurrentgemma-2b", f"full width, {RG_SERVE_LAYERS} of its 26 "
+        "layers (one pattern group: rglru, rglru, local_attn)",
+        layers=RG_SERVE_LAYERS, bind=False)
+    one("rwkv6-1.6b", f"full width, {RWKV_SERVE_LAYERS} of its 24 layers",
+        layers=RWKV_SERVE_LAYERS, targets=lora.RWKV_TARGETS, bind=False)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        require(serve.main(["--arch", "gpt2", "--device", "cuda"]) == 0,
+                "serve.main")
+    print(f"  serve.main --arch gpt2 (sampled at temperature 1) wall_s="
+          f"{time.perf_counter() - t0:.1f}")
+    print(f"  phase 16 wall_s={time.perf_counter() - t_start:.1f}")
+    return by_path, rows, rates
+
+
 # the kernels that must not spill: {kernel: (source, instances)}
 NO_SPILLS = {"lora_fused_kernel": ("lora_matmul", 8),
              "lora_dw_kernel": ("lora_matmul", 1),
@@ -5675,6 +6029,10 @@ def main() -> int:
     by_path.update(run_vlm_encdec(device))
     print(f"  phase 15 wall_s={time.perf_counter() - t0:.1f}")
     print(f"  phases 1-15 wall_s={time.perf_counter() - t_start:.1f}")
+    serving, dec_rows, _ = run_serving(device, peaks(card))
+    by_path.update(serving)
+    rows.update(dec_rows)
+    print(f"  phases 1-16 wall_s={time.perf_counter() - t_start:.1f}")
     print("margins (share of the limit; the last recorded run's in "
           "parentheses): " + ", ".join(
               f"{path} {MARGINS[path]:.3f} ("
@@ -5724,7 +6082,11 @@ def main() -> int:
                          ("mxkv", "at_mixtral_wk_wv"),
                          ("wh", "at_whisper_encoder"),
                          ("whx", "at_whisper_cross"), ("lv", "at_llava"),
-                         ("lvkv", "at_llava_wk_wv")):
+                         ("lvkv", "at_llava_wk_wv"),
+                         ("dec", "at_gpt2_decode"),
+                         ("dec-q3", "at_qwen3_decode"),
+                         ("dec-q3kv", "at_qwen3_decode_wk_wv"),
+                         ("whd", "at_whisper_decode")):
             if f"{name}@{tag}" in rows:
                 at = rows[f"{name}@{tag}"]
                 kernels[-1][key] = {

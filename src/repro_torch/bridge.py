@@ -20,8 +20,15 @@ stacked over its layers, "norm"}`` in the reference and ``{"layers":
 [...], "norm"}`` here; in a LoRA tree it holds the encoder's targets
 alone.  Adapter trees ({"blocks", "tail"} like the model's, one adapter
 a layer) become ``{"layers": [...]}``; a prompt tree ({"prompt"}) is
-copied.  Inputs are numpy arrays, or anything ``np.asarray`` accepts;
-this module imports no JAX.
+copied.  A LoRA factor of a stacked expert weight keeps its expert dim
+after the layer's: (G, E, d, r) in the reference, (E, d, r) a layer
+here.  A decode cache ({"blocks", "tail"} like the model's, and an
+encoder-decoder's cross-attention K/V, ``xkv`` stacked over the groups
+and ``xkv_tail``) becomes ``{"layers": [...], ["xkv": [(k, v), ...]]}``
+(models/transformer.init_cache) with each leaf's dtype kept, bf16
+included; back in the reference's layout a bf16 leaf comes as fp32
+numpy (numpy has no bf16), the same values.  Inputs are numpy arrays,
+or anything ``np.asarray`` accepts; this module imports no JAX.
 """
 from __future__ import annotations
 
@@ -45,33 +52,49 @@ def _tensor(x, device):
     return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
 
 
+def _tensor_keep(x, device):
+    """``x`` as a tensor of its own dtype (a bf16 array as bf16)."""
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.astype(np.float32)).to(device,
+                                                         torch.bfloat16)
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+def _numpy(t):
+    """A tensor as numpy: a bf16 one as its fp32 values."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def _first_leaf(tree):
     while isinstance(tree, (dict, list, tuple)):
         tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
     return tree
 
 
-def _layers(ref_tree, device, n_tail: int = None) -> List:
+def _layers(ref_tree, device, n_tail: int = None, conv=_tensor) -> List:
     """The reference's blocks (and tail) as the port's per-layer list in
     forward order.  ``n_tail`` counts the tail layers where ``tail`` may
-    be left out (a LoRA tree); by default it is ``len(tail)``."""
+    be left out (a LoRA tree); by default it is ``len(tail)``.  ``conv``
+    makes each tensor (fp32 by default)."""
     blocks = ref_tree["blocks"]
     tail = list(ref_tree.get("tail") or ())
     if n_tail is not None:
         tail += [None] * (n_tail - len(tail))
     stacked = [b for b in blocks if b is not None]
     G = np.shape(_first_leaf(stacked[0]))[0] if stacked else 0
-    per_pos = [[None] * G if pos is None else _unstack(pos, device)
+    per_pos = [[None] * G if pos is None else _unstack(pos, device, conv)
                for pos in blocks]
     out = [layer for g in range(G) for layer in (p[g] for p in per_pos)]
-    return out + [_np_map(lambda x: _tensor(x, device), t) for t in tail]
+    return out + [_np_map(lambda x: conv(x, device), t) for t in tail]
 
 
-def _unstack(tree, device) -> List:
+def _unstack(tree, device, conv=_tensor) -> List:
     """A tree stacked over a leading axis (a pattern position's blocks,
     the encoder's blocks) as a list of per-layer trees."""
     n = np.shape(_first_leaf(tree))[0]
-    return [_np_map(lambda x, i=i: _tensor(np.asarray(x)[i], device), tree)
+    return [_np_map(lambda x, i=i: conv(np.asarray(x)[i], device), tree)
             for i in range(n)]
 
 
@@ -80,7 +103,7 @@ def _stack(layers: List):
     def rec(first, rest):
         if isinstance(first, dict):
             return {k: rec(v, [r[k] for r in rest]) for k, v in first.items()}
-        return np.stack([t.detach().cpu().numpy() for t in [first] + rest])
+        return np.stack([_numpy(t) for t in [first] + rest])
     return rec(layers[0], layers[1:])
 
 
@@ -139,11 +162,10 @@ def _blocks(layers: List, cfg) -> Dict:
     n_tail = _n_tail(cfg)
     G = (len(layers) - n_tail) // P
     blocks = []
-    for pos in range(P):
+    for pos in range(P if G else 0):
         group = [layers[g * P + pos] for g in range(G)]
         blocks.append(None if group[0] is None else _stack(group))
-    tail = [_np_map(lambda t: t.detach().cpu().numpy(), t)
-            for t in layers[G * P:]]
+    tail = [_np_map(_numpy, t) for t in layers[G * P:]]
     return {"blocks": tuple(blocks), "tail": tuple(tail)}
 
 
@@ -190,3 +212,29 @@ def prompt_from_reference(ref_prompt: Dict, device) -> Dict:
 
 def prompt_to_reference(prompt: Dict) -> Dict:
     return {k: t.detach().cpu().numpy() for k, t in prompt.items()}
+
+
+def cache_from_reference(ref_cache: Dict, device) -> Dict:
+    """A reference decode cache (``Model.init_cache`` or one returned by
+    ``decode_step``) -> the port's, each leaf in its own dtype."""
+    out = {"layers": _layers(ref_cache, device, conv=_tensor_keep)}
+    if "xkv" in ref_cache:
+        k, v = (np.asarray(t) for t in ref_cache["xkv"])
+        out["xkv"] = [(_tensor_keep(k[g], device), _tensor_keep(v[g], device))
+                      for g in range(k.shape[0])] + [
+            tuple(_tensor_keep(t, device) for t in kv)
+            for kv in ref_cache.get("xkv_tail") or ()]
+    return out
+
+
+def cache_to_reference(cache: Dict, cfg=None) -> Dict:
+    """The inverse of ``cache_from_reference``, as numpy (bf16 leaves as
+    their fp32 values); ``cfg`` gives the layer pattern."""
+    out = _blocks(cache["layers"], cfg)
+    if "xkv" in cache:
+        G = len(cache["xkv"]) - _n_tail(cfg)
+        out["xkv"] = tuple(np.stack([_numpy(kv[i]) for kv in
+                                     cache["xkv"][:G]]) for i in (0, 1))
+        out["xkv_tail"] = tuple(tuple(_numpy(t) for t in kv)
+                                for kv in cache["xkv"][G:])
+    return out

@@ -5,14 +5,20 @@ attention, Mixtral); the encoder-decoder's bidirectional self-attention
 and cross-attention (Whisper).
 
 Counterpart of ``init_attention``, ``attention_fwd``,
-``attention_fwd_noncausal``, ``cross_attention_fwd`` and
-``encode_cross_kv`` in ``src/repro/models/attention.py``: projections
+``attention_fwd_noncausal``, ``cross_attention_fwd``,
+``encode_cross_kv``, ``init_kv_cache`` and ``attention_decode`` in
+``src/repro/models/attention.py``: projections
 through models/common.mm
 (LoRA-bound leaves go through the fused LoRA kernel), attention through
 kernels/ops.mha_attention (the flash kernels under the ``cuda`` policy,
 which group the KV heads and mask the window themselves).  qk-norm is an
 RMSNorm over each head's D of q and of k, after the bias and the reshape
 and before RoPE, with a (D,) scale shared by the heads.
+
+One-token decode (``attention_decode``) scores the query against the KV
+cache with plain matmuls in fp32, as the reference does with an einsum
+outside any Pallas kernel; its projections still go through
+models/common.mm.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import common
 from repro_torch.models.common import mm
+from repro_torch.runtime import compute_dtype
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, device,
@@ -106,3 +113,62 @@ def encode_cross_kv(params, cfg: ModelConfig, enc_out):
     kv, hd = cfg.n_kv_heads, cfg.head_dim
     return (mm(enc_out, params["wk"]).reshape(B, Se, kv, hd),
             mm(enc_out, params["wv"]).reshape(B, Se, kv, hd))
+
+
+# --------------------------------------------------------------------------- #
+# KV cache (decode)
+# --------------------------------------------------------------------------- #
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, window: int = 0,
+                  dtype=torch.bfloat16, device=None):
+    """{"k", "v"}: zeros (batch, size, KV, D) in ``dtype``; a ring buffer
+    of size min(max_len, window) when ``window`` > 0, a linear cache of
+    ``max_len`` slots otherwise (``init_kv_cache`` of the reference)."""
+    size = min(max_len, window) if window else max_len
+    shape = (batch, size, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attention_decode(params, cfg: ModelConfig, x, cache, pos: int,
+                     window: int = 0):
+    """One-token decode (``attention_decode`` of the reference): x (B, 1,
+    d) at absolute position ``pos`` -> (out (B, 1, d), cache).  The
+    token's k and v, cast to the cache's dtype, are written into ``cache``
+    in place at slot ``pos % size`` (a ring, ``window`` > 0) or
+    ``min(pos, size - 1)`` (linear: past the end the last slot is
+    overwritten, as in the reference); the query attends to the valid
+    slots, idx < min(pos + 1, size) for a ring and idx <= pos for a linear
+    cache, the scores and softmax in fp32 (fp64 beside fp64 weights)."""
+    B = x.shape[0]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = mm(x, params["wq"])
+    k = mm(x, params["wk"])
+    v = mm(x, params["wv"])
+    if "bq" in params:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q = q.reshape(B, 1, h, hd)
+    k = k.reshape(B, 1, kv, hd)
+    v = v.reshape(B, 1, kv, hd)
+    if "q_norm" in params:
+        q = common.rmsnorm({"scale": params["q_norm"]}, q)
+        k = common.rmsnorm({"scale": params["k_norm"]}, k)
+    if cfg.use_rope:
+        posv = torch.full((1,), pos, device=x.device)
+        q = common.apply_rope(q, posv, cfg.rope_theta)
+        k = common.apply_rope(k, posv, cfg.rope_theta)
+    ck, cv = cache["k"], cache["v"]
+    size = ck.shape[1]
+    slot = pos % size if window > 0 else min(pos, size - 1)
+    ck[:, slot] = k[:, 0].to(ck.dtype)
+    cv[:, slot] = v[:, 0].to(cv.dtype)
+    n_valid = min(pos + 1, size) if window else pos + 1
+    valid = torch.arange(size, device=x.device) < n_valid
+    dt = q.dtype
+    qr = q.reshape(B, kv, h // kv, hd)                      # (B, KV, G, D)
+    scores = torch.einsum("bkgd,bskd->bkgs", qr, ck.to(dt))
+    scores = scores.to(compute_dtype(dt)) * hd ** -0.5
+    scores = torch.where(valid, scores, common.NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs.to(cv.dtype).to(dt),
+                       cv.to(dt))
+    return mm(out.reshape(B, 1, h * hd), params["wo"]), cache

@@ -136,6 +136,9 @@ def mm(x, w):
 # --------------------------------------------------------------------------- #
 # Masking
 # --------------------------------------------------------------------------- #
+NEG_INF = -1e30             # the score of a masked key (the reference's)
+
+
 def causal_mask(q_len: int, kv_len: int, q_offset: int = 0, window: int = 0,
                 device=None):
     """(q_len, kv_len) boolean mask; True = attend.  ``q_offset`` is the

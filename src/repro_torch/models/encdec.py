@@ -1,7 +1,8 @@
 """Encoder-decoder assembly: Whisper-base's backbone [arXiv:2212.04356].
 
 Counterpart of ``init_encoder``, ``init_encdec_params``, ``encode``,
-``_cross_kvs``, ``encdec_forward`` and ``decode_given_enc`` in
+``_cross_kvs``, ``encdec_forward``, ``decode_given_enc``,
+``init_encdec_cache`` and ``encdec_decode_step`` in
 ``src/repro/models/encdec.py``.  The mel-spectrogram and conv frontend is
 a stub, as in the reference: the encoder takes precomputed frame
 embeddings ``enc_embeds`` (B, S_enc, d), adds fixed sinusoidal positions
@@ -16,6 +17,11 @@ positions (flash with Sq != Skv).
 
 The reference stacks the encoder's blocks for ``lax.scan``; here they are
 a list in forward order (repro_torch/bridge.py converts).
+
+Decode: ``init_encdec_cache`` runs the encoder once (the prefill) and
+projects each decoder layer's cross-attention K/V from its output once,
+``{"layers": [the self-attention KV caches], "xkv": [(k, v) a layer]}``;
+each ``encdec_decode_step`` reuses them.
 """
 from __future__ import annotations
 
@@ -84,3 +90,28 @@ def decode_given_enc(params, cfg: ModelConfig, tokens, enc_out):
             aux = aux + a
     h = common.apply_norm(cfg.norm, params["final_norm"], h)
     return transformer.lm_logits(params, cfg, h), aux
+
+
+def init_encdec_cache(params, cfg: ModelConfig, batch: int, max_len: int,
+                      enc_embeds, dtype=torch.bfloat16):
+    """The decoder's self-attention KV caches (transformer.init_cache, in
+    ``dtype``) and each layer's cross-attention (k, v) of the encoded
+    ``enc_embeds`` (B, S_enc, d), computed here once (kept in the
+    encoder's dtype, as in the reference)."""
+    cache = transformer.init_cache(cfg, batch, max_len, dtype,
+                                   enc_embeds.device)
+    cache["xkv"] = _cross_kvs(params, cfg, encode(params, cfg, enc_embeds))
+    return cache
+
+
+def encdec_decode_step(params, cfg: ModelConfig, cache, token, pos: int):
+    """One decoder step: token (B,) at position ``pos`` -> (logits (B, V),
+    cache), the cache updated in place.  As in the reference, no embed
+    scale."""
+    h = transformer.embed_token(params, cfg, token, pos, scale=False)
+    layers = cache["layers"]
+    for i, (lp, xkv) in enumerate(zip(params["layers"], cache["xkv"])):
+        h, layers[i] = transformer.block_decode(lp, cfg, ATTN, h, layers[i],
+                                                pos, enc_kv=xkv)
+    h = common.apply_norm(cfg.norm, params["final_norm"], h)
+    return transformer.lm_logits(params, cfg, h)[:, 0], cache

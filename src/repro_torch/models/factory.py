@@ -3,6 +3,8 @@
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(seed))  # on CUDA
     logits, aux = model.forward(params, batch)
+    cache = model.init_cache(params, batch_size, max_len, batch)
+    logits, cache = model.decode_step(params, cache, token, pos)
 
 ``init``'s ``device=None`` means ``"cuda"`` and raises without it (pass
 ``device="cpu"`` for the CPU); the weights are drawn on the CPU from the
@@ -20,11 +22,18 @@ encoder-decoder needs ``"enc_embeds"`` (B, S_enc, d) (a KeyError without
 them, as in the reference); a decoder-only model takes the optional
 ``"img_embeds"`` (B, n_img, d_img) and ``"prefix_embeds"`` (B,
 n_virtual, d), prepended to the text (models/transformer.embed_tokens).
+
+``init_cache`` makes the decode cache on the parameters' device (the
+K/V slots in bf16 by default, as the reference's; the recurrent states
+fp32); an encoder-decoder needs ``batch["enc_embeds"]`` there and runs
+its encoder once.  ``decode_step`` takes ``token`` (B,) and ``pos``, the
+absolute position as a Python int, updates the cache in place and
+returns (logits (B, V), cache); a VLM decodes text alone.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -58,6 +67,33 @@ class Model:
                 params, self.cfg, batch["tokens"],
                 img_embeds=batch.get("img_embeds"),
                 prefix_embeds=batch.get("prefix_embeds"))
+
+    def init_cache(self, params, batch_size: int, max_len: int,
+                   batch: Optional[Dict[str, Any]] = None,
+                   dtype=torch.bfloat16):
+        """The decode cache for ``batch_size`` rows of up to ``max_len``
+        positions (``init_cache`` of the reference's Model)."""
+        if self.cfg.is_encoder_decoder:
+            if batch is None or "enc_embeds" not in batch:
+                raise ValueError("an encoder-decoder's cache needs "
+                                 "batch['enc_embeds']")
+            with kernel_ops.policy_scope(self.cfg.kernel_policy):
+                return encdec.init_encdec_cache(params, self.cfg, batch_size,
+                                                max_len, batch["enc_embeds"],
+                                                dtype)
+        return transformer.init_cache(self.cfg, batch_size, max_len, dtype,
+                                      params["embed"].device)
+
+    def decode_step(self, params, cache, token, pos: int):
+        """(logits (B, V), cache) under the config's kernel policy: bound
+        LoRA projections through the fused kernel and cross-attention
+        through flash on the card, as in ``forward``."""
+        with kernel_ops.policy_scope(self.cfg.kernel_policy):
+            if self.cfg.is_encoder_decoder:
+                return encdec.encdec_decode_step(params, self.cfg, cache,
+                                                 token, pos)
+            return transformer.decode_step(params, self.cfg, cache, token,
+                                           pos)
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -1,8 +1,7 @@
 """RecurrentGemma / Griffin recurrent block (RG-LRU) [arXiv:2402.19427].
 
-Counterpart of ``init_rglru`` and ``rglru_fwd`` in
-``src/repro/models/rglru.py`` (the decode path waits for the serving
-slice).  Block:
+Counterpart of ``init_rglru``, ``rglru_fwd``, ``init_rglru_cache`` and
+``rglru_decode`` in ``src/repro/models/rglru.py``.  Block:
 
     x -> { linear -> temporal conv1d -> RG-LRU } * { linear -> GeLU }
       -> linear out
@@ -17,7 +16,10 @@ RG-LRU recurrence (per channel):
 The reference runs the recurrence as ``lax.associative_scan``; here it
 goes through kernels/ops.rglru: the hand-written CUDA scan (row 15) on the
 card, its step-by-step plain version under the ``torch`` policy.  The
-gates are fp32 matmuls through models/common.mm.
+gates are fp32 matmuls through models/common.mm.  One-token decode
+carries the (B, w) state and the conv's last K - 1 inputs, and takes its
+one step ``h = a·h + b·x`` on the host graph, without the scan kernel, as
+the reference does.
 """
 from __future__ import annotations
 
@@ -59,16 +61,21 @@ def _gates(params, u):
     return a, beta * (i * u)
 
 
-def _conv1d(params, x):
+def _conv1d(params, x, state=None):
     """Depthwise causal temporal conv over (B, S, w), the K taps summed in
-    the reference's order (tap 0 first)."""
+    the reference's order (tap 0 first).  ``state`` (B, K-1, w): the
+    trailing inputs of the previous call (decode), zeros when None.
+    Returns (out, the new state: the last K-1 inputs, None when K is 1)."""
     K = params["conv_w"].shape[0]
     S = x.shape[1]
-    xp = F.pad(x, (0, 0, K - 1, 0))                       # (B, S+K-1, w)
+    if state is None:
+        xp = F.pad(x, (0, 0, K - 1, 0))                   # (B, S+K-1, w)
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
     out = xp[:, :S] * params["conv_w"][0]
     for i in range(1, K):
         out = out + xp[:, i:i + S] * params["conv_w"][i]
-    return out + params["conv_b"]
+    return out + params["conv_b"], (xp[:, -(K - 1):] if K > 1 else None)
 
 
 def rglru_fwd(params, cfg: ModelConfig, x, h0=None):
@@ -76,8 +83,28 @@ def rglru_fwd(params, cfg: ModelConfig, x, h0=None):
     ``h0`` (B, w) is the initial state; the scan starts from it, so its
     first step computes a_0·h0 + b_0, the value the reference folds into
     its first input."""
-    u = _conv1d(params, mm(x, params["w_rec_in"]))
+    u, _ = _conv1d(params, mm(x, params["w_rec_in"]))
     a, bx = _gates(params, u)
     h, h_final = kernel_ops.rglru(a, bx, h0)
     gate = common.gelu(mm(x, params["w_gate_in"]))
     return mm(h * gate, params["w_out"]), h_final
+
+
+def init_rglru_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                     device=None):
+    """{"h": the (batch, w) state, "conv": the conv's (batch, K-1, w)
+    trailing inputs}, zeros in ``dtype`` (fp32 in the reference)."""
+    w = cfg.lru_width
+    return {"h": torch.zeros(batch, w, dtype=dtype, device=device),
+            "conv": torch.zeros(batch, cfg.conv1d_width - 1, w, dtype=dtype,
+                                device=device)}
+
+
+def rglru_decode(params, cfg: ModelConfig, x, cache):
+    """One-token decode: x (B, 1, d) -> ((B, 1, d), the new cache)."""
+    u, conv = _conv1d(params, mm(x, params["w_rec_in"]), cache["conv"])
+    a, bx = _gates(params, u)                             # (B, 1, w)
+    h = a[:, 0] * cache["h"] + bx[:, 0]                   # (B, w)
+    gate = common.gelu(mm(x, params["w_gate_in"]))
+    out = h[:, None].to(x.dtype) * gate
+    return mm(out, params["w_out"]), {"h": h, "conv": conv}

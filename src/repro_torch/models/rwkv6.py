@@ -2,9 +2,10 @@
 with a data-dependent decay) and channel-mix.
 
 Counterpart of ``init_rwkv6``, ``_shift``, ``_lerp``, ``_decay``,
-``_project``, ``timemix_fwd`` and ``channelmix_fwd`` in
-``src/repro/models/rwkv6.py`` (the decode path waits for the serving
-slice).  Per head (dk = dv = head_dim), with the decay w_t:
+``_project``, ``timemix_fwd``, ``_wkv_ref_with_state``,
+``channelmix_fwd`` and ``init_rwkv_cache`` in
+``src/repro/models/rwkv6.py``.  Per head (dk = dv = head_dim), with the
+decay w_t:
 
     S_t = diag(w_t)·S_{t-1} + k_tᵀv_t          state (dk, dv)
     y_t = r_t·(S_{t-1} + diag(u)·k_tᵀv_t)
@@ -16,6 +17,11 @@ kernels/ops.rwkv6, the exact recurrence: the hand-written CUDA kernels
 version under the ``torch`` policy.  The projections w_r, w_k, w_v, w_g
 and w_o go through models/common.mm (LoRA-bound where targeted); the
 decay LoRA and the channel-mix weights are base weights.
+
+Decode carries the (B, H, D, D) WKV state and each mix's last input
+(``x_tm``, ``x_cm``); from a given state the WKV is the plain stateful
+recurrence (``_wkv_ref_with_state``), as in the reference: row 16's
+kernel, like the reference's Pallas kernel, starts from a zero state.
 """
 from __future__ import annotations
 
@@ -60,9 +66,12 @@ def init_rwkv6(gen: torch.Generator, cfg: ModelConfig, device):
     }
 
 
-def _shift(x):
-    """The x_{t-1} stream of (B, S, d), zeros before the first step."""
-    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+def _shift(x, last=None):
+    """The x_{t-1} stream of (B, S, d): ``last`` (B, d), the previous
+    call's last input, before the first step, or zeros."""
+    pad = torch.zeros_like(x[:, :1]) if last is None \
+        else last[:, None].to(x.dtype)
+    return torch.cat([pad, x[:, :-1]], dim=1)
 
 
 def _lerp(x, xp, mu):
@@ -92,17 +101,52 @@ def _project(params, cfg: ModelConfig, x, x_prev):
             logw.reshape(shp), u, g)
 
 
-def timemix_fwd(params, cfg: ModelConfig, x):
-    """x: (B, S, d) -> (out (B, S, d), final WKV state (B, H, D, D))."""
+def timemix_fwd(params, cfg: ModelConfig, x, state=None, x_last=None):
+    """x: (B, S, d) -> (out (B, S, d), final WKV state (B, H, D, D)).
+    ``state`` (B, H, D, D) and ``x_last`` (B, d) continue an earlier call
+    (decode); the new ``x_last`` is ``x[:, -1]``.  From a zero state the
+    WKV goes through kernels/ops.rwkv6, from a given one through
+    ``_wkv_ref_with_state``."""
     B, S, d = x.shape
-    r, k, v, logw, u, g = _project(params, cfg, x, _shift(x))
-    y, state = kernel_ops.rwkv6(r, k, v, logw, u)
+    r, k, v, logw, u, g = _project(params, cfg, x, _shift(x, x_last))
+    if state is None:
+        y, state = kernel_ops.rwkv6(r, k, v, logw, u)
+    else:
+        y, state = _wkv_ref_with_state(r, k, v, logw, u, state)
     y = common.layernorm(params["ln_x"], y.reshape(B, S, d)) * g
     return mm(y, params["w_o"]), state
 
 
-def channelmix_fwd(params, cfg: ModelConfig, x):
-    x_prev = _shift(x)
+def _wkv_ref_with_state(r, k, v, logw, u, S0):
+    """The WKV recurrence step by step from the state ``S0`` (B, H, D, D):
+    r, k, v, logw (B, S, H, D), u (H, D) -> (y (B, S, H, D), S_final), in
+    the reference's form y_t = r_t·(S_{t-1} + diag(u)·k_tᵀv_t)."""
+    state, ys = S0, []
+    for t in range(r.shape[1]):
+        rt, kt, vt, lwt = r[:, t], k[:, t], v[:, t], logw[:, t]
+        kv = kt[..., :, None] * vt[..., None, :]          # (B, H, D, D)
+        ys.append(torch.einsum("bhd,bhde->bhe", rt,
+                               state + u[None, :, :, None] * kv))
+        state = torch.exp(lwt)[..., None] * state + kv
+    return torch.stack(ys, 1), state
+
+
+def init_rwkv_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                    device=None):
+    """{"S": the (batch, H, D, D) WKV state, "x_tm", "x_cm": the time-mix's
+    and channel-mix's last inputs (batch, d)}, zeros in ``dtype`` (fp32 in
+    the reference)."""
+    d = cfg.d_model
+    hd = cfg.head_dim if cfg.head_dim else 64
+    return {"S": torch.zeros(batch, d // hd, hd, hd, dtype=dtype,
+                             device=device),
+            "x_tm": torch.zeros(batch, d, dtype=dtype, device=device),
+            "x_cm": torch.zeros(batch, d, dtype=dtype, device=device)}
+
+
+def channelmix_fwd(params, cfg: ModelConfig, x, x_last=None):
+    """x: (B, S, d) -> (B, S, d); ``x_last`` (B, d) as in timemix_fwd."""
+    x_prev = _shift(x, x_last)
     kx = _lerp(x, x_prev, params["cm_mu_k"])
     rx = _lerp(x, x_prev, params["cm_mu_r"])
     k = common.relu2(mm(kx, params["cm_w_k"]))

@@ -15,8 +15,10 @@ a block whose parameters carry an "adapter" (peft/adapters.py) applies
 it after the MLP residual.
 
 Counterpart of ``init_params``, ``init_block``, ``block_fwd``,
-``embed_tokens``, ``forward``, ``lm_logits`` and the layer-range
-functions of Split-FedLLM (``n_groups_of``, ``forward_groups``) in
+``embed_tokens``, ``forward``, ``lm_logits``, the decode path
+(``init_block_cache``, ``block_decode``, ``init_cache``,
+``decode_step``) and the layer-range functions of Split-FedLLM
+(``n_groups_of``, ``forward_groups``) in
 ``src/repro/models/transformer.py``.  The reference stacks the layers of
 each pattern position over the G full pattern groups and scans them, and
 keeps the remainder in ``tail``; here ``params["layers"]`` is a list of
@@ -41,6 +43,14 @@ model's "mlp" holds its router and stacked experts.
                 ...],
      ["encoder": {"layers": [...], "norm": {...}}]}
 
+The decode cache is ``{"layers": [...]}``, one entry a layer in the
+order of ``params["layers"]``: an attention layer's {"k", "v"} (B, size,
+KV, D) in the cache dtype (models/attention.init_kv_cache: a ring of the
+window's size for a windowed layer), an RG-LRU layer's {"h", "conv"}
+and an RWKV-6 layer's {"S", "x_tm", "x_cm"}, the recurrent states in
+fp32 (fp64 for an fp64 cache).  ``decode_step`` updates the cache it is
+given in place and returns it.
+
 The forward's ``aux`` is the sum over layers of the MoE load-balance
 terms (0 without MoE layers): a scalar, or one entry a routing group
 (models/moe.routing_groups) under the per-example and stacked-clients
@@ -56,7 +66,7 @@ from repro_torch.configs.base import (ATTN, LOCAL_ATTN, RGLRU, RWKV6,
                                      ModelConfig)
 from repro_torch.models import attention, common, mlp, moe, rglru, rwkv6
 from repro_torch.peft import adapters
-from repro_torch.runtime import resolve_device
+from repro_torch.runtime import compute_dtype, resolve_device
 
 KINDS = (ATTN, LOCAL_ATTN, RGLRU, RWKV6)
 
@@ -143,6 +153,54 @@ def block_fwd(p, cfg: ModelConfig, kind: str, x, positions, enc_kv=None,
     return x, aux
 
 
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     dtype=torch.bfloat16, device=None):
+    """One layer's decode cache: K/V slots in ``dtype`` for an attention
+    layer, recurrent states in fp32 (``compute_dtype(dtype)``) for an
+    RG-LRU or RWKV-6 layer."""
+    if kind in (ATTN, LOCAL_ATTN):
+        window = cfg.local_window if kind == LOCAL_ATTN else cfg.sliding_window
+        return attention.init_kv_cache(cfg, batch, max_len, window, dtype,
+                                       device)
+    if kind == RGLRU:
+        return rglru.init_rglru_cache(cfg, batch, compute_dtype(dtype), device)
+    if kind == RWKV6:
+        return rwkv6.init_rwkv_cache(cfg, batch, compute_dtype(dtype), device)
+    raise ValueError(kind)
+
+
+def block_decode(p, cfg: ModelConfig, kind: str, x, cache, pos: int,
+                 enc_kv=None):
+    """One-token decode of a layer: x (B, 1, d) at position ``pos`` ->
+    (x, the layer's cache).  As in the reference, a bottleneck adapter
+    is not applied (block_fwd applies it)."""
+    h = common.apply_norm(cfg.norm, p["norm1"], x)
+    if kind == RWKV6:
+        out, S = rwkv6.timemix_fwd(p["attn"], cfg, h, state=cache["S"],
+                                   x_last=cache["x_tm"])
+        x = x + out
+        h2 = common.apply_norm(cfg.norm, p["norm2"], x)
+        cm = rwkv6.channelmix_fwd(p["attn"], cfg, h2, x_last=cache["x_cm"])
+        return x + cm, {"S": S, "x_tm": h[:, -1].to(cache["x_tm"].dtype),
+                        "x_cm": h2[:, -1].to(cache["x_cm"].dtype)}
+    if kind == RGLRU:
+        out, cache = rglru.rglru_decode(p["attn"], cfg, h, cache)
+    else:
+        window = cfg.local_window if kind == LOCAL_ATTN else cfg.sliding_window
+        out, cache = attention.attention_decode(p["attn"], cfg, h, cache, pos,
+                                                window=window)
+    x = x + out
+    if enc_kv is not None:
+        hx = common.apply_norm(cfg.norm, p["xnorm"], x)
+        x = x + attention.cross_attention_fwd(p["xattn"], cfg, hx, enc_kv)
+    h = common.apply_norm(cfg.norm, p["norm2"], x)
+    if cfg.is_moe:
+        m, _ = moe.moe_fwd(p["mlp"], cfg, h)
+    else:
+        m = mlp.mlp_fwd(p["mlp"], cfg, h)
+    return x + m, cache
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig, device=None):
     """Random parameters on ``device`` (None: CUDA, or raise), drawn on
     the CPU from ``gen`` layer by layer in forward order."""
@@ -205,6 +263,41 @@ def forward(params, cfg: ModelConfig, tokens, img_embeds=None,
                             _group_split(cfg)[1], include_tail=True)
     h = common.apply_norm(cfg.norm, params["final_norm"], h)
     return lm_logits(params, cfg, h), aux
+
+
+# --------------------------------------------------------------------------- #
+# Decode
+# --------------------------------------------------------------------------- #
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None):
+    """The decode cache of every layer (module docstring), zeros."""
+    return {"layers": [init_block_cache(cfg, kind, batch, max_len, dtype,
+                                        device)
+                       for kind in cfg.layer_kinds]}
+
+
+def embed_token(params, cfg: ModelConfig, token, pos: int, scale: bool = True):
+    """token (B,) at position ``pos`` -> h (B, 1, d): the embedding, scaled
+    by sqrt(d) where the config says so and ``scale``, plus the learned
+    position without RoPE."""
+    h = params["embed"][token][:, None]
+    if scale and cfg.embed_scale:
+        h = h * cfg.d_model ** 0.5
+    if not cfg.use_rope:
+        h = h + params["pos_embed"][pos][None, None]
+    return h
+
+
+def decode_step(params, cfg: ModelConfig, cache, token, pos: int):
+    """token: (B,) int; ``pos`` the tokens' absolute position (a Python
+    int).  Returns (logits (B, V), cache), the cache updated in place.
+    A VLM decodes text alone, as the reference does."""
+    h = embed_token(params, cfg, token, pos)
+    layers = cache["layers"]
+    for i, (lp, kind) in enumerate(zip(params["layers"], cfg.layer_kinds)):
+        h, layers[i] = block_decode(lp, cfg, kind, h, layers[i], pos)
+    h = common.apply_norm(cfg.norm, params["final_norm"], h)
+    return lm_logits(params, cfg, h)[:, 0], cache
 
 
 # --------------------------------------------------------------------------- #

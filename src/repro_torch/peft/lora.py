@@ -18,6 +18,11 @@ core/fedavg differentiates the loss with respect to the LoRA leaves only
 that binds a W requiring a gradient gets dW = xᵀg (the dense dW kernel
 under the ``cuda`` policy).  ``merge`` materialises W + BA·alpha/r
 instead, the serving form.
+
+A stacked expert weight (E, d, ff) of a MoE layer gets batched factors,
+a (E, d, r) and b (E, r, ff), as in the reference, and ``merge`` forms
+each expert's W + A@B·alpha/r; ``bind`` refuses it, since the expert
+MLPs (models/moe.py), like the reference's, consume a plain tensor.
 """
 from __future__ import annotations
 
@@ -65,20 +70,17 @@ def init_lora(gen: torch.Generator, base_params, targets: Sequence[str],
               rank: int, alpha: float = 32.0):
     """Build a LoRA tree: A ~ N(0, 1/r) (paper: Gaussian init), B = 0, fp32
     (fp64 beside fp64 weights: the same draws), on the device of each
-    targeted weight."""
+    targeted weight.  A weight with leading dims (stacked experts, (E,
+    d_in, d_out)) gets factors (E, d_in, r) and (E, r, d_out)."""
 
     def init_leaf(path, leaf):
         if path[-1] not in targets or leaf.dim() < 2:
             return None
-        if leaf.dim() > 2:
-            raise NotImplementedError(
-                f"LoRA on the stacked expert weight {'/'.join(path)} "
-                f"{tuple(leaf.shape)} is not ported")
-        d_in, d_out = leaf.shape
-        a = torch.randn((d_in, rank), generator=gen) * rank ** -0.5
+        *lead, d_in, d_out = leaf.shape
+        a = torch.randn((*lead, d_in, rank), generator=gen) * rank ** -0.5
         dt = compute_dtype(leaf.dtype)
         return {"a": a.to(leaf.device, dt),
-                "b": torch.zeros((rank, d_out), device=leaf.device,
+                "b": torch.zeros((*lead, rank, d_out), device=leaf.device,
                                  dtype=dt)}
 
     lora = _walk(base_params, init_leaf)
@@ -97,11 +99,18 @@ def bind(base_params, lora_tree, alpha: float, rank: int,
     backend) binds each client's factors; ``dropout_gen`` is then a list
     of C generators, client c's mask drawn from the c-th in the order a
     one-client bind draws it, so each client sees the masks of its
-    sequential run."""
+    sequential run.  A stacked expert weight (a base leaf of more than two
+    dims) raises: its consumer takes no bound form (module docstring)."""
     scale = alpha / max(rank, 1)
 
     def combine(b, l):
         if isinstance(l, dict) and set(l) == {"a", "b"}:
+            if b.dim() > 2:
+                raise NotImplementedError(
+                    f"bind: LoRA on a stacked expert weight "
+                    f"{tuple(b.shape)} has no bound form (models/moe.py "
+                    f"takes the experts as plain tensors); serve it merged "
+                    f"(lora.merge)")
             a = l["a"]
             if dropout > 0.0 and dropout_gen is not None:
                 if a.dim() == 3:
@@ -129,7 +138,8 @@ def bind(base_params, lora_tree, alpha: float, rank: int,
 
 def merge(base_params, lora_tree, alpha: float, rank: int):
     """The base tree with each targeted weight W replaced by W + A@B·
-    alpha/rank (the serving form; the inverse of bind's factored one).
+    alpha/rank (the serving form; the inverse of bind's factored one),
+    over any leading dims (stacked experts: each expert's own product).
     The product is a plain matmul in W's dtype."""
     scale = alpha / max(rank, 1)
 
