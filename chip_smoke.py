@@ -409,11 +409,36 @@ pair at (16, 1500, 512 | 512); row 10's roundtrip at (24000, 512).
    SDPA, their rms error against fp64 over the yardstick's
    (decode_kernel_checks: "@dec", "@dec-q3", "@dec-q3kv", "@whd").
 
-After phase 16 it prints each kernel's launches times its time beyond
+17. The generative task (run_generative) at full gpt2 width from phase
+   3's seed-0 weights and data.  (a) ``launch/train.py --arch gpt2``,
+   TRAIN_STEPS (50) steps of 8 x 64 on the synthetic Markov corpus,
+   ``--ckpt-dir`` a temporary directory: its first step's LoRA gradient
+   and its LoRA after TRAIN_ADAM_STEPS (3) Adam steps gated from fp64;
+   the run through the kernels exits 0 (its loss fell), launches 50
+   times a step's (36 row 1, 36 row 2, 72 row 4, 12 each of rows 5-7),
+   and its checkpoints at steps 25 and 50 restore bit for bit into the
+   live tree; a plain run gives the plain step time; rows 1, 2, 4-7 are
+   timed at its shapes ("@tr": M 512; BH 96, S 64).  (b) Generative
+   FedLLM, 2 rounds, under ``sequential`` (each_run's five settings) and
+   ``spmd`` (kernels): ledger and client FLOPs equal phase 3's
+   classification run's, the final LoRA of both kernel runs from fp64
+   within phase 3's limit, each round's loss within the spread gate,
+   launches exact.  (c) One generative DP-SGD step, its rows and clipped
+   mean from fp64.  (d) The generative Split int8 first step's flipped
+   boundary levels.  (e) The generative KD steps: a public batch of 16 x
+   80 through ``logits_fn`` (full logits), ``kd.compress_for_wire`` at
+   top-k GEN_TOPK (64) int8 (row 12 at (1280, 50257), bit for bit its
+   twin) and one ``kd_step`` (rows 8 and 9 at (1280, 50257)), launches
+   exact; the student's LoRA gradient from fp64 (the fp64 run takes the
+   KL in fp64); rows 8, 9 and 12 timed on the path's tensors ("@genkd");
+   then a generative KD round raises ValueError at b4, as the
+   reference's does.
+
+After phase 17 it prints each kernel's launches times its time beyond
 max(bound, launch floor) (the rule-2 queue), the final-LoRA margins of
 phase 7, Split int8 and RWKV-6, phase 5's first-step and final-LoRA
 margins, phase 8's KD and DP shares and the shares of the Split, hetero,
-async and fault gates of phases 7, 8, 10, 11, 12, 13, 14, 15 and 16
+async and fault gates of phases 7, 8, 10, 11, 12, 13, 14, 15, 16 and 17
 (each kernel run's share of its limit, beside the last recorded run's,
 or "new"), then one JSON
 line with every kernel's numbers and, last, the line ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -577,6 +602,15 @@ DEC_SHAPES = {
                               Skv=WH_FRAMES, D=64, causal=False, window=0,
                               q_offset=0)),
 }
+# phase 17: launch/train.py's run at --arch gpt2 (TRAIN_STEPS steps of
+# TRAIN_BATCH x TRAIN_SEQ; its first step and TRAIN_ADAM_STEPS Adam steps
+# gated from fp64), its LoRA and flash shapes ("@tr": M 512, BH 96 at S
+# 64), and the generative KD steps' top-k (GEN_TOPK of 50257)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_ADAM_STEPS = 50, 8, 64, 3
+TR_SHAPES = dict(M=TRAIN_BATCH * TRAIN_SEQ, K=768, N=768, r=RANK,
+                 BH=TRAIN_BATCH * 12, BKV=TRAIN_BATCH * 12, S=TRAIN_SEQ,
+                 Skv=TRAIN_SEQ, D=64, causal=True, window=0, q_offset=0)
+GEN_TOPK = 64
 
 
 def require(ok: bool, what: str) -> None:
@@ -1583,16 +1617,26 @@ def kd_cases(device, R, V, T, topk_teacher, Rq, Cq, k, bits, ties, seed,
     (values rounded to integers, so with many ties, when ``ties``)."""
     import torch
 
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t, s, g = kd_inputs(device, R, V, topk_teacher, offset, gen)
+    x = torch.randn((Rq, Cq), device=device, generator=gen) * 3.0
+    if ties:
+        x = torch.round(x)
+    return kd_cases_on(t, s, g, T, x, k, bits)
+
+
+def kd_cases_on(t, s, g, T, x, k, bits):
+    """kd_cases on given tensors: the KD loss on teacher ``t`` and student
+    ``s`` (R, V) at temperature T with the upstream gradient ``g`` (R,),
+    top-k quantization of ``x`` at ``k`` and ``bits``."""
+    import torch
+
     from repro_torch.kernels import kd_loss as kdl
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import ref
 
-    gen = torch.Generator(device=device).manual_seed(seed)
-
-    def rn(*shape):
-        return torch.randn(shape, device=device, generator=gen) * 3.0
-
-    t, s, g = kd_inputs(device, R, V, topk_teacher, offset, gen)
+    R, V = t.shape
+    Rq, Cq = x.shape
     rows, stats = ref.kd_loss_fwd(t, s, T)
     # the backward kernel rebuilds t/T as t * (1/T) and its twin as t / T:
     # where 1/T is inexact (T not a power of two) each is fed its own
@@ -1608,6 +1652,7 @@ def kd_cases(device, R, V, T, topk_teacher, Rq, Cq, k, bits, ties, seed,
     # the library's forward is recorded on a stream of its own, where
     # autograd then runs its backward: a CUDA graph can capture that
     # backward on the same stream (graph_ms)
+    device = t.device
     lib_stream = torch.cuda.Stream(device)
     lib_stream.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(lib_stream):
@@ -1623,10 +1668,6 @@ def kd_cases(device, R, V, T, topk_teacher, Rq, Cq, k, bits, ties, seed,
                                    retain_graph=True)
 
     lib_bwd.capture_stream = lib_bwd_dt.capture_stream = lib_stream
-
-    x = rn(Rq, Cq)
-    if ties:
-        x = torch.round(x)
     qmax = float((1 << (bits - 1)) - 1)
 
     def lib_topk():
@@ -2760,7 +2801,14 @@ MARGINS_BEFORE = {"phase 7": 0.402, "Split int8": 0.862,
                   "recurrentgemma-2b decode": 0.181,
                   "recurrentgemma-2b decode vs forward": 0.181,
                   "rwkv6-1.6b decode": 0.240,
-                  "rwkv6-1.6b decode vs forward": 0.240}
+                  "rwkv6-1.6b decode vs forward": 0.240,
+                  "train.py first step": None,
+                  f"train.py {TRAIN_ADAM_STEPS} Adam steps": None,
+                  "generative FedLLM": None, "generative FedLLM spmd": None,
+                  "generative DP first-step rows": None,
+                  "generative DP first step": None,
+                  "generative Split int8 flips": None,
+                  "generative KD step": None}
 
 
 def rwkv_bwd_repeat(device, seed) -> None:
@@ -3135,7 +3183,8 @@ def kd_upload_gaps(device, cfg, base, fed, pub):
     return from_exact(logits, "round 0 upload logits of client 0")
 
 
-def split_level_flips(device, cfg, base, fed, clients, extras=None):
+def split_level_flips(device, cfg, base, fed, clients, extras=None,
+                      task="classification"):
     """Boundary levels of round 0, step 0 (split_first_step) that differ
     between the plain run and the kernel run, the other fp32 plain run
     (the floor), NUDGED_SEEDS fp32 plain runs from nudged weights and the
@@ -3145,7 +3194,7 @@ def split_level_flips(device, cfg, base, fed, clients, extras=None):
     from repro_torch.kernels import ref
 
     steps = split_first_step(device, cfg, base, fed, clients, exact=False,
-                             seeds=NUDGED_SEEDS, extras=extras)
+                             seeds=NUDGED_SEEDS, extras=extras, task=task)
     levels = {role: [ref.quantize_rows_ref(t.reshape(-1, t.shape[-1]),
                                            SPLIT_BITS)[0]
                      for t in (h, h_grad)]
@@ -3164,7 +3213,8 @@ def split_level_flips(device, cfg, base, fed, clients, extras=None):
     return share
 
 
-def split_flips_gate(device, cfg, base, fed, clients, extras=None) -> float:
+def split_flips_gate(device, cfg, base, fed, clients, extras=None,
+                     task="classification") -> float:
     """The precision gate of a quantized Split boundary: a level flips
     where one run's fp32 value crosses a half level that the other's does
     not, so the share of flipped levels at round 0, step 0
@@ -3172,7 +3222,7 @@ def split_flips_gate(device, cfg, base, fed, clients, extras=None) -> float:
     and back from the loss (c4) is off the plain run, before training
     amplifies it; within FLOOR_FACTOR times the largest fp32 share, the
     TF32 control outside.  Returns the kernel run's share of the limit."""
-    flips = split_level_flips(device, cfg, base, fed, clients, extras)
+    flips = split_level_flips(device, cfg, base, fed, clients, extras, task)
     limits, failed = fp32_gates(flips=flips)
     print("  flipped share: " + ", ".join(
         f"{role} {v:.3e}" for role, v in flips.items())
@@ -3257,10 +3307,11 @@ def run_split(device, cfg, base, data, steps, evals):
     return by_path
 
 
-def first_batch_clip(device, cfg, base, fed, clients, extras=None):
+def first_batch_clip(device, cfg, base, fed, clients, extras=None,
+                     task="classification"):
     """The median per-example gradient norm of client 0's first batch of
     round 0 (with ``extras``, as first_step_inputs) at the run's initial
-    LoRA (plain PyTorch on the card)."""
+    LoRA under ``task``'s loss (plain PyTorch on the card)."""
     import torch
 
     from repro_torch.core.fedavg import make_fns
@@ -3269,7 +3320,7 @@ def first_batch_clip(device, cfg, base, fed, clients, extras=None):
     plain = dataclasses.replace(cfg, kernel_policy="torch")
     lt, batch = first_step_inputs(device, base, fed, clients,
                                   extras=extras)
-    fns = make_fns(build_model(plain), fed)
+    fns = make_fns(build_model(plain), fed, task)
     _, rows = fns["per_example_grads"](base, lt, batch)
     norms = torch.linalg.vector_norm(rows, dim=1)
     print("  per-example gradient norms of the first batch: "
@@ -3505,7 +3556,7 @@ def recurrent_split(device, cfg, base, data, steps, expect):
 
 
 def dp_first_step(device, cfg, base, clients, expect, targets=None,
-                  margin=None, extras=None):
+                  margin=None, extras=None, task="classification"):
     """One DP step on ``cfg`` from its weights (phases 7 and 8), LoRA on
     ``targets`` (None: FedConfig's default): DP-SGD (clip at the median
     per-example gradient norm of the first batch, noise 0), the first
@@ -3514,7 +3565,8 @@ def dp_first_step(device, cfg, base, clients, expect, targets=None,
     kernel run's launches must be ``expect``.  With ``margin``, the two
     gates' shares go to MARGINS as "<margin> DP first-step rows" and
     "<margin> DP first step".  ``extras`` (the model's stub embeddings)
-    join the batch, as first_step_inputs.  Returns the launch counts."""
+    join the batch, as first_step_inputs; ``task`` names the loss.
+    Returns the launch counts."""
     from repro_torch.configs.base import FedConfig, PrivacyConfig
     from repro_torch.kernels import ops
 
@@ -3525,12 +3577,12 @@ def dp_first_step(device, cfg, base, clients, expect, targets=None,
                     privacy=PrivacyConfig(dp_clip=1.0, secure_agg=True))
     if targets is not None:
         fed = dataclasses.replace(fed, lora_targets=tuple(targets))
-    clip = first_batch_clip(device, cfg, base, fed, clients, extras)
+    clip = first_batch_clip(device, cfg, base, fed, clients, extras, task)
     fed = dataclasses.replace(fed, privacy=dataclasses.replace(
         fed.privacy, dp_clip=clip))
     ops.reset_launches()
     rows_gaps, mean_gaps = dp_first_step_gaps(device, cfg, base, fed,
-                                              clients, extras)
+                                              clients, extras, task)
     counts = ops.launches()
     shares = (rows_gaps["kernels"] / floor_gate(
         f"{cfg.name} first-step per-example gradient rows", rows_gaps),
@@ -3571,12 +3623,12 @@ def first_step_inputs(device, base, fed, clients, ci: int = 0,
 
 
 def first_step_grads(device, cfg, base, fed, clients, ci: int = 0,
-                     extras=None):
+                     extras=None, task="classification"):
     """The LoRA gradient of FedLLM's first train step (client ``ci``'s
-    first batch with ``extras``, the run's initial LoRA) under each of
-    each_run(exact=True)'s settings, recomputed under its policy and
-    setting (the fp64 run with the batch's floating-point entries in
-    fp64 too): {role: gradient leaves}."""
+    first batch with ``extras``, the run's initial LoRA, ``task``'s loss)
+    under each of each_run(exact=True)'s settings, recomputed under its
+    policy and setting (the fp64 run with the batch's floating-point
+    entries in fp64 too): {role: gradient leaves}."""
     import torch
 
     from repro_torch import tree as tree_lib
@@ -3586,7 +3638,7 @@ def first_step_grads(device, cfg, base, fed, clients, ci: int = 0,
     from repro_torch.peft import lora as lora_lib
 
     lt, batch = first_step_inputs(device, base, fed, clients, ci, extras)
-    loss_fn = tasks.get_loss_fn("classification")
+    loss_fn = tasks.get_loss_fn(task)
     grads = {}
     for role, tag, policy in each_run(exact=True):
         model = build_model(dataclasses.replace(cfg, kernel_policy=policy))
@@ -3604,17 +3656,18 @@ def first_step_grads(device, cfg, base, fed, clients, ci: int = 0,
     return grads
 
 
-def first_step_gaps(device, cfg, base, fed, clients, extras=None):
+def first_step_gaps(device, cfg, base, fed, clients, extras=None,
+                    task="classification"):
     """Each run's relative L2 distance from the fp64 gradient
     (from_exact) of FedLLM's first train step (first_step_grads, client
     0)."""
     return from_exact(first_step_grads(device, cfg, base, fed, clients,
-                                       extras=extras),
+                                       extras=extras, task=task),
                       "round 0 step 0 LoRA gradient")
 
 
 def dp_first_step_runs(device, cfg, base, fed, clients, ci: int = 0,
-                       extras=None):
+                       extras=None, task="classification"):
     """DP-FedLLM's first train step (client ``ci``'s first batch, the
     run's initial LoRA) under each of each_run(exact=True)'s settings: the
     (B, P) per-example gradient rows of the batched pass and their clipped
@@ -3633,7 +3686,8 @@ def dp_first_step_runs(device, cfg, base, fed, clients, ci: int = 0,
         b, l, x = (fp64(base), fp64(lt), fp64(batch)) if role == "exact" \
             else (base, lt, batch)
         with ops.policy_scope(policy):
-            _, got = make_fns(model, fed)["per_example_grads"](b, l, x)
+            _, got = make_fns(model, fed, task)["per_example_grads"](b, l,
+                                                                     x)
             rows[role] = [got]
             means[role] = [dp_mod.clipped_grad_mean(got, fed.privacy.dp_clip)]
         del b, l, x
@@ -3641,18 +3695,20 @@ def dp_first_step_runs(device, cfg, base, fed, clients, ci: int = 0,
     return rows, means
 
 
-def dp_first_step_gaps(device, cfg, base, fed, clients, extras=None):
+def dp_first_step_gaps(device, cfg, base, fed, clients, extras=None,
+                       task="classification"):
     """dp_first_step_runs of client 0: each run's relative L2 distance from
     the fp64 run's, (rows, clipped mean) (from_exact)."""
     rows, means = dp_first_step_runs(device, cfg, base, fed, clients,
-                                     extras=extras)
+                                     extras=extras, task=task)
     return (from_exact(rows, "round 0 step 0 per-example LoRA gradient "
                        "rows"),
             from_exact(means, "round 0 step 0 clipped mean LoRA gradient"))
 
 
 def split_first_step(device, cfg, base, fed, clients, exact: bool,
-                     seeds: int = 0, extras=None) -> dict:
+                     seeds: int = 0, extras=None,
+                     task="classification") -> dict:
     """Round 0, step 0 of Split-FedLLM (client 0's first batch with
     ``extras``, the run's initial LoRA) through the split program under
     each of
@@ -3684,7 +3740,7 @@ def split_first_step(device, cfg, base, fed, clients, exact: bool,
     out = {}
     for role, policy, seed in settings():
         sfns = split.make_split_fns(build_model(dataclasses.replace(
-            cfg, kernel_policy=policy)), fed)
+            cfg, kernel_policy=policy)), fed, task)
         L = sfns["n_client_layers"]
         b, l, x = (fp64(base), fp64(lt), fp64(batch)) if role == "exact" \
             else (base if seed is None else nudged(base, seed, device), lt,
@@ -5814,6 +5870,481 @@ def run_serving(device, peaks_):
     return by_path, rows, rates
 
 
+# --------------------------------------------------------------------------- #
+# Phase 17: the generative task
+# --------------------------------------------------------------------------- #
+def train_step_runs(device, cfg, base, fed, lt, batches):
+    """launch/train.py's first steps from its initial LoRA ``lt`` under
+    each of each_run(exact=True)'s settings: the generative loss's LoRA
+    gradient at ``batches[0]``, then the LoRA after one train step (Adam)
+    on each batch.  Returns ({role: first-step gradient leaves}, {role:
+    the LoRA's leaves after the steps})."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import tasks
+    from repro_torch.core.fedavg import make_fns
+    from repro_torch.kernels import ops
+    from repro_torch.models.factory import build_model
+    from repro_torch.peft import lora as lora_lib
+
+    grads, finals = {}, {}
+    for role, tag, policy in each_run(exact=True):
+        model = build_model(dataclasses.replace(cfg, kernel_policy=policy))
+        fns = make_fns(model, fed, task="generative")
+        b, l = (fp64(base), fp64(lt)) if role == "exact" else (base, lt)
+        with ops.policy_scope(policy):
+            live = tree_lib.map_(lambda t: t.detach().requires_grad_(True), l)
+            logits, _ = model.forward(lora_lib.bind(
+                b, live, fed.lora_alpha,
+                lora_lib.tree_rank(live, fed.lora_rank)), batches[0])
+            loss, _ = tasks.generative_loss_fn(logits, batches[0])
+            grads[role] = torch.autograd.grad(loss, tree_lib.leaves(live))
+            del logits, live
+            opt = fns["opt_init"](l)
+            for x in batches:
+                l, opt, loss = fns["train_step"](b, l, opt, x)
+                require(math.isfinite(float(loss)), f"{tag} loss {loss}")
+        finals[role] = tree_lib.leaves(l)
+        del b, l, opt
+    torch.cuda.empty_cache()
+    return grads, finals
+
+
+def run_train_py(device, base):
+    """Phase 17 (a): ``launch/train.py --arch gpt2`` (full width, TRAIN_STEPS
+    steps of TRAIN_BATCH x TRAIN_SEQ on the Markov corpus, ``--ckpt-dir``
+    in a temporary directory) from ``base`` (phase 3's seed-0 weights,
+    train.py's own ``--seed 0`` draw).  Its first step's LoRA gradient
+    and its LoRA after TRAIN_ADAM_STEPS Adam steps gated from fp64; its
+    first step lowers the loss of its own batch; the run through the
+    kernels (its exit code the one its losses give; launches TRAIN_STEPS
+    times a step's; both checkpoints restore bit for bit into the live
+    tree, each equal to the LoRA the loop held at its step), then
+    through plain PyTorch for its step time.  From random weights at
+    full width the loss stays within the batches' spread over 50 steps
+    at any learning rate from 1e-3 to 1e-1 (PERF.md), so
+    the exit code is printed, not required to be 0.  Returns {path:
+    launch counts}."""
+    import argparse
+    import itertools
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.fedavg import make_fns, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models.factory import build_model
+
+    by_path = {}
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        args = train.parse_args([
+            "--arch", "gpt2", "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt-dir", ckpt_dir,
+            "--device", device.type])
+        cfg = train.arch_config(args)
+        L = cfg.n_layers
+        print(f"phase 17 (a): launch/train.py --arch gpt2, full width, "
+              f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}, LoRA rank "
+              f"{args.rank} on wq/wk/wv, --ckpt-dir a temporary directory")
+        fed = train.fed_config(cfg, args)
+        lt = train.initial_lora(base, fed, args)
+        batches = [to_device(b, device) for b in itertools.islice(
+            train.lm_batches(cfg, args), TRAIN_ADAM_STEPS)]
+        step = lora_step_launches(3 * L, L)
+        ops.reset_launches()
+        grads, finals = train_step_runs(device, cfg, base, fed, lt, batches)
+        counts = ops.launches()
+        check_launches(counts, {k: (1 + TRAIN_ADAM_STEPS) * n
+                                for k, n in step.items()})
+        by_path["train.py fp64 gates"] = counts
+        gaps = from_exact(grads, "train.py step 0 LoRA gradient")
+        MARGINS["train.py first step"] = gaps["kernels"] / floor_gate(
+            "train.py first-step LoRA gradient", gaps)
+        gaps = from_exact(finals, f"LoRA after {TRAIN_ADAM_STEPS} Adam steps")
+        MARGINS[f"train.py {TRAIN_ADAM_STEPS} Adam steps"] = \
+            gaps["kernels"] / floor_gate(
+                f"train.py LoRA after {TRAIN_ADAM_STEPS} steps", gaps)
+        del grads, finals
+        fns = make_fns(build_model(dataclasses.replace(
+            cfg, kernel_policy="cuda")), fed, task="generative")
+        with ops.policy_scope("cuda"):
+            _, before = fns["eval_step"](base, lt, batches[0])
+            stepped, _, _ = fns["train_step"](base, lt, fns["opt_init"](lt),
+                                              batches[0])
+            _, after = fns["eval_step"](base, stepped, batches[0])
+        print(f"  the first step on its own batch: loss {float(before):.6f} "
+              f"-> {float(after):.6f}")
+        require(float(after) < float(before), "train.py's first step does "
+                "not lower the loss of its batch")
+        del stepped
+        for policy in ("cuda", "torch"):
+            stamps, held = [], {}
+
+            def on_step(i, l, loss):
+                stamps.append(time.perf_counter())
+                if (i + 1) % train.CKPT_EVERY == 0:
+                    held[i + 1] = tree_lib.map_(torch.clone, l)
+
+            run_args = argparse.Namespace(**dict(
+                vars(args), ckpt_dir=ckpt_dir if policy == "cuda" else None))
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            res = train.run(run_args, cfg=dataclasses.replace(
+                cfg, kernel_policy=policy), base=base, on_step=on_step)
+            wall = time.perf_counter() - t0
+            counts = ops.launches()
+            step_ms = 1e3 * float(np.median(np.diff(stamps)))
+            print(f"  [{policy}] train.py: exit {res.rc}, loss "
+                  f"{np.mean(res.losses[:5]):.4f} -> "
+                  f"{np.mean(res.losses[-5:]):.4f}, step time (median of "
+                  f"{TRAIN_STEPS - 1}) {step_ms:.3f} ms, run wall_s "
+                  f"{wall:.2f}")
+            fell = np.mean(res.losses[-5:]) < np.mean(res.losses[:5])
+            require(res.rc == (0 if fell else 1), f"train.py [{policy}] "
+                    f"exited {res.rc}, its losses say {0 if fell else 1}")
+            if policy == "torch":
+                require(not any(counts.values()),
+                        f"plain train.py launched kernels: {nonzero(counts)}")
+                continue
+            check_launches(counts, {k: TRAIN_STEPS * n
+                                    for k, n in step.items()})
+            by_path["train.py"] = counts
+            mgr = CheckpointManager(ckpt_dir)
+            require(mgr.steps() == [25, 50], f"checkpoints {mgr.steps()}")
+            for at in mgr.steps():
+                back, meta = mgr.restore(res.lora, at)
+                require(meta == {"loss": res.losses[at - 1]},
+                        f"checkpoint {at} metadata {meta}")
+                require(all(x.dtype == y.dtype and x.device == y.device
+                            and torch.equal(x, y) for x, y in zip(
+                                tree_lib.leaves(back),
+                                tree_lib.leaves(held[at]))),
+                        f"checkpoint {at} does not restore bit for bit")
+            require(all(torch.equal(x, y) for x, y in zip(
+                tree_lib.leaves(held[TRAIN_STEPS]),
+                tree_lib.leaves(res.lora))), "the last held LoRA")
+            print(f"  checkpoints {mgr.steps()} restore bit for bit into "
+                  f"the live LoRA tree (dtype, device, values)")
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def run_generative_rounds(device, cfg, base, data):
+    """Phase 17 (b): generative FedLLM, 2 rounds, phase 3's weights and
+    data, under ``sequential`` (each_run's five settings) and ``spmd``
+    (kernels): ledger bytes and client FLOPs equal to phase 3's
+    classification kernel run (the same LoRA moves) and the spmd run's to
+    the sequential's; the final LoRA of both kernel runs from the fp64
+    run within phase 3's limit; each round's loss within the spread
+    gate (1e-3 + FLOOR_FACTOR x the largest fp32 run's difference from
+    the plain run); launches those the shapes predict.  Returns {path:
+    launch counts}."""
+    import torch
+
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core.rounds import run_federated
+    from repro_torch.kernels import ops
+
+    pub, clients, test = data
+    L = cfg.n_layers
+    R = 2
+    steps = sum(len(c["tokens"]) // BATCH for c in clients)
+    stacked = max(len(c["tokens"]) // BATCH for c in clients)
+    evals = len(test["tokens"]) // 64
+    fed = FedConfig(framework="fedllm", rounds=R, lora_rank=RANK,
+                    lora_dropout=0.0)
+    print(f"phase 17 (b): generative FedLLM, gpt2 full width, {R} rounds, "
+          f"{len(clients)} clients, sequential and spmd")
+    seq3 = CASES["fedllm"]
+    runs, counts = {}, {}
+
+    def one(role, tag, policy, f):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        start = fp64(base) if role == "exact" else base
+        res = run_federated(dataclasses.replace(cfg, kernel_policy=policy),
+                            f, pub, clients, test, task="generative",
+                            batch_size=BATCH, eval_batch=64, device=device,
+                            base=start)
+        del start
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[role], runs[role] = ops.launches(), res
+        for h in res.history:
+            require(math.isfinite(h.loss) and h.accuracy == -h.loss,
+                    f"{tag} round {h.round}: loss {h.loss}, accuracy "
+                    f"{h.accuracy} (minus the loss)")
+            print(f"  [{tag}] round {h.round}: loss={h.loss:.6f} "
+                  f"wall_s={h.seconds:.3f}")
+        print(f"  [{tag}] run wall_s={wall:.3f} launches="
+              f"{nonzero(counts[role])}")
+
+    for role, tag, policy in each_run(exact=True):
+        one(role, tag, policy, fed)
+    one("spmd kernels", "spmd cuda", "cuda",
+        dataclasses.replace(fed, backend="spmd"))
+    torch.cuda.empty_cache()
+    kern, spmd = runs["kernels"], runs["spmd kernels"]
+    cls = seq3["results"]["kernels"]
+    for what, r in (("sequential", kern), ("spmd", spmd)):
+        require(r.ledger.by_name() == cls.ledger.by_name()
+                and r.ledger.per_client_round()
+                == cls.ledger.per_client_round()
+                and r.client_flops == cls.client_flops,
+                f"generative FedLLM {what}: ledger or client FLOPs differ "
+                f"from phase 3's classification run")
+    print(f"  ledger {kern.ledger.by_name()} and client FLOPs "
+          f"{kern.client_flops} equal phase 3's classification run's "
+          f"(sequential and spmd)")
+    check_launches(counts["kernels"], model_launches(L, steps * R,
+                                                     evals * R))
+    check_launches(counts["spmd kernels"], nonzero(add_counts(
+        model_launches(L, stacked * R, 0, True),
+        model_launches(L, 0, evals * R))))
+    for role in ("plain", "floor", "control", "exact"):
+        require(not any(counts[role].values()),
+                f"plain run {role} launched kernels")
+    limit = seq3["limits"]["lora"]
+    exact = runs["exact"].final_lora
+    for role in ("kernels", "spmd kernels", "plain", "floor", "control"):
+        share, rel, worst = lora_gap(runs[role].final_lora, exact)
+        print(f"  final LoRA {role} vs fp64: relative L2 {rel:.3e} (phase "
+              f"3's limit {limit:.3e}, {rel / limit:.3f} of it), outside "
+              f"atol 5e-5/rtol 5e-4 {share:.3e}, max abs {worst:.3e}")
+        if role in ("kernels", "spmd kernels"):
+            require(rel <= limit, f"generative FedLLM {role}: final LoRA "
+                    f"off the fp64 run beyond phase 3's limit")
+            MARGINS["generative FedLLM" + (" spmd" if "spmd" in role
+                                           else "")] = rel / limit
+    plain = runs["plain"]
+    loss = [{role: abs(runs[role].history[i].loss - hp.loss)
+             for role in ("kernels", "floor", "control")}
+            for i, hp in enumerate(plain.history)]
+    limits, failed = fp32_gates("spread", loss)
+    require(not failed, "; ".join(failed))
+    for i, (d, lim) in enumerate(zip(loss, limits["loss"])):
+        d_spmd = abs(spmd.history[i].loss - plain.history[i].loss)
+        print(f"  round {i} loss vs plain: " + ", ".join(
+            f"{role} {v:.3e}" for role, v in d.items())
+            + f", spmd kernels {d_spmd:.3e}, fp64 "
+            f"{abs(runs['exact'].history[i].loss - plain.history[i].loss):.3e}"
+            f" (limit {lim:.3e})")
+        require(d_spmd <= lim, f"generative FedLLM spmd: round {i} loss off "
+                f"the plain run beyond the spread limit")
+    print("  round wall_s: " + "; ".join(
+        f"{role} " + ", ".join(f"{h.seconds:.3f}" for h in runs[role].history)
+        for role in ("kernels", "plain", "spmd kernels")))
+    return {"generative_fedllm": counts["kernels"],
+            "generative_fedllm_spmd": counts["spmd kernels"]}
+
+
+def kd_step_grads(device, cfg, base, fed, lt, batch, teacher):
+    """The student's LoRA gradient of one generative KD step (its full
+    logits on ``batch`` against ``teacher`` (B, S, V), KL at
+    ``fed.kd_temperature``, unmasked) under each of
+    each_run(exact=True)'s settings; the fp64 run takes the KL itself in
+    fp64 (kernels/ops.kd_loss, which the others call, runs in fp32).
+    Returns {role: gradient leaves}."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.kernels import ops
+    from repro_torch.models import loss as losses
+    from repro_torch.models.factory import build_model
+    from repro_torch.peft import lora as lora_lib
+
+    T = fed.kd_temperature
+    grads = {}
+    for role, tag, policy in each_run(exact=True):
+        model = build_model(dataclasses.replace(cfg, kernel_policy=policy))
+        exact = role == "exact"
+        b, l = (fp64(base), fp64(lt)) if exact else (base, lt)
+        with ops.policy_scope(policy):
+            live = tree_lib.map_(lambda t: t.detach().requires_grad_(True), l)
+            logits, _ = model.forward(lora_lib.bind(
+                b, live, fed.lora_alpha,
+                lora_lib.tree_rank(live, fed.lora_rank)), batch)
+            if exact:
+                tp = torch.log_softmax(teacher.double() / T, -1)
+                sp = torch.log_softmax(logits / T, -1)
+                loss = (tp.exp() * (tp - sp)).sum(-1).mean() * T * T
+            else:
+                loss = losses.kd_kl(logits, teacher, T)
+            grads[role] = torch.autograd.grad(loss, tree_lib.leaves(live))
+        del b, l, logits, live, loss
+    torch.cuda.empty_cache()
+    return grads
+
+
+def run_generative_kd(device, cfg, base, data, peaks_):
+    """Phase 17 (e): the generative KD steps at GPT-2's vocabulary.  A
+    public batch of BATCH x PAD_LEN through ``logits_fn`` (client 0's
+    LoRA of the KD program's seed + 2 draw), ``kd.compress_for_wire`` at
+    top-k GEN_TOPK int8 (row 12 over 1280 rows of 50257) and one
+    ``kd_step`` of client 1's LoRA against it (rows 8 and 9 at (1280,
+    50257)), through the kernels: launches exact, the wire bytes by hand,
+    row 12's levels, indices and scales its twin's bit for bit; the
+    student's LoRA gradient from fp64; rows 8, 9 and 12 timed on the
+    path's tensors ("@genkd").  Then a generative KD round raises
+    ValueError at b4, as the reference's does.  Returns ({path: launch
+    counts}, kernel rows)."""
+    import torch
+
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core import compression, kd
+    from repro_torch.core.fedavg import make_fns, to_device
+    from repro_torch.core.rounds import run_federated
+    from repro_torch.data.loader import epoch_batches
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.factory import build_model
+    from repro_torch.peft import lora as lora_lib
+
+    pub, clients, test = data
+    L, V = cfg.n_layers, cfg.vocab_size
+    fed = FedConfig(framework="kd", rounds=1, lora_rank=RANK,
+                    lora_dropout=0.0, logit_topk=GEN_TOPK, logit_quant_bits=8)
+    print(f"phase 17 (e): generative KD steps, gpt2 full width: a public "
+          f"batch of {BATCH} x {PAD_LEN}, logits_fn, compress_for_wire at "
+          f"top-k {GEN_TOPK} int8, one kd_step (T {fed.kd_temperature})")
+    gen = torch.Generator().manual_seed(fed.seed + 2)
+    lt_t, lt_s = (lora_lib.init_lora(gen, base, lora_lib.DEFAULT_TARGETS,
+                                     RANK, fed.lora_alpha) for _ in range(2))
+    batch = to_device(next(iter(epoch_batches(pub, BATCH, seed=0))), device)
+    fns = make_fns(build_model(dataclasses.replace(cfg, kernel_policy="cuda")),
+                   fed, task="generative")
+    ops.reset_launches()
+    with ops.policy_scope("cuda"):
+        raw = fns["logits_fn"](base, lt_t, batch)
+        teacher, wire = kd.compress_for_wire(raw, fed)
+        _, _, kd_loss = fns["kd_step"](base, lt_s, fns["opt_init"](lt_s),
+                                       batch, teacher)
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    check_launches(counts, add_counts(
+        lora_step_launches(3 * L, L), {"lora_fwd": 3 * L, "flash_fwd": L,
+                                       "topk_quantize": 1, "kd_fwd": 1,
+                                       "kd_bwd": 1}))
+    R = raw.shape[0] * raw.shape[1]
+    require(tuple(raw.shape) == (BATCH, PAD_LEN, V)
+            and wire == R * GEN_TOPK * (1 + 4) + R * 4
+            and math.isfinite(float(kd_loss)),
+            f"logits {tuple(raw.shape)}, wire {wire}, loss {kd_loss}")
+    print(f"  teacher logits {tuple(raw.shape)}, wire {wire} bytes (by hand: "
+          f"{R} rows x ({GEN_TOPK} int8 levels + {GEN_TOPK} int32 indices) + "
+          f"a 4-byte scale a row), KD loss {float(kd_loss):.6f}; launches "
+          f"{nonzero(counts)}")
+    with ops.policy_scope("cuda"):
+        got = compression.topk_quantize(raw, GEN_TOPK, 8)[0]
+    want = ref.topk_quantize_rows_ref(raw.reshape(R, V), GEN_TOPK, 8)
+    require(torch.equal(got["values_q"].reshape(R, -1), want[0])
+            and torch.equal(got["indices"].reshape(R, -1).int(),
+                            want[1].int())
+            and torch.equal(got["scale"].reshape(R, -1), want[2]),
+            "row 12 on the teacher's logits is not its twin's bits")
+    print(f"  row 12 on the path's ({R}, {V}): levels, indices and scales "
+          f"bit-identical to its twin")
+    gaps = from_exact(kd_step_grads(device, cfg, base, fed, lt_s, batch,
+                                    teacher),
+                      "generative KD step: the student's LoRA gradient")
+    MARGINS["generative KD step"] = gaps["kernels"] / floor_gate(
+        "generative KD step: the student's LoRA gradient", gaps)
+    with ops.policy_scope("cuda"):
+        student = fns["logits_fn"](base, lt_s, batch).reshape(R, V)
+    print(f"  rows 8, 9 and 12 on the path's tensors ((1280, {V}), T "
+          f"{fed.kd_temperature}; top-k {GEN_TOPK} int8):")
+    cases = kd_cases_on(teacher.reshape(R, V).contiguous(), student,
+                        torch.full((R,), 1.0 / R, device=device),
+                        fed.kd_temperature, raw.reshape(R, V), GEN_TOPK, 8)
+    rows = {f"{name}@genkd": time_case(name, cases[name], peaks_)
+            for name in ("kd_fwd", "kd_bwd", "topk_quantize")}
+    del raw, teacher, student, cases
+    torch.cuda.empty_cache()
+    print(f"  a generative KD round (public set cut to {BATCH} rows), "
+          f"through the kernels, must raise ValueError at b4:")
+    try:
+        run_federated(dataclasses.replace(cfg, kernel_policy="cuda"), fed,
+                      {k: v[:BATCH] for k, v in pub.items()}, clients, test,
+                      task="generative", batch_size=BATCH, eval_batch=64,
+                      device=device, base=base)
+    except ValueError as err:
+        require("(C, N, D)" in str(err), f"the wrong ValueError: {err}")
+        print(f"  raised ValueError: {err}")
+    else:
+        require(False, "a generative KD round ran to its end")
+    torch.cuda.empty_cache()
+    return {"generative_kd_steps": counts}, rows
+
+
+def run_generative(device, peaks_):
+    """Phase 17: the generative task at full gpt2 width from phase 3's
+    seed-0 weights and data (module docstring).  Returns ({path: the
+    kernel run's launch counts}, the kernel rows)."""
+    import torch
+
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.configs.gpt2_small import gpt2
+    from repro_torch.data import banking77, partition
+    from repro_torch.models.factory import build_model
+
+    t_start = time.perf_counter()
+    cfg = gpt2()
+    pub, train_rows, test = banking77.paper_splits(
+        cfg.vocab_size, pad_len=PAD_LEN, scale=0.03)
+    clients = partition.iid_partition(train_rows, CLIENTS)
+    data = (pub, clients, test)
+    base = build_model(cfg).init(torch.Generator().manual_seed(0), device)
+    L = cfg.n_layers
+    print(f"phase 17: the generative task, gpt2 full width (phase 3's "
+          f"weights and data); rows 1, 2, 4-7 at train.py's shapes (M "
+          f"{TR_SHAPES['M']}; BH {TR_SHAPES['BH']}, S {TR_SHAPES['S']}):")
+    rows = {}
+    for name, case in kernel_cases(device, seed=27, **TR_SHAPES).items():
+        if name in ("lora_fwd", "lora_dx", "lora_panel", "flash_fwd",
+                    "flash_dq", "flash_dkv"):
+            rows[f"{name}@tr"] = time_case(name, case, peaks_)
+    t0 = time.perf_counter()
+    by_path = run_train_py(device, base)
+    print(f"  phase 17 (a) wall_s={time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    by_path.update(run_generative_rounds(device, cfg, base, data))
+    print(f"  phase 17 (b) wall_s={time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    print("phase 17 (c): generative DP-SGD, one step")
+    by_path["generative_dp_step"] = dp_first_step(
+        device, cfg, base, clients, {
+            "lora_fwd": 3 * L, "lora_dx": 3 * L,
+            "lora_panel_examples_pair": 3 * L, "flash_fwd": L,
+            "flash_dq": L, "flash_dkv": L, "dp_clip_norms": 1,
+            "dp_clip_acc": 1}, margin="generative", task="generative")
+    print(f"phase 17 (d): generative Split-FedLLM, int{SPLIT_BITS} boundary "
+          f"at split_layer {SPLIT_LAYER}, first step's boundary levels:")
+    sfed = FedConfig(framework="split", rounds=2, lora_rank=RANK,
+                     lora_dropout=0.0, split_layer=SPLIT_LAYER,
+                     activation_quant_bits=SPLIT_BITS)
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    MARGINS["generative Split int8 flips"] = split_flips_gate(
+        device, cfg, base, sfed, clients, task="generative")
+    by_path["generative_split_step"] = ops.launches()
+    check_launches(by_path["generative_split_step"],
+                   dict(lora_step_launches(3 * L, L), quant_roundtrip_rows=2))
+    print(f"  phase 17 (c, d) wall_s={time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    kd_paths, kd_rows = run_generative_kd(device, cfg, base, data, peaks_)
+    by_path.update(kd_paths)
+    rows.update(kd_rows)
+    print(f"  phase 17 (e) wall_s={time.perf_counter() - t0:.1f}")
+    del base
+    torch.cuda.empty_cache()
+    print(f"  phase 17 wall_s={time.perf_counter() - t_start:.1f}")
+    return by_path, rows
+
+
 # the kernels that must not spill: {kernel: (source, instances)}
 NO_SPILLS = {"lora_fused_kernel": ("lora_matmul", 8),
              "lora_dw_kernel": ("lora_matmul", 1),
@@ -6033,6 +6564,10 @@ def main() -> int:
     by_path.update(serving)
     rows.update(dec_rows)
     print(f"  phases 1-16 wall_s={time.perf_counter() - t_start:.1f}")
+    generative, gen_rows = run_generative(device, peaks(card))
+    by_path.update(generative)
+    rows.update(gen_rows)
+    print(f"  phases 1-17 wall_s={time.perf_counter() - t_start:.1f}")
     print("margins (share of the limit; the last recorded run's in "
           "parentheses): " + ", ".join(
               f"{path} {MARGINS[path]:.3f} ("
@@ -6050,8 +6585,11 @@ def main() -> int:
     # 14's under ``at_qwen3``, ``at_mixtral`` and their ``_wk_wv``, phase
     # 15's under ``at_whisper_encoder`` (rows 1, 2, 4, 4ᵉ's pair, 5-7 and
     # the roundtrip at the encoder's shapes), ``at_whisper_cross``,
-    # ``at_llava`` and ``at_llava_wk_wv``); the KD kernels'
-    # generative-vocabulary timings are printed above.  The per-example
+    # ``at_llava`` and ``at_llava_wk_wv``; phase 16's under
+    # ``at_*_decode``; phase 17's rows 1, 2, 4-7 at train.py's shapes
+    # under ``at_gpt2_train``); the KD kernels at a generative vocabulary
+    # on phase 2's random inputs under ``at_generative`` and on phase
+    # 17's KD step's tensors under ``at_generative_kd_step``.  The per-example
     # panel's rows add its fp64 error over torch.bmm's, and its and the
     # client-axis rows the old way's times (B or C launches of the
     # one-example or one-client kernel, eager and in a graph).
@@ -6086,7 +6624,10 @@ def main() -> int:
                          ("dec", "at_gpt2_decode"),
                          ("dec-q3", "at_qwen3_decode"),
                          ("dec-q3kv", "at_qwen3_decode_wk_wv"),
-                         ("whd", "at_whisper_decode")):
+                         ("whd", "at_whisper_decode"),
+                         ("tr", "at_gpt2_train"),
+                         ("generative", "at_generative"),
+                         ("genkd", "at_generative_kd_step")):
             if f"{name}@{tag}" in rows:
                 at = rows[f"{name}@{tag}"]
                 kernels[-1][key] = {

@@ -22,7 +22,11 @@ alone.  Adapter trees ({"blocks", "tail"} like the model's, one adapter
 a layer) become ``{"layers": [...]}``; a prompt tree ({"prompt"}) is
 copied.  A LoRA factor of a stacked expert weight keeps its expert dim
 after the layer's: (G, E, d, r) in the reference, (E, d, r) a layer
-here.  A decode cache ({"blocks", "tail"} like the model's, and an
+here.  An optimizer state over a LoRA tree (Adam's {"m", "v", "step"},
+SGD's {"mu"}) converts entry by entry: a LoRA-shaped entry as a LoRA
+tree, ``None`` (SGD without momentum) as ``None``, the step count as a
+Python int here and an int32 array there.  A decode cache ({"blocks",
+"tail"} like the model's, and an
 encoder-decoder's cross-attention K/V, ``xkv`` stacked over the groups
 and ``xkv_tail``) becomes ``{"layers": [...], ["xkv": [(k, v), ...]]}``
 (models/transformer.init_cache) with each leaf's dtype kept, bf16
@@ -192,6 +196,31 @@ def lora_to_reference(lora: Dict, cfg=None) -> Dict:
     if "encoder" in lora:
         out["encoder"] = _encoder_to_reference(lora["encoder"])
     return out
+
+
+def opt_state_from_reference(ref_state: Dict, device, cfg=None) -> Dict:
+    """An optimizer state over a reference LoRA tree (optim/adam.init's
+    {"m", "v", "step"}, optim/sgd.init's {"mu"}, ``mu`` None without
+    momentum) -> the port's; ``cfg`` as for ``lora_from_reference``."""
+    def conv(v):
+        if v is None:
+            return None
+        if isinstance(v, dict):
+            return lora_from_reference(v, device, cfg)
+        return int(np.asarray(v))
+    return {k: conv(v) for k, v in ref_state.items()}
+
+
+def opt_state_to_reference(state: Dict, cfg=None) -> Dict:
+    """The inverse of ``opt_state_from_reference`` (numpy; the step count
+    an int32 array, as the reference's)."""
+    def conv(v):
+        if v is None:
+            return None
+        if isinstance(v, dict):
+            return lora_to_reference(v, cfg)
+        return np.asarray(v, np.int32)
+    return {k: conv(v) for k, v in state.items()}
 
 
 def adapters_from_reference(ref_adapters: Dict, device, cfg=None) -> Dict:

@@ -1,10 +1,10 @@
 """Step-indexed checkpoint manager with retention.  Counterpart of
 ``src/repro/checkpoint/manager.py``: the same file names
 (``ckpt_{step:08d}.npz`` and its ``.json`` beside it) and the same
-retention (the newest ``keep_n`` steps).  Only the dtype-exact state
-snapshot is ported (``save_state`` / ``restore_state``, the run path's
-format); the reference's template snapshot (``save`` / ``restore``) waits
-for a caller in the port."""
+retention (the newest ``keep_n`` steps), and both of its forms: the
+template snapshot (``save`` / ``restore``: launch/train.py's LoRA trees,
+the metadata in the ``.json``) and the dtype-exact state snapshot with no
+template (``save_state`` / ``restore_state``, the federated run's)."""
 from __future__ import annotations
 
 import io
@@ -29,6 +29,32 @@ class CheckpointManager:
 
     def _path(self, step: int) -> str:
         return os.path.join(self.dir, _FMT.format(step=step))
+
+    def save(self, step: int, tree, metadata: Optional[dict] = None) -> str:
+        """The template snapshot of ``tree`` (serialization.save_npz) at
+        ``step``, ``metadata`` in the json beside it."""
+        path = self._path(step)
+        serialization.save_npz(path, tree)
+        if metadata is not None:
+            with open(path + ".json", "w") as f:
+                json.dump(metadata, f)
+        self._gc()
+        return path
+
+    def restore(self, template, step: Optional[int] = None):
+        """-> (tree, metadata or None) saved by ``save`` (the latest step
+        by default), rebuilt like ``template``: each leaf in the template
+        leaf's dtype, on its device."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        path = self._path(step)
+        tree = serialization.load_npz(path, template)
+        meta = None
+        if os.path.exists(path + ".json"):
+            with open(path + ".json") as f:
+                meta = json.load(f)
+        return tree, meta
 
     def save_state(self, step: int, state,
                    metadata: Optional[dict] = None) -> str:

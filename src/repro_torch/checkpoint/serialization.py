@@ -1,20 +1,25 @@
-"""A dtype-exact state snapshot with no template, for bit-exact crash
-recovery (checkpoint/federated.py): ``state_flatten`` /
-``state_unflatten``, the port's counterpart of
-``src/repro/checkpoint/serialization.py``'s ``state_flatten`` /
-``state_unflatten``.  A JSON manifest holds the structure (dict, tuple,
-list, None) and the Python scalars; each tensor or numpy array goes into
-the npz with its dtype exactly, a dtype numpy lacks (bfloat16) as its raw
-bits in an unsigned integer of its width.  Tensors are saved from the
-host and restored onto the run's device (a tensor saved from the CPU
-stays there); numpy arrays stay numpy arrays, and Python ints stay ints.
+"""Tree serialization to npz.  Counterpart of
+``src/repro/checkpoint/serialization.py``, in two forms:
 
-Not ported: the reference's template snapshot (``flatten_tree``,
-``unflatten_into``, ``save_npz``, ``load_npz``), whose one caller is its
-launch layer's training loop.
+- The template snapshot (``flatten_tree``, ``unflatten_into``,
+  ``save_npz``, ``load_npz``; launch/train.py's checkpoints): the leaves
+  under '/'-joined paths (dict keys sorted, list and tuple entries by
+  index, ``None`` skipped), each copied to the host as numpy, a dtype
+  numpy lacks (bfloat16) as float32; a restore rebuilds the template's
+  structure and casts each leaf to the template leaf's dtype and device.
+- A dtype-exact state snapshot with no template, for bit-exact crash
+  recovery (checkpoint/federated.py): ``state_flatten`` /
+  ``state_unflatten``.  A JSON manifest holds the structure (dict, tuple,
+  list, None) and the Python scalars; each tensor or numpy array goes into
+  the npz with its dtype exactly, a dtype numpy lacks (bfloat16) as its
+  raw bits in an unsigned integer of its width.  Tensors are saved from
+  the host and restored onto the run's device (a tensor saved from the
+  CPU stays there); numpy arrays stay numpy arrays, and Python ints stay
+  ints.
 """
 from __future__ import annotations
 
+import io
 from typing import Any, Dict
 
 import numpy as np
@@ -24,6 +29,73 @@ import torch
 # (signed, the ones it views freely) and numpy's (unsigned, the npz form)
 _BITS = {1: (torch.uint8, np.uint8), 2: (torch.int16, np.uint16),
          4: (torch.int32, np.uint32), 8: (torch.int64, np.uint64)}
+
+
+def _host_array(t) -> np.ndarray:
+    """A leaf as a host numpy array: a tensor copied from its device, a
+    bfloat16 one (no numpy dtype) as its float32 values."""
+    if torch.is_tensor(t):
+        t = t.detach().to("cpu")
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    arr = np.asarray(t)
+    return arr if arr.dtype.kind in "biufc" else np.asarray(t, np.float32)
+
+
+def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """{'/'-joined path: host numpy array} of every leaf of ``tree``."""
+    out: Dict[str, np.ndarray] = {}
+
+    def rec(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                rec(t[k], f"{path}/{k}" if path else str(k))
+        elif isinstance(t, (tuple, list)):
+            for i, v in enumerate(t):
+                rec(v, f"{path}/{i}" if path else str(i))
+        elif t is not None:
+            out[path] = _host_array(t)
+
+    rec(tree, prefix)
+    return out
+
+
+def unflatten_into(template, flat: Dict[str, np.ndarray], prefix: str = ""):
+    """A tree shaped like ``template`` from ``flat`` (flatten_tree's form):
+    a tensor leaf comes back on the template leaf's device in its dtype, a
+    numpy leaf as numpy in its dtype, anything else as the stored array;
+    a list stays a list, a tuple a tuple."""
+
+    def rec(t, path):
+        if isinstance(t, dict):
+            return {k: rec(t[k], f"{path}/{k}" if path else str(k))
+                    for k in t}
+        if isinstance(t, (tuple, list)):
+            return type(t)(rec(v, f"{path}/{i}" if path else str(i))
+                           for i, v in enumerate(t))
+        if t is None:
+            return None
+        arr = flat[path]
+        if torch.is_tensor(t):
+            return torch.from_numpy(np.array(arr)).to(t.device, t.dtype)
+        return arr.astype(t.dtype) if hasattr(t, "dtype") else arr
+
+    return rec(template, prefix)
+
+
+def save_npz(path: str, tree) -> int:
+    """``tree`` flattened into an npz at ``path``; returns its bytes."""
+    buf = io.BytesIO()
+    np.savez(buf, **flatten_tree(tree))
+    data = buf.getvalue()
+    with open(path, "wb") as f:
+        f.write(data)
+    return len(data)
+
+
+def load_npz(path: str, template):
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    return unflatten_into(template, flat)
 
 
 def state_flatten(state):

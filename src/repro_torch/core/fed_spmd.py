@@ -76,10 +76,14 @@ def stack_trees(trees: Sequence):
     return tree_lib.map_(lambda *xs: _stack_leaf(xs), trees[0], *trees[1:])
 
 
-def unstack_tree(stacked):
+def unstack_tree(stacked, n: int = None):
     """Inverse of ``stack_trees``: a list of per-client trees from a
-    leading-axis stack (integer leaves back to Python ints)."""
-    n = tree_lib.leaves(stacked)[0].shape[0]
+    leading-axis stack (integer leaves back to Python ints).  ``n``, the
+    number of clients, is read off the leaves when it is None; a tree
+    without leaves (SGD's state without momentum, ``{"mu": None}``)
+    needs it."""
+    if n is None:
+        n = tree_lib.leaves(stacked)[0].shape[0]
 
     def pick(x, i):
         return x[i] if x.is_floating_point() else int(x[i])

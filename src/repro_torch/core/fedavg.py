@@ -59,6 +59,8 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
     ``kd_step_clients``."""
     task_loss = tasks.get_loss_fn(task)
     task_loss_rows = tasks.get_loss_rows_fn(task)
+    clients_loss = tasks.get_clients_loss_fn(task)
+    classification = task == "classification"
     opt_init, opt_update = make_optimizer(fed.optimizer)
     clients_update = make_client_update(fed.optimizer)
     dp_clip = fed.privacy.dp_clip
@@ -67,6 +69,12 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
         rank = lora_lib.tree_rank(lt, fed.lora_rank)
         return lora_lib.bind(base, lt, fed.lora_alpha, rank,
                              dropout_gen=gen, dropout=fed.lora_dropout)
+
+    def _knowledge(logits, batch):
+        """KD's knowledge representation: the class logits (B, n_classes)
+        for classification, the full LM logits (B, S', V) otherwise."""
+        return tasks.class_logits(logits, batch) if classification \
+            else logits
 
     def _per_example_pass(base, lt, batch, gen, who):
         """One forward of ``batch`` under kernels/ops.per_example_scope and
@@ -152,25 +160,31 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
 
     @torch.no_grad()
     def eval_step(base, lt, batch):
+        """(accuracy, loss); a generative task's accuracy is minus its
+        loss, as in the reference."""
         logits, _ = model.forward(_bind(base, lt), batch)
-        acc = tasks.classification_accuracy(logits, batch)
         loss, _ = task_loss(logits, batch)
+        acc = tasks.classification_accuracy(logits, batch) \
+            if classification else -loss
         return acc, loss
 
     @torch.no_grad()
     def logits_fn(base, lt, batch):
         """Knowledge representation for KD (paper b2/b6): the class
-        logits (B, n_classes)."""
+        logits (B, n_classes) for classification, the full LM logits
+        (B, S', V) for a generative task."""
         logits, _ = model.forward(_bind(base, lt), batch)
-        return tasks.class_logits(logits, batch)
+        return _knowledge(logits, batch)
 
     def kd_step(base, lt, opt_state, batch, teacher_logits, gen=None):
         """Distill ``teacher_logits`` into the student's LoRA leaves: one
-        optimizer step on KL(teacher || student) at ``fed.kd_temperature``.
-        Returns (new_lt, new_opt_state, loss)."""
+        optimizer step on KL(teacher || student) at ``fed.kd_temperature``
+        over the student's knowledge (logits_fn's; a generative task's
+        every position, unmasked, as in the reference).  Returns (new_lt,
+        new_opt_state, loss)."""
         live = tree_lib.map_(lambda t: t.detach().requires_grad_(True), lt)
         logits, aux = model.forward(_bind(base, live, gen), batch)
-        student = tasks.class_logits(logits, batch)
+        student = _knowledge(logits, batch)
         loss = losses.kd_kl(student, teacher_logits, fed.kd_temperature) + aux
         grads = _grad(loss, live)
         new_lt, new_opt = opt_update(tree_lib.unflatten(lt, grads),
@@ -181,16 +195,16 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
     # Every LoRA leaf leads with the client axis C and a batch holds the
     # clients' batches one after another (C·B rows); each LoRA projection
     # is one client-axis pass (kernels/ops.lora_matmul), and one forward
-    # and backward of the sum over clients of each client's mean loss
-    # gives each client its own gradient, since no ported layer mixes
+    # and backward of the sum over clients of each client's loss (the
+    # task's loss of its rows alone) gives each client its own gradient, since no ported layer mixes
     # clients: under kernels/ops.clients_scope a MoE layer routes each
     # client's rows on their own and gives each client its aux term (C,),
     # as the reference's vmap over clients does.  ``gens`` holds each
     # client's dropout generator.
-    def _clients_grads(base, slt, batch, gens, rows_fn):
+    def _clients_grads(base, slt, batch, gens, loss_fn):
         """(each client's loss (C,), each client's LoRA gradient as a tree
-        like ``slt``) of one stacked pass; ``rows_fn(logits)`` gives each
-        example's loss."""
+        like ``slt``) of one stacked pass; ``loss_fn(logits, C)`` gives
+        each client's loss."""
         live = tree_lib.map_(lambda t: t.detach().requires_grad_(True),
                              slt)
         C = tree_lib.leaves(slt)[0].shape[0]
@@ -202,7 +216,7 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
                              "carries a gradient and is not one a client; "
                              "it mixes the clients' examples, so one stacked "
                              "pass cannot give each client its own gradient")
-        losses_ = rows_fn(logits).view(C, -1).mean(dim=1) + aux
+        losses_ = loss_fn(logits, C) + aux
         return (losses_.detach(),
                 tree_lib.unflatten(slt, _grad(losses_.sum(), live)))
 
@@ -210,7 +224,7 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
         """The stacked train step's (each client's loss (C,), each
         client's LoRA gradient with ``slt``'s leading client axis)."""
         return _clients_grads(base, slt, batch, gens,
-                              lambda lg: task_loss_rows(lg, batch))
+                              lambda lg, C: clients_loss(lg, batch, C))
 
     def per_example_grads_clients(base, slt, batch, gens=None):
         """per_example_grads of every stacked client on its rows of
@@ -248,7 +262,7 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
         client's gradient is the mean of its per-example gradients clipped
         to ``dp_clip`` (privacy/dp.clipped_grad_mean_clients) and its loss
         the mean of its per-example losses.  A client whose ``valid``
-        entry is false (a padded step) keeps its LoRA and Adam state.
+        entry is false (a padded step) keeps its LoRA and optimizer state.
         Returns (new_slt, new_sopt, each client's loss (C,))."""
         if dp_clip > 0.0:
             losses_, rows = per_example_grads_clients(base, slt, batch, gens)
@@ -267,25 +281,28 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
     @torch.no_grad()
     def logits_fn_clients(base, slt, batch):
         """logits_fn of every stacked client on its rows of ``batch`` (a
-        batch repeated C times): (C, B, n_classes)."""
+        batch repeated C times): (C, B, n_classes), or (C, B, S', V) for a
+        generative task."""
         C = tree_lib.leaves(slt)[0].shape[0]
         with kernel_ops.clients_scope(C):
             logits, _ = model.forward(_bind(base, slt), batch)
-        cl = tasks.class_logits(logits, batch)
-        return cl.view(C, -1, cl.shape[-1])
+        out = _knowledge(logits, batch)
+        return out.view(C, -1, *out.shape[1:])
 
     def kd_step_clients(base, slt, sopt, batch, teacher_logits, gens=None):
         """kd_step of every stacked client on its rows of ``batch`` (a
         public batch repeated C times) against the shared
-        ``teacher_logits`` (B, D).  Returns (new_slt, new_sopt, each
-        client's loss (C,))."""
-        def rows(logits):
-            student = tasks.class_logits(logits, batch)
-            C = student.shape[0] // teacher_logits.shape[0]
-            return losses.kd_kl_rows(student, teacher_logits.repeat(C, 1),
-                                     fed.kd_temperature)
+        ``teacher_logits`` (B, D), or (B, S', V) for a generative task:
+        each client's loss the mean KL over its rows (every position of
+        them).  Returns (new_slt, new_sopt, each client's loss (C,))."""
+        def per_client(logits, C):
+            student = _knowledge(logits, batch)
+            teacher = teacher_logits.repeat(
+                C, *([1] * (teacher_logits.dim() - 1)))
+            return losses.kd_kl_rows(student, teacher,
+                                     fed.kd_temperature).view(C, -1).mean(1)
 
-        loss, grads = _clients_grads(base, slt, batch, gens, rows)
+        loss, grads = _clients_grads(base, slt, batch, gens, per_client)
         new_lt, new_opt = clients_update(grads, sopt, slt, fed.lr)
         return new_lt, new_opt, loss
 

@@ -76,10 +76,16 @@ def aggregate_knowledge(client_logits_list: List,
     """b4: refined global knowledge.  Weighted mean of client logits, with
     optional entropy-based filtering (SSIV.B.3): samples whose mean
     predictive entropy is in the highest ``frac`` quantile take the
-    lowest-entropy client's logits."""
+    lowest-entropy client's logits.  The client logits must stack to (C,
+    N, D): a generative task's (N, S, V) knowledge raises ValueError, as
+    the reference's ``einsum("c,cnd->nd")`` does (a KD round over LM
+    logits is not a feature of either package)."""
     if weights is None:
         weights = [1.0] * len(client_logits_list)
     stack = torch.stack([x.float() for x in client_logits_list])
+    if stack.dim() != 3:
+        raise ValueError(f"aggregate_knowledge: the client logits stack to "
+                         f"{tuple(stack.shape)}, not (C, N, D)")
     w = _normalized_w(torch.tensor(weights, dtype=torch.float32,
                                    device=stack.device))
     agg = torch.einsum("c,cnd->nd", w, stack)

@@ -377,7 +377,7 @@ class SpmdExecutor:
             logits = _batched_public_logits(ctx, sl)
             for k, (ci, lt, opt) in enumerate(zip(
                     bcis, fed_spmd.unstack_tree(sl),
-                    fed_spmd.unstack_tree(so))):
+                    fed_spmd.unstack_tree(so, len(bcis)))):
                 lts[ci], opts[ci] = lt, opt
                 results[ci] = (logits[k], n_tok[k])
         return [results[ci] for ci in cis]
@@ -391,7 +391,7 @@ class SpmdExecutor:
             so = fed_spmd.stack_trees([opts[ci] for ci in bcis])
             sl, so = _batched_distill(ctx, sl, so, glob, rnd, bcis)
             for ci, lt, opt in zip(bcis, fed_spmd.unstack_tree(sl),
-                                   fed_spmd.unstack_tree(so)):
+                                   fed_spmd.unstack_tree(so, len(bcis))):
                 lts[ci], opts[ci] = lt, opt
 
     # -- Split c1-c5 ---------------------------------------------------- #

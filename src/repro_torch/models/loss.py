@@ -1,9 +1,12 @@
-"""Cross-entropy, accuracy and the KD distillation loss.  Counterpart of
-``cross_entropy``, ``accuracy`` and ``kd_kl`` in
-``src/repro/models/loss.py`` (fp32)."""
+"""Cross-entropy, the shifted LM loss, accuracy and the KD distillation
+loss.  Counterpart of ``cross_entropy``, ``next_token_loss``, ``accuracy``
+and ``kd_kl`` in ``src/repro/models/loss.py`` (fp32; fp64 for fp64
+logits)."""
 from __future__ import annotations
 
 import torch
+
+from repro_torch.runtime import compute_dtype
 
 
 def nll(logits, labels):
@@ -14,10 +17,23 @@ def nll(logits, labels):
     return lse - gold
 
 
-def cross_entropy(logits, labels):
-    """logits: (..., V); labels: (...) int.  Returns (mean_loss, n_tokens)."""
-    nll_ = nll(logits, labels)
-    return nll_.mean(), nll_.numel()
+def cross_entropy(logits, labels, mask=None):
+    """logits: (..., V); labels: (...) int; mask (...) or None.  Returns
+    (mean_loss, n_tokens): without a mask the mean over every position,
+    with one sum(nll · mask) / n, n = max(sum(mask), 1) (a tensor)."""
+    nll_ = nll(logits.to(compute_dtype(logits.dtype)), labels)
+    if mask is None:
+        return nll_.mean(), nll_.numel()
+    mask = mask.to(nll_.dtype)
+    n = torch.clamp_min(mask.sum(), 1.0)
+    return (nll_ * mask).sum() / n, n
+
+
+def next_token_loss(logits, tokens, mask=None):
+    """The shifted LM loss: position s predicts token s + 1.  logits
+    (B, S, V), tokens (B, S), mask (B, S) or None."""
+    return cross_entropy(logits[:, :-1], tokens[:, 1:],
+                         None if mask is None else mask[:, 1:])
 
 
 def accuracy(logits, labels):
