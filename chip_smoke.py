@@ -12,7 +12,9 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    instances (DT 32, 64, 128, 256) of each flash kernel (forward, dq,
    dk/dv; their registers and spills printed by instance), the 6 of the
    WKV backward, the 2 of the radix top-k, the panel gradient and the 4
-   of the one-pass roundtrip must not spill.
+   of the one-pass roundtrip must not spill.  While nvcc builds, a thread
+   imports torch._dynamo, which torch.utils.checkpoint (phase 18's remat)
+   imports at its first call.
 2. Holds every ported kernel against its plain PyTorch version on the card
    at the main path's shapes, at ragged shapes and (KD loss, top-k) at a
    generative vocabulary (1280 x 50257), and times the kernel, the plain
@@ -116,6 +118,12 @@ Phases, each of which fails the run (non-zero exit) if anything is off:
    3xTF32 kernels' (LoRA forward, dx and dW, the three flash kernels)
    operation bound is taken at a third of the card's TF32 rate, and
    their fp32-rate bound printed beside it (kernel_bound).
+
+From phase 3 on a daemon thread draws the seed-0 weights of the
+full-width phases 7, 8 and 14-16 on the host, in their order and at
+most DRAWS_AHEAD trees ahead (prefetch_draws; family_init uploads them),
+so those phases wait only for what is left of a draw: the same trees,
+bit for bit, as a draw straight to the card.
 
 The full-width phases judge the kernels by their error, measured from an
 fp64 run of the plain path (each_run's "exact": policy ``torch``, the
@@ -434,11 +442,44 @@ pair at (16, 1500, 512 | 512); row 10's roundtrip at (24000, 512).
    then a generative KD round raises ValueError at b4, as the
    reference's does.
 
-After phase 17 it prints each kernel's launches times its time beyond
+18. The launch layer's step builders (run_launch; launch/steps.py) on
+   Qwen3-1.7B at full width and depth, from phase 14's seed-0 weights
+   (kept on the host since phase 14, shared with phase 16), fp32.  (a)
+   bf16 CUDA tensors into kernels/ops.lora_matmul and ops.mha_attention
+   raise ValueError and launch nothing.  (b) ``build_train_step`` at
+   train_4k cut to a global batch of 2 (S 4096), an adapter with B drawn
+   nonzero: remat none, full and selective, launches exact (84 / 84 /
+   168 / 28 / 28 / 28 of rows 1, 2, 4-7; rows 1 and 5 twice under
+   recomputation), the first step's LoRA gradient (Adam's first moment)
+   and the LoRA after the step compared across them bit for bit; the
+   gradient gated from fp64 against plain, cuBLASLt, TF32 and fp64 runs
+   at remat full; each step's time and peak memory printed.  (c)
+   ``build_prefill_step`` at prefill_32k (batch 1, S 32768; the full
+   logits, 19.9 GB), launches exact (84 row 1, 28 row 5), the last
+   position's logits from fp64 against runs of the twin's formula in
+   blocks of query rows with the head on the last row.  (d)
+   ``build_decode_step`` at decode_32k (batch 4, an fp32 cache 32768 deep,
+   30.1 GB, its first 32760 positions filled on the card): 8 decode steps
+   teacher-forced, their logits from fp64 (the fp64 run casts each
+   layer's cache on the fly), 84 row-1 launches a step, the step time.
+   (e) ``build_fed_round_step`` at train_4k cut to S 512, 2 clients of
+   batch 2, one local step: FedLLM, KD (classification), Split, FedLLM
+   under DP (clip at the first step's median per-example norm, noise 0)
+   under each_run's five settings, Adam's first moments gated from fp64
+   and the signs of the LoRA updates against fp64's (fp32_gates' flips),
+   launches exact; FedLLM at n_edges 2 within 1e-6 of n_edges 1.  Phase
+   2 also holds rows 1, 2, 4 at train_4k's LoRA sites ((8192, 2048, 2048
+   | 1024)) and rows 5-7 at its attention (BH 32 over 16, S 4096, D 128)
+   to their twins and to fp64 ("@4k", "@4kkv"), and row 1 at (32768,
+   2048, 2048 | 1024) and row 5 at prefill_32k's attention (BH 16 over 8,
+   S 32768) on sampled query rows ("@32k", "@32kkv"), timed beside the
+   matmul chain and SDPA (launch_kernel_checks).
+
+After phase 18 it prints each kernel's launches times its time beyond
 max(bound, launch floor) (the rule-2 queue), the final-LoRA margins of
 phase 7, Split int8 and RWKV-6, phase 5's first-step and final-LoRA
 margins, phase 8's KD and DP shares and the shares of the Split, hetero,
-async and fault gates of phases 7, 8, 10, 11, 12, 13, 14, 15, 16 and 17
+async and fault gates of phases 7, 8, 10-18
 (each kernel run's share of its limit, beside the last recorded run's,
 or "new"), then one JSON
 line with every kernel's numbers and, last, the line ``{"ok": true, "device": {...}}``.  It imports nothing of
@@ -447,10 +488,12 @@ JAX.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -611,6 +654,44 @@ TR_SHAPES = dict(M=TRAIN_BATCH * TRAIN_SEQ, K=768, N=768, r=RANK,
                  BH=TRAIN_BATCH * 12, BKV=TRAIN_BATCH * 12, S=TRAIN_SEQ,
                  Skv=TRAIN_SEQ, D=64, causal=True, window=0, q_offset=0)
 GEN_TOPK = 64
+# phase 18 (launch/steps.py's builders on Qwen3-1.7B, 28 layers): phase
+# 14's host copy of its seed-0 weights, shared with phases 16 and 18; the
+# assigned shapes as cut: train_4k at S 4096 and a global batch of 2 (of
+# 256), prefill_32k at batch 1 (of 32), decode_32k at batch 4 (of 128) over
+# a cache 32768 deep, its first LAUNCH_DECODE_FILL positions filled; the
+# fed_round programs at train_4k cut to S 512, 2 clients of batch 2, one
+# local step (at S 1024 the fp64 run's activations, 2.6 GB a layer by a
+# meta-device count, would not fit beside the weights); the plain
+# prefill's attention in blocks of LAUNCH_CHUNK query rows (fp64:
+# LAUNCH_CHUNK_FP64)
+QWEN3_HOST = {}
+QWEN3_LAYERS = 28
+# prefetch_draws' host trees by config, and how many it may draw ahead of
+# the phases that take them (each up to 12.7 GB of host memory)
+DRAWS = {}
+DRAWS_AHEAD = 2
+_DRAW_SLOTS = threading.Semaphore(DRAWS_AHEAD)
+LAUNCH_TRAIN_SEQ, LAUNCH_TRAIN_BATCH = 4096, 2
+LAUNCH_PREFILL_SEQ = 32768
+LAUNCH_DECODE_DEPTH, LAUNCH_DECODE_BATCH, LAUNCH_DECODE_FILL = 32768, 4, 32760
+LAUNCH_ROUND_SEQ, LAUNCH_CLIENTS, LAUNCH_CLIENT_BATCH = 512, 2, 2
+LAUNCH_CHUNK, LAUNCH_CHUNK_FP64 = 2048, 1024
+# n_edges 2's aggregate against n_edges 1's: fp32 reassociation only
+LAUNCH_EDGES_LIMIT = 1e-6
+# phase 2 at phase 18's shapes: rows 1, 2, 4 at train_4k's LoRA sites and
+# rows 5-7 at its attention ("@4k"); row 1 at prefill_32k's sites ("@32k",
+# the attention part of kernel_cases unused) and row 5 at its attention
+# (PREFILL32K_ATTN), held on LONG_ROWS query rows from each of LONG_BLOCKS
+TRAIN4K_SHAPES = dict(M=LAUNCH_TRAIN_BATCH * LAUNCH_TRAIN_SEQ, K=2048, N=2048,
+                      r=RANK, BH=LAUNCH_TRAIN_BATCH * 16,
+                      BKV=LAUNCH_TRAIN_BATCH * 8, S=LAUNCH_TRAIN_SEQ,
+                      Skv=LAUNCH_TRAIN_SEQ, D=128, causal=True, window=0,
+                      q_offset=0)
+PREFILL32K_SHAPES = dict(M=LAUNCH_PREFILL_SEQ, K=2048, N=2048, r=RANK,
+                         **_NO_ATTN)
+PREFILL32K_ATTN = dict(BH=16, BKV=8, S=LAUNCH_PREFILL_SEQ, D=128)
+LONG_ROWS = 64
+LONG_BLOCKS = (0, 8192, 16384 - 32, LAUNCH_PREFILL_SEQ - LONG_ROWS)
 
 
 def require(ok: bool, what: str) -> None:
@@ -2510,6 +2591,7 @@ def check_kernels(device, card: str):
         rows[name] = time_case(name, case, peaks_)
     rows.update(family_kernel_checks(device, peaks_))
     rows.update(vlm_encdec_kernel_checks(device, peaks_))
+    rows.update(launch_kernel_checks(device, peaks_))
     rows.update(check_rwkv_kernels(device, peaks_))
     rows.update(kd_checks(device, peaks_))
     topk_wide_cases(device, 19)
@@ -2802,13 +2884,19 @@ MARGINS_BEFORE = {"phase 7": 0.402, "Split int8": 0.862,
                   "recurrentgemma-2b decode vs forward": 0.181,
                   "rwkv6-1.6b decode": 0.240,
                   "rwkv6-1.6b decode vs forward": 0.240,
-                  "train.py first step": None,
-                  f"train.py {TRAIN_ADAM_STEPS} Adam steps": None,
-                  "generative FedLLM": None, "generative FedLLM spmd": None,
-                  "generative DP first-step rows": None,
-                  "generative DP first step": None,
-                  "generative Split int8 flips": None,
-                  "generative KD step": None}
+                  "train.py first step": 0.223,
+                  f"train.py {TRAIN_ADAM_STEPS} Adam steps": 0.148,
+                  "generative FedLLM": 0.123, "generative FedLLM spmd": 0.237,
+                  "generative DP first-step rows": 0.222,
+                  "generative DP first step": 0.218,
+                  "generative Split int8 flips": 0.277,
+                  "generative KD step": 0.191,
+                  "launch train_4k first step": 0.315,
+                  "launch prefill_32k": 0.179, "launch decode_32k": 0.271,
+                  "launch fed_round FedLLM": 0.311,
+                  "launch fed_round DP-FedLLM": 0.311,
+                  "launch fed_round KD": 0.107,
+                  "launch fed_round Split": 0.289}
 
 
 def rwkv_bwd_repeat(device, seed) -> None:
@@ -3455,7 +3543,6 @@ def run_recurrent(device):
     from repro_torch.configs.base import LOCAL_ATTN, RGLRU, FedConfig
     from repro_torch.configs.recurrentgemma_2b import recurrentgemma_2b
     from repro_torch.data import banking77, partition
-    from repro_torch.models.factory import build_model
 
     cfg = recurrentgemma_2b()
     print(f"phase 7: FedLLM case study, {cfg.name} full width and depth "
@@ -3464,10 +3551,7 @@ def run_recurrent(device):
     pub, train, test = banking77.paper_splits(cfg.vocab_size,
                                               pad_len=PAD_LEN, scale=0.03)
     clients = partition.iid_partition(train, 3)
-    t0 = time.perf_counter()
-    base = build_model(cfg).init(torch.Generator().manual_seed(0), device)
-    torch.cuda.synchronize()
-    print(f"  init wall_s={time.perf_counter() - t0:.1f}")
+    base = family_init(device, cfg)
     kinds, C = cfg.layer_kinds, len(clients)
     n_attn, n_rglru = kinds.count(LOCAL_ATTN), kinds.count(RGLRU)
     # autograd reaches an RG-LRU layer only after the first LoRA-bound
@@ -3790,7 +3874,6 @@ def run_rwkv(device):
     from repro_torch.configs.base import FedConfig
     from repro_torch.configs.rwkv6_1_6b import rwkv6_1_6b
     from repro_torch.data import banking77, partition
-    from repro_torch.models.factory import build_model
     from repro_torch.peft import lora
 
     cfg = rwkv6_1_6b()
@@ -3798,16 +3881,13 @@ def run_rwkv(device):
                                               pad_len=PAD_LEN, scale=0.03)
     clients = partition.iid_partition(train, 3)
     data = (pub, clients, test)
-    t0 = time.perf_counter()
-    base = build_model(cfg).init(torch.Generator().manual_seed(0), device)
-    torch.cuda.synchronize()
+    base = family_init(device, cfg)
     n_tree = sum(t.numel() for t in tree_lib.leaves(base))
     print(f"phase 8: {cfg.name} full width and depth ({n_tree} parameters "
           f"in the tree, {n_tree * 4 / 1e9:.2f} GB fp32; cfg.param_count() "
           f"{cfg.param_count()}), 2 rounds, 3 clients, LoRA on "
           f"{', '.join(lora.RWKV_TARGETS)}; the FedLLM set at full width "
           f"and {RWKV6_FEDLLM_LAYERS} of its {cfg.n_layers} layers")
-    print(f"  init wall_s={time.perf_counter() - t0:.1f}")
     L, C, d = cfg.n_layers, len(clients), cfg.d_model
     steps = sum(len(c["tokens"]) // BATCH for c in clients)
     evals = len(test["tokens"]) // 64
@@ -5158,22 +5238,83 @@ def family_case(cfg, what: str):
     return (pub, clients, test), steps, evals, fed
 
 
+def prefetch_draws(cfgs) -> None:
+    """Draws the seed-0 weights of each config of ``cfgs`` on the host, one
+    after another in a daemon thread, at most DRAWS_AHEAD trees ahead of
+    the phases that take them (family_init): a full-width phase then
+    waits only for what is left of its draw, and the draws of later
+    phases overlap the card's work.  Drawn on the host by the same code
+    and generator, the trees are bit for bit those of a draw straight to
+    the card (every initializer draws on the CPU and then moves)."""
+    import torch
+
+    from repro_torch.models.factory import build_model
+
+    order = list(cfgs)
+    for cfg in order:
+        DRAWS[cfg] = {"done": threading.Event(), "tree": None, "error": None}
+
+    def work():
+        for cfg in order:
+            _DRAW_SLOTS.acquire()
+            entry = DRAWS[cfg]
+            try:
+                entry["tree"] = build_model(cfg).init(
+                    torch.Generator().manual_seed(0), "cpu")
+            except BaseException as err:        # raised in family_init
+                entry["error"] = err
+            entry["done"].set()
+
+    threading.Thread(target=work, daemon=True).start()
+
+
 def family_init(device, cfg):
-    """``cfg``'s seed-0 weights on the card (drawn on the host), with the
-    draw's wall time and the tree's size printed."""
+    """``cfg``'s seed-0 weights on the card: the prefetched host draw
+    (prefetch_draws) uploaded, else drawn on the host here; the wall time
+    and the tree's size printed.  Qwen3-1.7B's host tree is kept in
+    QWEN3_HOST for phases 16 and 18."""
     import torch
 
     from repro_torch import tree as tree_lib
     from repro_torch.models.factory import build_model
 
     t0 = time.perf_counter()
-    base = build_model(cfg).init(torch.Generator().manual_seed(0), device)
+    entry = DRAWS.pop(cfg, None)
+    how = "drawn on the host"
+    if entry is None:
+        base = build_model(cfg).init(torch.Generator().manual_seed(0), device)
+    else:
+        entry["done"].wait()
+        _DRAW_SLOTS.release()
+        if entry["error"] is not None:
+            raise entry["error"]
+        how = f"prefetched, waited {time.perf_counter() - t0:.1f} s"
+        base = tree_lib.map_(lambda t: t.to(device), entry["tree"])
+        if cfg.name == "qwen3-1.7b" and cfg.n_layers == QWEN3_LAYERS:
+            QWEN3_HOST["base"] = entry["tree"]
     torch.cuda.synchronize()
     n = sum(t.numel() for t in tree_lib.leaves(base))
-    print(f"  init wall_s={time.perf_counter() - t0:.1f} ({n} parameters in "
-          f"the tree, {n * 4 / 1e9:.2f} GB fp32; cfg.param_count() "
-          f"{cfg.param_count()})")
+    print(f"  init wall_s={time.perf_counter() - t0:.1f} ({how}; {n} "
+          f"parameters in the tree, {n * 4 / 1e9:.2f} GB fp32; "
+          f"cfg.param_count() {cfg.param_count()})")
     return base
+
+
+def prefetched_configs():
+    """The configs of the full-width phases 7, 8 and 14-16 in the order
+    they draw (prefetch_draws)."""
+    from repro_torch.configs import registry
+
+    def cut(arch, n):
+        return dataclasses.replace(registry.get_config(arch), n_layers=n)
+
+    return [registry.get_config("recurrentgemma-2b"),
+            registry.get_config("rwkv6-1.6b"),
+            registry.get_config("qwen3-1.7b"),
+            cut("mixtral-8x7b", MIXTRAL_LAYERS),
+            cut("llava-next-34b", LLAVA_LAYERS),
+            cut("recurrentgemma-2b", RG_SERVE_LAYERS),
+            cut("rwkv6-1.6b", RWKV_SERVE_LAYERS)]
 
 
 def lora_site_bytes(cfg) -> int:
@@ -5193,6 +5334,7 @@ def run_qwen3(device):
     launches exact.  Returns the kernel run's launch counts."""
     import torch
 
+    from repro_torch import tree as tree_lib
     from repro_torch.configs import registry
 
     cfg = registry.get_config("qwen3-1.7b")
@@ -5218,6 +5360,9 @@ def run_qwen3(device):
                                  * lora_site_bytes(cfg)},
                          expect=expect, margin="Qwen3-1.7B",
                          loss_kind="spread")
+    # phases 16 and 18 take these weights from the host (qwen3_weights)
+    if "base" not in QWEN3_HOST:
+        QWEN3_HOST["base"] = tree_lib.map_(lambda t: t.cpu(), base)
     del base
     torch.cuda.empty_cache()
     return counts
@@ -5824,7 +5969,8 @@ def run_serving(device, peaks_):
         print(f"  {cfg.name}: {what}; adapter rank {RANK} on "
               f"{'/'.join(targets)}, " + ("bound" if bind else "merged")
               + (" and merged" if merged else ""))
-        base = family_init(device, cfg)
+        base = qwen3_weights(device, cfg) if arch == "qwen3-1.7b" \
+            else family_init(device, cfg)
         lt = served_adapter(cfg, base, targets, seed=1)
         served = lora.bind(base, lt, SERVE_ALPHA, RANK) if bind \
             else lora.merge(base, lt, SERVE_ALPHA, RANK)
@@ -6345,6 +6491,769 @@ def run_generative(device, peaks_):
     return by_path, rows
 
 
+# --------------------------------------------------------------------------- #
+# Phase 18: the launch layer's step builders (launch/steps.py) on Qwen3-1.7B
+# --------------------------------------------------------------------------- #
+def qwen3_weights(device, cfg):
+    """Qwen3-1.7B's seed-0 weights on the card: phase 14's draw, kept on
+    the host since (QWEN3_HOST), else drawn (family_init)."""
+    from repro_torch import tree as tree_lib
+    if cfg.n_layers == QWEN3_LAYERS and "base" in QWEN3_HOST:
+        t0 = time.perf_counter()
+        base = tree_lib.map_(lambda t: t.to(device), QWEN3_HOST["base"])
+        print(f"  phase 14's seed-0 weights uploaded from the host wall_s="
+              f"{time.perf_counter() - t0:.1f}")
+        return base
+    return family_init(device, cfg)
+
+
+def launch_refusal(device) -> None:
+    """Phase 18 (a): bf16 CUDA tensors into kernels/ops.lora_matmul and
+    ops.mha_attention (flash) under the ``cuda`` policy raise ValueError,
+    and nothing launches."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=device).manual_seed(180)
+
+    def bf16(*shape):
+        return torch.randn(shape, device=device, generator=gen).bfloat16()
+
+    calls = {"lora_matmul": lambda: ops.lora_matmul(
+                 bf16(8, 64), bf16(64, 64), bf16(64, RANK), bf16(RANK, 64)),
+             "mha_attention (flash)": lambda: ops.mha_attention(
+                 bf16(1, 16, 4, 128), bf16(1, 16, 2, 128),
+                 bf16(1, 16, 2, 128))}
+    ops.reset_launches()
+    with ops.policy_scope("cuda"):
+        for what, call in calls.items():
+            try:
+                call()
+            except ValueError as err:
+                print(f"  (a) bf16 CUDA tensors into {what}: ValueError "
+                      f"({err})")
+                continue
+            require(False, f"{what} took bf16 CUDA tensors")
+    require(not nonzero(ops.launches()), f"a refused call launched: "
+            f"{nonzero(ops.launches())}")
+
+
+def launch_served(cfg, base):
+    """The served tree of phase 18's prefill and decode: a rank-RANK
+    adapter on wq/wk/wv (served_adapter: B drawn nonzero) bound to
+    ``base``, so that its projections run through row 1."""
+    from repro_torch.peft import lora
+    lt = served_adapter(cfg, base, lora.DEFAULT_TARGETS, seed=188)
+    return lora.bind(base, lt, SERVE_ALPHA, RANK)
+
+
+def launch_train(device, cfg, base, mesh):
+    """Phase 18 (b): build_train_step at train_4k (S 4096, global batch 2)
+    under remat none, full and selective: launches exact; the first
+    step's LoRA gradient, read as Adam's first moment m = (1 - b1)·g, and
+    the LoRA after the step the same bits under the three; the kernel
+    run's m from fp64 (floor_gate) against the plain, cuBLASLt and TF32
+    runs and the fp64 run, all at remat full.  Returns {path: launch
+    counts}."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.optim import adam
+    from repro_torch.peft import lora
+
+    L = cfg.n_layers
+    shape = ShapeConfig("train_4k", LAUNCH_TRAIN_SEQ, LAUNCH_TRAIN_BATCH,
+                        "train")
+    print(f"phase 18 (b): build_train_step at train_4k (S {shape.seq_len}, "
+          f"global batch {shape.global_batch}, cut from 256), adapter rank "
+          f"{RANK} on wq/wk/wv with B drawn N(0, {SERVE_B_STD}²)")
+    gen = torch.Generator().manual_seed(181)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (shape.global_batch, shape.seq_len),
+        generator=gen).to(device, torch.int32)}
+    lt = served_adapter(cfg, base, lora.DEFAULT_TARGETS, seed=182)
+    opt = adam.init(lt)
+    sites = 3 * L
+    expect = lora_step_launches(sites, L)
+    by_path, runs = {}, {}
+    for remat in ("none", "full", "selective"):
+        fn, args, _ = steps.build_train_step(
+            dataclasses.replace(cfg, kernel_policy="cuda"), shape, mesh, remat=remat,
+            dtype=torch.float32)
+        require(tuple(args[3]["tokens"].shape) == tuple(
+            batch["tokens"].shape), f"example batch {args[3]}")
+        want = dict(expect, lora_fwd=2 * sites, flash_fwd=2 * L) \
+            if remat != "none" else expect
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        new_lt, new_opt, loss = fn(base, lt, opt, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = ops.launches()
+        check_launches(counts, want)
+        by_path[f"launch train remat {remat}"] = counts
+        runs[remat] = (tree_lib.leaves(new_opt["m"]),
+                       tree_lib.leaves(new_lt), float(loss))
+        print(f"  [cuda, remat {remat}] step wall_s={dt:.3f} loss "
+              f"{float(loss):.6f} peak {torch.cuda.max_memory_allocated() / 1e9:.1f}"
+              f" GB; launches {nonzero(counts)}")
+        del fn, new_lt, new_opt, loss
+    same = {remat: all(torch.equal(a, b) for a, b in zip(
+        runs[remat][0] + runs[remat][1], runs["none"][0] + runs["none"][1]))
+        for remat in ("full", "selective")}
+    print("  remat full / selective against none, first-step gradient and "
+          "the LoRA after the step: " + ", ".join(
+              f"{r} {'bit for bit' if s else 'DIFFER'}"
+              for r, s in same.items()))
+    values, new = {"kernels": runs["none"][0]}, {"kernels": runs["none"][1]}
+    for role, tag, policy in each_run(exact=True):
+        if role == "kernels":
+            continue
+        fn, _, _ = steps.build_train_step(
+            dataclasses.replace(cfg, kernel_policy=policy), shape, mesh, remat="full",
+            dtype=torch.float32)
+        exact = role == "exact"
+        b, l = (fp64(base), fp64(lt)) if exact else (base, lt)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        new_lt, new_opt, loss = fn(b, l, adam.init(l), batch)
+        torch.cuda.synchronize()
+        check_launches(ops.launches(), {})
+        print(f"  [{tag}, remat full] step wall_s="
+              f"{time.perf_counter() - t0:.3f} loss {float(loss):.6f}")
+        values[role] = tree_lib.leaves(new_opt["m"])
+        new[role] = tree_lib.leaves(new_lt)
+        del fn, b, l, new_lt, new_opt, loss
+    gaps = from_exact(values, "train_4k first-step LoRA gradient (Adam's m)")
+    limit = floor_gate("train_4k first-step LoRA gradient", gaps)
+    MARGINS["launch train_4k first step"] = gaps["kernels"] / limit
+    for remat in ("full", "selective"):
+        if not same[remat]:
+            gap = rel_l2(runs[remat][0], values["exact"])
+            print(f"  remat {remat}: its own first-step gradient from fp64 "
+                  f"{gap:.3e}, at {gap / limit:.3f} of the limit")
+            require(gap <= limit, f"remat {remat}: the kernel run's "
+                    f"first-step gradient is off fp64 beyond the limit")
+    print("  the LoRA after the step (Adam's first step, lr·g/(|g| + eps): "
+          "not gated, a sign-like update), relative L2 from fp64: " + ", ".join(
+              f"{role} {rel_l2(new[role], new['exact']):.3e}"
+              for role in ("kernels", "plain", "floor", "control")))
+    del values, new, runs
+    return by_path
+
+
+def _chunked_attention(chunk):
+    """The plain twin's attention (kernels/ref.attention_ref) in blocks of
+    ``chunk`` query rows, each row's softmax over every key it reaches
+    (a causal row's later keys are masked out and add exact zeros, so the
+    keys stop at the block's last row), for prefill yardsticks whose (BH,
+    S, S) scores do not fit.  Returns (patched function, the original)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    orig = ref.attention_ref
+
+    def attention(q, k, v, causal=True, window=0, q_offset=0):
+        outs = []
+        for i in range(0, q.shape[1], chunk):
+            end = min(q.shape[1], i + chunk)
+            kend = q_offset + end if causal else k.shape[1]
+            outs.append(orig(q[:, i:end], k[:, :kend], v[:, :kend], causal,
+                             window, q_offset + i))
+        return torch.cat(outs, dim=1)
+
+    return attention, orig
+
+
+def _last_row_logits(cfg, params, tokens):
+    """The model's logits at the last position, the LM head on that row
+    alone (models/transformer.forward's layers and final norm)."""
+    from repro_torch.models import common, transformer
+
+    h, positions = transformer.embed_tokens(params, cfg, tokens)
+    h, _ = transformer.forward_groups(params, cfg, h, positions, 0,
+                                      transformer.n_groups_of(cfg),
+                                      include_tail=True)
+    h = common.apply_norm(cfg.norm, params["final_norm"], h[:, -1:])
+    return transformer.lm_logits(params, cfg, h)[:, 0]
+
+
+def launch_prefill(device, cfg, base, mesh):
+    """Phase 18 (c): build_prefill_step at prefill_32k (S 32768, batch 1),
+    the served tree an adapter bound (launch_served): the kernel run as
+    built (full logits, the last row returned), launches exact; its last-row logits from fp64 (floor_gate) against plain,
+    cuBLASLt, TF32 and fp64 runs of the twin's formula in blocks of query
+    rows with the LM head on the last row (_chunked_attention,
+    _last_row_logits).  Returns {path: launch counts}."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps
+
+    L = cfg.n_layers
+    shape = ShapeConfig("prefill_32k", LAUNCH_PREFILL_SEQ, 1, "prefill")
+    print(f"phase 18 (c): build_prefill_step at prefill_32k (S "
+          f"{shape.seq_len}, batch 1, cut from 32); full logits "
+          f"({shape.seq_len} x {cfg.vocab_size} fp32, "
+          f"{shape.seq_len * cfg.vocab_size * 4 / 1e9:.1f} GB)")
+    gen = torch.Generator().manual_seed(183)
+    tokens = torch.randint(0, cfg.vocab_size, (1, shape.seq_len),
+                           generator=gen).to(device, torch.int32)
+    params = launch_served(cfg, base)
+    fn, _, _ = steps.build_prefill_step(dataclasses.replace(cfg, kernel_policy="cuda"), shape,
+                                        mesh, dtype=torch.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits = {"kernels": fn(params, {"tokens": tokens})}
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    print(f"  [cuda] prefill wall_s={time.perf_counter() - t0:.3f} peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; launches "
+          f"{nonzero(counts)}")
+    check_launches(counts, {"lora_fwd": 3 * L, "flash_fwd": L})
+    del fn
+    for role, tag, policy in each_run(exact=True):
+        if role == "kernels":
+            continue
+        exact = role == "exact"
+        p = fp64(params) if exact else params
+        patched, orig = _chunked_attention(LAUNCH_CHUNK_FP64 if exact
+                                           else LAUNCH_CHUNK)
+        ref.attention_ref = patched
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with torch.no_grad(), ops.policy_scope(policy):
+                logits[role] = _last_row_logits(cfg, p, tokens)
+            torch.cuda.synchronize()
+        finally:
+            ref.attention_ref = orig
+        check_launches(ops.launches(), {})
+        print(f"  [{tag}] last-row forward wall_s="
+              f"{time.perf_counter() - t0:.3f}")
+        del p
+    gaps = from_exact({r: [lg] for r, lg in logits.items()},
+                      "prefill_32k last-position logits")
+    MARGINS["launch prefill_32k"] = gaps["kernels"] / floor_gate(
+        "prefill_32k last-position logits", gaps)
+    del logits, params
+    return {"launch prefill": counts}
+
+
+def _decode_fp64(cfg, p64, cache, tails, token, pos):
+    """transformer.decode_step in fp64 over the fp32 cache: each layer's
+    K/V cast to fp64 on the fly, the fp64 K/V of the positions decoded so
+    far (``tails[i]``, from fill) laid over it, this position's appended
+    to ``tails``; the fp32 cache is left as it is."""
+    from repro_torch.models import common, transformer
+
+    h = transformer.embed_token(p64, cfg, token, pos)
+    for i, (lp, kind) in enumerate(zip(p64["layers"], cfg.layer_kinds)):
+        c = {name: t.double() for name, t in cache["layers"][i].items()}
+        for j, kv in enumerate(tails[i]):
+            for name, t in kv.items():
+                c[name][:, LAUNCH_DECODE_FILL + j] = t
+        h, c = transformer.block_decode(lp, cfg, kind, h, c, pos)
+        tails[i].append({name: t[:, pos].clone() for name, t in c.items()})
+        del c
+    h = common.apply_norm(cfg.norm, p64["final_norm"], h)
+    return transformer.lm_logits(p64, cfg, h)[:, 0]
+
+
+def launch_decode(device, cfg, base, mesh):
+    """Phase 18 (d): build_decode_step at decode_32k: an fp32 cache
+    32768 deep for batch 4, its first 32760 positions filled on the card
+    from a seed, then 8 decode steps teacher-forced (seeded tokens) under
+    each_run's settings over the same cache (a step writes its position
+    before it reads it) and in fp64 (_decode_fp64), the served tree an
+    adapter bound (launch_served); the kernel run's
+    logits from fp64 (floor_gate), every step within its own limit;
+    launches exact (row 1 at M 4).  Returns {path: launch counts}."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.factory import build_model
+
+    L = cfg.n_layers
+    shape = ShapeConfig("decode_32k", LAUNCH_DECODE_DEPTH, LAUNCH_DECODE_BATCH,
+                        "decode")
+    B, n = shape.global_batch, LAUNCH_DECODE_DEPTH - LAUNCH_DECODE_FILL
+    t0 = time.perf_counter()
+    cache = build_model(cfg).init_cache(base, B, shape.seq_len,
+                                        dtype=torch.float32)
+    gen = torch.Generator(device=device).manual_seed(184)
+    for layer in cache["layers"]:
+        for t in layer.values():
+            t[:, :LAUNCH_DECODE_FILL].normal_(generator=gen)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * 4 for layer in cache["layers"]
+                 for t in layer.values())
+    print(f"phase 18 (d): build_decode_step at decode_32k (batch {B}, cut "
+          f"from 128): an fp32 cache {shape.seq_len} deep "
+          f"({nbytes / 1e9:.1f} GB), {LAUNCH_DECODE_FILL} positions filled "
+          f"on the card wall_s={time.perf_counter() - t0:.1f}; {n} steps")
+    tokens = torch.randint(0, cfg.vocab_size, (n, B),
+                           generator=torch.Generator().manual_seed(185)
+                           ).to(device, torch.int32)
+    params = launch_served(cfg, base)
+    logits, counts = {}, None
+    for role, tag, policy in each_run():
+        fn, _, _ = steps.build_decode_step(dataclasses.replace(cfg, kernel_policy=policy),
+                                           shape, mesh, dtype=torch.float32)
+        ops.reset_launches()
+        out, times = [], []
+        for s in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = fn(params, cache, tokens[s],
+                           torch.tensor(LAUNCH_DECODE_FILL + s))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            out.append(lg)
+        logits[role] = torch.stack(out)
+        if role == "kernels":
+            counts = ops.launches()
+            check_launches(counts, {"lora_fwd": 3 * L * n})
+        else:
+            check_launches(ops.launches(), {})
+        print(f"  [{tag}] decode step wall_s median "
+              f"{sorted(times)[n // 2]:.4f} (first {times[0]:.4f})")
+    p64 = fp64(params)
+    del params
+    tails = [[] for _ in range(L)]
+    t0 = time.perf_counter()
+    with torch.no_grad(), ops.policy_scope("torch"):
+        logits["exact"] = torch.stack([
+            _decode_fp64(cfg, p64, cache, tails, tokens[s],
+                         LAUNCH_DECODE_FILL + s) for s in range(n)])
+    torch.cuda.synchronize()
+    print(f"  [torch-fp64] {n} steps wall_s={time.perf_counter() - t0:.3f}")
+    del p64, tails, cache
+    gaps = from_exact({r: [lg] for r, lg in logits.items()},
+                      "decode_32k teacher-forced logits")
+    limit = floor_gate("decode_32k logits", gaps)
+    MARGINS["launch decode_32k"] = gaps["kernels"] / limit
+    worst = 0.0
+    for s in range(n):
+        step = {r: rel_l2([lg[s]], [logits["exact"][s]])
+                for r, lg in logits.items() if r != "exact"}
+        lim = FLOOR_FACTOR * max(step["plain"], step["floor"]) + FLOOR_SLACK
+        require(step["kernels"] <= lim, f"decode_32k step {s}: kernels "
+                f"{step['kernels']:.3e} from fp64, limit {lim:.3e}")
+        worst = max(worst, step["kernels"] / lim)
+    print(f"  every step within its own limit (the largest share "
+          f"{worst:.3f})")
+    return {"launch decode": counts}
+
+
+def _update_flips(got, start, exact) -> float:
+    """Share of LoRA entries whose update from ``start`` has another sign
+    than the fp64 run's (entries the fp64 run leaves in place skipped)."""
+    n = flips = 0
+    for g, s, e in zip(got, start, exact):
+        de = (e - s.double()).sign()
+        live = de != 0
+        flips += int(((g.double() - s.double()).sign() != de)[live].sum())
+        n += int(live.sum())
+    return flips / max(n, 1)
+
+
+def launch_round_runs(device, cfg, base, mesh, shape, framework, make_args,
+                      read, expect, **kw):
+    """One fed_round program under each_run(exact=True)'s settings:
+    build_fed_round_step for the policy, ``make_args(args, exact)`` the
+    real arguments (fp64 trees for the fp64 run) with fresh generators,
+    ``read(outputs)`` -> (continuous leaves, LoRA leaves).  Launches of
+    the kernel run exact.  Returns ({role: (continuous, LoRA)}, the kernel
+    run's launch counts)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+
+    out, counts = {}, None
+    for role, tag, policy in each_run(exact=True):
+        fn, args, _ = steps.build_fed_round_step(
+            dataclasses.replace(cfg, kernel_policy=policy), shape, mesh,
+            n_clients=LAUNCH_CLIENTS, n_local_steps=1, framework=framework,
+            dtype=torch.float32, **kw)
+        real = make_args(args, role == "exact")
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*real)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if role == "kernels":
+            counts = ops.launches()
+            check_launches(counts, expect)
+        else:
+            check_launches(ops.launches(), {})
+        out[role] = read(res)
+        print(f"  [{tag}] round wall_s={dt:.3f}")
+        del fn, real, res
+    return out, counts
+
+
+def launch_round_gates(what, runs, start) -> None:
+    """The gates of one fed_round program: its continuous outputs (Adam's
+    first moments) from fp64 (floor_gate), and the signs of its LoRA
+    updates from ``start`` against the fp64 run's (fp32_gates' flips)."""
+    gaps = from_exact({r: v[0] for r, v in runs.items()},
+                      f"{what}: Adam's first moments")
+    MARGINS[f"launch {what}"] = gaps["kernels"] / floor_gate(
+        f"{what}: Adam's first moments", gaps)
+    flips = {r: _update_flips(v[1], start, runs["exact"][1])
+             for r, v in runs.items() if r != "exact"}
+    limit = fp32_gates(flips=flips)[0]["flips"]
+    print(f"  {what}: share of LoRA update signs off fp64's: " + ", ".join(
+        f"{r} {s:.3e}" for r, s in flips.items())
+        + f"; limit {limit:.3e}, kernels at {flips['kernels'] / limit:.3f} "
+        f"of it, TF32 control {flips['control'] / limit:.1f}x")
+    require(flips["kernels"] <= limit, f"{what}: the kernel run's LoRA "
+            f"update signs part from fp64's beyond the fp32 runs' limit")
+    require(flips["control"] > limit, f"{what}: the update-sign gate does "
+            f"not reject the TF32 control run")
+
+
+def launch_rounds(device, cfg, base, mesh):
+    """Phase 18 (e): build_fed_round_step at train_4k cut to S 512, 2
+    clients of batch 2, one local step: FedLLM (generative), KD
+    (classification), Split (generative), FedLLM under DP (clip at the
+    median per-example norm of the first step, noise 0) and FedLLM at
+    n_edges 2 (within 1e-6 of n_edges 1, relative L2); each of the first
+    four under each_run(exact=True)'s settings, gated by
+    launch_round_gates; launches exact.  Returns {path: launch counts}."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.base import FedConfig, PrivacyConfig, ShapeConfig
+    from repro_torch.core import fed_spmd
+    from repro_torch.core import split as split_mod
+    from repro_torch.core.fedavg import make_fns
+    from repro_torch.kernels import ops
+    from repro_torch.models.factory import build_model
+    from repro_torch.optim import adam
+    from repro_torch.peft import lora
+
+    L, C = cfg.n_layers, LAUNCH_CLIENTS
+    sites = 3 * L
+    Bc = LAUNCH_CLIENT_BATCH
+    shape = ShapeConfig("train_4k", LAUNCH_ROUND_SEQ, C * Bc, "train")
+    print(f"phase 18 (e): build_fed_round_step at train_4k cut to S "
+          f"{shape.seq_len}: {C} clients of batch {Bc}, one local step")
+    rng = np.random.default_rng(186)
+    S = shape.seq_len
+    tokens = rng.integers(0, cfg.vocab_size, (C, 1, Bc, S)).astype(np.int32)
+    valid = np.ones((C, 1), bool)
+    weights = np.array([3.0, 1.0], np.float32)
+    lt = served_adapter(cfg, base, lora.DEFAULT_TARGETS, seed=187)
+
+    def gens(seed):
+        return [torch.Generator().manual_seed(seed + c) for c in range(C)]
+
+    def cast(tree, exact):
+        return fp64(tree) if exact else tree
+
+    slt0 = fed_spmd.stack_for_clients(lt, C)
+    by_path = {}
+    step = {"lora_fwd_clients": sites, "lora_dx_clients": sites,
+            "lora_panel_clients": 2 * sites, "flash_fwd": L, "flash_dq": L,
+            "flash_dkv": L}
+
+    def fedllm_args(args, exact):
+        s = cast(slt0, exact)
+        return (cast(base, exact), s, fed_spmd.stack_for_clients(
+            adam.init(cast(lt, exact)), C), {"tokens": tokens}, gens(190),
+            valid, weights)
+
+    def fedllm_read(res):
+        redist, new_opt, _, _ = res
+        return (tree_lib.leaves(new_opt["m"]),
+                tree_lib.leaves(fed_spmd.unstack_tree(redist, C)[0]))
+
+    start = tree_lib.leaves(lt)
+    t0 = time.perf_counter()
+    runs, by_path["launch fed_round fedllm"] = launch_round_runs(
+        device, cfg, base, mesh, shape, "fedllm", fedllm_args, fedllm_read,
+        step)
+    launch_round_gates("fed_round FedLLM", runs, start)
+    print(f"  fed_round FedLLM wall_s={time.perf_counter() - t0:.1f}")
+    flat = runs["kernels"][1]
+    del runs
+
+    # n_edges 2: the two-hop aggregate, a kernel run
+    from repro_torch.launch import steps
+    fn, args, _ = steps.build_fed_round_step(
+        dataclasses.replace(cfg, kernel_policy="cuda"), shape, mesh, n_clients=C,
+        n_local_steps=1, framework="fedllm", n_edges=2, dtype=torch.float32)
+    ops.reset_launches()
+    res = fn(*fedllm_args(args, False))
+    by_path["launch fed_round fedllm n_edges 2"] = ops.launches()
+    check_launches(by_path["launch fed_round fedllm n_edges 2"], step)
+    gap = rel_l2(fedllm_read(res)[1], flat)
+    print(f"  fed_round FedLLM at n_edges 2 against n_edges 1: relative L2 "
+          f"{gap:.3e} (limit {LAUNCH_EDGES_LIMIT:g})")
+    require(gap <= LAUNCH_EDGES_LIMIT, "n_edges 2 parts from n_edges 1")
+    del fn, res, flat
+
+    # DP-SGD: clip at the median per-example norm of the first step
+    fed = FedConfig(lora_rank=RANK, lora_alpha=32.0)
+    fns = make_fns(build_model(dataclasses.replace(cfg, kernel_policy="torch")), fed,
+                   "generative")
+    first = fed_spmd.step_batch(fed_spmd.batches_on({"tokens": tokens},
+                                                     device), 0)
+    _, rows = fns["per_example_grads_clients"](base, slt0, first, gens(190))
+    norms = torch.linalg.vector_norm(rows, dim=2).flatten()
+    clip = float(norms.median())
+    print("  per-example gradient norms of the first step: " + " ".join(
+        f"{x:.4g}" for x in sorted(norms.tolist())) + f"; clip {clip:.6g}")
+    require(bool((norms > clip).any() and (norms <= clip).any()),
+            "the DP clip clips all rows or none")
+    del rows, norms, fns
+    dp_step = dict(step, lora_panel_examples_pair=sites, dp_clip_norms=1,
+                   dp_clip_acc_clients=1)
+    dp_step.pop("lora_panel_clients")
+    t0 = time.perf_counter()
+    runs, by_path["launch fed_round fedllm dp"] = launch_round_runs(
+        device, cfg, base, mesh, shape, "fedllm", fedllm_args, fedllm_read,
+        dp_step, privacy=PrivacyConfig(dp_clip=clip))
+    launch_round_gates("fed_round DP-FedLLM", runs, start)
+    print(f"  fed_round DP-FedLLM wall_s={time.perf_counter() - t0:.1f}")
+    del runs
+
+    # KD at classification: labels, lengths and a public batch
+    kd_batch = {"tokens": tokens,
+                "labels": rng.integers(0, 77, (C, 1, Bc)).astype(np.int32),
+                "lengths": rng.integers(S // 2, S + 1, (C, 1, Bc))
+                .astype(np.int32)}
+    public = {"tokens": rng.integers(0, cfg.vocab_size, (Bc, S))
+              .astype(np.int32),
+              "lengths": rng.integers(S // 2, S + 1, (Bc,)).astype(np.int32)}
+    kd_lts = [served_adapter(cfg, base, lora.DEFAULT_TARGETS, seed=191 + c)
+              for c in range(C + 1)]
+    kd_slt = fed_spmd.stack_trees(kd_lts[:C])
+
+    def kd_args(args, exact):
+        s = cast(kd_slt, exact)
+        server = cast(kd_lts[C], exact)
+        return (cast(base, exact), s, fed_spmd.stack_for_clients(
+            adam.init(cast(kd_lts[0], exact)), C), server, adam.init(server),
+            kd_batch, gens(200), valid, weights, public, gens(210),
+            torch.Generator().manual_seed(220))
+
+    def kd_read(res):
+        slt, sopt, server_lt, server_opt = res
+        return (tree_lib.leaves(sopt["m"]) + tree_lib.leaves(server_opt["m"]),
+                tree_lib.leaves(slt) + tree_lib.leaves(server_lt))
+
+    # b1 and b8 a stacked step each, b2 a stacked forward, b5 the server's
+    # step, b6 its forward; the KD loss (b5, b8) one forward and one
+    # backward launch each over its rows
+    kd_step = add_counts(step, step, {"lora_fwd_clients": sites,
+                                      "flash_fwd": L},
+                         lora_step_launches(sites, L),
+                         {"lora_fwd": sites, "flash_fwd": L},
+                         {"kd_fwd": 2, "kd_bwd": 2})
+    t0 = time.perf_counter()
+    runs, by_path["launch fed_round kd"] = launch_round_runs(
+        device, cfg, base, mesh, shape, "kd", kd_args, kd_read, kd_step)
+    launch_round_gates("fed_round KD", runs, tree_lib.leaves(kd_slt)
+                       + tree_lib.leaves(kd_lts[C]))
+    print(f"  fed_round KD wall_s={time.perf_counter() - t0:.1f}")
+    del runs
+
+    # Split at the split point of make_split_fns (FedConfig.split_layer)
+    n_client = split_mod.make_split_fns(
+        build_model(cfg), FedConfig(framework="split", lora_rank=RANK),
+        "generative")["n_client_layers"]
+    base_c, base_s = split_mod.split_base(base, n_client)
+    c0, s0 = split_mod.split_lora(lt, n_client)
+
+    def split_args(args, exact):
+        bc, bs = cast(base_c, exact), cast(base_s, exact)
+        c, s = cast(c0, exact), cast(s0, exact)
+        return (bc, bs, c, s, adam.init(s), {"tokens": tokens}, gens(230),
+                valid, weights)
+
+    def split_read(res):
+        c_glob, s_lt, s_opt, _, _ = res
+        return (tree_lib.leaves(s_opt["m"]),
+                tree_lib.leaves(c_glob) + tree_lib.leaves(s_lt))
+
+    t0 = time.perf_counter()
+    runs, by_path["launch fed_round split"] = launch_round_runs(
+        device, cfg, base, mesh, shape, "split", split_args, split_read,
+        {k: C * v for k, v in lora_step_launches(sites, L).items()})
+    launch_round_gates("fed_round Split", runs, tree_lib.leaves(c0)
+                       + tree_lib.leaves(s0))
+    print(f"  fed_round Split wall_s={time.perf_counter() - t0:.1f}")
+    del runs
+    return by_path
+
+
+def launch_kernel_checks(device, peaks_) -> dict:
+    """Phase 2 at phase 18's shapes: rows 1, 2, 4 at train_4k's LoRA
+    sites (M 8192: wq (8192, 2048, 2048), wk/wv (8192, 2048, 1024)) and
+    rows 5-7 at its attention (BH 32 over 16, S 4096, D 128, causal), each
+    held to its twin, the flash kernels' rms error against fp64 gated as
+    flash_fp64_errors gates it, timed beside the matmul chain and SDPA
+    ("@4k", "@4kkv"); row 1 at prefill_32k's sites (M 32768) and row 5 at
+    its attention (BH 16 over 8, S 32768, D 128, causal), which no (BH, S,
+    S) twin fits beside: held to the twin and to fp64 on blocks of query
+    rows (long_prefill_flash), timed beside SDPA and the twin in blocks
+    ("@32k", "@32kkv").  Returns the rows."""
+    rows = {}
+    for tag, shape, seed, names in (
+            ("4k", TRAIN4K_SHAPES, 40, ("lora_fwd", "lora_dx", "lora_panel",
+                                         "lora_panel_t", "flash_fwd",
+                                         "flash_dq", "flash_dkv")),
+            ("32k", PREFILL32K_SHAPES, 42, ("lora_fwd",))):
+        print(f"  phase 18's kernels at {tag} (M {shape['M']}, K = N = "
+              f"{shape['K']}" + (f"; BH {shape['BH']} over {shape['BKV']}, "
+                                 f"S {shape['S']}, D {shape['D']}, causal"
+                                 if tag == "4k" else "") + "):")
+        if tag == "4k":
+            flash_fp64_errors(device, shape["BH"], shape["BKV"], shape["S"],
+                              shape["D"], True, 0, seed)
+            rms, lib = lora_fp64_errors(device, shape["M"], shape["K"],
+                                        shape["N"], seed + 5)
+            for op, err in rms["kernel"].items():
+                require(err <= FP64_FACTOR * rms[lib][op],
+                        f"LoRA {op} kernel at {tag}: rms error against fp64 "
+                        f"{err:.3e} exceeds {FP64_FACTOR} times {lib}'s "
+                        f"{rms[lib][op]:.3e}")
+        for name, case in kernel_cases(device, seed=seed, **shape).items():
+            if name in names:
+                rows[f"{name}@{tag}"] = time_case(name, case, peaks_)
+        print(f"  LoRA kernels at {tag}'s wk/wv (M {shape['M']}, K "
+              f"{shape['K']}, N {KV_WIDTH}):")
+        for name, case in kernel_cases(device, seed=seed + 10, **dict(
+                shape, N=KV_WIDTH, **_NO_ATTN)).items():
+            if name in names and name.startswith("lora_"):
+                rows[f"{name}@{tag}kv"] = time_case(name, case, peaks_)
+    rows["flash_fwd@32k"] = long_prefill_flash(device, peaks_, seed=44)
+    return rows
+
+
+def long_prefill_flash(device, peaks_, seed) -> dict:
+    """Row 5 at prefill_32k's attention (BH 16 over 8, S 32768, D 128,
+    causal), where the twin's (BH, S, S) scores would take 68.7 GB: o and
+    lse against the twin (attention_fwd) on blocks of LONG_ROWS query rows
+    at LONG_BLOCKS (the first, middle and last rows among them; each
+    block's keys up to its last row), and o's rms error there against an
+    fp64 run of the twin within FP64_FACTOR times the larger of the fp32
+    twin's and SDPA's; timed (few calls) beside SDPA and the twin in
+    blocks of LAUNCH_CHUNK rows.  Returns its row."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    BH, BKV, S, D = (PREFILL32K_ATTN[k] for k in ("BH", "BKV", "S", "D"))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(shape, device=device, generator=gen)
+               for shape in ((BH, S, D), (BKV, S, D), (BKV, S, D)))
+    G = BH // BKV
+    o, lse = fa.flash_fwd(q, k, v, True, 0, 0)
+    ke, ve = (t.repeat_interleave(G, dim=0) for t in (k, v))
+    sdpa = F.scaled_dot_product_attention(q[None], ke[None], ve[None],
+                                          is_causal=True)[0]
+    err, sq = 0.0, {"kernel": 0.0, "plain fp32": 0.0, "sdpa": 0.0}
+    n = 0
+    for start in LONG_BLOCKS:
+        end = start + LONG_ROWS
+        blk = (q[:, start:end], k[:, :end], v[:, :end])
+        po, plse = ref.attention_fwd(*blk, True, 0, start)
+        eo, _ = ref.attention_fwd(*(t.double() for t in blk), True, 0, start)
+        for got, want in ((o[:, start:end], po), (lse[:, start:end], plse)):
+            require(bool(torch.isfinite(got).all()), "flash_fwd@32k output "
+                    "not finite")
+            require(torch.allclose(got, want, atol=ATOL, rtol=RTOL),
+                    f"flash_fwd@32k disagrees with its twin on rows "
+                    f"[{start}, {end}) (max abs err "
+                    f"{(got - want).abs().max().item():.3e})")
+            err = max(err, (got - want).abs().max().item())
+        for who, y in (("kernel", o[:, start:end]), ("plain fp32", po),
+                       ("sdpa", sdpa[:, start:end])):
+            sq[who] += float(((y.double() - eo) ** 2).sum())
+        n += eo.numel()
+    rms = {who: (s / n) ** 0.5 for who, s in sq.items()}
+    ratio = rms["kernel"] / max(rms["plain fp32"], rms["sdpa"])
+    print(f"  flash o at BH {BH} over {BKV}, S {S}, D {D}, on rows "
+          f"{list(LONG_BLOCKS)} (+{LONG_ROWS}): rms error against fp64 "
+          + ", ".join(f"{who} {r:.3e}" for who, r in rms.items())
+          + f" (kernel / yardstick {ratio:.2f})")
+    require(ratio <= FP64_FACTOR, f"flash_fwd@32k: rms error against fp64 "
+            f"{ratio:.2f} times its yardstick's")
+    del sdpa
+    chunked, _ = _chunked_attention(LAUNCH_CHUNK)
+    pairs = BH * S * (S + 1) // 2
+    f4 = 4
+    row = {"max_abs_err": err, "fp64_rms_ratio": ratio,
+           "ms": cuda_ms(lambda: fa.flash_fwd(q, k, v, True, 0, 0), iters=5,
+                         warmup=1),
+           "plain_ms": cuda_ms(lambda: chunked(q, k, v, True, 0, 0), iters=2,
+                               warmup=1),
+           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+               q[None], ke[None], ve[None], is_causal=True), iters=5,
+               warmup=1)}
+    nbytes = f4 * (2 * BH * S * D + 2 * BKV * S * D + BH * S)
+    row.update(kernel_bound("flash_fwd", nbytes, pairs * 4 * D, peaks_),
+               bytes=nbytes, flops=pairs * 4 * D)
+    print(f"  flash_fwd@32k: max abs err {err:.3e} (atol {ATOL}, rtol "
+          f"{RTOL}, on the sampled rows) kernel_ms {row['ms']:.4f} plain_ms "
+          f"(the twin in blocks of {LAUNCH_CHUNK} rows) {row['plain_ms']:.4f}"
+          f" library_ms {row['library_ms']:.4f} bound_ms "
+          f"{row['bound_ms']:.4g} ({row['bound_by']})")
+    del q, k, v, o, lse, ke, ve
+    torch.cuda.empty_cache()
+    return row
+
+
+def run_launch(device, peaks_):
+    """Phase 18: the launch layer's step builders on Qwen3-1.7B at full
+    width and depth, seed-0 weights (module docstring).  Returns {path:
+    the kernel run's launch counts}."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh as mesh_mod
+
+    t_start = time.perf_counter()
+    print("phase 18: launch/steps.py's builders on qwen3-1.7b, full width "
+          "and depth, fp32 weights (the CUDA kernels are fp32)")
+    launch_refusal(device)
+    cfg = registry.get_config("qwen3-1.7b")
+    mesh = mesh_mod.make_production_mesh()
+    base = qwen3_weights(device, cfg)
+    by_path = {}
+    for part, fn in (("b", launch_train), ("c", launch_prefill),
+                     ("d", launch_decode), ("e", launch_rounds)):
+        t0 = time.perf_counter()
+        by_path.update(fn(device, cfg, base, mesh))
+        torch.cuda.empty_cache()
+        print(f"  phase 18 ({part}) wall_s={time.perf_counter() - t0:.1f}")
+    del base
+    torch.cuda.empty_cache()
+    print(f"  phase 18 wall_s={time.perf_counter() - t_start:.1f}")
+    return by_path
+
+
 # the kernels that must not spill: {kernel: (source, instances)}
 NO_SPILLS = {"lora_fused_kernel": ("lora_matmul", 8),
              "lora_dw_kernel": ("lora_matmul", 1),
@@ -6504,7 +7413,14 @@ def main() -> int:
 
     print("phase 1: build")
     t_start = t0 = time.perf_counter()
+    # torch.utils.checkpoint (phase 18's remat) imports torch._dynamo at
+    # its first call, some 15-25 s of imports where the installed
+    # packages' bytecode is not compiled yet: import it while nvcc builds
+    warm = threading.Thread(target=importlib.import_module,
+                            args=("torch._dynamo",))
+    warm.start()
     report = build.build_all()
+    warm.join()
     for name, info in report.items():
         print(f"  nvcc {name}.cu: {info['seconds']:.1f} s")
         for line in info["log"].splitlines():
@@ -6528,6 +7444,8 @@ def main() -> int:
     rows, floor = check_kernels(device, card)
     print(f"  phase 2 wall_s={time.perf_counter() - t0:.1f}")
 
+    # the full-width phases' host draws, in a thread from here on
+    prefetch_draws(prefetched_configs())
     by_path = run_slices(device)
     (by_path["recurrentgemma"], by_path["recurrentgemma_dp_step"],
      by_path["split_rg"]) = run_recurrent(device)
@@ -6568,6 +7486,8 @@ def main() -> int:
     by_path.update(generative)
     rows.update(gen_rows)
     print(f"  phases 1-17 wall_s={time.perf_counter() - t_start:.1f}")
+    by_path.update(run_launch(device, peaks(card)))
+    print(f"  phases 1-18 wall_s={time.perf_counter() - t_start:.1f}")
     print("margins (share of the limit; the last recorded run's in "
           "parentheses): " + ", ".join(
               f"{path} {MARGINS[path]:.3f} ("
@@ -6587,7 +7507,9 @@ def main() -> int:
     # the roundtrip at the encoder's shapes), ``at_whisper_cross``,
     # ``at_llava`` and ``at_llava_wk_wv``; phase 16's under
     # ``at_*_decode``; phase 17's rows 1, 2, 4-7 at train.py's shapes
-    # under ``at_gpt2_train``); the KD kernels at a generative vocabulary
+    # under ``at_gpt2_train``; phase 18's at train_4k's and prefill_32k's
+    # under ``at_train_4k``, ``at_prefill_32k`` and their ``_wk_wv``); the
+    # KD kernels at a generative vocabulary
     # on phase 2's random inputs under ``at_generative`` and on phase
     # 17's KD step's tensors under ``at_generative_kd_step``.  The per-example
     # panel's rows add its fp64 error over torch.bmm's, and its and the
@@ -6627,7 +7549,11 @@ def main() -> int:
                          ("whd", "at_whisper_decode"),
                          ("tr", "at_gpt2_train"),
                          ("generative", "at_generative"),
-                         ("genkd", "at_generative_kd_step")):
+                         ("genkd", "at_generative_kd_step"),
+                         ("4k", "at_train_4k"),
+                         ("4kkv", "at_train_4k_wk_wv"),
+                         ("32k", "at_prefill_32k"),
+                         ("32kkv", "at_prefill_32k_wk_wv")):
             if f"{name}@{tag}" in rows:
                 at = rows[f"{name}@{tag}"]
                 kernels[-1][key] = {

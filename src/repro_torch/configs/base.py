@@ -1,8 +1,9 @@
 """Configuration dataclasses of the PyTorch port.
 
 Reproduces ``src/repro/configs/base.py``: ``ModelConfig`` (one schema for
-every architecture family) and ``FedConfig`` with its ``PrivacyConfig``
-and ``FaultConfig`` members, field for field.  The only difference is the
+every architecture family), ``ShapeConfig`` (one assigned input shape)
+and ``FedConfig`` with its ``PrivacyConfig`` and ``FaultConfig`` members,
+field for field.  The only difference is the
 kernel policy, which names the port's implementations:
 
     ``torch`` — plain PyTorch (kernels/ref.py), on whatever device the
@@ -118,6 +119,13 @@ class ModelConfig:
     def attention_free(self) -> bool:
         return all(k in (RGLRU, RWKV6) for k in self.layer_kinds)
 
+    @property
+    def subquadratic(self) -> bool:
+        """True when the decode state does not grow with the context."""
+        return all(
+            k in (RGLRU, RWKV6, LOCAL_ATTN) for k in self.layer_kinds
+        ) or (self.sliding_window > 0)
+
     # -- parameter counting (analytic; used by the fed metrics) ----------
     def param_count(self) -> int:
         return sum(x for x, _ in self._param_terms())
@@ -190,6 +198,15 @@ class ModelConfig:
             image_embed_dim=64 if self.image_embed_dim else 0,
             max_position_embeddings=4096,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input shape (configs/shapes.py)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str            # "train" | "prefill" | "decode"
 
 
 @dataclasses.dataclass(frozen=True)

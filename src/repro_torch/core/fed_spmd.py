@@ -26,18 +26,29 @@ stacked program is the sequential executor's loop
 rule that groups its clients once ranks differ.
 
 The client-axis reductions: ``weighted_client_mean`` (FedAvg over the
-leading axis, which ``norm_clip`` ends with) and the Byzantine-robust
+leading axis, which ``norm_clip`` ends with), the Byzantine-robust
 ``robust_client_combine`` (median, trimmed mean, norm clip), which
 core/async_agg.combine_arrivals and KD's robust teacher
-(core/round_program) call on the stacked arrivals.
+(core/round_program) call on the stacked arrivals,
+``hierarchical_client_mean`` (the two-hop per-edge partial sums and a
+pairwise tree over the edges) and ``client_combine`` (the configured
+one).
 
-Not ported: ``client_combine`` (no caller in the reference either),
-``hierarchical_client_mean`` and the launch layer's
-whole-round programs, its only callers (the cohort-streaming executor
-folds through round_program._fold_add), ``make_kd_spmd_fns`` (the KD
-stages call core/fedavg's stacked steps directly), and the PRNG key
-grids (``split_keys``, ``split_each``): the port draws each client's
-dropout masks from ``round_program.local_generator``.
+The whole-round programs of the launch layer (launch/steps.py, through
+core/round_program's ``spmd_round``s): ``make_spmd_round`` (FedLLM: the
+stacked local update, then the client-axis FedAvg) and
+``make_split_spmd_round`` (Split: the server half carried over the
+clients in order, then the client halves' FedAvg).  KD's
+(``KDProgram.spmd_round``) is built from core/fedavg's stacked steps
+(``logits_fn_clients``, ``kd_step_clients``), which stand for the
+reference's ``make_kd_spmd_fns`` here as in the executor
+(round_program._batched_public_logits, _batched_distill).  Where the
+reference takes a (C, S) grid of PRNG keys (``split_keys``,
+``split_each``), the port takes one ``torch.Generator`` a client, which
+draws that client's dropout masks step after step (as
+``round_program.local_generator`` does for the executors), and for the
+privacy noise one generator a client (FedLLM, KD) or a (C, S) grid of
+them (Split).
 """
 from __future__ import annotations
 
@@ -271,9 +282,63 @@ def robust_client_combine(stacked_tree, weights, method: str,
     raise ValueError(f"unknown robust_agg {method!r}")
 
 
+def hierarchical_client_mean(stacked_tree, weights, n_edges: int):
+    """FedAvg as the two-hop reduction of a client -> edge -> server
+    topology: the client axis reshaped to (edges, clients an edge), each
+    edge's weighted partial sum, then the edges folded by a pairwise
+    halving tree (part[:m] + part[m:2m], an odd one carried), in fp32
+    (fp64 for fp64 leaves).  The same normalized weights as
+    ``weighted_client_mean``, summed in another order; the flat mean
+    when ``n_edges <= 1`` or the edges do not tile the clients."""
+    weights = torch.as_tensor(weights, dtype=torch.float32)
+    C = weights.shape[0]
+    if n_edges <= 1 or C % n_edges:
+        return weighted_client_mean(stacked_tree, weights)
+
+    def mean(x):
+        dt = compute_dtype(x.dtype)
+        we = _normalized(weights).to(x.device, dt).reshape(n_edges,
+                                                           C // n_edges)
+        xe = x.to(dt).reshape((n_edges, C // n_edges) + tuple(x.shape[1:]))
+        part = (we.reshape(we.shape + (1,) * (x.dim() - 1)) * xe).sum(dim=1)
+        while part.shape[0] > 1:                           # cross-edge tree
+            m = part.shape[0] // 2
+            part = torch.cat([part[:m] + part[m:2 * m], part[2 * m:]], dim=0)
+        return part[0].to(x.dtype)
+
+    return tree_lib.map_(mean, stacked_tree)
+
+
+def client_combine(stacked_tree, weights, fed: FedConfig):
+    """The round's configured client-axis reduction: the weighted mean,
+    or the robust combine when ``fed.robust_agg`` says so (always flat:
+    order statistics do not decompose over edges)."""
+    if fed.robust_agg != "mean":
+        return robust_client_combine(stacked_tree, weights, fed.robust_agg,
+                                     fed.trim_frac, fed.clip_norm)
+    return weighted_client_mean(stacked_tree, weights)
+
+
 # --------------------------------------------------------------------------- #
 # Shared local-update machinery (FedLLM a2 / KD b1)
 # --------------------------------------------------------------------------- #
+def batches_on(batches, device):
+    """Stacked batches on ``device``: numpy arrays as core/fedavg.to_device
+    makes them, tensors as they are."""
+    host = {k: v for k, v in batches.items() if not torch.is_tensor(v)}
+    out = to_device(host, device) if host else {}
+    out.update({k: v.to(device) for k, v in batches.items()
+                if torch.is_tensor(v)})
+    return {k: out[k] for k in batches}
+
+
+def _host_mask(valid):
+    """A (C, S) validity mask as a numpy bool array."""
+    if torch.is_tensor(valid):
+        valid = valid.cpu().numpy()
+    return np.asarray(valid, dtype=bool)
+
+
 def make_local_update(model: Model, fed: FedConfig,
                       task: str = "classification", fns=None):
     """Returns local_update(base, slt, sopt, batches, valid, gens, device)
@@ -289,7 +354,8 @@ def make_local_update(model: Model, fed: FedConfig,
     step = (fns or make_fns(model, fed, task))["train_step_clients"]
 
     def local_update(base, slt, sopt, batches, valid, gens, device):
-        batches = to_device(batches, device)
+        batches = batches_on(batches, device)
+        valid = _host_mask(valid)
         ok = torch.as_tensor(valid, device=device)
         totals = 0.0
         for s in range(valid.shape[1]):
@@ -299,3 +365,111 @@ def make_local_update(model: Model, fed: FedConfig,
         return slt, sopt, totals / ok.sum(dim=1).clamp_min(1).float()
 
     return local_update
+
+
+# --------------------------------------------------------------------------- #
+# The launch layer's whole-round programs
+# --------------------------------------------------------------------------- #
+def _device_of(tree):
+    return tree_lib.leaves(tree)[0].device
+
+
+def make_spmd_round(model: Model, fed: FedConfig,
+                    task: str = "classification", n_edges: int = 1,
+                    fns=None):
+    """Returns round_step(base, stacked_lt, stacked_opt, batches, gens,
+    valid, weights[, noise_gens]): FedLLM's a1-a4 in one program.
+    ``stacked_*`` lead with the client axis C; ``batches`` leaves are (C,
+    n_steps, B, ...) (numpy arrays or tensors), ``valid`` (C, n_steps),
+    ``gens`` one dropout generator a client, ``weights`` (C,).  Returns
+    (the aggregate repeated on every client slot, the stacked optimizer
+    state, each client's mean loss (C,), the uploaded stacked trees).
+
+    With DP noise (``fed.privacy.noise_std > 0``) ``noise_gens`` holds
+    one generator a client and each uploaded tree is noised before the
+    aggregate (the a3 upload boundary).  The aggregate is
+    ``client_combine``'s robust combine under ``fed.robust_agg``, else
+    ``hierarchical_client_mean`` over ``n_edges`` edges (> 1), else the
+    flat weighted mean."""
+    local_update = make_local_update(model, fed, task, fns)
+    noise_std = fed.privacy.noise_std
+
+    def round_step(base, stacked_lt, stacked_opt, batches, gens, valid,
+                   weights, noise_gens=None):
+        C = tree_lib.leaves(stacked_lt)[0].shape[0]
+        new_lt, new_opt, losses = local_update(
+            base, stacked_lt, stacked_opt, batches, valid, gens,
+            _device_of(stacked_lt))
+        if noise_std > 0.0:
+            from repro_torch.privacy import dp as dp_mod
+            new_lt = stack_trees([
+                dp_mod.privatize_tree(t, g, noise_std)
+                for t, g in zip(unstack_tree(new_lt, C), noise_gens)])
+        weights = torch.as_tensor(weights, dtype=torch.float32)
+        if fed.robust_agg != "mean":
+            avg = client_combine(new_lt, weights, fed)
+        elif n_edges > 1:
+            avg = hierarchical_client_mean(new_lt, weights, n_edges)
+        else:
+            avg = weighted_client_mean(new_lt, weights)
+        return stack_for_clients(avg, C), new_opt, losses, new_lt
+
+    return round_step
+
+
+def make_split_spmd_round(model: Model, fed: FedConfig,
+                          task: str = "classification", sfns=None):
+    """One program for the whole Split-FedLLM round: returns
+    round_step(base_c, base_s, c_global, s_lt, s_opt, batches, gens,
+    valid, weights[, noise_gens]) -> (new_c_global, s_lt, s_opt, losses
+    (C, n_steps), the stacked client halves).
+
+    Each client starts from ``c_global`` with a fresh optimizer state
+    (cc3) and steps over its batches; the shared server half and its
+    optimizer state are carried from client to client in order (the
+    reference's scan over the client axis: the paper trains the server
+    layers client after client); a step whose ``valid`` entry is false
+    changes nothing.  The closing cc2 is ``client_combine`` over the
+    client halves.  ``gens`` holds one dropout generator a client;
+    under DP noise ``noise_gens[c][s]`` is step s of client c's c2
+    noise generator.  The reference's ``client_sharding`` (a mesh
+    constraint on the stacked halves) is not taken: the port has no
+    mesh."""
+    from repro_torch.core import split as split_mod
+
+    if sfns is None:
+        sfns = split_mod.make_split_fns(model, fed, task)
+    step = sfns["split_step"]
+    opt_init = sfns["opt_init"]
+    noised = fed.privacy.noise_std > 0.0
+
+    def round_step(base_c, base_s, c_global, s_lt, s_opt, batches, gens,
+                   valid, weights, noise_gens=None):
+        device = _device_of(c_global)
+        batches = batches_on(batches, device)
+        valid = _host_mask(valid)
+        C, S = valid.shape
+        dt = compute_dtype(tree_lib.leaves(c_global)[0].dtype)
+        halves, losses = [], []
+        for c in range(C):
+            c_lt, c_opt = c_global, opt_init(c_global)
+            row = [None] * S
+            for s in range(S):
+                if not valid[c, s]:
+                    continue
+                batch = {k: v[c, s] for k, v in batches.items()}
+                nk = noise_gens[c][s] if noised else None
+                c_lt, s_lt, c_opt, s_opt, loss = step(
+                    base_c, base_s, c_lt, s_lt, c_opt, s_opt, batch,
+                    gens[c], nk)
+                row[s] = loss.detach().reshape(())
+            halves.append(c_lt)
+            losses.append(torch.stack([
+                torch.zeros((), dtype=dt, device=device) if x is None
+                else x for x in row]))
+        stacked_c = stack_trees(halves)
+        weights = torch.as_tensor(weights, dtype=torch.float32)
+        return (client_combine(stacked_c, weights, fed), s_lt, s_opt,
+                torch.stack(losses), stacked_c)
+
+    return round_step

@@ -9,8 +9,7 @@
     b7 server -> clients: global logits
     b8 client: local KD against the global knowledge
 
-Counterpart of ``src/repro/core/kd.py`` (``aggregate_knowledge_batched``,
-the stacked backends' form, is not ported yet).  No parameters cross the
+Counterpart of ``src/repro/core/kd.py``.  No parameters cross the
 network: communication scales with |public dataset| x logit dim.  The
 logits stay on the device from b2 to b8; only the per-step losses are
 read back, once per distillation.
@@ -27,6 +26,7 @@ from repro_torch.configs.base import FedConfig
 from repro_torch.core import compression, metrics
 from repro_torch.core.fedavg import to_device
 from repro_torch.data.loader import epoch_batches
+from repro_torch.runtime import compute_dtype
 
 
 def client_logits(fns, base, lt, public: Dict, batch_size: int, device):
@@ -100,6 +100,18 @@ def aggregate_knowledge(client_logits_list: List,
                                                  device=stack.device)]
         agg = torch.where(noisy[:, None], chosen, agg)
     return agg
+
+
+def aggregate_knowledge_batched(stacked, weights):
+    """b4 as a client-axis reduction (the whole-round KD program,
+    core/round_program.KDProgram.spmd_round): the weighted mean over axis
+    0 of a (C, N, D) logit stack, summed in fp32 (fp64 for an fp64
+    stack), the weights normalized as ``aggregate_knowledge``'s (a
+    zero-mass cohort gives the uniform mean)."""
+    dt = compute_dtype(stacked.dtype)
+    w = _normalized_w(torch.as_tensor(weights, dtype=torch.float32,
+                                      device=stacked.device))
+    return torch.einsum("c,cnd->nd", w.to(dt), stacked.to(dt))
 
 
 def _normalized_w(w):

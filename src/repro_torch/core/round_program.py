@@ -660,6 +660,14 @@ class FedLLMProgram:
     def load_state_dict(self, ctx, st):
         self.global_lt = st["global_lt"]
 
+    @staticmethod
+    def spmd_round(model, fed: FedConfig, task: str = "classification",
+                   n_edges: int = 1):
+        """The whole-round program of the launch layer: the stacked local
+        update, then the client-axis FedAvg (the two-hop
+        ``fed_spmd.hierarchical_client_mean`` when ``n_edges > 1``)."""
+        return fed_spmd.make_spmd_round(model, fed, task, n_edges=n_edges)
+
 
 class KDProgram:
     """KD-FedLLMs (paper SSII.B): params never cross the wire.  Clients
@@ -865,6 +873,55 @@ class KDProgram:
         self.server_opt = st["server_opt"]
         self.glob = st["glob"]
 
+    @staticmethod
+    def spmd_round(model, fed: FedConfig, task: str = "classification"):
+        """The whole-round program of the launch layer: returns
+        kd_round_core(base, slt, sopt, server_lt, server_opt, batches,
+        gens, valid, weights, public_batch, client_gens, server_gen[,
+        noise_gens]) -> (slt, sopt, server_lt, server_opt): the stacked
+        b1 local update, b2 every client's logits on ``public_batch``
+        (with the b3 mechanism under DP), b4 the client-axis knowledge
+        reduction (``kd.aggregate_knowledge_batched``, or the robust
+        combine), b5 the server's distillation step, b6 its logits and
+        b8 every client's distillation step against them.  ``gens``
+        draws each client's b1 dropout masks, ``client_gens`` its b8
+        ones, ``server_gen`` the server's; under DP noise
+        ``noise_gens`` holds one b3 generator a client."""
+        fns = make_fns(model, fed, task)
+        local_update = fed_spmd.make_local_update(model, fed, task, fns)
+        noised = fed.privacy.noise_std > 0.0
+
+        def kd_round_core(base, slt, sopt, server_lt, server_opt, batches,
+                          gens, valid, weights, public_batch, client_gens,
+                          server_gen, noise_gens=None):
+            device = tree_lib.leaves(slt)[0].device
+            C = tree_lib.leaves(slt)[0].shape[0]
+            slt, sopt, _ = local_update(base, slt, sopt, batches, valid,
+                                        gens, device)
+            pub = fed_spmd.batches_on(public_batch, device)
+            pub_c = {k: torch.cat([v] * C) for k, v in pub.items()}
+            logits = fns["logits_fn_clients"](base, slt, pub_c)  # (C, Bp, D)
+            if fed.privacy.dp_enabled:
+                logits = torch.stack([
+                    dp_mod.privatize_rows(lg, noise_gens[c] if noised
+                                          else None, fed)
+                    for c, lg in enumerate(logits)])
+            weights = torch.as_tensor(weights, dtype=torch.float32)
+            if fed.robust_agg != "mean":
+                teacher = fed_spmd.robust_client_combine(
+                    logits.to(compute_dtype(logits.dtype)), weights,
+                    fed.robust_agg, fed.trim_frac, fed.clip_norm)
+            else:
+                teacher = kd_mod.aggregate_knowledge_batched(logits, weights)
+            server_lt, server_opt, _ = fns["kd_step"](
+                base, server_lt, server_opt, pub, teacher, server_gen)
+            glob = fns["logits_fn"](base, server_lt, pub)
+            slt, sopt, _ = fns["kd_step_clients"](base, slt, sopt, pub_c,
+                                                  glob, client_gens)
+            return slt, sopt, server_lt, server_opt
+
+        return kd_round_core
+
 
 class SplitProgram:
     """Split-FedLLMs (paper SSII.C): c1-c5 split training (activations
@@ -980,6 +1037,14 @@ class SplitProgram:
         self.c_global, self.s_lt = st["c_global"], st["s_lt"]
         self.s_opt = st["s_opt"]
         self.joined = split_mod.join_lora(self.c_global, self.s_lt)
+
+    @staticmethod
+    def spmd_round(model, fed: FedConfig, task: str = "generative",
+                   sfns=None):
+        """The whole-round program of the launch layer: the client halves
+        stacked, the server half carried over the clients in order, the
+        closing cc2 combine (``fed_spmd.make_split_spmd_round``)."""
+        return fed_spmd.make_split_spmd_round(model, fed, task, sfns=sfns)
 
 
 PROGRAMS = {"fedllm": FedLLMProgram, "kd": KDProgram,

@@ -19,7 +19,9 @@ follow it:
                 differentiable where the reference's are and, for the
                 two scans, with backward kernels where the reference
                 lets XLA differentiate.  The tensors must be on a CUDA
-                device: a CPU tensor raises rather than falling back.
+                device: a CPU tensor raises rather than falling back,
+                and so does a tensor that is not float32 (the kernels
+                are fp32 instances; there are no bf16 ones yet).
     ``torch`` — the plain PyTorch versions (kernels/ref.py) on whatever
                 device the tensors live, differentiated by autograd.
     ``auto``  — ``cuda`` for CUDA tensors, ``torch`` for CPU tensors.  It
@@ -131,6 +133,30 @@ def clients_scope(n_clients: int):
         _CLIENTS = prev
 
 
+def scope_state():
+    """The open scopes (kernel policy, stacked clients): what a
+    recomputation in the backward (models/transformer.forward's
+    ``remat``) must run under to take the forward's path.  A recompute
+    inside a per_example_scope would record its sites twice, so the
+    state refuses it."""
+    if _EXAMPLES is not None:
+        raise ValueError("recomputation (remat) is not supported inside a "
+                         "per_example_scope")
+    return _ACTIVE, _CLIENTS
+
+
+@contextlib.contextmanager
+def restored_scopes(state):
+    """Re-enter a ``scope_state()``."""
+    global _ACTIVE, _CLIENTS
+    prev = _ACTIVE, _CLIENTS
+    _ACTIVE, _CLIENTS = state
+    try:
+        yield
+    finally:
+        _ACTIVE, _CLIENTS = prev
+
+
 def example_batch():
     """The batch of the open per_example_scope, or None."""
     return None if _EXAMPLES is None else _EXAMPLES[0]
@@ -146,10 +172,17 @@ def use_cuda(t: torch.Tensor) -> bool:
 
 
 def _require_cuda(op: str, *tensors) -> None:
+    """Refuses what the CUDA kernels cannot take: a tensor off the card, or
+    one that is not float32 (the kernels are fp32 instances and read raw
+    fp32 pointers).  It never casts and never falls back to the plain
+    version."""
     for t in tensors:
         if not t.is_cuda:
             raise ValueError(f"{op}: kernel policy 'cuda' needs CUDA tensors, "
                              f"got one on {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{op}: the CUDA kernels take float32 tensors, "
+                             f"got {t.dtype}")
 
 
 def lora_matmul(x, w, a, b):

@@ -25,7 +25,10 @@ from repro_torch.runtime import compute_dtype
 def dense_init(gen: torch.Generator, shape, device,
                scale: Optional[float] = None):
     """Truncated-normal (±2σ) fan-in init (LLM default), by inverting the
-    normal CDF on uniform draws."""
+    normal CDF on uniform draws.  On the ``meta`` device only the shape is
+    made (Model.init_abstract): nothing is drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, device="meta")
     fan_in = shape[0] if len(shape) > 1 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
     lo, hi = (0.5 * (1.0 + math.erf(z / math.sqrt(2.0))) for z in (-2.0, 2.0))
@@ -35,6 +38,8 @@ def dense_init(gen: torch.Generator, shape, device,
 
 
 def embed_init(gen: torch.Generator, shape, device):
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, device="meta")
     return (torch.randn(shape, generator=gen) * 0.02).to(device)
 
 

@@ -2,7 +2,8 @@
 
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(seed))  # on CUDA
-    logits, aux = model.forward(params, batch)
+    shapes = model.init_abstract(torch.bfloat16)   # on "meta": no memory
+    logits, aux = model.forward(params, batch[, remat="full"])
     cache = model.init_cache(params, batch_size, max_len, batch)
     logits, cache = model.decode_step(params, cache, token, pos)
 
@@ -15,6 +16,14 @@ generator, so a seed gives the same weights on every device.  Every
 ``qwen3-moe-235b-a22b`` (MoE, models/moe.py), ``recurrentgemma-2b`` (the
 Griffin hybrid), ``rwkv6-1.6b``, ``llava-next-34b`` (the VLM image
 prefix) and ``whisper-base`` (the encoder-decoder, models/encdec.py).
+
+``init_abstract`` builds the same tree on the ``meta`` device: shapes
+and dtypes, nothing allocated and nothing drawn (the dry run's and the
+launch layer's parameters; the reference's ``jax.eval_shape`` of
+``init``).  ``forward``'s ``remat`` (``"none"``, ``"full"`` or
+``"selective"``) recomputes each layer-pattern group in the backward
+(models/transformer.forward); an encoder-decoder ignores it, as the
+reference's does.
 
 ``batch`` is a dict with ``"tokens"`` (B, S) on the parameters' device,
 plus the family's extras, as the reference reads them: an
@@ -37,6 +46,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import encdec, transformer
@@ -51,7 +61,16 @@ class Model:
             return encdec.init_encdec_params(gen, self.cfg, device)
         return transformer.init_params(gen, self.cfg, device)
 
-    def forward(self, params, batch: Dict[str, Any]):
+    def init_abstract(self, dtype=torch.float32):
+        """The parameter tree on the ``meta`` device, floating leaves in
+        ``dtype``: no memory is allocated and the generator is never
+        drawn (the initializers' draws land on ``meta``)."""
+        with torch.device("meta"):
+            params = self.init(torch.Generator(), device="meta")
+        return tree_lib.map_(
+            lambda t: t.to(dtype) if t.is_floating_point() else t, params)
+
+    def forward(self, params, batch: Dict[str, Any], remat: str = "none"):
         """(logits (B, S', V), aux) under the config's kernel policy.
         The backward of a training step runs the autograd Functions the
         forward chose.  core/rounds.run_federated holds the same policy
@@ -66,7 +85,7 @@ class Model:
             return transformer.forward(
                 params, self.cfg, batch["tokens"],
                 img_embeds=batch.get("img_embeds"),
-                prefix_embeds=batch.get("prefix_embeds"))
+                prefix_embeds=batch.get("prefix_embeds"), remat=remat)
 
     def init_cache(self, params, batch_size: int, max_len: int,
                    batch: Optional[Dict[str, Any]] = None,

@@ -64,6 +64,7 @@ import torch
 
 from repro_torch.configs.base import (ATTN, LOCAL_ATTN, RGLRU, RWKV6,
                                      ModelConfig)
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention, common, mlp, moe, rglru, rwkv6
 from repro_torch.peft import adapters
 from repro_torch.runtime import compute_dtype, resolve_device
@@ -252,15 +253,79 @@ def lm_logits(params, cfg: ModelConfig, h):
     return common.mm(h, w)
 
 
+REMAT = ("none", "full", "selective")
+# the products whose outputs the "selective" recomputation saves: the plain
+# matrix products; a CUDA kernel's output is recomputed, as the
+# reference's ``dots_with_no_batch_dims_saveable`` recomputes a pallas_call
+SELECTIVE_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                   torch.ops.aten.bmm.default)
+
+
+def _selective_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op in SELECTIVE_SAVED \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _selective_contexts():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_selective_policy)
+
+
+def _remat_group(fn, remat: str):
+    """``fn`` recomputed in the backward (non-reentrant
+    ``torch.utils.checkpoint``): ``full`` saves only its inputs,
+    ``selective`` also the plain products' outputs (SELECTIVE_SAVED).
+    The recompute runs in the backward, outside the forward's kernel
+    policy and clients scopes, so it re-enters them
+    (kernels/ops.scope_state): otherwise it would take another path."""
+    from torch.utils.checkpoint import checkpoint
+
+    state = kernel_ops.scope_state()
+
+    def scoped(*args):
+        with kernel_ops.restored_scopes(state):
+            return fn(*args)
+
+    extra = {"context_fn": _selective_contexts} if remat == "selective" \
+        else {}
+    return lambda *args: checkpoint(scoped, *args, use_reentrant=False,
+                                    **extra)
+
+
 def forward(params, cfg: ModelConfig, tokens, img_embeds=None,
-            prefix_embeds=None):
+            prefix_embeds=None, remat: str = "none"):
     """Returns (logits (B, S', V), aux_loss) — the MoE layers' summed
     load-balance terms, 0 without MoE layers; S' counts the prepended
-    image and prefix positions (embed_tokens)."""
+    image and prefix positions (embed_tokens).
+
+    ``remat`` (the reference's ``forward(..., remat=)``): ``"none"``, or
+    each full pattern group recomputed in the backward, ``"full"``
+    keeping only the group's input and ``"selective"`` also the outputs
+    of its plain matrix products (aten mm, addmm, bmm); the tail layers
+    are not recomputed, as in the reference.  The launch counters count
+    a recompute's kernel launches."""
+    if remat not in REMAT:
+        raise ValueError(f"unknown remat {remat!r} (expected one of "
+                         f"{REMAT})")
     h, positions = embed_tokens(params, cfg, tokens, img_embeds,
                                 prefix_embeds)
-    h, aux = forward_groups(params, cfg, h, positions, 0,
-                            _group_split(cfg)[1], include_tail=True)
+    n_groups = _group_split(cfg)[1]
+    if remat == "none":
+        h, aux = forward_groups(params, cfg, h, positions, 0, n_groups,
+                                include_tail=True)
+    else:
+        def apply_group(g, h, aux):
+            h, a = forward_groups(params, cfg, h, positions, g, g + 1)
+            return h, aux + a
+
+        aux = torch.zeros((), device=h.device)
+        for g in range(n_groups):
+            h, aux = _remat_group(lambda h, aux, g=g: apply_group(g, h, aux),
+                                  remat)(h, aux)
+        h, a = forward_groups(params, cfg, h, positions, n_groups, n_groups,
+                              include_tail=True)
+        aux = aux + a
     h = common.apply_norm(cfg.norm, params["final_norm"], h)
     return lm_logits(params, cfg, h), aux
 

@@ -72,7 +72,11 @@ assert {"repro_torch.privacy.dp", "repro_torch.privacy.accountant",
         "repro_torch.peft.adapters", "repro_torch.peft.prompt",
         "repro_torch.optim.sgd", "repro_torch.optim.schedule",
         "repro_torch.data.synthetic", "repro_torch.launch.train",
-        "repro_torch.launch.serve"} <= set(names), names
+        "repro_torch.launch.serve", "repro_torch.launch.mesh",
+        "repro_torch.launch.sharding", "repro_torch.launch.specs",
+        "repro_torch.launch.steps", "repro_torch.configs.shapes",
+        "repro_torch.core.rounds_spmd",
+        "repro_torch.core.schedule"} <= set(names), names
 """
 
 
@@ -83,6 +87,21 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 25
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float64, torch.int32])
+def test_cuda_path_refuses_tensors_that_are_not_fp32(dtype):
+    """The CUDA kernels are fp32 instances: a CUDA tensor of another dtype
+    raises ValueError, never cast and never sent to the plain version (a
+    stand-in for a CUDA tensor here, where there is no card)."""
+    import types
+    on_card = types.SimpleNamespace(is_cuda=True, dtype=dtype,
+                                    device=torch.device("cuda", 0))
+    with pytest.raises(ValueError, match="float32"):
+        ops._require_cuda("lora_matmul", on_card)
+    ops._require_cuda("lora_matmul", types.SimpleNamespace(
+        is_cuda=True, dtype=torch.float32, device=torch.device("cuda", 0)))
 
 
 @pytest.fixture(scope="module")
