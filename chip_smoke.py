@@ -475,7 +475,23 @@ pair at (16, 1500, 512 | 512); row 10's roundtrip at (24000, 512).
    S 32768) on sampled query rows ("@32k", "@32kkv"), timed beside the
    matmul chain and SDPA (launch_kernel_checks).
 
-After phase 18 it prints each kernel's launches times its time beyond
+19. The dry run (run_dry_run; launch/dryrun.py), traced on the host in
+   four processes of their own, started after phase 1 (no card visible,
+   nice 19, one thread each; start_dry_run): (a) Qwen3-1.7B's train_4k,
+   prefill_32k and decode_32k steps and its FedLLM, KD and Split rounds
+   at train_4k, bf16, on the 16 x 16 and 2 x 16 x 16 fake meshes, every
+   record OK, each printed (GiB a device, FLOPs a device, collective
+   bytes by kind, the forced replications); (b) phase 18's cut steps on
+   a one-device mesh in fp32 under the plain policy: the argument bytes
+   equal what phase 18's argument tensors hold on the card (the served
+   adapter's factors left out), the train step's FLOPs equal
+   FlopCounterMode's over one more plain train run of phase 18
+   (launch_train_measured), its temp + args + outputs within 0.8-1.25 of
+   that run's peak with its arguments; (c) the three roofline terms of
+   (b)'s steps at the H100's 3xTF32 peak beside phase 18's kernel-run
+   step times.
+
+After phase 19 it prints each kernel's launches times its time beyond
 max(bound, launch floor) (the rule-2 queue), the final-LoRA margins of
 phase 7, Split int8 and RWKV-6, phase 5's first-step and final-LoRA
 margins, phase 8's KD and DP shares and the shares of the Split, hetero,
@@ -692,6 +708,19 @@ PREFILL32K_SHAPES = dict(M=LAUNCH_PREFILL_SEQ, K=2048, N=2048, r=RANK,
 PREFILL32K_ATTN = dict(BH=16, BKV=8, S=LAUNCH_PREFILL_SEQ, D=128)
 LONG_ROWS = 64
 LONG_BLOCKS = (0, 8192, 16384 - 32, LAUNCH_PREFILL_SEQ - LONG_ROWS)
+# phase 19 (launch/dryrun.py): the traces run in a process of their own
+# on the host (no card, lowest priority) from phase 2 on, writing
+# DRYRUN_JSON; phase 18 leaves in LAUNCH_MEASURED what it measured on the
+# card (argument bytes, the plain train run's FlopCounterMode count and
+# peak memory, the kernel runs' step times); the memory prediction of
+# the plain train step (temp + args + outputs) must lie within
+# DRYRUN_BAND of its measured peak with its arguments
+LAUNCH_MEASURED = {}
+DRYRUN_JSON = ROOT / "build" / "dryrun_phase19.json"   # _<part>.json
+DRYRUN_BAND = (0.8, 1.25)
+# phase 19 waits for the traces until this long after phase 1 began (the
+# script has 1200 s in all)
+DRYRUN_DEADLINE_S = 1160
 
 
 def require(ok: bool, what: str) -> None:
@@ -6598,6 +6627,8 @@ def launch_train(device, cfg, base, mesh):
         counts = ops.launches()
         check_launches(counts, want)
         by_path[f"launch train remat {remat}"] = counts
+        if remat == "full":
+            LAUNCH_MEASURED["train_kernel_s"] = dt
         runs[remat] = (tree_lib.leaves(new_opt["m"]),
                        tree_lib.leaves(new_lt), float(loss))
         print(f"  [cuda, remat {remat}] step wall_s={dt:.3f} loss "
@@ -6645,7 +6676,53 @@ def launch_train(device, cfg, base, mesh):
               f"{role} {rel_l2(new[role], new['exact']):.3e}"
               for role in ("kernels", "plain", "floor", "control")))
     del values, new, runs
+    launch_train_measured(cfg, base, lt, batch, shape, mesh)
     return by_path
+
+
+def tree_nbytes(tree) -> int:
+    """The bytes of a tree's tensors (ints and generators hold none)."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    return sum(t.numel() * t.element_size() for t in tree_lib.leaves(tree)
+               if torch.is_tensor(t))
+
+
+def launch_train_measured(cfg, base, lt, batch, shape, mesh) -> None:
+    """For phase 19 (b): one more plain (policy ``torch``) train_4k step
+    at remat full, under FlopCounterMode, its peak memory read from the
+    allocator (max_memory_allocated less what was allocated before it,
+    the arguments included), its arguments' bytes; into
+    LAUNCH_MEASURED["train"]."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import steps
+    from repro_torch.optim import adam
+
+    fn, _, _ = steps.build_train_step(
+        dataclasses.replace(cfg, kernel_policy="torch"), shape, mesh,
+        remat="full", dtype=torch.float32)
+    opt = adam.init(lt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        out = fn(base, lt, opt, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    args = tree_nbytes((base, lt, opt, batch))
+    LAUNCH_MEASURED["train"] = {
+        "flops": int(fc.get_total_flops()), "args": args,
+        "outs": tree_nbytes(out),
+        "peak": torch.cuda.max_memory_allocated() - before + args}
+    print(f"  [torch, remat full] under FlopCounterMode: "
+          f"{LAUNCH_MEASURED['train']['flops']:.6e} FLOPs, peak "
+          f"{LAUNCH_MEASURED['train']['peak'] / 1e9:.3f} GB with its "
+          f"{args / 1e9:.3f} GB of arguments, wall_s={dt:.3f}")
+    del out
 
 
 def _chunked_attention(chunk):
@@ -6717,10 +6794,16 @@ def launch_prefill(device, cfg, base, mesh):
     logits = {"kernels": fn(params, {"tokens": tokens})}
     torch.cuda.synchronize()
     counts = ops.launches()
-    print(f"  [cuda] prefill wall_s={time.perf_counter() - t0:.3f} peak "
+    t1 = time.perf_counter()
+    print(f"  [cuda] prefill wall_s={t1 - t0:.3f} peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; launches "
           f"{nonzero(counts)}")
     check_launches(counts, {"lora_fwd": 3 * L, "flash_fwd": L})
+    LAUNCH_MEASURED["prefill"] = {
+        "kernel_s": t1 - t0,
+        # the builder's arguments: the base and the batch (the served
+        # adapter's factors are left out on both sides)
+        "args": tree_nbytes((base, {"tokens": tokens}))}
     del fn
     for role, tag, policy in each_run(exact=True):
         if role == "kernels":
@@ -6826,6 +6909,11 @@ def launch_decode(device, cfg, base, mesh):
         if role == "kernels":
             counts = ops.launches()
             check_launches(counts, {"lora_fwd": 3 * L * n})
+            LAUNCH_MEASURED["decode"] = {
+                "kernel_s": sorted(times)[n // 2],
+                # the base, the cache and a step's token (the served
+                # adapter's factors left out on both sides)
+                "args": tree_nbytes((base, cache, tokens[0]))}
         else:
             check_launches(ops.launches(), {})
         print(f"  [{tag}] decode step wall_s median "
@@ -7254,6 +7342,212 @@ def run_launch(device, peaks_):
     return by_path
 
 
+# phase 19's traces in DRYRUN_PARTS processes of their own: (b) and the
+# 16 x 16 records; the 2 x 16 x 16 train, prefill, decode and FedLLM
+# records; its KD round; its Split round
+DRYRUN_PARTS = 4
+
+
+def dry_run_records(out_path, part: int) -> None:
+    """Part ``part`` of phase 19's traces (launch/dryrun.py), run by
+    start_dry_run in a process of its own that sees no card, at the
+    lowest priority, one thread: (a) Qwen3-1.7B's train_4k, prefill_32k
+    and decode_32k steps and its FedLLM, KD and Split rounds at
+    train_4k, bf16, on the 16 x 16 and 2 x 16 x 16 fake meshes; (b) phase
+    18's own cut steps on a one-device mesh in fp32 under the plain
+    policy (train_4k at global batch 2 under remat full, prefill_32k at
+    batch 1, decode_32k at batch 4 over phase 18's fp32 cache).  Writes
+    them to ``out_path`` as JSON."""
+    import os
+
+    os.nice(19)
+    import torch
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import specs as specs_mod
+    from repro_torch.launch import steps
+    from repro_torch.models.factory import build_model
+
+    t0 = time.perf_counter()
+    out = {"a": [], "b": {}}
+    cases = [(False, s, "auto", None) for s in ("train_4k", "prefill_32k",
+                                                "decode_32k")]
+    cases += [(False, "train_4k", "fed_round", f)
+              for f in ("fedllm", "kd", "split")]
+    cases += [(True, s, "auto", None) for s in ("train_4k", "prefill_32k",
+                                               "decode_32k")]
+    cases += [(True, "train_4k", "fed_round", f)
+              for f in ("fedllm", "kd", "split")]
+    mine = {0: cases[:6], 1: cases[6:10], 2: cases[10:11],
+            3: cases[11:]}[part]
+    for multi_pod, shape, step, framework in mine:
+        out["a"].append(dryrun.run_one(
+            "qwen3-1.7b", shape, multi_pod, step=step,
+            fed_framework=framework or "fedllm", verbose=False))
+    cfg = dataclasses.replace(registry.get_config("qwen3-1.7b"),
+                              kernel_policy="torch")
+    one = mesh_mod.MeshSpec((1, 1), ("data", "model"))
+    for name, shape in (
+            ("train", ShapeConfig("train_4k", LAUNCH_TRAIN_SEQ,
+                                  LAUNCH_TRAIN_BATCH, "train")),
+            ("prefill", ShapeConfig("prefill_32k", LAUNCH_PREFILL_SEQ, 1,
+                                    "prefill")),
+            ("decode", ShapeConfig("decode_32k", LAUNCH_DECODE_DEPTH,
+                                   LAUNCH_DECODE_BATCH, "decode"))):
+        if part:
+            break
+        fn, args, specs = steps.build_step(cfg, shape, one, remat="full",
+                                           dtype=torch.float32)
+        if name == "decode":
+            args = list(args)
+            args[1] = specs_mod.abstract_cache(build_model(cfg), args[0],
+                                               shape, dtype=torch.float32)
+        prog = dryrun.trace_step(fn, args, specs, one, shape.mode, shape)[0]
+        out["b"][name] = dict(prog, shape=shape.name,
+                              batch=shape.global_batch, seq=shape.seq_len)
+    out["wall_s"] = time.perf_counter() - t0
+    out["cpu_s"] = time.process_time()
+    Path(out_path).write_text(json.dumps(out))
+
+
+def _part_path(part: int) -> Path:
+    return DRYRUN_JSON.with_name(f"{DRYRUN_JSON.stem}_{part}.json")
+
+
+def start_dry_run():
+    """Starts dry_run_records' parts, each in a process of its own (no
+    card visible, its output to build/dryrun_phase19_<part>.log); phase 19
+    collects them."""
+    import os
+
+    DRYRUN_JSON.parent.mkdir(parents=True, exist_ok=True)
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke.dry_run_records(sys.argv[2], int(sys.argv[3]))")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = []
+    for part in range(DRYRUN_PARTS):
+        path = _part_path(part)
+        path.unlink(missing_ok=True)
+        with open(path.with_suffix(".log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, str(ROOT), str(path),
+                 str(part)], cwd=ROOT, env=env, stdout=log,
+                stderr=subprocess.STDOUT))
+    return procs
+
+
+def stop(procs) -> None:
+    for proc in procs or ():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def run_dry_run(procs, deadline: float) -> None:
+    """Phase 19: the dry run's records (dry_run_records, traced beside
+    phases 2-18).  (a) every record OK, printed: GiB a device, FLOPs a
+    device, collective bytes by kind, the forced replications.  (b) on
+    the one-device mesh, against phase 18's measurements on the card:
+    the argument bytes equal, the train step's FLOPs equal
+    FlopCounterMode's over the plain run, its temp + args + outputs
+    within DRYRUN_BAND of the plain run's peak with its arguments.  (c)
+    the three roofline terms of (b)'s steps on the H100 (the 3xTF32 peak:
+    fp32 runs) beside phase 18's kernel-run step times.  It waits for the
+    traces until ``deadline`` (a perf_counter time), then fails."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.roofline import analysis
+
+    t0 = time.perf_counter()
+    print("phase 19: launch/dryrun.py on Qwen3-1.7B (traced on the host "
+          "beside phases 2-18) against phase 18's runs on the card")
+    rec = {"a": [], "b": {}}
+    for part, proc in enumerate(procs):
+        try:
+            rc = proc.wait(timeout=max(deadline - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            stop(procs)
+            require(False, f"the dry run's part {part} had not finished "
+                    f"{time.perf_counter() - t0:.1f} s after phase 18")
+        log = _part_path(part).with_suffix(".log").read_text()
+        require(rc == 0, f"the dry run's part {part} exited {rc}:\n"
+                f"{log[-4000:]}")
+        got = json.loads(_part_path(part).read_text())
+        rec["a"] += got["a"]
+        rec["b"].update(got["b"])
+        print(f"  traces, part {part}: wall_s={got['wall_s']:.1f} "
+              f"cpu_s={got['cpu_s']:.1f} in a process of its own")
+    print(f"  waited {time.perf_counter() - t0:.1f} s for them after "
+          f"phase 18")
+    print("  (a) Qwen3-1.7B on the production meshes, bf16 (GiB a device: "
+          "args / temp / out; FLOPs a device; collective GB by kind)")
+    for r in rec["a"]:
+        step = r["step"] + (f" {r['fed_framework']}"
+                            if r["step"] == "fed_round" else "")
+        print(f"    [{r['status']}] {r['shape']} {step} ({r['mesh']}): "
+              f"trace_s={r.get('trace_s')} GiB {r.get('arg_gib_per_dev')} / "
+              f"{r.get('temp_gib_per_dev')} / {r.get('out_gib_per_dev')}; "
+              f"FLOPs {r.get('hlo_flops', 0):.4e}; bytes "
+              f"{r.get('hlo_bytes', 0):.4e}; collectives " + ", ".join(
+                  f"{k} {v / 1e9:.3f}" for k, v in sorted(
+                      r.get("collective_bytes", {}).items()))
+              + f"; replicated at {r.get('replicated_at')}")
+        require(r["status"] == "OK", f"dry-run record {r['shape']} {step} "
+                f"{r['mesh']}: {r['status']}")
+
+    print(f"  (b) phase 18's steps on a one-device mesh, fp32, plain policy "
+          f"(memory band {DRYRUN_BAND[0]}-{DRYRUN_BAND[1]})")
+    b = rec["b"]
+    for name in ("train", "prefill", "decode"):
+        got, want = b[name]["arg_bytes_per_dev"], LAUNCH_MEASURED[name]["args"]
+        print(f"    {name}: argument bytes {got} traced, {want} on the card")
+        require(got == want, f"phase 19 (b) {name}: argument bytes {got} "
+                f"traced, {want} on the card")
+    train, meas = b["train"], LAUNCH_MEASURED["train"]
+    print(f"    train: FLOPs {train['hlo_flops']:.0f} traced, "
+          f"{meas['flops']} by FlopCounterMode on the card")
+    require(train["hlo_flops"] == meas["flops"], "phase 19 (b): the traced "
+            "train step's FLOPs are not FlopCounterMode's on the card")
+    pred = (train["temp_bytes_per_dev"] + train["arg_bytes_per_dev"]
+            + train["out_bytes_per_dev"])
+    ratio = pred / meas["peak"]
+    print(f"    train: temp + args + outputs {pred / 1e9:.3f} GB traced "
+          f"(temp {train['temp_bytes_per_dev'] / 1e9:.3f}, outputs "
+          f"{train['out_bytes_per_dev'] / 1e9:.3f} beside "
+          f"{meas['outs'] / 1e9:.3f} on the card), peak with arguments "
+          f"{meas['peak'] / 1e9:.3f} GB on the card: ratio {ratio:.4f}")
+    require(DRYRUN_BAND[0] <= ratio <= DRYRUN_BAND[1], f"phase 19 (b): the "
+            f"memory prediction is {ratio:.4f} of the card's peak")
+
+    print("  (c) roofline of (b)'s steps on the H100 (3xTF32 peak, HBM "
+          "3.35 TB/s) beside phase 18's kernel-run step times")
+    cfg = registry.get_config("qwen3-1.7b")
+    measured = {"train": LAUNCH_MEASURED["train_kernel_s"],
+                "prefill": LAUNCH_MEASURED["prefill"]["kernel_s"],
+                "decode": LAUNCH_MEASURED["decode"]["kernel_s"]}
+    for name in ("train", "prefill", "decode"):
+        r = b[name]
+        shape = ShapeConfig(r["shape"], r["seq"], r["batch"],
+                            {"train": "train", "prefill": "prefill",
+                             "decode": "decode"}[name])
+        t = analysis.RooflineTerms(
+            "qwen3-1.7b", r["shape"], "1x1", 1, hlo_flops=r["hlo_flops"],
+            hlo_bytes=r["hlo_bytes"],
+            collective_bytes=float(r["collective_total"]),
+            model_flops=analysis.model_flops_for(cfg, shape), dtype="3xtf32")
+        print(f"    {name} ({r['shape']}, batch {r['batch']}): compute "
+              f"{t.t_compute * 1e3:.3f} ms, memory {t.t_memory * 1e3:.3f} ms "
+              f"(unfused bytes), collective {t.t_collective * 1e3:.3f} ms -> "
+              f"{t.dominant}; measured {measured[name] * 1e3:.3f} ms, "
+              f"{measured[name] / t.t_compute:.3f} x the compute term; "
+              f"useful {t.useful_ratio:.3f}")
+    print(f"  phase 19 wall_s={time.perf_counter() - t0:.1f}")
+
+
 # the kernels that must not spill: {kernel: (source, instances)}
 NO_SPILLS = {"lora_fused_kernel": ("lora_matmul", 8),
              "lora_dw_kernel": ("lora_matmul", 1),
@@ -7438,6 +7732,18 @@ def main() -> int:
         print(f"  {kernel}: {len(spills)} instances, no spills")
     flash_instances(report["flash_attention"]["log"])
     print(f"  build wall_s={time.perf_counter() - t0:.1f}")
+    # phase 19's traces, on the host beside phases 2-18
+    dry = start_dry_run()
+    try:
+        return phases(device, card, smi, t_start, dry)
+    finally:
+        stop(dry)
+
+
+def phases(device, card, smi, t_start, dry) -> int:
+    """Phases 2-19 and the closing lines (main runs phase 1 and starts
+    phase 19's traces)."""
+    import torch
 
     t0 = time.perf_counter()
     print("phase 2: kernels against their plain versions")
@@ -7488,6 +7794,8 @@ def main() -> int:
     print(f"  phases 1-17 wall_s={time.perf_counter() - t_start:.1f}")
     by_path.update(run_launch(device, peaks(card)))
     print(f"  phases 1-18 wall_s={time.perf_counter() - t_start:.1f}")
+    run_dry_run(dry, t_start + DRYRUN_DEADLINE_S)
+    print(f"  phases 1-19 wall_s={time.perf_counter() - t_start:.1f}")
     print("margins (share of the limit; the last recorded run's in "
           "parentheses): " + ", ".join(
               f"{path} {MARGINS[path]:.3f} ("

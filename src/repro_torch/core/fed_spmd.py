@@ -58,6 +58,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from repro_torch import dtensor
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.fedavg import make_fns, to_device
@@ -150,9 +151,21 @@ def require_full_batch(clients_data: List[Dict], batch_size: int) -> None:
 def step_batch(batches: Dict, s: int) -> Dict[str, torch.Tensor]:
     """Step ``s`` of stacked batches (tensors, to_device of
     ``stack_client_batches``' arrays): the clients' batches one after
-    another, (C·B, ...)."""
-    return {k: v[:, s].reshape((-1,) + tuple(v.shape[3:]))
-            for k, v in batches.items()}
+    another, (C·B, ...).  A DTensor's batch dim, which DTensor cannot
+    flatten into the client dim while it is sharded, is made whole first
+    (dtensor.replicated; the step's inputs are small), and the rows are
+    sharded over the data axes again."""
+    out = {}
+    for k, v in batches.items():
+        x = v[:, s]
+        if dtensor.is_distributed(x):
+            x = dtensor.replicated(x, (1,), "core/fed_spmd.step_batch: the "
+                                  "stacked batch dim")
+            out[k] = dtensor.hint(x.reshape((-1,) + tuple(v.shape[3:])),
+                                 ("pod", "data"), *([None] * (v.dim() - 3)))
+        else:
+            out[k] = x.reshape((-1,) + tuple(v.shape[3:]))
+    return out
 
 
 def repeat_batch(batch: Dict, n_clients: int, device):

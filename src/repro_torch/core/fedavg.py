@@ -20,6 +20,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import dtensor
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import tasks
@@ -286,8 +287,9 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
         C = tree_lib.leaves(slt)[0].shape[0]
         with kernel_ops.clients_scope(C):
             logits, _ = model.forward(_bind(base, slt), batch)
-        out = _knowledge(logits, batch)
-        return out.view(C, -1, *out.shape[1:])
+        return dtensor.split_rows(_knowledge(logits, batch), C,
+                                 "core/fedavg: the stacked clients' "
+                                 "knowledge rows")
 
     def kd_step_clients(base, slt, sopt, batch, teacher_logits, gens=None):
         """kd_step of every stacked client on its rows of ``batch`` (a
@@ -299,8 +301,9 @@ def make_fns(model: Model, fed: FedConfig, task: str = "classification"):
             student = _knowledge(logits, batch)
             teacher = teacher_logits.repeat(
                 C, *([1] * (teacher_logits.dim() - 1)))
-            return losses.kd_kl_rows(student, teacher,
-                                     fed.kd_temperature).view(C, -1).mean(1)
+            return dtensor.split_rows(
+                losses.kd_kl_rows(student, teacher, fed.kd_temperature), C,
+                "core/fedavg: the stacked clients' KD rows").mean(1)
 
         loss, grads = _clients_grads(base, slt, batch, gens, per_client)
         new_lt, new_opt = clients_update(grads, sopt, slt, fed.lr)

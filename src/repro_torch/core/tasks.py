@@ -20,6 +20,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch import dtensor
 from repro_torch.data.banking77 import N_CLASSES
 from repro_torch.models import loss as losses
 from repro_torch.runtime import compute_dtype
@@ -29,7 +30,14 @@ def class_logits(logits, batch: Dict):
     """logits: (B, S', V) -> (B, n_classes) at the last non-pad position."""
     offset = logits.shape[1] - batch["tokens"].shape[1]
     pos = offset + batch["lengths"].long() - 1
-    g = logits[torch.arange(logits.shape[0], device=logits.device), pos]
+    if dtensor.is_distributed(logits):
+        # DTensor runs an advanced index, and its backward, on the whole
+        # logits on every rank: the position is picked by a mask instead
+        at = dtensor.rows_like(pos[:, None] == torch.arange(
+            logits.shape[1], device=logits.device), logits)
+        g = (logits * at[..., None].to(logits.dtype)).sum(1)
+    else:
+        g = logits[torch.arange(logits.shape[0], device=logits.device), pos]
     return g[:, 1:1 + N_CLASSES]
 
 
@@ -55,8 +63,8 @@ def _shifted(logits, batch):
     (B, S - 1), the shifted pad mask (B, S - 1)), the nll in fp32 (fp64
     for fp64 logits)."""
     tokens = batch["tokens"]
-    lg = logits[:, logits.shape[1] - tokens.shape[1]:]
-    nll = losses.nll(lg[:, :-1].to(compute_dtype(lg.dtype)),
+    lg = dtensor.seq_slice(logits, logits.shape[1] - tokens.shape[1], None)
+    nll = losses.nll(dtensor.seq_slice(lg, 0, -1).to(compute_dtype(lg.dtype)),
                      tokens[:, 1:])
     return lg, nll, (tokens[:, 1:] != 0).to(nll.dtype)
 
@@ -67,7 +75,7 @@ def generative_loss_fn(logits, batch):
     (loss, the logits without the prefix)."""
     tokens = batch["tokens"]
     mask = (tokens != 0).float()
-    lg = logits[:, logits.shape[1] - tokens.shape[1]:]
+    lg = dtensor.seq_slice(logits, logits.shape[1] - tokens.shape[1], None)
     loss, _ = losses.next_token_loss(lg, tokens, mask)
     return loss, lg
 
@@ -84,8 +92,11 @@ def generative_loss_clients(logits, batch, n_clients: int):
     over the non-pad tokens of its B rows (the batch holds the clients'
     rows one after another), generative_loss_fn of its own batch."""
     _, nll, mask = _shifted(logits, batch)
-    num = (nll * mask).reshape(n_clients, -1).sum(1)
-    return num / torch.clamp_min(mask.reshape(n_clients, -1).sum(1), 1.0)
+    site = "core/tasks: the stacked clients' loss rows"
+    num = dtensor.split_rows(nll * mask, n_clients, site).reshape(
+        n_clients, -1).sum(1)
+    return num / torch.clamp_min(dtensor.split_rows(
+        mask, n_clients, site).reshape(n_clients, -1).sum(1), 1.0)
 
 
 def task_logit_dim(task: str, vocab_size: int) -> int:
@@ -108,6 +119,13 @@ def get_clients_loss_fn(task: str):
     """fn(logits, batch, C) -> each stacked client's loss (C,), the loss
     get_loss_fn gives each client's rows alone."""
     if task == "classification":
-        return lambda logits, batch, C: classification_loss_rows(
-            logits, batch).view(C, -1).mean(dim=1)
+        return classification_loss_clients
     return generative_loss_clients
+
+
+def classification_loss_clients(logits, batch, n_clients: int):
+    """Each stacked client's classification loss (C,): the mean of its B
+    rows' cross-entropies."""
+    return dtensor.split_rows(classification_loss_rows(logits, batch),
+                             n_clients, "core/tasks: the stacked clients' "
+                             "loss rows").mean(dim=1)

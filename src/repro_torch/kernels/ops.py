@@ -53,6 +53,7 @@ import math
 
 import torch
 
+from repro_torch import dtensor
 from repro_torch.kernels import dp_clip as _dp
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kd_loss as _kd
@@ -241,6 +242,8 @@ def _lora_matmul_clients(x, w, a, b):
     if w.requires_grad:
         raise ValueError("lora_matmul: a client-axis pass forms no gradient "
                          "of the bound base weight")
+    if dtensor.is_distributed(x):
+        return _distributed_lora_clients(x, w, a, b)
     C = a.shape[0]
     *lead, K = x.shape
     rows = math.prod(lead)
@@ -255,6 +258,57 @@ def _lora_matmul_clients(x, w, a, b):
         x.reshape(C, rows // C, K).contiguous(), w, a.contiguous(),
         b.contiguous(), cuda)
     return y.reshape(*lead, w.shape[1])
+
+
+def _distributed_lora_clients(x, w, a, b):
+    """_lora_matmul_clients on DTensors.  The stacked rows' client axis
+    is folded into their batch dim, which DTensor cannot split back out
+    of a sharded dim, so: x@W by DTensor's own rule, and the LoRA term on
+    each rank's local rows, which hold whole clients' blocks in client
+    order (the rows' batch shards) against its clients' factors: A whole
+    and B's columns sharded as W's, but for a sharded client axis."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    # in x's dtype, as the reference's XLA lora_apply (the twins' fp32
+    # copies of x would each be kept for the backward)
+    w, a, b = (t.to(x.dtype) for t in (w, a, b))
+    base = x @ w
+    x = dtensor.replicated(x, (-1,), "kernels/ops: a stacked-clients LoRA "
+                          "site's input features")
+    client = [p.is_shard() and p.dim == 0 for p in a.placements]
+    a = dtensor.relayout(a, [Shard(0) if c else Replicate()
+                            for c in client])
+    col = [p.is_shard() and p.dim == 1 for p in w.placements]
+    b = dtensor.relayout(b, [Shard(0) if c else Replicate()
+                            for c in client])
+    # the gradients of the local pieces: x's a partial sum over the axes
+    # sharding W's columns, the factors' partial sums over the axes
+    # sharding the rows (each rank's rows' share), B's also over the
+    # axes sharding W's columns (each rank's slice of B's columns, cut
+    # below, zero elsewhere): no collective for them in the backward
+    rows = [dtensor.shard_dim(p) == 0 for p in x.placements]
+    xl = x.to_local(grad_placements=[Partial() if k else p for p, k in
+                                     zip(x.placements, col)])
+    al, bl = (t.to_local(grad_placements=[
+        Partial() if (r and not c) or (k and t is b) else p
+        for p, r, c, k in zip(t.placements, rows, client, col)])
+        for t in (a, b))
+    for i in (i for i, k in enumerate(col) if k):
+        n = bl.shape[2] // mesh.size(i)
+        bl = bl.narrow(2, mesh.get_local_rank(i) * n, n)
+    if xl.shape[0] % al.shape[0]:
+        raise ValueError(f"lora_matmul: {xl.shape[0]} local stacked rows "
+                         f"do not hold whole blocks of {al.shape[0]} "
+                         f"clients")
+    xc = xl.reshape(al.shape[0], -1, xl.shape[-1])
+    lora = ((xc @ al) @ bl).reshape(*xl.shape[:-1], bl.shape[-1])
+    pl = [Shard(x.dim() - 1) if k else p if dtensor.shard_dim(p) == 0
+          else Replicate() for p, k in zip(x.placements, col)]
+    shape = (*x.shape[:-1], w.shape[1])
+    return base + DTensor.from_local(lora, mesh, pl, run_check=False,
+                                     shape=shape,
+                                     stride=_global_stride(lora, shape))
 
 
 def _lora_matmul_clients_examples(x, w, a, b):
@@ -293,7 +347,10 @@ def mha_attention(q, k, v, causal: bool = True, window: int = 0,
     """q: (B, Sq, H, D); k, v: (B, Skv, KV, D) -> (B, Sq, H, D).
 
     Same transposes as the reference: heads move next to the batch into
-    the kernel layout (B·H, S, D), and back."""
+    the kernel layout (B·H, S, D), and back.  DTensors go through
+    _distributed_attention."""
+    if dtensor.is_distributed(q):
+        return _distributed_attention(q, k, v, causal, window, q_offset)
     B, Sq, H, D = q.shape
     _, Skv, KV, _ = k.shape
     qf = q.transpose(1, 2).reshape(B * H, Sq, D)
@@ -306,6 +363,61 @@ def mha_attention(q, k, v, causal: bool = True, window: int = 0,
     else:
         out = ref.attention_ref(qf, kf, vf, causal, window, q_offset)
     return out.reshape(B, H, Sq, D).transpose(1, 2)
+
+
+def _distributed_attention(q, k, v, causal, window, q_offset):
+    """mha_attention on DTensors, each rank on its own block of (batch,
+    head): q keeps its batch and head shards (anything else of it, a
+    sharded sequence or D or a partial sum, made whole); k and v take
+    q's batch shards and, where q's heads are sharded over a mesh axis,
+    their own heads over it when KV divides by its extent, else their
+    heads repeated to H first (each rank then holds its q heads' KV
+    heads, G = 1 there).  Each rank runs mha_attention on its local
+    blocks; the result has q's placements."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = q.device_mesh
+    H, KV = q.shape[2], k.shape[2]
+    qpl, kvpl, expand = [], [], False
+    for i, p in enumerate(q.placements):
+        if dtensor.shard_dim(p) == 0:
+            qpl.append(p)
+            kvpl.append(p)
+        elif p.is_shard(2):
+            qpl.append(p)
+            kvpl.append(p)
+            expand |= KV % mesh.size(i) != 0
+        else:
+            qpl.append(Replicate())
+            kvpl.append(Replicate())
+    if tuple(qpl) != tuple(q.placements):
+        q = dtensor.replicated(q, (1, 3), "kernels/ops.mha_attention: q's "
+                              "sequence or head dim")
+        q = dtensor.relayout(q, qpl)
+
+    def local(x):
+        """This rank's K or V block for its q heads."""
+        if not expand:
+            return dtensor.relayout(x, kvpl).to_local()
+        # the heads whole, repeated to H and cut to this rank's q heads
+        # locally; the gradient a partial sum over the head axes
+        whole = dtensor.relayout(x, [p if dtensor.shard_dim(p) == 0
+                                    else Replicate() for p in kvpl])
+        loc = whole.to_local(grad_placements=[
+            Partial() if p.is_shard(2) else w
+            for p, w in zip(kvpl, whole.placements)])
+        loc = loc.repeat_interleave(H // KV, dim=2)
+        for i, p in enumerate(kvpl):
+            if p.is_shard(2):
+                n = loc.shape[2] // mesh.size(i)
+                loc = loc.narrow(2, mesh.get_local_rank(i) * n, n)
+        return loc
+
+    out = mha_attention(q.to_local(), local(k), local(v), causal, window,
+                        q_offset)
+    return DTensor.from_local(out, mesh, qpl, run_check=False,
+                              shape=q.shape, stride=_global_stride(out,
+                                                                   q.shape))
 
 
 def kd_loss(teacher, student, temperature: float = 1.0, mask=None):
@@ -419,13 +531,181 @@ def clip_mean_rows_clients(g, clip: float):
     return _dp.clip_mean_rows_clients(g.float().contiguous(), clip)
 
 
+# --------------------------------------------------------------------------- #
+# The scans on tensors without data (launch/dryrun.py)
+# --------------------------------------------------------------------------- #
+_COST_SINK = None       # charge(flops, bytes) of the open shape_only_costs
+
+
+@contextlib.contextmanager
+def shape_only_costs(charge):
+    """While open, the scans' shape-only path reports the FLOPs and bytes
+    of the step-by-step twin it stands for to ``charge(flops, nbytes)``
+    (a dry run's counter)."""
+    global _COST_SINK
+    prev, _COST_SINK = _COST_SINK, charge
+    try:
+        yield
+    finally:
+        _COST_SINK = prev
+
+
+def shape_only(t) -> bool:
+    """Whether ``t`` holds no data: a tensor on the ``meta`` device or a
+    FakeTensor.  Only such tensors take the scans' shape-only path; a CPU
+    or CUDA tensor never does."""
+    from torch._subclasses.fake_tensor import is_fake
+    return t.is_meta or is_fake(t)
+
+
+def rglru_twin_cost(B: int, S: int, W: int, itemsize: int, h0: bool,
+                    backward: bool, h0_grad: bool = False):
+    """(flops, bytes) that a dry run's counter reads off ref.rglru_scan
+    on (B, S, W) inputs (``h0`` given or not): its forward, or with
+    ``backward`` the autograd backward through a, b (and h0 with
+    ``h0_grad``) after it.  The step-by-step twin does no matrix
+    products; the select backward of each step writes a whole (B, S, W)
+    gradient, hence the S² term.  tests/test_torch_dryrun.py holds these
+    to the counter."""
+    n = B * W
+    fwd = itemsize * n * (8 * S + (0 if h0 else 2))
+    if not backward:
+        return 0, fwd
+    total = 8 * S * S + 13 * S - (1 if not h0 else 0 if h0_grad else 3)
+    return 0, itemsize * n * total - fwd
+
+
+def rwkv6_twin_cost(BH: int, S: int, D: int, U: int, itemsize: int,
+                    backward: bool):
+    """(flops, bytes) that a dry run's counter reads off ref.rwkv6_scan
+    on (BH, S, D) inputs and a (U, D) bonus, D >= 2: its forward (one
+    (1, D) x (D, D) product a row and step), or with ``backward`` the
+    autograd backward through r, k, v and logw after it (u frozen)."""
+    n, n2 = BH * D, BH * D * D
+    fwd = (2 * n2 * S, itemsize * (n + 24 * n * S + n2 + 7 * n2 * S + U * D
+                                   + 2 * BH * S))
+    if not backward:
+        return fwd
+    flops = 6 * n2 * S - 2 * n2
+    nbytes = itemsize * (-2 * n + 55 * n * S + 16 * n * S * S - 5 * n2
+                         + 24 * n2 * S + U * D + 4 * BH * S)
+    return flops - fwd[0], nbytes - fwd[1]
+
+
+def _charge(cost) -> None:
+    if _COST_SINK is not None:
+        _COST_SINK(*cost)
+
+
+class _ShapeOnlyRGLRU(torch.autograd.Function):
+    """The RG-LRU scan's outputs (empty, right shapes and dtypes) and
+    gradients, with the twin's FLOPs and bytes charged."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        B, S, W = a.shape
+        ctx.dims = (B, S, W, a.element_size(), h0 is not None)
+        _charge(rglru_twin_cost(*ctx.dims, False))
+        return torch.empty_like(a), torch.empty_like(a[:, 0])
+
+    @staticmethod
+    def backward(ctx, dh, dh_final):
+        a_grad, b_grad, h0_grad = ctx.needs_input_grad
+        _charge(rglru_twin_cost(*ctx.dims, True, h0_grad))
+        B, S, W, _, has_h0 = ctx.dims
+        empty = dh.new_empty
+        return (empty((B, S, W)) if a_grad else None,
+                empty((B, S, W)) if b_grad else None,
+                empty((B, W)) if has_h0 and h0_grad else None)
+
+
+class _ShapeOnlyWKV(torch.autograd.Function):
+    """The WKV recurrence's outputs (y (BH, S, D), S_final (BH, D, D),
+    empty) and gradients, with the twin's FLOPs and bytes charged."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u):
+        BH, S, D = r.shape
+        ctx.dims = (BH, S, D, u.shape[0], r.element_size())
+        _charge(rwkv6_twin_cost(*ctx.dims, False))
+        return torch.empty_like(r), r.new_empty((BH, D, D))
+
+    @staticmethod
+    def backward(ctx, dy, dS):
+        _charge(rwkv6_twin_cost(*ctx.dims, True))
+        BH, S, D, U, _ = ctx.dims
+        need = ctx.needs_input_grad
+        grads = [dy.new_empty((BH, S, D)) if need[i] else None
+                 for i in range(4)]
+        return (*grads, dy.new_empty((U, D)) if need[4] else None)
+
+
+def _distributed_scan(fn, xs, in_dims, outs):
+    """``fn`` (rglru or rwkv6) on DTensors, each rank on its local
+    shards: the scan runs along its sequence dim independently over the
+    others, so the inputs keep the lead input's batch and channel (or
+    head) shards and have every other dim made whole.  ``in_dims[i]``
+    maps input i's dims to the lead input's (None: made whole); ``outs``
+    is each output's (global shape, dims).  Returns DTensors."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = xs[0].device_mesh
+    lead = xs[0].placements
+    keep = {i: dtensor.shard_dim(p) for i, p in enumerate(lead)
+            if dtensor.shard_dim(p) is not None
+            and dtensor.shard_dim(p) in in_dims[0]}
+
+    def placements(dims):
+        # a lead shard of the same dim index kept as it is (a strided
+        # batch shard stays strided), else a Shard of the mapped dim
+        return [(lead[i] if dims.index(keep[i]) == keep[i]
+                 else Shard(dims.index(keep[i])))
+                if i in keep and keep[i] in dims else Replicate()
+                for i in range(mesh.ndim)]
+
+    locs = []
+    for x, dims in zip(xs, in_dims):
+        if x is not None:
+            pl = placements(dims)
+            if tuple(x.placements) != tuple(pl):
+                x = dtensor.replicated(
+                    x, [d for d in range(x.dim()) if dims[d] is None],
+                    "kernels/ops: a scan's sequence dim")
+                x = dtensor.relayout(x, pl)
+            x = x.to_local()
+        locs.append(x)
+    res = fn(*locs)
+    return tuple(DTensor.from_local(o, mesh, placements(dims),
+                                    run_check=False, shape=shape,
+                                    stride=_global_stride(o, shape))
+                 for o, (shape, dims) in zip(res, outs))
+
+
+def _global_stride(local, shape):
+    """The strides of ``shape`` laid out in the dim order of the local
+    tensor's (a transposed view's order kept)."""
+    order = sorted(range(local.dim()), key=lambda d: -local.stride(d))
+    stride, step = [0] * len(shape), 1
+    for d in reversed(order):
+        stride[d] = step
+        step *= shape[d]
+    return tuple(stride)
+
+
 def rglru(a, b, h0=None):
     """a, b: (B, S, W) fp32; h0: (B, W) or None (zeros) -> (h (B, S, W),
     h_final (B, W)): the RG-LRU recurrence h_t = a_t·h_{t-1} + b_t,
     differentiable.  The CUDA kernels of kernels/rglru_scan.py under the
     ``cuda`` policy, the step-by-step plain version (kernels/ref.py, the
     same bits) under ``torch``."""
+    if dtensor.is_distributed(a):
+        B, S, W = a.shape
+        seq = (0, None, 2)
+        return _distributed_scan(rglru, (a, b, h0), (seq, seq, (0, 2)),
+                                 (((B, S, W), seq), ((B, W), (0, 2))))
     if not use_cuda(a):
+        if shape_only(a):
+            return _ShapeOnlyRGLRU.apply(a, b, h0)
         return ref.rglru_scan(a, b, h0)
     _require_cuda("rglru", a, b, *(() if h0 is None else (h0,)))
     return _rg.rglru_scan(a.contiguous(), b.contiguous(),
@@ -440,12 +720,21 @@ def rwkv6(r, k, v, logw, u):
     u[h].  The CUDA kernels of kernels/rwkv6_scan.py under the ``cuda``
     policy, the step-by-step plain version (kernels/ref.py) under
     ``torch``."""
+    if dtensor.is_distributed(r):
+        B, S, H, D = r.shape
+        seq = (0, None, 2, None)
+        return _distributed_scan(rwkv6, (r, k, v, logw, u),
+                                 (seq,) * 4 + ((2, None),),
+                                 (((B, S, H, D), seq),
+                                  ((B, H, D, D), (0, 2, None, None))))
     B, S, H, D = r.shape
 
     def flat(x):
         return x.transpose(1, 2).reshape(B * H, S, D)
 
-    if use_cuda(r):
+    if not use_cuda(r) and shape_only(r):
+        y, sf = _ShapeOnlyWKV.apply(*(flat(x) for x in (r, k, v, logw)), u)
+    elif use_cuda(r):
         _require_cuda("rwkv6", r, k, v, logw, u)
         y, sf = _rw.rwkv6_scan(*(flat(x).contiguous()
                                  for x in (r, k, v, logw)), u.contiguous())

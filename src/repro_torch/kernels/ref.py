@@ -12,7 +12,9 @@ kernels/{lora_matmul,flash_attention,kd_loss,rglru_scan,rwkv6_scan}.py and
 kernels/ops (for kernels/quantize.py and kernels/dp_clip.py) take these
 for CPU tensors;
 chip_smoke.py holds each CUDA kernel against them on the card.  All math
-is fp32.
+is fp32 (fp64 for fp64 operands): the LoRA and attention twins take bf16
+operands too, compute in fp32 and return the operands' dtype, as the
+reference's oracles do.
 """
 from __future__ import annotations
 
@@ -27,40 +29,58 @@ NEG_INF = -1e30
 # --------------------------------------------------------------------------- #
 # LoRA matmul
 # --------------------------------------------------------------------------- #
+def _up(*ts):
+    """``ts`` in the compute dtype of the first (kernels/ref.py of the
+    reference computes in fp32 whatever the operands' dtype); fp32 and
+    fp64 tensors come back as they are."""
+    dt = compute_dtype(ts[0].dtype)
+    return tuple(t.to(dt) for t in ts)
+
+
 def lora_matmul_ref(x, w, a, b):
-    """x: (M, K); w: (K, N); a: (K, r); b: (r, N) -> x@W + (x@A)@B."""
-    return x @ w + (x @ a) @ b
+    """x: (M, K); w: (K, N); a: (K, r); b: (r, N) -> x@W + (x@A)@B, in
+    x's dtype."""
+    xc, wc, ac, bc = _up(x, w, a, b)
+    return (xc @ wc + (xc @ ac) @ bc).to(x.dtype)
 
 
 def lora_fwd(x, w, a, b):
-    """(y, xa): the forward kernel's outputs (row 1), xa = x@A saved."""
-    xa = x @ a
-    return x @ w + xa @ b, xa
+    """(y, xa): the forward kernel's outputs (row 1), xa = x@A saved; both
+    in x's dtype."""
+    xc, wc, ac, bc = _up(x, w, a, b)
+    xa = xc @ ac
+    return (xc @ wc + xa @ bc).to(x.dtype), xa.to(x.dtype)
 
 
 def lora_dx(g, w, a, b):
-    """(dx, gb): dx = g@Wᵀ + (g@Bᵀ)@Aᵀ, gb = g@Bᵀ (row 2)."""
-    gb = g @ b.t()
-    return g @ w.t() + gb @ a.t(), gb
+    """(dx, gb): dx = g@Wᵀ + (g@Bᵀ)@Aᵀ, gb = g@Bᵀ (row 2), in g's
+    dtype."""
+    gc, wc, ac, bc = _up(g, w, a, b)
+    gb = gc @ bc.t()
+    return (gc @ wc.t() + gb @ ac.t()).to(g.dtype), gb.to(g.dtype)
 
 
 def lora_dw(x, g):
-    """dW = xᵀg: (M, K), (M, N) -> (K, N) (row 3)."""
-    return x.t() @ g
+    """dW = xᵀg: (M, K), (M, N) -> (K, N) (row 3), in x's dtype."""
+    xc, gc = _up(x, g)
+    return (xc.t() @ gc).to(x.dtype)
 
 
 def panel_grad(lhs, panel, transpose_out: bool = False):
-    """lhsᵀ·panel: (M, L), (M, r) -> (L, r), or (r, L) transposed (row 4).
-    dA = panel_grad(x, gb); dB = panel_grad(g, xa, transpose_out=True)."""
-    out = lhs.t() @ panel
+    """lhsᵀ·panel: (M, L), (M, r) -> (L, r), or (r, L) transposed (row 4),
+    in lhs's dtype.  dA = panel_grad(x, gb); dB = panel_grad(g, xa,
+    transpose_out=True)."""
+    lc, pc = _up(lhs, panel)
+    out = (lc.t() @ pc).to(lhs.dtype)
     return out.t().contiguous() if transpose_out else out
 
 
 def panel_grad_examples(lhs, panel, transpose_out: bool = False):
     """Each example's lhs_bᵀ·panel_b: (B, S, L), (B, S, r) -> (B, L, r),
-    or (B, r, L) transposed: row 4 under the ``vmap`` of the DP-SGD
-    step's per-example loss."""
-    out = lhs.transpose(1, 2) @ panel
+    or (B, r, L) transposed, in lhs's dtype: row 4 under the ``vmap`` of
+    the DP-SGD step's per-example loss."""
+    lc, pc = _up(lhs, panel)
+    out = (lc.transpose(1, 2) @ pc).to(lhs.dtype)
     return out.transpose(1, 2).contiguous() if transpose_out else out
 
 
@@ -73,17 +93,20 @@ def panel_grad_examples_pair(x, gb, g, xa):
 
 def lora_fwd_clients(x, w, a, b):
     """(y, xa) of each client: x (C, M, K), w (K, N) shared, a (C, K, r),
-    b (C, r, N) -> y (C, M, N), xa (C, M, r) (rows 1ᶜ under the ``vmap``
-    over clients of the stacked local update)."""
-    xa = x @ a
-    return x @ w + xa @ b, xa
+    b (C, r, N) -> y (C, M, N), xa (C, M, r) in x's dtype (rows 1ᶜ under
+    the ``vmap`` over clients of the stacked local update)."""
+    xc, wc, ac, bc = _up(x, w, a, b)
+    xa = xc @ ac
+    return (xc @ wc + xa @ bc).to(x.dtype), xa.to(x.dtype)
 
 
 def lora_dx_clients(g, w, a, b):
     """(dx, gb) of each client: g (C, M, N) -> dx (C, M, K), gb (C, M, r)
-    (row 2ᶜ)."""
-    gb = g @ b.transpose(1, 2)
-    return g @ w.t() + gb @ a.transpose(1, 2), gb
+    in g's dtype (row 2ᶜ)."""
+    gc, wc, ac, bc = _up(g, w, a, b)
+    gb = gc @ bc.transpose(1, 2)
+    return (gc @ wc.t() + gb @ ac.transpose(1, 2)).to(g.dtype), \
+        gb.to(g.dtype)
 
 
 def panel_grad_clients(lhs, panel, transpose_out: bool = False):
@@ -108,56 +131,69 @@ def _mask(Sq: int, Skv: int, causal: bool, window: int, q_offset: int,
 
 
 def _scores(q, k, causal, window, q_offset):
-    """(masked fp32 scores (BH, Sq, Skv), mask, G) with GQA head repeat."""
+    """(masked scores (BH, Sq, Skv) in q's compute dtype, mask, G) with
+    GQA head repeat."""
     BH, Sq, D = q.shape
     BKV, Skv, _ = k.shape
     G = BH // BKV
-    kr = k.repeat_interleave(G, dim=0)
-    s = (q * D ** -0.5) @ kr.transpose(1, 2)
+    qc, kc = _up(q, k)
+    kr = kc.repeat_interleave(G, dim=0)
+    s = (qc * D ** -0.5) @ kr.transpose(1, 2)
     mask = _mask(Sq, Skv, causal, window, q_offset, q.device)
     return s.masked_fill(~mask, NEG_INF), mask, G
 
 
 def attention_ref(q, k, v, causal: bool = True, window: int = 0,
                   q_offset: int = 0):
-    """q: (BH, Sq, D); k, v: (BKV, Skv, D); GQA kv head = bh // G."""
+    """q: (BH, Sq, D); k, v: (BKV, Skv, D); GQA kv head = bh // G.  Scores,
+    softmax and products in fp32 (fp64 for fp64), the result in q's
+    dtype."""
     s, _, G = _scores(q, k, causal, window, q_offset)
     p = torch.softmax(s, dim=-1)
-    return p @ v.repeat_interleave(G, dim=0)
+    return (p @ _up(q, v)[1].repeat_interleave(G, dim=0)).to(q.dtype)
 
 
 def attention_fwd(q, k, v, causal: bool = True, window: int = 0,
                   q_offset: int = 0):
-    """(o, lse (BH, Sq) fp32): the flash forward's outputs (row 5)."""
+    """(o in q's dtype, lse (BH, Sq) fp32): the flash forward's outputs
+    (row 5)."""
     s, _, G = _scores(q, k, causal, window, q_offset)
     lse = torch.logsumexp(s, dim=-1)
-    o = torch.exp(s - lse[..., None]) @ v.repeat_interleave(G, dim=0)
-    return o, lse
+    o = torch.exp(s - lse[..., None]) @ _up(q, v)[1].repeat_interleave(
+        G, dim=0)
+    return o.to(q.dtype), lse
 
 
 def _p_ds(q, k, v, do, lse, dd, causal, window, q_offset):
-    """Recomputed p = exp(s − lse) (0 where masked) and ds = p(do·vᵀ − D)."""
+    """Recomputed p = exp(s − lse) (0 where masked) and ds = p(do·vᵀ − D),
+    in q's compute dtype."""
     s, mask, G = _scores(q, k, causal, window, q_offset)
-    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
-    dp = do @ v.repeat_interleave(G, dim=0).transpose(1, 2)
-    return p, p * (dp - dd[..., None]), G
+    _, vc, doc, lsec, ddc = _up(q, v, do, lse, dd)
+    p = torch.where(mask, torch.exp(s - lsec[..., None]), 0.0)
+    dp = doc @ vc.repeat_interleave(G, dim=0).transpose(1, 2)
+    return p, p * (dp - ddc[..., None]), G
 
 
 def attention_dq(q, k, v, do, lse, dd, causal: bool = True, window: int = 0,
                  q_offset: int = 0):
-    """dq = scale·ds·k (row 6); dd = rowsum(do∘o) of shape (BH, Sq)."""
+    """dq = scale·ds·k (row 6), in q's dtype; dd = rowsum(do∘o) of shape
+    (BH, Sq)."""
     _, ds, G = _p_ds(q, k, v, do, lse, dd, causal, window, q_offset)
-    return (ds @ k.repeat_interleave(G, dim=0)) * q.shape[-1] ** -0.5
+    kc = _up(q, k)[1]
+    return ((ds @ kc.repeat_interleave(G, dim=0))
+            * q.shape[-1] ** -0.5).to(q.dtype)
 
 
 def attention_dkv(q, k, v, do, lse, dd, causal: bool = True, window: int = 0,
                   q_offset: int = 0):
-    """(dk, dv) = (scale·dsᵀq, pᵀdo), summed over each GQA group (row 7)."""
+    """(dk, dv) = (scale·dsᵀq, pᵀdo), summed over each GQA group (row 7),
+    in k's and v's dtypes."""
     BKV, Skv, D = k.shape
     p, ds, G = _p_ds(q, k, v, do, lse, dd, causal, window, q_offset)
-    dk = (ds.transpose(1, 2) @ q).view(BKV, G, Skv, D).sum(1) * D ** -0.5
-    dv = (p.transpose(1, 2) @ do).view(BKV, G, Skv, D).sum(1)
-    return dk, dv
+    qc, doc = _up(q, do)
+    dk = (ds.transpose(1, 2) @ qc).view(BKV, G, Skv, D).sum(1) * D ** -0.5
+    dv = (p.transpose(1, 2) @ doc).view(BKV, G, Skv, D).sum(1)
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 # --------------------------------------------------------------------------- #

@@ -9,14 +9,19 @@ real ``torch.distributed`` ``DeviceMesh`` of the same shape.  The
 single-pod mesh is 16 x 16 = 256 devices, ("data", "model"); multi-pod
 adds a leading "pod" axis (2 pods, 512 devices).
 
-Not ported: ``activate_mesh`` (jax's ambient-mesh context; eager PyTorch
-has none, a DTensor carries its mesh) and ``cost_analysis_dict`` (XLA's
-compiled cost analysis; the dry run's port takes FLOPs from
-``torch.utils.flop_counter`` instead).
+``fake_device_mesh`` stands in for the reference's ``activate_mesh``
+(jax's ambient mesh over 256 or 512 fake host devices): eager PyTorch
+has no ambient mesh, a DTensor carries its own, so it makes a
+``DeviceMesh`` of the spec's shape over a ``"fake"`` process group of
+that many ranks, which runs no communication.  Not ported:
+``cost_analysis_dict`` (XLA's compiled cost analysis; launch/dryrun.py
+counts FLOPs with ``torch.utils.flop_counter``'s formulas instead).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 from typing import Dict, Tuple
 
 
@@ -74,3 +79,28 @@ def n_edges(mesh) -> int:
     if mesh is None:
         return 1
     return int(dict(mesh.shape).get("pod", 1))
+
+
+@contextlib.contextmanager
+def fake_device_mesh(mesh: MeshSpec):
+    """A CPU ``DeviceMesh`` shaped as ``mesh`` (its axis names the mesh
+    dims') over a ``"fake"`` process group of ``prod(axis_sizes)`` ranks
+    (``torch.testing._internal.distributed.fake_pg``), this process rank
+    0: collectives issued on it dispatch and return buffers of the right
+    shapes, and move nothing.  The group is destroyed on exit, so the
+    process is left with none.  Refuses to run while another default
+    group exists."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_device_mesh: a default process group "
+                           "already exists")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(mesh.axis_sizes))
+    try:
+        yield init_device_mesh("cpu", tuple(mesh.axis_sizes),
+                               mesh_dim_names=tuple(mesh.axis_names))
+    finally:
+        dist.destroy_process_group()

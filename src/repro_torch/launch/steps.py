@@ -89,7 +89,9 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
         # offset-aware LM loss (a VLM's image prefix shifts the positions)
         loss, _ = tasks.generative_loss_fn(logits, batch)
         loss = loss + aux
-        grads = torch.autograd.grad(loss, tree_lib.leaves(live))
+        leaves = tree_lib.leaves(live)
+        # a model of no layers (the roofline's stem) has no LoRA leaves
+        grads = torch.autograd.grad(loss, leaves) if leaves else []
         new_lt, new_opt = adam.update(tree_lib.unflatten(lt, list(grads)),
                                       opt, lt, 1e-4)
         return new_lt, new_opt, loss.detach()

@@ -24,11 +24,16 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import dtensor
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import common
 from repro_torch.models.common import mm
 from repro_torch.runtime import compute_dtype
+
+# where a DTensor's projected heads are made whole (common.split_heads)
+_SITE_Q = "models/attention: q heads not divisible by the model axis"
+_SITE_KV = "models/attention: k/v heads not divisible by the model axis"
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, device,
@@ -64,9 +69,9 @@ def attention_fwd(params, cfg: ModelConfig, x, positions=None,
     v = mm(x, params["wv"])
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(B, S, h, hd)
-    k = k.reshape(B, S, kv, hd)
-    v = v.reshape(B, S, kv, hd)
+    q = common.split_heads(q, h, hd, _SITE_Q)
+    k = common.split_heads(k, kv, hd, _SITE_KV)
+    v = common.split_heads(v, kv, hd, _SITE_KV)
     if "q_norm" in params:
         q = common.rmsnorm({"scale": params["q_norm"]}, q)
         k = common.rmsnorm({"scale": params["k_norm"]}, k)
@@ -75,8 +80,10 @@ def attention_fwd(params, cfg: ModelConfig, x, positions=None,
             positions = torch.arange(S, device=x.device)
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
+    q = dtensor.hint(q, ("pod", "data"), None, "model", None)
+    k = dtensor.hint(k, ("pod", "data"), None, None, None)
     out = kernel_ops.mha_attention(q, k, v, causal=True, window=window)
-    return mm(out.reshape(B, S, h * hd), params["wo"])
+    return mm(common.merge_heads(out), params["wo"])
 
 
 def attention_fwd_noncausal(params, cfg: ModelConfig, x, positions):
@@ -85,14 +92,14 @@ def attention_fwd_noncausal(params, cfg: ModelConfig, x, positions):
     the config uses it."""
     B, S, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = mm(x, params["wq"]).reshape(B, S, h, hd)
-    k = mm(x, params["wk"]).reshape(B, S, kv, hd)
-    v = mm(x, params["wv"]).reshape(B, S, kv, hd)
+    q = common.split_heads(mm(x, params["wq"]), h, hd, _SITE_Q)
+    k = common.split_heads(mm(x, params["wk"]), kv, hd, _SITE_KV)
+    v = common.split_heads(mm(x, params["wv"]), kv, hd, _SITE_KV)
     if cfg.use_rope:
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
     out = kernel_ops.mha_attention(q, k, v, causal=False)
-    return mm(out.reshape(B, S, h * hd), params["wo"])
+    return mm(common.merge_heads(out), params["wo"])
 
 
 def cross_attention_fwd(params, cfg: ModelConfig, x, enc_kv):
@@ -100,10 +107,10 @@ def cross_attention_fwd(params, cfg: ModelConfig, x, enc_kv):
     each (B, Se, KV, D) from encode_cross_kv; non-causal."""
     B, S, _ = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
-    q = mm(x, params["wq"]).reshape(B, S, h, hd)
+    q = common.split_heads(mm(x, params["wq"]), h, hd, _SITE_Q)
     k, v = enc_kv
     out = kernel_ops.mha_attention(q, k, v, causal=False)
-    return mm(out.reshape(B, S, h * hd), params["wo"])
+    return mm(common.merge_heads(out), params["wo"])
 
 
 def encode_cross_kv(params, cfg: ModelConfig, enc_out):
@@ -111,8 +118,8 @@ def encode_cross_kv(params, cfg: ModelConfig, enc_out):
     (k, v), each (B, Se, KV, D)."""
     B, Se, _ = enc_out.shape
     kv, hd = cfg.n_kv_heads, cfg.head_dim
-    return (mm(enc_out, params["wk"]).reshape(B, Se, kv, hd),
-            mm(enc_out, params["wv"]).reshape(B, Se, kv, hd))
+    return (common.split_heads(mm(enc_out, params["wk"]), kv, hd, _SITE_KV),
+            common.split_heads(mm(enc_out, params["wv"]), kv, hd, _SITE_KV))
 
 
 # --------------------------------------------------------------------------- #
@@ -146,9 +153,9 @@ def attention_decode(params, cfg: ModelConfig, x, cache, pos: int,
     v = mm(x, params["wv"])
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(B, 1, h, hd)
-    k = k.reshape(B, 1, kv, hd)
-    v = v.reshape(B, 1, kv, hd)
+    q = common.split_heads(q, h, hd, _SITE_Q)
+    k = common.split_heads(k, kv, hd, _SITE_KV)
+    v = common.split_heads(v, kv, hd, _SITE_KV)
     if "q_norm" in params:
         q = common.rmsnorm({"scale": params["q_norm"]}, q)
         k = common.rmsnorm({"scale": params["k_norm"]}, k)
@@ -164,6 +171,9 @@ def attention_decode(params, cfg: ModelConfig, x, cache, pos: int,
     n_valid = min(pos + 1, size) if window else pos + 1
     valid = torch.arange(size, device=x.device) < n_valid
     dt = q.dtype
+    q = dtensor.replicated(q, (2,), "models/attention.attention_decode: q "
+                          "heads grouped by KV head") \
+        if kv % dtensor.shard_extent(q, 2) else q
     qr = q.reshape(B, kv, h // kv, hd)                      # (B, KV, G, D)
     scores = torch.einsum("bkgd,bskd->bkgs", qr, ck.to(dt))
     scores = scores.to(compute_dtype(dt)) * hd ** -0.5

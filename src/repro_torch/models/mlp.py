@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import dtensor
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
 from repro_torch.models.common import mm
@@ -25,6 +26,9 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, device):
 def mlp_fwd(params, cfg: ModelConfig, x):
     if cfg.activation == "swiglu":
         g = common.silu(mm(x, params["w_gate"]))
-        return mm(mm(x, params["w_in"]) * g, params["w_out"])
-    act = common.relu2 if cfg.activation == "relu2" else common.gelu
-    return mm(act(mm(x, params["w_in"])), params["w_out"])
+        h = mm(x, params["w_in"]) * g
+    else:
+        act = common.relu2 if cfg.activation == "relu2" else common.gelu
+        h = act(mm(x, params["w_in"]))
+    h = dtensor.hint(h, ("pod", "data"), None, "model")
+    return mm(h, params["w_out"])

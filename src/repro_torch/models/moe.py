@@ -44,6 +44,7 @@ import math
 
 import torch
 
+from repro_torch import dtensor
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import common
@@ -102,9 +103,13 @@ def routing_groups(batch: int):
     return clients
 
 
-def moe_fwd(params, cfg: ModelConfig, x):
+def moe_fwd(params, cfg: ModelConfig, x, first=None):
     """x: (B, S, d) -> (out (B, S, d), aux: a scalar, or (G,) for the G
-    routing groups of an open scope)."""
+    routing groups of an open scope).  DTensors go through
+    _distributed_moe; ``first`` (its use) marks params holding the
+    experts from ``first`` on, the others' assignments left out."""
+    if dtensor.is_distributed(x):
+        return _distributed_moe(params, cfg, x)
     B, S, d = x.shape
     k, E = cfg.top_k, cfg.n_experts
     groups = routing_groups(B)
@@ -138,26 +143,77 @@ def moe_fwd(params, cfg: ModelConfig, x):
     out = _dispatch(params, cfg, x.reshape(rows, tokens, d),
                     topk_e.reshape(rows, tokens * k),
                     topk_p.reshape(rows, tokens * k).to(x.dtype),
-                    expert_capacity(tokens, cfg))
+                    expert_capacity(tokens, cfg), first)
     return out.reshape(B, S, d), (aux[0] if groups is None else aux)
 
 
-def _dispatch(params, cfg: ModelConfig, x, flat_e, flat_w, cap: int):
+def _distributed_moe(params, cfg: ModelConfig, x):
+    """moe_fwd on DTensors, each rank on its local rows (routing is by
+    batch row under every registry MoE's dispatch) against its local
+    expert weights: the experts' dim sharded (expert parallel), each rank
+    adds its experts' share of every token, the other assignments left
+    out; the ffn dim sharded (tensor parallel), its columns' share.  The
+    output is the ranks' partial sums over those axes; aux, from the
+    local rows' routing, their mean over the row axes."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = x.device_mesh
+    x = dtensor.hint(x, ("pod", "data"), None, None)
+    w_in = params["w_in"]
+    expert_dim = w_in.dim() - 3
+    local = {name: (dtensor.replicated(t, range(t.dim()),
+                                      "models/moe: the router")
+                    if name == "router" else t).to_local()
+             for name, t in params.items()}
+    ep = [i for i, p in enumerate(w_in.placements) if p.is_shard(expert_dim)]
+    first = None
+    if ep:
+        first = 0
+        for i in ep:
+            first = first * mesh.size(i) + mesh.get_local_rank(i)
+        first *= local["w_in"].shape[expert_dim]
+    split = [p.is_shard() for p in w_in.placements]
+    # x's gradient: each rank's experts' (or columns') share, a partial
+    # sum over the axes sharding them
+    out, aux = moe_fwd(local, cfg, x.to_local(grad_placements=[
+        Partial() if sp else p for p, sp in zip(x.placements, split)]),
+        first)
+    rows = [dtensor.shard_dim(p) == 0 for p in x.placements]
+    out = DTensor.from_local(
+        out, mesh, [Partial() if sp else x.placements[i]
+                    for i, sp in enumerate(split)],
+        run_check=False, shape=x.shape, stride=x.stride())
+    aux = DTensor.from_local(
+        aux, mesh, [Partial("avg") if r else Replicate() for r in rows],
+        run_check=False)
+    return out, aux
+
+
+def _dispatch(params, cfg: ModelConfig, x, flat_e, flat_w, cap: int,
+              first=None):
     """Sort-by-expert pack, expert MLPs, weighted unpack of R routing rows:
     x (R, T, d), flat_e and flat_w (R, T·k) in token-major order -> (R, T,
-    d)."""
+    d).  ``first`` not None: params hold the experts from ``first`` on,
+    and assignments to the others are dropped."""
     R, T, d = x.shape
     k, E = cfg.top_k, cfg.n_experts
     A = T * k
     dev = x.device
+    if first is not None:
+        # the held experts, the others into one more bucket, dropped
+        E = params["w_in"].shape[0]
+        inside = (flat_e >= first) & (flat_e < first + E)
+        flat_e = torch.where(inside, flat_e - first, E)
     order = torch.argsort(flat_e, dim=1, stable=True)
     se = flat_e.gather(1, order)                             # sorted experts
     stok = order // k                                        # their tokens
-    counts = torch.zeros(R, E, dtype=torch.long, device=dev).scatter_add_(
-        1, se, torch.ones_like(se))
+    counts = torch.zeros(R, E + (first is not None), dtype=torch.long,
+                         device=dev).scatter_add_(1, se, torch.ones_like(se))
     starts = torch.cumsum(counts, dim=1) - counts
     pos = torch.arange(A, device=dev)[None] - starts.gather(1, se)
     keep = pos < cap
+    if first is not None:
+        keep = keep & (se < E)
     slot = torch.where(keep, se * cap + pos, E * cap)        # E·cap: dropped
     # pack: the token of each kept slot, T (a zero row) for an empty one
     src = torch.full((R, E * cap + 1), T, dtype=torch.long, device=dev)

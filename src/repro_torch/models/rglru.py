@@ -30,6 +30,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import common
 from repro_torch.models.common import mm
+from repro_torch.runtime import compute_dtype
 
 RGLRU_C = 8.0
 
@@ -53,12 +54,14 @@ def init_rglru(gen: torch.Generator, cfg: ModelConfig, device):
 
 
 def _gates(params, u):
-    """u: (..., w) post-conv activations -> (a, gated input), fp32."""
+    """u: (..., w) post-conv activations -> (a, gated input), fp32 (fp64
+    for fp64) whatever u's dtype, as the reference."""
+    dt = compute_dtype(u.dtype)
     r = torch.sigmoid(mm(u, params["w_a"]) + params["b_a"])
     i = torch.sigmoid(mm(u, params["w_x"]) + params["b_x"])
-    a = torch.exp(RGLRU_C * r * F.logsigmoid(params["lambda"]))
+    a = torch.exp(RGLRU_C * r.to(dt) * F.logsigmoid(params["lambda"].to(dt)))
     beta = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12))
-    return a, beta * (i * u)
+    return a, beta * (i.to(dt) * u.to(dt))
 
 
 def _conv1d(params, x, state=None):
@@ -87,7 +90,7 @@ def rglru_fwd(params, cfg: ModelConfig, x, h0=None):
     a, bx = _gates(params, u)
     h, h_final = kernel_ops.rglru(a, bx, h0)
     gate = common.gelu(mm(x, params["w_gate_in"]))
-    return mm(h * gate, params["w_out"]), h_final
+    return mm(h.to(x.dtype) * gate, params["w_out"]), h_final
 
 
 def init_rglru_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,

@@ -31,6 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import common
 from repro_torch.models.common import mm
+from repro_torch.runtime import compute_dtype
 
 DECAY_LORA = 64
 
@@ -81,8 +82,9 @@ def _lerp(x, xp, mu):
 def _decay(params, xw):
     """log(w_t) <= 0:  w_t = exp(-exp(w0 + tanh(x@A)@B)), the exponent
     clipped to [-8, 3]."""
+    dt = compute_dtype(xw.dtype)
     dd = torch.tanh(mm(xw, params["decay_a"]))
-    ww = params["decay_w0"] + mm(dd, params["decay_b"])
+    ww = params["decay_w0"].to(dt) + mm(dd, params["decay_b"]).to(dt)
     return -torch.exp(torch.clamp(ww, -8.0, 3.0))
 
 
@@ -96,7 +98,7 @@ def _project(params, cfg: ModelConfig, x, x_prev):
     v = mm(_lerp(x, x_prev, params["mu_v"]), params["w_v"])
     g = common.silu(mm(_lerp(x, x_prev, params["mu_g"]), params["w_g"]))
     logw = _decay(params, _lerp(x, x_prev, params["mu_w"]))
-    u = params["bonus_u"].reshape(d // hd, hd)
+    u = params["bonus_u"].to(compute_dtype(x.dtype)).reshape(d // hd, hd)
     return (r.reshape(shp), k.reshape(shp), v.reshape(shp),
             logw.reshape(shp), u, g)
 
@@ -109,11 +111,14 @@ def timemix_fwd(params, cfg: ModelConfig, x, state=None, x_last=None):
     ``_wkv_ref_with_state``."""
     B, S, d = x.shape
     r, k, v, logw, u, g = _project(params, cfg, x, _shift(x, x_last))
+    # the recurrence runs in fp32 (fp64 for fp64) whatever x's dtype
+    dt = compute_dtype(x.dtype)
+    r, k, v = r.to(dt), k.to(dt), v.to(dt)
     if state is None:
         y, state = kernel_ops.rwkv6(r, k, v, logw, u)
     else:
         y, state = _wkv_ref_with_state(r, k, v, logw, u, state)
-    y = common.layernorm(params["ln_x"], y.reshape(B, S, d)) * g
+    y = common.layernorm(params["ln_x"], y.reshape(B, S, d).to(x.dtype)) * g
     return mm(y, params["w_o"]), state
 
 

@@ -62,6 +62,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import dtensor
 from repro_torch.configs.base import (ATTN, LOCAL_ATTN, RGLRU, RWKV6,
                                      ModelConfig)
 from repro_torch.kernels import ops as kernel_ops
@@ -118,6 +119,13 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, device,
     return p
 
 
+def _stream(x):
+    """The residual stream's layout on a DTensor step: batch on the data
+    axes, the rest whole (a row-parallel projection's partial sums
+    reduced); a plain tensor as it is."""
+    return dtensor.hint(x, ("pod", "data"), None, None)
+
+
 def block_fwd(p, cfg: ModelConfig, kind: str, x, positions, enc_kv=None,
               causal: bool = True):
     """Returns (x, aux): aux the MoE load-balance term, None without.
@@ -127,9 +135,9 @@ def block_fwd(p, cfg: ModelConfig, kind: str, x, positions, enc_kv=None,
     h = common.apply_norm(cfg.norm, p["norm1"], x)
     if kind == RWKV6:
         out, _ = rwkv6.timemix_fwd(p["attn"], cfg, h)
-        x = x + out
+        x = _stream(x + out)
         h = common.apply_norm(cfg.norm, p["norm2"], x)
-        return x + rwkv6.channelmix_fwd(p["attn"], cfg, h), None
+        return _stream(x + rwkv6.channelmix_fwd(p["attn"], cfg, h)), None
     if kind == RGLRU:
         out, _ = rglru.rglru_fwd(p["attn"], cfg, h)
     elif kind == ATTN and not causal:
@@ -138,17 +146,18 @@ def block_fwd(p, cfg: ModelConfig, kind: str, x, positions, enc_kv=None,
         window = cfg.local_window if kind == LOCAL_ATTN else cfg.sliding_window
         out = attention.attention_fwd(p["attn"], cfg, h, positions,
                                       window=window)
-    x = x + out
+    x = _stream(x + out)
     if enc_kv is not None:
         hx = common.apply_norm(cfg.norm, p["xnorm"], x)
-        x = x + attention.cross_attention_fwd(p["xattn"], cfg, hx, enc_kv)
+        x = _stream(x + attention.cross_attention_fwd(p["xattn"], cfg, hx,
+                                                      enc_kv))
     h = common.apply_norm(cfg.norm, p["norm2"], x)
     aux = None
     if cfg.is_moe:
         m, aux = moe.moe_fwd(p["mlp"], cfg, h)
     else:
         m = mlp.mlp_fwd(p["mlp"], cfg, h)
-    x = x + m
+    x = _stream(x + m)
     if "adapter" in p:                    # bottleneck adapter (PEFT)
         x = adapters.adapter_fwd(p["adapter"], x)
     return x, aux
@@ -179,10 +188,10 @@ def block_decode(p, cfg: ModelConfig, kind: str, x, cache, pos: int,
     if kind == RWKV6:
         out, S = rwkv6.timemix_fwd(p["attn"], cfg, h, state=cache["S"],
                                    x_last=cache["x_tm"])
-        x = x + out
+        x = _stream(x + out)
         h2 = common.apply_norm(cfg.norm, p["norm2"], x)
         cm = rwkv6.channelmix_fwd(p["attn"], cfg, h2, x_last=cache["x_cm"])
-        return x + cm, {"S": S, "x_tm": h[:, -1].to(cache["x_tm"].dtype),
+        return _stream(x + cm), {"S": S, "x_tm": h[:, -1].to(cache["x_tm"].dtype),
                         "x_cm": h2[:, -1].to(cache["x_cm"].dtype)}
     if kind == RGLRU:
         out, cache = rglru.rglru_decode(p["attn"], cfg, h, cache)
@@ -190,10 +199,11 @@ def block_decode(p, cfg: ModelConfig, kind: str, x, cache, pos: int,
         window = cfg.local_window if kind == LOCAL_ATTN else cfg.sliding_window
         out, cache = attention.attention_decode(p["attn"], cfg, h, cache, pos,
                                                 window=window)
-    x = x + out
+    x = _stream(x + out)
     if enc_kv is not None:
         hx = common.apply_norm(cfg.norm, p["xnorm"], x)
-        x = x + attention.cross_attention_fwd(p["xattn"], cfg, hx, enc_kv)
+        x = _stream(x + attention.cross_attention_fwd(p["xattn"], cfg, hx,
+                                                      enc_kv))
     h = common.apply_norm(cfg.norm, p["norm2"], x)
     if cfg.is_moe:
         m, _ = moe.moe_fwd(p["mlp"], cfg, h)
@@ -233,7 +243,7 @@ def embed_tokens(params, cfg: ModelConfig, tokens, img_embeds=None,
     matmul: no LoRA target), are prepended, then the soft prompt's
     ``prefix_embeds`` (B, n_virtual, d) unprojected: S' = n_virtual +
     n_img + S, and the positions run over all of them."""
-    h = params["embed"][tokens]
+    h = common.lookup(params["embed"], tokens)
     if cfg.embed_scale:
         h = h * cfg.d_model ** 0.5
     if img_embeds is not None:
@@ -250,6 +260,7 @@ def embed_tokens(params, cfg: ModelConfig, tokens, img_embeds=None,
 
 def lm_logits(params, cfg: ModelConfig, h):
     w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    h = dtensor.hint(h, ("pod", "data"), None, None)
     return common.mm(h, w)
 
 
@@ -310,6 +321,7 @@ def forward(params, cfg: ModelConfig, tokens, img_embeds=None,
                          f"{REMAT})")
     h, positions = embed_tokens(params, cfg, tokens, img_embeds,
                                 prefix_embeds)
+    h = dtensor.hint(h, ("pod", "data"), None, None)
     n_groups = _group_split(cfg)[1]
     if remat == "none":
         h, aux = forward_groups(params, cfg, h, positions, 0, n_groups,
@@ -345,7 +357,7 @@ def embed_token(params, cfg: ModelConfig, token, pos: int, scale: bool = True):
     """token (B,) at position ``pos`` -> h (B, 1, d): the embedding, scaled
     by sqrt(d) where the config says so and ``scale``, plus the learned
     position without RoPE."""
-    h = params["embed"][token][:, None]
+    h = common.lookup(params["embed"], token)[:, None]
     if scale and cfg.embed_scale:
         h = h * cfg.d_model ** 0.5
     if not cfg.use_rope:

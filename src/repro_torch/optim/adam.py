@@ -13,6 +13,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch import dtensor
 from repro_torch import tree as tree_lib
 from repro_torch.runtime import compute_dtype, upload
 
@@ -31,12 +32,34 @@ def _bias_correction(b: float, t: torch.Tensor) -> float:
     return float(1.0 - torch.tensor(b, dtype=torch.float32) ** t)
 
 
+def _gradient_layout(g, *ts):
+    """(g, *ts); DTensors all in the gradient's layout, as GSPMD lays
+    out a step's update from its gradient (DTensor would bring the
+    gradient to the state's): a partial sum over the ``model`` axis
+    reduce-scattered over its last dim where the extent divides it, the
+    other partial sums all-reduced."""
+    if not dtensor.is_distributed(g):
+        return (g, *ts)
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = g.device_mesh
+    pl = [(Shard(g.dim() - 1) if name == "model" and g.dim() and
+           g.shape[-1] % mesh.size(i) == 0 and not any(
+               q.is_shard(g.dim() - 1) for q in g.placements)
+           else Replicate()) if p.is_partial() else p
+          for i, (name, p) in enumerate(zip(mesh.mesh_dim_names,
+                                            g.placements))]
+    g = g.redistribute(mesh, pl)
+    return (g, *(t.redistribute(mesh, pl) if dtensor.is_distributed(t)
+                 else t for t in ts))
+
+
 def _moments(g, m, v, p, lr, bc1, bc2, b1, b2, eps, weight_decay):
     """One leaf's step: its (m, v, p) after gradient ``g``; ``bc1`` and
     ``bc2`` are the bias corrections, Python floats or tensors that
     broadcast over ``p``."""
     dt = compute_dtype(p.dtype)
-    g = g.to(dt)
+    g, m, v, p = _gradient_layout(g.to(dt), m, v, p)
     m = b1 * m + (1 - b1) * g
     v = b2 * v + (1 - b2) * g * g
     u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
@@ -95,6 +118,7 @@ def update_clients(grads, state, params, lr, valid: Sequence[bool] = None,
     ok = ctl[0] > 0
 
     def leaf(g, m, v, p):
+        g, m, v, p = _gradient_layout(g, m, v, p)
         shape = (-1,) + (1,) * (p.dim() - 1)
         bc1, bc2 = (c.to(compute_dtype(p.dtype)).view(shape)
                     for c in ctl[1:])

@@ -80,6 +80,38 @@ assert {"repro_torch.privacy.dp", "repro_torch.privacy.accountant",
 """
 
 
+ENTRY_POINTS = """
+import importlib, importlib.util, sys
+from pathlib import Path
+root = Path.cwd().parent
+for name in ("repro_torch.launch.dryrun", "repro_torch.roofline.hw",
+             "repro_torch.roofline.collectives",
+             "repro_torch.roofline.analysis"):
+    importlib.import_module(name)
+files = [root / "scripts" / "torch_run_roofline.py",
+         *sorted((root / "examples" / "torch").glob("*.py"))]
+for path in files:
+    spec = importlib.util.spec_from_file_location("m_" + path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print(len(files), bad)
+assert not bad, bad
+"""
+
+
+def test_dry_run_roofline_script_and_examples_import_no_jax():
+    """The dry run, the roofline modules (a namespace package the walk
+    above does not enter), scripts/torch_run_roofline.py and the seven
+    examples/torch/*.py load neither JAX nor the reference package."""
+    out = subprocess.run([sys.executable, "-c", ENTRY_POINTS], cwd=SRC,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(SRC)})
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[0]) == 8
+
+
 def test_port_imports_no_jax_and_nothing_of_repro():
     out = subprocess.run([sys.executable, "-c", WALK], cwd=SRC,
                          capture_output=True, text=True, timeout=120,

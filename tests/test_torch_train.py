@@ -404,7 +404,10 @@ def test_train_cli_runs_and_checkpoints(tmp_path):
     25 that restores into the live tree; and its exit code is the
     improvement it prints at 6 steps, which may go either way over so few
     noisy batches."""
-    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    # one thread, as this module pins its own: beside busy test workers an
+    # unpinned torch pool spin-waits, up to ~17 s a step where one
+    # thread takes ~0.1 s
+    env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1"}
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
          "gpt2-tiny", "--steps", "30", "--device", "cpu", "--ckpt-dir",
